@@ -1,0 +1,6 @@
+"""PyTorch/CUDA port of the crowdsourced-join system in ``repro``.
+
+The JAX package ``repro`` is the reference; this package imports neither it
+nor jax.  Entry points run on the CUDA device unless the caller passes
+``device="cpu"``.  What is ported so far is listed in ROADMAP.md.
+"""

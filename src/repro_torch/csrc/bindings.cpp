@@ -1,0 +1,59 @@
+// PyTorch binding of the port's CUDA kernels.  The kernels themselves live in
+// the .cu files behind plain C entry points, so only this small file includes
+// PyTorch's headers.  Shapes, dtypes, devices and contiguity are checked by
+// the Python wrappers (repro_torch/kernels/*/kernel.py) before these run.
+#include <torch/extension.h>
+
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime.h>
+
+extern "C" cudaError_t pair_scores_launch(const float* a, const float* b,
+                                          float* scores, int* counts, int n,
+                                          int m, int d, int m_valid, float tau,
+                                          cudaStream_t stream);
+
+extern "C" cudaError_t union_deduce_launch(
+    const int* parent0, const int* u, const int* v, const uint8_t* pos,
+    const int* neg_keys, int* roots, int* deduced, int* conflict, int* error,
+    int* table, int B, int n, int P, int table_size, int max_trips,
+    cudaStream_t stream);
+
+namespace {
+
+void pair_scores(const torch::Tensor& a, const torch::Tensor& b,
+                 const torch::Tensor& scores,
+                 const torch::Tensor& counts, int64_t m_valid,
+                 double tau) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(pair_scores_launch(
+      a.data_ptr<float>(), b.data_ptr<float>(), scores.data_ptr<float>(),
+      counts.data_ptr<int>(), static_cast<int>(a.size(0)),
+      static_cast<int>(b.size(0)), static_cast<int>(a.size(1)),
+      static_cast<int>(m_valid), static_cast<float>(tau), stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
+                  const torch::Tensor& v, const torch::Tensor& pos,
+                  const torch::Tensor& neg_keys, const torch::Tensor& roots,
+                  const torch::Tensor& deduced, const torch::Tensor& conflict,
+                  const torch::Tensor& error, const torch::Tensor& table,
+                  int64_t max_trips) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(union_deduce_launch(
+      parent0.data_ptr<int>(), u.data_ptr<int>(), v.data_ptr<int>(),
+      pos.data_ptr<uint8_t>(), neg_keys.data_ptr<int>(), roots.data_ptr<int>(),
+      deduced.data_ptr<int>(), conflict.data_ptr<int>(), error.data_ptr<int>(),
+      table.data_ptr<int>(), static_cast<int>(parent0.size(0)),
+      static_cast<int>(parent0.size(1)), static_cast<int>(u.size(1)),
+      static_cast<int>(table.size(1)), static_cast<int>(max_trips), stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("pair_scores", &pair_scores, "thresholded pair scores (CUDA)");
+  m.def("union_deduce", &union_deduce, "fused union + deduce (CUDA)");
+}

@@ -1,0 +1,33 @@
+"""Builds the port's CUDA kernels at first use.
+
+All sources under ``repro_torch/csrc`` go to one
+``torch.utils.cpp_extension.load`` call, compiled for ``sm_90a`` (Hopper)
+into ``build/torch_kernels/`` at the root of the checkout, which
+``.gitignore`` lists.  Only ``bindings.cpp`` includes PyTorch's headers; the
+``.cu`` files expose plain C entry points, so nvcc never parses PyTorch.
+Nothing here runs at import: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import functools
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("bindings.cpp", "pair_scores.cu", "union_deduce.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+
+@functools.cache
+def extension():
+    """The compiled extension module (built on the first call)."""
+    from torch.utils.cpp_extension import load
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return load(
+        name="repro_torch_kernels",
+        sources=[str(_CSRC / s) for s in _SOURCES],
+        build_directory=str(BUILD_DIR),
+        extra_cflags=["-O2"],
+        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+        verbose=False,
+    )

@@ -1,0 +1,422 @@
+"""JoinService — join requests served over the on-device round engine (the
+first slice of the port of ``repro/serve/join_service.py``).
+
+Requests queue up and are packed into up to ``lanes`` session lanes.  Each
+lane carries a :class:`~repro_torch.core.graph.SessionState` on the service's
+device, packed once at lane open.  With a crowd whose answers do not depend
+on the order they are asked in (:class:`~repro_torch.core.crowd.PerfectCrowd`),
+every crowd wave runs on the device: the lanes grow to one shared capacity
+bucket, stack into one batch, and ``session_run_rounds_batch`` advances them
+``FUSED_ROUNDS_PER_DISPATCH`` rounds per call until none is mid-stream (the
+reference's fused path, DESIGN.md §13).  The gateway traffic — billing and
+the question count — is replayed after the device rounds.  Lanes are
+refilled from the queue when a wave ends (the round barrier).
+
+:meth:`submit_embeddings` runs the machine phase first: the pair-score
+kernel over (emb_a x emb_b), thresholded candidates compacted into a
+:class:`~repro_torch.core.pairs.PairSet`, queued like any request.
+
+Only this slice is ported.  Every option of the reference that it does not
+implement raises :class:`NotImplementedError` naming the ROADMAP item that
+will bring it, instead of being silently ignored.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.cluster_graph import POS, UNKNOWN
+from repro_torch.core.crowd import CostModel, Crowd, CrowdGateway, PerfectCrowd
+from repro_torch.core.graph import (ROUNDS_CONFLICT, ROUNDS_EMPTY,
+                                    SessionState, index_state,
+                                    make_session_state, next_pow2,
+                                    pair_keys_fit, session_grow,
+                                    session_run_rounds_batch, stack_states)
+from repro_torch.core.metrics import Quality, quality
+from repro_torch.core.pairs import PairSet
+from repro_torch.core.sorting import get_order, validate_order
+from repro_torch.device import DeviceLike, pick_device
+from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+
+# Options of the reference that the port does not implement yet: each maps to
+# the value the port's behaviour already equals and the ROADMAP item that
+# brings the rest.  Any other value raises NotImplementedError.
+_SERVICE_OPTIONS = {
+    "latency": (None, "A9.2 (asynchronous crowd platform)"),
+    "async_mode": (False, "A9.2 (asynchronous ID/NF serving)"),
+    "nf": (False, "A9.2 (non-matching-first steering)"),
+    "budget_cents": (None, "A9.3 (budget and slot allocator)"),
+    "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
+    "slots_per_round": (None, "A9.3 (budget and slot allocator)"),
+    "conflict_policy": ("drop", "A9.4 (requery)"),
+    "fused_rounds": (True, "A4 (the per-round engine)"),
+    "aggregation": ("majority", "A9.8 (EM worker model)"),
+    "cluster_tasks": (False, "A9.8 (cluster tasks)"),
+    "cluster_size": (8, "A9.8 (cluster tasks)"),
+    "cluster_assignments": (2, "A9.8 (cluster tasks)"),
+    "admission": (None, "A10 (admission control and recovery)"),
+    "checkpoint_dir": (None, "A10 (recovery)"),
+    "checkpoint_every": (1, "A10 (recovery)"),
+    "checkpoint_keep": (3, "A10 (recovery)"),
+    "cluster_cache": (None, "A11 (cross-query cluster cache)"),
+    "cache_path": (None, "A9.5 (cache_path) and A11"),
+}
+_SUBMIT_OPTIONS = {
+    "budget_cents": (None, "A9.3 (budget and slot allocator)"),
+    "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
+    "seed_labels": (None, "A4 and A11 (warm start from the cluster cache)"),
+}
+_EMBEDDING_OPTIONS = {
+    **_SUBMIT_OPTIONS,
+    "streaming": (False, "A9.6 (streaming ingest)"),
+    "blocking": (None, "A8 (LSH blocking and pair_scores_compact)"),
+}
+
+
+def _reject_unported(where: str, given: dict, table: dict) -> None:
+    for name, value in given.items():
+        if name not in table:
+            raise TypeError(f"{where}() got an unexpected keyword argument "
+                            f"{name!r}")
+        ported, item = table[name]
+        if not (value is None if ported is None else value == ported):
+            raise NotImplementedError(
+                f"{where}({name}={value!r}) is not ported yet: ROADMAP {item}")
+
+
+@dataclasses.dataclass
+class JoinRequest:
+    """One join submission, resolved to the service defaults at admit."""
+
+    rid: Optional[int]
+    pairs: PairSet
+    crowd: Optional[Crowd] = None
+    order: Optional[str] = None
+    total_true_matches: Optional[int] = None
+    admission_deferred: bool = False
+
+
+@dataclasses.dataclass
+class JoinSessionResult:
+    """Served outcome of one join request — the reference's fields, with
+    the provenance of unported features at their neutral values."""
+
+    rid: int
+    labels: np.ndarray             # (P,) bool over the request's pairs
+    crowdsourced: np.ndarray       # (P,) bool
+    n_rounds: int
+    round_sizes: List[int]
+    n_hits: int
+    cost_cents: float
+    quality: Optional[Quality]
+    wall_seconds: float
+    sim_minutes: Optional[float] = None
+    fold_rounds: int = 0
+    n_conflicts: int = 0
+    n_requeried: int = 0
+    n_spent_cents: float = 0.0
+    stopped_on_budget: bool = False
+    n_cache_hits: int = 0
+    n_cluster_tasks: int = 0
+    n_cluster_pairs: int = 0
+    n_cluster_cents: float = 0.0
+    admission_deferred: bool = False
+    envelope_clamped: bool = False
+
+    @property
+    def n_crowdsourced(self) -> int:
+        """Pairs answered by the crowd."""
+        return int(self.crowdsourced.sum())
+
+    @property
+    def n_deduced(self) -> int:
+        """Pairs labeled by transitive deduction instead of the crowd."""
+        return len(self.labels) - self.n_crowdsourced
+
+
+@dataclasses.dataclass
+class _Lane:
+    req: JoinRequest
+    perm: np.ndarray               # labeling order over the request's pairs
+    ordered: PairSet               # req.pairs.take(perm)
+    p: int                         # true pair count (before padding)
+    state: SessionState            # on the service's device
+    labels_host: np.ndarray        # (p,) int32 host mirror
+    crowdsourced: np.ndarray       # (p,) bool, ordered
+    round_sizes: List[int]
+    t0: float
+    prior_host: np.ndarray         # (p_cap,) f32 machine likelihood, padded
+    answers_host: np.ndarray       # (p,) int32 the crowd's answers, ordered
+    adaptive: bool                 # live posterior re-ranking (DESIGN.md §10)
+    rate_cents: float              # per-assignment price
+
+    @property
+    def done(self) -> bool:
+        return not (self.labels_host == UNKNOWN).any()
+
+
+class JoinService:
+    """Accepts join requests; drives frontier -> crowd -> deduce over up to
+    ``lanes`` device-resident session states on ``device`` (the card unless
+    ``"cpu"`` is asked for).  ``order`` is the default labeling order;
+    ``cost`` prices crowd questions.  See the module docstring for what is
+    ported."""
+
+    # rounds per round-engine call
+    FUSED_ROUNDS_PER_DISPATCH = 8
+
+    def __init__(self, lanes: int = 4, cost: Optional[CostModel] = None,
+                 order: str = "expected", device: DeviceLike = None,
+                 **unported):
+        _reject_unported("JoinService", unported, _SERVICE_OPTIONS)
+        validate_order(order)
+        if lanes < 1:
+            raise ValueError(f"lanes must be positive, got {lanes}")
+        self.lanes = lanes
+        self.cost = cost or CostModel()
+        self.order = order
+        self.device = pick_device(device)
+        self.queue: Deque[JoinRequest] = collections.deque()
+        self.results: Dict[int, JoinSessionResult] = {}
+        self._next_rid = 0
+
+    # -- request ingestion ---------------------------------------------------
+    def _admit(self, req: JoinRequest) -> int:
+        """Resolve defaults, validate, assign the rid and enqueue."""
+        req.order = validate_order(self.order if req.order is None
+                                   else req.order)
+        if req.crowd is None:
+            req.crowd = PerfectCrowd()
+        if len(req.pairs) and req.crowd.precomputed_answers(req.pairs) is None:
+            raise NotImplementedError(
+                "a crowd without order-independent answers (a PerfectCrowd "
+                "with ground truth) needs the per-round engine, which is not "
+                "ported yet: ROADMAP A4 and A9.2")
+        if req.rid is None:
+            req.rid = self._next_rid
+        elif req.rid in self.results or \
+                any(r.rid == req.rid for r in self.queue):
+            raise ValueError(
+                f"duplicate join request rid {req.rid}: already "
+                f"{'served' if req.rid in self.results else 'queued'}")
+        self._next_rid = max(self._next_rid, req.rid) + 1
+        self.queue.append(req)
+        return req.rid
+
+    def submit(self, pairs: PairSet, crowd: Optional[Crowd] = None,
+               order: Optional[str] = None, rid: Optional[int] = None,
+               total_true_matches: Optional[int] = None, **unported) -> int:
+        """Enqueue a join over pre-scored candidate pairs; returns the rid.
+        ``total_true_matches`` is the dataset-wide true-match count for
+        recall (default: the candidates' own)."""
+        _reject_unported("submit", unported, _SUBMIT_OPTIONS)
+        return self._admit(JoinRequest(rid, pairs, crowd, order,
+                                       total_true_matches))
+
+    @staticmethod
+    def _check_candidate_overflow(cand) -> None:
+        """Capacity overflow is never silent; the error reports a capacity
+        that provably fits."""
+        if cand.n_dropped:
+            raise RuntimeError(
+                f"candidate buffers overflowed: {cand.n_dropped} candidates "
+                f"dropped at capacity {cand.capacity} — re-submit with "
+                f"capacity={cand.suggested_capacity} or raise the threshold")
+
+    def submit_embeddings(self, emb_a: torch.Tensor, emb_b: torch.Tensor,
+                          threshold: float, mesh=None,
+                          crowd: Optional[Crowd] = None, truth_fn=None,
+                          order: Optional[str] = None,
+                          capacity: Optional[int] = None,
+                          total_true_matches: Optional[int] = None,
+                          **unported) -> int:
+        """Machine phase + enqueue: score (emb_a x emb_b) with the pair-score
+        kernel, keep pairs at or above ``threshold`` (cosine, mapped to a
+        [0, 1] likelihood), and queue the session.  The embeddings move to
+        the service's device.  ``mesh`` is ``None`` or ``(1, 1)``.
+
+        ``truth_fn(rows, cols) -> bool array`` attaches ground truth.
+        ``capacity`` bounds the candidate buffer (default: lossless).  Object
+        ids: a-row i -> i, b-row j -> N + j."""
+        _reject_unported("submit_embeddings", unported, _EMBEDDING_OPTIONS)
+        emb_a = torch.as_tensor(emb_a, device=self.device)
+        emb_b = torch.as_tensor(emb_b, device=self.device)
+        cand = sharded_candidates(emb_a, emb_b, threshold, mesh,
+                                  capacity=capacity)
+        self._check_candidate_overflow(cand)
+        n_a = int(emb_a.shape[0])
+        truth = None
+        if truth_fn is not None:
+            truth = np.asarray(truth_fn(cand.rows, cand.cols), bool)
+        pairs = PairSet(u=cand.rows, v=cand.cols + n_a,
+                        likelihood=(cand.scores + 1.0) / 2.0, truth=truth,
+                        n_objects=n_a + int(emb_b.shape[0]))
+        return self._admit(JoinRequest(None, pairs, crowd, order,
+                                       total_true_matches))
+
+    # -- lane lifecycle ------------------------------------------------------
+    def _open_lane(self, req: JoinRequest) -> _Lane:
+        perm = get_order(req.pairs, req.order)
+        ordered = req.pairs.take(perm)
+        P = len(ordered)
+        # capacity buckets: powers of two, at least 8
+        p_cap = next_pow2(P, 8)
+        n_cap = next_pow2(ordered.n_objects, 8)
+        # keys are lo * n + hi: bucketing must not push n past the int32
+        # range when the raw size still fits
+        if not pair_keys_fit(n_cap):
+            n_cap = ordered.n_objects
+        state = make_session_state(ordered.u, ordered.v, ordered.n_objects,
+                                   pair_capacity=p_cap, object_capacity=n_cap,
+                                   device=self.device)
+        prior_host = np.zeros(p_cap, np.float32)
+        prior_host[:P] = ordered.likelihood
+        answers = req.crowd.precomputed_answers(ordered)
+        return _Lane(
+            req=req, perm=perm, ordered=ordered, p=P, state=state,
+            labels_host=np.full(P, UNKNOWN, np.int32),
+            crowdsourced=np.zeros(P, bool), round_sizes=[],
+            t0=time.perf_counter(), prior_host=prior_host,
+            answers_host=(np.zeros(0, np.int32) if answers is None
+                          else answers),
+            adaptive=req.order == "adaptive",
+            rate_cents=float(self.cost.cents_per_assignment))
+
+    def _finalize(self, lane: _Lane, gateway: CrowdGateway) -> None:
+        req = lane.req
+        P = len(req.pairs)
+        labels = np.zeros(P, bool)
+        crowdsourced = np.zeros(P, bool)
+        labels[lane.perm] = lane.labels_host == POS
+        crowdsourced[lane.perm] = lane.crowdsourced
+        q = None
+        if req.pairs.truth is not None:
+            ttm = req.total_true_matches
+            if ttm is None:
+                ttm = int(req.pairs.truth.sum())
+            q = quality(req.pairs, labels, ttm)
+        n_crowd = int(crowdsourced.sum())
+        self.results[req.rid] = JoinSessionResult(
+            rid=req.rid,
+            labels=labels,
+            crowdsourced=crowdsourced,
+            n_rounds=len(lane.round_sizes),
+            round_sizes=lane.round_sizes,
+            n_hits=self.cost.n_hits(n_crowd),
+            cost_cents=self.cost.cost_cents(n_crowd),
+            quality=q,
+            wall_seconds=time.perf_counter() - lane.t0,
+            fold_rounds=int(lane.state.rounds),
+            n_conflicts=int(lane.state.conflicts[:lane.p].sum()),
+            n_spent_cents=gateway.spent_cents(req.rid),
+            n_cluster_pairs=gateway.cluster_pairs(req.rid),
+            admission_deferred=req.admission_deferred,
+        )
+
+    def _retire_done(self, active: List[_Lane],
+                     gateway: CrowdGateway) -> List[_Lane]:
+        still: List[_Lane] = []
+        for lane in active:
+            if lane.done:
+                self._finalize(lane, gateway)
+            else:
+                still.append(lane)
+        return still
+
+    # -- on-device round engine ----------------------------------------------
+    def _drive_fused(self, active: List[_Lane],
+                     gateway: CrowdGateway) -> bool:
+        """Advance every active lane a whole crowd wave: grow the lanes to
+        one shared capacity bucket, stack them, and call the round engine
+        (k rounds per call) until no lane is mid-stream.  The wave's gateway
+        traffic is replayed after each call: answers are order-independent,
+        so posting the crowdsourced pairs late gives the ledger the
+        per-round path would.  Returns True iff any lane made progress."""
+        p_cap = max(int(lane.state.u.shape[0]) for lane in active)
+        n_cap = max(lane.state.n_objects for lane in active)
+        for lane in active:
+            if (int(lane.state.u.shape[0]),
+                    lane.state.n_objects) != (p_cap, n_cap):
+                lane.state = session_grow(lane.state, p_cap, n_cap)
+        B = len(active)
+        stacked = stack_states([lane.state for lane in active])
+        answers = np.full((B, p_cap), UNKNOWN, np.int32)
+        priors = np.zeros((B, p_cap), np.float32)
+        for b, lane in enumerate(active):
+            answers[b, :lane.p] = lane.answers_host[:lane.p]
+            priors[b, :len(lane.prior_host)] = lane.prior_host
+        answers_dev = torch.from_numpy(answers).to(self.device)
+        priors_dev = torch.from_numpy(priors).to(self.device)
+        adaptive = torch.tensor([lane.adaptive for lane in active],
+                                device=self.device)
+        progress = False
+        running = True
+        while running:
+            stacked, crowd_new, sizes, rdone, codes = \
+                session_run_rounds_batch(stacked, answers_dev,
+                                         self.FUSED_ROUNDS_PER_DISPATCH,
+                                         prior=priors_dev, adaptive=adaptive)
+            crowd_new, sizes, rdone, codes, labels = (
+                x.cpu().numpy() for x in (crowd_new, sizes, rdone, codes,
+                                          stacked.labels))
+            running = False
+            stuck: List[int] = []
+            for b, lane in enumerate(active):
+                lane.round_sizes.extend(int(s) for s in sizes[b, :rdone[b]])
+                idx = np.nonzero(crowd_new[b, :lane.p])[0]
+                if len(idx):
+                    lane.crowdsourced[idx] = True
+                    gateway.post(lane.req.rid, lane.ordered, idx,
+                                 lane.req.crowd,
+                                 cents_per_assignment=lane.rate_cents)
+                    progress = True
+                new = labels[b, :lane.p]
+                progress |= bool((new != lane.labels_host).any())
+                lane.labels_host = new
+                if int(codes[b]) == ROUNDS_CONFLICT:
+                    # cannot happen with order-independent consistent
+                    # answers; the exact sequential replay is ROADMAP A4
+                    raise RuntimeError(
+                        f"rid {lane.req.rid}: the §9 conflict screen fired "
+                        "on the fused path, and the exact per-round replay "
+                        "is not ported (ROADMAP A4)")
+                if (new == UNKNOWN).any():
+                    if int(codes[b]) == ROUNDS_EMPTY:
+                        stuck.append(lane.req.rid)
+                    else:  # ROUNDS_RUNNING: the wave continues
+                        running = True
+            gateway.drain()  # consume the replayed posts (immediate mode)
+            if stuck:
+                raise RuntimeError(
+                    "join engine stuck: no frontier and nothing deducible "
+                    f"for rids {stuck}")
+        for b, lane in enumerate(active):
+            lane.state = index_state(stacked, b)
+        return progress
+
+    # -- entry point ---------------------------------------------------------
+    def run(self) -> Dict[int, JoinSessionResult]:
+        """Drain the queue: lanes refill when a wave ends.  Returns
+        {rid: result} for everything served."""
+        gateway = CrowdGateway()
+        active: List[_Lane] = []
+        while self.queue or active:
+            while self.queue and len(active) < self.lanes:
+                active.append(self._open_lane(self.queue.popleft()))
+            for r in self.queue:  # still queued behind fully-occupied lanes
+                r.admission_deferred = True
+            # zero-pair sessions are born done
+            active = self._retire_done(active, gateway)
+            if not active:
+                continue
+            if not self._drive_fused(active, gateway):
+                raise RuntimeError(
+                    "join engine stuck: no frontier and nothing deducible "
+                    f"for rids {[lane.req.rid for lane in active]}")
+            active = self._retire_done(active, gateway)
+        return dict(self.results)

@@ -1,0 +1,90 @@
+"""The port stands alone and never drops to its plain versions on its own:
+
+* nothing under ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax``
+  or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
+  inside functions count too);
+* each kernel wrapper, given tensors that do not lie on the CPU, goes to its
+  CUDA kernel and raises there when no CUDA device can take them — it never
+  computes the plain version instead — and the service's default device is
+  the card.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pair_scores import kernel as ps_kernel
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import kernel as ud_kernel
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a wrapper fell back to its plain version")
+
+    monkeypatch.setattr(ps_ops, "pair_scores_ref", no_plain)
+    monkeypatch.setattr(ud_ops, "union_deduce_ref", no_plain)
+    monkeypatch.setattr(_build, "extension", no_plain)
+    meta = torch.device("meta")
+    a = torch.empty(128, 16, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ps_ops.pair_scores(a, a, 0.5)
+    forest = torch.empty(1, 8, dtype=torch.int32, device=meta)
+    pairs = torch.empty(1, 4, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ud_ops.union_deduce(forest, pairs, pairs, pairs.bool(), pairs, 8)
+    # the kernels themselves refuse CPU tensors rather than compute
+    with pytest.raises(ValueError, match="CUDA"):
+        ps_kernel.pair_scores(torch.zeros(128, 16), torch.zeros(128, 16),
+                              0.5, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        ud_kernel.union_deduce(torch.zeros(1, 8, dtype=torch.int32),
+                               torch.zeros(1, 4, dtype=torch.int32),
+                               torch.zeros(1, 4, dtype=torch.int32),
+                               torch.zeros(1, 4, dtype=torch.bool),
+                               torch.zeros(1, 4, dtype=torch.int32), 8)
+    assert ps_ops.pair_scores.launches == 0
+    assert ud_ops.union_deduce.launches == 0
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.core.graph import make_session_state
+    from repro_torch.device import pick_device
+    from repro_torch.serve.join_service import JoinService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pick_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        JoinService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_session_state([0], [1], 2)
+    assert pick_device("cpu") == torch.device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

@@ -1,0 +1,89 @@
+"""The plain PyTorch union–deduce step (the CPU path of
+``repro_torch.kernels.union_deduce.ops``) against the JAX package's fused
+union–deduce, both its XLA oracle (``impl="ref"``) and its Pallas kernel in
+interpret mode: roots, deductions and the conflict bit, bit for bit.  The
+port runs stacked lanes in one call; the reference runs them one by one."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.union_deduce.ops import fused_union_deduce as _fused
+
+# jitted once per shape, so the reference's while loops compile once
+fused_union_deduce = jax.jit(_fused, static_argnames=("n_objects", "impl"))
+from repro_torch.core.cluster_graph import NEG, POS
+from repro_torch.core.graph import KEY_SENTINEL
+from repro_torch.kernels.union_deduce.ops import union_deduce
+
+
+def _components(n, u, v):
+    """Least-id component of every object over the edges (u, v)."""
+    parent = np.arange(n)
+    for a, b in zip(u, v):
+        ra, rb = a, b
+        while parent[ra] != ra:
+            ra = parent[ra]
+        while parent[rb] != rb:
+            rb = parent[rb]
+        parent[max(ra, rb)] = min(ra, rb)
+    for x in range(n):
+        while parent[x] != parent[parent[x]]:
+            parent[x] = parent[parent[x]]
+    return parent.astype(np.int32)
+
+
+def _lane(rng, n, p):
+    """A compressed forest over some POS edges, a sorted neg-key index over
+    some others, and a fresh POS mask to unite — from a random partition of
+    the objects, so most neg keys survive the union; a few random POS edges
+    across the partition make some lanes conflict."""
+    u = rng.integers(0, n, p).astype(np.int32)
+    v = ((u + 1 + rng.integers(0, n - 1, p)) % n).astype(np.int32)
+    cluster = rng.integers(0, max(2, n // 3), n)
+    truth = np.where(cluster[u] == cluster[v], POS, NEG)
+    stage = rng.integers(0, 3, p)          # 0: in the forest, 1: query, 2: new
+    fold = (stage == 0) & (truth == POS)
+    parent0 = _components(n, u[fold], v[fold])
+    ru, rv = parent0[u], parent0[v]
+    keys = np.minimum(ru, rv) * n + np.maximum(ru, rv)
+    negk = np.sort(np.where((stage == 0) & (truth == NEG), keys,
+                            KEY_SENTINEL)).astype(np.int32)
+    pos = (stage == 2) & ((truth == POS) | (rng.random(p) < 0.3))
+    return parent0, u, v, pos, negk
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("impl", ["ref", "interpret"])
+def test_union_deduce_matches_reference(seed, impl):
+    # two shapes across the seeds keep the reference's compile cache warm
+    rng = np.random.default_rng(seed)
+    n, p, lanes = (24, 48, 3) if seed % 2 else (40, 96, 3)
+    batch = [_lane(rng, n, p) for _ in range(lanes)]
+    got = union_deduce(*(torch.from_numpy(np.stack(x))
+                         for x in zip(*batch)), n)
+    for b, lane in enumerate(batch):
+        exp = fused_union_deduce(*(jnp.asarray(x) for x in lane),
+                                 n_objects=n, impl=impl)
+        for name, g, e in zip(("roots", "deduced", "conflict"), got, exp):
+            np.testing.assert_array_equal(
+                g[b].numpy(), np.asarray(e),
+                err_msg=f"seed={seed} impl={impl} lane={b} {name}")
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_union_deduce_path_graph(n):
+    """Worst case for pointer jumping: one long path united in one call."""
+    u = np.arange(n - 1, dtype=np.int32)
+    args = (np.arange(n, dtype=np.int32), u, u + 1, np.ones(n - 1, bool),
+            np.full(n - 1, KEY_SENTINEL, np.int32))
+    roots, ded, conf = union_deduce(*(torch.from_numpy(x[None])
+                                      for x in args), n)
+    np.testing.assert_array_equal(roots[0].numpy(), np.zeros(n, np.int32))
+    for impl in ("ref", "interpret"):
+        exp = fused_union_deduce(*(jnp.asarray(x) for x in args),
+                                 n_objects=n, impl=impl)
+        np.testing.assert_array_equal(roots[0].numpy(), np.asarray(exp[0]))
+        np.testing.assert_array_equal(ded[0].numpy(), np.asarray(exp[1]))
+        assert bool(conf[0]) == bool(exp[2]) is False
