@@ -8,19 +8,36 @@ carries on.  Phases, one output line or block each:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the port's CUDA kernels, compiled from ``src/repro_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes: ``pair_scores`` at (4096, 384) x (4096, 384) within 1e-5
+   paths' shapes: ``pair_scores`` at (4096, 384) x (4096, 384) within 1e-5
    (f32 sums of 384 unit-vector products taken in another order), and
    ``union_deduce`` bitwise on the stacked lanes of phase 4's first round
    and on an n = 8192 path graph (the pointer-jumping worst case);
-4. the main path: ``JoinService(lanes=4)``, four ``submit_embeddings``
+   ``pair_scores_compact`` on the first 256-tile chunk of blocked session 0
+   (phase 4b): rows and cols equal but for cells within 1e-5 of tau, scores
+   within 1e-5, the order identical; through ``dense_block_pairs`` on phase
+   4's corpus 0 its candidates equal the dense kernel's bit for bit; at half
+   the capacity it keeps the first half of the list and the true count;
+4. the dense main path: ``JoinService(lanes=4)``, four ``submit_embeddings``
    sessions of (4096, 384) x (4096, 384) f32 embeddings under a
    ``PerfectCrowd``, then ``run()``; every kernel of the path must have
    launched, every session must label all its pairs with precision 1.0 and
    a transitively consistent result; then the same ``run()`` once more under
    ``torch.profiler``, for where its time goes;
+4b. the blocked main path: ``JoinService(lanes=4)``, four
+   ``submit_embeddings(..., blocking=BlockingConfig(n_bits=6, n_tables=8,
+   bn=128, bm=128, tiles_per_call=256))`` sessions of (16384, 384) x
+   (16384, 384), then ``run()``; ``pair_scores_compact`` and
+   ``union_deduce`` must have launched and the dense ``pair_scores`` not;
+   each session must label all its pairs with precision 1.0 and a
+   transitively consistent result, and its candidates must be a subset of
+   the dense kernel's on the same corpus with bitwise-equal scores; the
+   machine phase is split into host LSH, gather + kernel chunks and dedup,
+   beside the dense machine phase at the same size; then ``union_deduce``
+   bitwise against its plain version on these lanes' first round
+   (n = 32768);
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
-6. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+6. a ``{"kernels": [...]}`` line with each kernel's launches on its main
    path, error, and times beside its bound, its plain version and a library
    call;
 7. last line: ``{"ok": true, "device": {...}}``.
@@ -29,7 +46,10 @@ The embeddings come from a seed: two-level centroid hierarchies (families of
 near-duplicate entities, several records per entity on each side), so that
 each session has 10^4 - 10^5 candidates, most of them non-matching, and the
 neg-key index and NEG deduction carry real traffic.  384 is the width of a
-common sentence-embedding model used for entity-matching blocking.
+common sentence-embedding model used for entity-matching blocking.  The
+blocked path runs the reference's own full blocking configuration
+(``benchmarks/bench_blocking.py``: 16384 rows a side, 6 bits, 8 tables,
+128 x 128 tiles, 256 tiles a kernel call).
 """
 from __future__ import annotations
 
@@ -44,6 +64,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_ROWS, DIM, THRESHOLD, N_SESSIONS, SEED = 4096, 384, 0.7, 4, 0
+# the blocked path: rows a side, corpus seeds SEED + 100 + i, LSH config
+BLOCK_ROWS, BLOCK_SEED = 16384, SEED + 100
+BLOCKING = dict(n_bits=6, n_tables=8, bn=128, bm=128, tiles_per_call=256)
+RECALL_SAMPLE = 1024
 # peaks of one H100 SXM (NVIDIA data sheet): f32 outside the tensor cores
 # and HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -187,6 +211,278 @@ def profile_run(dev, corpora) -> None:
               f"{e.key[:90]}")
 
 
+def first_round_args(svc, dev):
+    """The queued sessions of ``svc`` opened as lanes, grown to one capacity
+    and stacked, at their first round: the ``union_deduce`` arguments of the
+    round's screen (its POS answers united into the forest) and of the
+    deduce after the fold."""
+    import torch
+
+    from repro_torch.core.graph import (_apply_fast, _finish_apply,
+                                        _frontier_impl, _screen_fused,
+                                        session_grow, stack_states)
+    from repro_torch.core.ordering import _refresh_masked_impl
+
+    lanes = [svc._open_lane(req) for req in svc.queue]
+    p_cap = max(int(lane.state.u.shape[0]) for lane in lanes)
+    n_cap = max(lane.state.n_objects for lane in lanes)
+    st = stack_states([session_grow(lane.state, p_cap, n_cap)
+                       for lane in lanes])
+    answers = torch.full((len(lanes), p_cap), -1, dtype=torch.int32,
+                         device=dev)
+    prior = torch.zeros((len(lanes), p_cap), dtype=torch.float32, device=dev)
+    for i, lane in enumerate(lanes):
+        answers[i, :lane.p] = torch.from_numpy(lane.answers_host).to(dev)
+        prior[i, :lane.p] = torch.from_numpy(lane.ordered.likelihood).to(dev)
+    st = _refresh_masked_impl(st, prior,
+                              torch.zeros(len(lanes), dtype=torch.bool,
+                                          device=dev))
+    frontier = _frontier_impl(st)
+    updates = torch.where(frontier, answers, -1)
+    new, pos_new, neg_new, roots_opt, _ = _screen_fused(st, updates)
+    folded = _finish_apply(st, *_apply_fast(st, updates, new, pos_new,
+                                            neg_new, roots_opt), new)
+    screen_args = (st.roots, st.u, st.v, pos_new, st.neg_keys, n_cap)
+    deduce_args = (folded.roots, folded.u, folded.v,
+                   torch.zeros_like(pos_new), folded.neg_keys, n_cap)
+    return screen_args, deduce_args
+
+
+def check_union_deduce(tag: str, name: str, args) -> None:
+    """``union_deduce`` bit for bit against its plain version."""
+    import torch
+
+    from repro_torch.core.graph import KEY_SENTINEL
+    from repro_torch.kernels.union_deduce import kernel as ud_kernel
+    from repro_torch.kernels.union_deduce.ref import union_deduce_ref
+
+    got = ud_kernel.union_deduce(*args)
+    exp = union_deduce_ref(*args)
+    same = [torch.equal(x, y) for x, y in zip(got, exp)]
+    print(f"[{tag}] {name}: lanes {args[0].shape[0]} n "
+          f"{args[0].shape[1]} P {args[1].shape[1]} pos edges "
+          f"{int(args[3].sum())} neg keys "
+          f"{int((args[4] != KEY_SENTINEL).sum())} "
+          f"deduced NEG {int((got[1] == 0).sum())} bitwise equal {same}")
+    if not all(same):
+        raise AssertionError(f"union_deduce kernel disagrees ({name})")
+
+
+def gather_chunk(a, b, tiles_a, tiles_b):
+    """One chunk of tile pairs gathered on the device as
+    ``score_block_pairs`` gathers it: (a_g, b_g, ida, idb)."""
+    import torch
+
+    dev = a.device
+    a_ext = torch.cat([a, a.new_zeros((1, a.shape[1]))])
+    b_ext = torch.cat([b, b.new_zeros((1, b.shape[1]))])
+    ga = np.where(tiles_a < 0, a.shape[0], tiles_a).reshape(-1)
+    gb = np.where(tiles_b < 0, b.shape[0], tiles_b).reshape(-1)
+    return (a_ext[torch.from_numpy(ga).to(dev)],
+            b_ext[torch.from_numpy(gb).to(dev)],
+            torch.from_numpy(tiles_a.reshape(-1, 1).astype(np.int32)).to(dev),
+            torch.from_numpy(tiles_b.reshape(-1, 1).astype(np.int32)).to(dev))
+
+
+def check_compact(a_g, b_g, ida, idb, bn: int, bm: int) -> float:
+    """``pair_scores_compact`` against its plain version on one chunk.  Both
+    first run with each row's flat gather position as its id, so every
+    candidate names its cell: the two lists may differ only in cells within
+    1e-5 of tau, each must be in (tile, row, col) order, and the scores of
+    the cells in both agree within 1e-5.  The kernel's run with the real ids
+    must then be the positional run mapped through the ids.  Returns the
+    largest score difference."""
+    import torch
+
+    from repro_torch.kernels.pair_scores import kernel as ps_kernel
+    from repro_torch.kernels.pair_scores.ref import pair_scores_compact_ref
+
+    dev = a_g.device
+    T = a_g.shape[0] // bn
+    cap = T * bn * bm
+    pos_a = torch.where(ida >= 0, torch.arange(
+        T * bn, dtype=torch.int32, device=dev)[:, None], -1)
+    pos_b = torch.where(idb >= 0, torch.arange(
+        T * bm, dtype=torch.int32, device=dev)[:, None], -1)
+    got = ps_kernel.pair_scores_compact(a_g, b_g, pos_a, pos_b, THRESHOLD,
+                                        cap, bn, bm)
+    exp = pair_scores_compact_ref(a_g, b_g, pos_a, pos_b, THRESHOLD, cap, bn,
+                                  bm)
+    n_got, n_exp = int(got[3]), int(exp[3])
+    k_got = got[0][:n_got, 0].long() * (T * bm) + got[1][:n_got, 0].long()
+    k_exp = exp[0][:n_exp, 0].long() * (T * bm) + exp[1][:n_exp, 0].long()
+    ordered = bool((k_got[1:] > k_got[:-1]).all()) \
+        and bool((k_exp[1:] > k_exp[:-1]).all())
+    in_exp = torch.isin(k_got, k_exp)
+    in_got = torch.isin(k_exp, k_got)
+    flips = torch.cat([k_got[~in_exp], k_exp[~in_got]])
+    fr, fc = flips // (T * bm), flips % (T * bm)
+    s = torch.bmm(a_g.view(T, bn, -1), b_g.view(T, bm, -1).transpose(1, 2))
+    near = (s[fr // bn, fr % bn, fc % bm] - THRESHOLD).abs() <= 1e-5
+    err = float((got[2][:n_got, 0][in_exp]
+                 - exp[2][:n_exp, 0][in_got]).abs().max())
+    real = ps_kernel.pair_scores_compact(a_g, b_g, ida, idb, THRESHOLD, cap,
+                                         bn, bm)
+    pos_r, pos_c = got[0][:n_got, 0].long(), got[1][:n_got, 0].long()
+    mapped = int(real[3]) == n_got \
+        and torch.equal(real[0][:n_got, 0], ida[pos_r, 0]) \
+        and torch.equal(real[1][:n_got, 0], idb[pos_c, 0]) \
+        and torch.equal(real[2], got[2])
+    print(f"[3 pair_scores_compact] chunk T {T} tile {bn} x {bm} depth "
+          f"{a_g.shape[1]}: candidates kernel {n_got} plain {n_exp} set "
+          f"flips {len(flips)} (all within 1e-5 of tau: "
+          f"{bool(near.all())}) max|dscore| {err:.3e} in order {ordered} "
+          f"real ids map onto positions {mapped}")
+    if not (ordered and bool(near.all()) and err <= 1e-5 and mapped):
+        raise AssertionError("pair_scores_compact kernel disagrees with its "
+                             "plain version")
+    return err
+
+
+def blocked_main_path(dev, corpora, cfg) -> dict:
+    """Phase 4b: four blocked ``submit_embeddings`` sessions through
+    ``run()``, then each checked against the dense kernel's candidates on
+    the same corpus, and ``union_deduce`` on these lanes' first round.  The
+    machine phase is split by timing the blocking module's stages on the
+    host clock (the chunk stage ends in copies to the host, so it includes
+    its device time).  Returns the kernel launches of the blocked run."""
+    import torch
+
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.crowd import CrowdGateway, PerfectCrowd
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    spent: dict = {}
+    cands: list = []
+
+    def timed(fn, key, keep=None):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            if keep is not None:
+                keep.append(out)
+            return out
+        return call
+
+    stages = [(blocking, "signatures", "signatures"),
+              (blocking, "block_pairs", "block_pairs"),
+              (blocking, "_score_chunks", "chunks"),
+              (blocking, "_dedup", "dedup"),
+              (join_service, "blocked_candidates", "machine"),
+              (join_service, "session_run_rounds_batch", "engine"),
+              (CrowdGateway, "post", "gateway")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+    for mod, name, key in stages:
+        setattr(mod, name, timed(getattr(mod, name), key,
+                                 cands if key == "machine" else None))
+    for counter in (ps_ops.pair_scores, ps_ops.pair_scores_compact,
+                    ud_ops.union_deduce):
+        counter.launches = 0
+    splits, rids, pairsets = [], [], []
+    try:
+        t_main = time.perf_counter()
+        svc = join_service.JoinService(lanes=N_SESSIONS, device=dev)
+        for ids_a, ea, ids_b, eb in corpora:
+            spent.clear()
+            k = int(max(ids_a.max(), ids_b.max())) + 1
+            ttm = int((np.bincount(ids_a, minlength=k)
+                       * np.bincount(ids_b, minlength=k)).sum())
+            t0 = time.perf_counter()
+            rid = svc.submit_embeddings(
+                embeddings_from_numpy(ea, dev),
+                embeddings_from_numpy(eb, dev), THRESHOLD,
+                crowd=PerfectCrowd(),
+                truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
+                total_true_matches=ttm, blocking=cfg)
+            splits.append(dict(spent, submit=time.perf_counter() - t0))
+            rids.append(rid)
+            pairsets.append(svc.queue[-1].pairs)
+        spent.clear()
+        t0 = time.perf_counter()
+        results = svc.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        main_s = time.perf_counter() - t_main
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    launches = {"pair_scores": ps_ops.pair_scores.launches,
+                "pair_scores_compact": ps_ops.pair_scores_compact.launches,
+                "union_deduce": ud_ops.union_deduce.launches}
+
+    rng = np.random.default_rng(SEED)
+    for (ids_a, ea, ids_b, eb), rid, ps, cand, split in zip(
+            corpora, rids, pairsets, cands, splits):
+        res = results[rid]
+        q = res.quality
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = sharded_candidates(embeddings_from_numpy(ea, dev),
+                                   embeddings_from_numpy(eb, dev), THRESHOLD)
+        dense_s = time.perf_counter() - t0
+        M = len(eb)
+        d_keys = dense.rows.astype(np.int64) * M + dense.cols
+        b_keys = cand.rows.astype(np.int64) * M + cand.cols
+        at = np.minimum(np.searchsorted(d_keys, b_keys), len(d_keys) - 1)
+        subset = bool((d_keys[at] == b_keys).all())
+        bitwise = subset and np.array_equal(dense.scores[at].view(np.int32),
+                                            cand.scores.view(np.int32))
+        a_n = ps_ops.l2_normalize(embeddings_from_numpy(ea, dev))
+        b_n = ps_ops.l2_normalize(embeddings_from_numpy(eb, dev))
+        sample = np.sort(rng.choice(len(ea), RECALL_SAMPLE, replace=False))
+        recall, _ = blocking.blocker_recall(cand, a_n, b_n, THRESHOLD,
+                                            row_sample=sample)
+        print(f"[4b session {rid}] P {len(ps)} tiles {cand.n_tiles} cells "
+              f"scored {cand.cells_scored} of dense {cand.dense_cells} "
+              f"({cand.cells_scored / cand.dense_cells:.4f}) padded "
+              f"{cand.padded_cells} duplicates {cand.n_duplicates}; recall "
+              f"sample of {RECALL_SAMPLE} rows {recall:.4f} all rows "
+              f"{len(b_keys) / len(d_keys):.4f} expected "
+              f"{blocking.expected_recall(cfg, THRESHOLD):.4f}")
+        print(f"[4b session {rid}] machine phase {split['submit']:.4f} s: "
+              f"blocked_candidates {split['machine']:.4f} s = host LSH "
+              f"{split['signatures'] + split['block_pairs']:.4f} s "
+              f"(signatures {split['signatures']:.4f} s, block_pairs "
+              f"{split['block_pairs']:.4f} s), gather + kernel chunks "
+              f"{split['chunks']:.4f} s, dedup {split['dedup']:.4f} s; dense "
+              f"machine phase at the same size {dense_s:.4f} s "
+              f"({len(d_keys)} candidates)")
+        print(f"[4b session {rid}] crowdsourced {res.n_crowdsourced} deduced "
+              f"{res.n_deduced} rounds {res.n_rounds} saved "
+              f"{res.n_deduced / len(ps):.4f} precision {q.precision:.6f} "
+              f"recall {q.recall:.6f} F {q.f_measure:.6f} engine "
+              f"{res.wall_seconds:.4f} s; candidates a subset of the dense "
+              f"kernel's {subset}, scores bitwise {bitwise}")
+        if res.n_crowdsourced + res.n_deduced != len(ps) \
+                or q.precision != 1.0 \
+                or not transitively_consistent(ps, res.labels) \
+                or not bitwise:
+            raise AssertionError(f"blocked session {rid} result is wrong")
+    print(f"[4b blocked path] {len(corpora)} sessions in {main_s:.4f} s, "
+          f"launches {launches}; run() wall {run_s:.4f} s: round engine "
+          f"{spent['engine']:.4f} s, gateway replay {spent['gateway']:.4f} "
+          f"s, rest {run_s - spent['engine'] - spent['gateway']:.4f} s")
+    if launches["pair_scores"] or min(launches["pair_scores_compact"],
+                                      launches["union_deduce"]) < 1:
+        raise AssertionError(f"the blocked path's kernels: {launches}")
+
+    probe = join_service.JoinService(lanes=N_SESSIONS, device=dev)
+    for ps in pairsets:
+        probe.submit(ps, PerfectCrowd())
+    screen_args, deduce_args = first_round_args(probe, dev)
+    check_union_deduce("4b union_deduce", "blocked round-1 screen",
+                       screen_args)
+    check_union_deduce("4b union_deduce", "blocked round-1 deduce",
+                       deduce_args)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -207,19 +503,18 @@ def run(dev) -> None:
     import torch
 
     from repro_torch.core.crowd import PerfectCrowd
-    from repro_torch.core.graph import (KEY_SENTINEL, _apply_fast,
-                                        _finish_apply, _frontier_impl,
-                                        _screen_fused, stack_states,
-                                        session_grow)
+    from repro_torch.core.graph import KEY_SENTINEL
     from repro_torch.core.metrics import transitively_consistent
-    from repro_torch.core.ordering import _refresh_masked_impl
     from repro_torch.core.pairs import PairSet
     from repro_torch.convert import embeddings_from_numpy
     from repro_torch.device import set_precision
     from repro_torch.kernels._build import extension
+    from repro_torch.kernels.pair_scores import blocking
     from repro_torch.kernels.pair_scores import kernel as ps_kernel
     from repro_torch.kernels.pair_scores import ops as ps_ops
-    from repro_torch.kernels.pair_scores.ref import pair_scores_ref
+    from repro_torch.kernels.pair_scores.ref import (pair_scores_compact_ref,
+                                                     pair_scores_ref)
+    from repro_torch.kernels.pair_scores.sharded import sharded_candidates
     from repro_torch.kernels.union_deduce import kernel as ud_kernel
     from repro_torch.kernels.union_deduce import ops as ud_ops
     from repro_torch.kernels.union_deduce.ref import union_deduce_ref
@@ -276,28 +571,7 @@ def run(dev) -> None:
             embeddings_from_numpy(ea, dev), embeddings_from_numpy(eb, dev),
             THRESHOLD, crowd=PerfectCrowd(),
             truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c])
-    lanes = [probe._open_lane(req) for req in probe.queue]
-    p_cap = max(int(lane.state.u.shape[0]) for lane in lanes)
-    n_cap = max(lane.state.n_objects for lane in lanes)
-    st = stack_states([session_grow(lane.state, p_cap, n_cap)
-                       for lane in lanes])
-    answers = torch.full((len(lanes), p_cap), -1, dtype=torch.int32,
-                         device=dev)
-    prior = torch.zeros((len(lanes), p_cap), dtype=torch.float32, device=dev)
-    for i, lane in enumerate(lanes):
-        answers[i, :lane.p] = torch.from_numpy(lane.answers_host).to(dev)
-        prior[i, :lane.p] = torch.from_numpy(lane.ordered.likelihood).to(dev)
-    st = _refresh_masked_impl(st, prior,
-                              torch.zeros(len(lanes), dtype=torch.bool,
-                                          device=dev))
-    frontier = _frontier_impl(st)
-    updates = torch.where(frontier, answers, -1)
-    new, pos_new, neg_new, roots_opt, _ = _screen_fused(st, updates)
-    folded = _finish_apply(st, *_apply_fast(st, updates, new, pos_new,
-                                            neg_new, roots_opt), new)
-    screen_args = (st.roots, st.u, st.v, pos_new, st.neg_keys, n_cap)
-    deduce_args = (folded.roots, folded.u, folded.v,
-                   torch.zeros_like(pos_new), folded.neg_keys, n_cap)
+    screen_args, deduce_args = first_round_args(probe, dev)
     n_path = 8192
     path_u = torch.arange(n_path - 1, dtype=torch.int32, device=dev)[None]
     path_args = (torch.arange(n_path, dtype=torch.int32, device=dev)[None],
@@ -306,18 +580,54 @@ def run(dev) -> None:
     for name, args in (("round-1 screen", screen_args),
                        ("round-1 deduce", deduce_args),
                        ("path graph", path_args)):
-        got = ud_kernel.union_deduce(*args)
-        exp = union_deduce_ref(*args)
-        same = [torch.equal(x, y) for x, y in zip(got, exp)]
-        print(f"[3 union_deduce] {name}: lanes {args[0].shape[0]} n "
-              f"{args[0].shape[1]} P {args[1].shape[1]} pos edges "
-              f"{int(args[3].sum())} neg keys "
-              f"{int((args[4] != KEY_SENTINEL).sum())} "
-              f"deduced NEG {int((got[1] == 0).sum())} bitwise equal "
-              f"{same}")
-        if not all(same):
-            raise AssertionError(f"union_deduce kernel disagrees ({name})")
-    del probe, lanes, st, folded
+        check_union_deduce("3 union_deduce", name, args)
+    del probe
+
+    # pair_scores_compact on the first chunk of blocked session 0's tiles
+    cfg = blocking.BlockingConfig(**BLOCKING)
+    blocked_corpora = [make_corpus(BLOCK_SEED + i, BLOCK_ROWS, DIM)
+                       for i in range(N_SESSIONS)]
+    _, ea, _, eb = blocked_corpora[0]
+    a16 = ps_ops.l2_normalize(embeddings_from_numpy(ea, dev))
+    b16 = ps_ops.l2_normalize(embeddings_from_numpy(eb, dev))
+    every = np.arange(BLOCK_ROWS)
+    tiles_a, tiles_b = blocking.block_pairs(
+        blocking.signatures(a16, cfg), every, blocking.signatures(b16, cfg),
+        every, cfg.bn, cfg.bm)
+    chunk, bn, bm = cfg.tiles_per_call, cfg.bn, cfg.bm
+    if len(tiles_a) < chunk:
+        raise AssertionError(f"blocked session 0 has {len(tiles_a)} tiles, "
+                             f"fewer than one {chunk}-tile chunk")
+    chunk_args = gather_chunk(a16, b16, tiles_a[:chunk], tiles_b[:chunk])
+    cs_err = check_compact(*chunk_args, bn, bm)
+    c_call = chunk * bn * bm
+    full = ps_kernel.pair_scores_compact(*chunk_args, THRESHOLD, c_call, bn,
+                                         bm)
+    n_chunk = int(full[3])
+    half = n_chunk // 2
+    part = ps_kernel.pair_scores_compact(*chunk_args, THRESHOLD, half, bn, bm)
+    prefix = int(part[3]) == n_chunk and all(
+        torch.equal(x[:half], y[:half]) for x, y in zip(part[:3], full[:3]))
+    print(f"[3 pair_scores_compact] capacity {half} of {n_chunk} candidates:"
+          f" n_total {int(part[3])}, kept prefix equal {prefix}")
+    if not prefix:
+        raise AssertionError("pair_scores_compact overflow prefix differs")
+    ta, tb = blocking.dense_block_pairs(N_ROWS, N_ROWS, bn, bm)
+    tiled = blocking.score_block_pairs(a, b, ta, tb, THRESHOLD, cfg)
+    dense = sharded_candidates(a, b, THRESHOLD, normalize=False)
+    bitwise = tiled.n_dropped == dense.n_dropped == 0 \
+        and np.array_equal(tiled.rows, dense.rows) \
+        and np.array_equal(tiled.cols, dense.cols) \
+        and np.array_equal(tiled.scores.view(np.int32),
+                           dense.scores.view(np.int32))
+    print(f"[3 pair_scores_compact] dense tiling of ({N_ROWS}, {DIM}) x "
+          f"({N_ROWS}, {DIM}), {len(ta)} tiles: {len(tiled.rows)} "
+          f"candidates, equal to the dense kernel's {len(dense.rows)} bit "
+          f"for bit {bitwise}")
+    if not bitwise:
+        raise AssertionError("pair_scores_compact differs from the dense "
+                             "kernel on a dense tiling")
+    del a16, b16, full, part, tiled, dense
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -360,6 +670,9 @@ def run(dev) -> None:
                              f"{launches}")
     profile_run(dev, corpora)
 
+    # -- 4b. the blocked main path -------------------------------------------
+    blocked_launches = blocked_main_path(dev, blocked_corpora, cfg)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -381,6 +694,10 @@ def run(dev) -> None:
     ud_B, ud_n = screen_args[0].shape
     ud_P = screen_args[1].shape[1]
     ud_bytes = ud_B * (4 * ud_n * 2 + ud_P * (4 + 4 + 1 + 4 + 4) + 4)
+    # one 256-tile chunk of blocked session 0; D is already a multiple of 16
+    cs_flops = 2 * chunk * bn * bm * DIM
+    cs_bytes = chunk * (bn + bm) * (4 * DIM + 4) + 12 * min(n_chunk, c_call)
+
     def library_pair_scores():
         s = torch.matmul(a, b.T)
         return torch.where(s >= THRESHOLD, s, 0.0)
@@ -398,6 +715,22 @@ def run(dev) -> None:
          "bound_by": ("operations" if ps_flops / PEAK_F32_FLOPS
                       > ps_bytes / PEAK_BYTES_PER_S else "bytes"),
          "library_ms": cuda_ms(library_pair_scores)},
+        {"name": "pair_scores_compact", "route": "cuda",
+         "source": "src/repro_torch/csrc/pair_scores_compact.cu",
+         "replaces": "src/repro/kernels/pair_scores/kernel.py:141",
+         "launches": blocked_launches["pair_scores_compact"],
+         "max_abs_err": cs_err,
+         "ms": cuda_ms(lambda: ps_kernel.pair_scores_compact(
+             *chunk_args, THRESHOLD, c_call, bn, bm)),
+         "plain_ms": cuda_ms(lambda: pair_scores_compact_ref(
+             *chunk_args, THRESHOLD, c_call, bn, bm), 5),
+         "bound_ms": 1e3 * max(cs_flops / PEAK_F32_FLOPS,
+                               cs_bytes / PEAK_BYTES_PER_S),
+         "bound_by": ("operations" if cs_flops / PEAK_F32_FLOPS
+                      > cs_bytes / PEAK_BYTES_PER_S else "bytes"),
+         "library_ms": cuda_ms(lambda: torch.bmm(
+             chunk_args[0].view(chunk, bn, -1),
+             chunk_args[1].view(chunk, bm, -1).transpose(1, 2)))},
         {"name": "union_deduce", "route": "cuda",
          "source": "src/repro_torch/csrc/union_deduce.cu",
          "replaces": "src/repro/kernels/union_deduce/kernel.py:129",

@@ -13,6 +13,11 @@ extern "C" cudaError_t pair_scores_launch(const float* a, const float* b,
                                           int m, int d, int m_valid, float tau,
                                           cudaStream_t stream);
 
+extern "C" cudaError_t pair_scores_compact_launch(
+    const float* a, const float* b, const int* ida, const int* idb,
+    int* counts, int* rows, int* cols, float* scores, int* n_total, int T,
+    int bn, int bm, int d, float tau, int capacity, cudaStream_t stream);
+
 extern "C" cudaError_t union_deduce_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
     const int* neg_keys, int* roots, int* deduced, int* conflict, int* error,
@@ -31,6 +36,24 @@ void pair_scores(const torch::Tensor& a, const torch::Tensor& b,
       counts.data_ptr<int>(), static_cast<int>(a.size(0)),
       static_cast<int>(b.size(0)), static_cast<int>(a.size(1)),
       static_cast<int>(m_valid), static_cast<float>(tau), stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
+                         const torch::Tensor& ida, const torch::Tensor& idb,
+                         const torch::Tensor& counts,
+                         const torch::Tensor& rows, const torch::Tensor& cols,
+                         const torch::Tensor& scores,
+                         const torch::Tensor& n_total, int64_t bn, int64_t bm,
+                         double tau, int64_t capacity) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(pair_scores_compact_launch(
+      a_g.data_ptr<float>(), b_g.data_ptr<float>(), ida.data_ptr<int>(),
+      idb.data_ptr<int>(), counts.data_ptr<int>(), rows.data_ptr<int>(),
+      cols.data_ptr<int>(), scores.data_ptr<float>(), n_total.data_ptr<int>(),
+      static_cast<int>(counts.size(0)), static_cast<int>(bn),
+      static_cast<int>(bm), static_cast<int>(a_g.size(1)),
+      static_cast<float>(tau), static_cast<int>(capacity), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -55,5 +78,7 @@ void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pair_scores", &pair_scores, "thresholded pair scores (CUDA)");
+  m.def("pair_scores_compact", &pair_scores_compact,
+        "thresholded pair scores compacted over gathered tiles (CUDA)");
   m.def("union_deduce", &union_deduce, "fused union + deduce (CUDA)");
 }

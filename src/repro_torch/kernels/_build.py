@@ -13,7 +13,8 @@ import functools
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bindings.cpp", "pair_scores.cu", "union_deduce.cu")
+_SOURCES = ("bindings.cpp", "pair_scores.cu", "pair_scores_compact.cu",
+            "union_deduce.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 

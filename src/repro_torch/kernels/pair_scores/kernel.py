@@ -1,13 +1,16 @@
-"""Launch of the hand-written CUDA pair-score kernel
-(``repro_torch/csrc/pair_scores.cu``; it replaces the Pallas kernel
-``repro/kernels/pair_scores/kernel.py::pair_scores``).  The wrapper in
-:mod:`.ops` pads to the tile multiples below."""
+"""Launches of the hand-written CUDA pair-score kernels:
+``repro_torch/csrc/pair_scores.cu`` (it replaces the Pallas kernel
+``repro/kernels/pair_scores/kernel.py::pair_scores``) and
+``repro_torch/csrc/pair_scores_compact.cu`` (it replaces
+``pair_scores_compact`` there).  The wrappers in :mod:`.ops` pad to the tile
+multiples below."""
 from __future__ import annotations
 
 import torch
 
 TILE_ROWS = 128   # rows of a (and of b) per block; N and M pad to this
 TILE_DEPTH = 16   # k slice staged in shared memory; D pads to this
+INT32_LIMIT = 2 ** 31
 
 
 def pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
@@ -36,3 +39,53 @@ def pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
     extension().pair_scores(a, b, scores, counts, int(m_valid),
                             float(threshold))
     return scores, counts
+
+
+def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
+                        ida: torch.Tensor, idb: torch.Tensor,
+                        threshold: float, capacity: int, bn: int, bm: int):
+    """a_g: (T*bn, D) / b_g: (T*bm, D) contiguous f32 CUDA tensors with D a
+    multiple of ``TILE_DEPTH``; ida: (T*bn, 1) / idb: (T*bm, 1) int32 ids,
+    -1 on padding; 1 <= bn, bm <= ``TILE_ROWS``.  Returns (rows (capacity +
+    bn*bm, 1) int32, cols ditto, scores ditto f32, n_total (1, 1) int32), as
+    :func:`..ref.pair_scores_compact_ref` does.  Two launches: a count pass
+    and a write pass."""
+    from repro_torch.kernels._build import extension
+
+    for name, x, dt in (("a_g", a_g, torch.float32),
+                        ("b_g", b_g, torch.float32),
+                        ("ida", ida, torch.int32), ("idb", idb, torch.int32)):
+        if not x.is_cuda or x.dtype != dt or x.dim() != 2 \
+                or not x.is_contiguous() or x.device != a_g.device:
+            raise ValueError(
+                f"pair_scores_compact kernel needs {name} as a contiguous 2-D "
+                f"{dt} tensor on one CUDA device, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    if not (1 <= bn <= TILE_ROWS and 1 <= bm <= TILE_ROWS):
+        raise ValueError(
+            f"pair_scores_compact kernel takes tiles of at most {TILE_ROWS} x "
+            f"{TILE_ROWS}, got bn={bn} bm={bm}: larger tiles are ROADMAP B2's "
+            "known gap")
+    T, D = a_g.shape[0] // bn, a_g.shape[1]
+    W = bn * bm
+    if T < 1 or a_g.shape[0] != T * bn or b_g.shape != (T * bm, D) \
+            or ida.shape != (T * bn, 1) or idb.shape != (T * bm, 1) \
+            or D % TILE_DEPTH or a_g.data_ptr() % 16 or b_g.data_ptr() % 16 \
+            or T * W >= INT32_LIMIT or not 0 <= capacity < INT32_LIMIT - W:
+        raise ValueError(
+            f"pair_scores_compact kernel shapes a_g {tuple(a_g.shape)} b_g "
+            f"{tuple(b_g.shape)} ida {tuple(ida.shape)} idb "
+            f"{tuple(idb.shape)} bn={bn} bm={bm} capacity={capacity}: at "
+            f"least one tile, depth padded to {TILE_DEPTH}, 16-byte aligned, "
+            "int32 positions")
+    dev = a_g.device
+    size = (int(capacity) + W, 1)
+    rows = torch.full(size, -1, dtype=torch.int32, device=dev)
+    cols = torch.full(size, -1, dtype=torch.int32, device=dev)
+    scores = torch.zeros(size, dtype=torch.float32, device=dev)
+    n_total = torch.empty((1, 1), dtype=torch.int32, device=dev)
+    counts = torch.empty(T, dtype=torch.int32, device=dev)
+    extension().pair_scores_compact(a_g, b_g, ida, idb, counts, rows, cols,
+                                    scores, n_total, int(bn), int(bm),
+                                    float(threshold), int(capacity))
+    return rows, cols, scores, n_total

@@ -1,4 +1,4 @@
-"""Public wrapper of the pair-score kernel: normalization, padding to tile
+"""Public wrappers of the pair-score kernels: normalization, padding to tile
 multiples, and device dispatch — the CUDA kernel for CUDA tensors, the plain
 version for CPU tensors, and an error for anything else."""
 from __future__ import annotations
@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernel
-from .ref import pair_scores_ref
+from .ref import pair_scores_compact_ref, pair_scores_ref
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -39,3 +39,27 @@ def pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
 
 
 pair_scores.launches = 0
+
+
+def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
+                        ida: torch.Tensor, idb: torch.Tensor,
+                        threshold: float, capacity: int, bn: int, bm: int):
+    """Fused similarity + threshold + candidate compaction over T gathered
+    tile pairs (see :func:`.ref.pair_scores_compact_ref` for the contract).
+    bf16 inputs are scored in f32.  ``pair_scores_compact.launches`` counts
+    calls that reach the CUDA kernel (a count and a write launch each)."""
+    if all(x.device.type == "cpu" for x in (a_g, b_g, ida, idb)):
+        return pair_scores_compact_ref(a_g, b_g, ida, idb, threshold,
+                                       capacity, bn, bm)
+    # zero columns leave every fmaf sum unchanged
+    pd = (-a_g.shape[1]) % kernel.TILE_DEPTH
+    a_g, b_g = (F.pad(x.to(torch.float32), (0, pd)).contiguous() if pd
+                else x.to(torch.float32).contiguous() for x in (a_g, b_g))
+    out = kernel.pair_scores_compact(a_g, b_g, ida.contiguous(),
+                                     idb.contiguous(), threshold, capacity,
+                                     bn, bm)
+    pair_scores_compact.launches += 1
+    return out
+
+
+pair_scores_compact.launches = 0

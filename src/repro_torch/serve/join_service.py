@@ -12,9 +12,13 @@ reference's fused path, DESIGN.md §13).  The gateway traffic — billing and
 the question count — is replayed after the device rounds.  Lanes are
 refilled from the queue when a wave ends (the round barrier).
 
-:meth:`submit_embeddings` runs the machine phase first: the pair-score
-kernel over (emb_a x emb_b), thresholded candidates compacted into a
-:class:`~repro_torch.core.pairs.PairSet`, queued like any request.
+:meth:`submit_embeddings` runs the machine phase first, then queues the
+candidates as a :class:`~repro_torch.core.pairs.PairSet` like any request.
+By default it is dense: the pair-score kernel over the whole (emb_a x emb_b)
+grid, thresholded candidates compacted after it.  With ``blocking=`` (a
+:class:`~repro_torch.kernels.pair_scores.blocking.BlockingConfig`) LSH
+buckets are built on the host and only colliding tile pairs are scored,
+through the fused compaction kernel, so the dense grid never exists.
 
 Only this slice is ported.  Every option of the reference that it does not
 implement raises :class:`NotImplementedError` naming the ROADMAP item that
@@ -41,6 +45,8 @@ from repro_torch.core.metrics import Quality, quality
 from repro_torch.core.pairs import PairSet
 from repro_torch.core.sorting import get_order, validate_order
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.kernels.pair_scores.blocking import (BlockingConfig,
+                                                      blocked_candidates)
 from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 
 # Options of the reference that the port does not implement yet: each maps to
@@ -74,7 +80,6 @@ _SUBMIT_OPTIONS = {
 _EMBEDDING_OPTIONS = {
     **_SUBMIT_OPTIONS,
     "streaming": (False, "A9.6 (streaming ingest)"),
-    "blocking": (None, "A8 (LSH blocking and pair_scores_compact)"),
 }
 
 
@@ -234,6 +239,7 @@ class JoinService:
                           order: Optional[str] = None,
                           capacity: Optional[int] = None,
                           total_true_matches: Optional[int] = None,
+                          blocking: Optional[BlockingConfig] = None,
                           **unported) -> int:
         """Machine phase + enqueue: score (emb_a x emb_b) with the pair-score
         kernel, keep pairs at or above ``threshold`` (cosine, mapped to a
@@ -242,12 +248,22 @@ class JoinService:
 
         ``truth_fn(rows, cols) -> bool array`` attaches ground truth.
         ``capacity`` bounds the candidate buffer (default: lossless).  Object
-        ids: a-row i -> i, b-row j -> N + j."""
+        ids: a-row i -> i, b-row j -> N + j.
+
+        ``blocking`` (a :class:`BlockingConfig`, DESIGN.md §12) puts the LSH
+        blocking stage in front of the scorer: only bucket-colliding pairs
+        are scored, through the fused compaction kernel, on the service's
+        device (``mesh`` is ignored).  It trades recall at the threshold for
+        scored cells; size it with ``BlockingConfig.for_recall``."""
         _reject_unported("submit_embeddings", unported, _EMBEDDING_OPTIONS)
         emb_a = torch.as_tensor(emb_a, device=self.device)
         emb_b = torch.as_tensor(emb_b, device=self.device)
-        cand = sharded_candidates(emb_a, emb_b, threshold, mesh,
-                                  capacity=capacity)
+        if blocking is not None:
+            cand = blocked_candidates(emb_a, emb_b, threshold,
+                                      config=blocking, capacity=capacity)
+        else:
+            cand = sharded_candidates(emb_a, emb_b, threshold, mesh,
+                                      capacity=capacity)
         self._check_candidate_overflow(cand)
         n_a = int(emb_a.shape[0])
         truth = None

@@ -9,7 +9,10 @@ port is installed.
 Tolerances: ``pair_scores`` within 1e-5 of ``a @ b.T`` (cuBLAS) — f32 sums of
 up to 384 unit-bounded products in another order — with candidate sets
 allowed to differ only within 1e-5 of the threshold; bf16 inputs within
-2e-2.  ``union_deduce`` and the service: bit for bit.
+2e-2.  ``pair_scores_compact`` against its plain version (``torch.bmm``) the
+same way, with the candidates' order identical; against the dense kernel bit
+for bit (the two share one mainloop).  ``union_deduce`` and the service: bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -19,8 +22,12 @@ from repro_torch.core.cluster_graph import NEG, POS
 from repro_torch.core.crowd import PerfectCrowd
 from repro_torch.core.graph import KEY_SENTINEL, _union_impl
 from repro_torch.core.pairs import PairSet
+from repro_torch.kernels.pair_scores import blocking
+from repro_torch.kernels.pair_scores import kernel as ps_kernel
 from repro_torch.kernels.pair_scores import ops as ps_ops
-from repro_torch.kernels.pair_scores.ref import pair_scores_ref
+from repro_torch.kernels.pair_scores.ref import (pair_scores_compact_ref,
+                                                 pair_scores_ref)
+from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
 from repro_torch.kernels.union_deduce.ref import union_deduce_ref
 from repro_torch.serve.join_service import JoinService
@@ -56,6 +63,101 @@ def test_pair_scores_kernel_matches_plain(dev, N, M, D, dtype):
     torch.testing.assert_close(s[~flips], s_ref[~flips], rtol=0, atol=tol)
     if not flips.any():
         torch.testing.assert_close(c[:, 0], c_ref, rtol=0, atol=0)
+
+
+def _tiles(dev, T, bn, bm, D, dtype, seed):
+    """T gathered tile pairs of correlated unit rows, with a quarter of the
+    ids (and their rows) padding."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(T * bn, D, generator=gen)
+    b = torch.randn(T * bm, D, generator=gen)
+    k = min(bn, bm)
+    b.view(T, bm, D)[:, :k] = a.view(T, bn, D)[:, :k] \
+        + 0.6 * b.view(T, bm, D)[:, :k]
+    a, b = ps_ops.l2_normalize(a), ps_ops.l2_normalize(b)
+    ida = torch.arange(T * bn, dtype=torch.int32)
+    idb = torch.arange(T * bm, dtype=torch.int32)
+    ida[torch.rand(T * bn, generator=gen) < 0.25] = -1
+    idb[torch.rand(T * bm, generator=gen) < 0.25] = -1
+    a[ida < 0] = 0.0
+    b[idb < 0] = 0.0
+    return (a.to(dev, dtype), b.to(dev, dtype), ida[:, None].to(dev),
+            idb[:, None].to(dev))
+
+
+@pytest.mark.parametrize("T,bn,bm,D", [(256, 128, 128, 384), (7, 128, 128, 96),
+                                       (33, 16, 16, 16), (5, 24, 100, 40),
+                                       (1, 1, 128, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scores_compact_kernel_matches_plain(dev, T, bn, bm, D, dtype):
+    """Ids here are the flat gather positions, so each candidate names its
+    cell: the kernel's list and the plain one may differ only in cells
+    within 1e-5 of the threshold, and both are in (tile, row, col) order."""
+    a_g, b_g, ida, idb = _tiles(dev, T, bn, bm, D, dtype, seed=T + bn + D)
+    tau, cap = 0.5, T * bn * bm
+    launches = ps_ops.pair_scores_compact.launches
+    rows, cols, scores, n = ps_ops.pair_scores_compact(a_g, b_g, ida, idb,
+                                                       tau, cap, bn, bm)
+    assert ps_ops.pair_scores_compact.launches == launches + 1
+    r_rows, r_cols, r_scores, r_n = pair_scores_compact_ref(
+        a_g, b_g, ida, idb, tau, cap, bn, bm)
+    torch.cuda.synchronize()
+    n, r_n = int(n), int(r_n)
+    assert n > 0
+    s = torch.bmm(a_g.float().view(T, bn, -1),
+                  b_g.float().view(T, bm, -1).transpose(1, 2))
+    keys = rows[:n, 0].long() * (T * bm) + cols[:n, 0].long()
+    r_keys = r_rows[:r_n, 0].long() * (T * bm) + r_cols[:r_n, 0].long()
+    assert bool((keys[1:] > keys[:-1]).all())
+    assert bool((r_keys[1:] > r_keys[:-1]).all())
+    in_ref = torch.isin(keys, r_keys)
+    flips = torch.cat([keys[~in_ref], r_keys[~torch.isin(r_keys, keys)]])
+    fr, fc = flips // (T * bm), flips % (T * bm)
+    near = (s[fr // bn, fr % bn, fc % bm] - tau).abs() <= 1e-5
+    assert bool(near.all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    common = scores[:n, 0][in_ref]
+    r_common = r_scores[:r_n, 0][torch.isin(r_keys, keys)]
+    torch.testing.assert_close(common, r_common, rtol=0, atol=tol)
+    assert (rows[n:cap] == -1).all() and (scores[n:cap] == 0).all()
+
+
+def test_pair_scores_compact_kernel_is_the_dense_kernel_bitwise(dev):
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    a = torch.randn(700, 384, generator=gen)
+    b = torch.randn(600, 384, generator=gen)
+    b[:300] = a[:300] + 0.5 * b[:300]
+    a = ps_ops.l2_normalize(a.to(dev))
+    b = ps_ops.l2_normalize(b.to(dev))
+    cfg = blocking.BlockingConfig(bn=128, bm=128, tiles_per_call=8)
+    ta, tb = blocking.dense_block_pairs(700, 600, 128, 128)
+    got = blocking.score_block_pairs(a, b, ta, tb, 0.5, cfg)
+    ref = sharded_candidates(a, b, 0.5, normalize=False)
+    assert len(ref.rows) > 0 and got.n_dropped == ref.n_dropped == 0
+    np.testing.assert_array_equal(got.rows, ref.rows)
+    np.testing.assert_array_equal(got.cols, ref.cols)
+    np.testing.assert_array_equal(got.scores.view(np.int32),
+                                  ref.scores.view(np.int32))
+
+
+def test_pair_scores_compact_kernel_overflow_keeps_the_prefix(dev):
+    a_g, b_g, ida, idb = _tiles(dev, 40, 128, 64, 64, torch.float32, seed=1)
+    full = ps_ops.pair_scores_compact(a_g, b_g, ida, idb, 0.5,
+                                      40 * 128 * 64, 128, 64)
+    n = int(full[3])
+    cap = n // 2
+    part = ps_ops.pair_scores_compact(a_g, b_g, ida, idb, 0.5, cap, 128, 64)
+    assert int(part[3]) == n > 0
+    for x, y in zip(part[:3], full[:3]):
+        assert torch.equal(x[:cap], y[:cap])
+        assert bool((x[cap:] == (0 if x.is_floating_point() else -1)).all())
+
+
+def test_pair_scores_compact_kernel_refuses_wide_tiles(dev):
+    a_g = torch.zeros(256, 16, device=dev)
+    ids = torch.zeros(256, 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="B2"):
+        ps_kernel.pair_scores_compact(a_g, a_g, ids, ids, 0.5, 64, 256, 256)
 
 
 def _lanes(dev, n, p, lanes, seed):

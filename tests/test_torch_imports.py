@@ -49,12 +49,16 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
         raise AssertionError("a wrapper fell back to its plain version")
 
     monkeypatch.setattr(ps_ops, "pair_scores_ref", no_plain)
+    monkeypatch.setattr(ps_ops, "pair_scores_compact_ref", no_plain)
     monkeypatch.setattr(ud_ops, "union_deduce_ref", no_plain)
     monkeypatch.setattr(_build, "extension", no_plain)
     meta = torch.device("meta")
     a = torch.empty(128, 16, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
         ps_ops.pair_scores(a, a, 0.5)
+    ids = torch.empty(128, 1, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        ps_ops.pair_scores_compact(a, a, ids, ids, 0.5, 64, 128, 128)
     forest = torch.empty(1, 8, dtype=torch.int32, device=meta)
     pairs = torch.empty(1, 4, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
@@ -64,12 +68,18 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
         ps_kernel.pair_scores(torch.zeros(128, 16), torch.zeros(128, 16),
                               0.5, 128)
     with pytest.raises(ValueError, match="CUDA"):
+        ps_kernel.pair_scores_compact(
+            torch.zeros(128, 16), torch.zeros(128, 16),
+            torch.zeros(128, 1, dtype=torch.int32),
+            torch.zeros(128, 1, dtype=torch.int32), 0.5, 64, 128, 128)
+    with pytest.raises(ValueError, match="CUDA"):
         ud_kernel.union_deduce(torch.zeros(1, 8, dtype=torch.int32),
                                torch.zeros(1, 4, dtype=torch.int32),
                                torch.zeros(1, 4, dtype=torch.int32),
                                torch.zeros(1, 4, dtype=torch.bool),
                                torch.zeros(1, 4, dtype=torch.int32), 8)
     assert ps_ops.pair_scores.launches == 0
+    assert ps_ops.pair_scores_compact.launches == 0
     assert ud_ops.union_deduce.launches == 0
 
 

@@ -141,8 +141,7 @@ UNPORTED_VALUES = {
     "cluster_tasks": True, "cluster_size": 4, "cluster_assignments": 3,
     "admission": "policy", "checkpoint_dir": "ckpt", "checkpoint_every": 2,
     "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json",
-    "seed_labels": np.zeros(3, np.int32), "streaming": True,
-    "blocking": "lsh"}
+    "seed_labels": np.zeros(3, np.int32), "streaming": True}
 
 
 def _unported(table):
