@@ -17,6 +17,16 @@ carries on.  Phases, one output line or block each:
    within 1e-5, the order identical; through ``dense_block_pairs`` on phase
    4's corpus 0 its candidates equal the dense kernel's bit for bit; at half
    the capacity it keeps the first half of the list and the true count;
+   ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
+   at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
+   granite-3-2b's (2, 2048, 32 / 8, 64) and deepseek-67b's (1, 2048, 64 /
+   8, 128) head layouts; ``decode_attention`` at (8, 12, 64) against an (8,
+   2048, 12, 64) cache at lengths 1, 1337 and 2048, and an f32 query over a
+   bf16 cache (the f32-weight run of phase 4c).  f32 outputs within 2e-5
+   (flash) and 1e-5 (decode): sums in another order.  bf16 outputs within
+   2**-7 |expected| + 1e-4 element by element: both sides sum in f32 and
+   round once to bf16, whose 8 significant bits put one ulp at most 2**-7
+   of the value;
 4. the dense main path: ``JoinService(lanes=4)``, four ``submit_embeddings``
    sessions of (4096, 384) x (4096, 384) f32 embeddings under a
    ``PerfectCrowd``, then ``run()``; every kernel of the path must have
@@ -35,6 +45,27 @@ carries on.  Phases, one output line or block each:
    beside the dense machine phase at the same size; then ``union_deduce``
    bitwise against its plain version on these lanes' first round
    (n = 32768);
+4c. the LM serving path: ``paper-scorer`` at full width (12 layers, d_model
+   768, 12 heads of 64, vocab 32768; bf16 weights from ``init_params`` with
+   a seeded generator on the card), ``ServeEngine(batch_lanes=8,
+   max_len=2048).generate`` on 16 seeded requests of 256-1536 prompt tokens
+   and 64 new tokens each (two waves); every request must get 64 tokens,
+   ``flash_attention`` must launch 12 times a wave and ``decode_attention``
+   12 x 63 times; ``prefill(n) + decode_step`` must agree with
+   ``prefill(n + 1)`` on the card within 5e-2 of the logits' scale (bf16);
+   a short wave (2 requests of 64 tokens, 8 new) under f32-cast weights must
+   give the same tokens on the card as the port's plain versions on the CPU;
+   then 16 decode steps of the first wave timed and 16 more under
+   ``torch.profiler``, for where a decode step's time goes;
+4d. the LM machine phase into the join: ``score_pairs_with_lm`` over the
+   whole product dataset (1081 x 1092 records: 69 backbone batches of 32
+   records x 32 tokens, then one ``pair_scores`` of (1081, 768) x (1092,
+   768) at tau = -1), the likelihoods within 1e-5 of the plain
+   ``pair_scores_ref`` on the same card embeddings; then the blend and
+   threshold of ``examples/crowdsourced_join.py`` (0.3 LM + 0.7 a seeded Beta
+   base, tau 0.62) make a ``PairSet`` that ``JoinService(lanes=1).submit``
+   under a ``PerfectCrowd`` and ``run()`` must label whole, at precision 1.0
+   and transitively consistent;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. a ``{"kernels": [...]}`` line with each kernel's launches on its main
@@ -49,7 +80,9 @@ neg-key index and NEG deduction carry real traffic.  384 is the width of a
 common sentence-embedding model used for entity-matching blocking.  The
 blocked path runs the reference's own full blocking configuration
 (``benchmarks/bench_blocking.py``: 16384 rows a side, 6 bits, 8 tables,
-128 x 128 tiles, 256 tiles a kernel call).
+128 x 128 tiles, 256 tiles a kernel call).  The LM phases run the paper's
+own likelihood model, ``paper-scorer``, at its configured widths, over the
+paper's Abt-Buy-like product table.
 """
 from __future__ import annotations
 
@@ -68,9 +101,24 @@ N_ROWS, DIM, THRESHOLD, N_SESSIONS, SEED = 4096, 384, 0.7, 4, 0
 BLOCK_ROWS, BLOCK_SEED = 16384, SEED + 100
 BLOCKING = dict(n_bits=6, n_tables=8, bn=128, bm=128, tiles_per_call=256)
 RECALL_SAMPLE = 1024
-# peaks of one H100 SXM (NVIDIA data sheet): f32 outside the tensor cores
-# and HBM3 bandwidth
-PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+# the LM serving path (phase 4c) and its machine phase (4d)
+LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
+LM_REQUESTS, LM_NEW = 16, 64
+LM_PROMPT = (256, 1536)     # prompt lengths, both ends included
+LM_JOIN_TAU = 0.62          # examples/crowdsourced_join.py's threshold
+LM_SIDES = (1081, 1092)     # the product dataset's two tables
+LM_EMBED_BATCH, LM_EMBED_LEN = 32, 32   # score_pairs_with_lm's batches
+LM_BF16_TOL = 5e-2          # of the logits' scale, tests/test_torch_model.py
+# kernel-only head layouts (B, S, H, K, d): granite-3-2b, deepseek-67b
+FLASH_GQA_SHAPES = ((2, 2048, 32, 8, 64), (1, 2048, 64, 8, 128))
+DECODE_LENGTHS = (1, 1337, 2048)
+# f32 outputs: absolute; bf16 outputs: one bf16 ulp of the expected value
+# (2**-7 relative at most) plus an absolute floor for the f32 sums' order
+ATTN_TOL_F32 = {"flash": 2e-5, "decode": 1e-5}
+ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
+# peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the tensor
+# cores, bf16 on the tensor cores, and HBM3 bandwidth
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 
 def make_corpus(seed: int, n: int, d: int):
@@ -483,6 +531,357 @@ def blocked_main_path(dev, corpora, cfg) -> dict:
     return launches
 
 
+def lm_config():
+    """The LM phases' model: ``LM_ARCH`` as configured, at full width."""
+    from repro_torch.configs import get
+
+    return get(LM_ARCH)
+
+
+def lm_requests(vocab: int):
+    """``LM_REQUESTS`` seeded prompts of ``LM_PROMPT`` tokens."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(SEED)
+    lo, hi = LM_PROMPT
+    return [Request(rid=i, prompt=rng.integers(
+                2, vocab, size=int(rng.integers(lo, hi + 1))).astype(np.int32),
+                max_new_tokens=LM_NEW)
+            for i in range(LM_REQUESTS)]
+
+
+def embed_batches() -> list:
+    """The record counts of phase 4d's backbone batches, largest first."""
+    B = LM_EMBED_BATCH
+    return sorted({B} | {n % B for n in LM_SIDES} - {0}, reverse=True)
+
+
+def _randn(dev, shape, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def attn_error(kind: str, got, exp):
+    """(max |error|, whether it is within tolerance, the tolerance as text)
+    of an attention kernel's output against its plain version's."""
+    import torch
+
+    diff = (got.float() - exp.float()).abs()
+    err = float(diff.max())
+    if exp.dtype == torch.bfloat16:
+        rel, floor = ATTN_TOL_BF16
+        worst = float((diff / (rel * exp.float().abs() + floor)).max())
+        return err, worst <= 1.0, (f"2**-7 |expected| + {floor}, worst "
+                                   f"{worst:.3f} of it")
+    tol = ATTN_TOL_F32[kind]
+    return err, err <= tol, f"{tol}"
+
+
+def check_flash(dev, B, S, H, K, d, dtype, seed=0):
+    """``flash_attention``'s kernel against its plain version on seeded
+    inputs; returns (max |error|, (q, k, v))."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+
+    q = _randn(dev, (B, S, H, d), dtype, seed)
+    k = _randn(dev, (B, S, K, d), dtype, seed + 1)
+    v = _randn(dev, (B, S, K, d), dtype, seed + 2)
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q, k, v)
+    err, ok, tol = attn_error("flash", got, exp)
+    print(f"[3 flash_attention] q ({B}, {S}, {H}, {d}) kv heads {K} "
+          f"{str(dtype).split('.')[-1]}: max|d| {err:.3e} (tolerance {tol})")
+    if not ok:
+        raise AssertionError("flash_attention kernel disagrees with its plain "
+                             "version")
+    return err, (q, k, v)
+
+
+def check_decode(dev, B, S, H, K, d, length, q_dtype, kv_dtype, seed=0):
+    """``decode_attention``'s kernel against its plain version with the
+    cache past ``length`` filled with garbage; returns (max |error|, args)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    q = _randn(dev, (B, H, d), q_dtype, seed)
+    kc = _randn(dev, (B, S, K, d), kv_dtype, seed + 1)
+    vc = _randn(dev, (B, S, K, d), kv_dtype, seed + 2)
+    kc[:, length:] = 1e4
+    vc[:, length:] = -1e4
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n)
+    exp = decode_attention_ref(q, kc, vc, length)
+    err, ok, tol = attn_error("decode", got, exp)
+    print(f"[3 decode_attention] q ({B}, {H}, {d}) "
+          f"{str(q_dtype).split('.')[-1]} cache ({B}, {S}, {K}, {d}) "
+          f"{str(kv_dtype).split('.')[-1]} length {length}: max|d| "
+          f"{err:.3e} (tolerance {tol})")
+    if not ok:
+        raise AssertionError("decode_attention kernel disagrees with its "
+                             "plain version")
+    return err, (q, kc, vc, n)
+
+
+def lm_serving_path(dev, cfg, model) -> dict:
+    """Phase 4c: ``ServeEngine.generate`` over ``lm_requests``, with the
+    kernels' launches counted over exactly that call; then the card's
+    ``decode == prefill(n + 1)`` and the short f32 wave card-vs-CPU."""
+    import copy
+
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    engine = ServeEngine(cfg, model, batch_lanes=LM_LANES, max_len=LM_MAX_LEN)
+    reqs = lm_requests(cfg.vocab)
+    rng = np.random.default_rng(SEED + 1)
+    warm = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, 64).astype(
+        np.int32), max_new_tokens=8) for i in range(2)]
+    engine.generate(warm)           # cuBLAS and allocator set-up
+    torch.cuda.synchronize()
+
+    prefill, run_wave = M.prefill, engine._run_wave
+    waves: list = []
+
+    def timed_prefill(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        waves[-1]["prefill_s"] = time.perf_counter() - t0
+        waves[-1]["S"] = int(args[1]["tokens"].shape[1])
+        return out
+
+    def timed_wave(wave):
+        waves.append({})
+        t0 = time.perf_counter()
+        out = run_wave(wave)        # ends in a copy of the tokens to the host
+        waves[-1]["wave_s"] = time.perf_counter() - t0
+        return out
+
+    fa_ops.flash_attention.launches = 0
+    da_ops.decode_attention.launches = 0
+    M.prefill, engine._run_wave = timed_prefill, timed_wave
+    try:
+        t0 = time.perf_counter()
+        out = engine.generate(reqs)
+        gen_s = time.perf_counter() - t0
+    finally:
+        M.prefill = prefill
+        del engine._run_wave
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "decode_attention": da_ops.decode_attention.launches}
+    n_waves = len(waves)
+    for i, w in enumerate(waves):
+        decode_s = w["wave_s"] - w["prefill_s"]
+        print(f"[4c wave {i}] {LM_LANES} lanes prefill S {w['S']} "
+              f"{w['prefill_s']:.4f} s, decode {LM_NEW - 1} steps "
+              f"{decode_s:.4f} s ({1e3 * decode_s / (LM_NEW - 1):.4f} ms a "
+              f"step of {LM_LANES} tokens), wave {w['wave_s']:.4f} s")
+    n_tok = sum(len(t) for t in out.values())
+    print(f"[4c serving] {len(out)} requests, {n_tok} tokens in {gen_s:.4f} "
+          f"s ({n_tok / gen_s:.1f} tokens/s), launches {launches}")
+    expected = {"flash_attention": cfg.n_layers * n_waves,
+                "decode_attention": cfg.n_layers * (LM_NEW - 1) * n_waves}
+    if sorted(out) != [r.rid for r in reqs] \
+            or any(len(t) != LM_NEW for t in out.values()) \
+            or launches != expected:
+        raise AssertionError(f"LM serving path: {len(out)} requests, "
+                             f"launches {launches}, expected {expected}")
+
+    # decode == prefill(n + 1), bf16, on the card
+    n = LM_PROMPT[0] - 1
+    toks = torch.from_numpy(np.stack([r.prompt[:n + 1]
+                                      for r in reqs[:2]])).to(dev)
+    cache, _ = M.prefill(model, {"tokens": toks[:, :n]}, LM_MAX_LEN)
+    l2, _ = M.decode_step(model, cache, {"tokens": toks[:, n:n + 1]})
+    _, l3 = M.prefill(model, {"tokens": toks}, LM_MAX_LEN)
+    gap = float((l2 - l3).abs().max()) / max(float(l3.abs().max()), 1.0)
+    print(f"[4c decode == prefill(n+1)] n {n}, 2 sequences: max|d logits| "
+          f"{gap:.3e} of their scale (tolerance {LM_BF16_TOL})")
+    if not gap <= LM_BF16_TOL:
+        raise AssertionError("decode_step disagrees with prefill on the card")
+
+    # a short wave under f32-cast weights, card against the CPU
+    short = [Request(rid=i, prompt=rng.integers(2, cfg.vocab, 64).astype(
+        np.int32), max_new_tokens=8) for i in range(2)]
+    tokens = {}
+    for where in (dev, torch.device("cpu")):
+        m32 = copy.deepcopy(model).to(device=where, dtype=torch.float32)
+        tokens[where.type] = ServeEngine(cfg, m32, batch_lanes=2,
+                                         max_len=LM_MAX_LEN).generate(short)
+        del m32
+    same = tokens["cuda"] == tokens["cpu"] if "cuda" in tokens else None
+    print(f"[4c parity] f32 weights, 2 x 64 tokens + 8 new: card "
+          f"{tokens.get(dev.type)} cpu {tokens['cpu']} equal {same}")
+    if dev.type == "cuda" and not same:
+        raise AssertionError("card and CPU tokens differ on the short wave")
+    return {"launches": launches, "waves": waves, "gen_s": gen_s,
+            "tokens": n_tok}
+
+
+def lm_profile(dev, cfg, model, steps: int = 16) -> None:
+    """Where a decode step's time goes: the first wave prefilled, then
+    ``steps`` decode steps timed on the host clock, and as many more under
+    ``torch.profiler`` for the device time by kernel.  The idle share is
+    taken against the unprofiled steps' wall clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    wave = lm_requests(cfg.vocab)[:LM_LANES]
+    S = max(len(r.prompt) for r in wave)
+    toks = np.zeros((len(wave), S), np.int32)
+    for j, r in enumerate(wave):
+        toks[j, S - len(r.prompt):] = r.prompt
+    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(toks).to(
+        dev)}, LM_MAX_LEN)
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    def step():
+        nonlocal cache, cur
+        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in on_card) / 1e3 / steps
+    attn = sum(dev_us(e) for e in on_card
+               if "decode_attention_kernel" in e.key) / 1e3 / steps
+    launches = sum(e.count for e in events
+                   if e.key == "cudaLaunchKernel") / steps
+    print(f"[4c profile] decode step at context {S + 1}-{S + 2 * steps + 1}"
+          f", {LM_LANES} lanes: wall {1e3 * wall:.4f} ms a step; device "
+          f"busy {busy:.4f} ms (idle share {1 - busy / (1e3 * wall):.4f}), "
+          f"decode_attention {attn:.4f} ms ({attn / max(busy, 1e-9):.4f} of "
+          f"busy); "
+          f"{launches:.1f} kernel launches a step")
+    for e in sorted(on_card, key=dev_us, reverse=True)[:8]:
+        print(f"[4c profile]   {dev_us(e) / 1e3 / steps:9.4f} ms a step  "
+              f"x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def lm_machine_phase(dev, cfg, model) -> dict:
+    """Phase 4d: ``score_pairs_with_lm`` over the product dataset, checked
+    against the plain ``pair_scores_ref`` on the same embeddings, then the
+    example's blend + threshold through ``JoinService``."""
+    import torch
+
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.core.pairs import PairSet
+    from repro_torch.data.entities import make_product_dataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.pair_scores.ref import pair_scores_ref
+    from repro_torch.serve import engine
+    from repro_torch.serve.join_service import JoinService
+
+    n_a, n_b = LM_SIDES
+    ds = make_product_dataset(n_a=n_a, n_b=n_b)
+    texts_a, texts_b = ds.records[:n_a], ds.records[n_a:]
+    spent = {"embed": 0.0, "score": 0.0}
+    embeds: list = []
+    embed_records, pair_scores = engine.embed_records, engine.pair_scores
+
+    def timed(fn, key, keep=None):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            if keep is not None:
+                keep.append(out)
+            return out
+        return call
+
+    fa_ops.flash_attention.launches = 0
+    ps_ops.pair_scores.launches = 0
+    engine.embed_records = timed(embed_records, "embed", embeds)
+    engine.pair_scores = timed(pair_scores, "score")
+    try:
+        lik = engine.score_pairs_with_lm(cfg, model, texts_a, texts_b)
+    finally:
+        engine.embed_records, engine.pair_scores = embed_records, pair_scores
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "pair_scores": ps_ops.pair_scores.launches}
+    ea, eb = embeds
+    s_ref, _ = pair_scores_ref(ps_ops.l2_normalize(ea),
+                               ps_ops.l2_normalize(eb), -1.0)
+    err = float(np.abs(lik - ((s_ref + 1.0) / 2.0).cpu().numpy()).max())
+    n_batches = -(-n_a // LM_EMBED_BATCH) + -(-n_b // LM_EMBED_BATCH)
+    print(f"[4d machine phase] {n_a} x {n_b} records, {n_batches} backbone "
+          f"batches, embeddings {tuple(ea.shape)} x {tuple(eb.shape)}: embed "
+          f"{spent['embed']:.4f} s, pair_scores {spent['score']:.4f} s; "
+          f"likelihood {float(lik.min()):.4f}-{float(lik.max()):.4f}, "
+          f"max|d| against pair_scores_ref {err:.3e}; launches {launches}")
+    expected = {"flash_attention": cfg.n_layers * n_batches, "pair_scores": 1}
+    if lik.shape != (n_a, n_b) or not np.isfinite(lik).all() \
+            or not err <= 1e-5 or launches != expected:
+        raise AssertionError(f"LM machine phase: shape {lik.shape}, error "
+                             f"{err}, launches {launches} (expected "
+                             f"{expected})")
+
+    # the example's blend with a calibrated base, then the join
+    ents_a, ents_b = ds.entity_of[:n_a], ds.entity_of[n_a:]
+    iu, ju = np.meshgrid(np.arange(n_a), np.arange(n_b), indexing="ij")
+    truth = ents_a[iu] == ents_b[ju]
+    base = np.zeros((n_a, n_b), np.float32)
+    rng = np.random.default_rng(0)
+    base[truth] = rng.beta(3.2, 2.2, size=int(truth.sum()))
+    base[~truth] = rng.beta(1.0, 16.0, size=int((~truth).sum()))
+    blend = 0.3 * lik + 0.7 * base
+    keep = blend >= LM_JOIN_TAU
+    cand = PairSet(iu[keep].astype(np.int32),
+                   (ju[keep] + n_a).astype(np.int32),
+                   blend[keep].astype(np.float32), truth[keep],
+                   n_objects=n_a + n_b)
+    t0 = time.perf_counter()
+    svc = JoinService(lanes=1, device=dev)
+    rid = svc.submit(cand, PerfectCrowd(),
+                     total_true_matches=int(truth.sum()))
+    res = svc.run()[rid]
+    join_s = time.perf_counter() - t0
+    q = res.quality
+    print(f"[4d join] {len(cand)} candidates above {LM_JOIN_TAU} "
+          f"({int(cand.truth.sum())} true of {int(truth.sum())}): "
+          f"crowdsourced {res.n_crowdsourced} deduced {res.n_deduced} rounds "
+          f"{res.n_rounds} precision {q.precision:.6f} recall "
+          f"{q.recall:.6f} join {join_s:.4f} s")
+    if res.n_crowdsourced + res.n_deduced != len(cand) \
+            or q.precision != 1.0 \
+            or not transitively_consistent(cand, res.labels):
+        raise AssertionError("the LM machine phase's join result is wrong")
+    return {"launches": launches, "err": err, "embeds": (ea, eb)}
+
+
 def main() -> int:
     import torch
 
@@ -629,6 +1028,30 @@ def run(dev) -> None:
                              "kernel on a dense tiling")
     del a16, b16, full, part, tiled, dense
 
+    # flash_attention and decode_attention at the LM paths' shapes
+    lm_cfg = lm_config()
+    H, K, hd = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.hd
+    S0 = max(len(r.prompt) for r in lm_requests(lm_cfg.vocab)[:LM_LANES])
+    fa_err, fa_args = check_flash(dev, LM_LANES, S0, H, K, hd, torch.bfloat16)
+    check_flash(dev, LM_LANES, S0, H, K, hd, torch.float32)
+    for B in embed_batches():
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash(dev, B, LM_EMBED_LEN, H, K, hd, dtype)
+    for shape in FLASH_GQA_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash(dev, *shape, dtype)
+    da_err, da_args = 0.0, None
+    for length in DECODE_LENGTHS:
+        err, args = check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, length,
+                                 torch.bfloat16, torch.bfloat16)
+        da_err = max(da_err, err)
+        if length == LM_MAX_LEN:
+            da_args = args
+        check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, length,
+                     torch.float32, torch.float32)
+    check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, DECODE_LENGTHS[1],
+                 torch.float32, torch.bfloat16)
+
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
     ud_ops.union_deduce.launches = 0
@@ -673,6 +1096,22 @@ def run(dev) -> None:
     # -- 4b. the blocked main path -------------------------------------------
     blocked_launches = blocked_main_path(dev, blocked_corpora, cfg)
 
+    # -- 4c. the LM serving path ---------------------------------------------
+    from repro_torch.models.model import init_params, n_params
+
+    lm_model = init_params(lm_cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    print(f"[4c model] {lm_cfg.name}: {lm_cfg.n_layers} layers, d_model "
+          f"{lm_cfg.d_model}, {H} heads / {K} kv heads of {hd}, d_ff "
+          f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab}, {n_params(lm_cfg)} bf16 "
+          f"parameters")
+    serving = lm_serving_path(dev, lm_cfg, lm_model)
+    lm_profile(dev, lm_cfg, lm_model)
+
+    # -- 4d. the LM machine phase into the join ------------------------------
+    machine = lm_machine_phase(dev, lm_cfg, lm_model)
+    del lm_model
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -698,6 +1137,36 @@ def run(dev) -> None:
     cs_flops = 2 * chunk * bn * bm * DIM
     cs_bytes = chunk * (bn + bm) * (4 * DIM + 4) + 12 * min(n_chunk, c_call)
 
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+
+    # flash at the first wave's prefill shape; causal FLOPs (QK^T and PV)
+    fq, fk, fv = fa_args
+    fa_B, fa_S = fq.shape[:2]
+    fa_flops = 4 * fa_B * H * hd * fa_S * (fa_S + 1) // 2
+    fa_bytes = fq.element_size() * (2 * fq.numel() + fk.numel() + fv.numel())
+    # decode at length LM_MAX_LEN: k and v up to length, q and o
+    dq, dk, dv, dn = da_args
+    da_len = int(dn)
+    da_bytes = dk.element_size() * 2 * LM_LANES * da_len * K * hd \
+        + 2 * dq.numel() * dq.element_size()
+    da_flops = 4 * LM_LANES * H * hd * da_len
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    da_mask = (torch.arange(dk.shape[1], device=dev) < da_len)[None, None,
+                                                                None]
+
+    def bound(flops, nbytes, dtype):
+        """The least time at the peak rate for the inputs' type."""
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), \
+            "operations" if t_ops > t_bytes else "bytes"
+
+    fa_bound, fa_by = bound(fa_flops, fa_bytes, fq.dtype)
+    da_bound, da_by = bound(da_flops, da_bytes, dq.dtype)
+
     def library_pair_scores():
         s = torch.matmul(a, b.T)
         return torch.where(s >= THRESHOLD, s, 0.0)
@@ -706,7 +1175,11 @@ def run(dev) -> None:
         {"name": "pair_scores", "route": "cuda",
          "source": "src/repro_torch/csrc/pair_scores.cu",
          "replaces": "src/repro/kernels/pair_scores/kernel.py:62",
-         "launches": launches["pair_scores"], "max_abs_err": ps_err,
+         "launches": launches["pair_scores"],
+         "launches_by_path": {
+             "dense": launches["pair_scores"],
+             "lm_machine_phase": machine["launches"]["pair_scores"]},
+         "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
          "plain_ms": cuda_ms(lambda: pair_scores_ref(*ps_args, THRESHOLD)),
@@ -739,6 +1212,31 @@ def run(dev) -> None:
          "plain_ms": cuda_ms(lambda: union_deduce_ref(*screen_args), 5),
          "bound_ms": 1e3 * ud_bytes / PEAK_BYTES_PER_S,
          "bound_by": "bytes", "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "launches": serving["launches"]["flash_attention"],
+         "launches_by_path": {
+             "lm_serving": serving["launches"]["flash_attention"],
+             "lm_machine_phase": machine["launches"]["flash_attention"]},
+         "max_abs_err": fa_err,
+         "ms": cuda_ms(lambda: fa_kernel.flash_attention(fq, fk, fv)),
+         "plain_ms": cuda_ms(lambda: mha_causal_ref(fq, fk, fv), 5),
+         "bound_ms": fa_bound, "bound_by": fa_by,
+         "library_ms": cuda_ms(lambda: sdpa(
+             fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
+             is_causal=True, enable_gqa=True))},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+         "launches": serving["launches"]["decode_attention"],
+         "max_abs_err": da_err,
+         "ms": cuda_ms(lambda: da_kernel.decode_attention(dq, dk, dv, dn)),
+         "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
+         "bound_ms": da_bound, "bound_by": da_by,
+         "library_ms": cuda_ms(lambda: sdpa(
+             dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+             attn_mask=da_mask, enable_gqa=True))},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

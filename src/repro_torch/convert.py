@@ -1,19 +1,21 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
-The JAX package holds no weights: its state is the embeddings and the
-``SessionState`` pytree.  These functions move both across, so the two
-engines can start from the same mid-run state (the parity tests) and a
-session captured on one side can continue on the other.
+The join side's state is the embeddings and the ``SessionState`` pytree;
+the LM scorer's is the model's parameter pytree.  These functions move them
+across, so the two packages can start from the same state (the parity
+tests) and what one side captured can continue on the other.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import KEY_DTYPE, SessionState
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model, model_specs
 
 _DTYPES = {"u": torch.int32, "v": torch.int32, "labels": torch.int32,
            "published": torch.bool, "roots": torch.int32,
@@ -50,3 +52,33 @@ def embeddings_from_numpy(x: np.ndarray, device: DeviceLike = None
     """An (N, D) embedding table on the port's device, keeping its dtype
     (bf16 tables arrive as float32 numpy and are cast by the caller)."""
     return torch.tensor(np.asarray(x), device=pick_device(device))
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_flatten(val, path + "/"))
+        else:
+            out[path] = val
+    return out
+
+
+def model_params_from_numpy(cfg: ModelConfig, params: Dict[str, Any],
+                            device: DeviceLike = None) -> Model:
+    """The port's :class:`Model` from the JAX package's nested parameter
+    dict (``embed/table``, ``layers/{ln1,ln2}/scale``,
+    ``layers/attn/{wq,wk,wv,wo}``, ``layers/mlp/{wi_gate,wi_up,wo}``,
+    ``final_norm/scale``, ``lm_head/w``; the layer axis leading) as numpy
+    arrays, every tensor in its ``ParamSpec`` dtype on ``device``.  numpy
+    has no bf16: pass bf16 leaves as ``np.asarray(x, np.float32)``, which is
+    exact, and the cast back to bf16 here is exact too.  Raises ValueError
+    on a missing, unexpected or misshaped leaf (:class:`Model` checks)."""
+    dev = pick_device(device)
+    specs = model_specs(cfg)
+    flat = _flatten(params)
+    return Model(cfg, {
+        path: torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=dev, dtype=specs[path].dtype if path in specs else None)
+        for path, arr in flat.items()})

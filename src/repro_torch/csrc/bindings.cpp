@@ -24,7 +24,21 @@ extern "C" cudaError_t union_deduce_launch(
     int* table, int B, int n, int P, int table_size, int max_trips,
     cudaStream_t stream);
 
+extern "C" cudaError_t flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    int S, int H, int K, int d, const long long* strides, float scale,
+    cudaStream_t stream);
+
+extern "C" cudaError_t decode_attention_launch(
+    const void* q, const void* kc, const void* vc, const int* length, void* o,
+    int q_dtype, int kv_dtype, int B, int S, int H, int K, int d,
+    const long long* strides, float scale, cudaStream_t stream);
+
 namespace {
+
+int dtype_code(const torch::Tensor& x) {
+  return x.scalar_type() == torch::kBFloat16 ? 1 : 0;
+}
 
 void pair_scores(const torch::Tensor& a, const torch::Tensor& b,
                  const torch::Tensor& scores,
@@ -74,6 +88,43 @@ void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, const torch::Tensor& o,
+                     double scale) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  const long long strides[12] = {
+      q.stride(0), q.stride(1), q.stride(2), k.stride(0),
+      k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+      v.stride(2), o.stride(0), o.stride(1), o.stride(2)};
+  C10_CUDA_CHECK(flash_attention_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dtype_code(q),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), strides, static_cast<float>(scale),
+      stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
+                      const torch::Tensor& v_cache,
+                      const torch::Tensor& length, const torch::Tensor& o,
+                      double scale) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  const long long strides[10] = {
+      q.stride(0),       q.stride(1),       k_cache.stride(0),
+      k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
+      v_cache.stride(1), v_cache.stride(2), o.stride(0),
+      o.stride(1)};
+  C10_CUDA_CHECK(decode_attention_launch(
+      q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+      length.data_ptr<int>(), o.data_ptr(), dtype_code(q),
+      dtype_code(k_cache), static_cast<int>(q.size(0)),
+      static_cast<int>(k_cache.size(1)), static_cast<int>(q.size(1)),
+      static_cast<int>(k_cache.size(2)), static_cast<int>(q.size(2)),
+      strides, static_cast<float>(scale), stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -81,4 +132,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pair_scores_compact", &pair_scores_compact,
         "thresholded pair scores compacted over gathered tiles (CUDA)");
   m.def("union_deduce", &union_deduce, "fused union + deduce (CUDA)");
+  m.def("flash_attention", &flash_attention,
+        "causal GQA flash attention (CUDA)");
+  m.def("decode_attention", &decode_attention,
+        "one-token attention over a KV cache (CUDA)");
 }

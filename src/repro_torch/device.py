@@ -4,7 +4,8 @@ Every entry point of :mod:`repro_torch` takes a ``device`` argument and runs
 on the card unless the caller asks for ``"cpu"`` (which the tests do).  TF32
 stays off: it keeps about three decimal digits of each f32 product, enough
 to move a cosine score across the candidate threshold and so change the
-candidate set.
+candidate set.  bf16 matrix products accumulate in f32 without reduced
+precision reductions, as XLA's do.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def set_precision() -> None:
-    """Full-f32 matrix products and convolutions (TF32 off)."""
+    """Full-f32 matrix products and convolutions (TF32 off); bf16 products
+    reduce in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def pick_device(device: DeviceLike = None) -> torch.device:

@@ -14,7 +14,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("bindings.cpp", "pair_scores.cu", "pair_scores_compact.cu",
-            "union_deduce.cu")
+            "union_deduce.cu", "flash_attention.cu", "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 

@@ -1,0 +1,25 @@
+"""Public wrapper of causal GQA attention: the CUDA kernel for CUDA tensors,
+the plain version for CPU tensors, and an error for anything else."""
+from __future__ import annotations
+
+import torch
+
+from . import kernel
+from .ref import mha_causal_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal attention.  q: (B, S, H, d); k, v: (B, S, K, d) with H % K ==
+    0; returns (B, S, H, d) in q's dtype, f32 inside.  No ``impl=``: CPU
+    tensors take :func:`.ref.mha_causal_ref`, CUDA tensors the kernel (any
+    S; d of 32, 64 or 128; f32 or bf16), which raises on what it does not
+    take.  ``flash_attention.launches`` counts kernel launches."""
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        return mha_causal_ref(q, k, v)
+    o = kernel.flash_attention(q, k, v)
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -12,7 +12,12 @@ allowed to differ only within 1e-5 of the threshold; bf16 inputs within
 2e-2.  ``pair_scores_compact`` against its plain version (``torch.bmm``) the
 same way, with the candidates' order identical; against the dense kernel bit
 for bit (the two share one mainloop).  ``union_deduce`` and the service: bit
-for bit.
+for bit.  ``flash_attention`` within 2e-5 and ``decode_attention`` within
+1e-5 of their plain versions in f32 (sums in another order); in bf16 each
+element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
+and round once to bf16, one ulp being at most 2**-7 of the value).  The LM
+engine on the card gives the same greedy tokens as on the CPU under f32
+weights.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,15 @@ from repro_torch.kernels.pair_scores import ops as ps_ops
 from repro_torch.kernels.pair_scores.ref import (pair_scores_compact_ref,
                                                  pair_scores_ref)
 from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+from repro_torch.configs import get
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+from repro_torch.models.model import init_params
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
 from repro_torch.kernels.union_deduce.ref import union_deduce_ref
 from repro_torch.serve.join_service import JoinService
@@ -234,3 +248,114 @@ def test_service_on_card_matches_cpu(dev):
         assert card.round_sizes == cpu.round_sizes
         assert (card.fold_rounds, card.n_spent_cents, card.quality) == \
             (cpu.fold_rounds, cpu.n_spent_cents, cpu.quality)
+
+
+# f32 outputs within an absolute tolerance: sums in another order.  bf16
+# outputs within one bf16 ulp of the expected value (8 significant bits: at
+# most 2**-7 of it) plus 1e-4: both sides sum in f32 and round once to bf16.
+ATTN_TOL_F32 = {"flash": 2e-5, "decode": 1e-5}
+
+
+def _assert_attn_close(got, exp, which):
+    if exp.dtype == torch.bfloat16:
+        diff = (got.float() - exp.float()).abs()
+        limit = 2.0 ** -7 * exp.float().abs() + 1e-4
+        assert bool((diff <= limit).all()), \
+            f"max |d| {float(diff.max())}, worst {float((diff / limit).max())}"
+    else:
+        torch.testing.assert_close(got.float(), exp.float(), rtol=0,
+                                   atol=ATTN_TOL_F32[which])
+
+
+def _randn(dev, shape, dtype, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dev, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,K,d", [
+    (8, 1491, 12, 12, 64),     # paper-scorer's first prefill wave
+    (2, 2048, 32, 8, 64),      # granite-3-2b's head layout
+    (1, 2048, 64, 8, 128),     # deepseek-67b's head layout
+    (3, 200, 6, 2, 32),        # ragged S, the reduced configs' head dim
+    (2, 1, 4, 1, 64),          # one token
+    (1, 65, 2, 2, 128),        # one row past a 64-row tile
+    (32, 32, 12, 12, 64),      # score_pairs_with_lm's record batches
+    (25, 32, 12, 12, 64),
+    (4, 32, 12, 12, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, d, dtype):
+    q = _randn(dev, (B, S, H, d), dtype, S)
+    k = _randn(dev, (B, S, K, d), dtype, S + 1)
+    v = _randn(dev, (B, S, K, d), dtype, S + 2)
+    launches = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v)
+    assert fa_ops.flash_attention.launches == launches + 1
+    exp = mha_causal_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, d)
+    _assert_attn_close(got, exp, "flash")
+
+
+def test_flash_attention_kernel_reads_strided_inputs(dev):
+    """q, k and v as views of one fused projection, as strides allow."""
+    qkv = _randn(dev, (2, 300, 8, 64), torch.float32, 3)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, exp, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,K,d,length", [
+    (8, 2048, 12, 12, 64, 1),
+    (8, 2048, 12, 12, 64, 1337),
+    (8, 2048, 12, 12, 64, 2048),
+    (2, 300, 32, 2, 128, 299),      # 16 query heads a kv head
+    (3, 77, 8, 2, 32, 77),          # S not a multiple of the 64-row tile
+])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16)],
+                         ids=["f32", "bf16", "f32-over-bf16"])
+def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, d, length,
+                                               dtypes):
+    q_dt, kv_dt = dtypes
+    q = _randn(dev, (B, H, d), q_dt, length)
+    kc = _randn(dev, (B, S, K, d), kv_dt, length + 1)
+    vc = _randn(dev, (B, S, K, d), kv_dt, length + 2)
+    kc[:, length:] = 1e4      # past length: must not reach any sum
+    vc[:, length:] = -1e4
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    launches = da_ops.decode_attention.launches
+    got = da_ops.decode_attention(q, kc, vc, n)
+    assert da_ops.decode_attention.launches == launches + 1
+    exp = decode_attention_ref(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+def test_decode_attention_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 4, 48, device=dev)
+    kc = torch.zeros(1, 8, 2, 48, device=dev)
+    n = torch.tensor(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head"):
+        da_kernel.decode_attention(q, kc, kc, n)
+    with pytest.raises(ValueError, match="dtypes"):
+        da_kernel.decode_attention(q[..., :32].bfloat16(),
+                                   kc[..., :32].float(), kc[..., :32].float(),
+                                   n)
+
+
+def test_lm_engine_on_card_matches_cpu(dev):
+    cfg = get("paper-scorer").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").float()
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                max_new_tokens=8) for i in range(5)]
+    card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(
+        device=dev, dtype=torch.float32)
+    out = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
+           for m in (card, model)]
+    assert out[0] == out[1]

@@ -5,8 +5,8 @@
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
   CUDA kernel and raises there when no CUDA device can take them — it never
-  computes the plain version instead — and the service's default device is
-  the card.
+  computes the plain version instead — and the entry points' default device
+  (the join service's, the model's, the LM launcher's) is the card.
 """
 import ast
 from pathlib import Path
@@ -40,6 +40,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.pair_scores import kernel as ps_kernel
     from repro_torch.kernels.pair_scores import ops as ps_ops
     from repro_torch.kernels.union_deduce import kernel as ud_kernel
@@ -51,6 +55,8 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
     monkeypatch.setattr(ps_ops, "pair_scores_ref", no_plain)
     monkeypatch.setattr(ps_ops, "pair_scores_compact_ref", no_plain)
     monkeypatch.setattr(ud_ops, "union_deduce_ref", no_plain)
+    monkeypatch.setattr(fa_ops, "mha_causal_ref", no_plain)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", no_plain)
     monkeypatch.setattr(_build, "extension", no_plain)
     meta = torch.device("meta")
     a = torch.empty(128, 16, device=meta)
@@ -63,6 +69,14 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
     pairs = torch.empty(1, 4, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
         ud_ops.union_deduce(forest, pairs, pairs, pairs.bool(), pairs, 8)
+    q = torch.empty(2, 64, 4, 64, device=meta)
+    kv = torch.empty(2, 64, 2, 64, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.flash_attention(q, kv, kv)
+    for length in (5, torch.tensor(5, dtype=torch.int32),
+                   torch.empty((), dtype=torch.int32, device=meta)):
+        with pytest.raises(ValueError, match="CUDA"):
+            da_ops.decode_attention(q[:, 0], kv, kv, length)
     # the kernels themselves refuse CPU tensors rather than compute
     with pytest.raises(ValueError, match="CUDA"):
         ps_kernel.pair_scores(torch.zeros(128, 16), torch.zeros(128, 16),
@@ -78,14 +92,28 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
                                torch.zeros(1, 4, dtype=torch.int32),
                                torch.zeros(1, 4, dtype=torch.bool),
                                torch.zeros(1, 4, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(torch.zeros(1, 8, 2, 64),
+                                  torch.zeros(1, 8, 2, 64),
+                                  torch.zeros(1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        da_kernel.decode_attention(torch.zeros(1, 2, 64),
+                                   torch.zeros(1, 8, 2, 64),
+                                   torch.zeros(1, 8, 2, 64),
+                                   torch.tensor(3, dtype=torch.int32))
+    assert fa_ops.flash_attention.launches == 0
+    assert da_ops.decode_attention.launches == 0
     assert ps_ops.pair_scores.launches == 0
     assert ps_ops.pair_scores_compact.launches == 0
     assert ud_ops.union_deduce.launches == 0
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.configs import get
     from repro_torch.core.graph import make_session_state
     from repro_torch.device import pick_device
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.model import init_params, make_cache
     from repro_torch.serve.join_service import JoinService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -95,6 +123,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         JoinService()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_session_state([0], [1], 2)
+    cfg = get("paper-scorer").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main([])
     assert pick_device("cpu") == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not \
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
