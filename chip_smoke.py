@@ -20,7 +20,10 @@ carries on.  Phases, one output line or block each:
    ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
    at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
    granite-3-2b's (2, 2048, 32 / 8, 64) and deepseek-67b's (1, 2048, 64 /
-   8, 128) head layouts; ``decode_attention`` at (8, 12, 64) against an (8,
+   8, 128) head layouts, bf16 on the tensor-core kernel and f32 on the SIMT
+   one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
+   loads (``UTMALDG``), counted on a line of their own;
+   ``decode_attention`` at (8, 12, 64) against an (8,
    2048, 12, 64) cache at lengths 1, 1337 and 2048, and an f32 query over a
    bf16 cache (the f32-weight run of phase 4c).  f32 outputs within 2e-5
    (flash) and 1e-5 (decode): sums in another order.  bf16 outputs within
@@ -116,6 +119,10 @@ DECODE_LENGTHS = (1, 1337, 2048)
 # (2**-7 relative at most) plus an absolute floor for the f32 sums' order
 ATTN_TOL_F32 = {"flash": 2e-5, "decode": 1e-5}
 ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
+# flash_attention at (8, 1491, 12, 64) bf16 before the tensor-core kernel:
+# the SIMT kernel's time recorded in PERF.md section 6, row 4 (H100 80GB
+# HBM3, 700 W). Printed as a recorded figure, never as a measurement.
+FLASH_MS_BEFORE = 1.4197
 # peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -907,7 +914,7 @@ def run(dev) -> None:
     from repro_torch.core.pairs import PairSet
     from repro_torch.convert import embeddings_from_numpy
     from repro_torch.device import set_precision
-    from repro_torch.kernels._build import extension
+    from repro_torch.kernels._build import extension, sass
     from repro_torch.kernels.pair_scores import blocking
     from repro_torch.kernels.pair_scores import kernel as ps_kernel
     from repro_torch.kernels.pair_scores import ops as ps_ops
@@ -1040,6 +1047,12 @@ def run(dev) -> None:
     for shape in FLASH_GQA_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             check_flash(dev, *shape, dtype)
+    fa_sass = sass("flash_attention_bf16_kernel")
+    ops = {op: fa_sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"[3 flash_attention] bf16 kernel SASS (cuobjdump): "
+          f"{ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
+    if not ops["HGMMA"] or not ops["UTMALDG"]:
+        raise AssertionError("the bf16 flash kernel runs no wgmma or no TMA")
     da_err, da_args = 0.0, None
     for length in DECODE_LENGTHS:
         err, args = check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, length,
@@ -1213,7 +1226,8 @@ def run(dev) -> None:
          "bound_ms": 1e3 * ud_bytes / PEAK_BYTES_PER_S,
          "bound_by": "bytes", "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+         "source_f32": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
          "launches": serving["launches"]["flash_attention"],
          "launches_by_path": {
@@ -1238,6 +1252,9 @@ def run(dev) -> None:
              dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
              attn_mask=da_mask, enable_gqa=True))},
     ]
+    print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
+          f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
+          f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,9 +25,12 @@ extern "C" cudaError_t union_deduce_launch(
     cudaStream_t stream);
 
 extern "C" cudaError_t flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int K, int d, const long long* strides, float scale,
-    cudaStream_t stream);
+    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    int K, int d, const long long* strides, float scale, cudaStream_t stream);
+
+extern "C" cudaError_t flash_attention_bf16_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    int K, int d, const long long* strides, float scale, cudaStream_t stream);
 
 extern "C" cudaError_t decode_attention_launch(
     const void* q, const void* kc, const void* vc, const int* length, void* o,
@@ -88,21 +91,41 @@ void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
-                     const torch::Tensor& v, const torch::Tensor& o,
-                     double scale) {
+// Both flash kernels take (q, k, v, o, B, S, H, K, d, 12 element strides
+// of q, k, v, o, scale, stream); the Python wrapper picks one by dtype.
+using FlashLaunch = cudaError_t (*)(const void*, const void*, const void*,
+                                    void*, int, int, int, int, int,
+                                    const long long*, float, cudaStream_t);
+
+void flash(FlashLaunch launch, const torch::Tensor& q,
+           const torch::Tensor& k, const torch::Tensor& v,
+           const torch::Tensor& o, double scale) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   const long long strides[12] = {
       q.stride(0), q.stride(1), q.stride(2), k.stride(0),
       k.stride(1), k.stride(2), v.stride(0), v.stride(1),
       v.stride(2), o.stride(0), o.stride(1), o.stride(2)};
-  C10_CUDA_CHECK(flash_attention_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dtype_code(q),
+  C10_CUDA_CHECK(launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
       static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
       static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
       static_cast<int>(q.size(3)), strides, static_cast<float>(scale),
       stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// f32: the SIMT kernel of flash_attention.cu.
+void flash_attention_f32(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         double scale) {
+  flash(flash_attention_launch, q, k, v, o, scale);
+}
+
+// bf16: the tensor-core kernel of flash_attention_wgmma.cu.
+void flash_attention_bf16(const torch::Tensor& q, const torch::Tensor& k,
+                          const torch::Tensor& v, const torch::Tensor& o,
+                          double scale) {
+  flash(flash_attention_bf16_launch, q, k, v, o, scale);
 }
 
 void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
@@ -132,8 +155,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pair_scores_compact", &pair_scores_compact,
         "thresholded pair scores compacted over gathered tiles (CUDA)");
   m.def("union_deduce", &union_deduce, "fused union + deduce (CUDA)");
-  m.def("flash_attention", &flash_attention,
-        "causal GQA flash attention (CUDA)");
+  m.def("flash_attention_f32", &flash_attention_f32,
+        "causal GQA flash attention, f32, SIMT (CUDA)");
+  m.def("flash_attention_bf16", &flash_attention_bf16,
+        "causal GQA flash attention, bf16, TMA + wgmma (CUDA)");
   m.def("decode_attention", &decode_attention,
         "one-token attention over a KV cache (CUDA)");
 }

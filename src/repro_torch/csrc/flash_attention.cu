@@ -1,34 +1,35 @@
-// Causal GQA flash attention, hand-written for Hopper (sm_90a).
+// Causal GQA flash attention for f32 inputs, SIMT, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention, pallas_call at :92).  It computes what that kernel
-// computes: q (B,S,H,d) against k, v (B,S,K,d), head h reading kv head
-// h / (H/K); q is scaled by 1/sqrt(d) before the dot; running max,
-// denominator and accumulator in f32 (online softmax, masked scores at
-// -1e30); kv tiles past the diagonal are skipped; out = acc / l in q's dtype.
+// (flash_attention, pallas_call at :92) for f32 q, k and v; bf16 inputs
+// take the tensor-core kernel of flash_attention_wgmma.cu, and the Python
+// wrapper (repro_torch/kernels/flash_attention/kernel.py) dispatches between
+// the two on dtype.  It computes what the Pallas kernel computes: q
+// (B,S,H,d) against k, v (B,S,K,d), head h reading kv head h / (H/K); q is
+// scaled by 1/sqrt(d) before the dot; running max, denominator and
+// accumulator in f32 (online softmax, masked scores at -1e30); kv tiles past
+// the diagonal are skipped; out = acc / l.
 //
-// Design (a simple first kernel: SIMT f32 FMAs, no tensor cores, no TMA).
-// One block of 256 threads per (64-row q tile, batch * head).  The q tile
-// and each 64-row k and v tile are staged in shared memory as f32 (rows
-// padded by one float so column walks across rows are conflict-free).  A
-// thread computes a 4 x 4 patch of the 64 x 64 score tile; four threads
-// share each row for its max and sum (warp shuffles) and keep the row's
-// running max and denominator in registers; a thread accumulates a 4 x d/16
-// patch of the output in registers.  The loop over kv tiles stops at the
-// diagonal; inside the diagonal tile a per-element mask qpos >= kpos
-// applies.  Any S works: rows past S are zero-filled on load and never
-// written.  The tensors are read in place through their strides (the last
-// dimension contiguous); no (B*K, G, S, d) transposes as in the Pallas
-// wrapper.  Blocks take the q tiles longest-first.
+// Design (SIMT f32 FMAs: the f32 path keeps full f32 products, which the
+// tensor cores would round to TF32).  One block of 256 threads per (64-row
+// q tile, batch * head).  The q tile and each 64-row k and v tile are
+// staged in shared memory (rows padded by one float so column walks across
+// rows are conflict-free).  A thread computes a 4 x 4 patch of the 64 x 64
+// score tile; four threads share each row for its max and sum (warp
+// shuffles) and keep the row's running max and denominator in registers; a
+// thread accumulates a 4 x d/16 patch of the output in registers.  The loop
+// over kv tiles stops at the diagonal; inside the diagonal tile a
+// per-element mask qpos >= kpos applies.  Any S works: rows past S are
+// zero-filled on load and never written.  The tensors are read in place
+// through their strides (the last dimension contiguous).  Blocks take the q
+// tiles longest-first.
 //
-// Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the peak rate
-// of the inputs' type (bf16 on the tensor cores, 989 TFLOP/s on an H100
-// SXM: about 0.029 ms at (8, 1536, 12, 64); f32 outside them, 67 TFLOP/s)
-// against the bytes of q, k, v and o read or written once.  This first
-// kernel runs every product as f32 SIMT FMAs, far from that bound; moving
-// Q.K^T onto the tensor cores is the redesign's work (P.V in bf16 would
-// change the numerics).  See PERF.md for its time.
-#include <cuda_bf16.h>
+// Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the f32 rate
+// outside the tensor cores (67 TFLOP/s on an H100 SXM) against the bytes of
+// q, k, v and o read or written once.  Every product is an FMA from shared
+// memory, so shared-memory bandwidth holds it well below that bound; the
+// f32 path serves parity runs (f32 weights), not the bf16 serving path.
 #include <cuda_runtime.h>
 
 namespace {
@@ -37,15 +38,6 @@ constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // k/v rows per tile
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;   // the Pallas kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Strides {  // in elements: batch, sequence, head of q, k, v and o
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
@@ -58,11 +50,12 @@ constexpr size_t smem_bytes() {
           2 * kBQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int G, Strides st, float scale) {
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int S, int H, int G, Strides st, float scale) {
   constexpr int LD = D + 1;
   constexpr int NC = D / 16;  // output columns a thread holds
   extern __shared__ float smem[];
@@ -78,13 +71,13 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
   const int q0 = qi * kBQ;
   const int tid = threadIdx.x;
-  const T* qb = q + b * st.qb + h * st.qh;
-  const T* kb = k + b * st.kb + kh * st.kh;
-  const T* vb = v + b * st.vb + kh * st.vh;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + kh * st.kh;
+  const float* vb = v + b * st.vb + kh * st.vh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D, pos = q0 + r;
-    qs[r * LD + c] = pos < S ? to_f32(qb[pos * st.qs + c]) * scale : 0.f;
+    qs[r * LD + c] = pos < S ? qb[pos * st.qs + c] * scale : 0.f;
   }
 
   const int ty = tid / 16, tx = tid % 16;  // rows 4ty..4ty+3, cols tx+16j
@@ -102,8 +95,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D, pos = k0 + r;
       const bool in = pos < S;
-      ks[r * LD + c] = in ? to_f32(kb[pos * st.ks + c]) : 0.f;
-      vs[r * LD + c] = in ? to_f32(vb[pos * st.vs + c]) : 0.f;
+      ks[r * LD + c] = in ? kb[pos * st.ks + c] : 0.f;
+      vs[r * LD + c] = in ? vb[pos * st.vs + c] : 0.f;
     }
     __syncthreads();
 
@@ -182,61 +175,50 @@ __global__ void __launch_bounds__(kThreads)
     const int r = 4 * ty + i, pos = q0 + r;
     if (pos >= S) continue;
     const float l = row_l[r];
-    T* orow = o + b * st.ob + pos * st.os + h * st.oh;
+    float* orow = o + b * st.ob + pos * st.os + h * st.oh;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + tx + 16 * c, acc[i][c] / l);
+    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int K, const Strides& st,
                    float scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, H / K, st, scale);
+  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K, st,
+      scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int K, int d, const Strides& st,
-                       float scale, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, K, st, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, K, st, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, K, st, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  strides: 12 element
-// strides (batch, sequence, head) of q, k, v, o; the head dim is contiguous.
+// q, k, v and o f32; strides: 12 element strides (batch, sequence, head) of
+// q, k, v, o; the head dim is contiguous.
 extern "C" cudaError_t flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int K, int d, const long long* strides, float scale,
+    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    int K, int d, const long long* strides, float scale,
     cudaStream_t stream) {
   if (B < 1 || S < 1 || K < 1 || H % K != 0 || B * H > 65535)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, B, S, H, K, d, st, scale, stream);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, H, K, d, st, scale,
-                                     stream);
-  return cudaErrorInvalidValue;
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, o, B, S, H, K, st, scale, stream);
+    case 64:
+      return launch<64>(q, k, v, o, B, S, H, K, st, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, S, H, K, st, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -10,11 +10,13 @@ Nothing here runs at import: the CPU tests import every module.
 from __future__ import annotations
 
 import functools
+import subprocess
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("bindings.cpp", "pair_scores.cu", "pair_scores_compact.cu",
-            "union_deduce.cu", "flash_attention.cu", "decode_attention.cu")
+            "union_deduce.cu", "flash_attention.cu",
+            "flash_attention_wgmma.cu", "decode_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 
@@ -30,5 +32,21 @@ def extension():
         build_directory=str(BUILD_DIR),
         extra_cflags=["-O2"],
         extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
+        extra_ldflags=["-ldl"],   # dlsym of libcuda's tensor-map encoder
         verbose=False,
     )
+
+
+def sass(name: str) -> str:
+    """The SASS of the built extension's kernels whose mangled name contains
+    ``name``, as the CUDA toolkit's ``cuobjdump -sass`` prints it: how a
+    reader can see which instructions (``HGMMA``, ``UTMALDG``) a kernel
+    really runs."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    dump = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+         extension().__file__],
+        capture_output=True, text=True, check=True).stdout
+    return "".join(f for f in dump.split("Function : ")[1:]
+                   if name in f.split("\n", 1)[0])

@@ -12,9 +12,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal attention.  q: (B, S, H, d); k, v: (B, S, K, d) with H % K ==
     0; returns (B, S, H, d) in q's dtype, f32 inside.  No ``impl=``: CPU
-    tensors take :func:`.ref.mha_causal_ref`, CUDA tensors the kernel (any
-    S; d of 32, 64 or 128; f32 or bf16), which raises on what it does not
-    take.  ``flash_attention.launches`` counts kernel launches."""
+    tensors take :func:`.ref.mha_causal_ref`, CUDA tensors the kernels of
+    :func:`.kernel.flash_attention` (any S; d of 32, 64 or 128; bf16 on the
+    tensor cores, f32 SIMT), which raise on what they do not take.
+    ``flash_attention.launches`` counts kernel launches."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return mha_causal_ref(q, k, v)
     o = kernel.flash_attention(q, k, v)

@@ -20,6 +20,7 @@ from repro.kernels.decode_attention.ops import \
 from repro.kernels.flash_attention.ops import \
     flash_attention as jax_flash_attention
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.kernel import tma_misalignment
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import mha_causal_ref
 
@@ -87,6 +88,24 @@ def test_flash_attention_is_causal():
     o2 = flash_attention(q, k2, v2)
     torch.testing.assert_close(o1[:, :120], o2[:, :120], rtol=0, atol=0)
     torch.testing.assert_close(mha_causal_ref(q, k, v), o1, rtol=0, atol=0)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,why", [
+    (lambda: _bf16(2, 8, 4, 64), None),
+    (lambda: _bf16(2, 8, 8, 64)[:, :, 4:6], None),   # a head slice of qkv
+    (lambda: _bf16(1, 8, 2, 72)[..., 1:65], "base address"),
+    (lambda: _bf16(1, 8, 2, 68)[..., :64], "stride of 136 bytes"),
+], ids=["contiguous", "head-slice", "base-off-by-one", "stride-136"])
+def test_flash_kernel_tma_alignment_rule(make, why):
+    """The bf16 kernel's TMA maps need 16-byte bases and batch, sequence and
+    head strides; the wrapper names what breaks the rule before launching
+    (on the card it raises ValueError with this reason)."""
+    got = tma_misalignment(make())
+    assert got == why if why is None else why in got
 
 
 # the reference's sweep, tests/test_kernels.py:202-207

@@ -9,15 +9,16 @@ port is installed.
 Tolerances: ``pair_scores`` within 1e-5 of ``a @ b.T`` (cuBLAS) — f32 sums of
 up to 384 unit-bounded products in another order — with candidate sets
 allowed to differ only within 1e-5 of the threshold; bf16 inputs within
-2e-2.  ``pair_scores_compact`` against its plain version (``torch.bmm``) the
+2e-2; at the join cells' width D = 384 (ROADMAP C7) within the derived
+gamma_D * sum |a_i b_i| of a float64 oracle.  ``pair_scores_compact`` against its plain version (``torch.bmm``) the
 same way, with the candidates' order identical; against the dense kernel bit
 for bit (the two share one mainloop).  ``union_deduce`` and the service: bit
 for bit.  ``flash_attention`` within 2e-5 and ``decode_attention`` within
 1e-5 of their plain versions in f32 (sums in another order); in bf16 each
 element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
-and round once to bf16, one ulp being at most 2**-7 of the value).  The LM
-engine on the card gives the same greedy tokens as on the CPU under f32
-weights.
+and round once to bf16, one ulp being at most 2**-7 of the value): bf16
+runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
+card gives the same greedy tokens as on the CPU under f32 weights.
 """
 import numpy as np
 import pytest
@@ -77,6 +78,45 @@ def test_pair_scores_kernel_matches_plain(dev, N, M, D, dtype):
     torch.testing.assert_close(s[~flips], s_ref[~flips], rtol=0, atol=tol)
     if not flips.any():
         torch.testing.assert_close(c[:, 0], c_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pair_scores_kernel_at_width_384_within_derived_bound(dev, seed):
+    """ROADMAP C7 on the card: clustered f32 embeddings at D = 384 (200 x
+    150 rows of 12 entities, as tests/test_torch_pair_scores.py builds
+    them), normalized on the card, through the CUDA ``pair_scores`` at tau
+    0.8, against a float64 oracle on the same normalized rows.  An f32 dot
+    of length D, in any order, is within gamma_D * sum |a_i b_i| of the
+    exact value (u = 2**-24, gamma_D = D u / (1 - D u)); the f64 oracle's
+    own error is below 1e-13.  The candidate set must equal the oracle's
+    but for pairs within that bound of tau, whose number is reported."""
+    D, tau, u = 384, 0.8, 2.0 ** -24
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(12, D))
+    ia, ib = rng.integers(0, 12, 200), rng.integers(0, 12, 150)
+    a = (cents[ia] + 0.15 * rng.normal(size=(200, D))).astype(np.float32)
+    b = (cents[ib] + 0.15 * rng.normal(size=(150, D))).astype(np.float32)
+    an = ps_ops.l2_normalize(torch.from_numpy(a).to(dev))
+    bn = ps_ops.l2_normalize(torch.from_numpy(b).to(dev))
+    s, c = ps_ops.pair_scores(an, bn, tau, normalize=False)
+    torch.cuda.synchronize()
+    a64 = an.cpu().numpy().astype(np.float64)
+    b64 = bn.cpu().numpy().astype(np.float64)
+    exact = a64 @ b64.T
+    bound = D * u / (1 - D * u) * (np.abs(a64) @ np.abs(b64).T)
+    s = s.cpu().numpy().astype(np.float64)
+    got, want = s != 0, exact >= tau
+    near = np.abs(exact - tau) <= bound
+    assert not (got != want)[~near].any()
+    both = got & want
+    err = np.abs(s - exact)[both]
+    assert both.sum() > 0 and bool((err <= bound[both]).all())
+    print(f"C7 card seed {seed}: {int(both.sum())} candidates, max |d| "
+          f"{err.max():.3e} ({err.max() / 2.0 ** -23:.1f} ulp of 1.0; "
+          f"worst {float((err / bound[both]).max()):.4f} of the bound), "
+          f"{int(near.sum())} pairs within the bound of tau")
+    if not near.any():
+        np.testing.assert_array_equal(c.cpu().numpy()[:, 0], want.sum(1))
 
 
 def _tiles(dev, T, bn, bm, D, dtype, seed):
@@ -304,6 +344,51 @@ def test_flash_attention_kernel_reads_strided_inputs(dev):
     got = fa_kernel.flash_attention(q, k, v)
     exp = mha_causal_ref(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, exp, rtol=0, atol=2e-5)
+
+
+def test_flash_attention_bf16_kernel_reads_strided_inputs(dev):
+    """The bf16 route's TMA maps are built from the views' own strides."""
+    qkv = _randn(dev, (2, 300, 8, 64), torch.bfloat16, 3)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "flash")
+
+
+def test_flash_attention_bf16_kernel_reads_head_major_views(dev):
+    """q, k and v as (B, S, H, d) views of head-major (B, H, S, d) tensors:
+    the sequence stride is smaller than the head stride, and the maps take
+    the strides as they are."""
+    q = _randn(dev, (2, 4, 130, 64), torch.bfloat16, 4).transpose(1, 2)
+    k = _randn(dev, (2, 2, 130, 64), torch.bfloat16, 5).transpose(1, 2)
+    v = _randn(dev, (2, 2, 130, 64), torch.bfloat16, 6).transpose(1, 2)
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "flash")
+
+
+@pytest.mark.parametrize("view", ["base", "stride"])
+def test_flash_attention_bf16_kernel_refuses_unaligned_views(dev, view):
+    """TMA needs 16-byte bases and strides: a view off by one element, or
+    with rows of 68 bf16 (136 bytes), raises instead of loading garbage."""
+    wide = torch.zeros(1, 64, 2, 68 if view == "stride" else 72,
+                       dtype=torch.bfloat16, device=dev)
+    x = wide[..., 1:65] if view == "base" else wide[..., :64]
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        fa_kernel.flash_attention(x, x, x)
+
+
+def test_flash_attention_bf16_kernel_runs_on_tensor_cores(dev):
+    """The bf16 kernel's SASS, read with the toolkit's cuobjdump, holds
+    wgmma (HGMMA) and TMA loads (UTMALDG); the f32 kernel's holds neither."""
+    from repro_torch.kernels._build import sass
+
+    bf16 = sass("flash_attention_bf16_kernel")
+    f32 = sass("flash_attention_kernel")
+    assert bf16.count("HGMMA") > 0 and bf16.count("UTMALDG") > 0
+    assert f32 and "HGMMA" not in f32
 
 
 @pytest.mark.parametrize("B,S,H,K,d,length", [

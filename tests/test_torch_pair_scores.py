@@ -22,7 +22,7 @@ from repro.kernels.pair_scores.ops import pair_scores as jax_pair_scores
 from repro.kernels.pair_scores.sharded import \
     sharded_candidates as jax_sharded_candidates
 from repro.launch.mesh import make_host_mesh
-from repro_torch.kernels.pair_scores.ops import pair_scores
+from repro_torch.kernels.pair_scores.ops import l2_normalize, pair_scores
 from repro_torch.kernels.pair_scores.ref import candidates_ref
 from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 
@@ -117,3 +117,80 @@ def test_sharded_candidates_rejects_bad_threshold_and_mesh():
         sharded_candidates(a, a, 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sharded_candidates(a, a, 0.5, mesh=(2, 1))
+
+
+U32 = 2.0 ** -24       # unit roundoff of f32
+
+
+def gamma(n: int) -> float:
+    """gamma_n = n u / (1 - n u): a length-n f32 dot product, products and
+    sums rounded in any order, is within gamma_n * sum |x_i y_i| of exact."""
+    return n * U32 / (1 - n * U32)
+
+
+def _clustered(seed, n_a=200, n_b=150, d=384, n_ent=12):
+    """Near-duplicate records of 12 entities, as the join-service tests
+    build them, at the main path's width."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(n_ent, d))
+    ia = rng.integers(0, n_ent, n_a)
+    ib = rng.integers(0, n_ent, n_b)
+    a = (cents[ia] + 0.15 * rng.normal(size=(n_a, d))).astype(np.float32)
+    b = (cents[ib] + 0.15 * rng.normal(size=(n_b, d))).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_scores_at_width_384_within_derived_bound(seed, normalize):
+    """ROADMAP C7: the port's ``candidates_ref`` and ``sharded_candidates``
+    against the reference's ``pair_scores(..., impl="interpret")`` at the
+    join cells' width D = 384, on clustered f32 embeddings (200 x 150 rows,
+    tau 0.8).  Candidate sets and counts must be identical.
+
+    The score bound is derived from D, not fitted to the data.  With u =
+    2**-24 and gamma_D = D u / (1 - D u), each side's f32 dot of the same
+    normalized rows a, b is within gamma_D * sum |a_i b_i| of the exact
+    value, and sum |a_i b_i| <= |a| |b| <= (1 + eta)**2 (Cauchy-Schwarz), so
+    from identical normalized inputs the two sides differ by at most
+    2 gamma_D (1 + eta)**2.  Where each side normalizes for itself, a
+    component of its unit row is off by a relative eta = gamma_D / 2 + 3u
+    (the sum of squares by gamma_D, halved by the square root; the root and
+    the division or reciprocal-multiply rounding once or twice each), which
+    moves the exact cosine by at most 2 eta + eta**2; each side is then
+    within gamma_D (1 + eta)**2 + 2 eta + eta**2 of the exact cosine, and
+    the two sides within twice that.  At D = 384: 4.6e-5 (about 384 ulp of
+    1.0) and 9.2e-5."""
+    D, tau = 384, 0.8
+    a, b = _clustered(seed, d=D)
+    if not normalize:
+        a = np.asarray(jax_l2_normalize(jnp.asarray(a)))
+        b = np.asarray(jax_l2_normalize(jnp.asarray(b)))
+    s_ref, c_ref = jax_pair_scores(jnp.asarray(a), jnp.asarray(b), tau,
+                                   normalize=normalize, impl="interpret")
+    s_ref, c_ref = np.asarray(s_ref), np.asarray(c_ref)[:, 0]
+    r_ref, k_ref = np.nonzero(s_ref)
+    assert len(r_ref) > 0
+    g, eta = gamma(D), gamma(D) / 2 + 3 * U32
+    bound = 2 * g * (1 + eta) ** 2
+    if normalize:
+        bound += 2 * (2 * eta + eta ** 2)
+    ta, tb = _t(a), _t(b)
+    an, bn = (l2_normalize(ta), l2_normalize(tb)) if normalize else (ta, tb)
+    rows, cols, scores = candidates_ref(an, bn, tau)
+    np.testing.assert_array_equal(rows.numpy(), r_ref)
+    np.testing.assert_array_equal(cols.numpy(), k_ref)
+    np.testing.assert_array_equal(np.bincount(rows.numpy(), minlength=200),
+                                  c_ref)
+    np.testing.assert_allclose(scores.numpy(), s_ref[r_ref, k_ref], rtol=0,
+                               atol=bound)
+    got = sharded_candidates(ta, tb, tau, mesh=(1, 1), normalize=normalize)
+    np.testing.assert_array_equal(got.rows, r_ref)
+    np.testing.assert_array_equal(got.cols, k_ref)
+    np.testing.assert_allclose(got.scores, s_ref[r_ref, k_ref], rtol=0,
+                               atol=bound)
+    assert got.n_dropped == 0
+    gap = np.abs(got.scores.astype(np.float64) - s_ref[r_ref, k_ref]).max()
+    print(f"C7 cpu seed {seed} normalize {normalize}: {len(r_ref)} "
+          f"candidates, max |d| {gap:.3e} ({gap / ULP_ONE:.1f} ulp of 1.0, "
+          f"{gap / bound:.4f} of the bound {bound:.3e})")
