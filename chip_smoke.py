@@ -16,7 +16,9 @@ carries on.  Phases, one output line or block each:
    (phase 4b): rows and cols equal but for cells within 1e-5 of tau, scores
    within 1e-5, the order identical; through ``dense_block_pairs`` on phase
    4's corpus 0 its candidates equal the dense kernel's bit for bit; at half
-   the capacity it keeps the first half of the list and the true count;
+   the capacity it keeps the first half of the list and the true count; one
+   call over all of session 0's tiles equals its 256-tile chunk calls
+   concatenated, bit for bit; five calls on the chunk agree bit for bit;
    ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
    at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
    granite-3-2b's (2, 2048, 32 / 8, 64) and deepseek-67b's (1, 2048, 64 /
@@ -24,12 +26,14 @@ carries on.  Phases, one output line or block each:
    one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
    loads (``UTMALDG``), counted on a line of their own;
    ``decode_attention`` at (8, 12, 64) against an (8,
-   2048, 12, 64) cache at lengths 1, 1337 and 2048, and an f32 query over a
-   bf16 cache (the f32-weight run of phase 4c).  f32 outputs within 2e-5
-   (flash) and 1e-5 (decode): sums in another order.  bf16 outputs within
-   2**-7 |expected| + 1e-4 element by element: both sides sum in f32 and
-   round once to bf16, whose 8 significant bits put one ulp at most 2**-7
-   of the value;
+   2048, 12, 64) cache at lengths 1, 192, 193, 1337 and 2048 (and at the
+   first split boundary and one past it, as the launch plans them on this
+   card), an f32 query over a bf16 cache (the f32-weight run of phase 4c),
+   and five calls at length 2048 that agree bit for bit.  f32 outputs
+   within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
+   outputs within 2**-7 |expected| + 1e-4 element by element: both sides
+   sum in f32 and round once to bf16, whose 8 significant bits put one ulp
+   at most 2**-7 of the value;
 4. the dense main path: ``JoinService(lanes=4)``, four ``submit_embeddings``
    sessions of (4096, 384) x (4096, 384) f32 embeddings under a
    ``PerfectCrowd``, then ``run()``; every kernel of the path must have
@@ -71,9 +75,11 @@ carries on.  Phases, one output line or block each:
    and transitively consistent;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
-6. a ``{"kernels": [...]}`` line with each kernel's launches on its main
-   path, error, and times beside its bound, its plain version and a library
-   call;
+6. the device time of one ``pair_scores_compact`` and one
+   ``decode_attention`` call by kernel (the compact wrapper's output fills
+   beside its one launch); a ``{"kernels": [...]}`` line with each kernel's
+   launches on its main path, error, and times beside its bound, its plain
+   version and a library call;
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -114,7 +120,10 @@ LM_EMBED_BATCH, LM_EMBED_LEN = 32, 32   # score_pairs_with_lm's batches
 LM_BF16_TOL = 5e-2          # of the logits' scale, tests/test_torch_model.py
 # kernel-only head layouts (B, S, H, K, d): granite-3-2b, deepseek-67b
 FLASH_GQA_SHAPES = ((2, 2048, 32, 8, 64), (1, 2048, 64, 8, 128))
-DECODE_LENGTHS = (1, 1337, 2048)
+# 192 and 193: the first split boundary and one past it at (8, 2048, 12,
+# 64) on a 132-SM H100 (chunks of 192 positions); phase 3 adds the boundary
+# the launch plans on the card at hand
+DECODE_LENGTHS = (1, 192, 193, 1337, 2048)
 # f32 outputs: absolute; bf16 outputs: one bf16 ulp of the expected value
 # (2**-7 relative at most) plus an absolute floor for the f32 sums' order
 ATTN_TOL_F32 = {"flash": 2e-5, "decode": 1e-5}
@@ -123,6 +132,10 @@ ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
 # the SIMT kernel's time recorded in PERF.md section 6, row 4 (H100 80GB
 # HBM3, 700 W). Printed as a recorded figure, never as a measurement.
 FLASH_MS_BEFORE = 1.4197
+# card clock cycles cuda_ms spins before its timed calls: about 12 ms at
+# the H100's 1.7-2.0 GHz, room for 20 calls of a wrapper costing up to
+# 0.5 ms on the host
+SPIN_CYCLES = 20_000_000
 # peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -157,19 +170,50 @@ def make_corpus(seed: int, n: int, d: int):
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``iters`` calls, after a warm-up.
+    The card first spins for some milliseconds (``torch.cuda._sleep``), so
+    the host has queued the calls before the first one runs and a kernel
+    shorter than its wrapper's host cost is timed on the card, not at the
+    host's issue rate.  Calls that wait on the host (the plain versions'
+    ``nonzero`` and ``item``) still include it."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_split(fn, iters: int = 20) -> str:
+    """The kernels (fills and memsets included) a call of ``fn`` launches,
+    each with its mean device time a launch and its launches a call, from
+    ``torch.profiler`` over ``iters`` calls after a warm-up: what a
+    wrapper's time is made of."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us:
+            parts.append((us / e.count / 1e3, e.count / iters, e.key))
+    return "; ".join(f"{ms:.4f} ms a launch, {n:.2f} a call: {key[:60]}"
+                     for ms, n, key in sorted(parts, reverse=True))
 
 
 def result_fields(res) -> dict:
@@ -1018,6 +1062,41 @@ def run(dev) -> None:
           f" n_total {int(part[3])}, kept prefix equal {prefix}")
     if not prefix:
         raise AssertionError("pair_scores_compact overflow prefix differs")
+    whole_args = gather_chunk(a16, b16, tiles_a, tiles_b)
+    T_all = len(tiles_a)
+    whole = ps_kernel.pair_scores_compact(*whole_args, THRESHOLD,
+                                          T_all * bn * bm, bn, bm)
+    parts, n_parts = [], 0
+    for t0 in range(0, T_all, chunk):
+        args = gather_chunk(a16, b16, tiles_a[t0:t0 + chunk],
+                            tiles_b[t0:t0 + chunk])
+        out = ps_kernel.pair_scores_compact(*args, THRESHOLD,
+                                            len(args[2]) // bn * bn * bm,
+                                            bn, bm)
+        k = int(out[3])
+        parts.append([x[:k, 0] for x in out[:3]])
+        n_parts += k
+    n_whole = int(whole[3])
+    concat = n_whole == n_parts and all(
+        torch.equal(whole[i][:n_whole, 0].view(torch.int32),
+                    torch.cat([p[i] for p in parts]).view(torch.int32))
+        for i in range(3))
+    print(f"[3 pair_scores_compact] one call over session 0's {T_all} tiles"
+          f": {n_whole} candidates; {len(parts)} chunk calls: {n_parts}; "
+          f"equal bit for bit {concat}")
+    if not concat:
+        raise AssertionError("pair_scores_compact over the whole session "
+                             "differs from its chunk calls")
+    del whole_args, whole, parts
+    repeats = [ps_kernel.pair_scores_compact(*chunk_args, THRESHOLD, c_call,
+                                             bn, bm) for _ in range(5)]
+    cs_repeat = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                    for out in repeats[1:] for x, y in zip(out, repeats[0]))
+    print(f"[3 pair_scores_compact] five calls on the chunk equal bit for "
+          f"bit {cs_repeat}")
+    if not cs_repeat:
+        raise AssertionError("pair_scores_compact differs between calls")
+    del repeats
     ta, tb = blocking.dense_block_pairs(N_ROWS, N_ROWS, bn, bm)
     tiled = blocking.score_block_pairs(a, b, ta, tb, THRESHOLD, cfg)
     dense = sharded_candidates(a, b, THRESHOLD, normalize=False)
@@ -1053,8 +1132,22 @@ def run(dev) -> None:
           f"{ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
     if not ops["HGMMA"] or not ops["UTMALDG"]:
         raise AssertionError("the bf16 flash kernel runs no wgmma or no TMA")
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+
+    probe_q = torch.zeros((LM_LANES, H, hd), dtype=torch.bfloat16, device=dev)
+    probe_c = torch.zeros((LM_LANES, LM_MAX_LEN, K, hd), dtype=torch.bfloat16,
+                          device=dev)
+    da_splits, da_chunk = da_kernel.split_plan(probe_q, probe_c)
+    del probe_q, probe_c
+    print(f"[3 decode_attention] launch plan at ({LM_LANES}, {LM_MAX_LEN}, "
+          f"{K}, {hd}) bf16: {LM_LANES * K} (lane, kv head) pairs x "
+          f"{da_splits} splits of {da_chunk} positions = "
+          f"{LM_LANES * K * da_splits} blocks on "
+          f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
     da_err, da_args = 0.0, None
-    for length in DECODE_LENGTHS:
+    for length in sorted(set(DECODE_LENGTHS) | {min(da_chunk, LM_MAX_LEN),
+                                                min(da_chunk + 1,
+                                                    LM_MAX_LEN)}):
         err, args = check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, length,
                                  torch.bfloat16, torch.bfloat16)
         da_err = max(da_err, err)
@@ -1062,8 +1155,16 @@ def run(dev) -> None:
             da_args = args
         check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, length,
                      torch.float32, torch.float32)
-    check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, DECODE_LENGTHS[1],
-                 torch.float32, torch.bfloat16)
+    check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, 1337, torch.float32,
+                 torch.bfloat16)
+    repeats = [da_kernel.decode_attention(*da_args) for _ in range(5)]
+    da_repeat = all(torch.equal(x.view(torch.int16), repeats[0].view(
+        torch.int16)) for x in repeats[1:])
+    print(f"[3 decode_attention] five calls at length {int(da_args[3])} "
+          f"equal bit for bit {da_repeat}")
+    if not da_repeat:
+        raise AssertionError("decode_attention differs between calls")
+    del repeats
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -1150,7 +1251,6 @@ def run(dev) -> None:
     cs_flops = 2 * chunk * bn * bm * DIM
     cs_bytes = chunk * (bn + bm) * (4 * DIM + 4) + 12 * min(n_chunk, c_call)
 
-    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ref import mha_causal_ref
@@ -1244,7 +1344,7 @@ def run(dev) -> None:
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
          "launches": serving["launches"]["decode_attention"],
-         "max_abs_err": da_err,
+         "splits": da_splits, "max_abs_err": da_err,
          "ms": cuda_ms(lambda: da_kernel.decode_attention(dq, dk, dv, dn)),
          "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
          "bound_ms": da_bound, "bound_by": da_by,
@@ -1252,6 +1352,11 @@ def run(dev) -> None:
              dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
              attn_mask=da_mask, enable_gqa=True))},
     ]
+    print("[6 pair_scores_compact] one call's device time by kernel: "
+          + device_split(lambda: ps_kernel.pair_scores_compact(
+              *chunk_args, THRESHOLD, c_call, bn, bm)))
+    print("[6 decode_attention] one call's device time by kernel: "
+          + device_split(lambda: da_kernel.decode_attention(dq, dk, dv, dn)))
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
           f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W)")

@@ -15,8 +15,9 @@ extern "C" cudaError_t pair_scores_launch(const float* a, const float* b,
 
 extern "C" cudaError_t pair_scores_compact_launch(
     const float* a, const float* b, const int* ida, const int* idb,
-    int* counts, int* rows, int* cols, float* scores, int* n_total, int T,
-    int bn, int bm, int d, float tau, int capacity, cudaStream_t stream);
+    unsigned long long* status, int* rows, int* cols, float* scores,
+    int* n_total, int T, int bn, int bm, int d, float tau, int capacity,
+    cudaStream_t stream);
 
 extern "C" cudaError_t union_deduce_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
@@ -32,10 +33,14 @@ extern "C" cudaError_t flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale, cudaStream_t stream);
 
+extern "C" int decode_attention_plan(int kv_dtype, int B, int S, int H,
+                                     int K, int d, int* splits, int* chunk);
+
 extern "C" cudaError_t decode_attention_launch(
     const void* q, const void* kc, const void* vc, const int* length, void* o,
-    int q_dtype, int kv_dtype, int B, int S, int H, int K, int d,
-    const long long* strides, float scale, cudaStream_t stream);
+    float* ws, int* counters, long long n_counters, int q_dtype, int kv_dtype,
+    int B, int S, int H, int K, int d, const long long* strides, float scale,
+    cudaStream_t stream);
 
 namespace {
 
@@ -58,7 +63,7 @@ void pair_scores(const torch::Tensor& a, const torch::Tensor& b,
 
 void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
                          const torch::Tensor& ida, const torch::Tensor& idb,
-                         const torch::Tensor& counts,
+                         const torch::Tensor& status,
                          const torch::Tensor& rows, const torch::Tensor& cols,
                          const torch::Tensor& scores,
                          const torch::Tensor& n_total, int64_t bn, int64_t bm,
@@ -66,10 +71,11 @@ void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   C10_CUDA_CHECK(pair_scores_compact_launch(
       a_g.data_ptr<float>(), b_g.data_ptr<float>(), ida.data_ptr<int>(),
-      idb.data_ptr<int>(), counts.data_ptr<int>(), rows.data_ptr<int>(),
-      cols.data_ptr<int>(), scores.data_ptr<float>(), n_total.data_ptr<int>(),
-      static_cast<int>(counts.size(0)), static_cast<int>(bn),
-      static_cast<int>(bm), static_cast<int>(a_g.size(1)),
+      idb.data_ptr<int>(),
+      reinterpret_cast<unsigned long long*>(status.data_ptr<int64_t>()),
+      rows.data_ptr<int>(), cols.data_ptr<int>(), scores.data_ptr<float>(),
+      n_total.data_ptr<int>(), static_cast<int>(status.size(0) - 1),
+      static_cast<int>(bn), static_cast<int>(bm), static_cast<int>(a_g.size(1)),
       static_cast<float>(tau), static_cast<int>(capacity), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -128,11 +134,30 @@ void flash_attention_bf16(const torch::Tensor& q, const torch::Tensor& k,
   flash(flash_attention_bf16_launch, q, k, v, o, scale);
 }
 
+// (splits, chunk) of decode_attention's launch for these shapes.
+std::vector<int64_t> decode_attention_split(const torch::Tensor& q,
+                                            const torch::Tensor& k_cache) {
+  int splits = 0, chunk = 0;
+  TORCH_CHECK(decode_attention_plan(
+                  dtype_code(k_cache), static_cast<int>(q.size(0)),
+                  static_cast<int>(k_cache.size(1)),
+                  static_cast<int>(q.size(1)),
+                  static_cast<int>(k_cache.size(2)),
+                  static_cast<int>(q.size(2)), &splits, &chunk),
+              "decode_attention: no launch plan for this shape");
+  return {splits, chunk};
+}
+
 void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
                       const torch::Tensor& v_cache,
                       const torch::Tensor& length, const torch::Tensor& o,
-                      double scale) {
+                      const torch::Tensor& counters, double scale) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  const int64_t splits = decode_attention_split(q, k_cache)[0];
+  // the splits' partials (m, l, acc[d]), written and read inside the launch
+  const torch::Tensor ws = torch::empty(
+      {q.size(0) * q.size(1) * splits * (q.size(2) + 2)},
+      q.options().dtype(torch::kFloat32));
   const long long strides[10] = {
       q.stride(0),       q.stride(1),       k_cache.stride(0),
       k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
@@ -140,7 +165,8 @@ void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
       o.stride(1)};
   C10_CUDA_CHECK(decode_attention_launch(
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-      length.data_ptr<int>(), o.data_ptr(), dtype_code(q),
+      length.data_ptr<int>(), o.data_ptr(), ws.data_ptr<float>(),
+      counters.data_ptr<int>(), counters.numel(), dtype_code(q),
       dtype_code(k_cache), static_cast<int>(q.size(0)),
       static_cast<int>(k_cache.size(1)), static_cast<int>(q.size(1)),
       static_cast<int>(k_cache.size(2)), static_cast<int>(q.size(2)),
@@ -160,5 +186,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_bf16", &flash_attention_bf16,
         "causal GQA flash attention, bf16, TMA + wgmma (CUDA)");
   m.def("decode_attention", &decode_attention,
-        "one-token attention over a KV cache (CUDA)");
+        "one-token attention over a KV cache, split across it (CUDA)");
+  m.def("decode_attention_split", &decode_attention_split,
+        "(splits, chunk) of decode_attention's launch");
 }

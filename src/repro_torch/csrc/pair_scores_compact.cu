@@ -1,4 +1,5 @@
-// Fused similarity + threshold + candidate compaction over gathered tiles.
+// Fused similarity + threshold + candidate compaction over gathered tiles,
+// in one pass.
 //
 // Replaces: src/repro/kernels/pair_scores/kernel.py::pair_scores_compact
 // (Pallas, TPU), which blocking.py::score_block_pairs calls once per chunk of
@@ -9,36 +10,53 @@
 // within a tile, each at its global position g in that order and only where
 // g < capacity.  n_total is the true count.
 //
-// Design.  The TPU kernel walked its grid in order with a cursor in SMEM.
-// Blocks on the card run in no order, so the cursor becomes per-tile counts,
-// an exclusive prefix over tiles and a scatter, in two launches:
-//   1. count: one block per tile computes the tile's product and writes its
-//      candidate count to counts[t];
-//   2. write: one block per tile sums counts[0..t) (its base), recomputes the
-//      product, ranks each candidate row-major within the tile with an
-//      exclusive block scan over (row, 8-column group) counts, and writes it
-//      at base + rank when that is below capacity; tile T-1 writes n_total.
-// Recomputing the product doubles the operations but keeps every score block
-// out of device memory, which was the TPU kernel's point, and the output does
-// not depend on block order.  The product is pair_scores.cu's mainloop
-// (128 x 128 block, 16-deep k slices in shared memory, 8 x 8 per thread,
-// fmaf in k order from 0), so each cell scores bit for bit as the dense
-// kernel scores the same pair: the cross-table dedup in blocking.py keeps one
-// of several re-finds of a pair and relies on their scores being equal.
-// Tensor cores are out: they have no IEEE-f32 mode and TF32 changes the
-// candidate set.
-//
 // Bound on an H100 at the blocked path's chunk (T = 256 tiles of 128 x 128,
 // D = 384): operations, 2*T*bn*bm*D = 3.2 GFLOP of f32 FFMA, 0.048 ms at
 // 67 TFLOP/s, against (T*(bn+bm)*(4*D + 4) + 12*kept) bytes, about 0.03 ms at
-// 3.35 TB/s.  Counted once, as the function needs; the two passes issue the
-// product twice.  A one-pass version with a decoupled look-back (its tile
-// index from an atomic ticket, not blockIdx, so no block waits on a
-// predecessor that was never scheduled) is later work.
+// 3.35 TB/s.  Tensor cores are out: they have no IEEE-f32 mode and TF32
+// changes the candidate set.
+//
+// Design.  The TPU kernel walked its grid in order with a cursor in SMEM.
+// Blocks on the card run in no order, so each tile's base position comes
+// from a decoupled look-back over its predecessors, in one launch that
+// computes each product once:
+//   1. ticket: a block takes its tile index t from an atomic counter, not
+//      from blockIdx, so every tile below t belongs to a block that has
+//      already started;
+//   2. product: a 128 x 128 block, 8 x 8 cells a thread kept in registers
+//      (rows tr..tr+3 and tr+64..tr+67, columns likewise, so a warp's
+//      shared-memory reads of a k step are contiguous 16-byte loads with no
+//      bank conflict); 16-deep k slices double-buffered in shared memory,
+//      the next slice's loads in flight (in registers) during this slice's
+//      FMAs, one barrier a slice; each thread loads 32 contiguous bytes of
+//      one row and stores them k-major, a warp on 32 consecutive rows, so
+//      the transposing stores meet no bank conflict.  Every cell is fmaf in
+//      k order from 0,
+//      as pair_scores.cu sums it, so each scores bit for bit as the dense
+//      kernel scores the same pair: the cross-table dedup in blocking.py
+//      keeps one of several re-finds of a pair and relies on their scores
+//      being equal;
+//   3. rank: an exclusive block scan over (row, 4-column group) counts gives
+//      each candidate its rank in the tile and the tile's count;
+//   4. look-back: the block publishes its count as an aggregate in status[t]
+//      (a 64-bit word: flag in the high half, value in the low, stored with
+//      release and read with acquire semantics, so no reader sees a flag
+//      without its value); one warp then reads 32 predecessors' words at a
+//      time, from t-1 down, waits until each is published, and sums back to
+//      the nearest inclusive prefix; the block publishes its own inclusive
+//      prefix and writes its candidates at base + rank where that is below
+//      capacity.  Tile T-1 (by index) writes n_total.
+// It cannot deadlock: a block waits only on tiles with smaller tickets,
+// whose blocks are resident and wait only on smaller tickets still; tile 0
+// waits on none.  Positions come from counts alone, so the output does not
+// depend on which block finished first.  The caller zeroes status and the
+// ticket before every call.  __launch_bounds__(256, 2) keeps two blocks an
+// SM, so a 256-tile chunk runs in one wave on 132 SMs.
 //
 // Contract (checked by the Python wrapper): T >= 1, 1 <= bn, bm <= 128,
 // d % 16 == 0, contiguous 16-byte-aligned rows, T*bn*bm and capacity + bn*bm
-// below 2^31, rows / cols prefilled with -1 and scores with 0.
+// below 2^31, rows / cols prefilled with -1 and scores with 0, status (T + 1
+// words: T tiles and the ticket) zeroed.
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,21 +64,49 @@ namespace {
 constexpr int kBM = 128;   // most rows of a per tile (bn)
 constexpr int kBN = 128;   // most rows of b per tile (bm)
 constexpr int kBK = 16;
-constexpr int kTM = 8;
-constexpr int kTN = 8;
-constexpr int kGroups = kBN / kTN;                 // 16 column groups a row
-constexpr int kThreads = (kBM / kTM) * kGroups;    // 256
+constexpr int kTM = 8;     // rows a thread: 4, and 4 more 64 rows down
+constexpr int kTN = 8;     // columns a thread: 4, and 4 more 64 columns on
+constexpr int kHalf = 64;
+constexpr int kGroups = kBN / 4;                   // 32 column groups a row
+constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kWarps = kThreads / 32;
 constexpr int kCells = kBM * kGroups;              // (row, group) counts
-constexpr int kCellsPerThread = kCells / kThreads; // 8
+constexpr int kCellsPerThread = kCells / kThreads; // 16
+
+// status words: flag << 32 | value
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
 
 struct Smem {
-  float as[kBK][kBM];
-  float bs[kBK][kBN];
+  union {
+    struct {
+      float as[2][kBK][kBM];
+      float bs[2][kBK][kBN];
+    } k;                  // the mainloop's slices
+    int cell[kCells];     // then (row, group) counts and their prefix
+  } u;
   int ra[kBM];          // global ids of the tile's a rows, -1 past bn
   int cb[kBN];          // global ids of the tile's b rows, -1 past bm
   int warp_sums[kWarps];
+  int tile;
+  int base;
 };
+
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long peek(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
 // Exclusive prefix of v over the block's threads in thread order; *total
 // gets the block's sum.  Every thread of the block must call it.
@@ -91,63 +137,87 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
   return before + x - v;
 }
 
-// Load tile t's ids, then acc[i][j] = <a row tr+i, b row tc+j> of the tile,
-// summed with fmaf in k order from 0 (pair_scores.cu's mainloop).  Rows past
-// bn / bm load as zeros.
+// One k slice of this thread's row: 8 floats from column k0 + c8 of row r
+// of a and of b (zeros past bn / bm).
+__device__ __forceinline__ void load_slice(const float* a0, const float* b0,
+                                           int r, int c8, int k0, int bn,
+                                           int bm, int d, float4 (&va)[2],
+                                           float4 (&vb)[2]) {
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* pa = reinterpret_cast<const float4*>(
+      a0 + static_cast<size_t>(r) * d + k0 + c8);
+  const float4* pb = reinterpret_cast<const float4*>(
+      b0 + static_cast<size_t>(r) * d + k0 + c8);
+  va[0] = r < bn ? pa[0] : z;
+  va[1] = r < bn ? pa[1] : z;
+  vb[0] = r < bm ? pb[0] : z;
+  vb[1] = r < bm ? pb[1] : z;
+}
+
+__device__ __forceinline__ void store_slice(float (&s)[kBK][kBM], int r,
+                                            int c8, const float4 (&v)[2]) {
+  s[c8 + 0][r] = v[0].x; s[c8 + 1][r] = v[0].y;
+  s[c8 + 2][r] = v[0].z; s[c8 + 3][r] = v[0].w;
+  s[c8 + 4][r] = v[1].x; s[c8 + 5][r] = v[1].y;
+  s[c8 + 6][r] = v[1].z; s[c8 + 7][r] = v[1].w;
+}
+
+// Row (column) of the tile that a thread's i-th (j-th) register row holds:
+// 4 from tr (tc), then 4 from tr + 64 (tc + 64).
+__device__ __forceinline__ int half_index(int i, int t0) {
+  return (i < 4 ? 0 : kHalf) + t0 + (i & 3);
+}
+
+// acc[i][j] = <a row half_index(i, tr), b row half_index(j, tc)> of tile t,
+// summed with fmaf in k order from 0.  Rows past bn / bm load as zeros.
 __device__ void tile_product(const float* __restrict__ a,
-                             const float* __restrict__ b,
-                             const int* __restrict__ ida,
-                             const int* __restrict__ idb, int t, int bn,
+                             const float* __restrict__ b, int t, int bn,
                              int bm, int d, Smem& sm, int tr, int tc,
                              float (&acc)[kTM][kTN]) {
   const int tid = threadIdx.x;
   const float* a0 = a + static_cast<size_t>(t) * bn * d;
   const float* b0 = b + static_cast<size_t>(t) * bm * d;
-  for (int i = tid; i < kBM; i += kThreads) {
-    sm.ra[i] = i < bn ? ida[static_cast<size_t>(t) * bn + i] : -1;
-    sm.cb[i] = i < bm ? idb[static_cast<size_t>(t) * bm + i] : -1;
-  }
+  const int r = tid % kBM;               // the row this thread loads
+  const int c8 = (tid / kBM) * 8;        // and its 8 columns of the slice
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-#pragma unroll
-    for (int l = tid; l < kBM * kBK / 4; l += kThreads) {
-      const int r = l / (kBK / 4);
-      const int c = (l % (kBK / 4)) * 4;
-      float4 va = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float4 vb = va;
-      if (r < bn)
-        va = *reinterpret_cast<const float4*>(
-            a0 + static_cast<size_t>(r) * d + k0 + c);
-      if (r < bm)
-        vb = *reinterpret_cast<const float4*>(
-            b0 + static_cast<size_t>(r) * d + k0 + c);
-      sm.as[c + 0][r] = va.x; sm.as[c + 1][r] = va.y;
-      sm.as[c + 2][r] = va.z; sm.as[c + 3][r] = va.w;
-      sm.bs[c + 0][r] = vb.x; sm.bs[c + 1][r] = vb.y;
-      sm.bs[c + 2][r] = vb.z; sm.bs[c + 3][r] = vb.w;
-    }
-    __syncthreads();
+  float4 va[2], vb[2];
+  load_slice(a0, b0, r, c8, 0, bn, bm, d, va, vb);
+  store_slice(sm.u.k.as[0], r, c8, va);
+  store_slice(sm.u.k.bs[0], r, c8, vb);
+  __syncthreads();
+  const int n_slices = d / kBK;
+  for (int s = 0; s < n_slices; ++s) {
+    const int cur = s & 1;
+    const bool more = s + 1 < n_slices;
+    if (more)  // the next slice's loads fly during this slice's FMAs
+      load_slice(a0, b0, r, c8, (s + 1) * kBK, bn, bm, d, va, vb);
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-      float ra[kTM], rb[kTN];
+      float x[kTM], y[kTN];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) ra[i] = sm.as[k][tr + i];
+      for (int i = 0; i < kTM; ++i)
+        x[i] = sm.u.k.as[cur][k][half_index(i, tr)];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) rb[j] = sm.bs[k][tc + j];
+      for (int j = 0; j < kTN; ++j)
+        y[j] = sm.u.k.bs[cur][k][half_index(j, tc)];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    }
+    if (more) {
+      store_slice(sm.u.k.as[cur ^ 1], r, c8, va);
+      store_slice(sm.u.k.bs[cur ^ 1], r, c8, vb);
     }
     __syncthreads();
   }
 }
 
-// Bit j of the result: cell (tr + i, tc + j) is a candidate.
+// Bit j of the result: cell (row, half_index(j, tc)) is a candidate.
 __device__ __forceinline__ unsigned keep_bits(const Smem& sm,
                                               const float (&acc)[kTN],
                                               int row, int tc, float tau) {
@@ -155,61 +225,73 @@ __device__ __forceinline__ unsigned keep_bits(const Smem& sm,
   if (sm.ra[row] < 0) return 0;
 #pragma unroll
   for (int j = 0; j < kTN; ++j)
-    if (acc[j] >= tau && sm.cb[tc + j] >= 0) bits |= 1u << j;
+    if (acc[j] >= tau && sm.cb[half_index(j, tc)] >= 0) bits |= 1u << j;
   return bits;
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     const int* __restrict__ ida, const int* __restrict__ idb,
-                     int* __restrict__ counts, int bn, int bm, int d,
-                     float tau) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x;
-  const int tr = (tid / kGroups) * kTM;
-  const int tc = (tid % kGroups) * kTN;
-  float acc[kTM][kTN];
-  tile_product(a, b, ida, idb, blockIdx.x, bn, bm, d, sm, tr, tc, acc);
-  int cnt = 0;
+// Warp 0: the sum of the counts of tiles [0, t), from the predecessors'
+// status words (see the note at the top).
+__device__ int look_back(unsigned long long* status, int t) {
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  for (int end = t;; end -= 32) {
+    const int i = end - 1 - lane;    // lane 0 is the nearest predecessor
+    unsigned long long w = kPrefix;  // before tile 0: a prefix of 0
+    if (i >= 0) {
+      do {
+        w = peek(status + i);
+      } while ((w >> 32) == 0);
+    }
+    const unsigned prefix = __ballot_sync(0xffffffffu, (w >> 32) == 2);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(w & 0xffffffffu) : 0;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-    cnt += __popc(keep_bits(sm, acc[i], tr + i, tc, tau));
-  int total;
-  block_exclusive_scan(cnt, sm.warp_sums, &total);
-  if (tid == 0) counts[blockIdx.x] = total;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    base += v;
+    if (prefix) return base;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-compact_write_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     const int* __restrict__ ida, const int* __restrict__ idb,
-                     const int* __restrict__ counts, int* __restrict__ rows,
-                     int* __restrict__ cols, float* __restrict__ scores,
-                     int* __restrict__ n_total, int T, int bn, int bm, int d,
-                     float tau, int capacity) {
+__global__ void __launch_bounds__(kThreads, 2)
+pair_scores_compact_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           const int* __restrict__ ida,
+                           const int* __restrict__ idb,
+                           unsigned long long* __restrict__ status,
+                           int* __restrict__ rows, int* __restrict__ cols,
+                           float* __restrict__ scores,
+                           int* __restrict__ n_total, int T, int bn, int bm,
+                           int d, float tau, int capacity) {
   __shared__ Smem sm;
-  __shared__ int cell[kCells];   // (row, group) counts, then their prefix
   const int tid = threadIdx.x;
-  const int t = blockIdx.x;
-  const int tr = (tid / kGroups) * kTM;
-  const int g = tid % kGroups;
-  const int tc = g * kTN;
+  const int g = tid % (kBN / kTN);   // column groups g and g + 16 of a row
+  const int tr = (tid / (kBN / kTN)) * 4;
+  const int tc = g * 4;
 
-  int part = 0;
-  for (int i = tid; i < t; i += kThreads) part += counts[i];
-  int base;
-  block_exclusive_scan(part, sm.warp_sums, &base);
+  if (tid == 0)
+    sm.tile = static_cast<int>(
+        atomicAdd(reinterpret_cast<unsigned*>(status + T), 1u));
+  __syncthreads();
+  const int t = sm.tile;
+  for (int i = tid; i < kBM; i += kThreads) {
+    sm.ra[i] = i < bn ? ida[static_cast<size_t>(t) * bn + i] : -1;
+    sm.cb[i] = i < bm ? idb[static_cast<size_t>(t) * bm + i] : -1;
+  }
 
   float acc[kTM][kTN];
-  tile_product(a, b, ida, idb, t, bn, bm, d, sm, tr, tc, acc);
+  tile_product(a, b, t, bn, bm, d, sm, tr, tc, acc);  // ends in a barrier
   unsigned bits[kTM];
+  int* cell = sm.u.cell;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    bits[i] = keep_bits(sm, acc[i], tr + i, tc, tau);
-    cell[(tr + i) * kGroups + g] = __popc(bits[i]);
+    const int row = half_index(i, tr);
+    bits[i] = keep_bits(sm, acc[i], row, tc, tau);
+    cell[row * kGroups + g] = __popc(bits[i] & 0xfu);
+    cell[row * kGroups + g + kGroups / 2] = __popc(bits[i] >> 4);
   }
   __syncthreads();
-  // exclusive prefix of cell[] in row-major (row, group) order: each thread
-  // scans 8 consecutive entries, the block scans the threads' sums
+  // exclusive prefix of cell[] in row-major (row, 4-column group) order:
+  // each thread scans 16 consecutive entries, the block scans their sums
   int local[kCellsPerThread];
   int sum = 0;
 #pragma unroll
@@ -222,21 +304,41 @@ compact_write_kernel(const float* __restrict__ a, const float* __restrict__ b,
 #pragma unroll
   for (int e = 0; e < kCellsPerThread; ++e)
     cell[tid * kCellsPerThread + e] = before + local[e];
-  __syncthreads();
 
+  if (tid < 32) {
+    int base = 0;
+    if (t == 0) {
+      if (tid == 0) publish(status, kPrefix | static_cast<unsigned>(tile_total));
+    } else {
+      if (tid == 0)
+        publish(status + t, kAggregate | static_cast<unsigned>(tile_total));
+      base = look_back(status, t);
+      if (tid == 0)
+        publish(status + t,
+                kPrefix | static_cast<unsigned>(base + tile_total));
+    }
+    if (tid == 0) sm.base = base;
+  }
+  __syncthreads();
+  const int base = sm.base;
+
+  // j runs at compile time, so acc stays in registers
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    unsigned m = bits[i];
-    int pos = base + cell[(tr + i) * kGroups + g];
-    while (m) {
-      const int j = __ffs(m) - 1;
-      m &= m - 1;
-      if (pos < capacity) {
-        rows[pos] = sm.ra[tr + i];
-        cols[pos] = sm.cb[tc + j];
-        scores[pos] = acc[i][j];
+    const int row = half_index(i, tr);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int pos = base + cell[row * kGroups + g + h * (kGroups / 2)];
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        if (!((bits[i] >> j) & 1u)) continue;
+        if (pos < capacity) {
+          rows[pos] = sm.ra[row];
+          cols[pos] = sm.cb[half_index(j, tc)];
+          scores[pos] = acc[i][j];
+        }
+        ++pos;
       }
-      ++pos;
     }
   }
   if (t == T - 1 && tid == 0) *n_total = base + tile_total;
@@ -244,19 +346,16 @@ compact_write_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 }  // namespace
 
-// Plain C entry point: the count and the write launch, in that order, on
-// `stream`; returns the first failing launch's status.  counts is (T,)
-// scratch the first launch fills.
+// Plain C entry point: one launch of T blocks on `stream`; returns its
+// status.  status is (T + 1) zeroed 64-bit words: the tiles' look-back
+// words, then the ticket.
 extern "C" cudaError_t pair_scores_compact_launch(
     const float* a, const float* b, const int* ida, const int* idb,
-    int* counts, int* rows, int* cols, float* scores, int* n_total, int T,
-    int bn, int bm, int d, float tau, int capacity, cudaStream_t stream) {
-  compact_count_kernel<<<T, kThreads, 0, stream>>>(a, b, ida, idb, counts, bn,
-                                                   bm, d, tau);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  compact_write_kernel<<<T, kThreads, 0, stream>>>(
-      a, b, ida, idb, counts, rows, cols, scores, n_total, T, bn, bm, d, tau,
+    unsigned long long* status, int* rows, int* cols, float* scores,
+    int* n_total, int T, int bn, int bm, int d, float tau, int capacity,
+    cudaStream_t stream) {
+  pair_scores_compact_kernel<<<T, kThreads, 0, stream>>>(
+      a, b, ida, idb, status, rows, cols, scores, n_total, T, bn, bm, d, tau,
       capacity);
   return cudaGetLastError();
 }

@@ -1,7 +1,10 @@
 """Launch of the hand-written CUDA flash-decode kernel,
 ``repro_torch/csrc/decode_attention.cu`` (it replaces the Pallas kernel
 ``repro/kernels/decode_attention/kernel.py::decode_attention``).  The kernel
-reads ``length`` from device memory, so the host never waits on it."""
+reads ``length`` from device memory, so the host never waits on it.  It
+splits the cache across blocks and merges the splits in the same launch;
+the last block of each (lane, kv head) finds itself through a counter in
+:data:`_COUNTERS` and sets it back to 0."""
 from __future__ import annotations
 
 import math
@@ -14,6 +17,19 @@ MAX_GROUP = 16   # query heads per kv head
 DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
                (torch.float32, torch.bfloat16))
+# per CUDA device: int32 counters, zeroed once when allocated; every call
+# leaves them 0, so no call clears them
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero counters on ``device``, reallocated (zeroed) only
+    when a call needs more than the buffer holds."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -23,7 +39,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     dtypes in ``DTYPE_PAIRS``), ``length`` a 0-d or one-element int32 tensor
     on the same device.  Returns a new (B, H, d) tensor in q's dtype.  A
     ``length`` below 1 stops the kernel with a trap, which surfaces as a
-    RuntimeError at the next synchronization; above S it counts as S."""
+    RuntimeError at the next synchronization; above S it counts as S.
+
+    One launch.  The partials of the sequence's splits go to a workspace
+    from ``torch.empty``; the merge's counters are shared by every call on
+    the device, so calls must be ordered on one stream, as the port issues
+    them (PyTorch's current stream)."""
     from repro_torch.kernels._build import extension
 
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -55,5 +76,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"dim in {HEAD_DIMS} and contiguous")
     o = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
     extension().decode_attention(q, k_cache, v_cache, length, o,
+                                 _counters(q.device, B * H),
                                  1.0 / math.sqrt(d))
     return o
+
+
+def split_plan(q: torch.Tensor, k_cache: torch.Tensor):
+    """(splits, chunk): how many blocks share one (lane, kv head) and how
+    many cache positions each reads, as the launch for these shapes on this
+    card plans it (from the cache's capacity S and the SM count)."""
+    from repro_torch.kernels._build import extension
+
+    splits, chunk = extension().decode_attention_split(q, k_cache)
+    return int(splits), int(chunk)

@@ -48,8 +48,10 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
     multiple of ``TILE_DEPTH``; ida: (T*bn, 1) / idb: (T*bm, 1) int32 ids,
     -1 on padding; 1 <= bn, bm <= ``TILE_ROWS``.  Returns (rows (capacity +
     bn*bm, 1) int32, cols ditto, scores ditto f32, n_total (1, 1) int32), as
-    :func:`..ref.pair_scores_compact_ref` does.  Two launches: a count pass
-    and a write pass."""
+    :func:`..ref.pair_scores_compact_ref` does.  One launch, after one
+    zero-fill of its (T + 1) look-back words: each block takes a tile from a
+    ticket, computes its product once and finds its base position by a
+    decoupled look-back over the tiles before it."""
     from repro_torch.kernels._build import extension
 
     for name, x, dt in (("a_g", a_g, torch.float32),
@@ -84,8 +86,9 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
     cols = torch.full(size, -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(size, dtype=torch.float32, device=dev)
     n_total = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    counts = torch.empty(T, dtype=torch.int32, device=dev)
-    extension().pair_scores_compact(a_g, b_g, ida, idb, counts, rows, cols,
+    # the tiles' look-back status words, then the ticket: zero every call
+    status = torch.zeros(T + 1, dtype=torch.int64, device=dev)
+    extension().pair_scores_compact(a_g, b_g, ida, idb, status, rows, cols,
                                     scores, n_total, int(bn), int(bm),
                                     float(threshold), int(capacity))
     return rows, cols, scores, n_total

@@ -47,7 +47,7 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
     """Fused similarity + threshold + candidate compaction over T gathered
     tile pairs (see :func:`.ref.pair_scores_compact_ref` for the contract).
     bf16 inputs are scored in f32.  ``pair_scores_compact.launches`` counts
-    calls that reach the CUDA kernel (a count and a write launch each)."""
+    calls that reach the CUDA kernel (one launch each)."""
     if all(x.device.type == "cpu" for x in (a_g, b_g, ida, idb)):
         return pair_scores_compact_ref(a_g, b_g, ida, idb, threshold,
                                        capacity, bn, bm)

@@ -12,9 +12,13 @@ allowed to differ only within 1e-5 of the threshold; bf16 inputs within
 2e-2; at the join cells' width D = 384 (ROADMAP C7) within the derived
 gamma_D * sum |a_i b_i| of a float64 oracle.  ``pair_scores_compact`` against its plain version (``torch.bmm``) the
 same way, with the candidates' order identical; against the dense kernel bit
-for bit (the two share one mainloop).  ``union_deduce`` and the service: bit
+for bit (both sum each cell with fmaf in k order from 0); against itself bit
+for bit across calls and across chunkings of one tile list (positions come
+from counts alone).  ``union_deduce`` and the service: bit
 for bit.  ``flash_attention`` within 2e-5 and ``decode_attention`` within
-1e-5 of their plain versions in f32 (sums in another order); in bf16 each
+1e-5 of their plain versions in f32 (sums in another order, the decode
+kernel's split across the cache and merged in split order, so its repeats
+agree bit for bit); in bf16 each
 element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
 and round once to bf16, one ulp being at most 2**-7 of the value): bf16
 runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
@@ -139,9 +143,12 @@ def _tiles(dev, T, bn, bm, D, dtype, seed):
             idb[:, None].to(dev))
 
 
+# T = 1: tile 0 alone, no look-back; T = 265: past the 264 blocks two a SM
+# hold on 132 SMs, so the last tiles start only when earlier ones finished
 @pytest.mark.parametrize("T,bn,bm,D", [(256, 128, 128, 384), (7, 128, 128, 96),
                                        (33, 16, 16, 16), (5, 24, 100, 40),
-                                       (1, 1, 128, 3)])
+                                       (1, 1, 128, 3), (1, 128, 128, 384),
+                                       (2 * 132 + 1, 128, 128, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_scores_compact_kernel_matches_plain(dev, T, bn, bm, D, dtype):
     """Ids here are the flat gather positions, so each candidate names its
@@ -212,6 +219,95 @@ def test_pair_scores_compact_kernel_refuses_wide_tiles(dev):
     ids = torch.zeros(256, 1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="B2"):
         ps_kernel.pair_scores_compact(a_g, a_g, ids, ids, 0.5, 64, 256, 256)
+
+
+def test_pair_scores_compact_kernel_repeats_bitwise(dev):
+    """Positions come only from counts: five calls on one chunk agree bit
+    for bit, whichever blocks finish first."""
+    a_g, b_g, ida, idb = _tiles(dev, 256, 128, 128, 384, torch.float32,
+                                seed=3)
+    outs = [ps_kernel.pair_scores_compact(a_g, b_g, ida, idb, 0.5,
+                                          256 * 128 * 128, 128, 128)
+            for _ in range(5)]
+    assert int(outs[0][3]) > 0
+    for out in outs[1:]:
+        for x, y in zip(out, outs[0]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_pair_scores_compact_kernel_whole_session_equals_chunks(dev):
+    """One call over every tile of a blocked session (16384 rows a side,
+    the reference's 6-bit, 8-table, 128 x 128 config: thousands of tiles,
+    several waves) equals the concatenation of its 256-tile chunk calls,
+    bit for bit, with the true count."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    n, D = 16384, 384
+    cents = torch.randn(2048, D, generator=gen)
+    a = cents[torch.randint(0, 2048, (n,), generator=gen)] \
+        + 0.4 * torch.randn(n, D, generator=gen)
+    b = cents[torch.randint(0, 2048, (n,), generator=gen)] \
+        + 0.4 * torch.randn(n, D, generator=gen)
+    a = ps_ops.l2_normalize(a.to(dev))
+    b = ps_ops.l2_normalize(b.to(dev))
+    cfg = blocking.BlockingConfig(n_bits=6, n_tables=8, bn=128, bm=128,
+                                  tiles_per_call=256)
+    every = np.arange(n)
+    tiles_a, tiles_b = blocking.block_pairs(
+        blocking.signatures(a, cfg), every, blocking.signatures(b, cfg),
+        every, 128, 128)
+    T = len(tiles_a)
+    assert T > 4 * 256
+
+    def gather(ta, tb):
+        a_ext = torch.cat([a, a.new_zeros((1, D))])
+        b_ext = torch.cat([b, b.new_zeros((1, D))])
+        ga = torch.from_numpy(np.where(ta < 0, n, ta).reshape(-1)).to(dev)
+        gb = torch.from_numpy(np.where(tb < 0, n, tb).reshape(-1)).to(dev)
+        return (a_ext[ga], b_ext[gb],
+                torch.from_numpy(ta.reshape(-1, 1).astype(np.int32)).to(dev),
+                torch.from_numpy(tb.reshape(-1, 1).astype(np.int32)).to(dev))
+
+    parts, total = [], 0
+    for t0 in range(0, T, 256):
+        ta, tb = tiles_a[t0:t0 + 256], tiles_b[t0:t0 + 256]
+        out = ps_kernel.pair_scores_compact(*gather(ta, tb), 0.7,
+                                            len(ta) * 128 * 128, 128, 128)
+        k = int(out[3])
+        parts.append([x[:k] for x in out[:3]])
+        total += k
+    whole = ps_kernel.pair_scores_compact(*gather(tiles_a, tiles_b), 0.7,
+                                          T * 128 * 128, 128, 128)
+    assert int(whole[3]) == total > 0
+    for i, x in enumerate(whole[:3]):
+        cat = torch.cat([p[i] for p in parts])
+        assert torch.equal(x[:total].view(torch.int32),
+                           cat.view(torch.int32))
+        assert bool((x[total:] == (0 if x.is_floating_point() else -1)).all())
+
+
+def test_pair_scores_compact_kernel_chunk_without_candidates(dev):
+    """Every id -1: no tile keeps a cell, n_total is 0 and the outputs keep
+    their fill."""
+    a_g, b_g, ida, idb = _tiles(dev, 256, 128, 128, 64, torch.float32,
+                                seed=4)
+    rows, cols, scores, n = ps_kernel.pair_scores_compact(
+        a_g, b_g, torch.full_like(ida, -1), torch.full_like(idb, -1), 0.5,
+        1000, 128, 128)
+    assert int(n) == 0
+    assert (rows == -1).all() and (cols == -1).all() and (scores == 0).all()
+
+
+def test_pair_scores_compact_kernel_capacity_zero(dev):
+    """capacity 0: nothing is written, and n_total is still the true
+    count."""
+    a_g, b_g, ida, idb = _tiles(dev, 40, 128, 64, 64, torch.float32, seed=1)
+    full = ps_kernel.pair_scores_compact(a_g, b_g, ida, idb, 0.5,
+                                         40 * 128 * 64, 128, 64)
+    rows, cols, scores, n = ps_kernel.pair_scores_compact(
+        a_g, b_g, ida, idb, 0.5, 0, 128, 64)
+    assert rows.shape == (128 * 64, 1)
+    assert int(n) == int(full[3]) > 0
+    assert (rows == -1).all() and (cols == -1).all() and (scores == 0).all()
 
 
 def _lanes(dev, n, p, lanes, seed):
@@ -396,6 +492,7 @@ def test_flash_attention_bf16_kernel_runs_on_tensor_cores(dev):
     (8, 2048, 12, 12, 64, 1337),
     (8, 2048, 12, 12, 64, 2048),
     (2, 300, 32, 2, 128, 299),      # 16 query heads a kv head
+    (2, 2048, 32, 2, 128, 1500),    # and the most splits the launch plans
     (3, 77, 8, 2, 32, 77),          # S not a multiple of the 64-row tile
 ])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
@@ -417,6 +514,77 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, d, length,
     exp = decode_attention_ref(q, kc, vc, length)
     torch.cuda.synchronize()
     assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+def _decode_args(dev, B, S, H, K, d, length, dtype, seed):
+    q = _randn(dev, (B, H, d), dtype, seed)
+    kc = _randn(dev, (B, S, K, d), dtype, seed + 1)
+    vc = _randn(dev, (B, S, K, d), dtype, seed + 2)
+    kc[:, length:] = 1e4
+    vc[:, length:] = -1e4
+    return q, kc, vc, torch.tensor(length, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("where", ["1", "below", "at", "above", "S"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_split_boundaries(dev, where, dtype):
+    """paper-scorer's serving shape, at length 1, one below, at and one past
+    the first split boundary (as the launch plans it on this card), and S:
+    a split that holds no position must not reach the merge."""
+    B, S, H, K, d = 8, 2048, 12, 12, 64
+    q, kc, vc, _ = _decode_args(dev, B, S, H, K, d, 1, dtype, 0)
+    splits, chunk = da_kernel.split_plan(q, kc)
+    assert splits > 1 and splits * chunk >= S
+    length = {"1": 1, "below": chunk - 1, "at": chunk, "above": chunk + 1,
+              "S": S}[where]
+    q, kc, vc, n = _decode_args(dev, B, S, H, K, d, length, dtype, length)
+    got = da_kernel.decode_attention(q, kc, vc, n)
+    exp = decode_attention_ref(q, kc, vc, length)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "decode")
+
+
+def test_decode_attention_kernel_repeats_bitwise(dev):
+    """The splits merge in split order, so five calls agree bit for bit
+    whichever block of a (lane, kv head) finishes last."""
+    args = _decode_args(dev, 8, 2048, 12, 12, 64, 1337, torch.bfloat16, 5)
+    outs = [da_kernel.decode_attention(*args) for _ in range(5)]
+    for out in outs[1:]:
+        assert torch.equal(out.view(torch.int16), outs[0].view(torch.int16))
+
+
+def test_decode_attention_kernel_counters_reset_between_shapes(dev):
+    """Two calls of different B * K back to back, then one like the first:
+    each call's last blocks leave their counters at 0, so the third call
+    merges every split again and equals the first bit for bit."""
+    first = _decode_args(dev, 8, 2048, 12, 12, 64, 2000, torch.bfloat16, 1)
+    other = _decode_args(dev, 3, 700, 8, 2, 32, 650, torch.float32, 2)
+    o1 = da_kernel.decode_attention(*first)
+    o2 = da_kernel.decode_attention(*other)
+    o3 = da_kernel.decode_attention(*first)
+    torch.cuda.synchronize()
+    _assert_attn_close(o1, decode_attention_ref(*first[:3], 2000), "decode")
+    _assert_attn_close(o2, decode_attention_ref(*other[:3], 650), "decode")
+    assert torch.equal(o1.view(torch.int16), o3.view(torch.int16))
+    assert not da_kernel._COUNTERS[o1.device].any()
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_reads_strided_caches(dev, offset, dtype):
+    """Caches as views of a wider tensor: at an aligned offset the rows load
+    16 bytes at a time, one element in they load element by element."""
+    B, S, H, K, d, length = 3, 500, 8, 2, 64, 437
+    wide = _randn(dev, (B, S, K, 2, d + 8), dtype, 21)
+    wide[:, length:] = 1e4
+    kc = wide[:, :, :, 0, offset:offset + d]
+    vc = wide[:, :, :, 1, offset:offset + d]
+    q = _randn(dev, (B, H, d), dtype, 22)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n)
+    exp = decode_attention_ref(q, kc.contiguous(), vc.contiguous(), length)
+    torch.cuda.synchronize()
     _assert_attn_close(got, exp, "decode")
 
 
