@@ -9,9 +9,12 @@ carries on.  Phases, one output line or block each:
 2. build: the port's CUDA kernels, compiled from ``src/repro_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: ``pair_scores`` at (4096, 384) x (4096, 384) within 1e-5
-   (f32 sums of 384 unit-vector products taken in another order), and
-   ``union_deduce`` bitwise on the stacked lanes of phase 4's first round
-   and on an n = 8192 path graph (the pointer-jumping worst case);
+   (f32 sums of 384 unit-vector products taken in another order), five
+   calls bit for bit, and no stack frame or spill in its resources
+   (``cuobjdump -res-usage``); ``union_deduce`` bitwise on the stacked lanes of
+   phase 4's first round and on an n = 8192 path graph (the
+   pointer-jumping worst case), its launch plan (a cluster of blocks a
+   lane) printed, five calls on each round-1 call bit for bit;
    ``pair_scores_compact`` on the first 256-tile chunk of blocked session 0
    (phase 4b): rows and cols equal but for cells within 1e-5 of tau, scores
    within 1e-5, the order identical; through ``dense_block_pairs`` on phase
@@ -75,11 +78,12 @@ carries on.  Phases, one output line or block each:
    and transitively consistent;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
-6. the device time of one ``pair_scores_compact`` and one
-   ``decode_attention`` call by kernel (the compact wrapper's output fills
-   beside its one launch); a ``{"kernels": [...]}`` line with each kernel's
-   launches on its main path, error, and times beside its bound, its plain
-   version and a library call;
+6. the device time of one ``pair_scores``, ``pair_scores_compact``,
+   ``union_deduce`` and ``decode_attention`` call by kernel (each wrapper's
+   fills and memsets beside its launch: ``union_deduce`` must be one
+   kernel); a ``{"kernels": [...]}`` line with each kernel's launches on its
+   main path, error, and times beside its bound, its plain version and a
+   library call (``union_deduce``'s with its cluster size);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -136,6 +140,9 @@ FLASH_MS_BEFORE = 1.4197
 # the H100's 1.7-2.0 GHz, room for 20 calls of a wrapper costing up to
 # 0.5 ms on the host
 SPIN_CYCLES = 20_000_000
+# the runtime calls that launch a kernel start so in torch.profiler's names:
+# cudaLaunchKernel, and cudaLaunchKernelExC for union_deduce's cluster launch
+LAUNCH_CALL = "cudaLaunchKernel"
 # peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -298,14 +305,15 @@ def profile_run(dev, corpora) -> None:
     syncs = sum(e.count for e in events
                 if e.key in ("aten::_local_scalar_dense",
                              "cudaStreamSynchronize"))
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    launches = sum(e.count for e in events if e.key.startswith(LAUNCH_CALL))
     rest = wall - spent["engine"] - spent["gateway"]
     print(f"[4 profile] run() wall {wall:.4f} s: round engine "
           f"{spent['engine']:.4f} s, gateway replay {spent['gateway']:.4f} "
           f"s, rest {rest:.4f} s; device busy {busy:.4f} s (idle share "
           f"{1 - busy / wall:.4f}); {launches} kernel launches, {syncs} "
           f"host syncs")
-    for e in sorted(on_card, key=dev_us, reverse=True)[:10]:
+    top = sorted(on_card, key=dev_us, reverse=True)
+    for e in top[:10] + [e for e in top[10:] if "union_deduce" in e.key]:
         print(f"[4 profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
 
@@ -826,7 +834,7 @@ def lm_profile(dev, cfg, model, steps: int = 16) -> None:
     attn = sum(dev_us(e) for e in on_card
                if "decode_attention_kernel" in e.key) / 1e3 / steps
     launches = sum(e.count for e in events
-                   if e.key == "cudaLaunchKernel") / steps
+                   if e.key.startswith(LAUNCH_CALL)) / steps
     print(f"[4c profile] decode step at context {S + 1}-{S + 2 * steps + 1}"
           f", {LM_LANES} lanes: wall {1e3 * wall:.4f} ms a step; device "
           f"busy {busy:.4f} ms (idle share {1 - busy / (1e3 * wall):.4f}), "
@@ -958,7 +966,7 @@ def run(dev) -> None:
     from repro_torch.core.pairs import PairSet
     from repro_torch.convert import embeddings_from_numpy
     from repro_torch.device import set_precision
-    from repro_torch.kernels._build import extension, sass
+    from repro_torch.kernels._build import extension, resources, sass
     from repro_torch.kernels.pair_scores import blocking
     from repro_torch.kernels.pair_scores import kernel as ps_kernel
     from repro_torch.kernels.pair_scores import ops as ps_ops
@@ -1013,6 +1021,20 @@ def run(dev) -> None:
     if not bool(near.any()) and not torch.equal(c_k, c_p):
         raise AssertionError("pair_scores counts differ")
     ps_args = (a, b)
+    repeats = [ps_kernel.pair_scores(a, b, THRESHOLD, N_ROWS)
+               for _ in range(5)]
+    ps_repeat = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                    for out in repeats for x, y in zip(out, (s_k, c_k)))
+    print(f"[3 pair_scores] five calls equal bit for bit {ps_repeat}")
+    if not ps_repeat:
+        raise AssertionError("pair_scores differs between calls")
+    del repeats, s_p, raw
+    ps_res = resources("pair_scores_kernel")
+    print(f"[3 pair_scores] kernel resources (cuobjdump): {ps_res['REG']} "
+          f"registers, {ps_res['STACK']} B stack, {ps_res['LOCAL']} B local, "
+          f"{ps_res['SHARED']} B shared")
+    if ps_res["STACK"] or ps_res["LOCAL"]:
+        raise AssertionError("pair_scores keeps a stack frame or spills")
 
     # union_deduce on the stacked lanes of the main path's first round
     probe = JoinService(lanes=N_SESSIONS, device=dev)
@@ -1027,10 +1049,27 @@ def run(dev) -> None:
     path_args = (torch.arange(n_path, dtype=torch.int32, device=dev)[None],
                  path_u, path_u + 1, torch.ones_like(path_u, dtype=torch.bool),
                  torch.full_like(path_u, KEY_SENTINEL), n_path)
+    ud_B, ud_n = screen_args[0].shape
+    ud_plan = ud_kernel.plan(ud_n, screen_args[1].shape[1], ud_B)
+    print(f"[3 union_deduce] launch plan at the round-1 screen: {ud_B} lanes"
+          f" x a cluster of {ud_plan.cluster} blocks = "
+          f"{ud_B * ud_plan.cluster} blocks, {ud_plan.pair_slice} pairs and {ud_plan.smem_bytes} B of "
+          f"shared memory a block (the forest, then {ud_plan.edge_cache} POS"
+          f" edges), a hash set of {ud_plan.table_size} slots a lane")
     for name, args in (("round-1 screen", screen_args),
                        ("round-1 deduce", deduce_args),
                        ("path graph", path_args)):
         check_union_deduce("3 union_deduce", name, args)
+    for name, args in (("round-1 screen", screen_args),
+                       ("round-1 deduce", deduce_args)):
+        outs = [ud_kernel.union_deduce(*args) for _ in range(5)]
+        same = all(torch.equal(x, y) for out in outs[1:]
+                   for x, y in zip(out, outs[0]))
+        print(f"[3 union_deduce] five calls on the {name} equal bit for bit "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"union_deduce differs between calls "
+                                 f"({name})")
     del probe
 
     # pair_scores_compact on the first chunk of blocked session 0's tiles
@@ -1244,7 +1283,6 @@ def run(dev) -> None:
     N, M, D = N_ROWS, N_ROWS, DIM
     ps_bytes = 4 * (N * D + M * D + N * M + N)
     ps_flops = 2 * N * M * D
-    ud_B, ud_n = screen_args[0].shape
     ud_P = screen_args[1].shape[1]
     ud_bytes = ud_B * (4 * ud_n * 2 + ud_P * (4 + 4 + 1 + 4 + 4) + 4)
     # one 256-tile chunk of blocked session 0; D is already a multiple of 16
@@ -1321,6 +1359,7 @@ def run(dev) -> None:
          "source": "src/repro_torch/csrc/union_deduce.cu",
          "replaces": "src/repro/kernels/union_deduce/kernel.py:129",
          "launches": launches["union_deduce"], "max_abs_err": 0.0,
+         "cluster": ud_plan.cluster,
          "ms": cuda_ms(lambda: ud_kernel.launch(*screen_args)),
          "plain_ms": cuda_ms(lambda: union_deduce_ref(*screen_args), 5),
          "bound_ms": 1e3 * ud_bytes / PEAK_BYTES_PER_S,
@@ -1352,6 +1391,13 @@ def run(dev) -> None:
              dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
              attn_mask=da_mask, enable_gqa=True))},
     ]
+    print("[6 pair_scores] one call's device time by kernel: "
+          + device_split(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
+                                                       N)))
+    ud_split = device_split(lambda: ud_kernel.launch(*screen_args))
+    print("[6 union_deduce] one call's device time by kernel: " + ud_split)
+    if ud_split.count(" a call: ") != 1:
+        raise AssertionError("union_deduce's launch runs more than its kernel")
     print("[6 pair_scores_compact] one call's device time by kernel: "
           + device_split(lambda: ps_kernel.pair_scores_compact(
               *chunk_args, THRESHOLD, c_call, bn, bm)))

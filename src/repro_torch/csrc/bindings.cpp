@@ -22,8 +22,10 @@ extern "C" cudaError_t pair_scores_compact_launch(
 extern "C" cudaError_t union_deduce_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
     const int* neg_keys, int* roots, int* deduced, int* conflict, int* error,
-    int* table, int B, int n, int P, int table_size, int max_trips,
-    cudaStream_t stream);
+    int* scratch, int B, int n, int P, int pair_slice, int table_size,
+    int stride, int smem, int max_trips, cudaStream_t stream);
+
+extern "C" cudaError_t union_deduce_max_clusters(int smem, int* count);
 
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
@@ -80,21 +82,35 @@ void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// One launch of B clusters of 16 blocks; the plan's figures come from
+// repro_torch/kernels/union_deduce/kernel.py::plan.
 void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
                   const torch::Tensor& v, const torch::Tensor& pos,
                   const torch::Tensor& neg_keys, const torch::Tensor& roots,
                   const torch::Tensor& deduced, const torch::Tensor& conflict,
-                  const torch::Tensor& error, const torch::Tensor& table,
+                  const torch::Tensor& error, const torch::Tensor& scratch,
+                  int64_t pair_slice, int64_t table_size, int64_t smem,
                   int64_t max_trips) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   C10_CUDA_CHECK(union_deduce_launch(
       parent0.data_ptr<int>(), u.data_ptr<int>(), v.data_ptr<int>(),
       pos.data_ptr<uint8_t>(), neg_keys.data_ptr<int>(), roots.data_ptr<int>(),
       deduced.data_ptr<int>(), conflict.data_ptr<int>(), error.data_ptr<int>(),
-      table.data_ptr<int>(), static_cast<int>(parent0.size(0)),
+      scratch.data_ptr<int>(), static_cast<int>(parent0.size(0)),
       static_cast<int>(parent0.size(1)), static_cast<int>(u.size(1)),
-      static_cast<int>(table.size(1)), static_cast<int>(max_trips), stream));
+      static_cast<int>(pair_slice),
+      static_cast<int>(table_size), static_cast<int>(scratch.size(1)),
+      static_cast<int>(smem), static_cast<int>(max_trips), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Clusters of union_deduce blocks with `smem` bytes of dynamic shared
+// memory each that the current device can hold at once; sets the kernel's
+// attributes on the device first.
+int64_t union_deduce_clusters(int64_t smem) {
+  int count = 0;
+  C10_CUDA_CHECK(union_deduce_max_clusters(static_cast<int>(smem), &count));
+  return count;
 }
 
 // Both flash kernels take (q, k, v, o, B, S, H, K, d, 12 element strides
@@ -180,7 +196,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pair_scores", &pair_scores, "thresholded pair scores (CUDA)");
   m.def("pair_scores_compact", &pair_scores_compact,
         "thresholded pair scores compacted over gathered tiles (CUDA)");
-  m.def("union_deduce", &union_deduce, "fused union + deduce (CUDA)");
+  m.def("union_deduce", &union_deduce,
+        "fused union + deduce, a cluster of blocks a lane (CUDA)");
+  m.def("union_deduce_max_clusters", &union_deduce_clusters,
+        "union_deduce clusters the device can hold at once");
   m.def("flash_attention_f32", &flash_attention_f32,
         "causal GQA flash attention, f32, SIMT (CUDA)");
   m.def("flash_attention_bf16", &flash_attention_bf16,

@@ -23,19 +23,14 @@
 //   1. ticket: a block takes its tile index t from an atomic counter, not
 //      from blockIdx, so every tile below t belongs to a block that has
 //      already started;
-//   2. product: a 128 x 128 block, 8 x 8 cells a thread kept in registers
-//      (rows tr..tr+3 and tr+64..tr+67, columns likewise, so a warp's
-//      shared-memory reads of a k step are contiguous 16-byte loads with no
-//      bank conflict); 16-deep k slices double-buffered in shared memory,
-//      the next slice's loads in flight (in registers) during this slice's
-//      FMAs, one barrier a slice; each thread loads 32 contiguous bytes of
-//      one row and stores them k-major, a warp on 32 consecutive rows, so
-//      the transposing stores meet no bank conflict.  Every cell is fmaf in
-//      k order from 0,
-//      as pair_scores.cu sums it, so each scores bit for bit as the dense
-//      kernel scores the same pair: the cross-table dedup in blocking.py
-//      keeps one of several re-finds of a pair and relies on their scores
-//      being equal;
+//   2. product: score_tile::tile_product (score_tile.cuh), the mainloop
+//      that pair_scores.cu runs too, at 16-deep slices: 8 x 8 cells a
+//      thread in registers, conflict-free shared-memory reads and stores,
+//      the next slice's loads in flight during this slice's FMAs.  Every
+//      cell is fmaf in k order from 0 in one shared function, so a pair
+//      scores bit for bit as the dense kernel scores it: the cross-table
+//      dedup in blocking.py keeps one of several re-finds of a pair and
+//      relies on their scores being equal;
 //   3. rank: an exclusive block scan over (row, 4-column group) counts gives
 //      each candidate its rank in the tile and the tile's count;
 //   4. look-back: the block publishes its count as an aggregate in status[t]
@@ -59,16 +54,17 @@
 // words: T tiles and the ticket) zeroed.
 #include <cuda_runtime.h>
 
+#include "score_tile.cuh"
+
 namespace {
 
-constexpr int kBM = 128;   // most rows of a per tile (bn)
-constexpr int kBN = 128;   // most rows of b per tile (bm)
-constexpr int kBK = 16;
-constexpr int kTM = 8;     // rows a thread: 4, and 4 more 64 rows down
-constexpr int kTN = 8;     // columns a thread: 4, and 4 more 64 columns on
-constexpr int kHalf = 64;
+using score_tile::half_index;
+using score_tile::kTM;
+using score_tile::kTN;
+using score_tile::kThreads;                        // 256
+constexpr int kBM = score_tile::kRows;   // most rows of a per tile (bn)
+constexpr int kBN = score_tile::kRows;   // most rows of b per tile (bm)
 constexpr int kGroups = kBN / 4;                   // 32 column groups a row
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kWarps = kThreads / 32;
 constexpr int kCells = kBM * kGroups;              // (row, group) counts
 constexpr int kCellsPerThread = kCells / kThreads; // 16
@@ -79,10 +75,7 @@ constexpr unsigned long long kPrefix = 2ull << 32;
 
 struct Smem {
   union {
-    struct {
-      float as[2][kBK][kBM];
-      float bs[2][kBK][kBN];
-    } k;                  // the mainloop's slices
+    score_tile::Slices k;  // the mainloop's slices
     int cell[kCells];     // then (row, group) counts and their prefix
   } u;
   int ra[kBM];          // global ids of the tile's a rows, -1 past bn
@@ -135,86 +128,6 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
   *total = warp_sums[kWarps - 1];
   __syncthreads();  // warp_sums is reused by the next call
   return before + x - v;
-}
-
-// One k slice of this thread's row: 8 floats from column k0 + c8 of row r
-// of a and of b (zeros past bn / bm).
-__device__ __forceinline__ void load_slice(const float* a0, const float* b0,
-                                           int r, int c8, int k0, int bn,
-                                           int bm, int d, float4 (&va)[2],
-                                           float4 (&vb)[2]) {
-  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4* pa = reinterpret_cast<const float4*>(
-      a0 + static_cast<size_t>(r) * d + k0 + c8);
-  const float4* pb = reinterpret_cast<const float4*>(
-      b0 + static_cast<size_t>(r) * d + k0 + c8);
-  va[0] = r < bn ? pa[0] : z;
-  va[1] = r < bn ? pa[1] : z;
-  vb[0] = r < bm ? pb[0] : z;
-  vb[1] = r < bm ? pb[1] : z;
-}
-
-__device__ __forceinline__ void store_slice(float (&s)[kBK][kBM], int r,
-                                            int c8, const float4 (&v)[2]) {
-  s[c8 + 0][r] = v[0].x; s[c8 + 1][r] = v[0].y;
-  s[c8 + 2][r] = v[0].z; s[c8 + 3][r] = v[0].w;
-  s[c8 + 4][r] = v[1].x; s[c8 + 5][r] = v[1].y;
-  s[c8 + 6][r] = v[1].z; s[c8 + 7][r] = v[1].w;
-}
-
-// Row (column) of the tile that a thread's i-th (j-th) register row holds:
-// 4 from tr (tc), then 4 from tr + 64 (tc + 64).
-__device__ __forceinline__ int half_index(int i, int t0) {
-  return (i < 4 ? 0 : kHalf) + t0 + (i & 3);
-}
-
-// acc[i][j] = <a row half_index(i, tr), b row half_index(j, tc)> of tile t,
-// summed with fmaf in k order from 0.  Rows past bn / bm load as zeros.
-__device__ void tile_product(const float* __restrict__ a,
-                             const float* __restrict__ b, int t, int bn,
-                             int bm, int d, Smem& sm, int tr, int tc,
-                             float (&acc)[kTM][kTN]) {
-  const int tid = threadIdx.x;
-  const float* a0 = a + static_cast<size_t>(t) * bn * d;
-  const float* b0 = b + static_cast<size_t>(t) * bm * d;
-  const int r = tid % kBM;               // the row this thread loads
-  const int c8 = (tid / kBM) * 8;        // and its 8 columns of the slice
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-
-  float4 va[2], vb[2];
-  load_slice(a0, b0, r, c8, 0, bn, bm, d, va, vb);
-  store_slice(sm.u.k.as[0], r, c8, va);
-  store_slice(sm.u.k.bs[0], r, c8, vb);
-  __syncthreads();
-  const int n_slices = d / kBK;
-  for (int s = 0; s < n_slices; ++s) {
-    const int cur = s & 1;
-    const bool more = s + 1 < n_slices;
-    if (more)  // the next slice's loads fly during this slice's FMAs
-      load_slice(a0, b0, r, c8, (s + 1) * kBK, bn, bm, d, va, vb);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float x[kTM], y[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-        x[i] = sm.u.k.as[cur][k][half_index(i, tr)];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        y[j] = sm.u.k.bs[cur][k][half_index(j, tc)];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
-    if (more) {
-      store_slice(sm.u.k.as[cur ^ 1], r, c8, va);
-      store_slice(sm.u.k.bs[cur ^ 1], r, c8, vb);
-    }
-    __syncthreads();
-  }
 }
 
 // Bit j of the result: cell (row, half_index(j, tc)) is a candidate.
@@ -279,7 +192,9 @@ pair_scores_compact_kernel(const float* __restrict__ a,
   }
 
   float acc[kTM][kTN];
-  tile_product(a, b, t, bn, bm, d, sm, tr, tc, acc);  // ends in a barrier
+  score_tile::tile_product(a + static_cast<size_t>(t) * bn * d,
+                                b + static_cast<size_t>(t) * bm * d, bn, bm,
+                                d, sm.u.k, tr, tc, acc);  // ends in a barrier
   unsigned bits[kTM];
   int* cell = sm.u.cell;
 #pragma unroll

@@ -10,6 +10,7 @@ Nothing here runs at import: the CPU tests import every module.
 from __future__ import annotations
 
 import functools
+import re
 import subprocess
 from pathlib import Path
 
@@ -37,16 +38,32 @@ def extension():
     )
 
 
+def _cuobjdump(flag: str) -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    return subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), flag,
+         extension().__file__],
+        capture_output=True, text=True, check=True).stdout
+
+
+def resources(name: str) -> dict:
+    """Registers, stack bytes and the like (``{"REG": 127, "STACK": 0,
+    ...}``) of the first built kernel whose mangled name contains ``name``,
+    as ``cuobjdump -res-usage`` prints them."""
+    lines = _cuobjdump("-res-usage").splitlines()
+    for head, usage in zip(lines, lines[1:]):
+        if head.strip().startswith("Function ") and name in head:
+            return {k: int(v) for k, v in
+                    re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", usage)}
+    raise KeyError(f"no built kernel named like {name!r}")
+
+
 def sass(name: str) -> str:
     """The SASS of the built extension's kernels whose mangled name contains
     ``name``, as the CUDA toolkit's ``cuobjdump -sass`` prints it: how a
     reader can see which instructions (``HGMMA``, ``UTMALDG``) a kernel
     really runs."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    dump = subprocess.run(
-        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
-         extension().__file__],
-        capture_output=True, text=True, check=True).stdout
+    dump = _cuobjdump("-sass")
     return "".join(f for f in dump.split("Function : ")[1:]
                    if name in f.split("\n", 1)[0])

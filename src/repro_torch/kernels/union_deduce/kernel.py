@@ -1,24 +1,84 @@
 """Launch of the hand-written CUDA union–deduce kernel
 (``repro_torch/csrc/union_deduce.cu``; it replaces the Pallas kernel
-``repro/kernels/union_deduce/kernel.py::union_deduce``): one thread block per
-lane, the forest in shared memory, a per-lane hash set in global scratch."""
+``repro/kernels/union_deduce/kernel.py::union_deduce``): one thread-block
+cluster per lane, each block with its own copy of the forest in shared
+memory, the lane's hash set and POS-edge list in global scratch.
+:func:`plan` lays the launch out; it runs on the CPU."""
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 # n * n < 2^31 (int32 keys) bounds the forest at 46340 objects, 185 KB of
 # shared memory — within a block's 227 KB on Hopper
 MAX_OBJECTS = 46340
+# blocks of a lane's cluster, the kernel's kCluster: 16, which needs the
+# non-portable attribute; an H100 places 7 at a time and ran the dense screen
+# faster than at the portable 8 (PERF.md section 6)
+CLUSTER = 16
+SMEM_LIMIT = 232448         # shared memory a Hopper block can use (227 KB)
+SMEM_STATIC = 256           # room for the kernel's static shared variables
+TABLE_MIN = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel for ``lanes`` lanes of n objects and P
+    pairs (see the slices note in ``union_deduce.cu``)."""
+    cluster: int        # blocks a lane: CLUSTER
+    pair_slice: int     # pairs a block: ceil(P / cluster)
+    table_size: int     # hash-set slots a lane: a power of two >= 2P
+    scratch_ints: int   # a lane's scratch: the set, edge counts, edge list
+    smem_bytes: int     # dynamic shared memory a block: forest, then edges
+    edge_cache: int     # POS edges a block keeps in shared memory
+
+
+def plan(n: int, P: int, lanes: int) -> Plan:
+    """Lay out the launch for ``lanes`` stacked lanes of ``n`` objects and
+    ``P`` pairs; raises ``ValueError`` for a forest past ``MAX_OBJECTS``.
+    Block r of a lane's cluster takes pairs ``[min(P, r * pair_slice),
+    min(P, (r + 1) * pair_slice))``."""
+    if not 1 <= n <= MAX_OBJECTS:
+        raise ValueError(f"union_deduce kernel takes 1 to {MAX_OBJECTS} "
+                         f"objects (n * n < 2^31), got {n}: at most "
+                         f"{MAX_OBJECTS}")
+    if P < 1 or lanes < 1:
+        raise ValueError(f"union_deduce kernel needs a pair and a lane, got "
+                         f"P={P} lanes={lanes}")
+    table_size = TABLE_MIN
+    while table_size < 2 * P:   # load factor <= 1/2
+        table_size *= 2
+    pair_slice = -(-P // CLUSTER)
+    room = (SMEM_LIMIT - SMEM_STATIC - 4 * n) // 16 * 4   # edges, 16 B steps
+    edge_cache = min(room, -(-P // 4) * 4)
+    return Plan(cluster=CLUSTER, pair_slice=pair_slice,
+                table_size=table_size,
+                scratch_ints=table_size + CLUSTER + -(-P // 4) * 4,
+                smem_bytes=4 * n + 4 * edge_cache, edge_cache=edge_cache)
+
+
+@functools.cache
+def _clusters_placeable(device: int, smem: int) -> int:
+    """Clusters the device can hold at once at ``smem`` bytes a block; the
+    first call on a device also sets the kernel's attributes there, which
+    the launches rely on."""
+    from repro_torch.kernels._build import extension
+
+    with torch.cuda.device(device):
+        return int(extension().union_deduce_max_clusters(smem))
 
 
 def launch(parent0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
            pos_mask: torch.Tensor, neg_keys: torch.Tensor, n_objects: int):
-    """Check the inputs and launch the kernel on the current stream without
-    waiting for it.  Stacked lanes on one CUDA device: parent0 (B, n) int32
-    compressed forests, u/v (B, P) int32, pos_mask (B, P) bool, neg_keys
-    (B, P) int32 sorted and INT32_MAX-padded.  Returns ``(roots (B, n)
-    int32, deduced (B, P) int32, conflict (B,) int32, error (B,) int32)``;
-    ``error`` flags lanes whose union hit the trip cap."""
+    """Check the inputs and launch the kernel, once, on the current stream
+    without waiting for it.  Stacked lanes on one CUDA device: parent0 (B, n)
+    int32 compressed forests, u/v (B, P) int32, pos_mask (B, P) bool,
+    neg_keys (B, P) int32 sorted and INT32_MAX-padded.  Returns ``(roots
+    (B, n) int32, deduced (B, P) int32, conflict (B,) int32, error (B,)
+    int32)``; ``error`` flags lanes whose union hit the trip cap.  Raises
+    ``RuntimeError`` if the card cannot place one cluster."""
     from repro_torch.kernels._build import extension
 
     for name, x, dt in (("parent0", parent0, torch.int32),
@@ -39,19 +99,25 @@ def launch(parent0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             f"union_deduce kernel shapes: parent0 {tuple(parent0.shape)}, "
             f"pairs {tuple(u.shape)}, n_objects={n_objects} (at most "
             f"{MAX_OBJECTS})")
-    table_size = 64
-    while table_size < 2 * P:   # load factor <= 1/2
-        table_size *= 2
+    pl = plan(n, P, B)
     dev = parent0.device
+    if not _clusters_placeable(dev.index if dev.index is not None
+                               else torch.cuda.current_device(),
+                               pl.smem_bytes):
+        raise RuntimeError(
+            f"union_deduce: the card cannot place a cluster of {pl.cluster} "
+            f"blocks with {pl.smem_bytes} bytes of shared memory each")
     roots = torch.empty((B, n), dtype=torch.int32, device=dev)
     deduced = torch.empty((B, P), dtype=torch.int32, device=dev)
-    conflict = torch.zeros(B, dtype=torch.int32, device=dev)
-    error = torch.zeros(B, dtype=torch.int32, device=dev)
-    table = torch.empty((B, table_size), dtype=torch.int32, device=dev)
+    conflict = torch.empty(B, dtype=torch.int32, device=dev)
+    error = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty((B, pl.scratch_ints), dtype=torch.int32,
+                          device=dev)
     extension().union_deduce(
         parent0.contiguous(), u.contiguous(), v.contiguous(),
         pos_mask.contiguous().view(torch.uint8), neg_keys.contiguous(),
-        roots, deduced, conflict, error, table, max_trips(n))
+        roots, deduced, conflict, error, scratch, pl.pair_slice,
+        pl.table_size, pl.smem_bytes, max_trips(n))
     return roots, deduced, conflict, error
 
 

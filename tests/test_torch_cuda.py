@@ -123,6 +123,76 @@ def test_pair_scores_kernel_at_width_384_within_derived_bound(dev, seed):
         np.testing.assert_array_equal(c.cpu().numpy()[:, 0], want.sum(1))
 
 
+def _unit_rows(dev, N, M, D, seed):
+    """(N, D) and (M, D) unit f32 rows on the card, half of b near a."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(N, D, generator=gen)
+    b = torch.randn(M, D, generator=gen)
+    k = min(N, M) // 2
+    b[:k] = a[:k] + 0.5 * b[:k]
+    return ps_ops.l2_normalize(a.to(dev)), ps_ops.l2_normalize(b.to(dev))
+
+
+# N = M = 384: an odd number of tiles a side; D = 16: one k slice; D = 768:
+# twice the join cells' width; m_valid < M: counts over the real columns
+@pytest.mark.parametrize("N,M,D,m_valid", [(384, 384, 384, 384),
+                                           (512, 256, 16, 256),
+                                           (256, 512, 768, 512),
+                                           (256, 512, 64, 300)])
+def test_pair_scores_kernel_shapes_and_counts(dev, N, M, D, m_valid):
+    """The kernel on already padded inputs against its plain version:
+    scores within 1e-5 with set flips only within 1e-5 of tau, and the
+    counts over the first ``m_valid`` columns exactly."""
+    a, b = _unit_rows(dev, N, M, D, seed=N + M + D)
+    tau = 0.5
+    s, c = ps_kernel.pair_scores(a, b, tau, m_valid)
+    s_ref, _ = pair_scores_ref(a, b, tau)
+    torch.cuda.synchronize()
+    flips = (s != 0) != (s_ref != 0)
+    near = ((a @ b.T) - tau).abs() <= 1e-5
+    assert not (flips & ~near).any()
+    torch.testing.assert_close(s[~flips], s_ref[~flips], rtol=0, atol=1e-5)
+    assert (s_ref != 0).any()
+    if not near.any():
+        want = (s_ref[:, :m_valid] != 0).sum(1, dtype=torch.int32)
+        assert torch.equal(c, want)
+
+
+def test_pair_scores_kernel_repeats_bitwise(dev):
+    """Five calls at the main path's (4096, 384)^2 agree bit for bit, the
+    counts too (integer atomics, in any order)."""
+    a, b = _unit_rows(dev, 4096, 4096, 384, seed=9)
+    outs = [ps_kernel.pair_scores(a, b, 0.5, 4096) for _ in range(5)]
+    assert int(outs[0][1].sum()) > 0
+    for out in outs[1:]:
+        for x, y in zip(out, outs[0]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("D", [16, 384, 768])
+def test_pair_scores_kernel_equals_compact_tiles_bitwise(dev, D):
+    """The dense kernel and the compact kernel over every tile pair of a
+    dense tiling run one mainloop (score_tile.cuh): every candidate cell
+    scores bit for bit alike."""
+    N, M = 384, 256
+    a, b = _unit_rows(dev, N, M, D, seed=D)
+    s, _ = ps_kernel.pair_scores(a, b, 0.5, M)
+    ti, tj = torch.meshgrid(torch.arange(N // 128), torch.arange(M // 128),
+                            indexing="ij")
+    ti, tj = ti.flatten().to(dev), tj.flatten().to(dev)
+    rows_a = (ti[:, None] * 128 + torch.arange(128, device=dev)).flatten()
+    rows_b = (tj[:, None] * 128 + torch.arange(128, device=dev)).flatten()
+    rows, cols, scores, n = ps_kernel.pair_scores_compact(
+        a[rows_a].contiguous(), b[rows_b].contiguous(),
+        rows_a[:, None].to(torch.int32), rows_b[:, None].to(torch.int32),
+        0.5, len(ti) * 128 * 128, 128, 128)
+    n = int(n)
+    assert n == int((s != 0).sum()) > 0
+    r, c = rows[:n, 0].long(), cols[:n, 0].long()
+    assert torch.equal(scores[:n, 0].view(torch.int32),
+                       s[r, c].view(torch.int32))
+
+
 def _tiles(dev, T, bn, bm, D, dtype, seed):
     """T gathered tile pairs of correlated unit rows, with a quarter of the
     ids (and their rows) padding."""
@@ -350,6 +420,74 @@ def test_union_deduce_kernel_path_graph(dev, n):
             torch.full_like(u, KEY_SENTINEL), n)
     roots, ded, conflict = ud_kernel.union_deduce(*args)
     assert not roots.any() and (ded == POS).all() and not conflict.any()
+
+
+def _assert_union_deduce_equal(args):
+    got = ud_kernel.union_deduce(*args)
+    exp = union_deduce_ref(*args)
+    for name, g, e in zip(("roots", "deduced", "conflict"), got, exp):
+        assert torch.equal(g, e), name
+    return got
+
+
+# lanes 1, 4 and 7; the largest forest; P = 1; P that the cluster does
+# not divide; a lane count that leaves clusters of the last wave alone
+@pytest.mark.parametrize("n,p,lanes", [(5000, 30011, 1), (8192, 131072, 4),
+                                       (300, 1001, 7), (46340, 20000, 1),
+                                       (16, 1, 3), (2048, 8 * 1000 + 3, 4)])
+def test_union_deduce_cluster_kernel_matches_plain(dev, n, p, lanes):
+    """Bit for bit against the plain version, the launch's plan asked of
+    the card first (a cluster it cannot place raises)."""
+    pl = ud_kernel.plan(n, p, lanes)
+    assert ud_kernel._clusters_placeable(torch.cuda.current_device(),
+                                         pl.smem_bytes) > 0
+    _assert_union_deduce_equal((*_lanes(dev, n, p, lanes, seed=n + p), n))
+
+
+@pytest.mark.parametrize("center", ["least", "largest"])
+@pytest.mark.parametrize("n", [8192, 46340])
+def test_union_deduce_kernel_star_graph(dev, center, n):
+    """Every edge meets one object: hooked under the least id it is one
+    trip; at the largest id every hook of the first trip lands on one
+    object's parent, so the union needs more trips."""
+    c = 0 if center == "least" else n - 1
+    others = torch.tensor([x for x in range(n) if x != c], dtype=torch.int32,
+                          device=dev)[None]
+    args = (torch.arange(n, dtype=torch.int32, device=dev)[None],
+            torch.full_like(others, c), others,
+            torch.ones_like(others, dtype=torch.bool),
+            torch.full_like(others, KEY_SENTINEL), n)
+    roots, ded, conflict = _assert_union_deduce_equal(args)
+    assert not roots.any() and (ded == POS).all() and not conflict.any()
+
+
+def test_union_deduce_kernel_deduce_only(dev):
+    """The round engine's deduce call: no POS bit, so the union is a no-op
+    and the forest comes back as it went in; NEG from the neg index."""
+    parent0, u, v, pos, negk = _lanes(dev, 8192, 131072, 4, seed=2)
+    args = (parent0, u, v, torch.zeros_like(pos), negk, 8192)
+    roots, ded, conflict = _assert_union_deduce_equal(args)
+    assert torch.equal(roots, parent0) and not conflict.any()
+    assert (ded == NEG).any() and (ded == POS).any()
+
+
+def test_union_deduce_kernel_repeats_bitwise(dev):
+    """Five calls agree bit for bit, with lanes that conflict and lanes that
+    do not: the kernel writes its conflict and error flags itself, whatever
+    the memory it is handed held before."""
+    parent0, u, v, pos, negk = _lanes(dev, 8192, 131072, 4, seed=7)
+    pos[1::2] = False       # lanes 1 and 3 unite nothing: no conflict
+    args = (parent0, u, v, pos, negk, 8192)
+    exp = union_deduce_ref(*args)
+    assert exp[2].any() and not exp[2].all()
+    outs = []
+    for _ in range(5):
+        junk = torch.ones(4, dtype=torch.int32, device=dev)
+        del junk    # freed memory of the flags' size, holding ones
+        outs.append(ud_kernel.union_deduce(*args))
+    for out in outs:
+        for x, y in zip(out, exp):
+            assert torch.equal(x, y)
 
 
 def test_union_deduce_kernel_refuses_oversized_forest(dev):

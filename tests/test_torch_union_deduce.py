@@ -2,7 +2,9 @@
 ``repro_torch.kernels.union_deduce.ops``) against the JAX package's fused
 union–deduce, both its XLA oracle (``impl="ref"``) and its Pallas kernel in
 interpret mode: roots, deductions and the conflict bit, bit for bit.  The
-port runs stacked lanes in one call; the reference runs them one by one."""
+port runs stacked lanes in one call; the reference runs them one by one.
+Then the CUDA kernel's launch planner, which runs on the CPU: its slices,
+hash-set size and shared memory."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from repro.kernels.union_deduce.ops import fused_union_deduce as _fused
 fused_union_deduce = jax.jit(_fused, static_argnames=("n_objects", "impl"))
 from repro_torch.core.cluster_graph import NEG, POS
 from repro_torch.core.graph import KEY_SENTINEL
+from repro_torch.kernels.union_deduce import kernel as ud_kernel
 from repro_torch.kernels.union_deduce.ops import union_deduce
 
 
@@ -87,3 +90,52 @@ def test_union_deduce_path_graph(n):
         np.testing.assert_array_equal(roots[0].numpy(), np.asarray(exp[0]))
         np.testing.assert_array_equal(ded[0].numpy(), np.asarray(exp[1]))
         assert bool(conf[0]) == bool(exp[2]) is False
+
+
+# the kernel's launch planner (pure Python: it runs here, without a card)
+C = ud_kernel.CLUSTER
+
+
+@pytest.mark.parametrize("P", [1, C - 1, C, C + 1, 8003, 131072])
+def test_plan_slices_cover_the_pairs_once(P):
+    pl = ud_kernel.plan(8192, P, 4)
+    assert pl.cluster == C
+    covered = np.zeros(P, np.int64)
+    for r in range(C):
+        # block r of the cluster takes [min(P, r s), min(P, r s + s))
+        covered[min(P, r * pl.pair_slice):
+                min(P, r * pl.pair_slice + pl.pair_slice)] += 1
+    assert (covered == 1).all()
+
+
+def test_plan_uses_the_kernels_cluster():
+    assert ud_kernel.plan(8192, 131072, 4).cluster == C == 16
+
+
+@pytest.mark.parametrize("P", [1, 7, 32, 33, 131072, 262145])
+def test_plan_table_is_a_power_of_two_past_twice_the_pairs(P):
+    pl = ud_kernel.plan(1024, P, 2)
+    T = pl.table_size
+    assert T & (T - 1) == 0 and T >= 2 * P and T // 2 < max(2 * P, 64)
+    # every block of the cluster fills whole 16-byte runs
+    assert T % (4 * C) == 0
+    assert pl.scratch_ints % 4 == 0
+    assert pl.scratch_ints >= T + C + P
+
+
+@pytest.mark.parametrize("n,P", [(1, 1), (8192, 131072), (32768, 262144),
+                                 (ud_kernel.MAX_OBJECTS, 1),
+                                 (ud_kernel.MAX_OBJECTS, 4096)])
+def test_plan_shared_memory_fits_a_hopper_block(n, P):
+    pl = ud_kernel.plan(n, P, 4)
+    assert pl.smem_bytes + ud_kernel.SMEM_STATIC <= 227 * 1024
+    assert pl.smem_bytes == 4 * n + 4 * pl.edge_cache
+    assert 0 < pl.edge_cache and pl.edge_cache % 4 == 0
+    assert pl.edge_cache >= min(P, 11708)   # all edges, or what fits
+
+
+@pytest.mark.parametrize("n,P,lanes", [
+    (ud_kernel.MAX_OBJECTS + 1, 8, 1), (0, 8, 1), (8, 0, 1), (8, 8, 0)])
+def test_plan_refuses_what_the_kernel_does_not_take(n, P, lanes):
+    with pytest.raises(ValueError):
+        ud_kernel.plan(n, P, lanes)
