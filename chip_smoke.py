@@ -76,14 +76,26 @@ carries on.  Phases, one output line or block each:
    base, tau 0.62) make a ``PairSet`` that ``JoinService(lanes=1).submit``
    under a ``PerfectCrowd`` and ``run()`` must label whole, at precision 1.0
    and transitively consistent;
+4e. the noisy dense path: phase 4's four corpora through
+   ``JoinService(lanes=4, fused_rounds=False)`` under
+   ``NoisyCrowd(error_rate=0.1, n_assignments=3, n_workers=25,
+   worker_concentration=3.0, qualification=False)``, seeds 0-3 (the worker
+   pool of ``examples/crowdsourced_join.py``), then ``run()``: every session
+   must label all its pairs, transitively consistent, the sessions must
+   reject answers, the exact replay must run and ``union_deduce`` launch on
+   the folds; session 0 on the CPU with the same crowd seed must give every
+   result field identical; then a run split on the host clock into gateway
+   asks, frontier, fast fold, exact replays and deduce (each stage
+   synchronized), and a profiled run;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
    ``union_deduce`` and ``decode_attention`` call by kernel (each wrapper's
    fills and memsets beside its launch: ``union_deduce`` must be one
    kernel); a ``{"kernels": [...]}`` line with each kernel's launches on its
-   main path, error, and times beside its bound, its plain version and a
-   library call (``union_deduce``'s with its cluster size);
+   main path (and on each path, where it runs on more than one), error, and
+   times beside its bound, its plain version and a library call
+   (``union_deduce``'s with its cluster size);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -114,6 +126,10 @@ N_ROWS, DIM, THRESHOLD, N_SESSIONS, SEED = 4096, 384, 0.7, 4, 0
 BLOCK_ROWS, BLOCK_SEED = 16384, SEED + 100
 BLOCKING = dict(n_bits=6, n_tables=8, bn=128, bm=128, tiles_per_call=256)
 RECALL_SAMPLE = 1024
+# phase 4e's crowd: examples/crowdsourced_join.py's heterogeneous worker
+# pool (benchmarks/noise_sweep.py draws the same pool with 30 workers)
+NOISY_CROWD = dict(error_rate=0.1, n_assignments=3, n_workers=25,
+                   worker_concentration=3.0, qualification=False)
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -256,7 +272,6 @@ def profile_run(dev, corpora) -> None:
     device time by kernel.  The device's idle share is taken against the
     unprofiled wall clock (the profiler slows the host many times over)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.crowd import CrowdGateway
@@ -294,18 +309,7 @@ def profile_run(dev, corpora) -> None:
                              ProfilerActivity.CUDA]) as prof:
         svc.run()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in on_card) / 1e6
-    syncs = sum(e.count for e in events
-                if e.key in ("aten::_local_scalar_dense",
-                             "cudaStreamSynchronize"))
-    launches = sum(e.count for e in events if e.key.startswith(LAUNCH_CALL))
+    on_card, busy, syncs, launches = profile_counts(prof)
     rest = wall - spent["engine"] - spent["gateway"]
     print(f"[4 profile] run() wall {wall:.4f} s: round engine "
           f"{spent['engine']:.4f} s, gateway replay {spent['gateway']:.4f} "
@@ -318,6 +322,198 @@ def profile_run(dev, corpora) -> None:
               f"{e.key[:90]}")
 
 
+def profile_counts(prof):
+    """From a ``torch.profiler`` run: the device events, their busy seconds,
+    the host syncs and the kernel launches."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in on_card) / 1e6
+    syncs = sum(e.count for e in events
+                if e.key in ("aten::_local_scalar_dense",
+                             "cudaStreamSynchronize"))
+    launches = sum(e.count for e in events if e.key.startswith(LAUNCH_CALL))
+    return on_card, busy, syncs, launches
+
+
+def dev_us(e) -> float:
+    """An event's device microseconds, under either profiler's name."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def noisy_path(dev, corpora) -> dict:
+    """Phase 4e: phase 4's four dense corpora through
+    ``JoinService(lanes=4, fused_rounds=False)`` under ``NoisyCrowd``s
+    (``NOISY_CROWD``, seeds ``SEED + i``), then ``run()``.  Every session must
+    label all its pairs, transitively consistent; the sessions must reject
+    answers (conflicts), the exact replay must run and ``union_deduce`` must
+    launch on the folds.  Session 0 again on the CPU with the same crowd
+    seed must give every result field identical.  Then a run split on the
+    host clock (each stage synchronized) and a profiled run.  Returns the
+    path's kernel launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import graph
+    from repro_torch.core.crowd import CrowdGateway, NoisyCrowd
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.core.pairs import PairSet
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    ttms = [int((ia[:, None] == ib[None, :]).sum())
+            for ia, _, ib, _ in corpora]
+
+    def crowd(i):
+        return NoisyCrowd(seed=SEED + i, **NOISY_CROWD)
+
+    def serve():
+        """A four-lane per-round service with the four corpora queued."""
+        svc = join_service.JoinService(lanes=N_SESSIONS, fused_rounds=False,
+                                       device=dev)
+        for i, (ids_a, ea, ids_b, eb) in enumerate(corpora):
+            svc.submit_embeddings(
+                embeddings_from_numpy(ea, dev),
+                embeddings_from_numpy(eb, dev), THRESHOLD, crowd=crowd(i),
+                truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
+                total_true_matches=ttms[i])
+        return svc
+
+    spent = {"gateway asks": 0.0, "frontier": 0.0, "fold": 0.0,
+             "exact replays": 0.0, "deduce": 0.0}
+    calls = dict.fromkeys(spent, 0)
+
+    def timed(fn, key, sync):
+        def call(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            calls[key] += 1
+            return out
+        return call
+
+    patched = [(CrowdGateway, "post", "gateway asks"),
+               (join_service, "session_frontier_batch", "frontier"),
+               (join_service, "session_fold_answers_batch", "fold"),
+               (graph, "_apply_sequential", "exact replays"),
+               (graph, "_deduce_impl", "deduce")]
+    originals = [getattr(obj, name) for obj, name, _ in patched]
+
+    def patch(sync, only=None):
+        for (obj, name, key), fn in zip(patched, originals):
+            if only is None or key == only:
+                setattr(obj, name, timed(fn, key, sync))
+
+    def unpatch():
+        for (obj, name, _), fn in zip(patched, originals):
+            setattr(obj, name, fn)
+
+    # the run: replays counted (unsynchronized), kernel counts zeroed just
+    # before the path and read just after it
+    ps_ops.pair_scores.launches = 0
+    svc = serve()
+    rids = [req.rid for req in svc.queue]
+    pairsets = [req.pairs for req in svc.queue]
+    ps_launches = ps_ops.pair_scores.launches
+    ud_ops.union_deduce.launches = 0
+    patch(sync=False, only="exact replays")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = svc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        unpatch()
+    launches = {"pair_scores": ps_launches,
+                "union_deduce": ud_ops.union_deduce.launches}
+    replays = calls["exact replays"]
+    conflicts = 0
+    for rid, ps in zip(rids, pairsets):
+        res = results[rid]
+        q = res.quality
+        conflicts += res.n_conflicts
+        print(f"[4e session {rid}] P {len(ps)} rounds {res.n_rounds} "
+              f"crowdsourced {res.n_crowdsourced} deduced {res.n_deduced} "
+              f"conflicts {res.n_conflicts} spent {res.n_spent_cents:.1f} "
+              f"cents precision {q.precision:.6f} recall {q.recall:.6f} F "
+              f"{q.f_measure:.6f}")
+        if res.n_crowdsourced + res.n_deduced != len(ps) \
+                or not transitively_consistent(ps, res.labels):
+            raise AssertionError(f"noisy session {rid} result is wrong")
+    print(f"[4e noisy path] run() wall {wall:.4f} s, {conflicts} answers "
+          f"rejected, {replays} exact replays, launches {launches}")
+    if conflicts < 1 or replays < 1 or min(launches.values()) < 1:
+        raise AssertionError(f"the noisy path exercised too little: "
+                             f"conflicts {conflicts}, replays {replays}, "
+                             f"launches {launches}")
+
+    ps0 = pairsets[0]
+    one = join_service.JoinService(lanes=1, fused_rounds=False,
+                                   device="cpu")
+    rid0 = one.submit(PairSet(ps0.u, ps0.v, ps0.likelihood, ps0.truth,
+                              ps0.n_objects), crowd(0),
+                      total_true_matches=ttms[0])
+    t0 = time.perf_counter()
+    cpu = result_fields(one.run()[rid0])
+    cpu_s = time.perf_counter() - t0
+    card = result_fields(results[rids[0]])
+    diff = [k for k in card if card[k] != cpu[k]]
+    print(f"[4e parity] session 0 on the card and on the CPU ({cpu_s:.4f} s)"
+          f": {len(card)} fields, differing {diff}")
+    if diff:
+        raise AssertionError(f"noisy session 0: card and CPU differ in "
+                             f"{diff}")
+
+    # the host-clock split: each stage synchronized before and after
+    for key in spent:
+        spent[key], calls[key] = 0.0, 0
+    svc = serve()
+    patch(sync=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.run()
+        torch.cuda.synchronize()
+        split_wall = time.perf_counter() - t0
+    finally:
+        unpatch()
+    fast = spent["fold"] - spent["exact replays"] - spent["deduce"]
+    rest = split_wall - spent["gateway asks"] - spent["frontier"] \
+        - spent["fold"]
+    print(f"[4e split] run() wall {split_wall:.4f} s (synchronized stages): "
+          f"gateway asks {spent['gateway asks']:.4f} s in "
+          f"{calls['gateway asks']} posts, frontier {spent['frontier']:.4f} "
+          f"s in {calls['frontier']} calls, fast fold {fast:.4f} s in "
+          f"{calls['fold']} folds, exact replays {calls['exact replays']} in "
+          f"{spent['exact replays']:.4f} s, deduce {spent['deduce']:.4f} s, "
+          f"rest {rest:.4f} s")
+
+    svc = serve()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.run()
+        torch.cuda.synchronize()
+    on_card, busy, syncs, n_launch = profile_counts(prof)
+    print(f"[4e profile] device busy {busy:.4f} s (idle share "
+          f"{1 - busy / wall:.4f} of the unprofiled run() wall); {n_launch} "
+          f"kernel launches, {syncs} host syncs")
+    top = sorted(on_card, key=dev_us, reverse=True)
+    for e in top[:6] + [e for e in top[6:] if "union_deduce" in e.key]:
+        print(f"[4e profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:90]}")
+    return launches
+
+
 def first_round_args(svc, dev):
     """The queued sessions of ``svc`` opened as lanes, grown to one capacity
     and stacked, at their first round: the ``union_deduce`` arguments of the
@@ -326,7 +522,7 @@ def first_round_args(svc, dev):
     import torch
 
     from repro_torch.core.graph import (_apply_fast, _finish_apply,
-                                        _frontier_impl, _screen_fused,
+                                        _frontier_impl, _screen_impl,
                                         session_grow, stack_states)
     from repro_torch.core.ordering import _refresh_masked_impl
 
@@ -346,9 +542,10 @@ def first_round_args(svc, dev):
                                           device=dev))
     frontier = _frontier_impl(st)
     updates = torch.where(frontier, answers, -1)
-    new, pos_new, neg_new, roots_opt, _ = _screen_fused(st, updates)
+    new, pos_new, neg_new, roots_opt, _ = _screen_impl(st, updates)
     folded = _finish_apply(st, *_apply_fast(st, updates, new, pos_new,
-                                            neg_new, roots_opt), new)
+                                            neg_new, roots_opt), new, True,
+                           False)
     screen_args = (st.roots, st.u, st.v, pos_new, st.neg_keys, n_cap)
     deduce_args = (folded.roots, folded.u, folded.v,
                    torch.zeros_like(pos_new), folded.neg_keys, n_cap)
@@ -826,10 +1023,6 @@ def lm_profile(dev, cfg, model, steps: int = 16) -> None:
     events = prof.key_averages()
     on_card = [e for e in events if e.device_type == DeviceType.CUDA]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     busy = sum(dev_us(e) for e in on_card) / 1e3 / steps
     attn = sum(dev_us(e) for e in on_card
                if "decode_attention_kernel" in e.key) / 1e3 / steps
@@ -1265,6 +1458,9 @@ def run(dev) -> None:
     machine = lm_machine_phase(dev, lm_cfg, lm_model)
     del lm_model
 
+    # -- 4e. the noisy dense path --------------------------------------------
+    noisy_launches = noisy_path(dev, corpora)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -1329,7 +1525,8 @@ def run(dev) -> None:
          "launches": launches["pair_scores"],
          "launches_by_path": {
              "dense": launches["pair_scores"],
-             "lm_machine_phase": machine["launches"]["pair_scores"]},
+             "lm_machine_phase": machine["launches"]["pair_scores"],
+             "noisy_dense": noisy_launches["pair_scores"]},
          "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
@@ -1358,7 +1555,12 @@ def run(dev) -> None:
         {"name": "union_deduce", "route": "cuda",
          "source": "src/repro_torch/csrc/union_deduce.cu",
          "replaces": "src/repro/kernels/union_deduce/kernel.py:129",
-         "launches": launches["union_deduce"], "max_abs_err": 0.0,
+         "launches": launches["union_deduce"],
+         "launches_by_path": {
+             "dense": launches["union_deduce"],
+             "blocked": blocked_launches["union_deduce"],
+             "noisy_dense": noisy_launches["union_deduce"]},
+         "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "ms": cuda_ms(lambda: ud_kernel.launch(*screen_args)),
          "plain_ms": cuda_ms(lambda: union_deduce_ref(*screen_args), 5),

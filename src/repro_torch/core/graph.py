@@ -1,6 +1,9 @@
 """Transitive-relations round engine on PyTorch — the port of
-``repro/core/jax_graph.py`` (DESIGN.md §8, §13), limited to what the fused
-serving path runs.
+``repro/core/jax_graph.py`` (DESIGN.md §8, §9, §13) that the serving paths
+run: the fused round engine (``session_run_rounds(_batch)``) and the
+per-round transformations (frontier, the conflict-screened answer fold with
+its exact sequential replay, deduce, seed, mark-published, trust-graph),
+each unbatched and stacked.
 
 A join session's engine state is a :class:`SessionState` of tensors:
 pair endpoints ``u``/``v`` in labeling order, ``labels``, in-flight
@@ -22,7 +25,7 @@ PyTorch version for a CPU state.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List, Set
 
 import numpy as np
 import torch
@@ -312,14 +315,20 @@ def _apply_fast(state: SessionState, updates, new, pos_new, neg_new, roots):
     return labels, roots, negk, torch.zeros_like(new)
 
 
-def _finish_apply(state: SessionState, labels, roots, negk, cmask, new
+def _finish_apply(state: SessionState, labels, roots, negk, cmask, new,
+                  count_round: bool, keep_conflicts_published: bool
                   ) -> SessionState:
-    """Bookkeeping tail of a counted answer fold: answered pairs leave
-    flight, the round counter advances on any new label, and rejected
-    answers count in ``conflicts``."""
+    """Bookkeeping tail of every apply variant: answered pairs leave flight
+    (rejected ones stay in flight only under ``keep_conflicts_published``,
+    the requery policy), the round counter advances on any new label when
+    ``count_round``, and rejected answers count in ``conflicts``."""
+    answered = new & ~cmask if keep_conflicts_published else new
+    rounds = state.rounds
+    if count_round:
+        rounds = rounds + new.any(-1).to(torch.int32)
     return state.replace(
-        labels=labels, published=state.published & ~new, roots=roots,
-        neg_keys=negk, rounds=state.rounds + new.any(-1).to(torch.int32),
+        labels=labels, published=state.published & ~answered, roots=roots,
+        neg_keys=negk, rounds=rounds,
         conflicts=state.conflicts + cmask.to(torch.int32))
 
 
@@ -339,10 +348,13 @@ def _deduce_from_impl(state: SessionState, ded: torch.Tensor
                          neg_keys=negk)
 
 
-def _screen_fused(state: SessionState, updates: torch.Tensor):
+def _screen_impl(state: SessionState, updates: torch.Tensor):
     """The §9 conflict screen through the union_deduce kernel: the
     optimistic union of every incoming POS edge, the old-key self-key scan,
-    and the self-key check of the incoming NEG answers."""
+    and the self-key check of the incoming NEG answers.  Any contradiction
+    in the batch, against the state or inside the batch, leaves a self-key
+    under that union, so a clean screen proves the batch conflict-free.
+    Returns ``(new, pos_new, neg_new, roots_opt, has_conflict (B,))``."""
     new = (updates != UNKNOWN) & (state.labels == UNKNOWN)
     pos_new = new & (updates == POS)
     neg_new = new & (updates == NEG)
@@ -354,14 +366,189 @@ def _screen_fused(state: SessionState, updates: torch.Tensor):
     return new, pos_new, neg_new, roots_opt, old_conflict | fresh_self.any(-1)
 
 
-def _deduce_fused(state: SessionState) -> SessionState:
+def _deduce_impl(state: SessionState) -> SessionState:
     """One deduction sweep through the union_deduce kernel: with no edge to
     unite, its union is a no-op on the compressed forest and its re-key the
-    identity, leaving the plain deduce lookup."""
+    identity, leaving the plain deduce lookup.  In-flight pairs are
+    skipped."""
     _, ded, _ = union_deduce(
         state.roots, state.u, state.v, torch.zeros_like(state.published),
         state.neg_keys, state.n_objects)
     return _deduce_from_impl(state, ded)
+
+
+def _sequential_conflicts(u, v, updates, new, roots, neg_keys,
+                          n_objects: int) -> np.ndarray:
+    """Which of one lane's answers ``ClusterGraph.add_label`` would reject,
+    taken one at a time in pair-index order (numpy inputs of one lane; the
+    forest ``roots`` compressed and ``neg_keys`` canonical under it).  A NEG
+    answer is rejected inside one cluster, a POS answer between clusters
+    with a neg edge; only accepted answers change the clusters.  Union-find
+    over the state's roots, each cluster's set of neg-adjacent clusters
+    built from the neg-key index the first time the cluster is touched and
+    merged small into large on a union.  Returns the (P,) conflict mask."""
+    keys = neg_keys[neg_keys != KEY_SENTINEL].astype(np.int64)
+    ends = np.concatenate([keys // n_objects, keys % n_objects])
+    others = np.concatenate([keys % n_objects, keys // n_objects])
+    order = np.argsort(ends, kind="stable")
+    ends, others = ends[order], others[order].tolist()
+    link: Dict[int, int] = {}       # merged cluster -> the one it joined
+    enemies: Dict[int, Set[int]] = {}
+
+    def find(r: int) -> int:
+        top = r
+        while top in link:
+            top = link[top]
+        while r != top:
+            link[r], r = top, link[r]
+        return top
+
+    def enemy_set(r: int) -> Set[int]:
+        s = enemies.get(r)
+        if s is None:
+            a = int(np.searchsorted(ends, r, "left"))
+            b = int(np.searchsorted(ends, r, "right"))
+            s = enemies[r] = {find(x) for x in others[a:b]}
+        return s
+
+    u, v, updates, roots = u.tolist(), v.tolist(), updates.tolist(), \
+        roots.tolist()
+    cmask = np.zeros(len(u), bool)
+    for i in np.flatnonzero(new).tolist():
+        a, b = find(roots[u[i]]), find(roots[v[i]])
+        if updates[i] == NEG:
+            if a == b:
+                cmask[i] = True
+            else:
+                enemy_set(a).add(b)
+                enemy_set(b).add(a)
+        elif a != b:
+            ea, eb = enemy_set(a), enemy_set(b)
+            if b in ea:
+                cmask[i] = True
+                continue
+            if len(ea) < len(eb):
+                a, b, ea, eb = b, a, eb, ea
+            link[b] = a
+            del enemies[b]
+            for e in eb:
+                se = enemy_set(e)
+                se.discard(b)
+                se.add(a)
+            ea |= eb
+    return cmask
+
+
+def _apply_sequential(state: SessionState, updates: torch.Tensor,
+                      new: torch.Tensor, lanes: np.ndarray):
+    """Exact sequential replay of a conflicting fold (DESIGN.md §9) on the
+    lanes where the host mask ``lanes`` (B,) holds: the reference's
+    answer-at-a-time semantics in pair-index order, bit for bit.
+
+    The design, the same code for a CPU and a CUDA state: whether an answer
+    is accepted depends only on cluster membership and cluster-level neg
+    adjacency, so a host pass over each replayed lane's new answers decides
+    accept or reject (:func:`_sequential_conflicts`); then a vectorized
+    tail on the state's device rebuilds what the serial replay would end
+    with.  Its roots are the least-id components of the old forest plus the
+    accepted POS edges (the union's unique fixed point, through the
+    union_deduce kernel); its neg keys are the first P of the sorted
+    canonical keys, under those roots, of the old keys and the accepted NEG
+    pairs (each pair holds at most one key, so they are all there).  Lanes
+    not replayed take every answer.  Returns ``(labels, roots, neg_keys,
+    conflict_mask)``."""
+    cmask = np.zeros(tuple(new.shape), bool)
+    idx = np.flatnonzero(lanes)
+    sel = torch.from_numpy(idx).to(new.device)
+    host = [x.index_select(0, sel).cpu().numpy()
+            for x in (state.u, state.v, updates, new, state.roots,
+                      state.neg_keys)]
+    for j, b in enumerate(idx.tolist()):
+        cmask[b] = _sequential_conflicts(*(x[j] for x in host),
+                                         state.n_objects)
+    cmask = torch.from_numpy(cmask).to(new.device)
+    acc = new & ~cmask
+    acc_pos = acc & (updates == POS)
+    roots, _, _ = union_deduce(state.roots, state.u, state.v, acc_pos,
+                               state.neg_keys, state.n_objects)
+    labels, roots, negk, _ = _apply_fast(state, updates, acc, acc_pos,
+                                         acc & (updates == NEG), roots)
+    return labels, roots, negk, cmask
+
+
+def _apply_fast_flagged_impl(state: SessionState, updates: torch.Tensor,
+                             count_round: bool,
+                             keep_conflicts_published: bool):
+    """Speculative conflict-free apply: always the parallel path, returning
+    the per-lane screen flags beside ``(state, conflict_mask)``.  A lane
+    whose flag fired must be folded exactly instead."""
+    new, pos_new, neg_new, roots_opt, flags = _screen_impl(state, updates)
+    labels, roots, negk, cmask = _apply_fast(state, updates, new, pos_new,
+                                             neg_new, roots_opt)
+    return _finish_apply(state, labels, roots, negk, cmask, new, count_round,
+                         keep_conflicts_published), cmask, flags
+
+
+def _apply_impl(state: SessionState, updates: torch.Tensor,
+                count_round: bool, keep_conflicts_published: bool):
+    """Fold new labels (``updates`` (B, P), UNKNOWN where nothing landed)
+    into the state, screening conflicts.  The speculative parallel pass
+    runs on every lane; one host sync reads its flags, and only the lanes
+    whose screen fired are replayed exactly (:func:`_apply_sequential`) —
+    lane by lane what the reference's per-session ``lax.cond`` gives.
+    Returns ``(state, conflict_mask)``."""
+    fast, cmask, flags = _apply_fast_flagged_impl(state, updates, count_round,
+                                                  keep_conflicts_published)
+    flags = flags.cpu().numpy()
+    if not flags.any():
+        return fast, cmask
+    new = (updates != UNKNOWN) & (state.labels == UNKNOWN)
+    labels, roots, negk, cmask = _apply_sequential(state, updates, new, flags)
+    exact = _finish_apply(state, labels, roots, negk, cmask, new, count_round,
+                          keep_conflicts_published)
+    pick = torch.from_numpy(flags).to(cmask.device)
+    return _select_state(pick, exact, fast), cmask
+
+
+def _fold_impl(state: SessionState, updates: torch.Tensor,
+               keep_conflicts_published: bool):
+    """Apply (counted) + one deduce sweep: ``(state, conflict_mask)``."""
+    state, cmask = _apply_impl(state, updates, True, keep_conflicts_published)
+    return _deduce_impl(state), cmask
+
+
+def _fold_fast_flagged_impl(state: SessionState, updates: torch.Tensor,
+                            keep_conflicts_published: bool):
+    """The speculative fold: ``(state, conflict_mask, flags)``."""
+    state, cmask, flags = _apply_fast_flagged_impl(
+        state, updates, True, keep_conflicts_published)
+    return _deduce_impl(state), cmask, flags
+
+
+def _seed_labels_impl(state: SessionState, seeds: torch.Tensor):
+    """Warm-start fold of cached cluster verdicts (DESIGN.md §14): an answer
+    fold that does not advance ``rounds``.  ``(state, conflict_mask)``."""
+    state, cmask = _apply_impl(state, seeds, False, False)
+    return _deduce_impl(state), cmask
+
+
+def _seed_labels_fast_flagged_impl(state: SessionState, seeds: torch.Tensor):
+    """The speculative seed fold: ``(state, conflict_mask, flags)``."""
+    state, cmask, flags = _apply_fast_flagged_impl(state, seeds, False, False)
+    return _deduce_impl(state), cmask, flags
+
+
+def _trust_graph_impl(state: SessionState, mask: torch.Tensor
+                      ) -> SessionState:
+    """Un-publish ``mask`` and let deduction label those pairs from the
+    graph (the requery ladder's end, DESIGN.md §9)."""
+    return _deduce_impl(state.replace(published=state.published & ~mask))
+
+
+def _mark_published_impl(state: SessionState, mask: torch.Tensor
+                         ) -> SessionState:
+    """Record pairs as posted to the crowd (in flight)."""
+    return state.replace(published=state.published | mask)
 
 
 def _frontier_impl(state: SessionState) -> torch.Tensor:
@@ -443,12 +630,12 @@ def session_run_rounds_batch(state: SessionState, answers, max_rounds: int,
         st = _refresh_masked_impl(state, prior, adaptive)
         frontier = _frontier_impl(st)
         updates = torch.where(frontier, answers, UNKNOWN).to(torch.int32)
-        new, pos_new, neg_new, roots_opt, has_conflict = _screen_fused(
+        new, pos_new, neg_new, roots_opt, has_conflict = _screen_impl(
             st, updates)
         labels, roots, negk, cmask = _apply_fast(st, updates, new, pos_new,
                                                  neg_new, roots_opt)
-        folded = _deduce_fused(
-            _finish_apply(st, labels, roots, negk, cmask, new))
+        folded = _deduce_impl(_finish_apply(st, labels, roots, negk, cmask,
+                                            new, True, False))
         empty = ~frontier.any(-1)
         conflict = has_conflict & ~done0
         advanced = ~done0 & ~conflict & ~empty & act
@@ -465,3 +652,176 @@ def session_run_rounds_batch(state: SessionState, answers, max_rounds: int,
                     empty, ROUNDS_EMPTY, ROUNDS_RUNNING))).to(torch.int32)
         code = torch.where(act, step_code, code)
         r = r + advanced.to(torch.int32)
+
+
+def session_run_rounds(state: SessionState, answers, max_rounds: int,
+                       prior=None, adaptive: bool = False,
+                       rounds_allowed=None):
+    """One unbatched session through :func:`session_run_rounds_batch`.
+    Returns ``(state, crowdsourced (P,), round_sizes (max_rounds,),
+    rounds_done (), code ())``."""
+    dev = state.u.device
+    out = session_run_rounds_batch(
+        stack_states([state]), _lane(answers, torch.int32, dev), max_rounds,
+        prior=None if prior is None else _lane(prior, torch.float32, dev),
+        adaptive=[bool(adaptive)],
+        rounds_allowed=None if rounds_allowed is None
+        else [int(rounds_allowed)])
+    return (index_state(out[0], 0),) + tuple(x[0] for x in out[1:])
+
+
+# ---------------------------------------------------------------------------
+# Public per-round transformations.  Each comes unbatched (one session) and
+# as ``*_batch`` over a stacked ``(B, ...)`` state; the unbatched form runs
+# the stacked one on a lane axis of one.  None modifies its input state.
+# ---------------------------------------------------------------------------
+def _lane(x, dtype, dev) -> torch.Tensor:
+    """A per-pair array as a lane axis of one on ``dev``."""
+    return torch.as_tensor(x, dtype=dtype, device=dev)[None]
+
+
+def _stacked(x, dtype, state: SessionState) -> torch.Tensor:
+    """A stacked (B, P) array on the state's device."""
+    return torch.as_tensor(x, dtype=dtype, device=state.u.device)
+
+
+def session_frontier(state: SessionState) -> torch.Tensor:
+    """(P,) bool mask of pairs to crowdsource now, from the live state."""
+    return _frontier_impl(stack_states([state]))[0]
+
+
+def session_frontier_batch(state: SessionState) -> torch.Tensor:
+    """(B, P) stacked frontier masks."""
+    return _frontier_impl(state)
+
+
+def session_apply_answers(state: SessionState, updates,
+                          keep_conflicts_published: bool = False):
+    """Fold crowd answers (UNKNOWN = nothing landed) into the state, without
+    the deduce sweep.  Returns ``(state, conflict_mask)``: rejected
+    contradictory answers are flagged and counted in ``conflicts``."""
+    st, cmask = _apply_impl(stack_states([state]),
+                            _lane(updates, torch.int32, state.u.device),
+                            True, keep_conflicts_published)
+    return index_state(st, 0), cmask[0]
+
+
+def session_apply_answers_batch(state: SessionState, updates,
+                                keep_conflicts_published: bool = False):
+    """Stacked :func:`session_apply_answers`: one speculative pass, the exact
+    replay only on the lanes whose screen fired."""
+    return _apply_impl(state, _stacked(updates, torch.int32, state), True,
+                       keep_conflicts_published)
+
+
+def session_deduce(state: SessionState) -> SessionState:
+    """One deduction sweep; skips in-flight (published) pairs."""
+    return index_state(_deduce_impl(stack_states([state])), 0)
+
+
+def session_deduce_batch(state: SessionState) -> SessionState:
+    """Stacked :func:`session_deduce`."""
+    return _deduce_impl(state)
+
+
+def session_fold_answers(state: SessionState, updates,
+                         keep_conflicts_published: bool = False):
+    """Apply + deduce: ``(state, conflict_mask)``."""
+    st, cmask = _fold_impl(stack_states([state]),
+                           _lane(updates, torch.int32, state.u.device),
+                           keep_conflicts_published)
+    return index_state(st, 0), cmask[0]
+
+
+def session_fold_answers_batch(state: SessionState, updates,
+                               keep_conflicts_published: bool = False):
+    """Stacked :func:`session_fold_answers`: the conflict-free common case
+    is one parallel pass and one host sync; the exact replay runs only on
+    the lanes whose screen fired."""
+    return _fold_impl(state, _stacked(updates, torch.int32, state),
+                      keep_conflicts_published)
+
+
+def session_seed_labels(state: SessionState, seeds):
+    """Warm-start fold of cached verdicts (DESIGN.md §14): like
+    :func:`session_fold_answers` but ``rounds`` does not advance.  Returns
+    ``(state, conflict_mask)``; contradictory seeds are rejected."""
+    st, cmask = _seed_labels_impl(stack_states([state]),
+                                  _lane(seeds, torch.int32, state.u.device))
+    return index_state(st, 0), cmask[0]
+
+
+def session_seed_labels_batch(state: SessionState, seeds):
+    """Stacked :func:`session_seed_labels`."""
+    return _seed_labels_impl(state, _stacked(seeds, torch.int32, state))
+
+
+def session_mark_published(state: SessionState, mask) -> SessionState:
+    """Record pairs as posted to the crowd (in flight)."""
+    return index_state(_mark_published_impl(
+        stack_states([state]), _lane(mask, torch.bool, state.u.device)), 0)
+
+
+def session_mark_published_batch(state: SessionState, mask) -> SessionState:
+    """Stacked :func:`session_mark_published`."""
+    return _mark_published_impl(state, _stacked(mask, torch.bool, state))
+
+
+def session_trust_graph(state: SessionState, mask) -> SessionState:
+    """Resolve requery-exhausted pairs: un-publish ``mask`` and deduce
+    their labels from the graph."""
+    return index_state(_trust_graph_impl(
+        stack_states([state]), _lane(mask, torch.bool, state.u.device)), 0)
+
+
+def session_trust_graph_batch(state: SessionState, mask) -> SessionState:
+    """Stacked :func:`session_trust_graph`."""
+    return _trust_graph_impl(state, _stacked(mask, torch.bool, state))
+
+
+def make_session_state_batch(U, V, labels0, n_objects: int,
+                             device: DeviceLike = None) -> SessionState:
+    """Stacked fresh state over (B, P) packed sessions: the given labels,
+    singleton forests, an empty neg-key index, positional priorities."""
+    dev = pick_device(device)
+    U, V, labels0 = (torch.as_tensor(np.asarray(x), dtype=torch.int32,
+                                     device=dev) for x in (U, V, labels0))
+    B, P = U.shape
+    return SessionState(
+        u=U, v=V, labels=labels0,
+        published=torch.zeros((B, P), dtype=torch.bool, device=dev),
+        roots=torch.arange(n_objects, dtype=torch.int32,
+                           device=dev).repeat(B, 1),
+        neg_keys=torch.full((B, P), KEY_SENTINEL, dtype=KEY_DTYPE,
+                            device=dev),
+        rounds=torch.zeros(B, dtype=torch.int32, device=dev),
+        conflicts=torch.zeros((B, P), dtype=torch.int32, device=dev),
+        priority=torch.arange(P, dtype=torch.float32,
+                              device=dev).repeat(B, 1),
+        n_objects=int(n_objects))
+
+
+def session_from_labels(u, v, labels, published, n_objects: int,
+                        device: DeviceLike = None) -> SessionState:
+    """Rebuild one session's state from plain label arrays: components of
+    the POS edges from singletons, the sorted canonical keys of the NEG
+    edges under them.  The from-scratch state the incremental one must
+    equal."""
+    dev = pick_device(device)
+    u, v, labels = (_lane(x, torch.int32, dev) for x in (u, v, labels))
+    published = _lane(published, torch.bool, dev)
+    P = u.shape[1]
+    roots, _, _ = union_deduce(
+        torch.arange(n_objects, dtype=torch.int32, device=dev)[None], u, v,
+        labels == POS, torch.full_like(u, KEY_SENTINEL, dtype=KEY_DTYPE),
+        n_objects)
+    keys = torch.where(labels == NEG,
+                       canonical_keys(_take(roots, u), _take(roots, v),
+                                      n_objects), KEY_SENTINEL)
+    return SessionState(
+        u=u[0], v=v[0], labels=labels[0], published=published[0],
+        roots=roots[0], neg_keys=torch.sort(keys, dim=-1).values[0],
+        rounds=torch.zeros((), dtype=torch.int32, device=dev),
+        conflicts=torch.zeros(P, dtype=torch.int32, device=dev),
+        priority=torch.arange(P, dtype=torch.float32, device=dev),
+        n_objects=int(n_objects))

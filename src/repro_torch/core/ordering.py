@@ -1,5 +1,6 @@
 """Adaptive labeling order (DESIGN.md §10): posterior-refreshed priorities
-— the part of ``repro/core/ordering.py`` the round engine runs.
+— the device path of ``repro/core/ordering.py`` (gains and refresh,
+unbatched and stacked).
 
 Per pending pair with machine prior ``p`` the gain is
 ``p / (1 + NEG_DAMP * (du + dv))``, ``du``/``dv`` being the distinct
@@ -12,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from .cluster_graph import UNKNOWN
-from .graph import SessionState, _decompose_keys, _take
+from .graph import (SessionState, _decompose_keys, _take, index_state,
+                    stack_states)
 
 # Damping per unit of negative degree; a power of two keeps 1 + NEG_DAMP * k
 # exact in f32.
@@ -43,13 +45,49 @@ def _gains_impl(state: SessionState, prior: torch.Tensor) -> torch.Tensor:
     return p / damp
 
 
+def _refresh_impl(state: SessionState, prior: torch.Tensor) -> SessionState:
+    """Pending pairs (UNKNOWN, not in flight) get ``-gain``; published and
+    labeled pairs keep their priority, out of the frontier's reach either
+    way."""
+    pending = (state.labels == UNKNOWN) & ~state.published
+    return state.replace(priority=torch.where(
+        pending, -_gains_impl(state, prior), state.priority))
+
+
 def _refresh_masked_impl(state: SessionState, prior: torch.Tensor,
                          enable: torch.Tensor) -> SessionState:
-    """Refresh pending-pair priorities to ``-gain`` on the lanes where the
-    (B,) ``enable`` mask holds; published and labeled pairs, and lanes
-    serving a static order, keep their priorities."""
-    pending = (state.labels == UNKNOWN) & ~state.published
-    refreshed = torch.where(pending, -_gains_impl(state, prior),
-                            state.priority)
-    return state.replace(
-        priority=torch.where(enable[:, None], refreshed, state.priority))
+    """:func:`_refresh_impl` on the lanes where the (B,) ``enable`` mask
+    holds; lanes serving a static order keep their priorities."""
+    refreshed = _refresh_impl(state, prior)
+    return state.replace(priority=torch.where(
+        enable[:, None], refreshed.priority, state.priority))
+
+
+def session_gains(state: SessionState, prior) -> torch.Tensor:
+    """(P,) f32 expected-deduction gains of one session."""
+    return session_gains_batch(stack_states([state]),
+                               torch.as_tensor(prior)[None])[0]
+
+
+def session_gains_batch(state: SessionState, prior) -> torch.Tensor:
+    """(B, P) f32 gains of stacked sessions."""
+    return _gains_impl(state, torch.as_tensor(prior, dtype=torch.float32,
+                                              device=state.u.device))
+
+
+def session_refresh_priorities(state: SessionState, prior) -> SessionState:
+    """Refresh one session's pending-pair priorities from the live
+    posterior (DESIGN.md §10)."""
+    return index_state(_refresh_impl(
+        stack_states([state]), torch.as_tensor(
+            prior, dtype=torch.float32, device=state.u.device)[None]), 0)
+
+
+def session_refresh_priorities_batch(state: SessionState, prior,
+                                     enable) -> SessionState:
+    """Refresh stacked sessions; ``enable`` (B,) bool marks the lanes whose
+    order is adaptive."""
+    dev = state.u.device
+    return _refresh_masked_impl(
+        state, torch.as_tensor(prior, dtype=torch.float32, device=dev),
+        torch.as_tensor(enable, dtype=torch.bool, device=dev))

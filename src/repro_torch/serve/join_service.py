@@ -1,16 +1,27 @@
 """JoinService — join requests served over the on-device round engine (the
-first slice of the port of ``repro/serve/join_service.py``).
+port of ``repro/serve/join_service.py``'s round-barrier discipline).
 
 Requests queue up and are packed into up to ``lanes`` session lanes.  Each
 lane carries a :class:`~repro_torch.core.graph.SessionState` on the service's
-device, packed once at lane open.  With a crowd whose answers do not depend
-on the order they are asked in (:class:`~repro_torch.core.crowd.PerfectCrowd`),
-every crowd wave runs on the device: the lanes grow to one shared capacity
-bucket, stack into one batch, and ``session_run_rounds_batch`` advances them
-``FUSED_ROUNDS_PER_DISPATCH`` rounds per call until none is mid-stream (the
-reference's fused path, DESIGN.md §13).  The gateway traffic — billing and
-the question count — is replayed after the device rounds.  Lanes are
-refilled from the queue when a wave ends (the round barrier).
+device, packed once at lane open (after folding any ``seed_labels``).  Two
+paths advance the lanes, as in the reference:
+
+* **Fused** (DESIGN.md §13): when every lane's crowd answers do not depend on
+  the order they are asked in (a :class:`~repro_torch.core.crowd.PerfectCrowd`
+  with ground truth), the lanes grow to one shared capacity bucket, stack
+  into one batch, and ``session_run_rounds_batch`` advances them
+  ``FUSED_ROUNDS_PER_DISPATCH`` rounds per call; the gateway traffic is
+  replayed after the device rounds.  A lane whose §9 conflict screen fires
+  leaves the fused path for good and replays that round exactly.
+* **Per round** (``_step``, and every lane once ``fused_rounds=False`` or a
+  crowd such as :class:`~repro_torch.core.crowd.NoisyCrowd` is served): each
+  round refreshes adaptive priorities, selects the frontier over
+  bucket-grouped stacked states, posts every lane's frontier to the gateway
+  (ballots drawn lane by lane, pair indices ascending), drains it, and folds
+  the answers with the conflict-screened fold, replaying exactly only the
+  lanes whose screen fired.
+
+Lanes are refilled from the queue as sessions finish.
 
 :meth:`submit_embeddings` runs the machine phase first, then queues the
 candidates as a :class:`~repro_torch.core.pairs.PairSet` like any request.
@@ -20,16 +31,16 @@ grid, thresholded candidates compacted after it.  With ``blocking=`` (a
 buckets are built on the host and only colliding tile pairs are scored,
 through the fused compaction kernel, so the dense grid never exists.
 
-Only this slice is ported.  Every option of the reference that it does not
-implement raises :class:`NotImplementedError` naming the ROADMAP item that
-will bring it, instead of being silently ignored.
+Every option of the reference that the port does not implement raises
+:class:`NotImplementedError` naming the ROADMAP item that will bring it,
+instead of being silently ignored.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +50,11 @@ from repro_torch.core.crowd import CostModel, Crowd, CrowdGateway, PerfectCrowd
 from repro_torch.core.graph import (ROUNDS_CONFLICT, ROUNDS_EMPTY,
                                     SessionState, index_state,
                                     make_session_state, next_pow2,
-                                    pair_keys_fit, session_grow,
-                                    session_run_rounds_batch, stack_states)
+                                    pair_keys_fit, session_fold_answers_batch,
+                                    session_frontier_batch, session_grow,
+                                    session_run_rounds_batch,
+                                    session_seed_labels, stack_states)
+from repro_torch.core.ordering import session_refresh_priorities_batch
 from repro_torch.core.metrics import Quality, quality
 from repro_torch.core.pairs import PairSet
 from repro_torch.core.sorting import get_order, validate_order
@@ -60,7 +74,6 @@ _SERVICE_OPTIONS = {
     "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
     "slots_per_round": (None, "A9.3 (budget and slot allocator)"),
     "conflict_policy": ("drop", "A9.4 (requery)"),
-    "fused_rounds": (True, "A4 (the per-round engine)"),
     "aggregation": ("majority", "A9.8 (EM worker model)"),
     "cluster_tasks": (False, "A9.8 (cluster tasks)"),
     "cluster_size": (8, "A9.8 (cluster tasks)"),
@@ -75,7 +88,6 @@ _SERVICE_OPTIONS = {
 _SUBMIT_OPTIONS = {
     "budget_cents": (None, "A9.3 (budget and slot allocator)"),
     "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
-    "seed_labels": (None, "A4 and A11 (warm start from the cluster cache)"),
 }
 _EMBEDDING_OPTIONS = {
     **_SUBMIT_OPTIONS,
@@ -103,6 +115,9 @@ class JoinRequest:
     crowd: Optional[Crowd] = None
     order: Optional[str] = None
     total_true_matches: Optional[int] = None
+    # cross-query warm start (DESIGN.md §14): (P,) int32 {UNKNOWN, NEG, POS}
+    # in the request's pair order, folded at lane open and never billed
+    seed_labels: Optional[np.ndarray] = None
     admission_deferred: bool = False
 
 
@@ -156,28 +171,39 @@ class _Lane:
     round_sizes: List[int]
     t0: float
     prior_host: np.ndarray         # (p_cap,) f32 machine likelihood, padded
-    answers_host: np.ndarray       # (p,) int32 the crowd's answers, ordered
     adaptive: bool                 # live posterior re-ranking (DESIGN.md §10)
     rate_cents: float              # per-assignment price
+    # the crowd's order-independent answer per ordered pair (None when it
+    # depends on the order asked), and whether the fused path is still
+    # trusted for this lane: a §9 screen on it drops the lane to the exact
+    # per-round path for good
+    answers_host: Optional[np.ndarray] = None
+    fused_ok: bool = True
+    n_cache_hits: int = 0          # pairs settled by seed labels at open
 
     @property
     def done(self) -> bool:
         return not (self.labels_host == UNKNOWN).any()
+
+    @property
+    def bucket(self) -> Tuple[int, int]:
+        """(pair capacity, object capacity): lanes stack by bucket."""
+        return (int(self.state.u.shape[0]), self.state.n_objects)
 
 
 class JoinService:
     """Accepts join requests; drives frontier -> crowd -> deduce over up to
     ``lanes`` device-resident session states on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``order`` is the default labeling order;
-    ``cost`` prices crowd questions.  See the module docstring for what is
-    ported."""
+    ``cost`` prices crowd questions; ``fused_rounds=False`` keeps every lane
+    on the per-round path.  See the module docstring for what is ported."""
 
     # rounds per round-engine call
     FUSED_ROUNDS_PER_DISPATCH = 8
 
     def __init__(self, lanes: int = 4, cost: Optional[CostModel] = None,
                  order: str = "expected", device: DeviceLike = None,
-                 **unported):
+                 fused_rounds: bool = True, **unported):
         _reject_unported("JoinService", unported, _SERVICE_OPTIONS)
         validate_order(order)
         if lanes < 1:
@@ -185,10 +211,19 @@ class JoinService:
         self.lanes = lanes
         self.cost = cost or CostModel()
         self.order = order
+        self.fused_rounds = fused_rounds
         self.device = pick_device(device)
         self.queue: Deque[JoinRequest] = collections.deque()
         self.results: Dict[int, JoinSessionResult] = {}
         self._next_rid = 0
+        # per-round group caches, keyed by capacity bucket: while a group's
+        # membership holds, its stacked state IS its lanes' state (written
+        # back when membership changes or a lane finishes), and its stacked
+        # machine priors are uploaded once
+        self._stacks: Dict[Tuple[int, int],
+                           Tuple[Tuple[_Lane, ...], SessionState]] = {}
+        self._prior_stacks: Dict[Tuple[int, int],
+                                 Tuple[Tuple[_Lane, ...], torch.Tensor]] = {}
 
     # -- request ingestion ---------------------------------------------------
     def _admit(self, req: JoinRequest) -> int:
@@ -197,11 +232,12 @@ class JoinService:
                                    else req.order)
         if req.crowd is None:
             req.crowd = PerfectCrowd()
-        if len(req.pairs) and req.crowd.precomputed_answers(req.pairs) is None:
-            raise NotImplementedError(
-                "a crowd without order-independent answers (a PerfectCrowd "
-                "with ground truth) needs the per-round engine, which is not "
-                "ported yet: ROADMAP A4 and A9.2")
+        if req.seed_labels is not None and \
+                len(req.seed_labels) != len(req.pairs):
+            raise ValueError(
+                f"seed_labels length {len(req.seed_labels)} != pair count "
+                f"{len(req.pairs)} — seeds are per-pair verdicts in the "
+                "request's pair order")
         if req.rid is None:
             req.rid = self._next_rid
         elif req.rid in self.results or \
@@ -215,13 +251,16 @@ class JoinService:
 
     def submit(self, pairs: PairSet, crowd: Optional[Crowd] = None,
                order: Optional[str] = None, rid: Optional[int] = None,
-               total_true_matches: Optional[int] = None, **unported) -> int:
+               total_true_matches: Optional[int] = None,
+               seed_labels: Optional[np.ndarray] = None, **unported) -> int:
         """Enqueue a join over pre-scored candidate pairs; returns the rid.
         ``total_true_matches`` is the dataset-wide true-match count for
-        recall (default: the candidates' own)."""
+        recall (default: the candidates' own).  ``seed_labels`` warm-starts
+        the session from cached verdicts (DESIGN.md §14)."""
         _reject_unported("submit", unported, _SUBMIT_OPTIONS)
         return self._admit(JoinRequest(rid, pairs, crowd, order,
-                                       total_true_matches))
+                                       total_true_matches,
+                                       seed_labels=seed_labels))
 
     @staticmethod
     def _check_candidate_overflow(cand) -> None:
@@ -290,18 +329,28 @@ class JoinService:
         state = make_session_state(ordered.u, ordered.v, ordered.n_objects,
                                    pair_capacity=p_cap, object_capacity=n_cap,
                                    device=self.device)
+        labels_host = np.full(P, UNKNOWN, np.int32)
+        n_cache_hits = 0
+        if req.seed_labels is not None:
+            # fold the seeds before the first frontier: seeded pairs, and
+            # what deduction reaches from them, are never posted or billed
+            seeds = np.full(p_cap, UNKNOWN, np.int32)
+            seeds[:P] = np.asarray(req.seed_labels, np.int32)[perm]
+            if (seeds != UNKNOWN).any():
+                state, cmask = session_seed_labels(state, seeds)
+                n_cache_hits = int(((seeds[:P] != UNKNOWN)
+                                    & ~cmask[:P].cpu().numpy()).sum())
+                labels_host = state.labels[:P].cpu().numpy()
         prior_host = np.zeros(p_cap, np.float32)
         prior_host[:P] = ordered.likelihood
-        answers = req.crowd.precomputed_answers(ordered)
         return _Lane(
             req=req, perm=perm, ordered=ordered, p=P, state=state,
-            labels_host=np.full(P, UNKNOWN, np.int32),
-            crowdsourced=np.zeros(P, bool), round_sizes=[],
-            t0=time.perf_counter(), prior_host=prior_host,
-            answers_host=(np.zeros(0, np.int32) if answers is None
-                          else answers),
+            labels_host=labels_host, crowdsourced=np.zeros(P, bool),
+            round_sizes=[], t0=time.perf_counter(), prior_host=prior_host,
             adaptive=req.order == "adaptive",
-            rate_cents=float(self.cost.cents_per_assignment))
+            rate_cents=float(self.cost.cents_per_assignment),
+            answers_host=req.crowd.precomputed_answers(ordered),
+            n_cache_hits=n_cache_hits)
 
     def _finalize(self, lane: _Lane, gateway: CrowdGateway) -> None:
         req = lane.req
@@ -330,6 +379,7 @@ class JoinService:
             fold_rounds=int(lane.state.rounds),
             n_conflicts=int(lane.state.conflicts[:lane.p].sum()),
             n_spent_cents=gateway.spent_cents(req.rid),
+            n_cache_hits=lane.n_cache_hits,
             n_cluster_pairs=gateway.cluster_pairs(req.rid),
             admission_deferred=req.admission_deferred,
         )
@@ -344,7 +394,120 @@ class JoinService:
                 still.append(lane)
         return still
 
+    # -- per-round group caches ----------------------------------------------
+    def _writeback(self, entry: Tuple[Tuple[_Lane, ...], SessionState]
+                   ) -> None:
+        """Materialize a cached group's stacked state back into its lanes."""
+        lanes, stacked = entry
+        for b, lane in enumerate(lanes):
+            lane.state = index_state(stacked, b)
+
+    def _flush_stacks(self) -> None:
+        """Write every cached group stack back into its lanes and drop the
+        caches: lane states must be authoritative before a fused wave
+        regroups them."""
+        for entry in self._stacks.values():
+            self._writeback(entry)
+        self._stacks.clear()
+        self._prior_stacks.clear()
+
+    def _group_stack(self, key: Tuple[int, int],
+                     lanes: List[_Lane]) -> SessionState:
+        """The group's stacked state, reused while its membership holds
+        (compared by identity: lanes hold arrays)."""
+        entry = self._stacks.get(key)
+        if entry is not None:
+            if len(entry[0]) == len(lanes) and \
+                    all(a is b for a, b in zip(entry[0], lanes)):
+                return entry[1]
+            self._writeback(entry)  # membership changed: sync old members
+            del self._stacks[key]
+        return stack_states([lane.state for lane in lanes])
+
+    def _group_priors(self, key: Tuple[int, int],
+                      lanes: List[_Lane]) -> torch.Tensor:
+        """The group's stacked (B, P) machine priors, uploaded once per
+        membership."""
+        entry = self._prior_stacks.get(key)
+        if entry is not None and len(entry[0]) == len(lanes) and \
+                all(a is b for a, b in zip(entry[0], lanes)):
+            return entry[1]
+        priors = torch.from_numpy(
+            np.stack([lane.prior_host for lane in lanes])).to(self.device)
+        self._prior_stacks[key] = (tuple(lanes), priors)
+        return priors
+
+    # -- per-round engine ----------------------------------------------------
+    def _post_lane(self, lane: _Lane, pair_idx: np.ndarray,
+                   gateway: CrowdGateway) -> int:
+        """Post one lane's round: its frontier as pair questions, in index
+        order.  Returns the pairs posted."""
+        lane.crowdsourced[pair_idx] = True
+        gateway.post(lane.req.rid, lane.ordered, pair_idx, lane.req.crowd,
+                     cents_per_assignment=lane.rate_cents)
+        return len(pair_idx)
+
+    def _step(self, active: List[_Lane], gateway: CrowdGateway) -> bool:
+        """One round over the occupied lanes: a batched priority refresh for
+        groups with adaptive lanes, the batched frontier over bucket-grouped
+        stacked states, one gateway post per lane, a full drain (the round
+        barrier), and one screened fold a group.  Every lane's whole
+        frontier posts: budgets and slot caps (ROADMAP A9.3), cluster tasks
+        (A9.8) and requery (A9.4) are refused at construction.  Returns True
+        iff any lane made progress."""
+        groups: Dict[Tuple[int, int], List[_Lane]] = {}
+        for lane in active:
+            groups.setdefault(lane.bucket, []).append(lane)
+        staged = []
+        for key, lanes in groups.items():
+            stacked = self._group_stack(key, lanes)
+            if any(lane.adaptive for lane in lanes):
+                stacked = session_refresh_priorities_batch(
+                    stacked, self._group_priors(key, lanes),
+                    [lane.adaptive for lane in lanes])
+            frontier = session_frontier_batch(stacked).cpu().numpy()
+            staged.append([key, lanes, stacked, frontier])
+        # post every lane, then drain: the barrier spans lanes, and ballots
+        # are drawn in this order
+        for _, lanes, _, frontier in staged:
+            for b, lane in enumerate(lanes):
+                idx = np.nonzero(frontier[b])[0]
+                if len(idx):
+                    lane.round_sizes.append(
+                        self._post_lane(lane, idx, gateway))
+        answers: Dict[int, List] = {}
+        for ans in gateway.drain():
+            answers.setdefault(ans.rid, []).append(ans)
+        for stage in staged:
+            _, lanes, stacked, frontier = stage
+            updates = np.full(frontier.shape, UNKNOWN, np.int32)
+            landed = False
+            for b, lane in enumerate(lanes):
+                for ans in answers.get(lane.req.rid, ()):
+                    updates[b, ans.index] = ans.label
+                    landed = True
+            if landed:
+                stage[2], _ = session_fold_answers_batch(stacked, updates)
+        progress = False
+        for key, lanes, stacked, _ in staged:
+            self._stacks[key] = (tuple(lanes), stacked)
+            labels = stacked.labels.cpu().numpy()
+            for b, lane in enumerate(lanes):
+                new = labels[b, :lane.p]
+                progress |= bool((new != lane.labels_host).any())
+                lane.labels_host = new
+                if lane.done:  # leaving the group: materialize its state
+                    lane.state = index_state(stacked, b)
+        return progress
+
     # -- on-device round engine ----------------------------------------------
+    def _fused_eligible(self, lane: _Lane) -> bool:
+        """True when the lane's next crowd wave can run on the device: fused
+        rounds are on, the crowd's answers are order-independent, and no §9
+        screen has fired on the lane."""
+        return (self.fused_rounds and lane.fused_ok
+                and lane.answers_host is not None)
+
     def _drive_fused(self, active: List[_Lane],
                      gateway: CrowdGateway) -> bool:
         """Advance every active lane a whole crowd wave: grow the lanes to
@@ -352,7 +515,11 @@ class JoinService:
         (k rounds per call) until no lane is mid-stream.  The wave's gateway
         traffic is replayed after each call: answers are order-independent,
         so posting the crowdsourced pairs late gives the ledger the
-        per-round path would.  Returns True iff any lane made progress."""
+        per-round path would.  A lane whose §9 screen fires exits pre-fold
+        with ``fused_ok`` cleared, nothing posted for that round, and
+        replays it through :meth:`_step`.  Returns True iff any lane made
+        progress."""
+        self._flush_stacks()
         p_cap = max(int(lane.state.u.shape[0]) for lane in active)
         n_cap = max(lane.state.n_objects for lane in active)
         for lane in active:
@@ -395,13 +562,8 @@ class JoinService:
                 progress |= bool((new != lane.labels_host).any())
                 lane.labels_host = new
                 if int(codes[b]) == ROUNDS_CONFLICT:
-                    # cannot happen with order-independent consistent
-                    # answers; the exact sequential replay is ROADMAP A4
-                    raise RuntimeError(
-                        f"rid {lane.req.rid}: the §9 conflict screen fired "
-                        "on the fused path, and the exact per-round replay "
-                        "is not ported (ROADMAP A4)")
-                if (new == UNKNOWN).any():
+                    lane.fused_ok = False
+                elif (new == UNKNOWN).any():
                     if int(codes[b]) == ROUNDS_EMPTY:
                         stuck.append(lane.req.rid)
                     else:  # ROUNDS_RUNNING: the wave continues
@@ -417,22 +579,33 @@ class JoinService:
 
     # -- entry point ---------------------------------------------------------
     def run(self) -> Dict[int, JoinSessionResult]:
-        """Drain the queue: lanes refill when a wave ends.  Returns
-        {rid: result} for everything served."""
+        """Drain the queue: lanes refill as sessions finish.  Whole crowd
+        waves run fused while every active lane is eligible; otherwise, or
+        when a fused wave made no progress (every lane's screen fired), one
+        exact per-round step.  Returns {rid: result} for everything
+        served."""
         gateway = CrowdGateway()
+        self._stacks.clear()
+        self._prior_stacks.clear()
         active: List[_Lane] = []
         while self.queue or active:
             while self.queue and len(active) < self.lanes:
                 active.append(self._open_lane(self.queue.popleft()))
             for r in self.queue:  # still queued behind fully-occupied lanes
                 r.admission_deferred = True
-            # zero-pair sessions are born done
+            # zero-pair (or fully seeded) sessions are born done
             active = self._retire_done(active, gateway)
             if not active:
                 continue
-            if not self._drive_fused(active, gateway):
+            if all(self._fused_eligible(lane) for lane in active):
+                if self._drive_fused(active, gateway):
+                    active = self._retire_done(active, gateway)
+                    continue
+            if not self._step(active, gateway):
                 raise RuntimeError(
                     "join engine stuck: no frontier and nothing deducible "
                     f"for rids {[lane.req.rid for lane in active]}")
             active = self._retire_done(active, gateway)
+        self._stacks.clear()
+        self._prior_stacks.clear()
         return dict(self.results)

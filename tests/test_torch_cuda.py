@@ -14,8 +14,9 @@ gamma_D * sum |a_i b_i| of a float64 oracle.  ``pair_scores_compact`` against it
 same way, with the candidates' order identical; against the dense kernel bit
 for bit (both sum each cell with fmaf in k order from 0); against itself bit
 for bit across calls and across chunkings of one tile list (positions come
-from counts alone).  ``union_deduce`` and the service: bit
-for bit.  ``flash_attention`` within 2e-5 and ``decode_attention`` within
+from counts alone).  ``union_deduce``, the exact answer fold and the
+service, under a perfect and under noisy crowds: bit for bit.
+``flash_attention`` within 2e-5 and ``decode_attention`` within
 1e-5 of their plain versions in f32 (sums in another order, the decode
 kernel's split across the cache and merged in split order, so its repeats
 agree bit for bit); in bf16 each
@@ -24,6 +25,8 @@ and round once to bf16, one ulp being at most 2**-7 of the value): bf16
 runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
 card gives the same greedy tokens as on the CPU under f32 weights.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +51,7 @@ from repro_torch.kernels.flash_attention.ref import mha_causal_ref
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
+from repro_torch.kernels.union_deduce import ops as ud_ops
 from repro_torch.kernels.union_deduce.ref import union_deduce_ref
 from repro_torch.serve.join_service import JoinService
 
@@ -522,6 +526,99 @@ def test_service_on_card_matches_cpu(dev):
         assert card.round_sizes == cpu.round_sizes
         assert (card.fold_rounds, card.n_spent_cents, card.quality) == \
             (cpu.fold_rounds, cpu.n_spent_cents, cpu.quality)
+
+
+def _noisy_sessions(seed: int, n_sessions: int):
+    """Entity-clustered sessions dense enough that a crowd erring 35% of
+    the time contradicts transitivity."""
+    rng = np.random.default_rng(seed)
+    sessions = []
+    for _ in range(n_sessions):
+        n, p = int(rng.integers(25, 36)), int(rng.integers(120, 201))
+        u = rng.integers(0, n, p)
+        v = (u + 1 + rng.integers(0, n - 1, p)) % n
+        ent = rng.integers(0, 4, n)
+        truth = ent[u] == ent[v]
+        lik = np.clip(np.where(truth, 0.7, 0.4)
+                      + 0.25 * rng.standard_normal(p), 0, 1)
+        sessions.append(PairSet(u, v, lik, truth, n))
+    return sessions
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_exact_fold_on_card_matches_cpu(dev, batched):
+    """Noisy answer streams folded on a CUDA state and on a CPU state: the
+    screen and the deduce through the kernel on the card, the exact replay
+    on the lanes whose screen fired; every field and the conflict masks bit
+    for bit, and the replay ran."""
+    from repro_torch.convert import (session_state_from_numpy,
+                                     session_state_to_numpy)
+    from repro_torch.core import graph
+
+    sessions = _noisy_sessions(1, 3)
+    p_cap = 256
+    states = [graph.make_session_state(ps.u, ps.v, ps.n_objects,
+                                       pair_capacity=p_cap,
+                                       object_capacity=64, device="cpu")
+              for ps in sessions]
+    snap = session_state_to_numpy(graph.stack_states(states))
+    rng = np.random.default_rng(2)
+    rejected, launches = 0, ud_ops.union_deduce.launches
+    for _ in range(30):
+        labels = snap["labels"]
+        if not (labels == -1).any():
+            break
+        upd = np.full(labels.shape, -1, np.int32)
+        for b, ps in enumerate(sessions):
+            open_ = np.flatnonzero(labels[b, :len(ps)] == -1)
+            pick = open_[rng.random(len(open_)) < 0.5]
+            flip = rng.random(len(pick)) < 0.35
+            upd[b, pick] = np.where(ps.truth[pick] ^ flip, POS, NEG)
+        if batched:
+            cpu = graph.session_fold_answers_batch(
+                session_state_from_numpy(snap, "cpu"), upd)
+            card = graph.session_fold_answers_batch(
+                session_state_from_numpy(snap, dev), upd)
+        else:
+            outs = [[graph.session_fold_answers(session_state_from_numpy(
+                {f: x[b] for f, x in snap.items()}, device), upd[b])
+                for b in range(len(sessions))] for device in ("cpu", dev)]
+            cpu, card = ((graph.stack_states([o[0] for o in out]),
+                          torch.stack([o[1] for o in out])) for out in outs)
+        got, want = session_state_to_numpy(card[0]), \
+            session_state_to_numpy(cpu[0])
+        for f in want:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        assert torch.equal(card[1].cpu(), cpu[1])
+        rejected += int(cpu[1].sum())
+        snap = want
+    assert rejected > 0
+    assert ud_ops.union_deduce.launches > launches
+
+
+def test_noisy_service_on_card_matches_cpu(dev):
+    """The per-round service under noisy crowds (a homogeneous one and the
+    heterogeneous worker pool) on the card and on the CPU: every result
+    field identical, the wall clock aside."""
+    from repro_torch.core.crowd import NoisyCrowd
+
+    sessions = _noisy_sessions(0, 4)
+    results = []
+    for device in (dev, "cpu"):
+        svc = JoinService(lanes=3, fused_rounds=False, device=device)
+        rids = [svc.submit(ps, NoisyCrowd(
+            error_rate=0.35, qualification=False, seed=10 + k,
+            n_workers=25 if k % 2 else None, worker_concentration=3.0))
+            for k, ps in enumerate(sessions)]
+        res = svc.run()
+        results.append([res[r] for r in rids])
+    for card, cpu in zip(*results):
+        for f in dataclasses.fields(card):
+            if f.name != "wall_seconds":
+                a, b = getattr(card, f.name), getattr(cpu, f.name)
+                assert (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                        else a == b), f.name
+    assert sum(r.n_conflicts for r in results[0]) > 0
 
 
 # f32 outputs within an absolute tolerance: sums in another order.  bf16

@@ -1,6 +1,7 @@
 """The port stands alone and never drops to its plain versions on its own:
 
-* nothing under ``src/repro_torch/`` nor ``chip_smoke.py`` imports ``jax``
+* nothing under ``src/repro_torch/``, nor ``chip_smoke.py`` or ``chip_ab.py``,
+  imports ``jax``
   or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
@@ -16,7 +17,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
 
 def _forbidden(module: str) -> bool:

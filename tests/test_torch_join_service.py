@@ -1,6 +1,8 @@
 """The port's ``JoinService`` against the JAX package's, on the CPU: the same
 sessions through ``submit`` (the fused round engine under a
-``PerfectCrowd``) and the same embeddings through ``submit_embeddings`` must
+``PerfectCrowd``; the per-round engine under a ``NoisyCrowd``, with
+``fused_rounds=False``, after a fused lane's conflict screen fires, and with
+``seed_labels``) and the same embeddings through ``submit_embeddings`` must
 give every ``JoinSessionResult`` field identical (the wall clock aside).
 Also the port's refusal surface: every option it does not implement raises
 ``NotImplementedError`` naming its ROADMAP item."""
@@ -11,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import Crowd as JaxCrowd
+from repro.core import NoisyCrowd as JaxNoisyCrowd
 from repro.core import PerfectCrowd as JaxPerfectCrowd
 from repro.data.entities import make_session_pairsets
 from repro.launch.mesh import make_host_mesh
 from repro.serve.join_service import JoinService as JaxJoinService
-from repro_torch.core.crowd import Crowd, PerfectCrowd
+from repro_torch.core.cluster_graph import NEG, POS, UNKNOWN
+from repro_torch.core.crowd import Crowd, NoisyCrowd, PerfectCrowd
 from repro_torch.core.pairs import PairSet
 from repro_torch.serve.join_service import (_EMBEDDING_OPTIONS,
                                             _SERVICE_OPTIONS, _SUBMIT_OPTIONS,
@@ -137,11 +142,11 @@ def test_duplicate_rid_and_overflow_are_reported():
 UNPORTED_VALUES = {
     "latency": "lognormal", "async_mode": True, "nf": True,
     "budget_cents": 10.0, "cost_per_assignment": 1.0, "slots_per_round": 4,
-    "conflict_policy": "requery", "fused_rounds": False, "aggregation": "em",
+    "conflict_policy": "requery", "aggregation": "em",
     "cluster_tasks": True, "cluster_size": 4, "cluster_assignments": 3,
     "admission": "policy", "checkpoint_dir": "ckpt", "checkpoint_every": 2,
     "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json",
-    "seed_labels": np.zeros(3, np.int32), "streaming": True}
+    "streaming": True}
 
 
 def _unported(table):
@@ -168,7 +173,21 @@ def test_submit_options_not_ported_raise(name, value):
     assert not svc.queue
 
 
+def test_submit_embeddings_refuses_seed_labels():
+    """Seeds reach ``submit_embeddings`` only through a cluster cache
+    (ROADMAP A11), as in the reference, which has no such keyword."""
+    svc = JoinService(device="cpu")
+    with pytest.raises(TypeError, match="seed_labels"):
+        svc.submit_embeddings(torch.ones(4, 8), torch.ones(4, 8), 0.5,
+                              seed_labels=np.zeros(3, np.int32))
+    assert not svc.queue
+
+
 def test_unknown_options_and_stateful_crowds_are_refused():
+    """Unknown keywords are a TypeError.  A crowd that cannot answer is
+    admitted, as in the reference, and the run raises when it is asked:
+    ``NotImplementedError`` from the interface, and for a ``PerfectCrowd``
+    without ground truth a ``ValueError`` (the reference's ``assert``)."""
     with pytest.raises(TypeError, match="impl"):
         JoinService(device="cpu", impl="auto")
     svc = JoinService(device="cpu")
@@ -176,7 +195,145 @@ def test_unknown_options_and_stateful_crowds_are_refused():
     with pytest.raises(TypeError, match="impl"):
         svc.submit_embeddings(torch.ones(4, 8), torch.ones(4, 8), 0.5,
                               impl="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        svc.submit(ps, crowd=Crowd())
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        svc.submit(PairSet(ps.u, ps.v, ps.likelihood), crowd=PerfectCrowd())
+    ref_ps = make_session_pairsets(1, seed=0)[0]
+    for crowd, ref_crowd, port_error, ref_error in (
+            (Crowd(), JaxCrowd(), NotImplementedError, NotImplementedError),
+            (PerfectCrowd(), JaxPerfectCrowd(), ValueError, AssertionError)):
+        truthless = PairSet(ps.u, ps.v, ps.likelihood)
+        svc = JoinService(device="cpu")
+        svc.submit(truthless, crowd=crowd)
+        with pytest.raises(port_error):
+            svc.run()
+        ref_svc = JaxJoinService()
+        ref_svc.submit(type(ref_ps)(ref_ps.u, ref_ps.v, ref_ps.likelihood),
+                       crowd=ref_crowd)
+        with pytest.raises(ref_error):
+            ref_svc.run()
+
+
+def _noisy(k: int, error_rate: float = 0.35, **kwargs):
+    kw = dict(error_rate=error_rate, qualification=False, seed=10 + k,
+              **kwargs)
+    return JaxNoisyCrowd(**kw), NoisyCrowd(**kw)
+
+
+def _serve_both(pairsets, crowds, **svc_kwargs):
+    """The same sessions through the reference's and the port's service;
+    returns (reference results, port results) in submission order."""
+    ref_svc = JaxJoinService(**svc_kwargs)
+    svc = JoinService(device="cpu", **svc_kwargs)
+    ref_rids, rids = [], []
+    for ps, (ref_crowd, crowd), extra in crowds(pairsets):
+        ref_rids.append(ref_svc.submit(ps, ref_crowd, **extra))
+        rids.append(svc.submit(_port_pairs(ps), crowd, **extra))
+    ref, got = ref_svc.run(), svc.run()
+    _assert_same_results(ref, got, ref_rids, rids)
+    return [ref[r] for r in ref_rids], [got[r] for r in rids]
+
+
+@pytest.mark.parametrize("fused_rounds", [False, True])
+@pytest.mark.parametrize("order", ["expected", "adaptive"])
+def test_noisy_crowd_matches_reference(conflicting_pairsets, order,
+                                       fused_rounds):
+    """Three noisy sessions through three lanes, round by round: ballots
+    drawn in the same order from the same seeds, the same answers rejected
+    by the §9 screen and its exact replay.  A service with fused rounds on
+    serves them the same way: their answers depend on the order asked."""
+    _, got = _serve_both(
+        conflicting_pairsets(),
+        lambda pss: [(ps, _noisy(k), {}) for k, ps in enumerate(pss)],
+        lanes=3, order=order, fused_rounds=fused_rounds)
+    assert sum(r.n_conflicts for r in got) > 0
+    assert all(r.n_spent_cents == 3 * 2.0 * r.n_crowdsourced for r in got)
+
+
+def test_one_noisy_crowd_shared_by_every_lane_matches_reference(
+        conflicting_pairsets):
+    """One crowd answers all three lanes, so its draws interleave across
+    them: each round's ballots must be drawn lane by lane in stage order,
+    pair indices ascending, as the reference posts them."""
+    shared = _noisy(0)
+    _, got = _serve_both(
+        conflicting_pairsets(),
+        lambda pss: [(ps, shared, {}) for ps in pss], lanes=3)
+    assert shared[1].n_asked == sum(r.n_crowdsourced for r in got)
+    assert all(r.n_rounds > 1 for r in got)
+
+
+def test_noisy_worker_pool_beside_a_perfect_crowd_matches_reference(
+        conflicting_pairsets):
+    """A heterogeneous worker pool (the chip's phase 4e crowd) in two
+    lanes beside a ``PerfectCrowd`` lane: no lane can fuse."""
+    def crowds(pss):
+        out = [(ps, _noisy(k, 0.3, n_workers=25, worker_concentration=3.0),
+                {}) for k, ps in enumerate(pss[:2])]
+        return out + [(pss[2], (JaxPerfectCrowd(), PerfectCrowd()), {})]
+
+    _, got = _serve_both(conflicting_pairsets(), crowds, lanes=2)
+    assert sum(r.n_conflicts for r in got) > 0
+    assert got[2].n_conflicts == 0 and got[2].quality.precision == 1.0
+
+
+def test_fused_lane_whose_screen_fires_is_replayed(monkeypatch):
+    """A ``PerfectCrowd`` over truth that contradicts itself: the fused
+    wave's §9 screen fires, the lane leaves the fused path and replays the
+    round exactly through ``_step``, as the reference does."""
+    pairsets = make_session_pairsets(3, seed=5, n_objects=(20, 30),
+                                     n_pairs=(80, 140))
+    rng = np.random.default_rng(5)
+    for ps in pairsets:
+        ps.truth = rng.random(len(ps)) < 0.45
+    steps = []
+    step = JoinService._step
+    monkeypatch.setattr(JoinService, "_step",
+                        lambda self, *a: steps.append(1) or step(self, *a))
+    _, got = _serve_both(
+        pairsets, lambda pss: [(ps, (JaxPerfectCrowd(), PerfectCrowd()), {})
+                               for ps in pss], lanes=2)
+    assert steps and sum(r.n_conflicts for r in got) > 0
+
+
+@pytest.mark.parametrize("fused_rounds", [True, False])
+def test_fused_rounds_false_serves_as_the_fused_path(fused_rounds):
+    """``fused_rounds=False`` is served (it was refused before the per-round
+    engine): under a ``PerfectCrowd`` every field equals the reference's
+    and the fused path's."""
+    pairsets = make_session_pairsets(4, seed=3, n_objects=(20, 40),
+                                     n_pairs=(40, 120))
+
+    def crowds(pss):
+        return [(ps, (JaxPerfectCrowd(), PerfectCrowd()), {}) for ps in pss]
+
+    _, got = _serve_both(pairsets, crowds, lanes=2,
+                         fused_rounds=fused_rounds)
+    _, fused = _serve_both(pairsets, crowds, lanes=2)
+    for a, b in zip(got, fused):
+        assert _fields(a) == _fields(b)
+
+
+@pytest.mark.parametrize("fused_rounds", [True, False])
+def test_seed_labels_match_reference(conflicting_pairsets, fused_rounds):
+    """Seeds from the truth, a tenth of them flipped so the seed fold's
+    screen fires and rejects some: pairs settled at lane open are neither
+    posted nor billed, and ``n_cache_hits`` counts the accepted seeds."""
+    rng = np.random.default_rng(2)
+
+    def crowds(pss):
+        out = []
+        for k, ps in enumerate(pss):
+            seeds = np.where(ps.truth, POS, NEG).astype(np.int32)
+            seeds = np.where(rng.random(len(ps)) < 0.1, 1 - seeds, seeds)
+            seeds[rng.random(len(ps)) < 0.6] = UNKNOWN
+            crowd = (_noisy(k) if k == 2 else
+                     (JaxPerfectCrowd(), PerfectCrowd()))
+            out.append((ps, crowd, {"seed_labels": seeds}))
+        return out
+
+    _, got = _serve_both(conflicting_pairsets(), crowds, lanes=2,
+                         fused_rounds=fused_rounds)
+    assert all(r.n_cache_hits > 0 for r in got)
+    assert sum(r.n_conflicts for r in got) > 0
+    svc = JoinService(device="cpu")
+    with pytest.raises(ValueError, match="seed_labels length"):
+        svc.submit(_port_pairs(conflicting_pairsets()[0]),
+                   seed_labels=np.zeros(3, np.int32))
