@@ -11,7 +11,7 @@ after its first pass).  By default a pass imports the checkout's
 384) x (4096, 384) under a ``PerfectCrowd``, with the round engine and the
 gateway replay on the host clock; the second, warm, run's summary line is
 printed.  With ``--whole`` a pass runs the checkout's ``python3
-chip_smoke.py`` and prints its summary lines of phases 4-4e, so each path
+chip_smoke.py`` and prints its summary lines of phases 4-4f, so each path
 is read where the script drives it.  The card's name and power limit come
 first, each line is tagged with its checkout, and a failed pass exits
 non-zero.
@@ -42,7 +42,8 @@ cs.profile_run(dev, corpora)
 # the summary lines of chip_smoke.py's paths, by their prefixes
 WHOLE_LINES = ("[4 main path]", "[4 profile] run() wall", "[4b blocked path]",
                "[4c serving]", "[4c profile] decode step", "[4d machine phase]",
-               "[4e noisy path]", "[4e split]")
+               "[4e noisy path]", "[4e split]", "[4f paper pipeline]",
+               "[4f split paper 0.1]")
 
 
 def run_pass(root: Path, whole: bool) -> list:

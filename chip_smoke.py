@@ -87,6 +87,25 @@ carries on.  Phases, one output line or block each:
    result field identical; then a run split on the host clock into gateway
    asks, frontier, fast fold, exact replays and deduce (each stage
    synchronized), and a profiled run;
+4f. the paper's pipeline: ``crowdsourced_join(labeler="torch")`` (the
+   array engine: a from-scratch rebuild, the priority-Boruvka frontier, the
+   crowd's asks in index order, the screened fold and deduce, every round)
+   on the paper's own datasets at their full sizes (section 6:
+   ``make_paper_dataset``, 997 records, ``make_product_dataset``, 1081 +
+   1092): the paper dataset at 0.3 (the quickstart's; expected and adaptive
+   orders under a ``PerfectCrowd``, expected under ``NoisyCrowd(error_rate=
+   0.08)``), at 0.1 (77096 pairs, 52 rounds) and the product dataset at
+   0.3; each run's crowdsourced pairs, rounds and rejected answers must be
+   the reference's (``PIPELINE_RUNS``), its labels the truth under a
+   ``PerfectCrowd``; then the section 6 threshold sweep, the paper dataset
+   at 0.1-0.5 as five stacked lanes of ``label_parallel_torch_batch``, each
+   equal to its run alone and to the reference's figures; the first
+   frontier on the card equal to Algorithm 3's selection
+   (``parallel_crowdsourced_pairs``) as a set; the noisy and the product
+   runs again on the CPU with identical fields; each run profiled and the
+   paper-0.1 run split into rebuild, frontier, crowd and fold;
+   ``union_deduce`` bitwise against its plain version on the sweep's first
+   round (one lane and five, n = 997, P = 77096);
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -95,7 +114,8 @@ carries on.  Phases, one output line or block each:
    kernel); a ``{"kernels": [...]}`` line with each kernel's launches on its
    main path (and on each path, where it runs on more than one), error, and
    times beside its bound, its plain version and a library call
-   (``union_deduce``'s with its cluster size);
+   (``union_deduce``'s with its cluster size, and its times and bounds at
+   phase 4f's shapes);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -130,6 +150,25 @@ RECALL_SAMPLE = 1024
 # pool (benchmarks/noise_sweep.py draws the same pool with 30 workers)
 NOISY_CROWD = dict(error_rate=0.1, n_assignments=3, n_workers=25,
                    worker_concentration=3.0, qualification=False)
+# phase 4f, the paper's pipeline: crowdsourced_join(labeler="torch") on the
+# paper's datasets at the sizes of its section 6 (make_paper_dataset: 997
+# records; make_product_dataset: 1081 + 1092), examples/quickstart.py's
+# threshold and noisy crowd.  Each run's (crowdsourced pairs, rounds, answers
+# rejected) are the JAX package's crowdsourced_join(..., labeler="jax") on
+# the CPU (jax 0.9.0) on the same data: tests/test_torch_join.py holds the
+# port to the reference itself on the CPU.
+PIPELINE_RUNS = (
+    # (dataset, threshold, order, NoisyCrowd error rate or None, figures)
+    ("paper", 0.3, "expected", None, (1655, 7, 0)),
+    ("paper", 0.3, "adaptive", None, (1623, 7, 0)),
+    ("paper", 0.3, "expected", 0.08, (1691, 7, 1)),
+    ("paper", 0.1, "expected", None, (8534, 52, 0)),
+    ("product", 0.3, "expected", None, (3670, 4, 0)),
+)
+# the section 6 threshold sweep over the paper dataset, stacked as five
+# lanes of one state: (crowdsourced, rounds) of the reference, as above
+PIPELINE_SWEEP = {0.1: (8534, 52), 0.2: (2846, 16), 0.3: (1655, 7),
+                  0.4: (1524, 5), 0.5: (1410, 5)}
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -512,6 +551,265 @@ def noisy_path(dev, corpora) -> dict:
         print(f"[4e profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
     return launches
+
+
+def _pipeline_candidates(name: str, tau: float):
+    from repro_torch.data.entities import DATASETS
+
+    ds = DATASETS[name]()
+    return ds, ds.pairs.above(tau)
+
+
+def sweep_lanes():
+    """The threshold sweep's sessions: the paper dataset at each of
+    ``PIPELINE_SWEEP``'s thresholds, pairs in the expected order, as
+    ``(u, v, n_objects)`` lanes beside their true answers (int32 POS/NEG)."""
+    from repro_torch.core.cluster_graph import NEG, POS
+    from repro_torch.core.sorting import order_expected
+
+    lanes, answers = [], []
+    for tau in PIPELINE_SWEEP:
+        _, cand = _pipeline_candidates("paper", tau)
+        ordered = cand.take(order_expected(cand))
+        lanes.append((ordered.u, ordered.v, ordered.n_objects))
+        answers.append(np.where(ordered.truth, POS, NEG).astype(np.int32))
+    return lanes, answers
+
+
+def pipeline_round_args(dev):
+    """The ``union_deduce`` arguments of the sweep's first round: the five
+    lanes of :func:`sweep_lanes`, packed to the largest and stacked, their
+    frontier answered by the truth; the screen (its POS answers united into
+    the forest) and the deduce after the fold.  Lane 0 (threshold 0.1,
+    unpadded) alone is the one-lane run's first round."""
+    import torch
+
+    from repro_torch.core import graph
+    from repro_torch.core.cluster_graph import UNKNOWN
+
+    lanes, answers = sweep_lanes()
+    U, V, labels0, _, n = graph.pack_sessions(lanes)
+    st = graph.make_session_state_batch(U, V, labels0, n, dev)
+    packed = np.full(U.shape, UNKNOWN, np.int32)
+    for b, a in enumerate(answers):
+        packed[b, :len(a)] = a
+    updates = torch.where(graph._frontier_impl(st),
+                          torch.from_numpy(packed).to(dev), UNKNOWN)
+    new, pos_new, neg_new, roots_opt, _ = graph._screen_impl(st, updates)
+    folded = graph._finish_apply(st, *graph._apply_fast(
+        st, updates, new, pos_new, neg_new, roots_opt), new, True, False)
+    return ((st.roots, st.u, st.v, pos_new, st.neg_keys, n),
+            (folded.roots, folded.u, folded.v, torch.zeros_like(pos_new),
+             folded.neg_keys, n))
+
+
+def paper_pipeline(dev) -> dict:
+    """Phase 4f: the paper's pipeline, ``crowdsourced_join(labeler="torch")``
+    on ``dev``: the ``PIPELINE_RUNS`` (each run's crowdsourced pairs, rounds
+    and rejected answers must be the reference's, the labels the truth
+    under a ``PerfectCrowd``), then the section 6 threshold sweep as five
+    stacked lanes of ``label_parallel_torch_batch``, each lane equal to its
+    run alone and to the reference's figures.  The first frontier on the
+    card must equal Algorithm 3's selection by the host
+    ``parallel_crowdsourced_pairs``, as a set; the noisy and the product
+    runs again on the CPU must give identical fields.  Then each run
+    profiled (device busy, kernel launches, host syncs) and the paper-0.1
+    run split on the host clock (each stage synchronized): rebuild,
+    frontier, crowd, fold.  ``union_deduce``'s launches are counted from
+    just before the runs to just after them and must be above 0.  Returns
+    them with the per-run figures."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import graph
+    from repro_torch.core.cluster_graph import UNKNOWN
+    from repro_torch.core.crowd import NoisyCrowd, PerfectCrowd
+    from repro_torch.core.join import crowdsourced_join
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.core.parallel import parallel_crowdsourced_pairs
+    from repro_torch.core.sorting import order_expected
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+
+    def crowd_of(err):
+        return PerfectCrowd() if err is None else NoisyCrowd(error_rate=err)
+
+    cases = []
+    for name, tau, order, err, figures in PIPELINE_RUNS:
+        ds, cand = _pipeline_candidates(name, tau)
+        cases.append((f"{name} {tau} {order}"
+                      + ("" if err is None else f" noisy {err}"),
+                      ds, cand, order, err, figures))
+
+    def join(case, device):
+        _, ds, cand, order, err, _ = case
+        return crowdsourced_join(cand, crowd_of(err), order=order,
+                                 labeler="torch", device=device,
+                                 total_true_matches=ds.total_true_matches)
+
+    # the runs: kernel counts zeroed just before the path, read just after
+    join(cases[0], dev)     # warm-up: allocator, kernel attributes
+    torch.cuda.synchronize()
+    ud_ops.union_deduce.launches = 0
+    results, walls, per_run = [], [], []
+    for case in cases:
+        before = ud_ops.union_deduce.launches
+        t0 = time.perf_counter()
+        results.append(join(case, dev))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_run.append(ud_ops.union_deduce.launches - before)
+    lanes, truths = sweep_lanes()
+    before = ud_ops.union_deduce.launches
+    t0 = time.perf_counter()
+    sweep = graph.label_parallel_torch_batch(
+        lanes, lambda b, idx: truths[b][idx], device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = ud_ops.union_deduce.launches - before
+    launches = {"union_deduce": ud_ops.union_deduce.launches}
+
+    for case, res, wall, n_launch in zip(cases, results, walls, per_run):
+        tag, ds, cand, order, err, figures = case
+        q = res.quality
+        got = (res.n_crowdsourced, res.n_iterations, res.n_conflicts)
+        print(f"[4f {tag}] P {len(cand)} crowdsourced {res.n_crowdsourced} "
+              f"deduced {res.n_deduced} rounds {res.n_iterations} conflicts "
+              f"{res.n_conflicts} (reference {figures}) precision "
+              f"{q.precision:.6f} recall {q.recall:.6f} wall {wall:.4f} s, "
+              f"{n_launch} union_deduce launches")
+        if got != figures:
+            raise AssertionError(f"4f {tag}: {got}, the reference's "
+                                 f"{figures}")
+        if err is None and not np.array_equal(res.labels, cand.truth):
+            raise AssertionError(f"4f {tag}: labels differ from the truth")
+        if not transitively_consistent(cand, res.labels):
+            raise AssertionError(f"4f {tag}: labels not consistent")
+    for (tau, figures), lane, truth, out in zip(
+            PIPELINE_SWEEP.items(), lanes, truths, sweep):
+        alone = graph.label_parallel_torch(*lane, lambda idx, t=truth: t[idx],
+                                           device=dev)
+        same = np.array_equal(out[0], alone[0]) \
+            and np.array_equal(out[1], alone[1]) \
+            and out[2:] == tuple(alone[2:])
+        got = (int(out[1].sum()), len(out[2]))
+        print(f"[4f sweep {tau}] P {len(truth)} crowdsourced {got[0]} rounds"
+              f" {got[1]} (reference {figures}), equal to its run alone "
+              f"{same}")
+        if got != figures or not same or out[3] \
+                or not np.array_equal(out[0], truth):
+            raise AssertionError(f"4f sweep lane {tau} is wrong")
+    print(f"[4f sweep] {len(sweep)} lanes stacked at P "
+          f"{max(len(t) for t in truths)}: {sweep_s:.4f} s, "
+          f"{max(len(o[2]) for o in sweep)} rounds, {sweep_launches} "
+          f"union_deduce launches")
+    print(f"[4f paper pipeline] {len(cases)} runs in {sum(walls):.4f} s and "
+          f"the sweep, launches {launches}")
+    if launches["union_deduce"] < 1:
+        raise AssertionError("union_deduce never launched on the paper "
+                             "pipeline")
+
+    # round 1: the card's frontier is Algorithm 3's selection, as a set
+    for tag, ds, cand, order, err, figures in cases:
+        if order != "expected" or err is not None:
+            continue
+        ordered = cand.take(order_expected(cand))
+        card = graph.boruvka_frontier(
+            ordered.u, ordered.v, np.full(len(ordered), UNKNOWN, np.int32),
+            np.zeros(len(ordered), bool), ordered.n_objects, device=dev)
+        host = set(parallel_crowdsourced_pairs(ordered,
+                                               np.arange(len(ordered)), {}))
+        sel = set(np.flatnonzero(card.cpu().numpy()).tolist())
+        print(f"[4f first frontier {tag}] card {len(sel)} pairs, Algorithm 3"
+              f" {len(host)}: equal {sel == host}")
+        if sel != host:
+            raise AssertionError(f"4f {tag}: the first frontier is not "
+                                 f"Algorithm 3's selection")
+
+    # the noisy and the product runs on the CPU: identical fields
+    for case, res in zip(cases, results):
+        if case[4] is None and not case[0].startswith("product"):
+            continue
+        t0 = time.perf_counter()
+        cpu = result_fields(join(case, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        card = result_fields(res)
+        diff = [k for k in card if card[k] != cpu[k]]
+        print(f"[4f parity {case[0]}] card and CPU ({cpu_s:.4f} s): "
+              f"{len(card)} fields, differing {diff}")
+        if diff:
+            raise AssertionError(f"4f {case[0]}: card and CPU differ in "
+                                 f"{diff}")
+
+    # each run profiled: device busy against its unprofiled wall
+    for case, wall in zip(cases, walls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            join(case, dev)
+            torch.cuda.synchronize()
+        on_card, busy, syncs, n_launch = profile_counts(prof)
+        print(f"[4f profile {case[0]}] device busy {busy:.4f} s (idle share "
+              f"{1 - busy / wall:.4f} of the unprofiled wall); {n_launch} "
+              f"kernel launches, {syncs} host syncs")
+        if case[0] == "paper 0.1 expected":
+            top = sorted(on_card, key=dev_us, reverse=True)
+            for e in top[:6] + [e for e in top[6:]
+                                if "union_deduce" in e.key]:
+                print(f"[4f profile]   {dev_us(e) / 1e3:9.3f} ms  "
+                      f"x{e.count:<6d} {e.key[:90]}")
+
+    # the paper-0.1 run split on the host clock, each stage synchronized
+    big = next(c for c in cases if c[0] == "paper 0.1 expected")
+    spent = {"rebuild": 0.0, "frontier": 0.0, "crowd": 0.0, "fold": 0.0}
+    calls = dict.fromkeys(spent, 0)
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            calls[key] += 1
+            return out
+        return call
+
+    patched = [(graph, "_state_from_labels_impl", "rebuild"),
+               (graph, "_frontier_impl", "frontier"),
+               (graph, "_fold_impl", "fold")]
+    originals = [getattr(obj, name) for obj, name, _ in patched]
+    ask = PerfectCrowd.ask
+
+    def timed_ask(self, pairs, i):
+        t0 = time.perf_counter()
+        out = ask(self, pairs, i)
+        spent["crowd"] += time.perf_counter() - t0
+        calls["crowd"] += 1
+        return out
+
+    for (obj, name, key), fn in zip(patched, originals):
+        setattr(obj, name, timed(fn, key))
+    PerfectCrowd.ask = timed_ask
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        join(big, dev)
+        torch.cuda.synchronize()
+        split_wall = time.perf_counter() - t0
+    finally:
+        for (obj, name, _), fn in zip(patched, originals):
+            setattr(obj, name, fn)
+        PerfectCrowd.ask = ask
+    rest = split_wall - sum(spent.values())
+    print(f"[4f split paper 0.1] wall {split_wall:.4f} s (synchronized "
+          f"stages): rebuild {spent['rebuild']:.4f} s in {calls['rebuild']}"
+          f", frontier {spent['frontier']:.4f} s in {calls['frontier']}, "
+          f"crowd {spent['crowd']:.4f} s in {calls['crowd']} asks, fold "
+          f"{spent['fold']:.4f} s in {calls['fold']}, rest {rest:.4f} s; "
+          f"engine {spent['rebuild'] + spent['frontier'] + spent['fold']:.4f}"
+          f" s against the crowd's {spent['crowd']:.4f} s")
+    return {"launches": launches, "walls": walls,
+            "launches_by_run": per_run}
 
 
 def first_round_args(svc, dev):
@@ -1461,6 +1759,17 @@ def run(dev) -> None:
     # -- 4e. the noisy dense path --------------------------------------------
     noisy_launches = noisy_path(dev, corpora)
 
+    # -- 4f. the paper's pipeline -------------------------------------------
+    pipeline = paper_pipeline(dev)
+    pl_args = []    # (lanes, call, args) at the pipeline's shapes
+    for call, args in zip(("screen", "deduce"), pipeline_round_args(dev)):
+        for lanes in (1, args[0].shape[0]):
+            lane_args = tuple(x[:lanes] for x in args[:5]) + (args[5],)
+            check_union_deduce("4f union_deduce",
+                               f"the sweep's round-1 {call}, {lanes} lanes",
+                               lane_args)
+            pl_args.append((lanes, call, lane_args))
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -1479,8 +1788,12 @@ def run(dev) -> None:
     N, M, D = N_ROWS, N_ROWS, DIM
     ps_bytes = 4 * (N * D + M * D + N * M + N)
     ps_flops = 2 * N * M * D
-    ud_P = screen_args[1].shape[1]
-    ud_bytes = ud_B * (4 * ud_n * 2 + ud_P * (4 + 4 + 1 + 4 + 4) + 4)
+    def ud_bytes_of(lanes, n, P):
+        """Forest in and roots out; u, v, the mask and the keys in, the
+        deduced labels out; the conflict flags out."""
+        return lanes * (4 * n * 2 + P * (4 + 4 + 1 + 4 + 4) + 4)
+
+    ud_bytes = ud_bytes_of(ud_B, ud_n, screen_args[1].shape[1])
     # one 256-tile chunk of blocked session 0; D is already a multiple of 16
     cs_flops = 2 * chunk * bn * bm * DIM
     cs_bytes = chunk * (bn + bm) * (4 * DIM + 4) + 12 * min(n_chunk, c_call)
@@ -1559,13 +1872,23 @@ def run(dev) -> None:
          "launches_by_path": {
              "dense": launches["union_deduce"],
              "blocked": blocked_launches["union_deduce"],
-             "noisy_dense": noisy_launches["union_deduce"]},
+             "noisy_dense": noisy_launches["union_deduce"],
+             "paper_pipeline": pipeline["launches"]["union_deduce"]},
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "ms": cuda_ms(lambda: ud_kernel.launch(*screen_args)),
          "plain_ms": cuda_ms(lambda: union_deduce_ref(*screen_args), 5),
          "bound_ms": 1e3 * ud_bytes / PEAK_BYTES_PER_S,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "at_paper_pipeline": [
+             {"call": call, "lanes": lanes, "n": args[0].shape[1],
+              "P": args[1].shape[1],
+              "ms": cuda_ms(lambda a=args: ud_kernel.launch(*a)),
+              "plain_ms": cuda_ms(lambda a=args: union_deduce_ref(*a), 5),
+              "bound_ms": 1e3 * ud_bytes_of(lanes, args[0].shape[1],
+                                            args[1].shape[1])
+              / PEAK_BYTES_PER_S, "bound_by": "bytes"}
+             for lanes, call, args in pl_args]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "source_f32": "src/repro_torch/csrc/flash_attention.cu",

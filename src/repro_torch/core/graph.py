@@ -809,19 +809,251 @@ def session_from_labels(u, v, labels, published, n_objects: int,
     equal."""
     dev = pick_device(device)
     u, v, labels = (_lane(x, torch.int32, dev) for x in (u, v, labels))
-    published = _lane(published, torch.bool, dev)
-    P = u.shape[1]
+    return index_state(_state_from_labels_impl(
+        u, v, labels, _lane(published, torch.bool, dev), n_objects), 0)
+
+
+# ---------------------------------------------------------------------------
+# From-scratch wrappers (``jax_graph.py``'s thin oracle-parity wrappers, with
+# the reference's historical signatures).  Each takes array-likes, moves them
+# to ``device`` (the card unless the caller asks for the CPU) and returns
+# tensors there.
+# ---------------------------------------------------------------------------
+def _cc_impl(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+             n_objects: int) -> torch.Tensor:
+    """Least-id components of the ``mask`` edges of stacked ``(B, P)``
+    lanes, from singleton forests: the union half of the union_deduce kernel
+    (every neg key a sentinel, so its screen and deduce are idle)."""
+    B = u.shape[0]
     roots, _, _ = union_deduce(
-        torch.arange(n_objects, dtype=torch.int32, device=dev)[None], u, v,
-        labels == POS, torch.full_like(u, KEY_SENTINEL, dtype=KEY_DTYPE),
-        n_objects)
-    keys = torch.where(labels == NEG,
-                       canonical_keys(_take(roots, u), _take(roots, v),
-                                      n_objects), KEY_SENTINEL)
+        torch.arange(n_objects, dtype=torch.int32,
+                     device=u.device).repeat(B, 1), u, v, mask,
+        torch.full_like(u, KEY_SENTINEL, dtype=KEY_DTYPE), n_objects)
+    return roots
+
+
+def _neg_keys_impl(roots: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   neg_mask: torch.Tensor, n_objects: int) -> torch.Tensor:
+    """Sorted canonical root-pair keys of the ``neg_mask`` edges, the other
+    slots ``KEY_SENTINEL``."""
+    keys = canonical_keys(_take(roots, u), _take(roots, v), n_objects)
+    return torch.sort(torch.where(neg_mask, keys, KEY_SENTINEL),
+                      dim=-1).values
+
+
+def _state_from_labels_impl(u: torch.Tensor, v: torch.Tensor,
+                            labels: torch.Tensor, published: torch.Tensor,
+                            n_objects: int) -> SessionState:
+    """Stacked from-scratch state over ``(B, P)`` label arrays (the
+    reference's ``_state_from_labels_impl`` under ``vmap``): components from
+    ``arange(n)`` and a full neg-key sort; zero rounds and conflicts,
+    positional priorities."""
+    B, P = u.shape
+    dev = u.device
+    roots = _cc_impl(u, v, labels == POS, n_objects)
     return SessionState(
-        u=u[0], v=v[0], labels=labels[0], published=published[0],
-        roots=roots[0], neg_keys=torch.sort(keys, dim=-1).values[0],
-        rounds=torch.zeros((), dtype=torch.int32, device=dev),
-        conflicts=torch.zeros(P, dtype=torch.int32, device=dev),
-        priority=torch.arange(P, dtype=torch.float32, device=dev),
+        u=u, v=v, labels=labels, published=published, roots=roots,
+        neg_keys=_neg_keys_impl(roots, u, v, labels == NEG, n_objects),
+        rounds=torch.zeros(B, dtype=torch.int32, device=dev),
+        conflicts=torch.zeros((B, P), dtype=torch.int32, device=dev),
+        priority=torch.arange(P, dtype=torch.float32,
+                              device=dev).repeat(B, 1),
         n_objects=int(n_objects))
+
+
+def _on(dev: torch.device, *arrays_and_dtypes):
+    """Each ``(array, dtype)`` as a tensor of that dtype on ``dev``."""
+    return tuple(torch.as_tensor(x, dtype=dt, device=dev)
+                 for x, dt in arrays_and_dtypes)
+
+
+def connected_components(u, v, mask, n_objects: int,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Roots (least vertex id of each component) over the edges where
+    ``mask`` holds: ``(n_objects,)`` int32."""
+    u, v, mask = _on(pick_device(device), (u, torch.int32),
+                     (v, torch.int32), (mask, torch.bool))
+    return _cc_impl(u[None], v[None], mask[None], n_objects)[0]
+
+
+def connected_components_batch(u, v, mask, n_objects: int,
+                               device: DeviceLike = None) -> torch.Tensor:
+    """(B, P) edge lists -> (B, n_objects) roots, one union_deduce launch
+    for the B sessions."""
+    u, v, mask = _on(pick_device(device), (u, torch.int32),
+                     (v, torch.int32), (mask, torch.bool))
+    return _cc_impl(u, v, mask, n_objects)
+
+
+def neg_keys(roots, u, v, neg_mask, n_objects: int,
+             device: DeviceLike = None) -> torch.Tensor:
+    """Sorted canonical keys of cluster pairs joined by a labeled neg edge;
+    the other slots are ``KEY_SENTINEL`` at the end."""
+    roots, u, v, neg_mask = _on(pick_device(device), (roots, torch.int32),
+                                (u, torch.int32), (v, torch.int32),
+                                (neg_mask, torch.bool))
+    return _neg_keys_impl(roots, u, v, neg_mask, n_objects)
+
+
+def deduce_batch(roots, sorted_neg, qu, qv, n_objects: int,
+                 device: DeviceLike = None) -> torch.Tensor:
+    """Algorithm 1 vectorized: POS / NEG / UNKNOWN per query pair, a lookup
+    against the forest and the sorted neg-key index."""
+    roots, sorted_neg, qu, qv = _on(
+        pick_device(device), (roots, torch.int32), (sorted_neg, KEY_DTYPE),
+        (qu, torch.int32), (qv, torch.int32))
+    return _deduce_lookup_impl(roots, sorted_neg, qu, qv, n_objects)
+
+
+def boruvka_frontier(u, v, labels, published, n_objects: int,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Bool mask of the pairs to crowdsource now, from scratch: the state
+    rebuilt from the label arrays with positional priorities (pairs come in
+    labeling order), then the state frontier."""
+    u, v, labels, published = _on(
+        pick_device(device), (u, torch.int32), (v, torch.int32),
+        (labels, torch.int32), (published, torch.bool))
+    return _frontier_impl(_state_from_labels_impl(
+        u[None], v[None], labels[None], published[None], n_objects))[0]
+
+
+def boruvka_frontier_batch(u, v, labels, published, n_objects: int,
+                           device: DeviceLike = None) -> torch.Tensor:
+    """(B, P) stacked sessions -> (B, P) bool frontier masks, from scratch;
+    each lane's equals its unbatched :func:`boruvka_frontier`."""
+    u, v, labels, published = _on(
+        pick_device(device), (u, torch.int32), (v, torch.int32),
+        (labels, torch.int32), (published, torch.bool))
+    return _frontier_impl(_state_from_labels_impl(u, v, labels, published,
+                                                  n_objects))
+
+
+def deduce_sessions(u, v, labels, n_objects: int,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """One deduction sweep over B stacked sessions, from scratch: every
+    UNKNOWN pair whose label follows from the POS/NEG evidence is filled
+    in.  Returns the updated (B, P) labels."""
+    u, v, labels = _on(pick_device(device), (u, torch.int32),
+                       (v, torch.int32), (labels, torch.int32))
+    return _deduce_impl(_state_from_labels_impl(
+        u, v, labels, torch.zeros_like(labels, dtype=torch.bool),
+        n_objects)).labels
+
+
+def pack_sessions(sessions, pair_capacity: int = 0, object_capacity: int = 0):
+    """Pack ragged sessions ``[(u, v, n_objects), ...]`` into stacked numpy
+    arrays.  Returns ``(U, V, labels0, valid, n_cap)``, the first four
+    ``(B, P_cap)``; padded slots hold the inert pre-labeled POS self-loop
+    (0, 0)."""
+    B = len(sessions)
+    p_cap = max(pair_capacity, max(len(u) for u, _, _ in sessions))
+    U = np.zeros((B, p_cap), np.int32)
+    V = np.zeros((B, p_cap), np.int32)
+    labels0 = np.full((B, p_cap), POS, np.int32)
+    valid = np.zeros((B, p_cap), bool)
+    for b, (u, v, _) in enumerate(sessions):
+        p = len(u)
+        U[b, :p] = u
+        V[b, :p] = v
+        labels0[b, :p] = UNKNOWN
+        valid[b, :p] = True
+    n_cap = max(object_capacity, max(n for _, _, n in sessions))
+    return U, V, labels0, valid, n_cap
+
+
+# ---------------------------------------------------------------------------
+# Whole labeling loops (host-driven, the engine's transforms inside)
+# ---------------------------------------------------------------------------
+def label_parallel_torch(u, v, n_objects: int, crowd_fn, prior=None,
+                         device: DeviceLike = None):
+    """The port of ``jax_graph.label_parallel_jax``: iterate frontier ->
+    crowd -> fold (apply + deduce), with a from-scratch rebuild of the state
+    from the labels every round.
+
+    ``crowd_fn(idx_array) -> int32 array of {NEG, POS}`` labels the frontier
+    (``idx`` ascending).  Answers contradicting the evidence are dropped at
+    the conflict-aware fold (the pair takes its deduced label) and counted.
+    With ``prior`` (the per-pair machine likelihoods) the order is adaptive
+    (DESIGN.md §10): priorities are refreshed from the live posterior before
+    every frontier.  The reference rebuilds the state a second time for the
+    fold; from the same labels that rebuild is the frontier's, so the port
+    folds into the one rebuild.  Returns ``(labels, crowdsourced_mask,
+    per-round frontier sizes, n_conflicts)``, numpy and ints."""
+    from .ordering import _refresh_impl
+
+    dev = pick_device(device)
+    P = len(u)
+    uj, vj = (x[None] for x in _on(dev, (u, torch.int32), (v, torch.int32)))
+    prior_j = None if prior is None else \
+        _on(dev, (prior, torch.float32))[0][None]
+    labels = torch.full((1, P), UNKNOWN, dtype=torch.int32, device=dev)
+    published = torch.zeros((1, P), dtype=torch.bool, device=dev)
+    crowdsourced = np.zeros(P, dtype=bool)
+    rounds: List[int] = []
+    n_conflicts = torch.zeros((), dtype=torch.int64, device=dev)
+    labels_host = np.full(P, UNKNOWN, np.int32)
+    while (labels_host == UNKNOWN).any():
+        state = _state_from_labels_impl(uj, vj, labels, published,
+                                        n_objects)
+        ranked = state if prior_j is None else _refresh_impl(state, prior_j)
+        idx = np.flatnonzero(_frontier_impl(ranked)[0].cpu().numpy())
+        if len(idx) == 0:
+            # everything left is deducible
+            labels_host = _deduce_impl(state).labels.cpu().numpy()[0]
+            assert not (labels_host == UNKNOWN).any(), "engine stuck"
+            break
+        rounds.append(len(idx))
+        crowdsourced[idx] = True
+        updates = np.full((1, P), UNKNOWN, np.int32)
+        updates[0, idx] = np.asarray(crowd_fn(idx), np.int32)
+        state, cmask = _fold_impl(state, _on(dev, (updates, torch.int32))[0],
+                                  False)
+        labels = state.labels
+        n_conflicts += cmask.sum()
+        labels_host = labels.cpu().numpy()[0]
+    return labels_host, crowdsourced, rounds, int(n_conflicts)
+
+
+def label_parallel_torch_batch(sessions, crowd_fn, pair_capacity: int = 0,
+                               object_capacity: int = 0,
+                               device: DeviceLike = None) -> list:
+    """The port of ``jax_graph.label_parallel_jax_batch``: B independent
+    sessions ``[(u, v, n_objects), ...]`` (pairs in labeling order) packed
+    once into one stacked state, then every round one frontier and one
+    fold (apply + deduce) over the persistent state.
+    ``crowd_fn(b, idx_array) -> int32 array of {NEG, POS}`` labels session
+    ``b``'s frontier.  Contradictory answers are dropped at the fold and
+    counted.  Returns ``[(labels, crowdsourced_mask, round_sizes,
+    n_conflicts), ...]`` a session, each equal to
+    :func:`label_parallel_torch` on that session alone."""
+    B = len(sessions)
+    U, V, labels0, valid, n_cap = pack_sessions(
+        sessions, pair_capacity, object_capacity)
+    state = make_session_state_batch(U, V, labels0, n_cap, device)
+    crowdsourced = np.zeros(labels0.shape, dtype=bool)
+    rounds: List[List[int]] = [[] for _ in range(B)]
+    labels_host = labels0.copy()
+    while (labels_host == UNKNOWN).any():
+        frontier = _frontier_impl(state).cpu().numpy()
+        if not frontier.any():
+            # everything left (in every session) is deducible
+            labels_host = _deduce_impl(state).labels.cpu().numpy()
+            assert not (labels_host == UNKNOWN).any(), "engine stuck"
+            break
+        updates = np.full(labels0.shape, UNKNOWN, np.int32)
+        for b in range(B):
+            idx = np.flatnonzero(frontier[b])
+            if len(idx) == 0:
+                continue
+            rounds[b].append(len(idx))
+            crowdsourced[b, idx] = True
+            updates[b, idx] = crowd_fn(b, idx)
+        state, _ = _fold_impl(state, _stacked(updates, torch.int32, state),
+                              False)
+        labels_host = state.labels.cpu().numpy()
+    conflicts = state.conflicts.cpu().numpy()
+    return [
+        (labels_host[b, valid[b]], crowdsourced[b, valid[b]], rounds[b],
+         int(conflicts[b, valid[b]].sum()))
+        for b in range(B)
+    ]

@@ -19,6 +19,10 @@ class Quality:
     fp: int
     fn: int
 
+    def row(self) -> str:
+        return (f"precision={self.precision:.2%} recall={self.recall:.2%} "
+                f"F={self.f_measure:.2%}")
+
 
 def _find(parent: list, x: int) -> int:
     root = x

@@ -1,6 +1,8 @@
 """Adaptive labeling order (DESIGN.md §10): posterior-refreshed priorities
-— the device path of ``repro/core/ordering.py`` (gains and refresh,
-unbatched and stacked).
+— ``repro/core/ordering.py``'s device path (gains and refresh, unbatched
+and stacked) and its host mirror over a :class:`ClusterGraph`
+(:func:`adaptive_gains_host`, the ranking the host adaptive labelers
+share).
 
 Per pending pair with machine prior ``p`` the gain is
 ``p / (1 + NEG_DAMP * (du + dv))``, ``du``/``dv`` being the distinct
@@ -10,9 +12,10 @@ mul/add/div, so it matches the reference bit for bit, and
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .cluster_graph import UNKNOWN
+from .cluster_graph import UNKNOWN, ClusterGraph
 from .graph import (SessionState, _decompose_keys, _take, index_state,
                     stack_states)
 
@@ -91,3 +94,43 @@ def session_refresh_priorities_batch(state: SessionState, prior,
     return _refresh_masked_impl(
         state, torch.as_tensor(prior, dtype=torch.float32, device=dev),
         torch.as_tensor(enable, dtype=torch.bool, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Host mirror (ClusterGraph): the same scores from the pointer-chasing graph
+# ---------------------------------------------------------------------------
+def adaptive_gains_host(graph: ClusterGraph, u: np.ndarray, v: np.ndarray,
+                        likelihood: np.ndarray) -> np.ndarray:
+    """Expected-deduction gains from a live :class:`ClusterGraph` — the host
+    mirror of :func:`session_gains`, op for op in f32 so rankings agree with
+    the engine's bit for bit.  O(n + P) a call: roots materialize once, the
+    per-pair math is vectorized."""
+    n = len(graph.parent)
+    roots_all = np.fromiter((graph.find(i) for i in range(n)), np.int64, n)
+    negdeg = np.zeros(n, np.float32)
+    for r, enemies in graph.neg.items():
+        negdeg[r] = len(enemies)  # keys are live roots (maintained on union)
+    ru = roots_all[np.asarray(u, np.int64)]
+    rv = roots_all[np.asarray(v, np.int64)]
+    p = np.clip(np.asarray(likelihood, np.float32),
+                np.float32(PRIOR_FLOOR), np.float32(1.0 - PRIOR_FLOOR))
+    damp = np.float32(1.0) + np.float32(NEG_DAMP) * (negdeg[ru] + negdeg[rv])
+    return p / damp
+
+
+def expected_rank(likelihood: np.ndarray) -> np.ndarray:
+    """Each pair's position in the static expected (likelihood-descending)
+    order — the adaptive ranking's tie-break, mirroring the engine's stable
+    rank tie-break over pairs stored in expected order."""
+    n = len(likelihood)
+    rank = np.empty(n, np.int64)
+    rank[np.argsort(-np.asarray(likelihood), kind="stable")] = np.arange(n)
+    return rank
+
+
+def adaptive_order_host(gains: np.ndarray, erank: np.ndarray,
+                        idx: np.ndarray) -> np.ndarray:
+    """Order the pair indices ``idx`` by descending live gain, ties broken
+    by the static expected rank — the one ranking both host adaptive
+    labelers share."""
+    return idx[np.lexsort((erank[idx], -gains[idx]))]

@@ -33,6 +33,16 @@ class PairSet:
     def __len__(self) -> int:
         return len(self.u)
 
+    def above(self, threshold: float) -> "PairSet":
+        """Pairs whose likelihood is above the threshold (§6: the candidate
+        set handed to the labeling framework)."""
+        m = self.likelihood >= threshold
+        return PairSet(
+            self.u[m], self.v[m], self.likelihood[m],
+            None if self.truth is None else self.truth[m],
+            n_objects=self.n_objects,
+        )
+
     def take(self, order: np.ndarray) -> "PairSet":
         return PairSet(
             self.u[order], self.v[order], self.likelihood[order],

@@ -1,19 +1,22 @@
-"""The product dataset of the paper's section 6, as the LM scorer's examples
-use it: a copy of ``make_product_dataset`` and what it calls from the JAX
-package's ``data/entities.py``.
+"""Synthetic entity-resolution datasets calibrated to the paper's §6 setup:
+the port's copy of the JAX package's ``data/entities.py``, draw for draw.
 
-The paper evaluates on Abt-Buy ("Product": 1081+1092 records, tiny clusters
--> ~10-20% savings).  It is not redistributable offline, so the dataset is
-synthetic with the same *structure*: ground-truth entity clusters drawn from
-a calibrated cluster-size distribution, a machine-likelihood model (Beta
-mixtures) calibrated to the paper's candidate counts, and record strings
-(corrupted canonical names) for the LM scorer to embed.  The Cora-like
-"paper" dataset and the session builders are not ported yet (ROADMAP A12).
+The paper evaluates on Cora ("Paper": 997 records, heavy-tailed cluster
+sizes with one 102-record cluster -> transitive relations save ~95%) and
+Abt-Buy ("Product": 1081+1092 records, tiny clusters -> ~10-20% savings).
+Neither is redistributable offline, so the datasets are synthetic with the
+same *structure*: ground-truth entity clusters drawn from calibrated
+cluster-size distributions, a machine-likelihood model (Beta mixtures)
+calibrated so that candidate-set sizes across thresholds 0.1-0.5 land in
+the paper's ballpark, and record strings (corrupted canonical names) for
+the LM scorer to embed.  :func:`make_session_pairsets` builds small
+entity-clustered join sessions for tests and benchmarks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+import itertools
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -65,6 +68,20 @@ def _corrupt(rng: np.random.Generator, s: str) -> str:
     return " ".join(toks)
 
 
+def _make_records(rng: np.random.Generator, sizes: np.ndarray
+                  ) -> Tuple[np.ndarray, List[str]]:
+    entity_of = []
+    records: List[str] = []
+    for eid, s in enumerate(sizes):
+        n_tok = int(rng.integers(3, 7))
+        canon = " ".join(_WORDS[int(rng.integers(len(_WORDS)))]
+                         for _ in range(n_tok))
+        for _ in range(int(s)):
+            entity_of.append(eid)
+            records.append(_corrupt(rng, canon))
+    return np.asarray(entity_of, np.int32), records
+
+
 def _likelihoods(
     rng: np.random.Generator,
     entity_of: np.ndarray,
@@ -111,6 +128,34 @@ def _likelihoods(
     keep = lik >= min_lik
     ps = PairSet(iu[keep], ju[keep], lik[keep], truth[keep], n_objects=n)
     return ps, nm
+
+
+def make_paper_dataset(seed: int = 0, n_records: int = 997) -> EntityDataset:
+    """Cora-like: 997 records, heavy-tailed clusters, one of size ~102
+    (Figure 11 left)."""
+    rng = np.random.default_rng(seed)
+    sizes = [102]
+    remaining = n_records - 102
+    # heavy tail: a few tens-sized clusters, then geometric fall-off
+    for s in (74, 61, 52, 47, 40, 35, 31, 27, 24, 21, 19, 17, 15, 13, 12,
+              11, 10, 9, 8, 8, 7, 7, 6, 6, 5, 5, 5, 4, 4, 4, 3, 3, 3, 3):
+        if remaining - s < 0:
+            break
+        sizes.append(s)
+        remaining -= s
+    while remaining > 0:
+        s = min(int(rng.integers(1, 4)), remaining)
+        sizes.append(s)
+        remaining -= s
+    sizes = np.asarray(sizes)
+    entity_of, records = _make_records(rng, sizes)
+    # calibration: matching ~ Beta(6, 2.5)  (P[>0.3] ~ .97, P[>0.5] ~ .84);
+    # easy non-match ~ Beta(1, 24); ~4% of entity pairs are confusable
+    # (similar papers) with record-pair lik ~ Beta(2.2, 4.0)
+    pairs, total_true = _likelihoods(
+        rng, entity_of, (6.0, 2.5), (1.0, 24.0), min_lik=0.1,
+        hard_neg_frac=0.04, hard_neg_beta=(2.2, 4.0))
+    return EntityDataset("paper", entity_of, records, pairs, total_true)
 
 
 def make_product_dataset(seed: int = 1, n_a: int = 1081, n_b: int = 1092
@@ -161,3 +206,47 @@ def make_product_dataset(seed: int = 1, n_a: int = 1081, n_b: int = 1092
         rng, entity_of, (3.2, 2.2), (1.0, 45.0), min_lik=0.1,
         cross_only_split=n_a, hard_neg_frac=0.006)
     return EntityDataset("product", entity_of, records, pairs, total_true)
+
+
+DATASETS = {"paper": make_paper_dataset, "product": make_product_dataset}
+
+
+def load_dataset(name: str, seed: int = 0) -> EntityDataset:
+    return DATASETS[name](seed=seed)
+
+
+def make_session_pairsets(
+    n_sessions: int,
+    seed: int = 0,
+    n_objects: Tuple[int, int] = (12, 24),
+    n_pairs: Tuple[int, int] = (20, 60),
+    n_entities: Optional[int] = 5,
+    likelihood: Tuple[float, float, float] = (0.8, 0.3, 0.15),
+) -> List[PairSet]:
+    """Small entity-clustered join sessions for benchmarks and tests.
+
+    Each session draws ``n ~ U[n_objects)`` records over ground-truth entity
+    clusters (``n_entities``; None scales it as ``max(n // 6, 2)``), samples
+    ``m ~ U[n_pairs)`` distinct candidate pairs, and assigns likelihoods
+    correlated with truth — ``base_match`` / ``base_non`` + ``noise``
+    uniform jitter."""
+    rng = np.random.default_rng(seed)
+    base_match, base_non, noise = likelihood
+    out: List[PairSet] = []
+    for _ in range(n_sessions):
+        n = int(rng.integers(*n_objects))
+        k = n_entities if n_entities is not None else max(n // 6, 2)
+        ent = rng.integers(0, k, n)
+        all_e = list(itertools.combinations(range(n), 2))
+        # clamp both ends: a small n may not have n_pairs[0] distinct pairs
+        m_hi = min(n_pairs[1], len(all_e))
+        m_lo = min(n_pairs[0], m_hi)
+        m = int(rng.integers(m_lo, m_hi + 1))
+        sel = rng.permutation(len(all_e))[:m]
+        u = np.array([all_e[i][0] for i in sel], np.int32)
+        v = np.array([all_e[i][1] for i in sel], np.int32)
+        truth = ent[u] == ent[v]
+        lik = (np.where(truth, base_match, base_non)
+               + noise * rng.random(m)).astype(np.float32)
+        out.append(PairSet(u, v, lik, truth, n_objects=n))
+    return out

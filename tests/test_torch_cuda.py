@@ -621,6 +621,122 @@ def test_noisy_service_on_card_matches_cpu(dev):
     assert sum(r.n_conflicts for r in results[0]) > 0
 
 
+def _pipeline_sessions(seed: int):
+    """Seeded entity-clustered sessions of the pipeline tests: their pairs
+    in labeling order, noisy answers (each flipped with probability 0.35)
+    and the machine priors."""
+    from repro_torch.data.entities import make_session_pairsets
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for ps in make_session_pairsets(3, seed=seed, n_objects=(25, 40),
+                                    n_pairs=(120, 300), n_entities=4,
+                                    likelihood=(0.7, 0.4, 0.25)):
+        truth = np.where(ps.truth, POS, NEG).astype(np.int32)
+        flip = rng.random(len(truth)) < 0.35
+        out.append((ps, np.where(flip, 1 - truth, truth).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pipeline_wrappers_on_card_match_cpu(dev, seed):
+    """``connected_components_batch`` and ``boruvka_frontier(_batch)`` from
+    partly labeled, partly published sessions: the card's output equals
+    the CPU's bit for bit, through the union_deduce kernel."""
+    from repro_torch.core import graph
+
+    sessions = _pipeline_sessions(seed)
+    U, V, L, valid, n = graph.pack_sessions(
+        [(ps.u, ps.v, ps.n_objects) for ps, _ in sessions])
+    rng = np.random.default_rng(50 + seed)
+    pub = np.zeros_like(valid)
+    for b, (ps, ans) in enumerate(sessions):
+        m = len(ps)
+        lab = rng.random(m) < 0.4
+        L[b, :m] = np.where(lab, np.where(ps.truth, POS, NEG), -1)
+        pub[b, :m] = ~lab & (rng.random(m) < 0.2)
+    launches = ud_ops.union_deduce.launches
+    for fn, args in ((graph.connected_components_batch, (U, V, L == POS)),
+                     (graph.boruvka_frontier_batch, (U, V, L, pub)),
+                     (graph.deduce_sessions, (U, V, L))):
+        got = fn(*args, n, device=dev)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), fn(*args, n, device="cpu")), \
+            fn.__name__
+    for b in range(len(sessions)):
+        got = graph.boruvka_frontier(U[b], V[b], L[b], pub[b], n, device=dev)
+        assert torch.equal(got.cpu(), graph.boruvka_frontier(
+            U[b], V[b], L[b], pub[b], n, device="cpu"))
+    assert ud_ops.union_deduce.launches > launches
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("prior", [False, True])
+def test_label_parallel_torch_on_card_matches_cpu(dev, seed, prior):
+    """The whole loop on the card and on the CPU under noisy answers:
+    labels, crowdsourced masks, round sizes and conflicts equal; answers
+    were rejected and the kernel launched."""
+    from repro_torch.core import graph
+
+    launches, conflicts = ud_ops.union_deduce.launches, 0
+    for ps, ans in _pipeline_sessions(seed):
+        pr = ps.likelihood if prior else None
+        out = [graph.label_parallel_torch(ps.u, ps.v, ps.n_objects,
+                                          lambda idx: ans[idx], prior=pr,
+                                          device=device)
+               for device in (dev, "cpu")]
+        np.testing.assert_array_equal(out[0][0], out[1][0])
+        np.testing.assert_array_equal(out[0][1], out[1][1])
+        assert out[0][2:] == out[1][2:]
+        conflicts += out[1][3]
+    assert conflicts > 0
+    assert ud_ops.union_deduce.launches > launches
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_label_parallel_torch_batch_on_card_matches_cpu(dev, seed):
+    """Stacked sessions on the card: each equals the CPU's stacked run and
+    the card's one-session run."""
+    from repro_torch.core import graph
+
+    sessions = _pipeline_sessions(seed)
+    lanes = [(ps.u, ps.v, ps.n_objects) for ps, _ in sessions]
+
+    def crowd(b, idx):
+        return sessions[b][1][idx]
+
+    card = graph.label_parallel_torch_batch(lanes, crowd, device=dev)
+    cpu = graph.label_parallel_torch_batch(lanes, crowd, device="cpu")
+    for b, (c, h) in enumerate(zip(card, cpu)):
+        np.testing.assert_array_equal(c[0], h[0])
+        np.testing.assert_array_equal(c[1], h[1])
+        assert c[2:] == h[2:]
+        alone = graph.label_parallel_torch(*lanes[b], lambda idx: crowd(b,
+                                                                        idx),
+                                           device=dev)
+        np.testing.assert_array_equal(c[0], alone[0])
+        assert c[2:] == tuple(alone[2:])
+
+
+def test_crowdsourced_join_on_card_matches_cpu(dev):
+    """``crowdsourced_join(labeler="torch")`` under a ``NoisyCrowd``: every
+    result field but the wall clock equal on the card and the CPU."""
+    from repro_torch.core.crowd import NoisyCrowd
+    from repro_torch.core.join import crowdsourced_join
+
+    for ps, _ in _pipeline_sessions(3):
+        res = [crowdsourced_join(ps, NoisyCrowd(error_rate=0.35, seed=4),
+                                 order=order, labeler="torch", device=device)
+               for order in ("expected", "adaptive")
+               for device in (dev, "cpu")]
+        for card, cpu in (res[:2], res[2:]):
+            for f in dataclasses.fields(card):
+                if f.name != "wall_seconds":
+                    a, b = getattr(card, f.name), getattr(cpu, f.name)
+                    assert (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                            else a == b), f.name
+
+
 # f32 outputs within an absolute tolerance: sums in another order.  bf16
 # outputs within one bf16 ulp of the expected value (8 significant bits: at
 # most 2**-7 of it) plus 1e-4: both sides sum in f32 and round once to bf16.

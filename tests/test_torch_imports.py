@@ -1,7 +1,7 @@
 """The port stands alone and never drops to its plain versions on its own:
 
-* nothing under ``src/repro_torch/``, nor ``chip_smoke.py`` or ``chip_ab.py``,
-  imports ``jax``
+* nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, ``chip_ab.py``
+  or ``examples/torch_quickstart.py``, imports ``jax``
   or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
@@ -12,12 +12,14 @@
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
+     ROOT / "examples" / "torch_quickstart.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -136,3 +138,31 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
     assert not \
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def test_pipeline_entry_points_default_to_the_card(monkeypatch):
+    """The engine labeler and the from-scratch wrappers run on the card
+    unless asked for the CPU; the host labelers need no device."""
+    from repro_torch.core import graph
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.core.join import crowdsourced_join
+    from repro_torch.data.entities import make_session_pairsets
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ps = make_session_pairsets(1, seed=0)[0]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        crowdsourced_join(ps, PerfectCrowd(), labeler="torch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.label_parallel_torch(ps.u, ps.v, ps.n_objects,
+                                   lambda idx: idx * 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.connected_components(ps.u, ps.v, ps.truth, ps.n_objects)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graph.boruvka_frontier(ps.u, ps.v, ps.u * 0 - 1, ps.truth,
+                               ps.n_objects)
+    for labeler in ("sequential", "parallel", "all"):
+        res = crowdsourced_join(ps, PerfectCrowd(), labeler=labeler)
+        assert np.array_equal(res.labels, ps.truth)
+    res = crowdsourced_join(ps, PerfectCrowd(), labeler="torch",
+                            device="cpu")
+    assert np.array_equal(res.labels, ps.truth)
