@@ -14,7 +14,11 @@ carries on.  Phases, one output line or block each:
    (``cuobjdump -res-usage``); ``union_deduce`` bitwise on the stacked lanes of
    phase 4's first round and on an n = 8192 path graph (the
    pointer-jumping worst case), its launch plan (a cluster of blocks a
-   lane) printed, five calls on each round-1 call bit for bit;
+   lane) printed, five calls on each round-1 call bit for bit; the wide
+   ``union_deduce`` kernel (past 46340 objects, int64 keys, the forest in
+   global memory) bitwise on an n = 65536 path graph with int64 sentinel
+   keys and on three stacked lanes of (65536, 131072) with int64 neg keys
+   and a conflict, five calls on those lanes bit for bit;
    ``pair_scores_compact`` on the first 256-tile chunk of blocked session 0
    (phase 4b): rows and cols equal but for cells within 1e-5 of tau, scores
    within 1e-5, the order identical; through ``dense_block_pairs`` on phase
@@ -106,6 +110,34 @@ carries on.  Phases, one output line or block each:
    paper-0.1 run split into rebuild, frontier, crowd and fold;
    ``union_deduce`` bitwise against its plain version on the sweep's first
    round (one lane and five, n = 997, P = 77096);
+4g. a universe past 46340 objects: phase 4b's corpus generator and blocking
+   configuration at 32768 rows a side (seed 100, width 384), one blocked
+   session of 65536 objects through ``JoinService(lanes=1)
+   .submit_embeddings(..., blocking=...)`` and ``run()`` under a
+   ``PerfectCrowd``: its labels must be the truth and the wide
+   ``union_deduce`` kernel must launch on int64 keys; the machine phase's
+   split and ``run()``'s wall printed; the wide kernel bitwise on its
+   round-1 screen and deduce; then a 5000-pair session among 50000 objects
+   (``large_pairset``) through ``submit`` on the card and on the CPU with
+   every result field identical;
+4h. asynchronous ID/NF serving on a latency-modelled crowd: the paper's
+   datasets at the quickstart's threshold (``make_paper_dataset()`` at 0.3,
+   31156 pairs; ``make_product_dataset()`` at 0.3, 4229 pairs) through
+   ``JoinService(lanes=2, latency=LatencyModel(n_workers=20,
+   mean_minutes=30.0, seed=3))`` (``benchmarks/table1_latency.py``'s
+   platform): async ID/NF (``async_mode=True, nf=True``) under a
+   ``PerfectCrowd``, the round barrier on the same platform, the paper
+   dataset alone async under the quickstart's ``NoisyCrowd(error_rate=
+   0.08)``, and the product dataset alone async; each session's
+   crowdsourced pairs, rounds, round sizes, rejected answers and
+   ``sim_minutes`` must be the reference's (``ASYNC_RUNS``), its labels the
+   truth (transitively consistent under the noisy crowd), async must
+   finish in fewer simulated minutes than the barrier, and the product run
+   again on the CPU must give identical fields; each run's wall, answers,
+   events and ``union_deduce`` launches printed; the product run split on
+   the host clock (gateway poll, post and worker assignment, fold, sweeps,
+   publish and its frontier) and its first 300 events timed and profiled
+   (idle share, launches and syncs an event);
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -115,7 +147,8 @@ carries on.  Phases, one output line or block each:
    main path (and on each path, where it runs on more than one), error, and
    times beside its bound, its plain version and a library call
    (``union_deduce``'s with its cluster size, and its times and bounds at
-   phase 4f's shapes);
+   phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
+   phase 4g's round-1 screen, with its launches in phase 4g);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -125,9 +158,9 @@ neg-key index and NEG deduction carry real traffic.  384 is the width of a
 common sentence-embedding model used for entity-matching blocking.  The
 blocked path runs the reference's own full blocking configuration
 (``benchmarks/bench_blocking.py``: 16384 rows a side, 6 bits, 8 tables,
-128 x 128 tiles, 256 tiles a kernel call).  The LM phases run the paper's
-own likelihood model, ``paper-scorer``, at its configured widths, over the
-paper's Abt-Buy-like product table.
+128 x 128 tiles, 256 tiles a kernel call; phase 4g at 32768 rows a side).
+The LM phases run the paper's own likelihood model, ``paper-scorer``, at
+its configured widths, over the paper's Abt-Buy-like product table.
 """
 from __future__ import annotations
 
@@ -169,6 +202,37 @@ PIPELINE_RUNS = (
 # lanes of one state: (crowdsourced, rounds) of the reference, as above
 PIPELINE_SWEEP = {0.1: (8534, 52), 0.2: (2846, 16), 0.3: (1655, 7),
                   0.4: (1524, 5), 0.5: (1410, 5)}
+# phase 4g, a universe past 46340 objects (int64 pair keys, the wide
+# union_deduce kernel): one blocked session of phase 4b's corpus generator
+# and blocking config at 32768 rows a side (65536 objects), then a
+# make_session_pairsets-style session of 5000 pairs among 50000 objects
+LARGE_ROWS, LARGE_SEED = 32768, SEED + 100
+LARGE_PAIRS = dict(n=50000, m=5000, seed=SEED + 50)
+# phase 4h, asynchronous ID/NF serving: the paper's datasets at the
+# quickstart's threshold on benchmarks/table1_latency.py's platform (20
+# workers, lognormal minutes of mean 30, seed 3), two lanes.  Each session's
+# (crowdsourced pairs, rounds, sha256 of its round sizes' JSON list (first
+# 16 hex digits), answers rejected, sim_minutes) are the JAX package's
+# JoinService on the CPU (jax 0.9.0) with the same options and data;
+# tests/test_torch_async.py holds the port to the reference itself.
+ASYNC_TAU, ASYNC_LANES = 0.3, 2
+ASYNC_LATENCY = dict(n_workers=20, mean_minutes=30.0, seed=3)
+ASYNC_NOISY = dict(error_rate=0.08)     # examples/quickstart.py's crowd
+ASYNC_RUNS = {
+    # run: (sessions, async_mode, noisy, {session: figures})
+    "async": (("paper", "product"), True, False, {
+        "paper": (1810, 297, "935bb7ad58aca263", 0, 8324.949865851608),
+        "product": (3698, 654, "5361fe657173bdb4", 0, 8244.928055729753)}),
+    "barrier": (("paper", "product"), False, False, {
+        "paper": (1655, 7, "f2e1635ff256656f", 0, 8959.603864398692),
+        "product": (3670, 4, "99c52893d4627b8a", 0, 8719.675722064681)}),
+    "noisy async": (("paper",), True, True, {
+        "paper": (1844, 321, "f5f4772403e0d190", 1, 2902.937042806693)}),
+    "product async": (("product",), True, False, {
+        "product": (3696, 637, "4361e6c81a05b5a3", 0, 5791.368661342403)}),
+}
+# the window of phase 4h's product run that is profiled: its first events
+ASYNC_PROFILE_EVENTS = 300
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -257,23 +321,29 @@ def device_split(fn, iters: int = 20) -> str:
     """The kernels (fills and memsets included) a call of ``fn`` launches,
     each with its mean device time a launch and its launches a call, from
     ``torch.profiler`` over ``iters`` calls after a warm-up: what a
-    wrapper's time is made of."""
+    wrapper's time is made of.  The profiler's device trace sometimes
+    comes back empty (an H100 run once recorded no activity for one window
+    after a long profile), so a window with no device activity at all is
+    profiled again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     parts = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == DeviceType.CUDA and us:
-            parts.append((us / e.count / 1e3, e.count / iters, e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if e.device_type == DeviceType.CUDA and us:
+                parts.append((us / e.count / 1e3, e.count / iters, e.key))
+        if parts:
+            break
     return "; ".join(f"{ms:.4f} ms a launch, {n:.2f} a call: {key[:60]}"
                      for ms, n, key in sorted(parts, reverse=True))
 
@@ -551,6 +621,388 @@ def noisy_path(dev, corpora) -> dict:
         print(f"[4e profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
     return launches
+
+
+def large_pairset(n: int, m: int, seed: int):
+    """A ``make_session_pairsets``-style session past 46340 objects (that
+    function enumerates every pair of its universe, which 50000 objects
+    make too many): ``m`` distinct pairs among 1000 records spread over
+    ``[0, n)``, the top id among them, in 160 entities, half of the pairs
+    drawn inside an entity; likelihoods correlated with the truth as that
+    function's (0.8 / 0.3 plus a 0.15 uniform jitter)."""
+    from repro_torch.core.pairs import PairSet
+
+    rng = np.random.default_rng(seed)
+    objs = np.append(np.sort(rng.choice(n - 1, 999, replace=False)), n - 1)
+    ent = rng.integers(0, 160, len(objs))
+    members = [np.flatnonzero(ent == e) for e in range(160)]
+    seen, pairs = set(), []
+    while len(pairs) < m:
+        group = members[int(rng.integers(160))] if rng.random() < 0.5 \
+            else np.arange(len(objs))
+        if len(group) < 2:
+            continue
+        a, b = sorted(int(x) for x in rng.choice(group, 2, replace=False))
+        if (a, b) not in seen:
+            seen.add((a, b))
+            pairs.append((a, b))
+    a, b = np.array(pairs).T
+    truth = ent[a] == ent[b]
+    lik = (np.where(truth, 0.8, 0.3) + 0.15 * rng.random(m)).astype(
+        np.float32)
+    return PairSet(objs[a].astype(np.int32), objs[b].astype(np.int32), lik,
+                   truth, n_objects=n)
+
+
+def wide_lanes(dev, n: int, p: int, lanes: int, seed: int):
+    """Stacked ``union_deduce`` arguments past 46340 objects: a compressed
+    forest over some POS edges of a random partition, their int64 neg keys
+    sorted and padded, and a fresh POS mask (with 1% noise edges across the
+    partition); lane 0 also unites the two roots of its first neg key, so it
+    conflicts."""
+    import torch
+
+    from repro_torch.core.graph import _union_impl, key_sentinel
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(lanes):
+        u = torch.from_numpy(rng.integers(0, n, p).astype(np.int32)).to(dev)
+        v = torch.from_numpy(rng.integers(0, n, p).astype(np.int32)).to(dev)
+        cluster = torch.from_numpy(rng.integers(0, n // 3, n)).to(dev)
+        truth = cluster[u.long()] == cluster[v.long()]
+        stage = torch.from_numpy(rng.integers(0, 3, p)).to(dev)
+        parent0 = _union_impl(torch.arange(n, dtype=torch.int32, device=dev),
+                              u, v, (stage == 0) & truth, n)
+        ru, rv = parent0[u.long()], parent0[v.long()]
+        keys = torch.minimum(ru, rv).long() * n + torch.maximum(ru, rv)
+        negk = torch.where((stage == 0) & ~truth & (ru != rv), keys,
+                           key_sentinel(torch.int64)).sort().values
+        noise = torch.from_numpy(rng.random(p) < 0.01).to(dev)
+        out.append([parent0, u, v, (stage == 2) & (truth | noise), negk])
+    parent0, u, v, pos, negk = (torch.stack(x) for x in zip(*out))
+    u[0, 0], v[0, 0], pos[0, 0] = negk[0, 0] // n, negk[0, 0] % n, True
+    return parent0, u, v, pos, negk, n
+
+
+def large_universe(dev) -> dict:
+    """Phase 4g: sessions past 46340 objects, where pair keys are int64 and
+    ``union_deduce`` runs its wide kernel.  One blocked session of
+    ``make_corpus(LARGE_SEED, LARGE_ROWS, DIM)`` (65536 objects) through
+    ``JoinService(lanes=1).submit_embeddings(..., blocking=...)`` and
+    ``run()`` under a ``PerfectCrowd``: its labels must be the truth and the
+    wide kernel must launch; the machine phase is split on the host clock
+    as phase 4b's.  Then ``union_deduce`` bitwise on its round-1 screen and
+    deduce, and a 5000-pair session among 50000 objects
+    (:func:`large_pairset`) through ``submit`` on the card and on the CPU
+    with every result field identical.  Returns the launches and the
+    round-1 screen's arguments."""
+    import torch
+
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.crowd import CrowdGateway, PerfectCrowd
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import kernel as ud_kernel
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    cfg = blocking.BlockingConfig(**BLOCKING)
+    ids_a, ea, ids_b, eb = make_corpus(LARGE_SEED, LARGE_ROWS, DIM)
+    k = int(max(ids_a.max(), ids_b.max())) + 1
+    ttm = int((np.bincount(ids_a, minlength=k)
+               * np.bincount(ids_b, minlength=k)).sum())
+    spent = dict.fromkeys(("signatures", "block_pairs", "chunks", "dedup",
+                           "machine", "engine", "gateway"), 0.0)
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    stages = [(blocking, "signatures", "signatures"),
+              (blocking, "block_pairs", "block_pairs"),
+              (blocking, "_score_chunks", "chunks"),
+              (blocking, "_dedup", "dedup"),
+              (join_service, "blocked_candidates", "machine"),
+              (join_service, "session_run_rounds_batch", "engine"),
+              (CrowdGateway, "post", "gateway")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in stages]
+    for mod, name, key in stages:
+        setattr(mod, name, timed(getattr(mod, name), key))
+    for counter in (ps_ops.pair_scores, ps_ops.pair_scores_compact,
+                    ud_ops.union_deduce):
+        counter.launches = 0
+    ud_ops.union_deduce.wide_launches = 0
+    try:
+        svc = join_service.JoinService(lanes=1, device=dev)
+        t0 = time.perf_counter()
+        rid = svc.submit_embeddings(
+            embeddings_from_numpy(ea, dev), embeddings_from_numpy(eb, dev),
+            THRESHOLD, crowd=PerfectCrowd(),
+            truth_fn=lambda r, c: ids_a[r] == ids_b[c],
+            total_true_matches=ttm, blocking=cfg)
+        submit_s = time.perf_counter() - t0
+        ps = svc.queue[-1].pairs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.run()[rid]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    launches = {"pair_scores": ps_ops.pair_scores.launches,
+                "pair_scores_compact": ps_ops.pair_scores_compact.launches,
+                "union_deduce": ud_ops.union_deduce.launches,
+                "union_deduce_wide": ud_ops.union_deduce.wide_launches}
+    q = res.quality
+    print(f"[4g large universe] {LARGE_ROWS} x {LARGE_ROWS} rows, "
+          f"{ps.n_objects} objects, P {len(ps)}: machine phase "
+          f"{submit_s:.4f} s: blocked_candidates {spent['machine']:.4f} s = "
+          f"signatures {spent['signatures']:.4f} s, block_pairs "
+          f"{spent['block_pairs']:.4f} s, gather + kernel chunks "
+          f"{spent['chunks']:.4f} s, dedup {spent['dedup']:.4f} s")
+    print(f"[4g large universe] run() wall {run_s:.4f} s: round engine "
+          f"{spent['engine']:.4f} s, gateway replay {spent['gateway']:.4f} s,"
+          f" rest {run_s - spent['engine'] - spent['gateway']:.4f} s; "
+          f"crowdsourced {res.n_crowdsourced} deduced {res.n_deduced} rounds "
+          f"{res.n_rounds} precision {q.precision:.6f} recall "
+          f"{q.recall:.6f}; launches {launches}")
+    if ps.n_objects <= ud_kernel.MAX_OBJECTS \
+            or not np.array_equal(res.labels, ps.truth) \
+            or not transitively_consistent(ps, res.labels) \
+            or launches["union_deduce_wide"] < 1 \
+            or launches["pair_scores_compact"] < 1 \
+            or launches["pair_scores"]:
+        raise AssertionError("the large-universe session is wrong or missed "
+                             f"its kernels: {launches}")
+    probe = join_service.JoinService(lanes=1, device=dev)
+    probe.submit(ps, PerfectCrowd())
+    screen_args, deduce_args = first_round_args(probe, dev)
+    if screen_args[4].dtype != torch.int64:
+        raise AssertionError(f"the large universe's keys are "
+                             f"{screen_args[4].dtype}, not int64")
+    check_union_deduce("4g union_deduce", "round-1 screen", screen_args)
+    check_union_deduce("4g union_deduce", "round-1 deduce", deduce_args)
+
+    lp = large_pairset(**LARGE_PAIRS)
+    wide = ud_ops.union_deduce.wide_launches
+    fields = []
+    for device in (dev, "cpu"):
+        one = join_service.JoinService(lanes=1, device=device)
+        rid = one.submit(lp, PerfectCrowd())
+        t0 = time.perf_counter()
+        out = one.run()[rid]
+        fields.append(result_fields(out))
+        print(f"[4g large pairs] {LARGE_PAIRS['m']} pairs among "
+              f"{LARGE_PAIRS['n']} objects on {device}: crowdsourced "
+              f"{out.n_crowdsourced} deduced {out.n_deduced} rounds "
+              f"{out.n_rounds} in {time.perf_counter() - t0:.4f} s")
+    wide = ud_ops.union_deduce.wide_launches - wide
+    diff = [k for k in fields[0] if fields[0][k] != fields[1][k]]
+    print(f"[4g large pairs] card vs cpu: {len(fields[0])} fields, "
+          f"differing {diff}; wide union_deduce launches {wide}")
+    if diff or wide < 1 or not np.array_equal(
+            np.asarray(fields[0]["labels"][1]), lp.truth):
+        raise AssertionError(f"the 50000-object session: differing {diff},"
+                             f" {wide} wide launches")
+    return {"launches": launches, "large_pairs_wide": wide,
+            "screen_args": screen_args}
+
+
+def _async_figures(res) -> tuple:
+    import hashlib
+
+    sizes = json.dumps(res.round_sizes).encode()
+    return (res.n_crowdsourced, res.n_rounds,
+            hashlib.sha256(sizes).hexdigest()[:16], res.n_conflicts,
+            res.sim_minutes)
+
+
+def async_path(dev) -> dict:
+    """Phase 4h: asynchronous ID/NF serving on a latency-modelled crowd.
+    The paper's datasets at ``ASYNC_TAU`` through ``JoinService(lanes=2,
+    latency=LatencyModel(**ASYNC_LATENCY))``: async ID/NF under a
+    ``PerfectCrowd``, the round barrier on the same platform, the paper
+    dataset alone async under ``NoisyCrowd(**ASYNC_NOISY)``, the product
+    dataset alone async.  Each session's figures must be the reference's
+    (``ASYNC_RUNS``), its labels the truth under a ``PerfectCrowd`` and
+    transitively consistent under the noisy one, and async must finish in
+    fewer simulated minutes than the barrier.  The product run again on the
+    CPU must give every result field identical.  Then that run split on the
+    host clock (each stage synchronized), and its first
+    ``ASYNC_PROFILE_EVENTS`` events timed and profiled: the device's idle
+    share, launches and syncs an event.  ``union_deduce``'s launches are
+    counted from just before each run to just after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.crowd import (CrowdGateway, LatencyModel,
+                                        NoisyCrowd, PerfectCrowd)
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    cands = {name: _pipeline_candidates(name, ASYNC_TAU)[1]
+             for name in ("paper", "product")}
+    counts = {"events": 0, "answers": 0}
+
+    class Window(Exception):
+        """Ends a run after ``counts["stop"]`` events."""
+
+    def counted(poll):
+        def counted_poll(self):
+            out = poll(self)
+            if out:
+                counts["events"] += 1
+                counts["answers"] += len(out)
+                if counts["events"] == counts.get("stop"):
+                    raise Window
+            return out
+        return counted_poll
+
+    def service(tag, device=dev):
+        names, async_mode, noisy, _ = ASYNC_RUNS[tag]
+        svc = join_service.JoinService(
+            lanes=ASYNC_LANES, latency=LatencyModel(**ASYNC_LATENCY),
+            async_mode=async_mode, nf=async_mode, device=device)
+        rids = [svc.submit(cands[n], NoisyCrowd(**ASYNC_NOISY) if noisy
+                           else PerfectCrowd()) for n in names]
+        return svc, rids
+
+    def timed_run(svc, stop=None):
+        counts.update(events=0, answers=0, stop=stop)
+        poll = CrowdGateway.poll
+        CrowdGateway.poll = counted(poll)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = svc.run()
+            except Window:
+                out = None
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            CrowdGateway.poll = poll
+
+    walls, launches, results = {}, {}, {}
+    for tag, (names, _, noisy, expected) in ASYNC_RUNS.items():
+        svc, rids = service(tag)
+        ud_ops.union_deduce.launches = 0
+        out, wall = timed_run(svc)
+        launches[tag] = ud_ops.union_deduce.launches
+        walls[tag] = wall
+        for name, rid in zip(names, rids):
+            res = results[tag, name] = out[rid]
+            ps = cands[name]
+            got = _async_figures(res)
+            print(f"[4h {tag} {name}] P {len(ps)} crowdsourced "
+                  f"{res.n_crowdsourced} deduced {res.n_deduced} rounds "
+                  f"{res.n_rounds} rejected {res.n_conflicts} sim_minutes "
+                  f"{res.sim_minutes!r}; the reference's figures "
+                  f"{got == expected[name]}")
+            right = np.array_equal(res.labels, ps.truth) if not noisy \
+                else (transitively_consistent(ps, res.labels) and
+                      res.n_crowdsourced + res.n_deduced == len(ps))
+            if got != expected[name] or not right:
+                raise AssertionError(f"4h {tag} {name}: figures {got}, "
+                                     f"expected {expected[name]}, labels "
+                                     f"right {right}")
+        print(f"[4h {tag}] run() wall {wall:.4f} s: {counts['answers']} "
+              f"answers in {counts['events']} events, union_deduce launches"
+              f" {launches[tag]}")
+        if launches[tag] < 1:
+            raise AssertionError(f"4h {tag}: union_deduce never launched")
+    sim = {tag: max(results[tag, n].sim_minutes
+                    for n in ASYNC_RUNS[tag][0])
+           for tag in ("async", "barrier")}
+    print(f"[4h async vs barrier] simulated minutes {sim['async']!r} "
+          f"against {sim['barrier']!r}: async first "
+          f"{sim['async'] < sim['barrier']}")
+    if not sim["async"] < sim["barrier"]:
+        raise AssertionError(f"async ID/NF is not faster: {sim}")
+
+    svc, rids = service("product async", "cpu")
+    t0 = time.perf_counter()
+    cpu = result_fields(svc.run()[rids[0]])
+    card = result_fields(results["product async", "product"])
+    diff = [k for k in card if card[k] != cpu[k]]
+    print(f"[4h parity] the product run on the card and on the CPU "
+          f"({time.perf_counter() - t0:.4f} s): {len(card)} fields, "
+          f"differing {diff}")
+    if diff:
+        raise AssertionError(f"4h product run: card and CPU differ in {diff}")
+
+    # the host-clock split of the product run, each stage synchronized
+    spent = dict.fromkeys(("poll", "fold", "sweep", "publish", "frontier",
+                           "post", "assign"), 0.0)
+    calls = dict.fromkeys(spent, 0)
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            calls[key] += 1
+            return out
+        return call
+
+    patched = [(CrowdGateway, "poll", "poll"),
+               (CrowdGateway, "post", "post"),
+               (CrowdGateway, "_assign", "assign"),
+               (join_service, "session_fold_answers", "fold"),
+               (join_service, "session_apply_answers", "fold"),
+               (join_service, "session_deduce", "sweep"),
+               (join_service, "session_frontier", "frontier"),
+               (join_service.JoinService, "_publish", "publish")]
+    originals = [getattr(obj, name) for obj, name, _ in patched]
+    svc, _ = service("product async")
+    for (obj, name, key), fn in zip(patched, originals):
+        setattr(obj, name, timed(fn, key))
+    try:
+        _, split_wall = timed_run(svc)
+    finally:
+        for (obj, name, _), fn in zip(patched, originals):
+            setattr(obj, name, fn)
+    rest = split_wall - spent["poll"] - spent["fold"] - spent["sweep"] \
+        - spent["publish"]
+    print(f"[4h split product] run() wall {split_wall:.4f} s (synchronized "
+          f"stages): gateway poll {spent['poll']:.4f} s in {calls['poll']}, "
+          f"fold {spent['fold']:.4f} s in {calls['fold']}, sweeps "
+          f"{spent['sweep']:.4f} s in {calls['sweep']}, publish "
+          f"{spent['publish']:.4f} s in {calls['publish']} (frontier "
+          f"{spent['frontier']:.4f} s, gateway post {spent['post']:.4f} s), "
+          f"worker assignment {spent['assign']:.4f} s in {calls['assign']} "
+          f"(inside poll and post), rest {rest:.4f} s")
+
+    # the product run's first events, unprofiled, then under the profiler
+    n_ev = ASYNC_PROFILE_EVENTS
+    svc, _ = service("product async")
+    _, window_wall = timed_run(svc, stop=n_ev)
+    svc, _ = service("product async")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed_run(svc, stop=n_ev)
+    on_card, busy, syncs, n_launch = profile_counts(prof)
+    print(f"[4h profile product] its first {n_ev} events: wall "
+          f"{window_wall:.4f} s ({1e3 * window_wall / n_ev:.3f} ms an "
+          f"event), device busy {busy:.4f} s (idle share "
+          f"{1 - busy / window_wall:.4f}); {n_launch / n_ev:.1f} kernel "
+          f"launches and {syncs / n_ev:.1f} host syncs an event")
+    top = sorted(on_card, key=dev_us, reverse=True)
+    for e in top[:6] + [e for e in top[6:] if "union_deduce" in e.key]:
+        print(f"[4h profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+              f"{e.key[:90]}")
+    return {"launches": launches, "walls": walls}
 
 
 def _pipeline_candidates(name: str, tau: float):
@@ -854,7 +1306,7 @@ def check_union_deduce(tag: str, name: str, args) -> None:
     """``union_deduce`` bit for bit against its plain version."""
     import torch
 
-    from repro_torch.core.graph import KEY_SENTINEL
+    from repro_torch.core.graph import key_sentinel
     from repro_torch.kernels.union_deduce import kernel as ud_kernel
     from repro_torch.kernels.union_deduce.ref import union_deduce_ref
 
@@ -864,7 +1316,8 @@ def check_union_deduce(tag: str, name: str, args) -> None:
     print(f"[{tag}] {name}: lanes {args[0].shape[0]} n "
           f"{args[0].shape[1]} P {args[1].shape[1]} pos edges "
           f"{int(args[3].sum())} neg keys "
-          f"{int((args[4] != KEY_SENTINEL).sum())} "
+          f"{int((args[4] != key_sentinel(args[4].dtype)).sum())} "
+          f"({args[4].dtype}) "
           f"deduced NEG {int((got[1] == 0).sum())} bitwise equal {same}")
     if not all(same):
         raise AssertionError(f"union_deduce kernel disagrees ({name})")
@@ -1452,7 +1905,7 @@ def run(dev) -> None:
     import torch
 
     from repro_torch.core.crowd import PerfectCrowd
-    from repro_torch.core.graph import KEY_SENTINEL
+    from repro_torch.core.graph import key_sentinel
     from repro_torch.core.metrics import transitively_consistent
     from repro_torch.core.pairs import PairSet
     from repro_torch.convert import embeddings_from_numpy
@@ -1539,7 +1992,7 @@ def run(dev) -> None:
     path_u = torch.arange(n_path - 1, dtype=torch.int32, device=dev)[None]
     path_args = (torch.arange(n_path, dtype=torch.int32, device=dev)[None],
                  path_u, path_u + 1, torch.ones_like(path_u, dtype=torch.bool),
-                 torch.full_like(path_u, KEY_SENTINEL), n_path)
+                 torch.full_like(path_u, key_sentinel(torch.int32)), n_path)
     ud_B, ud_n = screen_args[0].shape
     ud_plan = ud_kernel.plan(ud_n, screen_args[1].shape[1], ud_B)
     print(f"[3 union_deduce] launch plan at the round-1 screen: {ud_B} lanes"
@@ -1551,8 +2004,33 @@ def run(dev) -> None:
                        ("round-1 deduce", deduce_args),
                        ("path graph", path_args)):
         check_union_deduce("3 union_deduce", name, args)
+    # the wide kernel (past 46340 objects, int64 keys): a path graph of
+    # 65536 objects and stacked lanes with neg keys and a conflict
+    n_wide = 2 * 32768
+    wide_u = torch.arange(n_wide - 1, dtype=torch.int32, device=dev)[None]
+    wide_path = (torch.arange(n_wide, dtype=torch.int32, device=dev)[None],
+                 wide_u, wide_u + 1, torch.ones_like(wide_u, dtype=torch.bool),
+                 torch.full_like(wide_u, key_sentinel(torch.int64),
+                                 dtype=torch.int64), n_wide)
+    wide_args = wide_lanes(dev, n_wide, 131072, 3, seed=SEED + 3)
+    wide_plan = ud_kernel.plan(n_wide, 131072, 3)
+    print(f"[3 union_deduce wide] launch plan at (3, {n_wide}, 131072): "
+          f"wide {wide_plan.wide}, a cluster of {wide_plan.cluster} blocks a"
+          f" lane, {wide_plan.smem_bytes} B of dynamic shared memory, the "
+          f"forest in global memory, a hash set of {wide_plan.table_size} "
+          f"64-bit slots a lane")
+    if not wide_plan.wide:
+        raise AssertionError("the plan past 46340 objects is not the wide "
+                             "kernel's")
+    for name, args in (("path graph", wide_path),
+                       ("stacked lanes", wide_args)):
+        check_union_deduce("3 union_deduce wide", name, args)
+    if not bool(union_deduce_ref(*wide_args)[2][0]):
+        raise AssertionError("the wide kernel's stacked lanes do not "
+                             "conflict")
     for name, args in (("round-1 screen", screen_args),
-                       ("round-1 deduce", deduce_args)):
+                       ("round-1 deduce", deduce_args),
+                       ("wide stacked lanes", wide_args)):
         outs = [ud_kernel.union_deduce(*args) for _ in range(5)]
         same = all(torch.equal(x, y) for out in outs[1:]
                    for x, y in zip(out, outs[0]))
@@ -1770,6 +2248,12 @@ def run(dev) -> None:
                                lane_args)
             pl_args.append((lanes, call, lane_args))
 
+    # -- 4g. a universe past 46340 objects ----------------------------------
+    large = large_universe(dev)
+
+    # -- 4h. asynchronous ID/NF serving on a latency-modelled crowd ---------
+    async_run = async_path(dev)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -1788,10 +2272,15 @@ def run(dev) -> None:
     N, M, D = N_ROWS, N_ROWS, DIM
     ps_bytes = 4 * (N * D + M * D + N * M + N)
     ps_flops = 2 * N * M * D
-    def ud_bytes_of(lanes, n, P):
+    def ud_bytes_of(lanes, n, P, key_bytes=4):
         """Forest in and roots out; u, v, the mask and the keys in, the
         deduced labels out; the conflict flags out."""
-        return lanes * (4 * n * 2 + P * (4 + 4 + 1 + 4 + 4) + 4)
+        return lanes * (4 * n * 2 + P * (4 + 4 + 1 + key_bytes + 4) + 4)
+
+    # the wide kernel at phase 4g's round-1 screen
+    wide_screen = large["screen_args"]
+    wide_B, wide_n = wide_screen[0].shape
+    wide_P = wide_screen[1].shape[1]
 
     ud_bytes = ud_bytes_of(ud_B, ud_n, screen_args[1].shape[1])
     # one 256-tile chunk of blocked session 0; D is already a multiple of 16
@@ -1873,7 +2362,8 @@ def run(dev) -> None:
              "dense": launches["union_deduce"],
              "blocked": blocked_launches["union_deduce"],
              "noisy_dense": noisy_launches["union_deduce"],
-             "paper_pipeline": pipeline["launches"]["union_deduce"]},
+             "paper_pipeline": pipeline["launches"]["union_deduce"],
+             "async_serving": async_run["launches"]},
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "ms": cuda_ms(lambda: ud_kernel.launch(*screen_args)),
@@ -1889,6 +2379,21 @@ def run(dev) -> None:
                                             args[1].shape[1])
               / PEAK_BYTES_PER_S, "bound_by": "bytes"}
              for lanes, call, args in pl_args]},
+        {"name": "union_deduce_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/union_deduce.cu",
+         "replaces": "src/repro/kernels/union_deduce/kernel.py:129",
+         "launches": large["launches"]["union_deduce_wide"],
+         "launches_by_path": {
+             "large_universe": large["launches"]["union_deduce_wide"],
+             "large_pairs": large["large_pairs_wide"]},
+         "max_abs_err": 0.0,
+         "cluster": ud_plan.cluster,
+         "shape": [wide_B, wide_n, wide_P],
+         "ms": cuda_ms(lambda: ud_kernel.launch(*wide_screen)),
+         "plain_ms": cuda_ms(lambda: union_deduce_ref(*wide_screen), 5),
+         "bound_ms": 1e3 * ud_bytes_of(wide_B, wide_n, wide_P, 8)
+         / PEAK_BYTES_PER_S,
+         "bound_by": "bytes", "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
          "source_f32": "src/repro_torch/csrc/flash_attention.cu",
@@ -1923,6 +2428,12 @@ def run(dev) -> None:
     print("[6 union_deduce] one call's device time by kernel: " + ud_split)
     if ud_split.count(" a call: ") != 1:
         raise AssertionError("union_deduce's launch runs more than its kernel")
+    wide_split = device_split(lambda: ud_kernel.launch(*wide_screen))
+    print("[6 union_deduce wide] one call's device time by kernel: "
+          + wide_split)
+    if wide_split.count(" a call: ") != 1:
+        raise AssertionError("the wide union_deduce's launch runs more than "
+                             "its kernel")
     print("[6 pair_scores_compact] one call's device time by kernel: "
           + device_split(lambda: ps_kernel.pair_scores_compact(
               *chunk_args, THRESHOLD, c_call, bn, bm)))

@@ -12,14 +12,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.core.graph import KEY_DTYPE, SessionState
+from repro_torch.core.graph import SessionState
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, model_specs
 
 _DTYPES = {"u": torch.int32, "v": torch.int32, "labels": torch.int32,
            "published": torch.bool, "roots": torch.int32,
-           "neg_keys": KEY_DTYPE, "rounds": torch.int32,
+           "neg_keys": None,   # kept: int32, or int64 under x64
+           "rounds": torch.int32,
            "conflicts": torch.int32, "priority": torch.float32}
 
 
@@ -27,15 +28,17 @@ def session_state_from_numpy(fields: Dict[str, np.ndarray],
                              device: DeviceLike = None) -> SessionState:
     """A :class:`SessionState` (single or stacked) from a JAX
     ``SessionState``'s array fields as numpy arrays.  ``n_objects`` is the
-    forest's length, as it is in the reference."""
+    forest's length, as it is in the reference.  ``neg_keys`` keep their
+    dtype: int32 (the reference's default) or int64 (under
+    ``jax_enable_x64``)."""
     dev = pick_device(device)
     missing = set(_DTYPES) - set(fields)
     if missing:
         raise ValueError(f"session state fields missing: {sorted(missing)}")
-    if np.asarray(fields["neg_keys"]).dtype != np.int32:
+    if np.asarray(fields["neg_keys"]).dtype not in (np.int32, np.int64):
         raise ValueError(
-            "neg_keys must be int32 (the reference's default key dtype); "
-            "64-bit keys are not ported")
+            f"neg_keys must be int32 or int64, got "
+            f"{np.asarray(fields['neg_keys']).dtype}")
     return SessionState(
         **{f: torch.tensor(np.asarray(fields[f]), dtype=dt, device=dev)
            for f, dt in _DTYPES.items()},

@@ -11,17 +11,24 @@
   error rates are drawn from a Beta distribution.  Its rng stream is the
   reference's draw for draw, so the same seed gives the same ballots.
 * :class:`CostModel` — AMT accounting of §6.4.
-* :class:`CrowdGateway` — the batched transport in immediate mode: every
-  posted pair is answered on the next ``poll`` at simulated time 0, each
-  ballot is billed against its request and its votes are tallied.
+* :class:`LatencyModel` — lognormal per-assignment completion times and a
+  finite worker pool: the simulated asynchronous platform.
+* :class:`CrowdGateway` — the batched transport.  In immediate mode every
+  posted pair is answered on the next ``poll`` at simulated time 0; with a
+  ``LatencyModel`` a pool of workers picks waiting pairs (at random, as AMT
+  assigns, or lowest likelihood first under ``nf``) and ``poll`` advances
+  the platform clock to the next completion.  Each ballot is billed against
+  its request and its votes are tallied.  The gateway's rng draws (worker
+  picks, then each pick's latency) are the reference's, draw for draw.
 
 Labels are in engine encoding (``POS`` / ``NEG``) throughout, ballots'
-included.  The latency model, requery, worker reliability and cluster tasks
-are not ported yet (ROADMAP A9.2, A9.4, A9.8).
+included.  Requery, worker reliability and cluster tasks are not ported yet
+(ROADMAP A9.4, A9.8).
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
@@ -236,6 +243,26 @@ class CostModel:
 
 
 @dataclasses.dataclass
+class LatencyModel:
+    """Per-assignment completion latency (minutes), lognormal; a worker pool
+    of ``n_workers`` draws available HIT-assignments (AMT assigns randomly)."""
+
+    n_workers: int = 20
+    mean_minutes: float = 30.0
+    sigma: float = 1.0
+    seed: int = 0
+
+    def sampler(self) -> np.random.Generator:
+        """Fresh seeded rng for the event-driven simulator."""
+        return np.random.default_rng(self.seed)
+
+    def draw_minutes(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        """``n`` lognormal completion times with mean ``mean_minutes``."""
+        mu = math.log(self.mean_minutes) - self.sigma**2 / 2
+        return rng.lognormal(mu, self.sigma, size=n)
+
+
+@dataclasses.dataclass
 class CrowdTicket:
     """Receipt for one posted batch of pairs."""
 
@@ -257,6 +284,16 @@ class CrowdAnswer(NamedTuple):
     workers: Tuple[int, ...] = ()
 
 
+@dataclasses.dataclass
+class _Task:
+    """One unit of platform work a single worker picks up: a pair ballot,
+    as ``(index, label, votes, workers)`` in a one-entry list."""
+
+    rid: int
+    answers: List[Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]]
+    likelihood: float
+
+
 def _one_vote_ballots(crowd: Crowd) -> bool:
     """Whether ``crowd`` keeps :class:`Crowd`'s default ballots: one vote,
     equal to :meth:`Crowd.ask`, from a freshly minted worker."""
@@ -266,17 +303,48 @@ def _one_vote_ballots(crowd: Crowd) -> bool:
 
 
 class CrowdGateway:
-    """Batched crowd transport in immediate mode (DESIGN.md §8): ``post``
-    asks the crowd for a ballot on every pair of a batch, in index order,
-    and bills it; ``poll``/``drain`` return the answers at simulated time 0.
+    """Batched crowd transport (DESIGN.md §8): ``post`` asks the crowd for a
+    ballot on every pair of a batch, in index order, and bills it.
+
+    * ``latency=None`` — immediate mode: ``poll``/``drain`` return every
+      posted answer at simulated time 0 (the round-barrier transport).
+    * ``latency=LatencyModel`` — the simulated asynchronous platform: each
+      ballot is a task a single worker of ``latency.n_workers`` picks up
+      (uniformly at random, or lowest likelihood first with ``nf=True``,
+      the §5.2 non-matching-first steering) and completes after a lognormal
+      number of minutes; ``poll`` advances the clock (``now_minutes``) to the
+      next completion and returns the answers landing then.
+
     ``measured_disagreement`` is the minority-vote fraction over every
     ballot posted."""
 
-    def __init__(self, latency=None) -> None:
-        if latency is not None:
-            raise NotImplementedError(
-                "the asynchronous crowd platform (LatencyModel) is not ported "
-                "yet: ROADMAP A9.2")
+    def __init__(self, latency: Optional[LatencyModel] = None,
+                 nf: bool = False) -> None:
+        if latency is not None and latency.n_workers <= 0:
+            raise ValueError(
+                f"CrowdGateway needs a positive worker pool, got "
+                f"n_workers={latency.n_workers} — in-flight pairs could "
+                "never complete")
+        if nf and latency is None:
+            raise ValueError(
+                "nf=True requires a LatencyModel: non-matching-first steers "
+                "which waiting pair a worker picks up next, and the "
+                "immediate-mode poll answers everything at once, so the "
+                "steering would be a silent no-op")
+        self.latency = latency
+        self.nf = nf
+        # latency mode only: the platform's rng (worker picks, latencies),
+        # the tasks waiting for a worker — a list picked at random, or under
+        # nf a heap on (likelihood, rid, index), the reference's min key,
+        # which no two waiting pairs share — and the running tasks, a
+        # min-heap on (t_done, seq)
+        self._rng = latency.sampler() if latency is not None else None
+        self._tasks: List = []
+        self._running: List[Tuple[float, int, _Task]] = []
+        self._free_workers = latency.n_workers if latency is not None else 0
+        self._now = 0.0
+        self._seq = 0
+        # immediate mode: the answers posted, not yet polled
         self._waiting: List[CrowdAnswer] = []
         self._seen: Dict[Tuple[int, int], Set[int]] = {}
         # one-vote posts not yet folded into _seen: per request, a list of
@@ -305,9 +373,14 @@ class CrowdGateway:
         return 0
 
     @property
+    def now_minutes(self) -> float:
+        """Simulated platform wall clock in minutes."""
+        return self._now
+
+    @property
     def in_flight(self) -> int:
-        """Pairs posted but not yet polled."""
-        return len(self._waiting)
+        """Tasks posted but not yet answered (waiting + running)."""
+        return len(self._waiting) + len(self._tasks) + len(self._running)
 
     @property
     def measured_disagreement(self) -> float:
@@ -329,9 +402,25 @@ class CrowdGateway:
         """Ask the crowd for a ballot on each pair index, in order, and bill
         ``cents_per_assignment`` times its votes against the request — one
         multiply-add a pair, as the reference bills, so the running total
-        rounds identically."""
+        rounds identically.  With a latency model each ballot becomes a
+        waiting task, and free workers pick tasks up at once."""
         indices = tuple(int(i) for i in indices)
-        if _one_vote_ballots(crowd):
+        if self.latency is not None:
+            for i in indices:
+                ballot = crowd.ask_ballot(pairs, i,
+                                          exclude=self.seen_workers(rid, i))
+                self._bill(rid, ballot, cents_per_assignment)
+                self._seen.setdefault((rid, i), set()).update(ballot.workers)
+                task = _Task(rid, [(i, ballot.label, ballot.votes,
+                                    ballot.workers)],
+                             float(pairs.likelihood[i]))
+                if self.nf:
+                    heapq.heappush(self._tasks,
+                                   (task.likelihood, rid, i, task))
+                else:
+                    self._tasks.append(task)
+            self._assign()
+        elif _one_vote_ballots(crowd):
             self._post_one_vote(rid, pairs, indices, crowd,
                                 cents_per_assignment)
         else:
@@ -344,16 +433,21 @@ class CrowdGateway:
         self._next_tid += 1
         return CrowdTicket(tid=tid, rid=rid, indices=indices)
 
-    def _post_ballot(self, rid: int, ballot: Ballot, i: int,
-                     cents_per_assignment: float) -> None:
-        # the request's one-vote runs were settled by ``seen_workers``
-        self._seen.setdefault((rid, i), set()).update(ballot.workers)
+    def _bill(self, rid: int, ballot: Ballot,
+              cents_per_assignment: float) -> None:
+        """Tally a ballot's votes and bill its assignments to the request."""
         k = len(ballot.votes)
         self.n_votes += k
         self.n_minority_votes += sum(v != ballot.label for v in ballot.votes)
         self._assignments[rid] = self._assignments.get(rid, 0) + k
         self._spent_cents[rid] = (self._spent_cents.get(rid, 0.0)
                                   + cents_per_assignment * k)
+
+    def _post_ballot(self, rid: int, ballot: Ballot, i: int,
+                     cents_per_assignment: float) -> None:
+        # the request's one-vote runs were settled by ``seen_workers``
+        self._seen.setdefault((rid, i), set()).update(ballot.workers)
+        self._bill(rid, ballot, cents_per_assignment)
         self._waiting.append(CrowdAnswer(rid, i, ballot.label, 0.0,
                                          ballot.votes, ballot.workers))
 
@@ -393,12 +487,47 @@ class CrowdGateway:
         raise NotImplementedError(
             "cluster tasks are not ported yet: ROADMAP A9.8")
 
+    def _assign(self) -> None:
+        """Free workers pick up waiting tasks (NF: lowest likelihood
+        first), each drawing its completion time."""
+        while self._free_workers > 0 and self._tasks:
+            if self.nf:
+                task = heapq.heappop(self._tasks)[-1]
+            else:
+                task = self._tasks.pop(
+                    int(self._rng.integers(len(self._tasks))))
+            dt = float(self.latency.draw_minutes(self._rng, 1)[0])
+            heapq.heappush(self._running, (self._now + dt, self._seq, task))
+            self._seq += 1
+            self._free_workers -= 1
+
     def poll(self) -> List[CrowdAnswer]:
-        """Everything posted so far, answered at simulated time 0."""
-        out, self._waiting = self._waiting, []
+        """Immediate mode: everything posted so far, at simulated time 0.
+        Latency mode: advance the clock to the next completion and return
+        the answers landing then; the freed workers pick up waiting tasks
+        at once."""
+        if self.latency is None:
+            out, self._waiting = self._waiting, []
+            self.n_answered += len(out)
+            return out
+        if not self._running:
+            return []
+        t0 = self._running[0][0]
+        out: List[CrowdAnswer] = []
+        while self._running and self._running[0][0] <= t0 + 1e-12:
+            t, _, task = heapq.heappop(self._running)
+            out.extend(CrowdAnswer(task.rid, i, lab, t, votes, workers)
+                       for i, lab, votes, workers in task.answers)
+            self._free_workers += 1
+        self._now = max(self._now, t0)
+        self._assign()
         self.n_answered += len(out)
         return out
 
     def drain(self) -> List[CrowdAnswer]:
-        """Poll until nothing is in flight (the round-barrier transport)."""
-        return self.poll()
+        """Poll until nothing is in flight (the round-barrier transport):
+        every outstanding answer, in completion order."""
+        out = self.poll()
+        while self.in_flight:
+            out.extend(self.poll())
+        return out

@@ -15,9 +15,13 @@ functions take a *stacked* state with an explicit leading lane dimension
 it used ``lax.while_loop``; a lane that has finished is held fixed exactly as
 a vmapped ``while_loop`` holds it.
 
-Pair keys are ``lo * n + hi`` in int32, padded with ``INT32_MAX`` — the
-values the JAX reference stores under its default 32-bit configuration — so
-every stored key matches the reference value for value.  The round engine's
+Pair keys are ``lo * n + hi``, padded with the key dtype's max — the values
+the JAX reference stores under ``jax_enable_x64``, its production
+configuration, so every stored key matches the reference value for value.
+They are int32 while ``n * n < 2**31`` for the state's object capacity n
+(where the reference's default 32-bit configuration stores the same values)
+and int64 from there on (:func:`key_dtype`); a state's key dtype is its
+``neg_keys``' own.  The round engine's
 union + conflict screen and its deduce sweep go through the ``union_deduce``
 kernel wrapper on every device: the CUDA kernel for a CUDA state, its plain
 PyTorch version for a CPU state.
@@ -35,8 +39,6 @@ from repro_torch.kernels.union_deduce.ops import union_deduce
 
 from .cluster_graph import NEG, POS, UNKNOWN
 
-KEY_DTYPE = torch.int32
-KEY_SENTINEL = 2 ** 31 - 1   # padding of the neg-key index, above any key
 
 # exit codes reported by `session_run_rounds_batch`:
 ROUNDS_RUNNING = 0   # rounds budget exhausted mid-stream — more remain
@@ -57,14 +59,25 @@ def next_pow2(n: int, floor: int = 1) -> int:
 
 
 def pair_key_bits() -> int:
-    """Usable bits for canonical ``lo * n + hi`` keys: the port stores them
-    in int32, as the reference does under its default configuration."""
-    return 31
+    """Usable bits for canonical ``lo * n + hi`` keys: 63, as the reference
+    has under ``jax_enable_x64`` (keys widen to int64 past 46340 objects)."""
+    return 63
 
 
 def pair_keys_fit(n_objects: int) -> bool:
-    """True iff an ``n_objects`` universe's pair keys fit the key dtype."""
+    """True iff an ``n_objects`` universe's pair keys are representable."""
     return n_objects * n_objects < 2 ** pair_key_bits()
+
+
+def key_dtype(n_objects: int) -> torch.dtype:
+    """The neg-key dtype of an ``n_objects`` universe: int32 while every key
+    ``lo * n + hi`` and the sentinel above them fit it, else int64."""
+    return torch.int32 if n_objects * n_objects < 2 ** 31 else torch.int64
+
+
+def key_sentinel(dtype: torch.dtype) -> int:
+    """Padding of a neg-key index: the key dtype's max, above any key."""
+    return torch.iinfo(dtype).max
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -73,14 +86,18 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def canonical_keys(roots_u: torch.Tensor, roots_v: torch.Tensor,
-                   n_objects: int) -> torch.Tensor:
-    """Canonical ``lo * n + hi`` cluster-pair keys, range-guarded."""
+                   n_objects: int, dtype: torch.dtype = None) -> torch.Tensor:
+    """Canonical ``lo * n + hi`` cluster-pair keys in ``dtype`` (default:
+    :func:`key_dtype` of ``n_objects``), range-guarded."""
     if not pair_keys_fit(n_objects):
         raise ValueError(
             f"n_objects={n_objects} overflows {pair_key_bits() + 1}-bit pair "
             "keys")
-    lo = torch.minimum(roots_u, roots_v).to(KEY_DTYPE)
-    hi = torch.maximum(roots_u, roots_v).to(KEY_DTYPE)
+    dtype = key_dtype(n_objects) if dtype is None else dtype
+    if dtype == torch.int32 and key_dtype(n_objects) != torch.int32:
+        raise ValueError(f"n_objects={n_objects} overflows int32 pair keys")
+    lo = torch.minimum(roots_u, roots_v).to(dtype)
+    hi = torch.maximum(roots_u, roots_v).to(dtype)
     return lo * n_objects + hi
 
 
@@ -131,7 +148,7 @@ def _in_sorted(sorted_keys: torch.Tensor, queries: torch.Tensor
 def _decompose_keys(keys: torch.Tensor, n_objects: int):
     """Split canonical keys back into endpoint ids.  Returns
     ``(lo, hi, is_pad)``; pad slots decompose to ``(0, 0)``."""
-    is_pad = keys == KEY_SENTINEL
+    is_pad = keys == key_sentinel(keys.dtype)
     lo = torch.where(is_pad, 0, torch.div(keys, n_objects,
                                           rounding_mode="floor"))
     hi = torch.where(is_pad, 0, torch.remainder(keys, n_objects))
@@ -146,8 +163,9 @@ def _rekey_impl(sorted_keys: torch.Tensor, roots: torch.Tensor,
     this is the identity, so the reference's cond-gated re-key and this
     unconditional one store the same values."""
     lo, hi, is_pad = _decompose_keys(sorted_keys, n_objects)
-    new = canonical_keys(_take(roots, lo), _take(roots, hi), n_objects)
-    new = torch.where(is_pad, KEY_SENTINEL, new)
+    kdt = sorted_keys.dtype
+    new = canonical_keys(_take(roots, lo), _take(roots, hi), n_objects, kdt)
+    new = torch.where(is_pad, key_sentinel(kdt), new)
     return torch.sort(new, dim=-1).values
 
 
@@ -165,7 +183,8 @@ def _deduce_lookup_impl(roots, sorted_neg, qu, qv, n_objects: int
     """Algorithm 1 batched: POS / NEG / UNKNOWN per query pair."""
     ru, rv = _take(roots, qu), _take(roots, qv)
     same = ru == rv
-    neg = _in_sorted(sorted_neg, canonical_keys(ru, rv, n_objects)) & ~same
+    neg = _in_sorted(sorted_neg, canonical_keys(ru, rv, n_objects,
+                                                sorted_neg.dtype)) & ~same
     return torch.where(same, POS, torch.where(neg, NEG, UNKNOWN)).to(
         torch.int32)
 
@@ -179,15 +198,16 @@ class SessionState:
     leading lane axis).  ``roots`` are the canonical (least-id) components
     of the POS-labeled edges and ``neg_keys`` the sorted multiset of
     canonical root-pair keys of the NEG-labeled edges under them, padded
-    with ``KEY_SENTINEL``.  Padded pair slots hold the inert pre-labeled POS
-    self-loop (0, 0); padded objects are singletons."""
+    with their dtype's :func:`key_sentinel`.  Padded pair slots hold the
+    inert pre-labeled POS self-loop (0, 0); padded objects are
+    singletons."""
 
     u: torch.Tensor          # (P,) int32 pair endpoints, labeling order
     v: torch.Tensor          # (P,) int32
     labels: torch.Tensor     # (P,) int32 {UNKNOWN, NEG, POS}
     published: torch.Tensor  # (P,) bool — in-flight pairs
     roots: torch.Tensor      # (n_objects,) int32 forest over POS edges
-    neg_keys: torch.Tensor   # (P,) int32 sorted canonical NEG keys
+    neg_keys: torch.Tensor   # (P,) int32 / int64 sorted canonical NEG keys
     rounds: torch.Tensor     # () int32 answer-fold counter
     conflicts: torch.Tensor  # (P,) int32 rejected answers per pair
     priority: torch.Tensor   # (P,) f32 live labeling priority
@@ -222,8 +242,8 @@ def make_session_state(u, v, n_objects: int, pair_capacity: int = 0,
         labels=torch.from_numpy(labels).to(dev),
         published=torch.zeros(p_cap, dtype=torch.bool, device=dev),
         roots=torch.arange(n_cap, dtype=torch.int32, device=dev),
-        neg_keys=torch.full((p_cap,), KEY_SENTINEL, dtype=KEY_DTYPE,
-                            device=dev),
+        neg_keys=torch.full((p_cap,), key_sentinel(key_dtype(n_cap)),
+                            dtype=key_dtype(n_cap), device=dev),
         rounds=torch.zeros((), dtype=torch.int32, device=dev),
         conflicts=torch.zeros(p_cap, dtype=torch.int32, device=dev),
         priority=torch.arange(p_cap, dtype=torch.float32, device=dev),
@@ -236,7 +256,8 @@ def session_grow(state: SessionState, pair_capacity: int,
     """Extend one lane's state to larger pair/object capacities.  Every live
     field keeps its prefix; new pair slots are the inert POS self-loop, new
     objects are singletons, and the neg-key index is re-encoded under the
-    larger universe (a strictly monotone map, so it stays sorted)."""
+    larger universe (a strictly monotone map, so it stays sorted), widened
+    to int64 when the larger universe's keys need it."""
     P_old = state.u.shape[-1]
     n_old = state.n_objects
     if pair_capacity < P_old or object_capacity < n_old:
@@ -250,8 +271,10 @@ def session_grow(state: SessionState, pair_capacity: int,
     dev = state.u.device
     pad_p = pair_capacity - P_old
     lo, hi, is_pad = _decompose_keys(state.neg_keys, n_old)
-    rekeyed = torch.where(is_pad, KEY_SENTINEL,
-                          canonical_keys(lo, hi, object_capacity))
+    kdt = torch.promote_types(state.neg_keys.dtype,
+                              key_dtype(object_capacity))
+    rekeyed = torch.where(is_pad, key_sentinel(kdt),
+                          canonical_keys(lo, hi, object_capacity, kdt))
 
     def pad(x, value, dtype):
         return torch.cat([x, torch.full((pad_p,), value, dtype=dtype,
@@ -264,7 +287,7 @@ def session_grow(state: SessionState, pair_capacity: int,
         published=pad(state.published, False, torch.bool),
         roots=torch.cat([state.roots, torch.arange(
             n_old, object_capacity, dtype=torch.int32, device=dev)]),
-        neg_keys=pad(rekeyed, KEY_SENTINEL, KEY_DTYPE),
+        neg_keys=pad(rekeyed, key_sentinel(kdt), kdt),
         rounds=state.rounds,
         conflicts=pad(state.conflicts, 0, torch.int32),
         priority=torch.cat([state.priority, torch.arange(
@@ -307,10 +330,11 @@ def _apply_fast(state: SessionState, updates, new, pos_new, neg_new, roots):
     ``roots`` is the already-computed union over every incoming POS edge."""
     n = state.n_objects
     labels = torch.where(new, updates, state.labels)
+    kdt = state.neg_keys.dtype
     negk = _rekey_impl(state.neg_keys, roots, n)
     fresh = torch.where(
         neg_new, canonical_keys(_take(roots, state.u), _take(roots, state.v),
-                                n), KEY_SENTINEL)
+                                n, kdt), key_sentinel(kdt))
     negk = _merge_sorted(negk, torch.sort(fresh, dim=-1).values)
     return labels, roots, negk, torch.zeros_like(new)
 
@@ -340,9 +364,11 @@ def _deduce_from_impl(state: SessionState, ded: torch.Tensor
     n = state.n_objects
     new = (ded != UNKNOWN) & (state.labels == UNKNOWN) & ~state.published
     neg_new = new & (ded == NEG)
+    kdt = state.neg_keys.dtype
     fresh = torch.where(
         neg_new, canonical_keys(_take(state.roots, state.u),
-                                _take(state.roots, state.v), n), KEY_SENTINEL)
+                                _take(state.roots, state.v), n, kdt),
+        key_sentinel(kdt))
     negk = _merge_sorted(state.neg_keys, torch.sort(fresh, dim=-1).values)
     return state.replace(labels=torch.where(new, ded, state.labels),
                          neg_keys=negk)
@@ -387,7 +413,8 @@ def _sequential_conflicts(u, v, updates, new, roots, neg_keys,
     over the state's roots, each cluster's set of neg-adjacent clusters
     built from the neg-key index the first time the cluster is touched and
     merged small into large on a union.  Returns the (P,) conflict mask."""
-    keys = neg_keys[neg_keys != KEY_SENTINEL].astype(np.int64)
+    keys = neg_keys[neg_keys != np.iinfo(neg_keys.dtype).max].astype(
+        np.int64)
     ends = np.concatenate([keys // n_objects, keys % n_objects])
     others = np.concatenate([keys % n_objects, keys // n_objects])
     order = np.argsort(ends, kind="stable")
@@ -576,7 +603,7 @@ def _frontier_impl(state: SessionState) -> torch.Tensor:
     # nothing for it (same roots, same candidates), as in the vmapped loop
     while True:
         ru, rv = _take(roots, u), _take(roots, v)
-        neg_hit = _in_sorted(negk, canonical_keys(ru, rv, n))
+        neg_hit = _in_sorted(negk, canonical_keys(ru, rv, n, negk.dtype))
         cand = undecided & (ru != rv) & ~neg_hit
         undecided = undecided & cand
         p = torch.where(cand, prio, P)
@@ -792,8 +819,8 @@ def make_session_state_batch(U, V, labels0, n_objects: int,
         published=torch.zeros((B, P), dtype=torch.bool, device=dev),
         roots=torch.arange(n_objects, dtype=torch.int32,
                            device=dev).repeat(B, 1),
-        neg_keys=torch.full((B, P), KEY_SENTINEL, dtype=KEY_DTYPE,
-                            device=dev),
+        neg_keys=torch.full((B, P), key_sentinel(key_dtype(n_objects)),
+                            dtype=key_dtype(n_objects), device=dev),
         rounds=torch.zeros(B, dtype=torch.int32, device=dev),
         conflicts=torch.zeros((B, P), dtype=torch.int32, device=dev),
         priority=torch.arange(P, dtype=torch.float32,
@@ -825,19 +852,20 @@ def _cc_impl(u: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     lanes, from singleton forests: the union half of the union_deduce kernel
     (every neg key a sentinel, so its screen and deduce are idle)."""
     B = u.shape[0]
+    kdt = key_dtype(n_objects)
     roots, _, _ = union_deduce(
         torch.arange(n_objects, dtype=torch.int32,
                      device=u.device).repeat(B, 1), u, v, mask,
-        torch.full_like(u, KEY_SENTINEL, dtype=KEY_DTYPE), n_objects)
+        torch.full_like(u, key_sentinel(kdt), dtype=kdt), n_objects)
     return roots
 
 
 def _neg_keys_impl(roots: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    neg_mask: torch.Tensor, n_objects: int) -> torch.Tensor:
     """Sorted canonical root-pair keys of the ``neg_mask`` edges, the other
-    slots ``KEY_SENTINEL``."""
+    slots the key dtype's sentinel."""
     keys = canonical_keys(_take(roots, u), _take(roots, v), n_objects)
-    return torch.sort(torch.where(neg_mask, keys, KEY_SENTINEL),
+    return torch.sort(torch.where(neg_mask, keys, key_sentinel(keys.dtype)),
                       dim=-1).values
 
 
@@ -888,7 +916,7 @@ def connected_components_batch(u, v, mask, n_objects: int,
 def neg_keys(roots, u, v, neg_mask, n_objects: int,
              device: DeviceLike = None) -> torch.Tensor:
     """Sorted canonical keys of cluster pairs joined by a labeled neg edge;
-    the other slots are ``KEY_SENTINEL`` at the end."""
+    the other slots are the key dtype's sentinel, at the end."""
     roots, u, v, neg_mask = _on(pick_device(device), (roots, torch.int32),
                                 (u, torch.int32), (v, torch.int32),
                                 (neg_mask, torch.bool))
@@ -898,10 +926,14 @@ def neg_keys(roots, u, v, neg_mask, n_objects: int,
 def deduce_batch(roots, sorted_neg, qu, qv, n_objects: int,
                  device: DeviceLike = None) -> torch.Tensor:
     """Algorithm 1 vectorized: POS / NEG / UNKNOWN per query pair, a lookup
-    against the forest and the sorted neg-key index."""
-    roots, sorted_neg, qu, qv = _on(
-        pick_device(device), (roots, torch.int32), (sorted_neg, KEY_DTYPE),
-        (qu, torch.int32), (qv, torch.int32))
+    against the forest and the sorted neg-key index (int32 or int64, kept;
+    any other integer dtype takes :func:`key_dtype`)."""
+    dev = pick_device(device)
+    sorted_neg = torch.as_tensor(sorted_neg, device=dev)
+    if sorted_neg.dtype not in (torch.int32, torch.int64):
+        sorted_neg = sorted_neg.to(key_dtype(n_objects))
+    roots, qu, qv = _on(dev, (roots, torch.int32), (qu, torch.int32),
+                        (qv, torch.int32))
     return _deduce_lookup_impl(roots, sorted_neg, qu, qv, n_objects)
 
 

@@ -25,7 +25,14 @@ extern "C" cudaError_t union_deduce_launch(
     int* scratch, int B, int n, int P, int pair_slice, int table_size,
     int stride, int smem, int max_trips, cudaStream_t stream);
 
-extern "C" cudaError_t union_deduce_max_clusters(int smem, int* count);
+extern "C" cudaError_t union_deduce_wide_launch(
+    const int* parent0, const int* u, const int* v, const uint8_t* pos,
+    const long long* neg_keys, int* roots, int* deduced, int* conflict,
+    int* error, int* scratch, int B, int n, int P, int pair_slice,
+    int table_size, int stride, int max_trips, cudaStream_t stream);
+
+extern "C" cudaError_t union_deduce_max_clusters(int smem, int wide,
+                                                int* count);
 
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
@@ -104,12 +111,39 @@ void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// The wide kernel (n > 46340, int64 keys): one launch of B clusters of 16
+// blocks, no dynamic shared memory.
+void union_deduce_wide(const torch::Tensor& parent0, const torch::Tensor& u,
+                       const torch::Tensor& v, const torch::Tensor& pos,
+                       const torch::Tensor& neg_keys,
+                       const torch::Tensor& roots,
+                       const torch::Tensor& deduced,
+                       const torch::Tensor& conflict,
+                       const torch::Tensor& error,
+                       const torch::Tensor& scratch, int64_t pair_slice,
+                       int64_t table_size, int64_t max_trips) {
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(union_deduce_wide_launch(
+      parent0.data_ptr<int>(), u.data_ptr<int>(), v.data_ptr<int>(),
+      pos.data_ptr<uint8_t>(),
+      reinterpret_cast<const long long*>(neg_keys.data_ptr<int64_t>()),
+      roots.data_ptr<int>(), deduced.data_ptr<int>(),
+      conflict.data_ptr<int>(), error.data_ptr<int>(),
+      scratch.data_ptr<int>(), static_cast<int>(parent0.size(0)),
+      static_cast<int>(parent0.size(1)), static_cast<int>(u.size(1)),
+      static_cast<int>(pair_slice), static_cast<int>(table_size),
+      static_cast<int>(scratch.size(1)), static_cast<int>(max_trips),
+      stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // Clusters of union_deduce blocks with `smem` bytes of dynamic shared
-// memory each that the current device can hold at once; sets the kernel's
-// attributes on the device first.
-int64_t union_deduce_clusters(int64_t smem) {
+// memory each (of the wide kernel's, with `wide`) that the current device
+// can hold at once; sets the kernel's attributes on the device first.
+int64_t union_deduce_clusters(int64_t smem, bool wide) {
   int count = 0;
-  C10_CUDA_CHECK(union_deduce_max_clusters(static_cast<int>(smem), &count));
+  C10_CUDA_CHECK(union_deduce_max_clusters(static_cast<int>(smem),
+                                           wide ? 1 : 0, &count));
   return count;
 }
 
@@ -198,6 +232,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "thresholded pair scores compacted over gathered tiles (CUDA)");
   m.def("union_deduce", &union_deduce,
         "fused union + deduce, a cluster of blocks a lane (CUDA)");
+  m.def("union_deduce_wide", &union_deduce_wide,
+        "fused union + deduce past 46340 objects, int64 keys (CUDA)");
   m.def("union_deduce_max_clusters", &union_deduce_clusters,
         "union_deduce clusters the device can hold at once");
   m.def("flash_attention_f32", &flash_attention_f32,

@@ -66,6 +66,32 @@
 // [r * T / C, (r + 1) * T / C), ids [r * ceil(n / C), ...) up to n.  A
 // lane's scratch is `stride` ints: the hash set (T, a power of two >= 64),
 // C edge counts, then the P-long edge list.
+//
+// Past 46340 objects (n * n >= 2^31) the keys are int64 and the forest does
+// not fit a block's shared memory, so a second kernel, union_deduce_wide,
+// serves those lanes (the wrapper picks it by n).  It keeps the cluster of
+// C blocks a lane and the four steps, with these changes:
+//   - the lane's one forest lives in global memory, in `roots` itself: each
+//     block copies its slice of parent0 there, and the blocks hook it in
+//     place with global atomicMin (at n = 65536 it is 256 KB, resident in
+//     the 50 MB L2); every read of it goes to L2 (__ldcg), never to a
+//     stale L1 line;
+//   - a union trip is a hook pass over each block's own POS edges, a
+//     cluster barrier, a compress of each block's slice of the ids (the
+//     roots are fixed while no hook runs, so a block needs only its own
+//     barriers until its slice points at roots), and a cluster barrier;
+//     a flag in global scratch says whether any block hooked in the trip;
+//   - edges are two int32 lists, u and v, with no 16-bit packing;
+//   - the hash set has 64-bit slots (atomicCAS on unsigned long long, empty
+//     = all ones) and a mix of both halves; keys decompose with 64-bit
+//     division.
+// The fixed point is the same unique one, so its outputs equal the plain
+// version's bit for bit.  Its bound is bytes too, about 8n + 21P per lane
+// (forest in and out; u, v, the mask, the 8-byte keys in, deduced out);
+// one cluster a lane leaves most SMs idle at one lane, and each union trip
+// waits on two cluster barriers and dependent L2 loads.  A wide lane's scratch is `stride` ints: the set
+// (T 64-bit slots, 2T ints), C edge counts, 4 ints of trip flags, then the
+// two P-long edge lists.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -374,6 +400,216 @@ union_deduce_kernel(const int* __restrict__ parent0, const int* __restrict__ u,
   }
 }
 
+// ---------------------------------------------------------------------------
+// union_deduce_wide: n > 46340 objects, int64 keys, the forest in global
+// memory (see the note at the top)
+// ---------------------------------------------------------------------------
+constexpr unsigned long long kEmpty64 = ~0ull;
+constexpr long long kSentinel64 = 0x7fffffffffffffffll;
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdull;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ull;
+  x ^= x >> 33;
+  return x;
+}
+
+// Point every object of [begin, end) at its root, as compress() does for a
+// block's shared forest, on the lane's global forest: no hook runs
+// meanwhile, so a root seen is a root for good, and the other blocks'
+// concurrent writes only move an object closer to its root.  flag[0..2]
+// are zero on entry and on return.
+__device__ void compress_global(int* p, int begin, int end, int* flag) {
+  for (int pass = 0;; ++pass) {
+    bool short_of_root = false;
+    for (int x = begin + threadIdx.x; x < end; x += kThreads) {
+      int r = __ldcg(p + x);
+      int up = __ldcg(p + r);
+      if (up == r) continue;
+      for (int s = 0; s < kChase && up != r; ++s) {
+        r = up;
+        up = __ldcg(p + r);
+      }
+      __stcg(p + x, r);
+      if (up != r) short_of_root = true;
+    }
+    if (short_of_root) flag[pass % 3] = 1;
+    if (threadIdx.x == 0) flag[(pass + 1) % 3] = 0;
+    __syncthreads();
+    if (!flag[pass % 3]) {
+      if (threadIdx.x == 0) flag[(pass + 2) % 3] = 0;
+      return;
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster) {
+  __threadfence();  // this thread's global writes, before the others read
+  cluster.sync();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+union_deduce_wide_kernel(const int* __restrict__ parent0,
+                         const int* __restrict__ u, const int* __restrict__ v,
+                         const uint8_t* __restrict__ pos,
+                         const long long* __restrict__ neg_keys, int* roots,
+                         int* __restrict__ deduced, int* __restrict__ conflict,
+                         int* __restrict__ error, int* __restrict__ scratch,
+                         int n, int P, int pair_slice, int table_size,
+                         int stride, int max_trips) {
+  __shared__ int n_edges;
+  __shared__ int flag;
+  __shared__ int jumps[3];  // compress_global's pass flags
+  __shared__ int conf;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int C = kCluster;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  parent0 += static_cast<size_t>(lane) * n;
+  roots += static_cast<size_t>(lane) * n;
+  u += static_cast<size_t>(lane) * P;
+  v += static_cast<size_t>(lane) * P;
+  pos += static_cast<size_t>(lane) * P;
+  neg_keys += static_cast<size_t>(lane) * P;
+  deduced += static_cast<size_t>(lane) * P;
+  int* base = scratch + static_cast<size_t>(lane) * stride;
+  unsigned long long* table = reinterpret_cast<unsigned long long*>(base);
+  int* counts = base + 2 * static_cast<size_t>(table_size);
+  int* hooked = counts + C;  // a trip's "anything hooked", two in turn
+  int* eu = hooked + 4;
+  int* ev = eu + P;
+  const unsigned long long mask =
+      static_cast<unsigned long long>(table_size - 1);
+  const int lo = min(P, rank * pair_slice);
+  const int hi = min(P, lo + pair_slice);
+  const int ids = (n + C - 1) / C;
+  const int id_lo = min(n, rank * ids);
+  const int id_hi = min(n, id_lo + ids);
+
+  // 1. this block's share of the set's fill, its slice of the forest, its
+  //    POS edges
+  {
+    const int share = table_size / C;
+    for (int h = tid; h < share; h += kThreads)
+      table[static_cast<size_t>(rank) * share + h] = kEmpty64;
+  }
+  for (int x = id_lo + tid; x < id_hi; x += kThreads)
+    __stcg(roots + x, parent0[x]);
+  if (tid == 0) {
+    n_edges = 0;
+    conf = 0;
+    jumps[0] = jumps[1] = jumps[2] = 0;
+  }
+  __syncthreads();
+  for (int i0 = lo; i0 < hi; i0 += kThreads) {
+    const int i = i0 + tid;
+    const bool take = i < hi && pos[i];
+    const unsigned ballot = __ballot_sync(0xffffffffu, take);
+    int at = 0;
+    if ((tid & 31) == 0 && ballot) at = atomicAdd(&n_edges, __popc(ballot));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (take) {
+      const int slot = lo + at + __popc(ballot & ((1u << (tid & 31)) - 1u));
+      eu[slot] = u[i];
+      ev[slot] = v[i];
+    }
+  }
+  __syncthreads();
+  const int mine = n_edges;
+  if (tid == 0) {
+    counts[rank] = mine;
+    if (rank == 0) {
+      conflict[lane] = 0;
+      error[lane] = 0;
+      hooked[0] = hooked[1] = 0;
+    }
+  }
+  cluster_barrier(cluster);  // the set is empty, the forest copied
+
+  // 2. union: hook this block's POS edges into the lane's forest, then
+  //    compress this block's ids, until a trip hooks nothing
+  for (int trips = 0;; ++trips) {
+    if (tid == 0) flag = 0;
+    __syncthreads();
+    bool any_hook = false;
+    for (int j = tid; j < mine; j += kThreads) {
+      const int ru = __ldcg(roots + __ldcg(eu + lo + j));
+      const int rv = __ldcg(roots + __ldcg(ev + lo + j));
+      if (ru != rv) {
+        atomicMin(roots + max(ru, rv), min(ru, rv));
+        any_hook = true;
+      }
+    }
+    if (any_hook) flag = 1;
+    __syncthreads();
+    if (tid == 0 && flag) atomicExch(hooked + (trips & 1), 1);
+    cluster_barrier(cluster);  // every hook of the trip has landed
+    const int any = __ldcg(hooked + (trips & 1));
+    // the next trip's flag was last read before this trip's hooks began
+    if (tid == 0 && rank == 0) atomicExch(hooked + ((trips + 1) & 1), 0);
+    if (!any && trips > 0) break;  // the last trip left the forest compressed
+    compress_global(roots, id_lo, id_hi, jumps);
+    cluster_barrier(cluster);  // every slice points at its root
+    if (!any) break;
+    if (trips + 1 >= max_trips) {
+      if (tid == 0) error[lane] = 1;
+      break;
+    }
+  }
+
+  // 3. this block's neg keys re-keyed into the set, in chunks of kThreads
+  //    dealt round the cluster
+  for (int g = rank * kThreads + tid; g < P; g += C * kThreads) {
+    long long key = neg_keys[g];
+    if (key == kSentinel64) continue;
+    const int rlo = __ldcg(roots + static_cast<int>(key / n));
+    const int rhi = __ldcg(roots + static_cast<int>(key % n));
+    if (rlo == rhi) {
+      conf = 1;
+      continue;
+    }
+    key = static_cast<long long>(min(rlo, rhi)) * n + max(rlo, rhi);
+    const unsigned long long k = static_cast<unsigned long long>(key);
+    unsigned long long h = mix64(k) & mask;
+    for (;;) {
+      const unsigned long long prev = atomicCAS(table + h, kEmpty64, k);
+      if (prev == kEmpty64 || prev == k) break;
+      h = (h + 1) & mask;
+    }
+  }
+  __syncthreads();
+  if (tid == 0 && conf) conflict[lane] = 1;
+  cluster_barrier(cluster);  // every block's keys are in the set
+
+  // 4. probe the set with each pair of this block's slice
+  for (int i = lo + tid; i < hi; i += kThreads) {
+    const int ru = __ldcg(roots + u[i]);
+    const int rv = __ldcg(roots + v[i]);
+    int out = kPos;
+    if (ru != rv) {
+      const unsigned long long k = static_cast<unsigned long long>(
+          static_cast<long long>(min(ru, rv)) * n + max(ru, rv));
+      unsigned long long h = mix64(k) & mask;
+      for (;;) {
+        const unsigned long long got = __ldcg(table + h);
+        if (got == k) {
+          out = kNeg;
+          break;
+        }
+        if (got == kEmpty64) {
+          out = kUnknown;
+          break;
+        }
+        h = (h + 1) & mask;
+      }
+    }
+    deduced[i] = out;
+  }
+}
+
 cudaLaunchConfig_t launch_config(int B, int smem, cudaLaunchAttribute* attr,
                                  cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -396,9 +632,21 @@ cudaLaunchConfig_t launch_config(int B, int smem, cudaLaunchAttribute* attr,
 // current device can have beside its static variables, and clusters of
 // kCluster blocks; then says how many clusters of blocks with `smem` bytes
 // of dynamic shared memory each the device can hold at once (0: none can be
-// placed).  The wrapper calls it once per device and size, before the
-// launches, which set no attribute themselves.
-extern "C" cudaError_t union_deduce_max_clusters(int smem, int* count) {
+// placed).  With `wide` set, the same for union_deduce_wide_kernel, which
+// takes no dynamic shared memory.  The wrapper calls it once per device,
+// kernel and size, before the launches, which set no attribute themselves.
+extern "C" cudaError_t union_deduce_max_clusters(int smem, int wide,
+                                                int* count) {
+  if (wide) {  // no dynamic shared memory
+    cudaError_t err = cudaFuncSetAttribute(
+        union_deduce_wide_kernel,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config(1, 0, &attr, 0);
+    return cudaOccupancyMaxActiveClusters(count, union_deduce_wide_kernel,
+                                          &cfg);
+  }
   int device = 0, optin = 0;
   cudaFuncAttributes fa;
   cudaError_t err = cudaGetDevice(&device);
@@ -437,4 +685,24 @@ extern "C" cudaError_t union_deduce_launch(
                             neg_keys, roots, deduced, conflict, error,
                             scratch, n, P, pair_slice, table_size, stride,
                             (smem - 4 * n) / 4, max_trips);
+}
+
+// Plain C entry point of the wide kernel (n > 46340, int64 keys): one
+// launch of B clusters of kCluster blocks on `stream`; scratch holds
+// B * stride ints (see the note at the top), 8-byte aligned a lane; nothing
+// needs zeroing.  union_deduce_max_clusters(0, 1, ...) must have run on the
+// device first.
+extern "C" cudaError_t union_deduce_wide_launch(
+    const int* parent0, const int* u, const int* v, const uint8_t* pos,
+    const long long* neg_keys, int* roots, int* deduced, int* conflict,
+    int* error, int* scratch, int B, int n, int P, int pair_slice,
+    int table_size, int stride, int max_trips, cudaStream_t stream) {
+  if (stride % 2 || stride < 2 * table_size + kCluster + 4 + 2 * P)
+    return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(B, 0, &attr, stream);
+  return cudaLaunchKernelEx(&cfg, union_deduce_wide_kernel, parent0, u, v,
+                            pos, neg_keys, roots, deduced, conflict, error,
+                            scratch, n, P, pair_slice, table_size, stride,
+                            max_trips);
 }

@@ -1,9 +1,11 @@
-"""Launch of the hand-written CUDA union–deduce kernel
-(``repro_torch/csrc/union_deduce.cu``; it replaces the Pallas kernel
+"""Launch of the hand-written CUDA union–deduce kernels
+(``repro_torch/csrc/union_deduce.cu``; they replace the Pallas kernel
 ``repro/kernels/union_deduce/kernel.py::union_deduce``): one thread-block
-cluster per lane, each block with its own copy of the forest in shared
-memory, the lane's hash set and POS-edge list in global scratch.
-:func:`plan` lays the launch out; it runs on the CPU."""
+cluster per lane.  Up to ``MAX_OBJECTS`` objects (int32 keys) each block
+keeps its own copy of the forest in shared memory; past it (int64 keys) the
+wide kernel hooks the lane's one forest in global memory.  The lane's hash
+set and POS-edge lists are in global scratch.  :func:`plan` lays the launch
+out; it runs on the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +13,12 @@ import functools
 
 import torch
 
-# n * n < 2^31 (int32 keys) bounds the forest at 46340 objects, 185 KB of
-# shared memory — within a block's 227 KB on Hopper
+# n * n < 2^31 (int32 keys) bounds the shared-memory kernel's forest at
+# 46340 objects, 185 KB of shared memory — within a block's 227 KB on
+# Hopper; past it the keys are int64 and the wide kernel runs
 MAX_OBJECTS = 46340
+# the wide kernel's ids and offsets are int32
+MAX_WIDE_OBJECTS = 2 ** 31 - 1
 # blocks of a lane's cluster, the kernel's kCluster: 16, which needs the
 # non-portable attribute; an H100 places 7 at a time and ran the dense screen
 # faster than at the portable 8 (PERF.md section 6)
@@ -33,17 +38,19 @@ class Plan:
     scratch_ints: int   # a lane's scratch: the set, edge counts, edge list
     smem_bytes: int     # dynamic shared memory a block: forest, then edges
     edge_cache: int     # POS edges a block keeps in shared memory
+    wide: bool = False  # the wide kernel: n > MAX_OBJECTS, int64 keys
 
 
 def plan(n: int, P: int, lanes: int) -> Plan:
     """Lay out the launch for ``lanes`` stacked lanes of ``n`` objects and
-    ``P`` pairs; raises ``ValueError`` for a forest past ``MAX_OBJECTS``.
+    ``P`` pairs: the shared-memory kernel up to ``MAX_OBJECTS`` objects, the
+    wide kernel past it (no dynamic shared memory; a lane's scratch is the
+    set's 64-bit slots, the edge counts, trip flags and two edge lists).
     Block r of a lane's cluster takes pairs ``[min(P, r * pair_slice),
     min(P, (r + 1) * pair_slice))``."""
-    if not 1 <= n <= MAX_OBJECTS:
-        raise ValueError(f"union_deduce kernel takes 1 to {MAX_OBJECTS} "
-                         f"objects (n * n < 2^31), got {n}: at most "
-                         f"{MAX_OBJECTS}")
+    if not 1 <= n <= MAX_WIDE_OBJECTS:
+        raise ValueError(f"union_deduce kernel takes 1 to "
+                         f"{MAX_WIDE_OBJECTS} objects, got {n}")
     if P < 1 or lanes < 1:
         raise ValueError(f"union_deduce kernel needs a pair and a lane, got "
                          f"P={P} lanes={lanes}")
@@ -51,6 +58,12 @@ def plan(n: int, P: int, lanes: int) -> Plan:
     while table_size < 2 * P:   # load factor <= 1/2
         table_size *= 2
     pair_slice = -(-P // CLUSTER)
+    if n > MAX_OBJECTS:
+        return Plan(cluster=CLUSTER, pair_slice=pair_slice,
+                    table_size=table_size,
+                    scratch_ints=2 * table_size + CLUSTER + 4
+                    + -(-P // 2) * 4,
+                    smem_bytes=0, edge_cache=0, wide=True)
     room = (SMEM_LIMIT - SMEM_STATIC - 4 * n) // 16 * 4   # edges, 16 B steps
     edge_cache = min(room, -(-P // 4) * 4)
     return Plan(cluster=CLUSTER, pair_slice=pair_slice,
@@ -60,14 +73,14 @@ def plan(n: int, P: int, lanes: int) -> Plan:
 
 
 @functools.cache
-def _clusters_placeable(device: int, smem: int) -> int:
-    """Clusters the device can hold at once at ``smem`` bytes a block; the
-    first call on a device also sets the kernel's attributes there, which
-    the launches rely on."""
+def _clusters_placeable(device: int, smem: int, wide: bool = False) -> int:
+    """Clusters the device can hold at once at ``smem`` bytes a block (of
+    the wide kernel, with ``wide``); the first call on a device also sets
+    the kernel's attributes there, which the launches rely on."""
     from repro_torch.kernels._build import extension
 
     with torch.cuda.device(device):
-        return int(extension().union_deduce_max_clusters(smem))
+        return int(extension().union_deduce_max_clusters(smem, wide))
 
 
 def launch(parent0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -75,35 +88,38 @@ def launch(parent0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Check the inputs and launch the kernel, once, on the current stream
     without waiting for it.  Stacked lanes on one CUDA device: parent0 (B, n)
     int32 compressed forests, u/v (B, P) int32, pos_mask (B, P) bool,
-    neg_keys (B, P) int32 sorted and INT32_MAX-padded.  Returns ``(roots
-    (B, n) int32, deduced (B, P) int32, conflict (B,) int32, error (B,)
-    int32)``; ``error`` flags lanes whose union hit the trip cap.  Raises
-    ``RuntimeError`` if the card cannot place one cluster."""
+    neg_keys (B, P) sorted and padded with their dtype's max: int32 up to
+    ``MAX_OBJECTS`` objects, int64 past it (the wide kernel).  Returns
+    ``(roots (B, n) int32, deduced (B, P) int32, conflict (B,) int32, error
+    (B,) int32)``; ``error`` flags lanes whose union hit the trip cap.
+    Raises ``RuntimeError`` if the card cannot place one cluster."""
     from repro_torch.kernels._build import extension
 
+    n = parent0.shape[-1]
+    key_dtype = torch.int32 if n <= MAX_OBJECTS else torch.int64
     for name, x, dt in (("parent0", parent0, torch.int32),
                         ("u", u, torch.int32), ("v", v, torch.int32),
                         ("pos_mask", pos_mask, torch.bool),
-                        ("neg_keys", neg_keys, torch.int32)):
+                        ("neg_keys", neg_keys, key_dtype)):
         if not x.is_cuda or x.dtype != dt or x.dim() != 2 \
                 or x.device != parent0.device:
             raise ValueError(
                 f"union_deduce kernel needs {name} as a 2-D {dt} tensor on "
-                f"one CUDA device, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
-    B, n = parent0.shape
+                f"one CUDA device (keys are int32 up to {MAX_OBJECTS} "
+                f"objects, int64 past it; n={n}), got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    B = parent0.shape[0]
     P = u.shape[1]
-    if n != n_objects or not 1 <= n <= MAX_OBJECTS or P < 1 \
+    if n != n_objects or P < 1 \
             or any(t.shape != (B, P) for t in (v, pos_mask, neg_keys)):
         raise ValueError(
             f"union_deduce kernel shapes: parent0 {tuple(parent0.shape)}, "
-            f"pairs {tuple(u.shape)}, n_objects={n_objects} (at most "
-            f"{MAX_OBJECTS})")
+            f"pairs {tuple(u.shape)}, n_objects={n_objects}")
     pl = plan(n, P, B)
     dev = parent0.device
     if not _clusters_placeable(dev.index if dev.index is not None
                                else torch.cuda.current_device(),
-                               pl.smem_bytes):
+                               pl.smem_bytes, pl.wide):
         raise RuntimeError(
             f"union_deduce: the card cannot place a cluster of {pl.cluster} "
             f"blocks with {pl.smem_bytes} bytes of shared memory each")
@@ -113,11 +129,14 @@ def launch(parent0: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     error = torch.empty(B, dtype=torch.int32, device=dev)
     scratch = torch.empty((B, pl.scratch_ints), dtype=torch.int32,
                           device=dev)
-    extension().union_deduce(
-        parent0.contiguous(), u.contiguous(), v.contiguous(),
-        pos_mask.contiguous().view(torch.uint8), neg_keys.contiguous(),
-        roots, deduced, conflict, error, scratch, pl.pair_slice,
-        pl.table_size, pl.smem_bytes, max_trips(n))
+    args = (parent0.contiguous(), u.contiguous(), v.contiguous(),
+            pos_mask.contiguous().view(torch.uint8), neg_keys.contiguous(),
+            roots, deduced, conflict, error, scratch, pl.pair_slice,
+            pl.table_size)
+    if pl.wide:
+        extension().union_deduce_wide(*args, max_trips(n))
+    else:
+        extension().union_deduce(*args, pl.smem_bytes, max_trips(n))
     return roots, deduced, conflict, error
 
 

@@ -13,15 +13,27 @@ paths advance the lanes, as in the reference:
   ``FUSED_ROUNDS_PER_DISPATCH`` rounds per call; the gateway traffic is
   replayed after the device rounds.  A lane whose §9 conflict screen fires
   leaves the fused path for good and replays that round exactly.
-* **Per round** (``_step``, and every lane once ``fused_rounds=False`` or a
-  crowd such as :class:`~repro_torch.core.crowd.NoisyCrowd` is served): each
-  round refreshes adaptive priorities, selects the frontier over
-  bucket-grouped stacked states, posts every lane's frontier to the gateway
-  (ballots drawn lane by lane, pair indices ascending), drains it, and folds
-  the answers with the conflict-screened fold, replaying exactly only the
-  lanes whose screen fired.
+* **Per round** (``_step``, and every lane once ``fused_rounds=False``, a
+  crowd such as :class:`~repro_torch.core.crowd.NoisyCrowd` or a latency
+  model is served): each round refreshes adaptive priorities, selects the
+  frontier over bucket-grouped stacked states, posts every lane's frontier
+  to the gateway (ballots drawn lane by lane, pair indices ascending),
+  drains it (the round barrier: under a latency model the platform clock
+  runs until the last answer lands), and folds the answers with the
+  conflict-screened fold, replaying exactly only the lanes whose screen
+  fired.
 
 Lanes are refilled from the queue as sessions finish.
+
+**Asynchronous ID/NF** (``async_mode=True``, the paper's §5.2 lifted into
+serving): a lane folds answers the moment the gateway delivers them; a
+returned non-matching answer, a rejected one or a drained lane triggers
+deduce + re-frontier + post at once (instant decision), and with ``nf=True``
+the gateway's workers take probable-non-matching pairs first.  With a
+:class:`~repro_torch.core.crowd.LatencyModel` attached, ``sim_minutes`` on
+the results is the simulated platform clock at completion.  With an
+immediate gateway and nothing in flight the discipline degenerates to round
+barriers, and the fused path runs them.
 
 :meth:`submit_embeddings` runs the machine phase first, then queues the
 candidates as a :class:`~repro_torch.core.pairs.PairSet` like any request.
@@ -46,15 +58,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster_graph import POS, UNKNOWN
-from repro_torch.core.crowd import CostModel, Crowd, CrowdGateway, PerfectCrowd
+from repro_torch.core.crowd import (CostModel, Crowd, CrowdGateway,
+                                    LatencyModel, PerfectCrowd)
 from repro_torch.core.graph import (ROUNDS_CONFLICT, ROUNDS_EMPTY,
                                     SessionState, index_state,
                                     make_session_state, next_pow2,
-                                    pair_keys_fit, session_fold_answers_batch,
+                                    pair_keys_fit, session_apply_answers,
+                                    session_deduce, session_fold_answers,
+                                    session_fold_answers_batch,
+                                    session_frontier,
                                     session_frontier_batch, session_grow,
+                                    session_mark_published,
                                     session_run_rounds_batch,
                                     session_seed_labels, stack_states)
-from repro_torch.core.ordering import session_refresh_priorities_batch
+from repro_torch.core.ordering import (session_refresh_priorities,
+                                       session_refresh_priorities_batch)
 from repro_torch.core.metrics import Quality, quality
 from repro_torch.core.pairs import PairSet
 from repro_torch.core.sorting import get_order, validate_order
@@ -67,9 +85,6 @@ from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 # the value the port's behaviour already equals and the ROADMAP item that
 # brings the rest.  Any other value raises NotImplementedError.
 _SERVICE_OPTIONS = {
-    "latency": (None, "A9.2 (asynchronous crowd platform)"),
-    "async_mode": (False, "A9.2 (asynchronous ID/NF serving)"),
-    "nf": (False, "A9.2 (non-matching-first steering)"),
     "budget_cents": (None, "A9.3 (budget and slot allocator)"),
     "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
     "slots_per_round": (None, "A9.3 (budget and slot allocator)"),
@@ -171,6 +186,9 @@ class _Lane:
     round_sizes: List[int]
     t0: float
     prior_host: np.ndarray         # (p_cap,) f32 machine likelihood, padded
+    # its device copy, for the asynchronous discipline's single-lane priority
+    # refresh (adaptive lanes only)
+    prior_dev: Optional[torch.Tensor]
     adaptive: bool                 # live posterior re-ranking (DESIGN.md §10)
     rate_cents: float              # per-assignment price
     # the crowd's order-independent answer per ordered pair (None when it
@@ -180,6 +198,7 @@ class _Lane:
     answers_host: Optional[np.ndarray] = None
     fused_ok: bool = True
     n_cache_hits: int = 0          # pairs settled by seed labels at open
+    in_flight: int = 0             # pairs posted to the gateway, unanswered
 
     @property
     def done(self) -> bool:
@@ -196,20 +215,33 @@ class JoinService:
     ``lanes`` device-resident session states on ``device`` (the card unless
     ``"cpu"`` is asked for).  ``order`` is the default labeling order;
     ``cost`` prices crowd questions; ``fused_rounds=False`` keeps every lane
-    on the per-round path.  See the module docstring for what is ported."""
+    on the per-round path.  ``latency`` attaches the simulated asynchronous
+    crowd platform; ``async_mode=True`` serves the event-driven ID/NF
+    discipline instead of round barriers; ``nf`` steers the platform's
+    workers to probable-non-matching pairs first (it needs a latency model).
+    See the module docstring for what is ported."""
 
     # rounds per round-engine call
     FUSED_ROUNDS_PER_DISPATCH = 8
 
     def __init__(self, lanes: int = 4, cost: Optional[CostModel] = None,
+                 latency: Optional[LatencyModel] = None,
+                 async_mode: bool = False, nf: bool = False,
                  order: str = "expected", device: DeviceLike = None,
                  fused_rounds: bool = True, **unported):
         _reject_unported("JoinService", unported, _SERVICE_OPTIONS)
+        if nf and latency is None:
+            raise ValueError(
+                "nf=True requires a LatencyModel: non-matching-first steers "
+                "worker pickup order, which does not exist in immediate mode")
         validate_order(order)
         if lanes < 1:
             raise ValueError(f"lanes must be positive, got {lanes}")
         self.lanes = lanes
         self.cost = cost or CostModel()
+        self.latency = latency
+        self.async_mode = async_mode
+        self.nf = nf
         self.order = order
         self.fused_rounds = fused_rounds
         self.device = pick_device(device)
@@ -322,8 +354,9 @@ class JoinService:
         # capacity buckets: powers of two, at least 8
         p_cap = next_pow2(P, 8)
         n_cap = next_pow2(ordered.n_objects, 8)
-        # keys are lo * n + hi: bucketing must not push n past the int32
-        # range when the raw size still fits
+        # keys are lo * n + hi, int64 past 46340 objects, as the reference's
+        # under x64: bucketing must not push n past the 63-bit range when
+        # the raw size still fits
         if not pair_keys_fit(n_cap):
             n_cap = ordered.n_objects
         state = make_session_state(ordered.u, ordered.v, ordered.n_objects,
@@ -343,11 +376,14 @@ class JoinService:
                 labels_host = state.labels[:P].cpu().numpy()
         prior_host = np.zeros(p_cap, np.float32)
         prior_host[:P] = ordered.likelihood
+        adaptive = req.order == "adaptive"
         return _Lane(
             req=req, perm=perm, ordered=ordered, p=P, state=state,
             labels_host=labels_host, crowdsourced=np.zeros(P, bool),
             round_sizes=[], t0=time.perf_counter(), prior_host=prior_host,
-            adaptive=req.order == "adaptive",
+            prior_dev=(torch.from_numpy(prior_host).to(self.device)
+                       if adaptive and self.async_mode else None),
+            adaptive=adaptive,
             rate_cents=float(self.cost.cents_per_assignment),
             answers_host=req.crowd.precomputed_answers(ordered),
             n_cache_hits=n_cache_hits)
@@ -376,6 +412,8 @@ class JoinService:
             cost_cents=self.cost.cost_cents(n_crowd),
             quality=q,
             wall_seconds=time.perf_counter() - lane.t0,
+            sim_minutes=(gateway.now_minutes if self.latency is not None
+                         else None),
             fold_rounds=int(lane.state.rounds),
             n_conflicts=int(lane.state.conflicts[:lane.p].sum()),
             n_spent_cents=gateway.spent_cents(req.rid),
@@ -503,9 +541,10 @@ class JoinService:
     # -- on-device round engine ----------------------------------------------
     def _fused_eligible(self, lane: _Lane) -> bool:
         """True when the lane's next crowd wave can run on the device: fused
-        rounds are on, the crowd's answers are order-independent, and no §9
-        screen has fired on the lane."""
-        return (self.fused_rounds and lane.fused_ok
+        rounds are on, the transport is immediate (a latency model makes
+        answer arrival part of the semantics), the crowd's answers are
+        order-independent, and no §9 screen has fired on the lane."""
+        return (self.fused_rounds and self.latency is None and lane.fused_ok
                 and lane.answers_host is not None)
 
     def _drive_fused(self, active: List[_Lane],
@@ -577,14 +616,126 @@ class JoinService:
             lane.state = index_state(stacked, b)
         return progress
 
+    # -- asynchronous ID/NF engine -------------------------------------------
+    def _publish(self, lane: _Lane, gateway: CrowdGateway) -> int:
+        """Select the lane's current frontier and post it (instant decision:
+        in-flight pairs are assumed matching but never re-posted).  Adaptive
+        lanes refresh priorities from the live posterior first.  Returns
+        the pairs posted."""
+        if lane.adaptive:
+            lane.state = session_refresh_priorities(lane.state,
+                                                    lane.prior_dev)
+        frontier = session_frontier(lane.state)
+        idx = np.nonzero(frontier.cpu().numpy())[0]
+        if len(idx) == 0:
+            return 0
+        lane.state = session_mark_published(lane.state, frontier)
+        n = self._post_lane(lane, idx, gateway)
+        lane.round_sizes.append(n)
+        lane.in_flight += n
+        return n
+
+    def _sweep_lane(self, lane: _Lane) -> None:
+        """Deduce everything the lane's evidence pins down (skipping pairs
+        whose answers are still in flight) and refresh the host mirror."""
+        lane.state = session_deduce(lane.state)
+        lane.labels_host = lane.state.labels[:lane.p].cpu().numpy()
+
+    def _fold_event(self, lane: _Lane, got: List, gateway: CrowdGateway
+                    ) -> None:
+        """Fold one lane's answers of one platform event.  A returned match
+        agrees with the optimistic assumption, so the selection can change
+        only on a non-match, a rejected answer or a drained lane (§5.2):
+        then fold + deduce + re-select at once; otherwise apply alone."""
+        updates = np.full(lane.state.u.shape[0], UNKNOWN, np.int32)
+        for ans in got:
+            updates[ans.index] = ans.label
+        lane.in_flight -= len(got)
+        fold_now = any(ans.label != POS for ans in got) or lane.in_flight == 0
+        if fold_now:
+            lane.state, cmask = session_fold_answers(lane.state, updates)
+        else:
+            lane.state, cmask = session_apply_answers(lane.state, updates)
+        # under the drop policy (requery, ROADMAP A9.4, is refused) the fold
+        # has settled a rejected answer: the pair takes its deduced label
+        if not fold_now and bool(cmask[:lane.p].any()):
+            # a rejected answer is a non-match-grade event: the optimistic
+            # assumption broke though every returned label read match
+            self._sweep_lane(lane)
+            fold_now = True
+        lane.labels_host = lane.state.labels[:lane.p].cpu().numpy()
+        if fold_now and not lane.done:
+            self._publish(lane, gateway)
+
+    def _run_async(self) -> Dict[int, JoinSessionResult]:
+        """Event-driven serving (§5.2 lifted into the service): lanes fold
+        answers as the gateway delivers them; a non-matching answer or a
+        drained lane triggers deduce + re-frontier + post immediately."""
+        gateway = CrowdGateway(latency=self.latency, nf=self.nf)
+        active: List[_Lane] = []
+        while self.queue or active or gateway.in_flight:
+            refilled = False
+            while self.queue and len(active) < self.lanes:
+                active.append(self._open_lane(self.queue.popleft()))
+                refilled = True
+            for r in self.queue:  # still queued behind fully-occupied lanes
+                r.admission_deferred = True
+            if refilled:
+                # zero-pair sessions are born done: finalize without posting
+                active = self._retire_done(active, gateway)
+            if active and gateway.in_flight == 0 and \
+                    all(self._fused_eligible(lane) and lane.in_flight == 0
+                        for lane in active):
+                # an immediate gateway with nothing in flight degenerates to
+                # per-lane round barriers: the wave the fused engine runs.  A
+                # conflicted lane drops back to the event loop below
+                if self._drive_fused(active, gateway):
+                    active = self._retire_done(active, gateway)
+                    continue
+            if refilled:
+                for lane in active:
+                    if lane.in_flight == 0 and not lane.round_sizes:
+                        self._publish(lane, gateway)
+            answers = gateway.poll()
+            if not answers:
+                if not active and not gateway.in_flight:
+                    continue  # the queue may still refill
+                # platform drained: sweep + republish every idle lane
+                posted = 0
+                for lane in list(active):
+                    if lane.in_flight:
+                        continue
+                    self._sweep_lane(lane)
+                    if not lane.done:
+                        posted += self._publish(lane, gateway)
+                active = self._retire_done(active, gateway)
+                if not posted and not gateway.in_flight and active:
+                    raise RuntimeError(
+                        "join engine stuck: no frontier and nothing "
+                        f"deducible for rids {[l.req.rid for l in active]}")
+                continue
+            by_rid: Dict[int, List] = {}
+            for ans in answers:
+                by_rid.setdefault(ans.rid, []).append(ans)
+            lanes_by_rid = {lane.req.rid: lane for lane in active}
+            for rid, got in by_rid.items():
+                lane = lanes_by_rid.get(rid)
+                if lane is not None:  # else finalized before its answer
+                    self._fold_event(lane, got, gateway)
+            active = self._retire_done(active, gateway)
+        return dict(self.results)
+
     # -- entry point ---------------------------------------------------------
     def run(self) -> Dict[int, JoinSessionResult]:
-        """Drain the queue: lanes refill as sessions finish.  Whole crowd
-        waves run fused while every active lane is eligible; otherwise, or
-        when a fused wave made no progress (every lane's screen fired), one
-        exact per-round step.  Returns {rid: result} for everything
+        """Drain the queue: lanes refill as sessions finish.  Under
+        ``async_mode`` the event-driven discipline; otherwise whole crowd
+        waves run fused while every active lane is eligible, or, when not
+        or when a fused wave made no progress (every lane's screen fired),
+        one exact per-round step.  Returns {rid: result} for everything
         served."""
-        gateway = CrowdGateway()
+        if self.async_mode:
+            return self._run_async()
+        gateway = CrowdGateway(latency=self.latency, nf=self.nf)
         self._stacks.clear()
         self._prior_stacks.clear()
         active: List[_Lane] = []

@@ -196,5 +196,3 @@ def test_gateway_refuses_what_is_not_ported():
         gw.requery(0, pairs, [0], PerfectCrowd())
     with pytest.raises(NotImplementedError, match="A9.8"):
         gw.post_cluster(0, pairs, [0, 1], PerfectCrowd())
-    with pytest.raises(NotImplementedError, match="A9.2"):
-        CrowdGateway(latency=object())

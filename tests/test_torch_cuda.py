@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.core.cluster_graph import NEG, POS
 from repro_torch.core.crowd import PerfectCrowd
-from repro_torch.core.graph import KEY_SENTINEL, _union_impl
+from repro_torch.core.graph import _union_impl, key_dtype, key_sentinel
 from repro_torch.core.pairs import PairSet
 from repro_torch.kernels.pair_scores import blocking
 from repro_torch.kernels.pair_scores import kernel as ps_kernel
@@ -396,9 +396,10 @@ def _lanes(dev, n, p, lanes, seed):
         parent0 = _union_impl(torch.arange(n, dtype=torch.int32, device=dev),
                               u, v, (stage == 0) & truth, n)
         ru, rv = parent0[u.long()], parent0[v.long()]
-        keys = torch.minimum(ru, rv) * n + torch.maximum(ru, rv)
+        kdt = key_dtype(n)
+        keys = torch.minimum(ru, rv).to(kdt) * n + torch.maximum(ru, rv)
         negk = torch.where((stage == 0) & ~truth & (ru != rv), keys,
-                           KEY_SENTINEL).sort().values
+                           key_sentinel(kdt)).sort().values
         noise = torch.from_numpy(rng.random(p) < 0.01).to(dev)
         pos = (stage == 2) & (truth | noise)
         out.append((parent0, u, v, pos, negk))
@@ -421,7 +422,7 @@ def test_union_deduce_kernel_path_graph(dev, n):
     u = torch.arange(n - 1, dtype=torch.int32, device=dev)[None]
     args = (torch.arange(n, dtype=torch.int32, device=dev)[None], u, u + 1,
             torch.ones_like(u, dtype=torch.bool),
-            torch.full_like(u, KEY_SENTINEL), n)
+            torch.full_like(u, key_sentinel(torch.int32)), n)
     roots, ded, conflict = ud_kernel.union_deduce(*args)
     assert not roots.any() and (ded == POS).all() and not conflict.any()
 
@@ -460,7 +461,7 @@ def test_union_deduce_kernel_star_graph(dev, center, n):
     args = (torch.arange(n, dtype=torch.int32, device=dev)[None],
             torch.full_like(others, c), others,
             torch.ones_like(others, dtype=torch.bool),
-            torch.full_like(others, KEY_SENTINEL), n)
+            torch.full_like(others, key_sentinel(torch.int32)), n)
     roots, ded, conflict = _assert_union_deduce_equal(args)
     assert not roots.any() and (ded == POS).all() and not conflict.any()
 
@@ -494,12 +495,31 @@ def test_union_deduce_kernel_repeats_bitwise(dev):
             assert torch.equal(x, y)
 
 
-def test_union_deduce_kernel_refuses_oversized_forest(dev):
-    n = ud_kernel.MAX_OBJECTS + 1
+@pytest.mark.parametrize("n", [50000, 65536])
+def test_union_deduce_kernel_refuses_oversized_forest(dev, n):
+    """Past ``MAX_OBJECTS`` objects the wrapper refuses an int32 key index
+    (its keys need int64) and runs the wide kernel on int64 keys: bit for
+    bit against the plain version on stacked lanes with neg keys and
+    conflicts, and on a path graph (pointer jumping's worst case)."""
     z = torch.zeros(1, 4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match="int64"):
         ud_kernel.union_deduce(torch.zeros(1, n, dtype=torch.int32,
                                            device=dev), z, z, z.bool(), z, n)
+    assert ud_kernel.plan(n, 20000, 3).wide
+    parent0, u, v, pos, negk = _lanes(dev, n, 20000, 3, seed=n)
+    assert negk.dtype == torch.int64 and (negk[0] < key_sentinel(
+        torch.int64)).any()
+    # lane 0 unites the two roots of its first neg key: a conflict
+    u[0, 0], v[0, 0], pos[0, 0] = negk[0, 0] // n, negk[0, 0] % n, True
+    roots, ded, conflict = _assert_union_deduce_equal(
+        (parent0, u, v, pos, negk, n))
+    assert conflict[0] and (ded == NEG).any() and (ded == POS).any()
+    u = torch.arange(n - 1, dtype=torch.int32, device=dev)[None]
+    roots, ded, conflict = _assert_union_deduce_equal((
+        torch.arange(n, dtype=torch.int32, device=dev)[None], u, u + 1,
+        torch.ones_like(u, dtype=torch.bool),
+        torch.full_like(u, key_sentinel(torch.int64), dtype=torch.int64), n))
+    assert not roots.any() and (ded == POS).all() and not conflict.any()
 
 
 def test_service_on_card_matches_cpu(dev):
@@ -619,6 +639,63 @@ def test_noisy_service_on_card_matches_cpu(dev):
                 assert (np.array_equal(a, b) if isinstance(a, np.ndarray)
                         else a == b), f.name
     assert sum(r.n_conflicts for r in results[0]) > 0
+
+
+def _assert_fields_equal(card, cpu):
+    for f in dataclasses.fields(card):
+        if f.name != "wall_seconds":
+            a, b = getattr(card, f.name), getattr(cpu, f.name)
+            assert (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                    else a == b), f.name
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_async_service_on_card_matches_cpu(dev, noisy):
+    """Async ID/NF serving on a latency-modelled crowd on the card and on
+    the CPU: every result field identical, ``sim_minutes`` as floats, and
+    ``union_deduce`` launched on the folds."""
+    from repro_torch.core.crowd import LatencyModel, NoisyCrowd
+
+    sessions = _noisy_sessions(3, 3)
+    results, launches = [], ud_ops.union_deduce.launches
+    for device in (dev, "cpu"):
+        svc = JoinService(lanes=2, latency=LatencyModel(n_workers=6,
+                                                        seed=7),
+                          async_mode=True, nf=True, device=device)
+        rids = [svc.submit(ps, NoisyCrowd(error_rate=0.35,
+                                          qualification=False, seed=k)
+                           if noisy else PerfectCrowd())
+                for k, ps in enumerate(sessions)]
+        res = svc.run()
+        results.append([res[r] for r in rids])
+    for card, cpu in zip(*results):
+        _assert_fields_equal(card, cpu)
+        assert card.sim_minutes > 0
+    assert ud_ops.union_deduce.launches > launches
+
+
+@pytest.mark.parametrize("fused_rounds", [True, False])
+def test_service_past_46340_objects_on_card_matches_cpu(dev, fused_rounds):
+    """A session over 65536 objects (int64 keys, the wide union_deduce
+    kernel) through both service paths on the card and on the CPU: every
+    result field identical."""
+    rng = np.random.default_rng(5)
+    n, p = 60000, 3000
+    objs = np.append(rng.choice(n - 1, 399, replace=False), n - 1)
+    ent = rng.integers(0, 60, len(objs))
+    a = rng.integers(0, len(objs), p)
+    b = (a + 1 + rng.integers(0, len(objs) - 1, p)) % len(objs)
+    truth = ent[a] == ent[b]
+    lik = np.clip(np.where(truth, 0.8, 0.3) + 0.15 * rng.random(p), 0, 1)
+    ps = PairSet(objs[a], objs[b], lik, truth, n)
+    results, wide = [], ud_ops.union_deduce.wide_launches
+    for device in (dev, "cpu"):
+        svc = JoinService(lanes=1, fused_rounds=fused_rounds, device=device)
+        rid = svc.submit(ps, PerfectCrowd())
+        results.append(svc.run()[rid])
+    _assert_fields_equal(*results)
+    np.testing.assert_array_equal(results[0].labels, truth)
+    assert ud_ops.union_deduce.wide_launches > wide
 
 
 def _pipeline_sessions(seed: int):

@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import jax_graph as jg
 from repro_torch.convert import (session_state_from_numpy,
@@ -135,10 +136,18 @@ def test_make_session_state_and_grow_match_reference():
 
 
 def test_key_guards():
-    assert tg.pair_key_bits() == jg.pair_key_bits() == 31
-    assert tg.pair_keys_fit(46340) and not tg.pair_keys_fit(46341)
+    """63 usable key bits, as the reference has under x64 (its production
+    configuration); int32 keys while n * n < 2**31, int64 past it."""
+    with jax.enable_x64(True):
+        assert tg.pair_key_bits() == jg.pair_key_bits() == 63
+        for n in (46340, 46341, 3037000499, 3037000500):
+            assert tg.pair_keys_fit(n) == jg.pair_keys_fit(n)
+    assert tg.pair_keys_fit(3037000499) and not tg.pair_keys_fit(3037000500)
+    assert tg.key_dtype(46340) == torch.int32
+    assert tg.key_dtype(46341) == torch.int64
+    assert tg.key_sentinel(torch.int64) == 2 ** 63 - 1
     assert [tg.next_pow2(n, 8) for n in (0, 8, 9, 1000)] == \
         [jg.next_pow2(n, 8) for n in (0, 8, 9, 1000)]
     with pytest.raises(ValueError, match="overflows"):
         tg.session_grow(tg.make_session_state([0], [1], 2, device="cpu"),
-                        4, 46341)
+                        4, 3037000500)

@@ -140,7 +140,6 @@ def test_duplicate_rid_and_overflow_are_reported():
 
 # a value each unported option could take in the reference
 UNPORTED_VALUES = {
-    "latency": "lognormal", "async_mode": True, "nf": True,
     "budget_cents": 10.0, "cost_per_assignment": 1.0, "slots_per_round": 4,
     "conflict_policy": "requery", "aggregation": "em",
     "cluster_tasks": True, "cluster_size": 4, "cluster_assignments": 3,

@@ -16,7 +16,7 @@ from repro.kernels.union_deduce.ops import fused_union_deduce as _fused
 # jitted once per shape, so the reference's while loops compile once
 fused_union_deduce = jax.jit(_fused, static_argnames=("n_objects", "impl"))
 from repro_torch.core.cluster_graph import NEG, POS
-from repro_torch.core.graph import KEY_SENTINEL
+from repro_torch.core.graph import key_sentinel
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
 from repro_torch.kernels.union_deduce.ops import union_deduce
 
@@ -52,7 +52,7 @@ def _lane(rng, n, p):
     ru, rv = parent0[u], parent0[v]
     keys = np.minimum(ru, rv) * n + np.maximum(ru, rv)
     negk = np.sort(np.where((stage == 0) & (truth == NEG), keys,
-                            KEY_SENTINEL)).astype(np.int32)
+                            key_sentinel(torch.int32))).astype(np.int32)
     pos = (stage == 2) & ((truth == POS) | (rng.random(p) < 0.3))
     return parent0, u, v, pos, negk
 
@@ -80,7 +80,7 @@ def test_union_deduce_path_graph(n):
     """Worst case for pointer jumping: one long path united in one call."""
     u = np.arange(n - 1, dtype=np.int32)
     args = (np.arange(n, dtype=np.int32), u, u + 1, np.ones(n - 1, bool),
-            np.full(n - 1, KEY_SENTINEL, np.int32))
+            np.full(n - 1, key_sentinel(torch.int32), np.int32))
     roots, ded, conf = union_deduce(*(torch.from_numpy(x[None])
                                       for x in args), n)
     np.testing.assert_array_equal(roots[0].numpy(), np.zeros(n, np.int32))
@@ -137,5 +137,17 @@ def test_plan_shared_memory_fits_a_hopper_block(n, P):
 @pytest.mark.parametrize("n,P,lanes", [
     (ud_kernel.MAX_OBJECTS + 1, 8, 1), (0, 8, 1), (8, 0, 1), (8, 8, 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(n, P, lanes):
+    """Past ``MAX_OBJECTS`` the plan is the wide kernel's (int64 keys, the
+    forest in global memory): no dynamic shared memory, a lane's scratch
+    the set's 64-bit slots, the counts, four flags and two edge lists, 8-byte
+    aligned a lane.  No objects, no pairs or no lanes are refused."""
+    if n > ud_kernel.MAX_OBJECTS:
+        pl = ud_kernel.plan(n, P, lanes)
+        assert pl.wide and pl.smem_bytes == 0 and pl.edge_cache == 0
+        assert pl.cluster == C and pl.pair_slice == -(-P // C)
+        assert pl.scratch_ints % 2 == 0
+        assert pl.scratch_ints >= 2 * pl.table_size + C + 4 + 2 * P
+        assert not ud_kernel.plan(ud_kernel.MAX_OBJECTS, P, lanes).wide
+        return
     with pytest.raises(ValueError):
         ud_kernel.plan(n, P, lanes)
