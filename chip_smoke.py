@@ -138,6 +138,21 @@ carries on.  Phases, one output line or block each:
    the host clock (gateway poll, post and worker assignment, fold, sweeps,
    publish and its frontier) and its first 300 events timed and profiled
    (idle share, launches and syncs an event);
+4i. the service's crowd economics: (a) phase 4's four corpora through
+   ``submit_embeddings(..., budget_cents=ECON_DENSE_BUDGET,
+   cost_per_assignment=2.0)`` on ``JoinService(lanes=4)`` under a
+   ``PerfectCrowd`` (about half what phase 4's session 0 spends): every lane
+   must stop on budget within it, consistent, and session 0 alone on the
+   CPU must give identical fields; (b) the paper's datasets at 0.3 under
+   budgets (``bench_join_service.py:503``'s 120 cents, barrier and async on
+   phase 4h's platform), ``slots_per_round=256``, ``conflict_policy=
+   "requery"`` (barrier, and async with a budget) and
+   ``benchmarks/noise_sweep.py``'s worker-quality stage (majority, EM, EM
+   with cluster tasks), every session's figures the reference's
+   (``ECON_RUNS``, ``WORKER_RUNS``), the requery runs requerying, the mixed
+   workers cheaper a resolved pair than majority, the slots run identical
+   on the CPU; each run's wall, rounds, events, launches, syncs and idle
+   share, and host-clock splits of (a) and the mixed run;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -148,7 +163,8 @@ carries on.  Phases, one output line or block each:
    times beside its bound, its plain version and a library call
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
-   phase 4g's round-1 screen, with its launches in phase 4g);
+   phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's
+   launches in ``launches_by_path``);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -231,8 +247,74 @@ ASYNC_RUNS = {
     "product async": (("product",), True, False, {
         "product": (3696, 637, "4361e6c81a05b5a3", 0, 5791.368661342403)}),
 }
-# the window of phase 4h's product run that is profiled: its first events
+# the window of phase 4h's product run that is profiled, and of each phase 4i
+# run: its first events
 ASYNC_PROFILE_EVENTS = 300
+# phase 4i, the service's crowd economics.  (a) phase 4's four corpora with
+# a budget of about half the cents phase 4's session 0 spends unbudgeted at
+# 2 cents an assignment, so every lane stops on budget mid-run.  (b) the
+# paper's datasets at phase 4h's threshold: budgets
+# (benchmarks/bench_join_service.py:503's 120 cents at 2 cents), the slot
+# allocator, requery escalation with and without a budget, barrier and async
+# on phase 4h's platform.  Requery runs under the crowd of
+# benchmarks/bench_join_service.py:388-389 (a 35% error, its first seed):
+# under phase 4e's pool, at about half its spend, the budgeted async run
+# stops before its first rejected answer and requeries nothing.  Each
+# session's figures (see econ_figures) are the JAX package's JoinService on
+# the CPU (jax 0.9.0) with the same options and data, from
+# tools/econ_reference.py; tests/test_torch_{budget,requery,workers}.py hold
+# the port to the reference itself.
+ECON_DENSE_BUDGET = 17340.0
+ECON_TAU, ECON_LANES = 0.3, 2
+ECON_BUDGET = dict(budget_cents=120.0, cost_per_assignment=2.0)
+ECON_RUNS = {
+    # run: (sessions, service options ("latency": phase 4h's platform),
+    #       request options, crowd, {session: figures})
+    "budget barrier": (("paper", "product"), {}, ECON_BUDGET, "perfect", {
+        "paper": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                  0.011790529946691754, None),
+        "product": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                    0.10353753235547886, None)}),
+    "budget async": (("paper", "product"),
+                     {"latency": True, "async_mode": True, "nf": True},
+                     ECON_BUDGET, "perfect", {
+        "paper": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                  0.011790529946691754, 504.8174598599428),
+        "product": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                    0.10353753235547886, 177.139239789756)}),
+    "slots": (("paper", "product"), {"slots_per_round": 256}, {}, "perfect", {
+        "paper": (1611, 23, "4b3af894ecdcd2d4", 0, 0, 3222.0, False, 0, 0,
+                  0.0, 0.9963274868612677, None),
+        "product": (3647, 21, "9ac0a9b3e6c9b361", 0, 0, 7294.0, False, 0, 0,
+                    0.0, 0.9558194774346793, None)}),
+    "requery barrier": (("paper",), {"conflict_policy": "requery"}, {},
+                        "noisy", {
+        "paper": (1986, 10, "92d5ff7a4fc0c3db", 51, 32, 12236.0, False, 0, 0,
+                  0.0, 0.4280613316530141, None)}),
+    "requery budget async": (("paper",),
+                             {"conflict_policy": "requery", "latency": True,
+                              "async_mode": True, "nf": True},
+                             {"budget_cents": 6500.0}, "noisy", {
+        "paper": (1081, 48, "d72f489ace851a62", 2, 1, 6496.0, True, 0, 0,
+                  0.0, 0.24704478906843075, 1936.1143304169275)}),
+}
+REQUERY_CROWD = dict(error_rate=0.35, qualification=False, seed=10)
+# (b) continued: benchmarks/noise_sweep.py:83-150's worker-quality stage at
+# its full size (the paper dataset at 0.3, its 30-worker pool, one lane,
+# billed at the HIT-amortized quantum of 2 / 20 cents an assignment)
+WORKER_CROWD = dict(error_rate=0.1, n_assignments=3, seed=7, n_workers=30,
+                    worker_concentration=3.0, qualification=False)
+WORKER_RUNS = {
+    # config: (service options, figures)
+    "majority": ({}, (1694, 8, "dd648203a9fb723d", 1, 0, 508.2000000000135,
+                      False, 0, 0, 0.0, 0.9765348762455802, None)),
+    "em": ({"aggregation": "em"},
+           (1679, 7, "80884228f50d1f88", 0, 0, 503.70000000001335, False, 0,
+            0, 0.0, 0.9707261437080218, None)),
+    "mixed": ({"aggregation": "em", "cluster_tasks": True, "cluster_size": 8},
+              (3659, 6, "dd5cb6b5a8b3850c", 11, 0, 166.419999999998, False,
+               504, 3490, 115.72000000000082, 0.9917628724994435, None)),
+}
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -824,6 +906,18 @@ def _async_figures(res) -> tuple:
             res.sim_minutes)
 
 
+def econ_figures(res) -> tuple:
+    """A session's crowd-economics figures, comparable with ``==``:
+    crowdsourced pairs, rounds, a SHA-256 prefix of the round sizes,
+    rejected and requeried answers, cents spent, whether it stopped on
+    budget, cluster tasks, cluster pairs and cluster cents, F-measure and
+    ``sim_minutes``."""
+    return _async_figures(res)[:4] + (
+        res.n_requeried, res.n_spent_cents, res.stopped_on_budget,
+        res.n_cluster_tasks, res.n_cluster_pairs, res.n_cluster_cents,
+        res.quality.f_measure, res.sim_minutes)
+
+
 def async_path(dev) -> dict:
     """Phase 4h: asynchronous ID/NF serving on a latency-modelled crowd.
     The paper's datasets at ``ASYNC_TAU`` through ``JoinService(lanes=2,
@@ -1003,6 +1097,292 @@ def async_path(dev) -> dict:
         print(f"[4h profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
     return {"launches": launches, "walls": walls}
+
+
+def econ_path(dev, corpora) -> dict:
+    """Phase 4i: the service's crowd economics.  (a) phase 4's four dense
+    corpora through ``submit_embeddings(..., budget_cents=
+    ECON_DENSE_BUDGET, cost_per_assignment=2.0)`` on ``JoinService(lanes=4)``
+    under a ``PerfectCrowd``: every lane must stop on budget within it with
+    transitively consistent labels, and session 0 again alone on the CPU must
+    give every result field identical.  (b) ``ECON_RUNS`` and
+    ``WORKER_RUNS`` on the paper's datasets: each session's figures must be
+    the reference's, every requery run must requery, and the mixed workers'
+    cents a resolved pair must be below majority's; the slots run again on
+    the CPU must give identical fields.  Each run's wall, rounds, events,
+    launches, ``union_deduce`` launches, host syncs and idle share are
+    printed (each run twice: unprofiled, then under ``torch.profiler``), and
+    run (a) and the mixed run are split on the host clock, each stage
+    synchronized.  Kernel counts are zeroed just before each run and read
+    just after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.crowd import (CostModel, CrowdGateway,
+                                        LatencyModel, NoisyCrowd,
+                                        PerfectCrowd)
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.core.pairs import PairSet
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    t_phase = time.perf_counter()
+    counts = {"events": 0}
+    poll = CrowdGateway.poll
+
+    class Window(Exception):
+        """Ends a profiled run after ``ASYNC_PROFILE_EVENTS`` events."""
+
+    def counted_poll(self):
+        out = poll(self)
+        if out:
+            counts["events"] += 1
+            if counts["events"] == ASYNC_PROFILE_EVENTS:
+                if counts["profiling"]:
+                    raise Window
+                torch.cuda.synchronize()
+                counts["window"] = time.perf_counter() - counts["t0"]
+        return out
+
+    def measure(tag, make, svc=None):
+        """Run ``svc`` (default: ``make()``'s service) once timed, kernel
+        counts zeroed just before, then a fresh ``make()`` under the
+        profiler over at most its first ``ASYNC_PROFILE_EVENTS`` events
+        (the idle share is taken over the same window of the timed run).
+        Returns the results and the union_deduce launches."""
+        svc = svc or make()
+        counts.update(events=0, profiling=False, window=None)
+        ud_ops.union_deduce.launches = 0
+        CrowdGateway.poll = counted_poll
+        try:
+            torch.cuda.synchronize()
+            counts["t0"] = t0 = time.perf_counter()
+            out = svc.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ud, events = ud_ops.union_deduce.launches, counts["events"]
+            svc = make()
+            counts.update(events=0, profiling=True)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                try:
+                    svc.run()
+                except Window:
+                    pass
+                torch.cuda.synchronize()
+        finally:
+            CrowdGateway.poll = poll
+        _, busy, syncs, n_launch = profile_counts(prof)
+        window = counts["window"] or wall
+        n_ev = min(events, ASYNC_PROFILE_EVENTS)
+        rounds = sum(r.n_rounds for r in out.values())
+        print(f"[4i {tag}] run() wall {wall:.4f} s, {rounds} rounds, "
+              f"{events} events, union_deduce launches {ud}; over the "
+              f"first {n_ev} events ({window:.4f} s): {n_launch} kernel "
+              f"launches, {syncs} host syncs, device busy {busy:.4f} s "
+              f"(idle share {1 - busy / window:.4f})")
+        if ud < 1:
+            raise AssertionError(f"4i {tag}: union_deduce never launched")
+        return out, ud
+
+    def split(tag, make, stages):
+        """A run of ``make()``'s service with each (object, name, key)
+        stage timed on the host clock, synchronized before and after."""
+        spent = dict.fromkeys((key for _, _, key in stages), 0.0)
+        calls = dict.fromkeys(spent, 0)
+
+        def timed(fn, key):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t0
+                calls[key] += 1
+                return out
+            return call
+
+        originals = [getattr(obj, name) for obj, name, _ in stages]
+        svc = make()
+        for (obj, name, key), fn in zip(stages, originals):
+            setattr(obj, name, timed(fn, key))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for (obj, name, _), fn in zip(stages, originals):
+                setattr(obj, name, fn)
+        print(f"[4i split {tag}] run() wall {wall:.4f} s (synchronized "
+              f"stages): " + ", ".join(f"{key} {spent[key]:.4f} s in "
+                                       f"{calls[key]}" for key in spent))
+        return spent
+
+    # (a) budgeted dense sessions at full width
+    ttms = [int((ia[:, None] == ib[None, :]).sum())
+            for ia, _, ib, _ in corpora]
+    budget = dict(budget_cents=ECON_DENSE_BUDGET, cost_per_assignment=2.0)
+
+    def dense_service():
+        svc = join_service.JoinService(lanes=N_SESSIONS, device=dev)
+        for i, (ids_a, ea, ids_b, eb) in enumerate(corpora):
+            svc.submit_embeddings(
+                embeddings_from_numpy(ea, dev),
+                embeddings_from_numpy(eb, dev), THRESHOLD,
+                crowd=PerfectCrowd(),
+                truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
+                total_true_matches=ttms[i], **budget)
+        return svc
+
+    ps_ops.pair_scores.launches = 0
+    dense_svc = dense_service()
+    ps_launches = ps_ops.pair_scores.launches
+    rids = [req.rid for req in dense_svc.queue]
+    pairsets = [req.pairs for req in dense_svc.queue]
+    out, ud_dense = measure("budgeted dense", dense_service, dense_svc)
+    B = ECON_DENSE_BUDGET
+    for rid, ps in zip(rids, pairsets):
+        res = out[rid]
+        ok = (res.stopped_on_budget and 0 < res.n_spent_cents <= B
+              and res.n_crowdsourced <= B / 2
+              and transitively_consistent(ps, res.labels))
+        print(f"[4i budgeted dense {rid}] P {len(ps)} crowdsourced "
+              f"{res.n_crowdsourced} deduced {res.n_deduced} rounds "
+              f"{res.n_rounds} spent {res.n_spent_cents!r} of {B} cents, "
+              f"stopped on budget {res.stopped_on_budget}; right {ok}")
+        if not ok:
+            raise AssertionError(f"4i budgeted dense session {rid} is wrong")
+    ps0 = pairsets[0]
+    one = join_service.JoinService(lanes=1, device="cpu")
+    rid0 = one.submit(PairSet(ps0.u, ps0.v, ps0.likelihood, ps0.truth,
+                              ps0.n_objects), PerfectCrowd(),
+                      total_true_matches=ttms[0], **budget)
+    t0 = time.perf_counter()
+    cpu = result_fields(one.run()[rid0])
+    card = result_fields(out[rids[0]])
+    diff = [k for k in card if card[k] != cpu[k]]
+    print(f"[4i parity] budgeted session 0 on the card and on the CPU "
+          f"({time.perf_counter() - t0:.4f} s): {len(card)} fields, "
+          f"differing {diff}")
+    if diff:
+        raise AssertionError(f"4i budgeted session 0: card and CPU differ in "
+                             f"{diff}")
+    Svc = join_service.JoinService
+    spent = split("budgeted dense", dense_service, [
+        (join_service, "session_frontier_batch", "frontier"),
+        (Svc, "_allocate", "allocate"),
+        (join_service, "session_gains_batch", "gains dispatch"),
+        (CrowdGateway, "post", "post"),
+        (CrowdGateway, "drain", "drain"),
+        (join_service, "session_fold_answers_batch", "fold"),
+        (Svc, "_budget_stop", "budget stop")])
+    print(f"[4i split budgeted dense] allocate's host selection "
+          f"{spent['allocate'] - spent['gains dispatch']:.4f} s")
+
+    # (b) the paper's datasets, figures the reference's
+    cands = {}
+    for name in ("paper", "product"):
+        ds, cand = _pipeline_candidates(name, ECON_TAU)
+        cands[name] = (cand, ds.total_true_matches)
+
+    def crowd(kind):
+        return (PerfectCrowd() if kind == "perfect"
+                else NoisyCrowd(**REQUERY_CROWD))
+
+    def econ_service(tag, device=dev):
+        names, svc_opts, req_opts, kind, _ = ECON_RUNS[tag]
+        opts = dict(svc_opts)
+        if opts.pop("latency", False):
+            opts["latency"] = LatencyModel(**ASYNC_LATENCY)
+        svc = join_service.JoinService(lanes=ECON_LANES, device=device,
+                                       **opts)
+        for n in names:
+            svc.submit(cands[n][0], crowd(kind),
+                       total_true_matches=cands[n][1], **req_opts)
+        return svc
+
+    ud_launches = {"budgeted dense": ud_dense}
+    results = {}
+    for tag, (names, _, _, kind, expected) in ECON_RUNS.items():
+        out, ud_launches[tag] = measure(tag, lambda t=tag: econ_service(t))
+        results[tag] = out
+        for name, rid in zip(names, sorted(out)):
+            res = out[rid]
+            ps = cands[name][0]
+            got = econ_figures(res)
+            right = (np.array_equal(res.labels, ps.truth)
+                     if tag == "slots" else
+                     transitively_consistent(ps, res.labels))
+            print(f"[4i {tag} {name}] P {len(ps)} crowdsourced "
+                  f"{res.n_crowdsourced} rounds {res.n_rounds} rejected "
+                  f"{res.n_conflicts} requeried {res.n_requeried} spent "
+                  f"{res.n_spent_cents!r} stopped {res.stopped_on_budget} F "
+                  f"{res.quality.f_measure!r} sim_minutes "
+                  f"{res.sim_minutes!r}; the reference's figures "
+                  f"{got == expected[name]}")
+            if got != expected[name] or not right or (
+                    "requery" in tag and res.n_requeried < 1):
+                raise AssertionError(f"4i {tag} {name}: figures {got}, "
+                                     f"expected {expected[name]}, labels "
+                                     f"right {right}")
+    t0 = time.perf_counter()
+    cpu_out = econ_service("slots", "cpu").run()
+    diff = [(rid, k) for rid in cpu_out
+            for k, v in result_fields(results["slots"][rid]).items()
+            if result_fields(cpu_out[rid])[k] != v]
+    print(f"[4i parity] the slots run (paper and product) on the card and "
+          f"on the CPU ({time.perf_counter() - t0:.4f} s): differing {diff}")
+    if diff:
+        raise AssertionError(f"4i slots run: card and CPU differ in {diff}")
+
+    cost = CostModel()
+    quantum = cost.cents_per_assignment / cost.pairs_per_hit
+    paper, paper_ttm = cands["paper"]
+
+    def worker_service(name):
+        svc = join_service.JoinService(lanes=1, device=dev,
+                                       **WORKER_RUNS[name][0])
+        svc.submit(paper, NoisyCrowd(**WORKER_CROWD),
+                   cost_per_assignment=quantum,
+                   total_true_matches=paper_ttm)
+        return svc
+
+    cpp = {}
+    for name, (_, expected) in WORKER_RUNS.items():
+        out, ud_launches[f"workers {name}"] = measure(
+            f"workers {name}", lambda n=name: worker_service(n))
+        res = next(iter(out.values()))
+        got = econ_figures(res)
+        cpp[name] = res.n_spent_cents / len(paper)
+        right = (transitively_consistent(paper, res.labels)
+                 and res.n_crowdsourced + res.n_deduced == len(paper))
+        print(f"[4i workers {name}] crowdsourced {res.n_crowdsourced} "
+              f"rounds {res.n_rounds} cluster tasks {res.n_cluster_tasks} "
+              f"cluster pairs {res.n_cluster_pairs} spent "
+              f"{res.n_spent_cents!r} cents ({cpp[name]!r} a resolved pair) "
+              f"F {res.quality.f_measure!r}; the reference's figures "
+              f"{got == expected}")
+        if got != expected or not right:
+            raise AssertionError(f"4i workers {name}: figures {got}, "
+                                 f"expected {expected}")
+    print(f"[4i workers] cents a resolved pair: mixed {cpp['mixed']!r} "
+          f"against majority {cpp['majority']!r}: below "
+          f"{cpp['mixed'] < cpp['majority']}")
+    if not cpp["mixed"] < cpp["majority"]:
+        raise AssertionError(f"mixed scheduling is not cheaper: {cpp}")
+    split("workers mixed", lambda: worker_service("mixed"), [
+        (Svc, "_plan_tasks", "plan tasks"),
+        (CrowdGateway, "post_cluster", "post_cluster"),
+        (join_service, "session_fold_answers_batch", "fold")])
+    print(f"[4i] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"union_deduce": sum(ud_launches.values()),
+            "union_deduce_by_run": ud_launches,
+            "pair_scores": ps_launches}
 
 
 def _pipeline_candidates(name: str, tau: float):
@@ -2254,6 +2634,9 @@ def run(dev) -> None:
     # -- 4h. asynchronous ID/NF serving on a latency-modelled crowd ---------
     async_run = async_path(dev)
 
+    # -- 4i. the service's crowd economics ----------------------------------
+    econ = econ_path(dev, corpora)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -2328,7 +2711,8 @@ def run(dev) -> None:
          "launches_by_path": {
              "dense": launches["pair_scores"],
              "lm_machine_phase": machine["launches"]["pair_scores"],
-             "noisy_dense": noisy_launches["pair_scores"]},
+             "noisy_dense": noisy_launches["pair_scores"],
+             "crowd_economics": econ["pair_scores"]},
          "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
@@ -2363,7 +2747,9 @@ def run(dev) -> None:
              "blocked": blocked_launches["union_deduce"],
              "noisy_dense": noisy_launches["union_deduce"],
              "paper_pipeline": pipeline["launches"]["union_deduce"],
-             "async_serving": async_run["launches"]},
+             "async_serving": async_run["launches"],
+             "crowd_economics": econ["union_deduce"]},
+         "crowd_economics_by_run": econ["union_deduce_by_run"],
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "ms": cuda_ms(lambda: ud_kernel.launch(*screen_args)),

@@ -10,8 +10,9 @@ has ``label_parallel_jax(_batch)``.  Labels are the engine codes
 ``NON_MATCH`` have no counterpart here).
 """
 from .cluster_graph import NEG, POS, UNKNOWN, ClusterGraph
-from .crowd import (Ballot, CostModel, Crowd, CrowdAnswer, CrowdGateway,
-                    CrowdTicket, LatencyModel, NoisyCrowd, PerfectCrowd)
+from .crowd import (Ballot, ClusterTask, CostModel, Crowd, CrowdAnswer,
+                    CrowdGateway, CrowdTicket, LatencyModel, NoisyCrowd,
+                    PerfectCrowd, WorkerModel)
 from .deduce import deduce_bruteforce
 from .graph import (ROUNDS_CONFLICT, ROUNDS_DONE, ROUNDS_EMPTY,
                     ROUNDS_RUNNING, SessionState, boruvka_frontier,
@@ -52,7 +53,7 @@ from .sorting import (ORDERS, count_crowdsourced, expected_crowdsourced,
 __all__ = [
     "ClusterGraph", "PairSet",
     "Crowd", "PerfectCrowd", "NoisyCrowd", "CostModel", "LatencyModel",
-    "Ballot",
+    "Ballot", "WorkerModel", "ClusterTask",
     "deduce_bruteforce",
     "label_sequential", "label_all_crowdsourced", "label_parallel",
     "LabelingResult", "parallel_crowdsourced_pairs", "deduction_sweep",

@@ -1,5 +1,6 @@
-"""Crowd platform simulators and crowd transport (§2.1, §6.4) — the part of
-``repro/core/crowd.py`` the port's round-barrier serving path runs.
+"""Crowd platform simulators, the worker-quality model and the crowd
+transport (§2.1, §6.4, DESIGN.md §9, §15): ``repro/core/crowd.py`` but
+its checkpoint state dicts.
 
 * :class:`PerfectCrowd` — always returns ground truth (the §2.1 assumption);
   its ``precomputed_answers`` let the round engine fold many rounds without
@@ -10,7 +11,11 @@
   With ``n_workers`` set it simulates a heterogeneous pool whose per-worker
   error rates are drawn from a Beta distribution.  Its rng stream is the
   reference's draw for draw, so the same seed gives the same ballots.
-* :class:`CostModel` — AMT accounting of §6.4.
+* :class:`WorkerModel` — a streaming Dawid-Skene estimator: per-worker
+  error rates tracked online from ballots, log-odds weighted voting.
+* :class:`ClusterTask` — a CrowdER-style multi-pair task: one worker
+  partitions the objects behind a set of pairs.
+* :class:`CostModel` — AMT accounting of §6.4, and the cluster-task price.
 * :class:`LatencyModel` — lognormal per-assignment completion times and a
   finite worker pool: the simulated asynchronous platform.
 * :class:`CrowdGateway` — the batched transport.  In immediate mode every
@@ -20,10 +25,12 @@
   the platform clock to the next completion.  Each ballot is billed against
   its request and its votes are tallied.  The gateway's rng draws (worker
   picks, then each pick's latency) are the reference's, draw for draw.
+  ``aggregation="em"`` collapses ballots by :class:`WorkerModel` weighted
+  voting; ``requery`` escalates rejected answers; ``post_cluster`` posts a
+  cluster task.
 
 Labels are in engine encoding (``POS`` / ``NEG``) throughout, ballots'
-included.  Requery, worker reliability and cluster tasks are not ported yet
-(ROADMAP A9.4, A9.8).
+included.  The state dicts of checkpoints are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -49,6 +56,19 @@ class Ballot:
     workers: Tuple[int, ...]
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterTask:
+    """CrowdER-style multi-pair request: one worker partitions ``n_objects``
+    objects, the distinct endpoints of the candidate pairs ``indices``, and
+    the partition decodes into one POS/NEG verdict a covered pair, for one
+    task's price ``cents`` (DESIGN.md §15)."""
+
+    rid: int
+    indices: Tuple[int, ...]
+    n_objects: int
+    cents: float
+
+
 def _require_odd(n_assignments: int) -> None:
     if n_assignments < 1 or n_assignments % 2 == 0:
         raise ValueError(
@@ -66,8 +86,9 @@ def _truth(pairs: PairSet, i: int, who: str) -> bool:
 
 class Crowd:
     """Interface: label pair ``i`` of a :class:`PairSet`.  Concrete crowds
-    implement :meth:`ask`; :meth:`ask_votes` and :meth:`ask_ballot` have
-    default implementations in terms of it that deterministic crowds inherit.
+    implement :meth:`ask`; :meth:`ask_votes`, :meth:`ask_ballot` and
+    :meth:`ask_cluster` have default implementations that deterministic
+    crowds inherit.
     ``n_asked`` counts questions for the §6 cost accounting."""
 
     def __init__(self) -> None:
@@ -94,10 +115,19 @@ class Crowd:
         return Ballot(label, votes, self._fresh_workers(len(votes)))
 
     def ask_cluster(self, pairs: PairSet, indices: Sequence[int],
-                    prefer: Sequence[int] = (), exclude: Sequence[int] = ()):
-        """A CrowdER-style cluster task: not ported yet."""
-        raise NotImplementedError(
-            "cluster tasks are not ported yet: ROADMAP A9.8")
+                    prefer: Sequence[int] = (), exclude: Sequence[int] = ()
+                    ) -> Tuple[Tuple[int, ...], int]:
+        """One :class:`ClusterTask` without noise: the truth partition of the
+        objects behind ``indices``, decoded to a verdict a pair, from one
+        freshly minted worker (``prefer`` and ``exclude`` cannot matter).
+        Returns ``(labels, worker)``, labels aligned with ``indices``."""
+        if pairs.truth is None:
+            raise ValueError(
+                "ask_cluster needs ground truth to simulate the partition")
+        idx = tuple(int(i) for i in indices)
+        self.n_asked += len(idx)
+        labels = tuple(POS if bool(pairs.truth[i]) else NEG for i in idx)
+        return labels, self._fresh_workers(1)[0]
 
     def precomputed_answers(self, pairs: PairSet) -> Optional[np.ndarray]:
         """Every pair's answer up front (int32 POS/NEG), or ``None`` when
@@ -193,6 +223,60 @@ class NoisyCrowd(Crowd):
         label = truth if int(correct.sum()) * 2 > k else lie
         return Ballot(label, votes, workers)
 
+    def ask_cluster(self, pairs: PairSet, indices: Sequence[int],
+                    prefer: Sequence[int] = (), exclude: Sequence[int] = ()
+                    ) -> Tuple[Tuple[int, ...], int]:
+        """One worker partitions the task's objects, with per-object noise:
+        the truth partition over the objects behind ``indices`` (union-find
+        over the truth-POS pairs among them), then each object, with the
+        worker's error rate, moved to a random other group or a fresh
+        singleton.  Pool mode sends the task to the first worker of
+        ``prefer`` in range and not in ``exclude``, else to a random worker
+        outside ``exclude``.  Returns ``(labels, worker)``."""
+        if pairs.truth is None:
+            raise ValueError(
+                "ask_cluster needs ground truth to simulate the partition")
+        idx = [int(i) for i in indices]
+        self.n_asked += len(idx)
+        banned = {int(w) for w in exclude}
+        if self.worker_errors is None:
+            worker = self._fresh_workers(1)[0]
+            err = self.error_rate
+        else:
+            usable = [int(w) for w in prefer
+                      if 0 <= int(w) < self.n_workers
+                      and int(w) not in banned]
+            worker = usable[0] if usable else self._pick_workers(1, banned)[0]
+            err = float(self.worker_errors[worker])
+        u = np.asarray(pairs.u)[idx]
+        v = np.asarray(pairs.v)[idx]
+        objs = {int(o): j
+                for j, o in enumerate(np.unique(np.concatenate([u, v])))}
+        parent = list(range(len(objs)))
+
+        def find(a: int) -> int:
+            while parent[a] != a:
+                parent[a] = parent[parent[a]]
+                a = parent[a]
+            return a
+
+        for j, i in enumerate(idx):
+            if bool(pairs.truth[i]):
+                ra, rb = find(objs[int(u[j])]), find(objs[int(v[j])])
+                if ra != rb:
+                    parent[ra] = rb
+        group = [find(a) for a in range(len(objs))]
+        next_group = len(objs)  # fresh singleton ids
+        for a in range(len(objs)):
+            if self.rng.random() < err:
+                others = sorted(set(group) - {group[a]}) + [next_group]
+                group[a] = int(others[int(self.rng.integers(len(others)))])
+                next_group += 1
+        labels = tuple(
+            POS if group[objs[int(u[j])]] == group[objs[int(v[j])]] else NEG
+            for j in range(len(idx)))
+        return labels, int(worker)
+
     def _pick_workers(self, k: int, exclude: Sequence[int]) -> List[int]:
         banned = {int(w) for w in exclude}
         fresh = np.array([w for w in range(self.n_workers)
@@ -223,14 +307,120 @@ class NoisyCrowd(Crowd):
                    * min(j, k - j) / k for j in range(k + 1))
 
 
+class WorkerModel:
+    """Streaming Dawid-Skene estimator on the binary match label space
+    (DESIGN.md §15): one symmetric error rate a worker as damped
+    pseudo-counts, ballots aggregated by log-odds weighted voting (a vote
+    from worker ``w`` adds ``±log((1 - e_w) / e_w)`` to the POS score).
+    ``record`` is the online M-step against the aggregate's own posterior,
+    damped by a Beta prior of ``strength`` pseudo-votes at ``prior_error``;
+    ``refit`` runs batch EM over every recorded ballot."""
+
+    def __init__(self, prior_error: float = 0.15, strength: float = 8.0,
+                 min_error: float = 0.005, max_error: float = 0.45):
+        if not 0.0 < prior_error < 0.5:
+            raise ValueError(
+                f"prior_error must be in (0, 0.5), got {prior_error}: at "
+                "0.5 a worker carries no information and above it the "
+                "weights invert")
+        self.prior_error = prior_error
+        self.strength = strength
+        self.min_error = min_error
+        self.max_error = max_error
+        self._n: Dict[int, float] = {}        # soft vote counts a worker
+        self._wrong: Dict[int, float] = {}    # soft error counts a worker
+        self._ballots: List[Tuple[Tuple[int, ...], Tuple[int, ...]]] = []
+
+    @property
+    def workers(self) -> List[int]:
+        """Ids of every worker seen so far, ascending."""
+        return sorted(self._n)
+
+    def n_votes(self, worker: int) -> float:
+        """Soft count of the votes recorded for ``worker``."""
+        return self._n.get(int(worker), 0.0)
+
+    def error_rate(self, worker: int) -> float:
+        """Posterior-mean error estimate ``(wrong + prior * strength) /
+        (n + strength)``, clipped to ``[min_error, max_error]``."""
+        w = int(worker)
+        e = ((self._wrong.get(w, 0.0) + self.prior_error * self.strength)
+             / (self._n.get(w, 0.0) + self.strength))
+        return float(min(max(e, self.min_error), self.max_error))
+
+    def weight(self, worker: int) -> float:
+        """Log-odds voting weight ``log((1 - e) / e)``, always positive."""
+        e = self.error_rate(worker)
+        return math.log((1.0 - e) / e)
+
+    def score(self, votes: Sequence[int], workers: Sequence[int]) -> float:
+        """Weighted POS log-odds of one ballot; positive favours POS."""
+        return sum((1.0 if v == POS else -1.0) * self.weight(w)
+                   for v, w in zip(votes, workers))
+
+    def aggregate(self, votes: Sequence[int], workers: Sequence[int]) -> int:
+        """One engine label by weighted voting; an exactly tied score falls
+        back to the unweighted majority, a still-tied ballot to NEG."""
+        s = self.score(votes, workers)
+        if abs(s) > 1e-12:
+            return POS if s > 0 else NEG
+        n_pos = sum(v == POS for v in votes)
+        return POS if 2 * n_pos > len(list(votes)) else NEG
+
+    def record(self, votes: Sequence[int], workers: Sequence[int]) -> int:
+        """Aggregate a ballot and fold it into the running estimates: the
+        aggregate's confidence ``c = sigmoid(|score|)`` counts ``c`` of a
+        wrong vote against each dissenter and ``1 - c`` against each
+        assenter.  The ballot is kept for :meth:`refit`.  Returns the
+        aggregated label."""
+        votes = tuple(int(v) for v in votes)
+        workers = tuple(int(w) for w in workers)
+        label = self.aggregate(votes, workers)
+        conf = 1.0 / (1.0 + math.exp(-abs(self.score(votes, workers))))
+        for v, w in zip(votes, workers):
+            self._n[w] = self._n.get(w, 0.0) + 1.0
+            wrong = conf if v != label else 1.0 - conf
+            self._wrong[w] = self._wrong.get(w, 0.0) + wrong
+        self._ballots.append((votes, workers))
+        return label
+
+    def refit(self, iters: int = 25) -> None:
+        """Full Dawid-Skene EM over every recorded ballot (uniform class
+        prior), replacing the streaming counts."""
+        if not self._ballots:
+            return
+        for _ in range(iters):
+            n: Dict[int, float] = {}
+            wrong: Dict[int, float] = {}
+            for votes, workers in self._ballots:
+                s = self.score(votes, workers)
+                p_pos = 1.0 / (1.0 + math.exp(-s))
+                for v, w in zip(votes, workers):
+                    n[w] = n.get(w, 0.0) + 1.0
+                    wrong[w] = wrong.get(w, 0.0) + (
+                        p_pos if v == NEG else 1.0 - p_pos)
+            self._n, self._wrong = n, wrong
+
+    def best_workers(self, limit: int = 8,
+                     min_votes: float = 4.0) -> List[int]:
+        """Up to ``limit`` workers with at least ``min_votes`` of history,
+        by ascending estimated error (ties by id)."""
+        ranked = sorted(
+            (w for w, c in self._n.items() if c >= min_votes),
+            key=lambda w: (self.error_rate(w), w))
+        return ranked[:limit]
+
+
 @dataclasses.dataclass
 class CostModel:
     """AMT accounting of §6.4: 2 cents/assignment, 20 pairs per HIT, 3
-    assignments per HIT."""
+    assignments per HIT.  A cluster task of k objects costs
+    ``k / cluster_objects_per_assignment`` assignments, at least one."""
 
     cents_per_assignment: float = 2.0
     pairs_per_hit: int = 20
     assignments_per_hit: int = 3
+    cluster_objects_per_assignment: float = 5.0
 
     def n_hits(self, n_pairs: int) -> int:
         """HITs needed to cover ``n_pairs`` at ``pairs_per_hit`` each."""
@@ -240,6 +430,14 @@ class CostModel:
         """Total §6.4 price of ``n_pairs`` pair questions."""
         return (self.n_hits(n_pairs) * self.assignments_per_hit
                 * self.cents_per_assignment)
+
+    def cluster_task_cents(self, n_objects: int,
+                           cents_per_assignment: Optional[float] = None
+                           ) -> float:
+        """Price of one ``n_objects``-object cluster task (§15)."""
+        rate = (self.cents_per_assignment if cents_per_assignment is None
+                else cents_per_assignment)
+        return rate * max(1.0, n_objects / self.cluster_objects_per_assignment)
 
 
 @dataclasses.dataclass
@@ -273,8 +471,9 @@ class CrowdTicket:
 
 class CrowdAnswer(NamedTuple):
     """One completed pair label in engine encoding, with every vote behind
-    it and the ids of the workers who cast them.  A named tuple: the
-    gateway builds one a pair on its hot path."""
+    it and the ids of the workers who cast them (a cluster verdict carries
+    one vote a partitioning worker).  A named tuple: the gateway builds one
+    a pair on its hot path."""
 
     rid: int
     index: int
@@ -283,11 +482,17 @@ class CrowdAnswer(NamedTuple):
     votes: Tuple[int, ...] = ()
     workers: Tuple[int, ...] = ()
 
+    @property
+    def n_assignments(self) -> int:
+        """Number of assignments behind this answer."""
+        return len(self.votes)
+
 
 @dataclasses.dataclass
 class _Task:
-    """One unit of platform work a single worker picks up: a pair ballot,
-    as ``(index, label, votes, workers)`` in a one-entry list."""
+    """One unit of platform work a single worker picks up: a pair ballot, or
+    the agreed verdicts of a whole cluster task, as ``(index, label, votes,
+    workers)`` entries."""
 
     rid: int
     answers: List[Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]]
@@ -309,17 +514,23 @@ class CrowdGateway:
     * ``latency=None`` — immediate mode: ``poll``/``drain`` return every
       posted answer at simulated time 0 (the round-barrier transport).
     * ``latency=LatencyModel`` — the simulated asynchronous platform: each
-      ballot is a task a single worker of ``latency.n_workers`` picks up
-      (uniformly at random, or lowest likelihood first with ``nf=True``,
-      the §5.2 non-matching-first steering) and completes after a lognormal
-      number of minutes; ``poll`` advances the clock (``now_minutes``) to the
-      next completion and returns the answers landing then.
+      ballot (or cluster task) is a task a single worker of
+      ``latency.n_workers`` picks up (uniformly at random, or lowest
+      likelihood first with ``nf=True``, the §5.2 non-matching-first
+      steering) and completes after a lognormal number of minutes; ``poll``
+      advances the clock (``now_minutes``) to the next completion and
+      returns the answers landing then.
 
-    ``measured_disagreement`` is the minority-vote fraction over every
-    ballot posted."""
+    ``aggregation="em"`` collapses every ballot by :class:`WorkerModel`
+    weighted voting at post time, in posting order, and cluster tasks go to
+    the model's most trusted workers.  ``requery`` re-posts rejected answers
+    with an escalated assignment count, routed around the workers seen on
+    the pair, up to ``max_requeries`` times.  ``measured_disagreement`` is
+    the minority-vote fraction over every pair ballot posted."""
 
     def __init__(self, latency: Optional[LatencyModel] = None,
-                 nf: bool = False) -> None:
+                 nf: bool = False, max_requeries: int = 1,
+                 aggregation: str = "majority") -> None:
         if latency is not None and latency.n_workers <= 0:
             raise ValueError(
                 f"CrowdGateway needs a positive worker pool, got "
@@ -331,46 +542,62 @@ class CrowdGateway:
                 "which waiting pair a worker picks up next, and the "
                 "immediate-mode poll answers everything at once, so the "
                 "steering would be a silent no-op")
+        if aggregation not in ("majority", "em"):
+            raise ValueError(
+                f"aggregation must be 'majority' or 'em', got "
+                f"{aggregation!r}")
         self.latency = latency
         self.nf = nf
+        self.max_requeries = max_requeries
+        self.aggregation = aggregation
+        self.worker_model = WorkerModel() if aggregation == "em" else None
         # latency mode only: the platform's rng (worker picks, latencies),
         # the tasks waiting for a worker — a list picked at random, or under
-        # nf a heap on (likelihood, rid, index), the reference's min key,
-        # which no two waiting pairs share — and the running tasks, a
-        # min-heap on (t_done, seq)
+        # nf a heap on (likelihood, rid, first index, posting sequence): the
+        # reference's min key, ties to the earliest posted — and the running
+        # tasks, a min-heap on (t_done, seq)
         self._rng = latency.sampler() if latency is not None else None
         self._tasks: List = []
         self._running: List[Tuple[float, int, _Task]] = []
         self._free_workers = latency.n_workers if latency is not None else 0
         self._now = 0.0
         self._seq = 0
-        # immediate mode: the answers posted, not yet polled
+        self._posted = 0
+        # immediate mode: the answers posted, not yet polled, and how many of
+        # them are a cluster task's beyond its first (a task is one in flight)
         self._waiting: List[CrowdAnswer] = []
+        self._waiting_extra = 0
         self._seen: Dict[Tuple[int, int], Set[int]] = {}
         # one-vote posts not yet folded into _seen: per request, a list of
         # (indices, workers), aligned
         self._seen_runs: Dict[int, List[Tuple[Tuple[int, ...],
                                               Tuple[int, ...]]]] = {}
+        self._attempts: Dict[Tuple[int, int], int] = {}
         self._spent_cents: Dict[int, float] = {}
         self._assignments: Dict[int, int] = {}
+        self._cluster_pairs: Dict[int, int] = {}
         self._next_tid = 0
         self.n_posted = 0
         self.n_answered = 0
+        self.n_requeried = 0
         self.n_votes = 0
         self.n_minority_votes = 0
+        self.n_cluster_tasks = 0
+        self.n_cluster_pairs = 0
 
     def spent_cents(self, rid: int) -> float:
         """Cents spent on a request so far (assignment-level accounting)."""
         return self._spent_cents.get(rid, 0.0)
 
     def assignments_posted(self, rid: int) -> int:
-        """Crowd assignments bought for a request so far."""
+        """Crowd assignments bought for a request so far (a cluster task's
+        partitioning workers count one each)."""
         return self._assignments.get(rid, 0)
 
     def cluster_pairs(self, rid: int) -> int:
-        """Pairs a request resolved through cluster tasks: none, since this
-        gateway posts pair questions only (cluster tasks: ROADMAP A9.8)."""
-        return 0
+        """Pairs a request resolved through agreed cluster verdicts
+        (disagreements escalated to pair ballots excluded)."""
+        return self._cluster_pairs.get(rid, 0)
 
     @property
     def now_minutes(self) -> float:
@@ -380,7 +607,8 @@ class CrowdGateway:
     @property
     def in_flight(self) -> int:
         """Tasks posted but not yet answered (waiting + running)."""
-        return len(self._waiting) + len(self._tasks) + len(self._running)
+        return (len(self._waiting) - self._waiting_extra + len(self._tasks)
+                + len(self._running))
 
     @property
     def measured_disagreement(self) -> float:
@@ -404,52 +632,72 @@ class CrowdGateway:
         multiply-add a pair, as the reference bills, so the running total
         rounds identically.  With a latency model each ballot becomes a
         waiting task, and free workers pick tasks up at once."""
-        indices = tuple(int(i) for i in indices)
-        if self.latency is not None:
-            for i in indices:
-                ballot = crowd.ask_ballot(pairs, i,
-                                          exclude=self.seen_workers(rid, i))
-                self._bill(rid, ballot, cents_per_assignment)
-                self._seen.setdefault((rid, i), set()).update(ballot.workers)
-                task = _Task(rid, [(i, ballot.label, ballot.votes,
-                                    ballot.workers)],
-                             float(pairs.likelihood[i]))
-                if self.nf:
-                    heapq.heappush(self._tasks,
-                                   (task.likelihood, rid, i, task))
-                else:
-                    self._tasks.append(task)
-            self._assign()
-        elif _one_vote_ballots(crowd):
-            self._post_one_vote(rid, pairs, indices, crowd,
+        indices = self._enqueue(rid, pairs, indices, crowd, None,
                                 cents_per_assignment)
-        else:
-            for i in indices:
-                self._post_ballot(rid, crowd.ask_ballot(
-                    pairs, i, exclude=self.seen_workers(rid, i)), i,
-                    cents_per_assignment)
-        self.n_posted += len(indices)
+        return self._ticket(rid, indices)
+
+    def _ticket(self, rid: int, indices: Tuple[int, ...]) -> CrowdTicket:
         tid = self._next_tid
         self._next_tid += 1
         return CrowdTicket(tid=tid, rid=rid, indices=indices)
 
-    def _bill(self, rid: int, ballot: Ballot,
-              cents_per_assignment: float) -> None:
-        """Tally a ballot's votes and bill its assignments to the request."""
+    def _enqueue(self, rid: int, pairs: PairSet, indices, crowd: Crowd,
+                 n_assignments: Optional[int],
+                 cents_per_assignment: float) -> Tuple[int, ...]:
+        """Ask, tally and bill a ballot a pair index, in order, and hand
+        each to the transport: a waiting task (latency mode) or an answer
+        for the next poll.  A crowd of one-vote ballots posted at its own
+        assignment count without EM takes :meth:`_post_one_vote`."""
+        indices = tuple(int(i) for i in indices)
+        if (self.latency is None and n_assignments is None
+                and self.worker_model is None and _one_vote_ballots(crowd)):
+            self._post_one_vote(rid, pairs, indices, crowd,
+                                cents_per_assignment)
+        else:
+            for i in indices:
+                ballot = crowd.ask_ballot(pairs, i, n_assignments,
+                                          exclude=self.seen_workers(rid, i))
+                label = self._tally(rid, i, ballot, cents_per_assignment)
+                if self.latency is not None:
+                    self._push_task(_Task(
+                        rid, [(i, label, ballot.votes, ballot.workers)],
+                        float(pairs.likelihood[i])))
+                else:
+                    self._waiting.append(CrowdAnswer(
+                        rid, i, label, 0.0, ballot.votes, ballot.workers))
+            if self.latency is not None:
+                self._assign()
+        self.n_posted += len(indices)
+        return indices
+
+    def _tally(self, rid: int, i: int, ballot: Ballot,
+               cents_per_assignment: float) -> int:
+        """The ballot's label (the worker model's under EM, recorded now),
+        its votes tallied against that label, its workers seen on the pair
+        and its assignments billed to the request."""
+        if self.worker_model is not None:
+            label = self.worker_model.record(ballot.votes, ballot.workers)
+        else:
+            label = ballot.label
+        # the request's one-vote runs were settled by ``seen_workers``
+        self._seen.setdefault((rid, i), set()).update(ballot.workers)
         k = len(ballot.votes)
         self.n_votes += k
-        self.n_minority_votes += sum(v != ballot.label for v in ballot.votes)
+        self.n_minority_votes += sum(v != label for v in ballot.votes)
         self._assignments[rid] = self._assignments.get(rid, 0) + k
         self._spent_cents[rid] = (self._spent_cents.get(rid, 0.0)
                                   + cents_per_assignment * k)
+        return label
 
-    def _post_ballot(self, rid: int, ballot: Ballot, i: int,
-                     cents_per_assignment: float) -> None:
-        # the request's one-vote runs were settled by ``seen_workers``
-        self._seen.setdefault((rid, i), set()).update(ballot.workers)
-        self._bill(rid, ballot, cents_per_assignment)
-        self._waiting.append(CrowdAnswer(rid, i, ballot.label, 0.0,
-                                         ballot.votes, ballot.workers))
+    def _push_task(self, task: _Task) -> None:
+        """A task waits for a worker (latency mode)."""
+        if self.nf:
+            heapq.heappush(self._tasks, (task.likelihood, task.rid,
+                                         task.answers[0][0], self._posted,
+                                         task))
+            self._posted += 1
+        else:
+            self._tasks.append(task)
 
     def _post_one_vote(self, rid: int, pairs: PairSet, indices, crowd: Crowd,
                        cents_per_assignment: float) -> None:
@@ -477,15 +725,101 @@ class CrowdGateway:
         self._assignments[rid] = self._assignments.get(rid, 0) + len(indices)
         self.n_votes += len(indices)
 
-    def requery(self, *args, **kwargs):
-        """Escalated re-posts of rejected answers: not ported yet."""
-        raise NotImplementedError(
-            "requery escalation is not ported yet: ROADMAP A9.4")
+    def post_cluster(self, rid: int, pairs: PairSet, indices, crowd: Crowd,
+                     cents: float = 0.0, n_assignments: int = 1,
+                     pair_cents_per_assignment: float = 0.0) -> CrowdTicket:
+        """Post one :class:`ClusterTask` over ``indices`` (§15):
+        ``n_assignments`` distinct workers (the worker model's most trusted
+        first under EM) each partition the objects behind the pairs.  The
+        verdicts every assignment agrees on land together as one task;
+        disagreed pairs escalate at once to pair ballots billed at
+        ``pair_cents_per_assignment``, so every index is answered once.  The
+        task bills ``cents`` and ``n_assignments`` assignments; its verdicts
+        feed neither the vote tallies nor the worker model."""
+        indices = tuple(int(i) for i in indices)
+        prefer: Tuple[int, ...] = ()
+        if self.worker_model is not None:
+            prefer = tuple(self.worker_model.best_workers())
+        verdicts: List[Tuple[Tuple[int, ...], int]] = []
+        for _ in range(max(1, int(n_assignments))):
+            asked = tuple(w for _, w in verdicts)
+            labels, worker = crowd.ask_cluster(
+                pairs, indices,
+                prefer=tuple(w for w in prefer if w not in asked),
+                exclude=asked)
+            verdicts.append((labels, int(worker)))
+        workers = tuple(w for _, w in verdicts)
+        answers = []
+        escalate = []
+        for j, i in enumerate(indices):
+            votes = tuple(int(lab[j]) for lab, _ in verdicts)
+            if all(v == votes[0] for v in votes):
+                answers.append((i, votes[0], votes, workers))
+            else:
+                escalate.append(i)
+        for i in indices:
+            self._seen.setdefault((rid, i), set()).update(workers)
+        self._assignments[rid] = (self._assignments.get(rid, 0)
+                                  + len(verdicts))
+        self._spent_cents[rid] = self._spent_cents.get(rid, 0.0) + cents
+        self.n_posted += len(indices) - len(escalate)  # _enqueue counts those
+        self.n_cluster_tasks += 1
+        self.n_cluster_pairs += len(answers)
+        self._cluster_pairs[rid] = (self._cluster_pairs.get(rid, 0)
+                                    + len(answers))
+        if answers:
+            if self.latency is not None:
+                self._push_task(_Task(rid, answers, float(min(
+                    float(pairs.likelihood[i]) for i, *_ in answers))))
+            else:
+                self._waiting.extend(
+                    CrowdAnswer(rid, i, lab, 0.0, votes, ws)
+                    for i, lab, votes, ws in answers)
+                self._waiting_extra += len(answers) - 1
+        if escalate:
+            self._enqueue(rid, pairs, escalate, crowd, None,
+                          pair_cents_per_assignment)
+        if self.latency is not None:
+            self._assign()
+        return self._ticket(rid, indices)
 
-    def post_cluster(self, *args, **kwargs):
-        """Cluster tasks: not ported yet."""
-        raise NotImplementedError(
-            "cluster tasks are not ported yet: ROADMAP A9.8")
+    def requery(self, rid: int, pairs: PairSet, indices, crowd: Crowd,
+                cents_per_assignment: float = 0.0,
+                budget_cents: Optional[float] = None
+                ) -> Tuple[CrowdTicket, List[int]]:
+        """Escalate rejected answers (DESIGN.md §9): re-post each pair with
+        ``crowd.n_assignments + 2 * (attempt + 1)`` assignments, routed
+        around the workers seen on it where the pool allows.  A pair already
+        requeried ``max_requeries`` times, or one whose escalation the
+        remaining ``budget_cents`` cannot buy, is not re-posted: it comes
+        back exhausted, for the caller to trust the graph.  Escalations post
+        grouped by assignment count, ascending.  Returns ``(ticket over the
+        re-posted pairs, exhausted indices)``."""
+        base = getattr(crowd, "n_assignments", 1)
+        by_escalation: Dict[int, List[int]] = {}
+        exhausted: List[int] = []
+        planned_cents = 0.0
+        for i in (int(j) for j in indices):
+            attempt = self._attempts.get((rid, i), 0)
+            if attempt >= self.max_requeries:
+                exhausted.append(i)
+                continue
+            k = base + 2 * (attempt + 1)
+            cost = cents_per_assignment * k
+            if budget_cents is not None and \
+                    self.spent_cents(rid) + planned_cents + cost > \
+                    budget_cents + 1e-9:
+                exhausted.append(i)  # unaffordable: the graph outvotes
+                continue
+            planned_cents += cost
+            self._attempts[(rid, i)] = attempt + 1
+            by_escalation.setdefault(k, []).append(i)
+        posted: List[int] = []
+        for k, idx in sorted(by_escalation.items()):
+            posted.extend(self._enqueue(rid, pairs, idx, crowd, k,
+                                        cents_per_assignment))
+        self.n_requeried += len(posted)
+        return self._ticket(rid, tuple(posted)), exhausted
 
     def _assign(self) -> None:
         """Free workers pick up waiting tasks (NF: lowest likelihood
@@ -504,10 +838,11 @@ class CrowdGateway:
     def poll(self) -> List[CrowdAnswer]:
         """Immediate mode: everything posted so far, at simulated time 0.
         Latency mode: advance the clock to the next completion and return
-        the answers landing then; the freed workers pick up waiting tasks
-        at once."""
+        the answers landing then (a cluster task's verdicts together); the
+        freed workers pick up waiting tasks at once."""
         if self.latency is None:
             out, self._waiting = self._waiting, []
+            self._waiting_extra = 0
             self.n_answered += len(out)
             return out
         if not self._running:

@@ -25,6 +25,17 @@ paths advance the lanes, as in the reference:
 
 Lanes are refilled from the queue as sessions finish.
 
+**Crowd economics** (DESIGN.md §9, §10, §15), all on the per-round path:
+a budgeted request (``budget_cents`` / ``cost_per_assignment``) posts only
+what its remaining budget affords, highest expected-deduction gain first,
+and stops on budget by trusting the graph for the rest; ``slots_per_round``
+caps the questions a round across every lane, by gain.
+``conflict_policy="requery"`` re-posts a rejected answer with an escalated
+ballot (3-way to 5-way) and trusts the graph once the escalation is
+exhausted.  ``aggregation="em"`` collapses ballots by the gateway's
+reliability model; ``cluster_tasks=True`` posts CrowdER-style cluster tasks
+where their expected correct labels a cent beat the pair rate.
+
 **Asynchronous ID/NF** (``async_mode=True``, the paper's §5.2 lifted into
 serving): a lane folds answers the moment the gateway delivers them; a
 returned non-matching answer, a rejected one or a drained lane triggers
@@ -43,7 +54,8 @@ grid, thresholded candidates compacted after it.  With ``blocking=`` (a
 buckets are built on the host and only colliding tile pairs are scored,
 through the fused compaction kernel, so the dense grid never exists.
 
-Every option of the reference that the port does not implement raises
+Every option of the reference that the port does not implement (admission
+and checkpoints, the cluster cache, streaming) raises
 :class:`NotImplementedError` naming the ROADMAP item that will bring it,
 instead of being silently ignored.
 """
@@ -69,9 +81,12 @@ from repro_torch.core.graph import (ROUNDS_CONFLICT, ROUNDS_EMPTY,
                                     session_frontier,
                                     session_frontier_batch, session_grow,
                                     session_mark_published,
+                                    session_mark_published_batch,
                                     session_run_rounds_batch,
-                                    session_seed_labels, stack_states)
-from repro_torch.core.ordering import (session_refresh_priorities,
+                                    session_seed_labels, session_trust_graph,
+                                    session_trust_graph_batch, stack_states)
+from repro_torch.core.ordering import (session_gains, session_gains_batch,
+                                       session_refresh_priorities,
                                        session_refresh_priorities_batch)
 from repro_torch.core.metrics import Quality, quality
 from repro_torch.core.pairs import PairSet
@@ -85,14 +100,6 @@ from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 # the value the port's behaviour already equals and the ROADMAP item that
 # brings the rest.  Any other value raises NotImplementedError.
 _SERVICE_OPTIONS = {
-    "budget_cents": (None, "A9.3 (budget and slot allocator)"),
-    "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
-    "slots_per_round": (None, "A9.3 (budget and slot allocator)"),
-    "conflict_policy": ("drop", "A9.4 (requery)"),
-    "aggregation": ("majority", "A9.8 (EM worker model)"),
-    "cluster_tasks": (False, "A9.8 (cluster tasks)"),
-    "cluster_size": (8, "A9.8 (cluster tasks)"),
-    "cluster_assignments": (2, "A9.8 (cluster tasks)"),
     "admission": (None, "A10 (admission control and recovery)"),
     "checkpoint_dir": (None, "A10 (recovery)"),
     "checkpoint_every": (1, "A10 (recovery)"),
@@ -100,12 +107,7 @@ _SERVICE_OPTIONS = {
     "cluster_cache": (None, "A11 (cross-query cluster cache)"),
     "cache_path": (None, "A9.5 (cache_path) and A11"),
 }
-_SUBMIT_OPTIONS = {
-    "budget_cents": (None, "A9.3 (budget and slot allocator)"),
-    "cost_per_assignment": (None, "A9.3 (budget and slot allocator)"),
-}
 _EMBEDDING_OPTIONS = {
-    **_SUBMIT_OPTIONS,
     "streaming": (False, "A9.6 (streaming ingest)"),
 }
 
@@ -130,6 +132,10 @@ class JoinRequest:
     crowd: Optional[Crowd] = None
     order: Optional[str] = None
     total_true_matches: Optional[int] = None
+    # budget-aware scheduling (DESIGN.md §10): crowd spend capped at
+    # budget_cents, priced per assignment; None -> the service default
+    budget_cents: Optional[float] = None
+    cost_per_assignment: Optional[float] = None
     # cross-query warm start (DESIGN.md §14): (P,) int32 {UNKNOWN, NEG, POS}
     # in the request's pair order, folded at lane open and never billed
     seed_labels: Optional[np.ndarray] = None
@@ -187,10 +193,15 @@ class _Lane:
     t0: float
     prior_host: np.ndarray         # (p_cap,) f32 machine likelihood, padded
     # its device copy, for the asynchronous discipline's single-lane priority
-    # refresh (adaptive lanes only)
+    # refresh and gains (adaptive or budgeted lanes only)
     prior_dev: Optional[torch.Tensor]
     adaptive: bool                 # live posterior re-ranking (DESIGN.md §10)
     rate_cents: float              # per-assignment price
+    per_pair_cents: float          # expected price of one crowd question
+    budget_cents: Optional[float]  # None = unlimited
+    # host mirror of the pair slots with an unanswered gateway task out
+    # (pair or cluster): the cluster planner must not cover a pair twice
+    inflight_host: np.ndarray
     # the crowd's order-independent answer per ordered pair (None when it
     # depends on the order asked), and whether the fused path is still
     # trusted for this lane: a §9 screen on it drops the lane to the exact
@@ -199,15 +210,29 @@ class _Lane:
     fused_ok: bool = True
     n_cache_hits: int = 0          # pairs settled by seed labels at open
     in_flight: int = 0             # pairs posted to the gateway, unanswered
+    n_requeried: int = 0           # escalated re-posts of rejected answers
+    budget_stopped: bool = False   # out of budget; the graph resolved the rest
+    n_cluster_tasks: int = 0
+    n_cluster_cents: float = 0.0
 
     @property
     def done(self) -> bool:
+        if self.budget_stopped:
+            return self.in_flight == 0
         return not (self.labels_host == UNKNOWN).any()
 
     @property
     def bucket(self) -> Tuple[int, int]:
         """(pair capacity, object capacity): lanes stack by bucket."""
         return (int(self.state.u.shape[0]), self.state.n_objects)
+
+    def affordable(self, gateway: CrowdGateway) -> Optional[int]:
+        """How many more crowd questions the budget buys (None: unlimited):
+        the remaining cents floor-divided by a question's price."""
+        if self.budget_cents is None or self.per_pair_cents <= 0:
+            return None
+        rem = self.budget_cents - gateway.spent_cents(self.req.rid)
+        return max(int(rem // self.per_pair_cents), 0)
 
 
 class JoinService:
@@ -219,7 +244,13 @@ class JoinService:
     crowd platform; ``async_mode=True`` serves the event-driven ID/NF
     discipline instead of round barriers; ``nf`` steers the platform's
     workers to probable-non-matching pairs first (it needs a latency model).
-    See the module docstring for what is ported."""
+    ``conflict_policy`` resolves rejected answers (``"drop"`` or
+    ``"requery"``); ``budget_cents`` / ``cost_per_assignment`` are request
+    defaults; ``slots_per_round`` caps a round's questions across lanes;
+    ``aggregation`` (``"majority"`` or ``"em"``) collapses ballots;
+    ``cluster_tasks`` posts tasks of up to ``cluster_size`` objects, each
+    partitioned by ``cluster_assignments`` workers.  See the module
+    docstring for what is ported."""
 
     # rounds per round-engine call
     FUSED_ROUNDS_PER_DISPATCH = 8
@@ -227,14 +258,40 @@ class JoinService:
     def __init__(self, lanes: int = 4, cost: Optional[CostModel] = None,
                  latency: Optional[LatencyModel] = None,
                  async_mode: bool = False, nf: bool = False,
-                 order: str = "expected", device: DeviceLike = None,
-                 fused_rounds: bool = True, **unported):
+                 conflict_policy: str = "drop", order: str = "expected",
+                 budget_cents: Optional[float] = None,
+                 cost_per_assignment: Optional[float] = None,
+                 slots_per_round: Optional[int] = None,
+                 fused_rounds: bool = True, aggregation: str = "majority",
+                 cluster_tasks: bool = False, cluster_size: int = 8,
+                 cluster_assignments: int = 2, device: DeviceLike = None,
+                 **unported):
         _reject_unported("JoinService", unported, _SERVICE_OPTIONS)
+        if conflict_policy not in ("drop", "requery"):
+            raise ValueError(
+                f"conflict_policy must be 'drop' or 'requery', "
+                f"got {conflict_policy!r}")
         if nf and latency is None:
             raise ValueError(
                 "nf=True requires a LatencyModel: non-matching-first steers "
                 "worker pickup order, which does not exist in immediate mode")
         validate_order(order)
+        if slots_per_round is not None and slots_per_round < 1:
+            raise ValueError(
+                f"slots_per_round must be positive, got {slots_per_round} — "
+                "a zero-slot round could never make progress")
+        if aggregation not in ("majority", "em"):
+            raise ValueError(
+                f"aggregation must be 'majority' or 'em', got "
+                f"{aggregation!r}")
+        if cluster_size < 3:
+            raise ValueError(
+                f"cluster_size must be at least 3, got {cluster_size} — a "
+                "2-object task is just a pair question at cluster pricing")
+        if cluster_assignments < 1:
+            raise ValueError(
+                f"cluster_assignments must be positive, "
+                f"got {cluster_assignments}")
         if lanes < 1:
             raise ValueError(f"lanes must be positive, got {lanes}")
         self.lanes = lanes
@@ -242,7 +299,15 @@ class JoinService:
         self.latency = latency
         self.async_mode = async_mode
         self.nf = nf
+        self.conflict_policy = conflict_policy
         self.order = order
+        self.budget_cents = budget_cents
+        self.cost_per_assignment = cost_per_assignment
+        self.slots_per_round = slots_per_round
+        self.aggregation = aggregation
+        self.cluster_tasks = cluster_tasks
+        self.cluster_size = cluster_size
+        self.cluster_assignments = cluster_assignments
         self.fused_rounds = fused_rounds
         self.device = pick_device(device)
         self.queue: Deque[JoinRequest] = collections.deque()
@@ -264,6 +329,10 @@ class JoinService:
                                    else req.order)
         if req.crowd is None:
             req.crowd = PerfectCrowd()
+        if req.budget_cents is None:
+            req.budget_cents = self.budget_cents
+        if req.cost_per_assignment is None:
+            req.cost_per_assignment = self.cost_per_assignment
         if req.seed_labels is not None and \
                 len(req.seed_labels) != len(req.pairs):
             raise ValueError(
@@ -284,15 +353,20 @@ class JoinService:
     def submit(self, pairs: PairSet, crowd: Optional[Crowd] = None,
                order: Optional[str] = None, rid: Optional[int] = None,
                total_true_matches: Optional[int] = None,
-               seed_labels: Optional[np.ndarray] = None, **unported) -> int:
+               budget_cents: Optional[float] = None,
+               cost_per_assignment: Optional[float] = None,
+               seed_labels: Optional[np.ndarray] = None) -> int:
         """Enqueue a join over pre-scored candidate pairs; returns the rid.
         ``total_true_matches`` is the dataset-wide true-match count for
-        recall (default: the candidates' own).  ``seed_labels`` warm-starts
-        the session from cached verdicts (DESIGN.md §14)."""
-        _reject_unported("submit", unported, _SUBMIT_OPTIONS)
-        return self._admit(JoinRequest(rid, pairs, crowd, order,
-                                       total_true_matches,
-                                       seed_labels=seed_labels))
+        recall (default: the candidates' own).  ``order``, ``budget_cents``
+        and ``cost_per_assignment`` default to the service's.
+        ``seed_labels`` warm-starts the session from cached verdicts
+        (DESIGN.md §14)."""
+        return self._admit(JoinRequest(
+            rid, pairs, crowd, order, total_true_matches,
+            budget_cents=budget_cents,
+            cost_per_assignment=cost_per_assignment,
+            seed_labels=seed_labels))
 
     @staticmethod
     def _check_candidate_overflow(cand) -> None:
@@ -311,6 +385,8 @@ class JoinService:
                           capacity: Optional[int] = None,
                           total_true_matches: Optional[int] = None,
                           blocking: Optional[BlockingConfig] = None,
+                          budget_cents: Optional[float] = None,
+                          cost_per_assignment: Optional[float] = None,
                           **unported) -> int:
         """Machine phase + enqueue: score (emb_a x emb_b) with the pair-score
         kernel, keep pairs at or above ``threshold`` (cosine, mapped to a
@@ -325,7 +401,8 @@ class JoinService:
         blocking stage in front of the scorer: only bucket-colliding pairs
         are scored, through the fused compaction kernel, on the service's
         device (``mesh`` is ignored).  It trades recall at the threshold for
-        scored cells; size it with ``BlockingConfig.for_recall``."""
+        scored cells; size it with ``BlockingConfig.for_recall``.
+        ``budget_cents`` and ``cost_per_assignment`` as for :meth:`submit`."""
         _reject_unported("submit_embeddings", unported, _EMBEDDING_OPTIONS)
         emb_a = torch.as_tensor(emb_a, device=self.device)
         emb_b = torch.as_tensor(emb_b, device=self.device)
@@ -343,8 +420,10 @@ class JoinService:
         pairs = PairSet(u=cand.rows, v=cand.cols + n_a,
                         likelihood=(cand.scores + 1.0) / 2.0, truth=truth,
                         n_objects=n_a + int(emb_b.shape[0]))
-        return self._admit(JoinRequest(None, pairs, crowd, order,
-                                       total_true_matches))
+        return self._admit(JoinRequest(
+            None, pairs, crowd, order, total_true_matches,
+            budget_cents=budget_cents,
+            cost_per_assignment=cost_per_assignment))
 
     # -- lane lifecycle ------------------------------------------------------
     def _open_lane(self, req: JoinRequest) -> _Lane:
@@ -377,14 +456,21 @@ class JoinService:
         prior_host = np.zeros(p_cap, np.float32)
         prior_host[:P] = ordered.likelihood
         adaptive = req.order == "adaptive"
+        rate = (req.cost_per_assignment if req.cost_per_assignment is not None
+                else self.cost.cents_per_assignment)
         return _Lane(
             req=req, perm=perm, ordered=ordered, p=P, state=state,
             labels_host=labels_host, crowdsourced=np.zeros(P, bool),
             round_sizes=[], t0=time.perf_counter(), prior_host=prior_host,
             prior_dev=(torch.from_numpy(prior_host).to(self.device)
-                       if adaptive and self.async_mode else None),
-            adaptive=adaptive,
-            rate_cents=float(self.cost.cents_per_assignment),
+                       if self.async_mode and (
+                           adaptive or req.budget_cents is not None)
+                       else None),
+            adaptive=adaptive, rate_cents=float(rate),
+            per_pair_cents=float(rate)
+            * getattr(req.crowd, "n_assignments", 1),
+            budget_cents=req.budget_cents,
+            inflight_host=np.zeros(p_cap, bool),
             answers_host=req.crowd.precomputed_answers(ordered),
             n_cache_hits=n_cache_hits)
 
@@ -416,9 +502,13 @@ class JoinService:
                          else None),
             fold_rounds=int(lane.state.rounds),
             n_conflicts=int(lane.state.conflicts[:lane.p].sum()),
+            n_requeried=lane.n_requeried,
             n_spent_cents=gateway.spent_cents(req.rid),
+            stopped_on_budget=lane.budget_stopped,
             n_cache_hits=lane.n_cache_hits,
+            n_cluster_tasks=lane.n_cluster_tasks,
             n_cluster_pairs=gateway.cluster_pairs(req.rid),
+            n_cluster_cents=lane.n_cluster_cents,
             admission_deferred=req.admission_deferred,
         )
 
@@ -475,24 +565,201 @@ class JoinService:
         self._prior_stacks[key] = (tuple(lanes), priors)
         return priors
 
+    # -- budgets and the slot allocator (DESIGN.md §10) ----------------------
+    def _allocate(self, staged, gateway: CrowdGateway) -> List[_Lane]:
+        """Decide which frontier pairs post this round.  With no budgeted
+        lane and no ``slots_per_round`` cap the whole frontier posts.
+        Otherwise every frontier pair is scored by its expected-deduction
+        gain (one gains call a group; adaptive groups read ``-priority``
+        back), each budgeted lane keeps the highest-gain questions its
+        budget affords (a stable sort), and the slot cap keeps the
+        highest-gain pairs across every lane, ranked on (-gain, stage,
+        lane, pair).  Rewrites each stage's mask to the posted set; returns
+        the lanes whose budget affords nothing more."""
+        stops: List[_Lane] = []
+        constrained = self.slots_per_round is not None or any(
+            lane.budget_cents is not None
+            for _, lanes, _, _ in staged for lane in lanes)
+        if not constrained:
+            return stops
+        cands = []  # (-gain, stage index, lane index, pair index)
+        for si, (key, lanes, stacked, frontier) in enumerate(staged):
+            if not frontier.any():
+                continue
+            if all(lane.adaptive for lane in lanes):
+                # the refresh wrote -gain into every pending pair's priority
+                # and the frontier selects only pending pairs
+                gains = -stacked.priority.cpu().numpy()
+            else:
+                gains = session_gains_batch(
+                    stacked, self._group_priors(key, lanes)).cpu().numpy()
+            for b, lane in enumerate(lanes):
+                idx = np.nonzero(frontier[b])[0]
+                if len(idx) == 0:
+                    continue
+                afford = lane.affordable(gateway)
+                if afford == 0:
+                    stops.append(lane)
+                    continue
+                if afford is not None and afford < len(idx):
+                    idx = idx[np.argsort(-gains[b, idx],
+                                         kind="stable")][:afford]
+                cands.extend((-float(gains[b, i]), si, b, int(i))
+                             for i in idx)
+        cands.sort()
+        if self.slots_per_round is not None:
+            cands = cands[:self.slots_per_round]
+        for stage in staged:
+            stage[3] = np.zeros_like(stage[3])
+        for _, si, b, i in cands:
+            staged[si][3][b, i] = True
+        return stops
+
+    def _budget_stop(self, lane: _Lane) -> None:
+        """Out of budget: pull every unlabeled, unpublished pair out of
+        contention and let the graph label what it pins down
+        (``session_trust_graph``); the rest finalize as non-matching."""
+        st = lane.state
+        lane.state = session_trust_graph(
+            st, (st.labels == UNKNOWN) & ~st.published)
+        lane.labels_host = lane.state.labels[:lane.p].cpu().numpy()
+        lane.budget_stopped = True
+
+    # -- cluster tasks (DESIGN.md §15) ---------------------------------------
+    def _task_info(self, lane: _Lane,
+                   gateway: CrowdGateway) -> Tuple[float, float]:
+        """The information-per-cent rule's inputs: the expected accuracy of
+        an agreed cluster verdict (the best-known worker's error under EM
+        with history, else the crowd's base rate, to the power
+        ``cluster_assignments``) and the expected correct labels a cent of
+        a pair question (majority-vote accuracy over its assignments)."""
+        crowd = lane.req.crowd
+        k = getattr(crowd, "n_assignments", 1)
+        pair_cents = max(lane.rate_cents * k, 1e-9)
+        try:
+            acc_pair = 1.0 - crowd.pair_error_rate()
+        except AttributeError:
+            acc_pair = 1.0
+        wm = gateway.worker_model
+        best = wm.best_workers(limit=1) if wm is not None else []
+        if best:
+            err_one = wm.error_rate(best[0])
+        else:
+            err_one = min(getattr(crowd, "error_rate", 0.0), 0.5)
+        acc_task = 1.0 - err_one ** self.cluster_assignments
+        return acc_task, acc_pair / pair_cents
+
+    def _plan_tasks(self, lane: _Lane, idx: np.ndarray,
+                    gateway: CrowdGateway):
+        """Split a lane's allocated frontier into cluster tasks and leftover
+        pair questions.  Around each frontier pair an object set grows
+        greedily (up to ``cluster_size``) by the frontier pairs, then the
+        pending pairs, an object adds (ties to the lower object id); every
+        pending pair inside the set rides along.  A task posts iff its
+        expected correct frontier labels a cent beat the pair rate (and a
+        budgeted lane affords it).  Returns ``(clusters, pair_idx)``,
+        clusters as ``(n_objects, covered indices)``."""
+        idx = np.asarray(idx, int)
+        if not self.cluster_tasks or len(idx) == 0:
+            return [], idx
+        p = lane.p
+        pending = lane.labels_host == UNKNOWN
+        pending &= ~lane.inflight_host[:p]
+        u = np.asarray(lane.ordered.u)
+        v = np.asarray(lane.ordered.v)
+        acc_one, pair_info = self._task_info(lane, gateway)
+        is_frontier = np.zeros(p, bool)
+        is_frontier[idx] = True
+        nbr: Dict[int, List[int]] = {}
+        for j in np.nonzero(pending)[0]:
+            nbr.setdefault(int(u[j]), []).append(int(j))
+            nbr.setdefault(int(v[j]), []).append(int(j))
+        taken = np.zeros(p, bool)
+        budget = lane.budget_cents
+        spent = gateway.spent_cents(lane.req.rid) if budget is not None \
+            else 0.0
+        planned = 0.0
+        clusters: List[Tuple[int, np.ndarray]] = []
+        pair_idx: List[int] = []
+        for j in (int(i) for i in idx):
+            if taken[j]:
+                continue  # harvested by an earlier cluster this round
+            objs = {int(u[j]), int(v[j])}
+            while len(objs) < self.cluster_size:
+                # gain = (frontier pairs, pending pairs) object o would add
+                gain: Dict[int, List[int]] = {}
+                for o in objs:
+                    for q in nbr.get(o, ()):
+                        if taken[q]:
+                            continue
+                        other = int(v[q]) if int(u[q]) == o else int(u[q])
+                        if other not in objs:
+                            g = gain.setdefault(other, [0, 0])
+                            g[0] += int(is_frontier[q])
+                            g[1] += 1
+                if not gain:
+                    break
+                best = max(gain.items(),
+                           key=lambda kv: (kv[1][0], kv[1][1], -kv[0]))
+                if best[1][0] == 0 and len(objs) >= 3:
+                    break  # no scheduled question left to batch
+                objs.add(best[0])
+            cov = sorted({q for o in objs for q in nbr.get(o, ())
+                          if not taken[q]
+                          and int(u[q]) in objs and int(v[q]) in objs})
+            fcov = int(sum(is_frontier[q] for q in cov))
+            cents = (self.cost.cluster_task_cents(len(objs), lane.rate_cents)
+                     * self.cluster_assignments)
+            ok = (acc_one * fcov / max(cents, 1e-9) >= pair_info
+                  and (budget is None
+                       or spent + planned + cents <= budget + 1e-9))
+            if ok:
+                cov = np.asarray(cov, int)
+                taken[cov] = True
+                planned += cents
+                clusters.append((len(objs), cov))
+            else:
+                pair_idx.append(j)
+        return clusters, np.asarray(pair_idx, int)
+
     # -- per-round engine ----------------------------------------------------
-    def _post_lane(self, lane: _Lane, pair_idx: np.ndarray,
+    def _post_lane(self, lane: _Lane, clusters, pair_idx: np.ndarray,
                    gateway: CrowdGateway) -> int:
-        """Post one lane's round: its frontier as pair questions, in index
-        order.  Returns the pairs posted."""
-        lane.crowdsourced[pair_idx] = True
-        gateway.post(lane.req.rid, lane.ordered, pair_idx, lane.req.crowd,
-                     cents_per_assignment=lane.rate_cents)
-        return len(pair_idx)
+        """Post one lane's planned round: every cluster task at its §15
+        price, then the leftover pair questions in index order.  Marks the
+        pairs crowdsourced and in flight.  Returns the pairs posted."""
+        total = 0
+        for n_objects, cov in clusters:
+            lane.crowdsourced[cov] = True
+            lane.inflight_host[cov] = True
+            cents = (self.cost.cluster_task_cents(n_objects, lane.rate_cents)
+                     * self.cluster_assignments)
+            gateway.post_cluster(
+                lane.req.rid, lane.ordered, cov, lane.req.crowd,
+                cents=cents, n_assignments=self.cluster_assignments,
+                pair_cents_per_assignment=lane.rate_cents)
+            lane.n_cluster_tasks += 1
+            lane.n_cluster_cents += cents
+            total += len(cov)
+        if len(pair_idx):
+            lane.crowdsourced[pair_idx] = True
+            lane.inflight_host[pair_idx] = True
+            gateway.post(lane.req.rid, lane.ordered, pair_idx,
+                         lane.req.crowd, cents_per_assignment=lane.rate_cents)
+            total += len(pair_idx)
+        return total
 
     def _step(self, active: List[_Lane], gateway: CrowdGateway) -> bool:
         """One round over the occupied lanes: a batched priority refresh for
         groups with adaptive lanes, the batched frontier over bucket-grouped
-        stacked states, one gateway post per lane, a full drain (the round
-        barrier), and one screened fold a group.  Every lane's whole
-        frontier posts: budgets and slot caps (ROADMAP A9.3), cluster tasks
-        (A9.8) and requery (A9.4) are refused at construction.  Returns True
-        iff any lane made progress."""
+        stacked states, the budget and slot allocation, cluster planning,
+        one gateway post per lane, a full drain (the round barrier), and one
+        screened fold a group.  Under ``conflict_policy="requery"`` the
+        round drains and folds until every rejected answer is resolved:
+        re-answered, or exhausted and trusted to the graph.  Returns True
+        iff any lane made progress (crowdsourced, deduced or stopped on
+        budget)."""
+        requery = self.conflict_policy == "requery"
         groups: Dict[Tuple[int, int], List[_Lane]] = {}
         for lane in active:
             groups.setdefault(lane.bucket, []).append(lane)
@@ -505,28 +772,79 @@ class JoinService:
                     [lane.adaptive for lane in lanes])
             frontier = session_frontier_batch(stacked).cpu().numpy()
             staged.append([key, lanes, stacked, frontier])
+        budget_stops = self._allocate(staged, gateway)
+        # cluster planning widens the posted mask with the harvested pairs,
+        # so the publish below holds deduction off every pair answered next
+        plans: Dict[Tuple[int, int], Tuple[list, np.ndarray]] = {}
+        for si, (_, lanes, _, posted) in enumerate(staged):
+            for b, lane in enumerate(lanes):
+                idx = np.nonzero(posted[b])[0]
+                if len(idx) == 0:
+                    continue
+                clusters, pair_idx = self._plan_tasks(lane, idx, gateway)
+                plans[si, b] = (clusters, pair_idx)
+                for _, cov in clusters:
+                    posted[b, cov] = True
+        if requery:
+            # published bits hold deduction off contested pairs, so a
+            # rejected answer can wait for its escalation
+            for stage in staged:
+                if stage[3].any():
+                    stage[2] = session_mark_published_batch(stage[2],
+                                                            stage[3])
         # post every lane, then drain: the barrier spans lanes, and ballots
         # are drawn in this order
-        for _, lanes, _, frontier in staged:
+        for si, (_, lanes, _, _) in enumerate(staged):
             for b, lane in enumerate(lanes):
-                idx = np.nonzero(frontier[b])[0]
-                if len(idx):
-                    lane.round_sizes.append(
-                        self._post_lane(lane, idx, gateway))
-        answers: Dict[int, List] = {}
-        for ans in gateway.drain():
-            answers.setdefault(ans.rid, []).append(ans)
-        for stage in staged:
-            _, lanes, stacked, frontier = stage
-            updates = np.full(frontier.shape, UNKNOWN, np.int32)
-            landed = False
-            for b, lane in enumerate(lanes):
-                for ans in answers.get(lane.req.rid, ()):
-                    updates[b, ans.index] = ans.label
-                    landed = True
-            if landed:
-                stage[2], _ = session_fold_answers_batch(stacked, updates)
+                plan = plans.get((si, b))
+                if plan is None:
+                    continue
+                n = self._post_lane(lane, plan[0], plan[1], gateway)
+                if n:
+                    lane.round_sizes.append(n)
+        pending = True
+        while pending:
+            pending = False
+            answers: Dict[int, List] = {}
+            for ans in gateway.drain():
+                answers.setdefault(ans.rid, []).append(ans)
+            for stage in staged:
+                _, lanes, stacked, posted = stage
+                updates = np.full(posted.shape, UNKNOWN, np.int32)
+                landed = False
+                for b, lane in enumerate(lanes):
+                    for ans in answers.get(lane.req.rid, ()):
+                        updates[b, ans.index] = ans.label
+                        lane.inflight_host[ans.index] = False
+                        landed = True
+                if not landed:
+                    continue
+                stacked, cmask = session_fold_answers_batch(
+                    stacked, updates, keep_conflicts_published=requery)
+                if requery:
+                    cmask = cmask.cpu().numpy()
+                    exhausted_mask = np.zeros(cmask.shape, bool)
+                    for b, lane in enumerate(lanes):
+                        cidx = np.nonzero(cmask[b, :lane.p])[0]
+                        if len(cidx) == 0:
+                            continue
+                        ticket, exhausted = gateway.requery(
+                            lane.req.rid, lane.ordered, cidx, lane.req.crowd,
+                            cents_per_assignment=lane.rate_cents,
+                            budget_cents=lane.budget_cents)
+                        lane.n_requeried += len(ticket.indices)
+                        if ticket.indices:
+                            lane.inflight_host[list(ticket.indices)] = True
+                            pending = True
+                        exhausted_mask[b, exhausted] = True
+                    if exhausted_mask.any():
+                        # the escalation is exhausted: the graph outvotes
+                        # the crowd (un-publish and deduce)
+                        stacked = session_trust_graph_batch(stacked,
+                                                            exhausted_mask)
+                stage[2] = stacked
         progress = False
+        stop_set = {id(lane) for lane in budget_stops}
         for key, lanes, stacked, _ in staged:
             self._stacks[key] = (tuple(lanes), stacked)
             labels = stacked.labels.cpu().numpy()
@@ -534,17 +852,31 @@ class JoinService:
                 new = labels[b, :lane.p]
                 progress |= bool((new != lane.labels_host).any())
                 lane.labels_host = new
-                if lane.done:  # leaving the group: materialize its state
+                if id(lane) in stop_set and (new == UNKNOWN).any():
+                    # out of budget with pairs still open: trust the graph
+                    # for the rest (DESIGN.md §10) and finalize
+                    lane.state = index_state(stacked, b)
+                    self._budget_stop(lane)
+                    progress = True
+                elif lane.done:  # leaving the group: materialize its state
                     lane.state = index_state(stacked, b)
         return progress
 
     # -- on-device round engine ----------------------------------------------
     def _fused_eligible(self, lane: _Lane) -> bool:
         """True when the lane's next crowd wave can run on the device: fused
-        rounds are on, the transport is immediate (a latency model makes
-        answer arrival part of the semantics), the crowd's answers are
+        rounds are on, cluster tasks are off (a task's harvest depends on
+        live host-side coverage), the transport is immediate (a latency
+        model makes answer arrival part of the semantics), no budget or
+        slot cap re-decides each round on the host, the crowd's answers are
         order-independent, and no §9 screen has fired on the lane."""
-        return (self.fused_rounds and self.latency is None and lane.fused_ok
+        return (self.fused_rounds
+                and not self.cluster_tasks
+                and self.latency is None
+                and self.slots_per_round is None
+                and lane.budget_cents is None
+                and not lane.budget_stopped
+                and lane.fused_ok
                 and lane.answers_host is not None)
 
     def _drive_fused(self, active: List[_Lane],
@@ -620,8 +952,13 @@ class JoinService:
     def _publish(self, lane: _Lane, gateway: CrowdGateway) -> int:
         """Select the lane's current frontier and post it (instant decision:
         in-flight pairs are assumed matching but never re-posted).  Adaptive
-        lanes refresh priorities from the live posterior first.  Returns
-        the pairs posted."""
+        lanes refresh priorities from the live posterior first; a budgeted
+        lane posts only what its budget affords (highest gain first) and
+        stops on budget when it affords nothing; cluster planning publishes
+        its harvested pairs beside the frontier.  Returns the pairs
+        posted."""
+        if lane.budget_stopped:
+            return 0
         if lane.adaptive:
             lane.state = session_refresh_priorities(lane.state,
                                                     lane.prior_dev)
@@ -629,8 +966,28 @@ class JoinService:
         idx = np.nonzero(frontier.cpu().numpy())[0]
         if len(idx) == 0:
             return 0
+        afford = lane.affordable(gateway)
+        if afford == 0:
+            self._budget_stop(lane)
+            return 0
+        cut = afford is not None and afford < len(idx)
+        if cut:
+            if lane.adaptive:
+                # the refresh above wrote -gain into every pending pair
+                gains = -lane.state.priority.cpu().numpy()
+            else:
+                gains = session_gains(lane.state,
+                                      lane.prior_dev).cpu().numpy()
+            idx = idx[np.argsort(-gains[idx], kind="stable")][:afford]
+        clusters, pair_idx = self._plan_tasks(lane, idx, gateway)
+        if cut or clusters:
+            # publish what posts: the budget's cut and the harvested pairs
+            frontier = np.zeros(frontier.shape[0], bool)
+            frontier[idx] = True
+            for _, cov in clusters:
+                frontier[cov] = True
         lane.state = session_mark_published(lane.state, frontier)
-        n = self._post_lane(lane, idx, gateway)
+        n = self._post_lane(lane, clusters, pair_idx, gateway)
         lane.round_sizes.append(n)
         lane.in_flight += n
         return n
@@ -641,28 +998,60 @@ class JoinService:
         lane.state = session_deduce(lane.state)
         lane.labels_host = lane.state.labels[:lane.p].cpu().numpy()
 
+    def _handle_conflicts(self, lane: _Lane, cidx: np.ndarray,
+                          gateway: CrowdGateway) -> None:
+        """Requery escalation of rejected answers: re-post them (they stay
+        published, so deduction holds off) and let the graph label the
+        exhausted ones (DESIGN.md §9).  Under the drop policy the fold has
+        already settled them: nothing to do."""
+        if self.conflict_policy != "requery":
+            return
+        ticket, exhausted = gateway.requery(
+            lane.req.rid, lane.ordered, cidx, lane.req.crowd,
+            cents_per_assignment=lane.rate_cents,
+            budget_cents=lane.budget_cents)
+        lane.n_requeried += len(ticket.indices)
+        lane.in_flight += len(ticket.indices)
+        if ticket.indices:
+            lane.inflight_host[list(ticket.indices)] = True
+        if exhausted:
+            mask = np.zeros(lane.state.u.shape[0], bool)
+            mask[exhausted] = True
+            lane.state = session_trust_graph(lane.state, mask)
+
     def _fold_event(self, lane: _Lane, got: List, gateway: CrowdGateway
                     ) -> None:
         """Fold one lane's answers of one platform event.  A returned match
         agrees with the optimistic assumption, so the selection can change
         only on a non-match, a rejected answer or a drained lane (§5.2):
-        then fold + deduce + re-select at once; otherwise apply alone."""
+        then fold + deduce + re-select at once; otherwise apply alone.
+        Under the requery policy a rejected answer stays published and is
+        escalated."""
         updates = np.full(lane.state.u.shape[0], UNKNOWN, np.int32)
         for ans in got:
             updates[ans.index] = ans.label
+            lane.inflight_host[ans.index] = False
         lane.in_flight -= len(got)
+        requery = self.conflict_policy == "requery"
         fold_now = any(ans.label != POS for ans in got) or lane.in_flight == 0
         if fold_now:
-            lane.state, cmask = session_fold_answers(lane.state, updates)
+            lane.state, cmask = session_fold_answers(
+                lane.state, updates, keep_conflicts_published=requery)
         else:
-            lane.state, cmask = session_apply_answers(lane.state, updates)
-        # under the drop policy (requery, ROADMAP A9.4, is refused) the fold
-        # has settled a rejected answer: the pair takes its deduced label
-        if not fold_now and bool(cmask[:lane.p].any()):
-            # a rejected answer is a non-match-grade event: the optimistic
-            # assumption broke though every returned label read match
-            self._sweep_lane(lane)
-            fold_now = True
+            lane.state, cmask = session_apply_answers(
+                lane.state, updates, keep_conflicts_published=requery)
+        # under the drop policy a fold has settled its rejected answers, so
+        # the mask is read (a host sync) only where it still decides
+        cidx = (np.nonzero(cmask[:lane.p].cpu().numpy())[0]
+                if requery or not fold_now else ())
+        if len(cidx):
+            self._handle_conflicts(lane, cidx, gateway)
+            if not fold_now:
+                # a rejected answer is a non-match-grade event: the
+                # optimistic assumption broke though every returned label
+                # read match
+                self._sweep_lane(lane)
+                fold_now = True
         lane.labels_host = lane.state.labels[:lane.p].cpu().numpy()
         if fold_now and not lane.done:
             self._publish(lane, gateway)
@@ -671,7 +1060,7 @@ class JoinService:
         """Event-driven serving (§5.2 lifted into the service): lanes fold
         answers as the gateway delivers them; a non-matching answer or a
         drained lane triggers deduce + re-frontier + post immediately."""
-        gateway = CrowdGateway(latency=self.latency, nf=self.nf)
+        gateway = self._gateway()
         active: List[_Lane] = []
         while self.queue or active or gateway.in_flight:
             refilled = False
@@ -726,6 +1115,11 @@ class JoinService:
         return dict(self.results)
 
     # -- entry point ---------------------------------------------------------
+    def _gateway(self) -> CrowdGateway:
+        """A fresh crowd transport for one run."""
+        return CrowdGateway(latency=self.latency, nf=self.nf,
+                            aggregation=self.aggregation)
+
     def run(self) -> Dict[int, JoinSessionResult]:
         """Drain the queue: lanes refill as sessions finish.  Under
         ``async_mode`` the event-driven discipline; otherwise whole crowd
@@ -735,7 +1129,7 @@ class JoinService:
         served."""
         if self.async_mode:
             return self._run_async()
-        gateway = CrowdGateway(latency=self.latency, nf=self.nf)
+        gateway = self._gateway()
         self._stacks.clear()
         self._prior_stacks.clear()
         active: List[_Lane] = []

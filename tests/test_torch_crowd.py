@@ -107,8 +107,6 @@ def test_deterministic_ballots_mint_fresh_workers_as_reference():
     assert got.n_asked == 0 and got.ask_ballot(pairs, 0).workers == (0,)
     with pytest.raises(NotImplementedError):
         Crowd().ask_ballot(pairs, 0)
-    with pytest.raises(NotImplementedError, match="A9.8"):
-        got.ask_cluster(pairs, [0, 1])
     with pytest.raises(ValueError, match="ground truth"):
         PerfectCrowd().ask(PairSet(pairs.u, pairs.v, pairs.likelihood), 0)
 
@@ -188,11 +186,3 @@ def test_gateway_one_vote_posts_match_reference(cents):
     assert perfect.n_asked == ref_perfect.n_asked
     assert noisy.rng.random() == ref_noisy.rng.random()
 
-
-def test_gateway_refuses_what_is_not_ported():
-    _, pairs = _pairs(0)
-    gw = CrowdGateway()
-    with pytest.raises(NotImplementedError, match="A9.4"):
-        gw.requery(0, pairs, [0], PerfectCrowd())
-    with pytest.raises(NotImplementedError, match="A9.8"):
-        gw.post_cluster(0, pairs, [0, 1], PerfectCrowd())

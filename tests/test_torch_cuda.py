@@ -674,6 +674,59 @@ def test_async_service_on_card_matches_cpu(dev, noisy):
     assert ud_ops.union_deduce.launches > launches
 
 
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_budgeted_requery_service_on_card_matches_cpu(dev, async_mode):
+    """Budgets, the slot allocator and requery escalation on the per-round
+    path (barrier) and the event loop (async) on the card and on the CPU:
+    every result field identical, ``union_deduce`` launched."""
+    from repro_torch.core.crowd import LatencyModel, NoisyCrowd
+
+    sessions = _noisy_sessions(3, 3)
+    results, launches = [], ud_ops.union_deduce.launches
+    for device in (dev, "cpu"):
+        svc = JoinService(
+            lanes=2, conflict_policy="requery", device=device,
+            slots_per_round=None if async_mode else 40,
+            latency=LatencyModel(n_workers=6, seed=7) if async_mode else None,
+            async_mode=async_mode, nf=async_mode)
+        rids = [svc.submit(ps, NoisyCrowd(error_rate=0.4, qualification=False,
+                                          seed=k),
+                           budget_cents=[120.0, None, 60.0][k],
+                           cost_per_assignment=1.3)
+                for k, ps in enumerate(sessions)]
+        res = svc.run()
+        results.append([res[r] for r in rids])
+    for card, cpu in zip(*results):
+        _assert_fields_equal(card, cpu)
+    assert results[0][0].stopped_on_budget
+    assert ud_ops.union_deduce.launches > launches
+
+
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_mixed_cluster_service_on_card_matches_cpu(dev, async_mode):
+    """EM aggregation and cluster tasks (the worker-quality stage's mixed
+    config) on the card and on the CPU: every result field identical."""
+    from repro_torch.core.crowd import LatencyModel, NoisyCrowd
+
+    sessions = _noisy_sessions(3, 3)
+    results = []
+    for device in (dev, "cpu"):
+        svc = JoinService(
+            lanes=2, aggregation="em", cluster_tasks=True, device=device,
+            latency=LatencyModel(n_workers=6, seed=7) if async_mode else None,
+            async_mode=async_mode, nf=async_mode)
+        rids = [svc.submit(ps, NoisyCrowd(error_rate=0.15, seed=30 + k,
+                                          n_workers=25,
+                                          worker_concentration=3.0,
+                                          qualification=False))
+                for k, ps in enumerate(sessions)]
+        res = svc.run()
+        results.append([res[r] for r in rids])
+    for card, cpu in zip(*results):
+        _assert_fields_equal(card, cpu)
+    assert sum(r.n_cluster_tasks for r in results[0]) > 0
+
+
 @pytest.mark.parametrize("fused_rounds", [True, False])
 def test_service_past_46340_objects_on_card_matches_cpu(dev, fused_rounds):
     """A session over 65536 objects (int64 keys, the wide union_deduce

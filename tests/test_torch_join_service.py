@@ -23,8 +23,7 @@ from repro_torch.core.cluster_graph import NEG, POS, UNKNOWN
 from repro_torch.core.crowd import Crowd, NoisyCrowd, PerfectCrowd
 from repro_torch.core.pairs import PairSet
 from repro_torch.serve.join_service import (_EMBEDDING_OPTIONS,
-                                            _SERVICE_OPTIONS, _SUBMIT_OPTIONS,
-                                            JoinService)
+                                            _SERVICE_OPTIONS, JoinService)
 
 ULP_ONE = 2.0 ** -23
 
@@ -140,9 +139,6 @@ def test_duplicate_rid_and_overflow_are_reported():
 
 # a value each unported option could take in the reference
 UNPORTED_VALUES = {
-    "budget_cents": 10.0, "cost_per_assignment": 1.0, "slots_per_round": 4,
-    "conflict_policy": "requery", "aggregation": "em",
-    "cluster_tasks": True, "cluster_size": 4, "cluster_assignments": 3,
     "admission": "policy", "checkpoint_dir": "ckpt", "checkpoint_every": 2,
     "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json",
     "streaming": True}
@@ -162,13 +158,9 @@ def test_service_options_not_ported_raise(name, value):
 @pytest.mark.parametrize("name,value", _unported(_EMBEDDING_OPTIONS))
 def test_submit_options_not_ported_raise(name, value):
     svc = JoinService(device="cpu")
-    ps = _port_pairs(make_session_pairsets(1, seed=0)[0])
     emb = torch.ones(4, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         svc.submit_embeddings(emb, emb, 0.5, **{name: value})
-    if name in _SUBMIT_OPTIONS:
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            svc.submit(ps, **{name: value})
     assert not svc.queue
 
 
