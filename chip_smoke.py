@@ -153,6 +153,42 @@ carries on.  Phases, one output line or block each:
    workers cheaper a resolved pair than majority, the slots run identical
    on the CPU; each run's wall, rounds, events, launches, syncs and idle
    share, and host-clock splits of (a) and the mixed run;
+4j. streaming ingest: (a) phase 4's four corpora through
+   ``submit_embeddings(..., streaming=True)`` on 2048 rows a side and four
+   ``append_embeddings`` epochs (1024 a-rows; 1024 b-rows; 512 + 512; 512 +
+   512; every row in corpus order) on ``JoinService(lanes=4)`` under a
+   ``PerfectCrowd``, then ``run()``: each session's epoch candidates
+   together must equal ``sharded_candidates`` over its full corpora bit for
+   bit (set and f32 scores), the index must have scored 4096 x 4096 cells
+   (fewer than re-scoring every epoch), every label must be the truth, and
+   session 0's epochs through ``submit_stream`` on the CPU must give every
+   result field identical; the machine phase an epoch (beside the batch
+   ``submit_embeddings`` of the full corpora), ``run()``'s wall, ``_ingest``
+   an epoch (a separate pass, each call synchronized) and a profiled run's
+   idle share, launches and syncs printed; (b) the paper's
+   datasets at 0.3 split into four epochs each (``split_epochs``) through
+   ``submit_stream`` (``STREAM_RUNS``): up front under the barrier, async,
+   and async on phase 4h's platform; interleaved under the barrier and
+   async on that platform; interleaved under a 120-cent budget; up front
+   under the quickstart's ``NoisyCrowd``; every session's figures must be
+   the reference's, its labels the truth under a ``PerfectCrowd`` (unless
+   stopped on budget), and an up-front stream under a ``PerfectCrowd``
+   equal to the single-shot ``submit`` of the same pairs (every result
+   field; on phase 4h's platform its ``ASYNC_RUNS`` figures,
+   ``sim_minutes`` as floats); (c) phase 4g's corpus under the blocking
+   configuration as a stream: 16384 rows a side, then four epochs of 8192
+   rows alternating sides (the universe passes 46340 objects at the
+   second, the lane's 65536-object bucket at the first): the union equal to ``blocked_candidates`` over the full corpus
+   bit for bit, fewer cells scored than dense, labels the truth, the lane's
+   keys widened from int32 to int64 while open and the wide
+   ``union_deduce`` launched; host LSH seconds an epoch beside phase 4g's
+   batch ``signatures``; then a 5000-pair stream whose first two epochs
+   lie below 32768 ids (int32 keys) and whose later three reach 65535,
+   interleaved, so the lane widens its keys to int64 with real neg keys in
+   its index (recorded at ``session_grow``) and then launches the wide
+   ``union_deduce``, on the card and on the CPU with every field identical;
+   each streaming run's ``union_deduce`` launches are its own, the (b)
+   batch runs apart;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -164,7 +200,7 @@ carries on.  Phases, one output line or block each:
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's
-   launches in ``launches_by_path``);
+   and phase 4j's launches in ``launches_by_path``);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -315,6 +351,74 @@ WORKER_RUNS = {
               (3659, 6, "dd5cb6b5a8b3850c", 11, 0, 166.419999999998, False,
                504, 3490, 115.72000000000082, 0.9917628724994435, None)),
 }
+# phase 4j, streaming ingest.  (a) phase 4's four corpora through
+# submit_embeddings(..., streaming=True) on STREAM_FIRST rows a side, then
+# append_embeddings epochs of (a rows, b rows), every row in corpus order.
+# (b) the paper's datasets at phase 4h's threshold, each split into
+# STREAM_K arrival epochs by split_epochs (seed STREAM_SPLIT_SEED + its
+# index in the run), through submit_stream; each session's figures (see
+# econ_figures) are the JAX package's JoinService on the CPU (jax 0.9.0)
+# with the same options and epochs, from tools/stream_reference.py;
+# tests/test_torch_streaming.py holds the port to the reference itself.
+# (c) phase 4g's corpus under the blocking config: half of it a side, then
+# epochs of a quarter alternating sides (the universe passes 46340 objects
+# at the second; the lane's capacity bucket, 65536 objects, widens its keys
+# at the first), and a large_pairset-style session of LARGE_STREAM_PAIRS,
+# interleaved, whose first two epochs lie below LARGE_STREAM_FIRST_IDS
+# (int32 keys; an interleaved stream ingests its second epoch before the
+# first round) and whose later epochs reach its top id, so its keys widen
+# to int64 with answers folded into them
+STREAM_FIRST = 2048
+STREAM_EPOCHS = ((1024, 0), (0, 1024), (512, 512), (512, 512))
+STREAM_K, STREAM_SPLIT_SEED = 4, SEED
+LARGE_STREAM_EPOCHS = ((8192, 0), (0, 8192), (8192, 0), (0, 8192))
+LARGE_STREAM_PAIRS = dict(n=65536, m=5000, seed=SEED + 60)
+LARGE_STREAM_FIRST_IDS = 32768
+STREAM_RUNS = {
+    # run: (sessions, service options ("latency": phase 4h's platform),
+    #       submit_stream options, crowd, {session: figures})
+    "upfront barrier": (("paper", "product"), {}, {}, "perfect", {
+        "paper": (1655, 7, "f2e1635ff256656f", 0, 0, 3310.0, False, 0, 0,
+                  0.0, 0.9963274868612677, None),
+        "product": (3670, 4, "99c52893d4627b8a", 0, 0, 7340.0, False, 0, 0,
+                    0.0, 0.9558194774346793, None)}),
+    "upfront async": (("paper", "product"), {"async_mode": True}, {},
+                      "perfect", {
+        "paper": (1655, 7, "f2e1635ff256656f", 0, 0, 3310.0, False, 0, 0,
+                  0.0, 0.9963274868612677, None),
+        "product": (3670, 4, "99c52893d4627b8a", 0, 0, 7340.0, False, 0, 0,
+                    0.0, 0.9558194774346793, None)}),
+    "upfront async latency": (("paper", "product"),
+                              {"latency": True, "async_mode": True,
+                               "nf": True}, {}, "perfect", {
+        "paper": (1810, 297, "935bb7ad58aca263", 0, 0, 3620.0, False, 0, 0,
+                  0.0, 0.9963274868612677, 8324.949865851608),
+        "product": (3698, 654, "5361fe657173bdb4", 0, 0, 7396.0, False, 0,
+                    0, 0.0, 0.9558194774346793, 8244.928055729753)}),
+    "interleave barrier": (("paper", "product"), {}, {"interleave": True},
+                           "perfect", {
+        "paper": (1796, 8, "e90d34a6a0747244", 0, 0, 3592.0, False, 0, 0,
+                  0.0, 0.9963274868612677, None),
+        "product": (3797, 4, "83127fc59a86383d", 0, 0, 7594.0, False, 0, 0,
+                    0.0, 0.9558194774346793, None)}),
+    "interleave async latency": (("paper", "product"),
+                                 {"latency": True, "async_mode": True,
+                                  "nf": True}, {"interleave": True},
+                                 "perfect", {
+        "paper": (2326, 516, "c8ab05a738ce4383", 0, 0, 4652.0, False, 0, 0,
+                  0.0, 0.9963274868612677, 9962.113743600179),
+        "product": (3705, 777, "9b6dd02dfcb2945c", 0, 0, 7410.0, False, 0,
+                    0, 0.0, 0.9558194774346793, 9064.019851367448)}),
+    "interleave budget": (("paper", "product"), {},
+                          dict(interleave=True, **ECON_BUDGET), "perfect", {
+        "paper": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                  0.012538398846467305, None),
+        "product": (60, 1, "b3fdec1080bd5304", 0, 0, 120.0, True, 0, 0, 0.0,
+                    0.10353753235547886, None)}),
+    "upfront noisy": (("paper",), {}, {}, "noisy", {
+        "paper": (1690, 7, "424831e7902f7d21", 1, 0, 10140.0, False, 0, 0,
+                  0.0, 0.9790368271954675, None)}),
+}
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -375,6 +479,22 @@ def make_corpus(seed: int, n: int, d: int):
     ids_a, a = side()
     ids_b, b = side()
     return ids_a, a, ids_b, b
+
+
+def split_epochs(pairs, k: int, seed: int):
+    """Split a ``PairSet`` into k non-empty arrival epochs, contiguous chunks
+    of its pair order; each epoch's universe is the largest id it holds, so
+    later epochs grow it (a copy of ``benchmarks/common.py::split_epochs``
+    for the port's ``PairSet``)."""
+    from repro_torch.core.pairs import PairSet
+
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.choice(np.arange(1, len(pairs)), size=k - 1,
+                              replace=False))
+    bounds = [0, *cuts.tolist(), len(pairs)]
+    return [PairSet(pairs.u[a:b], pairs.v[a:b], pairs.likelihood[a:b],
+                    None if pairs.truth is None else pairs.truth[a:b])
+            for a, b in zip(bounds, bounds[1:])]
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -894,7 +1014,8 @@ def large_universe(dev) -> dict:
         raise AssertionError(f"the 50000-object session: differing {diff},"
                              f" {wide} wide launches")
     return {"launches": launches, "large_pairs_wide": wide,
-            "screen_args": screen_args}
+            "screen_args": screen_args,
+            "signatures_s": spent["signatures"]}
 
 
 def _async_figures(res) -> tuple:
@@ -1383,6 +1504,481 @@ def econ_path(dev, corpora) -> dict:
     return {"union_deduce": sum(ud_launches.values()),
             "union_deduce_by_run": ud_launches,
             "pair_scores": ps_launches}
+
+
+def large_stream_epochs():
+    """Phase 4j (c)'s pair stream: ``large_pairset(**LARGE_STREAM_PAIRS)``;
+    its pairs with both ids below ``LARGE_STREAM_FIRST_IDS`` make the first
+    two epochs, the rest three more (:func:`split_epochs`, seed ``SEED``).
+    Each epoch's universe is the largest id it holds."""
+    lp = large_pairset(**LARGE_STREAM_PAIRS)
+    low = np.maximum(lp.u, lp.v) < LARGE_STREAM_FIRST_IDS
+    return split_epochs(lp.take(np.flatnonzero(low)), 2, SEED) \
+        + split_epochs(lp.take(np.flatnonzero(~low)), 3, SEED)
+
+
+def _union_bits(cands, m: int):
+    """The union of candidate batches as (sorted keys row * m + col, their
+    scores' bits); raises on a cell reported twice."""
+    rows = np.concatenate([np.asarray(c.rows, np.int64) for c in cands])
+    cols = np.concatenate([np.asarray(c.cols, np.int64) for c in cands])
+    bits = np.concatenate([np.asarray(c.scores, np.float32).view(np.int32)
+                           for c in cands])
+    keys = rows * m + cols
+    order = np.argsort(keys, kind="stable")
+    keys, bits = keys[order], bits[order]
+    if len(np.unique(keys)) != len(keys):
+        raise AssertionError("a cell was reported by two epochs")
+    return keys, bits
+
+
+def streaming_path(dev, corpora, batch_signatures_s: float) -> dict:
+    """Phase 4j: streaming ingest.  (a) phase 4's four corpora through
+    ``submit_embeddings(..., streaming=True)`` on ``STREAM_FIRST`` rows a
+    side and the ``STREAM_EPOCHS`` of ``append_embeddings``, then ``run()``:
+    each session's epoch candidates together must equal
+    ``sharded_candidates`` over its full corpora bit for bit (set and
+    scores), the index must have scored exactly N x M cells (fewer than
+    re-scoring every epoch), every label must be the truth, and session 0's
+    epochs through ``submit_stream`` alone on the CPU must give every
+    result field identical; the machine phase a session and epoch (beside
+    the batch ``submit_embeddings`` of the full corpora, timed the same
+    way), ``_ingest`` a call, ``run()``'s wall and, from a
+    second run under ``torch.profiler``, its idle share, launches and syncs
+    are printed.  (b) ``STREAM_RUNS`` on the paper's datasets: every
+    session's figures the reference's, its labels the truth under a
+    ``PerfectCrowd`` (transitively consistent under the noisy one and after
+    a budget stop); each up-front stream under a ``PerfectCrowd`` equal to
+    the single-shot ``submit`` of the same pairs (every result field; for
+    the run on phase 4h's platform, ``ASYNC_RUNS``' async figures,
+    ``sim_minutes`` as floats).  (c) phase 4g's corpus as a
+    blocked stream of ``LARGE_STREAM_EPOCHS`` past 46340 objects: the union
+    equal to ``blocked_candidates`` over the full corpus bit for bit, fewer
+    cells scored than dense, labels the truth, the lane's keys widened from
+    int32 to int64 while it was open and the wide ``union_deduce`` launched
+    after; host LSH seconds an epoch beside phase 4g's batch signatures;
+    then :func:`large_stream_epochs` interleaved on the card and on the CPU
+    with every field identical.  Kernel counts are zeroed just before each
+    path and read just after it."""
+    import torch
+
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores.sharded import \
+        StreamingCandidateIndex
+    from repro_torch.serve import join_service
+
+    t_phase = time.perf_counter()
+    recorded = {}       # id(index) -> every epoch's candidates
+    # (keys before, keys after, n before, n after, the neg keys before):
+    # the keys are kept, not counted, so recording makes no host sync
+    grown = []
+    spent = {"signatures": []}
+    originals = {
+        "append": StreamingCandidateIndex.append,
+        "session_grow": join_service.session_grow,
+        "signatures": blocking.signatures}
+
+    def rec_append(self, new_a=None, new_b=None):
+        out = originals["append"](self, new_a, new_b)
+        recorded.setdefault(id(self), []).append(out)
+        return out
+
+    def rec_grow(state, p_cap, n_cap):
+        out = originals["session_grow"](state, p_cap, n_cap)
+        grown.append((state.neg_keys.dtype, out.neg_keys.dtype,
+                      state.n_objects, out.n_objects, state.neg_keys))
+        return out
+
+    def timed_signatures(x, config):
+        t0 = time.perf_counter()
+        out = originals["signatures"](x, config)
+        spent["signatures"].append(time.perf_counter() - t0)
+        return out
+
+    StreamingCandidateIndex.append = rec_append
+    join_service.session_grow = rec_grow
+    blocking.signatures = timed_signatures
+    try:
+        out = _streaming_runs(dev, corpora, batch_signatures_s, recorded,
+                              grown, spent)
+    finally:
+        StreamingCandidateIndex.append = originals["append"]
+        join_service.session_grow = originals["session_grow"]
+        blocking.signatures = originals["signatures"]
+    print(f"[4j] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _streaming_runs(dev, corpora, batch_signatures_s, recorded, grown,
+                    spent) -> dict:
+    """The body of :func:`streaming_path`, its stages instrumented."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.crowd import LatencyModel, NoisyCrowd, PerfectCrowd
+    from repro_torch.core.metrics import transitively_consistent
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+    from repro_torch.kernels.union_deduce import kernel as ud_kernel
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    launches = {}
+
+    def growth(g):
+        """A recorded growth as printed: dtypes, universes, live keys."""
+        old, new, n0, n1, keys = g
+        return (str(old).split(".")[-1], str(new).split(".")[-1], n0, n1,
+                int((keys != np.iinfo(str(old).split(".")[-1]).max).sum()))
+
+    def on(x):
+        return embeddings_from_numpy(x, dev)
+
+    # (a) dense embedding streams at the join cells' width
+    bounds_a, bounds_b = [STREAM_FIRST], [STREAM_FIRST]
+    for da, db in STREAM_EPOCHS:
+        bounds_a.append(bounds_a[-1] + da)
+        bounds_b.append(bounds_b[-1] + db)
+    n_full = bounds_a[-1]
+    if bounds_b[-1] != n_full or n_full > len(corpora[0][1]):
+        raise AssertionError("the stream's epochs do not cover the corpus")
+    ttms = [int((ia[:, None] == ib[None, :]).sum())
+            for ia, _, ib, _ in corpora]
+
+    def dense_stream_service(machine_s=None):
+        svc = join_service.JoinService(lanes=N_SESSIONS, device=dev)
+        for i, (ids_a, ea, ids_b, eb) in enumerate(corpora):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rid = svc.submit_embeddings(
+                on(ea[:STREAM_FIRST]), on(eb[:STREAM_FIRST]), THRESHOLD,
+                crowd=PerfectCrowd(),
+                truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
+                total_true_matches=ttms[i], streaming=True)
+            torch.cuda.synchronize()
+            times = [time.perf_counter() - t0]
+            for k in range(len(STREAM_EPOCHS)):
+                a0, a1 = bounds_a[k], bounds_a[k + 1]
+                b0, b1 = bounds_b[k], bounds_b[k + 1]
+                t0 = time.perf_counter()
+                svc.append_embeddings(rid, on(ea[a0:a1]) if a1 > a0 else None,
+                                      on(eb[b0:b1]) if b1 > b0 else None)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if machine_s is not None:
+                machine_s.append(times)
+        return svc
+
+    recorded.clear()
+    ps_ops.pair_scores.launches = 0
+    ud_ops.union_deduce.launches = 0
+    machine_s = []
+    svc = dense_stream_service(machine_s)
+    indexes = [svc._streams[req.rid].index for req in svc.queue]
+    sessions = [(req.rid, [req.pairs, *svc._pending_arrivals[req.rid]])
+                for req in svc.queue]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = svc.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches["dense"] = {"pair_scores": ps_ops.pair_scores.launches,
+                         "union_deduce": ud_ops.union_deduce.launches}
+    for (rid, epochs), index, (ids_a, ea, ids_b, eb) in zip(
+            sessions, indexes, corpora):
+        keys, bits = _union_bits(recorded[id(index)], n_full)
+        full = sharded_candidates(on(ea[:n_full]), on(eb[:n_full]),
+                                  THRESHOLD)
+        want_keys, want_bits = _union_bits([full], n_full)
+        bitwise = np.array_equal(keys, want_keys) and \
+            np.array_equal(bits, want_bits)
+        res = results[rid]
+        truth = np.concatenate([e.truth for e in epochs])
+        right = (np.array_equal(res.labels, truth)
+                 and index.pairs_scored == n_full * n_full
+                 and index.pairs_scored < index.full_rescore_pairs)
+        print(f"[4j dense {rid}] P {len(truth)} in {len(epochs)} epochs "
+              f"({', '.join(str(len(e)) for e in epochs)}): union of the "
+              f"epochs equal to sharded_candidates bit for bit {bitwise} "
+              f"({len(keys)} candidates); cells scored {index.pairs_scored}"
+              f" of {index.full_rescore_pairs} re-scoring each epoch; "
+              f"crowdsourced {res.n_crowdsourced} deduced {res.n_deduced} "
+              f"rounds {res.n_rounds}; labels the truth {right}")
+        if not (bitwise and right):
+            raise AssertionError(f"4j dense session {rid} is wrong")
+    batch_s = []
+    batch = join_service.JoinService(lanes=N_SESSIONS, device=dev)
+    for ids_a, ea, ids_b, eb in corpora:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch.submit_embeddings(
+            on(ea[:n_full]), on(eb[:n_full]), THRESHOLD, crowd=PerfectCrowd(),
+            truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c])
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    del batch
+    # _ingest's own time, in a separate pass: each call synchronized before
+    # and after, so this pass's run() is not the one timed above
+    ingest_ms = []
+    svc = dense_stream_service()
+    Svc = join_service.JoinService
+    plain_ingest = Svc._ingest
+
+    def timed_ingest(self, lane, new_pairs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_ingest(self, lane, new_pairs)
+        torch.cuda.synchronize()
+        ingest_ms.append(1e3 * (time.perf_counter() - t0))
+
+    Svc._ingest = timed_ingest
+    try:
+        svc.run()
+    finally:
+        Svc._ingest = plain_ingest
+    per_epoch = np.median(np.asarray(machine_s), axis=0)
+    print(f"[4j dense] machine phase a session (median of {N_SESSIONS}): "
+          f"submit {per_epoch[0]:.4f} s, epochs "
+          + ", ".join(f"{t:.4f}" for t in per_epoch[1:])
+          + f" s (sum {per_epoch.sum():.4f} s) against the batch "
+          f"submit_embeddings {np.median(batch_s):.4f} s (median); _ingest "
+          "calls (a separate synchronized pass), lane by lane, "
+          "epoch by epoch: " + ", ".join(f"{t:.3f}" for t in ingest_ms)
+          + f" ms; run() wall {run_s:.4f} s; launches {launches['dense']}")
+    if min(launches["dense"].values()) < 1:
+        raise AssertionError(f"4j dense: a kernel never launched: "
+                             f"{launches['dense']}")
+    rid0, epochs0 = sessions[0]
+    one = join_service.JoinService(lanes=1, device="cpu")
+    cpu_rid = one.submit_stream(epochs0, PerfectCrowd(),
+                                total_true_matches=ttms[0])
+    t0 = time.perf_counter()
+    cpu = result_fields(one.run()[cpu_rid])
+    card = result_fields(results[rid0])
+    diff = [k for k in card if k != "rid" and card[k] != cpu[k]]
+    print(f"[4j parity] session 0's epochs through submit_stream on the "
+          f"card and on the CPU ({time.perf_counter() - t0:.4f} s): "
+          f"{len(card)} fields, differing {diff}")
+    if diff:
+        raise AssertionError(f"4j dense session 0: card and CPU differ in "
+                             f"{diff}")
+    svc = dense_stream_service()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.run()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    _, busy, syncs, n_launch = profile_counts(prof)
+    print(f"[4j profile dense] run() under the profiler {prof_s:.4f} s: "
+          f"device busy {busy:.4f} s (idle share {1 - busy / prof_s:.4f}), "
+          f"{n_launch} kernel launches, {syncs} host syncs")
+
+    # (b) pair streams of the paper's datasets against the reference
+    cands = {name: _pipeline_candidates(name, ASYNC_TAU)
+             for name in ("paper", "product")}
+
+    def crowd(kind):
+        return (PerfectCrowd() if kind == "perfect"
+                else NoisyCrowd(**ASYNC_NOISY))
+
+    def stream_service(tag, stream=True):
+        names, svc_opts, sub_opts, kind, _ = STREAM_RUNS[tag]
+        opts = dict(svc_opts)
+        if opts.pop("latency", False):
+            opts["latency"] = LatencyModel(**ASYNC_LATENCY)
+        svc = join_service.JoinService(lanes=ECON_LANES, device=dev, **opts)
+        sub = dict(sub_opts)
+        interleave = sub.pop("interleave", False)
+        for i, n in enumerate(names):
+            ds, ps = cands[n]
+            if stream:
+                svc.submit_stream(split_epochs(ps, STREAM_K,
+                                               STREAM_SPLIT_SEED + i),
+                                  crowd(kind), interleave=interleave,
+                                  total_true_matches=ds.total_true_matches,
+                                  **sub)
+            else:
+                svc.submit(ps, crowd(kind),
+                           total_true_matches=ds.total_true_matches, **sub)
+        return svc
+
+    walls = {}
+    stream_launches = {}    # each streaming run's own, batch runs apart
+    for tag, (names, svc_opts, sub_opts, kind, expected) in \
+            STREAM_RUNS.items():
+        svc = stream_service(tag)
+        ud_ops.union_deduce.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = svc.run()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        stream_launches[tag] = ud_ops.union_deduce.launches
+        # an up-front stream equals its single-shot batch run where the
+        # crowd's answers do not depend on the order they are drawn in (a
+        # stream's pair slots follow the epochs, a noisy crowd's draws
+        # follow the slots)
+        upfront = kind == "perfect" and not sub_opts.get("interleave")
+        batch = None
+        if upfront and not svc_opts.get("latency"):
+            batch = stream_service(tag, stream=False).run()
+        for rid, name in zip(sorted(out), names):
+            res = out[rid]
+            ps = cands[name][1]
+            got = econ_figures(res)
+            # a budget stop trusts the graph for what it cannot afford
+            right = (np.array_equal(res.labels, ps.truth)
+                     if kind == "perfect" and not res.stopped_on_budget
+                     else (transitively_consistent(ps, res.labels)
+                           and res.n_crowdsourced + res.n_deduced == len(ps)))
+            if batch is not None:
+                same = result_fields(batch[rid]) == result_fields(res)
+            elif upfront:
+                same = _async_figures(res) == ASYNC_RUNS["async"][3][name]
+            else:
+                same = None
+            print(f"[4j {tag} {name}] P {len(ps)} crowdsourced "
+                  f"{res.n_crowdsourced} rounds {res.n_rounds} rejected "
+                  f"{res.n_conflicts} spent {res.n_spent_cents!r} stopped "
+                  f"{res.stopped_on_budget} sim_minutes {res.sim_minutes!r};"
+                  f" the reference's figures {got == expected[name]}"
+                  + ("" if same is None else
+                     f"; equal to the single-shot batch run {same}"))
+            if got != expected[name] or not right or same is False:
+                raise AssertionError(f"4j {tag} {name}: figures {got}, "
+                                     f"expected {expected[name]}, labels "
+                                     f"right {right}, batch {same}")
+        print(f"[4j {tag}] run() wall {walls[tag]:.4f} s; union_deduce "
+              f"launches {stream_launches[tag]}")
+    launches["pairs"] = {"union_deduce": sum(stream_launches.values())}
+    if min(stream_launches.values()) < 1:
+        raise AssertionError(f"4j (b): union_deduce never launched in a "
+                             f"stream: {stream_launches}")
+
+    # (c) a blocked stream past 46340 objects
+    cfg = blocking.BlockingConfig(**BLOCKING)
+    ids_a, ea, ids_b, eb = make_corpus(LARGE_SEED, LARGE_ROWS, DIM)
+    k = int(max(ids_a.max(), ids_b.max())) + 1
+    ttm = int((np.bincount(ids_a, minlength=k)
+               * np.bincount(ids_b, minlength=k)).sum())
+    first = LARGE_ROWS // 2
+    la, lb = [first], [first]
+    for da, db in LARGE_STREAM_EPOCHS:
+        la.append(la[-1] + da)
+        lb.append(lb[-1] + db)
+    if la[-1] != LARGE_ROWS or lb[-1] != LARGE_ROWS:
+        raise AssertionError("the large stream does not cover the corpus")
+    recorded.clear()
+    grown.clear()
+    spent["signatures"].clear()
+    for counter in (ps_ops.pair_scores, ps_ops.pair_scores_compact,
+                    ud_ops.union_deduce):
+        counter.launches = 0
+    ud_ops.union_deduce.wide_launches = 0
+    svc = join_service.JoinService(lanes=1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = svc.submit_embeddings(
+        on(ea[:first]), on(eb[:first]), THRESHOLD, crowd=PerfectCrowd(),
+        truth_fn=lambda r, c: ids_a[r] == ids_b[c], total_true_matches=ttm,
+        blocking=cfg, streaming=True)
+    torch.cuda.synchronize()
+    epoch_s = [time.perf_counter() - t0]
+    for j in range(len(LARGE_STREAM_EPOCHS)):
+        t0 = time.perf_counter()
+        svc.append_embeddings(
+            rid, on(ea[la[j]:la[j + 1]]) if la[j + 1] > la[j] else None,
+            on(eb[lb[j]:lb[j + 1]]) if lb[j + 1] > lb[j] else None)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+    sig_s = list(spent["signatures"])
+    index = svc._streams[rid].index
+    epochs = [svc.queue[0].pairs, *svc._pending_arrivals[rid]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = svc.run()[rid]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches["blocked"] = {
+        "pair_scores": ps_ops.pair_scores.launches,
+        "pair_scores_compact": ps_ops.pair_scores_compact.launches,
+        "union_deduce": ud_ops.union_deduce.launches,
+        "union_deduce_wide": ud_ops.union_deduce.wide_launches}
+    keys, bits = _union_bits(recorded[id(index)], LARGE_ROWS)
+    full = blocking.blocked_candidates(on(ea), on(eb), THRESHOLD, cfg)
+    want_keys, want_bits = _union_bits([full], LARGE_ROWS)
+    bitwise = np.array_equal(keys, want_keys) and \
+        np.array_equal(bits, want_bits)
+    truth = np.concatenate([e.truth for e in epochs])
+    n_objects = max(e.n_objects for e in epochs)
+    widened = [growth(g) for g in grown]
+    whole = epochs[0]
+    for e in epochs[1:]:
+        whole = whole.concat(e)
+    right = (np.array_equal(res.labels, truth)
+             and transitively_consistent(whole, res.labels))
+    print(f"[4j large stream] {first} rows a side, then "
+          f"{len(LARGE_STREAM_EPOCHS)} epochs to {LARGE_ROWS} ({n_objects} "
+          f"objects), P {len(truth)}: union equal to blocked_candidates bit "
+          f"for bit {bitwise} ({len(keys)} candidates); cells scored "
+          f"{index.pairs_scored} of {LARGE_ROWS * LARGE_ROWS} dense "
+          f"({index.pairs_scored / LARGE_ROWS ** 2:.4f}); lane growth "
+          f"{widened}; crowdsourced {res.n_crowdsourced} deduced "
+          f"{res.n_deduced} rounds {res.n_rounds}; labels the truth {right};"
+          f" launches {launches['blocked']}")
+    print(f"[4j large stream] machine phase: submit {epoch_s[0]:.4f} s, "
+          f"epochs " + ", ".join(f"{t:.4f}" for t in epoch_s[1:])
+          + " s; host LSH (signatures, a side a call: the submit's two "
+          "sides, then each epoch's) " + ", ".join(f"{t:.4f}" for t in sig_s)
+          + f" s against phase 4g's batch {batch_signatures_s:.4f} s; "
+          f"run() wall {run_s:.4f} s")
+    if not (bitwise and right) or n_objects <= ud_kernel.MAX_OBJECTS \
+            or index.pairs_scored >= LARGE_ROWS * LARGE_ROWS \
+            or not any(a == torch.int32 and b == torch.int64
+                       for a, b, *_ in grown) \
+            or launches["blocked"]["union_deduce_wide"] < 1 \
+            or launches["blocked"]["pair_scores_compact"] < 1 \
+            or launches["blocked"]["pair_scores"]:
+        raise AssertionError(f"4j large stream is wrong: launches "
+                             f"{launches['blocked']}, growth {widened}")
+    epochs = large_stream_epochs()
+    fields = []
+    for device in (dev, "cpu"):
+        grown.clear()
+        wide = ud_ops.union_deduce.wide_launches
+        one = join_service.JoinService(lanes=1, device=device)
+        rid = one.submit_stream(epochs, PerfectCrowd(), interleave=True)
+        t0 = time.perf_counter()
+        out = one.run()[rid]
+        fields.append(result_fields(out))
+        print(f"[4j large pairs] {sum(len(e) for e in epochs)} pairs in "
+              f"{len(epochs)} interleaved epochs (universes "
+              f"{[e.n_objects for e in epochs]}) on {device}: crowdsourced "
+              f"{out.n_crowdsourced} deduced {out.n_deduced} rounds "
+              f"{out.n_rounds} in {time.perf_counter() - t0:.4f} s")
+        if device == dev:
+            wide = ud_ops.union_deduce.wide_launches - wide
+            # (keys before, after, universes, real neg keys before)
+            widened = [growth(g) for g in grown]
+    diff = [k for k in fields[0] if fields[0][k] != fields[1][k]]
+    truth = np.concatenate([e.truth for e in epochs])
+    live_widening = any(g[:2] == ("int32", "int64") and g[4] > 0
+                        for g in widened)
+    print(f"[4j large pairs] card vs cpu: {len(fields[0])} fields, "
+          f"differing {diff}; lane growth on the card {widened} (keys "
+          f"widened with real neg keys in the index {live_widening}); wide "
+          f"union_deduce launches {wide}")
+    if diff or wide < 1 or not live_widening \
+            or max(e.n_objects for e in epochs[:2]) > LARGE_STREAM_FIRST_IDS \
+            or not np.array_equal(np.asarray(fields[0]["labels"][1]), truth):
+        raise AssertionError(f"4j large pairs: differing {diff}, {wide} "
+                             f"wide launches, growth {widened}")
+    launches["large_pairs_wide"] = wide
+    return {"launches": launches, "walls": walls}
 
 
 def _pipeline_candidates(name: str, tau: float):
@@ -2637,6 +3233,10 @@ def run(dev) -> None:
     # -- 4i. the service's crowd economics ----------------------------------
     econ = econ_path(dev, corpora)
 
+    # -- 4j. streaming ingest -----------------------------------------------
+    stream = streaming_path(dev, corpora, large["signatures_s"])
+    s_launch = stream["launches"]
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -2712,7 +3312,8 @@ def run(dev) -> None:
              "dense": launches["pair_scores"],
              "lm_machine_phase": machine["launches"]["pair_scores"],
              "noisy_dense": noisy_launches["pair_scores"],
-             "crowd_economics": econ["pair_scores"]},
+             "crowd_economics": econ["pair_scores"],
+             "streaming": s_launch["dense"]["pair_scores"]},
          "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
@@ -2726,6 +3327,10 @@ def run(dev) -> None:
          "source": "src/repro_torch/csrc/pair_scores_compact.cu",
          "replaces": "src/repro/kernels/pair_scores/kernel.py:141",
          "launches": blocked_launches["pair_scores_compact"],
+         "launches_by_path": {
+             "blocked": blocked_launches["pair_scores_compact"],
+             "large_universe": large["launches"]["pair_scores_compact"],
+             "streaming": s_launch["blocked"]["pair_scores_compact"]},
          "max_abs_err": cs_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores_compact(
              *chunk_args, THRESHOLD, c_call, bn, bm)),
@@ -2748,7 +3353,10 @@ def run(dev) -> None:
              "noisy_dense": noisy_launches["union_deduce"],
              "paper_pipeline": pipeline["launches"]["union_deduce"],
              "async_serving": async_run["launches"],
-             "crowd_economics": econ["union_deduce"]},
+             "crowd_economics": econ["union_deduce"],
+             "streaming": s_launch["dense"]["union_deduce"]
+             + s_launch["pairs"]["union_deduce"]
+             + s_launch["blocked"]["union_deduce"]},
          "crowd_economics_by_run": econ["union_deduce_by_run"],
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
@@ -2771,7 +3379,9 @@ def run(dev) -> None:
          "launches": large["launches"]["union_deduce_wide"],
          "launches_by_path": {
              "large_universe": large["launches"]["union_deduce_wide"],
-             "large_pairs": large["large_pairs_wide"]},
+             "large_pairs": large["large_pairs_wide"],
+             "streaming": s_launch["blocked"]["union_deduce_wide"]
+             + s_launch["large_pairs_wide"]},
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "shape": [wide_B, wide_n, wide_P],

@@ -22,12 +22,14 @@ from .graph import (ROUNDS_CONFLICT, ROUNDS_DONE, ROUNDS_EMPTY,
                     label_parallel_torch_batch, make_session_state,
                     make_session_state_batch, neg_keys, next_pow2,
                     pack_sessions, pair_key_bits, pair_keys_fit,
+                    session_append_pairs, session_append_pairs_batch,
                     session_apply_answers, session_apply_answers_batch,
                     session_deduce, session_deduce_batch,
                     session_fold_answers, session_fold_answers_batch,
                     session_from_labels, session_frontier,
                     session_frontier_batch, session_grow,
-                    session_mark_published, session_mark_published_batch,
+                    session_grow_batch, session_mark_published,
+                    session_mark_published_batch,
                     session_run_rounds, session_run_rounds_batch,
                     session_seed_labels, session_seed_labels_batch,
                     session_trust_graph, session_trust_graph_batch)
@@ -80,7 +82,8 @@ __all__ = [
     "session_trust_graph", "session_trust_graph_batch",
     "session_run_rounds", "session_run_rounds_batch",
     "ROUNDS_RUNNING", "ROUNDS_DONE", "ROUNDS_EMPTY", "ROUNDS_CONFLICT",
-    "session_grow",
+    "session_grow", "session_grow_batch",
+    "session_append_pairs", "session_append_pairs_batch",
     "pair_key_bits", "pair_keys_fit", "next_pow2",
     "CrowdGateway", "CrowdTicket", "CrowdAnswer",
     "crowdsourced_join", "JoinResult", "quality", "Quality",

@@ -253,21 +253,31 @@ def make_session_state(u, v, n_objects: int, pair_capacity: int = 0,
 
 def session_grow(state: SessionState, pair_capacity: int,
                  object_capacity: int) -> SessionState:
-    """Extend one lane's state to larger pair/object capacities.  Every live
-    field keeps its prefix; new pair slots are the inert POS self-loop, new
+    """Extend a state with any leading lane axes to larger pair/object
+    capacities (DESIGN.md §11).  Every live field keeps its prefix, so
+    existing pair slots (labels, published bits, conflicts, priorities,
+    in-flight positions) are untouched and gateway tickets into the old
+    layout stay valid; new pair slots are the inert POS self-loop, new
     objects are singletons, and the neg-key index is re-encoded under the
     larger universe (a strictly monotone map, so it stays sorted), widened
-    to int64 when the larger universe's keys need it."""
-    P_old = state.u.shape[-1]
-    n_old = state.n_objects
-    if pair_capacity < P_old or object_capacity < n_old:
+    to int64 when the larger universe's keys need it, its sentinel the wider
+    dtype's max.  A fresh state grown this way equals ``make_session_state``
+    built at the larger capacities."""
+    if pair_capacity < state.u.shape[-1]:
         raise ValueError(
-            f"session_grow cannot shrink capacities ({P_old}, {n_old}) -> "
-            f"({pair_capacity}, {object_capacity})")
+            f"session_grow cannot shrink pair capacity "
+            f"{state.u.shape[-1]} -> {pair_capacity}")
+    if object_capacity < state.n_objects:
+        raise ValueError(
+            f"session_grow cannot shrink object capacity "
+            f"{state.n_objects} -> {object_capacity}")
     if not pair_keys_fit(object_capacity):
         raise ValueError(
             f"growing to n_objects={object_capacity} overflows "
             f"{pair_key_bits() + 1}-bit pair keys")
+    P_old = state.u.shape[-1]
+    n_old = state.n_objects
+    lead = tuple(state.u.shape[:-1])
     dev = state.u.device
     pad_p = pair_capacity - P_old
     lo, hi, is_pad = _decompose_keys(state.neg_keys, n_old)
@@ -277,23 +287,70 @@ def session_grow(state: SessionState, pair_capacity: int,
                           canonical_keys(lo, hi, object_capacity, kdt))
 
     def pad(x, value, dtype):
-        return torch.cat([x, torch.full((pad_p,), value, dtype=dtype,
-                                        device=dev)])
+        return torch.cat([x, torch.full(lead + (pad_p,), value, dtype=dtype,
+                                        device=dev)], dim=-1)
+
+    def tail(start, stop, dtype):
+        return torch.arange(start, stop, dtype=dtype,
+                            device=dev).expand(lead + (stop - start,))
 
     return SessionState(
         u=pad(state.u, 0, torch.int32),
         v=pad(state.v, 0, torch.int32),
         labels=pad(state.labels, POS, torch.int32),
         published=pad(state.published, False, torch.bool),
-        roots=torch.cat([state.roots, torch.arange(
-            n_old, object_capacity, dtype=torch.int32, device=dev)]),
+        roots=torch.cat([state.roots, tail(n_old, object_capacity,
+                                           torch.int32)], dim=-1),
         neg_keys=pad(rekeyed, key_sentinel(kdt), kdt),
         rounds=state.rounds,
         conflicts=pad(state.conflicts, 0, torch.int32),
-        priority=torch.cat([state.priority, torch.arange(
-            P_old, pair_capacity, dtype=torch.float32, device=dev)]),
+        priority=torch.cat([state.priority, tail(P_old, pair_capacity,
+                                                 torch.float32)], dim=-1),
         n_objects=object_capacity,
     )
+
+
+# The stacked ``(B, P)`` / ``(B, n)`` form pads the same last axis.
+session_grow_batch = session_grow
+
+
+def _append_pairs_impl(state: SessionState, new_u: torch.Tensor,
+                       new_v: torch.Tensor, mask: torch.Tensor
+                       ) -> SessionState:
+    """Claim padded pair slots for newly arrived candidate pairs: ``mask``
+    marks the slots to fill with ``new_u``/``new_v``.  Arrivals enter
+    UNKNOWN and unpublished; no union has happened and no neg key exists for
+    them, so roots and the sorted neg-key index carry over bit for bit, as
+    ``make_session_state`` on the concatenated pairs would build them (the
+    appended slots keep their positional priority)."""
+    return dataclasses.replace(
+        state,
+        u=torch.where(mask, new_u, state.u),
+        v=torch.where(mask, new_v, state.v),
+        labels=torch.where(mask, UNKNOWN, state.labels),
+    )
+
+
+def session_append_pairs(state: SessionState, new_u, new_v, mask
+                         ) -> SessionState:
+    """Fold newly arrived pairs into padded slots.  The mask must claim only
+    padded slots (past the live pair count, which the serving layer
+    tracks); claimed slots become UNKNOWN candidates that the next frontier
+    or deduce sweep treats like any other pending pair."""
+    dev = state.u.device
+    return _append_pairs_impl(
+        state, torch.as_tensor(new_u, dtype=torch.int32, device=dev),
+        torch.as_tensor(new_v, dtype=torch.int32, device=dev),
+        torch.as_tensor(mask, dtype=torch.bool, device=dev))
+
+
+def session_append_pairs_batch(state: SessionState, new_u, new_v, mask
+                               ) -> SessionState:
+    """(B, P) stacked :func:`session_append_pairs`."""
+    return _append_pairs_impl(
+        state, _stacked(new_u, torch.int32, state),
+        _stacked(new_v, torch.int32, state),
+        _stacked(mask, torch.bool, state))
 
 
 def stack_states(states: List[SessionState]) -> SessionState:

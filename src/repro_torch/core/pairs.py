@@ -49,3 +49,22 @@ class PairSet:
             None if self.truth is None else self.truth[order],
             n_objects=self.n_objects,
         )
+
+    def concat(self, other: "PairSet") -> "PairSet":
+        """Append another candidate batch (streaming ingest, DESIGN.md §11):
+        ids index one shared object universe, so the result spans the larger
+        of the two.  Ground truth is all or nothing across the stream: a
+        half-truthed session would corrupt the quality accounting."""
+        if (self.truth is None) != (other.truth is None):
+            raise ValueError(
+                "cannot concat PairSets where only one side carries ground "
+                "truth: quality accounting needs truth for every pair or "
+                "none")
+        return PairSet(
+            np.concatenate([self.u, other.u]),
+            np.concatenate([self.v, other.v]),
+            np.concatenate([self.likelihood, other.likelihood]),
+            None if self.truth is None
+            else np.concatenate([self.truth, other.truth]),
+            n_objects=max(self.n_objects, other.n_objects),
+        )

@@ -54,10 +54,23 @@ grid, thresholded candidates compacted after it.  With ``blocking=`` (a
 buckets are built on the host and only colliding tile pairs are scored,
 through the fused compaction kernel, so the dense grid never exists.
 
+**Streaming ingest** (DESIGN.md §11): a join's candidates may arrive over
+epochs while it runs.  :meth:`JoinService.submit_stream` opens a request
+with its first epoch and queues the rest (all ingested before labeling
+starts, or one an engine round with ``interleave=True``);
+:meth:`JoinService.append` queues one more epoch for an open request.
+``submit_embeddings(..., streaming=True)`` keeps the scored corpus in a
+:class:`~repro_torch.kernels.pair_scores.sharded.StreamingCandidateIndex`
+on the service's device (dense, or LSH-blocked with ``blocking=``), and
+:meth:`JoinService.append_embeddings` scores only the cells new rows add.
+An epoch grows the live lane in place (``session_grow`` then
+``session_append_pairs``): existing pair slots never move, so in-flight
+crowd work, budgets and requery ladders carry over.
+
 Every option of the reference that the port does not implement (admission
-and checkpoints, the cluster cache, streaming) raises
-:class:`NotImplementedError` naming the ROADMAP item that will bring it,
-instead of being silently ignored.
+and checkpoints, the cluster cache) raises :class:`NotImplementedError`
+naming the ROADMAP item that will bring it, instead of being silently
+ignored.
 """
 from __future__ import annotations
 
@@ -78,7 +91,7 @@ from repro_torch.core.graph import (ROUNDS_CONFLICT, ROUNDS_EMPTY,
                                     pair_keys_fit, session_apply_answers,
                                     session_deduce, session_fold_answers,
                                     session_fold_answers_batch,
-                                    session_frontier,
+                                    session_append_pairs, session_frontier,
                                     session_frontier_batch, session_grow,
                                     session_mark_published,
                                     session_mark_published_batch,
@@ -94,7 +107,8 @@ from repro_torch.core.sorting import get_order, validate_order
 from repro_torch.device import DeviceLike, pick_device
 from repro_torch.kernels.pair_scores.blocking import (BlockingConfig,
                                                       blocked_candidates)
-from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+from repro_torch.kernels.pair_scores.sharded import (StreamingCandidateIndex,
+                                                     sharded_candidates)
 
 # Options of the reference that the port does not implement yet: each maps to
 # the value the port's behaviour already equals and the ROADMAP item that
@@ -107,9 +121,6 @@ _SERVICE_OPTIONS = {
     "cluster_cache": (None, "A11 (cross-query cluster cache)"),
     "cache_path": (None, "A9.5 (cache_path) and A11"),
 }
-_EMBEDDING_OPTIONS = {
-    "streaming": (False, "A9.6 (streaming ingest)"),
-}
 
 
 def _reject_unported(where: str, given: dict, table: dict) -> None:
@@ -121,6 +132,20 @@ def _reject_unported(where: str, given: dict, table: dict) -> None:
         if not (value is None if ported is None else value == ported):
             raise NotImplementedError(
                 f"{where}({name}={value!r}) is not ported yet: ROADMAP {item}")
+
+
+@dataclasses.dataclass
+class _EmbeddingStream:
+    """A streaming request's incremental machine phase (DESIGN.md §11): the
+    cached scoring index and the row -> object id maps.  Ids are assigned
+    at arrival (the first corpus keeps a-row i -> i, b-row j -> n_a + j), so
+    appended rows never collide with ids the live session already uses."""
+
+    index: StreamingCandidateIndex
+    truth_fn: Optional[object]     # truth_fn(rows, cols) over global rows
+    ids_a: np.ndarray              # (N,) int32 object id per a-row
+    ids_b: np.ndarray              # (M,) int32 object id per b-row
+    next_id: int                   # first unassigned object id
 
 
 @dataclasses.dataclass
@@ -321,6 +346,13 @@ class JoinService:
                            Tuple[Tuple[_Lane, ...], SessionState]] = {}
         self._prior_stacks: Dict[Tuple[int, int],
                                  Tuple[Tuple[_Lane, ...], torch.Tensor]] = {}
+        # streaming ingest (DESIGN.md §11): arrival epochs queued per rid,
+        # consumed at the lane's next ingest point (one an engine round for
+        # an interleaved stream), and the cached index of each
+        # submit_embeddings(..., streaming=True) request
+        self._pending_arrivals: Dict[int, Deque[PairSet]] = {}
+        self._stream_interleave: Dict[int, bool] = {}
+        self._streams: Dict[int, _EmbeddingStream] = {}
 
     # -- request ingestion ---------------------------------------------------
     def _admit(self, req: JoinRequest) -> int:
@@ -387,7 +419,7 @@ class JoinService:
                           blocking: Optional[BlockingConfig] = None,
                           budget_cents: Optional[float] = None,
                           cost_per_assignment: Optional[float] = None,
-                          **unported) -> int:
+                          streaming: bool = False) -> int:
         """Machine phase + enqueue: score (emb_a x emb_b) with the pair-score
         kernel, keep pairs at or above ``threshold`` (cosine, mapped to a
         [0, 1] likelihood), and queue the session.  The embeddings move to
@@ -402,11 +434,28 @@ class JoinService:
         are scored, through the fused compaction kernel, on the service's
         device (``mesh`` is ignored).  It trades recall at the threshold for
         scored cells; size it with ``BlockingConfig.for_recall``.
-        ``budget_cents`` and ``cost_per_assignment`` as for :meth:`submit`."""
-        _reject_unported("submit_embeddings", unported, _EMBEDDING_OPTIONS)
+        ``budget_cents`` and ``cost_per_assignment`` as for :meth:`submit`.
+
+        ``streaming=True`` keeps the scored corpus in a
+        :class:`StreamingCandidateIndex` on the service's device, so later
+        :meth:`append_embeddings` calls score only the cells new rows add
+        (with ``blocking=``, arrivals hash into the existing buckets);
+        ``truth_fn`` is kept and must then take global row and column
+        indices into the grown corpora.  A capacity overflow rolls the
+        index back before it raises."""
         emb_a = torch.as_tensor(emb_a, device=self.device)
         emb_b = torch.as_tensor(emb_b, device=self.device)
-        if blocking is not None:
+        if streaming:
+            index = StreamingCandidateIndex(threshold, mesh,
+                                            capacity=capacity,
+                                            blocking=blocking,
+                                            device=self.device)
+            cand = index.append(emb_a, emb_b)
+            if cand.n_dropped:
+                # reject before the overflow surfaces: a retry at the
+                # suggested capacity must not find the corpus "already seen"
+                index.rollback_append()
+        elif blocking is not None:
             cand = blocked_candidates(emb_a, emb_b, threshold,
                                       config=blocking, capacity=capacity)
         else:
@@ -414,16 +463,109 @@ class JoinService:
                                       capacity=capacity)
         self._check_candidate_overflow(cand)
         n_a = int(emb_a.shape[0])
+        n_b = int(emb_b.shape[0])
         truth = None
         if truth_fn is not None:
             truth = np.asarray(truth_fn(cand.rows, cand.cols), bool)
         pairs = PairSet(u=cand.rows, v=cand.cols + n_a,
                         likelihood=(cand.scores + 1.0) / 2.0, truth=truth,
-                        n_objects=n_a + int(emb_b.shape[0]))
-        return self._admit(JoinRequest(
+                        n_objects=n_a + n_b)
+        rid = self._admit(JoinRequest(
             None, pairs, crowd, order, total_true_matches,
             budget_cents=budget_cents,
             cost_per_assignment=cost_per_assignment))
+        if streaming:
+            self._streams[rid] = _EmbeddingStream(
+                index=index, truth_fn=truth_fn,
+                ids_a=np.arange(n_a, dtype=np.int32),
+                ids_b=np.arange(n_a, n_a + n_b, dtype=np.int32),
+                next_id=n_a + n_b)
+        return rid
+
+    # -- streaming ingest (DESIGN.md §11) ------------------------------------
+    def append(self, rid: int, pairs: PairSet) -> None:
+        """Queue an arrival epoch for an open streaming request: the pairs
+        (ids in the request's object universe; new ids allowed) are folded
+        into the live lane at its next ingest point.  The session grows in
+        place; in-flight crowd work and budget accounting carry over.  An
+        empty epoch is a no-op."""
+        if rid in self.results:
+            raise ValueError(
+                f"cannot append to rid {rid}: the request already finished "
+                "— submit the new pairs as a fresh request")
+        if not any(r.rid == rid for r in self.queue) and \
+                rid not in self._pending_arrivals:
+            raise ValueError(f"cannot append to unknown rid {rid}")
+        if len(pairs) == 0:
+            return
+        self._pending_arrivals.setdefault(rid,
+                                          collections.deque()).append(pairs)
+
+    def submit_stream(self, epochs, crowd: Optional[Crowd] = None,
+                      order: Optional[str] = None, rid: Optional[int] = None,
+                      total_true_matches: Optional[int] = None,
+                      budget_cents: Optional[float] = None,
+                      cost_per_assignment: Optional[float] = None,
+                      interleave: bool = False) -> int:
+        """Enqueue a join whose candidate pairs arrive over k epochs.  The
+        first epoch opens the request; the rest are queued as arrivals.
+        Under the default up-front schedule every epoch is ingested before
+        labeling begins and the grown state equals one built from the
+        concatenated pairs, so the run matches a single :meth:`submit` of
+        the concatenation label for label, root for root and crowdsourced
+        pair for pair.  ``interleave=True`` releases one epoch an engine
+        round instead, so arrivals land while earlier answers are in flight
+        (the schedule, and so the counts, differ from the batch run; labels
+        stay exact and budgets and tickets carry over)."""
+        epochs = list(epochs)
+        if not epochs:
+            raise ValueError("submit_stream needs at least one epoch")
+        rid = self.submit(epochs[0], crowd, order, rid, total_true_matches,
+                          budget_cents=budget_cents,
+                          cost_per_assignment=cost_per_assignment)
+        self._stream_interleave[rid] = interleave
+        for epoch in epochs[1:]:
+            self.append(rid, epoch)
+        return rid
+
+    def append_embeddings(self, rid: int, new_a=None, new_b=None) -> None:
+        """Incremental machine phase + append: score the arriving rows
+        against the cached corpus (the new cells only), give the new rows
+        fresh object ids, and queue the candidates as an arrival epoch for
+        ``rid``, which must have been submitted with ``streaming=True``.
+        An overflowing epoch is rolled back before the error surfaces, so
+        the stream stays usable."""
+        stream = self._streams.get(rid)
+        if stream is None:
+            raise ValueError(
+                f"rid {rid} has no cached embedding index — submit it with "
+                "submit_embeddings(..., streaming=True)")
+        cand = stream.index.append(new_a, new_b)
+        if cand.n_dropped:
+            # the index must forget rows whose candidates were never
+            # ingested, or the row -> id maps desync and every later epoch
+            # skips the ghost rows
+            stream.index.rollback_append()
+            raise RuntimeError(
+                f"candidate buffers overflowed: {cand.n_dropped} candidates "
+                f"dropped at capacity {cand.capacity} — the epoch was rolled "
+                "back (the stream stays usable); re-submit the request with "
+                f"capacity={cand.suggested_capacity} or split the arrival "
+                "into smaller epochs")
+        for side, new in (("a", new_a), ("b", new_b)):
+            if new is not None and len(new):
+                fresh = np.arange(stream.next_id, stream.next_id + len(new),
+                                  dtype=np.int32)
+                ids = getattr(stream, f"ids_{side}")
+                setattr(stream, f"ids_{side}", np.concatenate([ids, fresh]))
+                stream.next_id += len(new)
+        truth = None
+        if stream.truth_fn is not None:
+            truth = np.asarray(stream.truth_fn(cand.rows, cand.cols), bool)
+        self.append(rid, PairSet(
+            u=stream.ids_a[cand.rows], v=stream.ids_b[cand.cols],
+            likelihood=(cand.scores + 1.0) / 2.0, truth=truth,
+            n_objects=stream.next_id))
 
     # -- lane lifecycle ------------------------------------------------------
     def _open_lane(self, req: JoinRequest) -> _Lane:
@@ -511,16 +653,97 @@ class JoinService:
             n_cluster_cents=lane.n_cluster_cents,
             admission_deferred=req.admission_deferred,
         )
+        self._streams.pop(req.rid, None)
+        self._stream_interleave.pop(req.rid, None)
 
     def _retire_done(self, active: List[_Lane],
                      gateway: CrowdGateway) -> List[_Lane]:
         still: List[_Lane] = []
         for lane in active:
-            if lane.done:
+            # a lane with arrival epochs still queued is not finished, even
+            # when every pair it has seen so far is labeled
+            if lane.done and not self._pending_arrivals.get(lane.req.rid):
                 self._finalize(lane, gateway)
             else:
                 still.append(lane)
         return still
+
+    # -- lane growth (DESIGN.md §11) -----------------------------------------
+    def _ingest(self, lane: _Lane, new_pairs: PairSet) -> None:
+        """Fold an arrival epoch into a live lane: order it, grow the state
+        to the new capacity bucket (bucketing clamped so it never pushes the
+        universe past the key range; ``session_grow`` raises if even the raw
+        size does not fit, and widens the keys to int64 past 46340 objects),
+        claim padded slots for the new pairs, and re-upload the priorities
+        and priors.  Published bits, gateway tickets, spend and every
+        labeled pair carry over: existing pair slots never move."""
+        req = lane.req
+        offset = lane.p
+        perm_new = get_order(new_pairs, req.order)
+        ordered_new = new_pairs.take(perm_new)
+        req.pairs = req.pairs.concat(new_pairs)
+        lane.perm = np.concatenate([lane.perm, offset + perm_new])
+        lane.ordered = lane.ordered.concat(ordered_new)
+        new_p = offset + len(new_pairs)
+        p_cap = max(int(lane.state.u.shape[0]), next_pow2(new_p, 8))
+        n_cap = lane.state.n_objects
+        if lane.ordered.n_objects > n_cap:
+            n_cap = next_pow2(lane.ordered.n_objects, 8)
+            if not pair_keys_fit(n_cap):
+                n_cap = lane.ordered.n_objects
+        if (p_cap, n_cap) != lane.bucket:
+            lane.state = session_grow(lane.state, p_cap, n_cap)
+        new_u = np.zeros(p_cap, np.int32)
+        new_v = np.zeros(p_cap, np.int32)
+        mask = np.zeros(p_cap, bool)
+        new_u[offset:new_p] = ordered_new.u
+        new_v[offset:new_p] = ordered_new.v
+        mask[offset:new_p] = True
+        lane.state = session_append_pairs(lane.state, new_u, new_v, mask)
+        if req.order in ("expected", "adaptive"):
+            # selection keys on a pair's rank in the whole accumulated
+            # candidate set, not its arrival position: this is what makes
+            # the up-front schedule reproduce the batch run's frontier
+            # (padded slots rank after every real pair)
+            lik = lane.ordered.likelihood
+            rank = np.empty(new_p, np.float32)
+            rank[np.argsort(-lik, kind="stable")] = np.arange(
+                new_p, dtype=np.float32)
+            prio = np.concatenate(
+                [rank, np.arange(new_p, p_cap, dtype=np.float32)])
+            lane.state = dataclasses.replace(
+                lane.state, priority=torch.from_numpy(prio).to(self.device))
+        prior_host = np.zeros(p_cap, np.float32)
+        prior_host[:new_p] = lane.ordered.likelihood
+        lane.prior_host = prior_host
+        if lane.prior_dev is not None:
+            lane.prior_dev = torch.from_numpy(prior_host).to(self.device)
+        lane.labels_host = np.concatenate(
+            [lane.labels_host, np.full(len(new_pairs), UNKNOWN, np.int32)])
+        lane.crowdsourced = np.concatenate(
+            [lane.crowdsourced, np.zeros(len(new_pairs), bool)])
+        inflight = np.zeros(p_cap, bool)
+        inflight[:len(lane.inflight_host)] = lane.inflight_host
+        lane.inflight_host = inflight
+        lane.p = new_p
+        lane.answers_host = req.crowd.precomputed_answers(lane.ordered)
+
+    def _ingest_pending(self, lane: _Lane) -> bool:
+        """Consume the lane's queued arrival epochs: all of them under the
+        up-front schedule, one a call for an interleaved stream.  Ends with
+        a deduce sweep, so arrivals the evidence already pins down never
+        wedge a round with an empty frontier (a budget-stopped lane still
+        ingests; the graph resolves its arrivals as it did the rest)."""
+        pending = self._pending_arrivals.get(lane.req.rid)
+        if not pending:
+            return False
+        n = 1 if self._stream_interleave.get(lane.req.rid) else len(pending)
+        for _ in range(n):
+            self._ingest(lane, pending.popleft())
+        if not pending:
+            del self._pending_arrivals[lane.req.rid]
+        self._sweep_lane(lane)
+        return True
 
     # -- per-round group caches ----------------------------------------------
     def _writeback(self, entry: Tuple[Tuple[_Lane, ...], SessionState]
@@ -869,7 +1092,8 @@ class JoinService:
         live host-side coverage), the transport is immediate (a latency
         model makes answer arrival part of the semantics), no budget or
         slot cap re-decides each round on the host, the crowd's answers are
-        order-independent, and no §9 screen has fired on the lane."""
+        order-independent, no §9 screen has fired on the lane, and no
+        arrival epoch is queued for it (it would grow the state mid-wave)."""
         return (self.fused_rounds
                 and not self.cluster_tasks
                 and self.latency is None
@@ -877,7 +1101,8 @@ class JoinService:
                 and lane.budget_cents is None
                 and not lane.budget_stopped
                 and lane.fused_ok
-                and lane.answers_host is not None)
+                and lane.answers_host is not None
+                and not self._pending_arrivals.get(lane.req.rid))
 
     def _drive_fused(self, active: List[_Lane],
                      gateway: CrowdGateway) -> bool:
@@ -1069,6 +1294,15 @@ class JoinService:
                 refilled = True
             for r in self.queue:  # still queued behind fully-occupied lanes
                 r.admission_deferred = True
+            if any(self._pending_arrivals.get(l.req.rid) for l in active):
+                # arrivals are ingested before a fresh lane's first publish
+                # (up-front streams) and once an event-loop pass for
+                # interleaved streams; a lane that went idle waiting on its
+                # next epoch publishes again at once
+                for lane in active:
+                    if self._ingest_pending(lane) and lane.in_flight == 0 \
+                            and lane.round_sizes and not lane.done:
+                        self._publish(lane, gateway)
             if refilled:
                 # zero-pair sessions are born done: finalize without posting
                 active = self._retire_done(active, gateway)
@@ -1099,6 +1333,9 @@ class JoinService:
                         posted += self._publish(lane, gateway)
                 active = self._retire_done(active, gateway)
                 if not posted and not gateway.in_flight and active:
+                    if any(self._pending_arrivals.get(l.req.rid)
+                           for l in active):
+                        continue  # queued arrival epochs ingest next pass
                     raise RuntimeError(
                         "join engine stuck: no frontier and nothing "
                         f"deducible for rids {[l.req.rid for l in active]}")
@@ -1138,9 +1375,21 @@ class JoinService:
                 active.append(self._open_lane(self.queue.popleft()))
             for r in self.queue:  # still queued behind fully-occupied lanes
                 r.admission_deferred = True
+            if any(self._pending_arrivals.get(l.req.rid) for l in active):
+                # arrival epochs land before the round's frontier: lane
+                # states must be authoritative (not cached in a group stack,
+                # whose key is the bucket that growth changes) while they
+                # grow
+                self._flush_stacks()
+                for lane in active:
+                    self._ingest_pending(lane)
             # zero-pair (or fully seeded) sessions are born done
             active = self._retire_done(active, gateway)
             if not active:
+                continue
+            if all(lane.done for lane in active):
+                # every open lane waits on a queued arrival epoch (an
+                # interleaved stream): it ingests next iteration
                 continue
             if all(self._fused_eligible(lane) for lane in active):
                 if self._drive_fused(active, gateway):

@@ -388,7 +388,6 @@ def test_core_reexports_the_reference_names():
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None
     assert set(jcore.__all__) - names == {
-        "MATCH", "NON_MATCH", "engine_dispatches", "session_grow_batch",
-        "session_append_pairs", "session_append_pairs_batch"}
+        "MATCH", "NON_MATCH", "engine_dispatches"}
     assert tcore.LatencyModel is LatencyModel
     assert tcore.simulate_stream is tpar.simulate_stream

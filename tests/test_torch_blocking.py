@@ -381,10 +381,50 @@ def test_blocked_overflow_reports_a_capacity_that_fits():
                                   full.cols + len(a))
 
 
-def test_blocked_streaming_is_still_refused():
-    svc = JoinService(device="cpu")
-    emb = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9.6"):
-        svc.submit_embeddings(emb, emb, 0.5, streaming=True,
-                              blocking=blocking.BlockingConfig())
-    assert not svc.queue
+def test_blocked_streaming_serves():
+    """``submit_embeddings(streaming=True, blocking=...)`` then an
+    ``append_embeddings`` epoch on each side: every queued epoch's pairs
+    equal the reference's (scores within 4 ulp of 1.0, each side
+    normalizing its own rows, no two of them that close), and the join
+    gives every result field the reference's."""
+    ia, a, ib, b = _corpus(2, n_a=48, n_b=40)
+    cfg_kw = dict(n_bits=4, n_tables=4, bn=16, bm=16, tiles_per_call=8)
+    _check_margins(_normalized(a), _normalized(b), TAU,
+                   blocking.BlockingConfig(**cfg_kw))
+
+    def truth(r, c):
+        return ia[r] == ib[c]
+
+    ref_svc = JaxJoinService(lanes=1)
+    ref_rid = ref_svc.submit_embeddings(
+        jnp.asarray(a[:30]), jnp.asarray(b[:24]), TAU, make_host_mesh(1, 1),
+        crowd=JaxPerfectCrowd(), truth_fn=truth, impl="interpret",
+        streaming=True, blocking=jax_blocking.BlockingConfig(**cfg_kw))
+    ref_svc.append_embeddings(ref_rid, jnp.asarray(a[30:]),
+                              jnp.asarray(b[24:]))
+    svc = JoinService(lanes=1, device="cpu")
+    rid = svc.submit_embeddings(
+        torch.from_numpy(a[:30]), torch.from_numpy(b[:24]), TAU,
+        crowd=PerfectCrowd(), truth_fn=truth, streaming=True,
+        blocking=blocking.BlockingConfig(**cfg_kw))
+    svc.append_embeddings(rid, torch.from_numpy(a[30:]),
+                          torch.from_numpy(b[24:]))
+    epochs = [svc.queue[0].pairs, *svc._pending_arrivals[rid]]
+    ref_epochs = [ref_svc.queue[0].pairs,
+                  *ref_svc._pending_arrivals[ref_rid]]
+    scores = []
+    for pairs, ref_pairs in zip(epochs, ref_epochs):
+        np.testing.assert_array_equal(pairs.u, ref_pairs.u)
+        np.testing.assert_array_equal(pairs.v, ref_pairs.v)
+        np.testing.assert_array_equal(pairs.truth, ref_pairs.truth)
+        assert pairs.n_objects == ref_pairs.n_objects
+        ref_scores = 2.0 * ref_pairs.likelihood - 1.0
+        np.testing.assert_allclose(2.0 * pairs.likelihood - 1.0, ref_scores,
+                                   rtol=0, atol=5 * ULP_ONE)
+        scores.append(ref_scores)
+    ranked = np.sort(np.concatenate(scores))
+    assert (np.diff(ranked) > 4 * np.spacing(ranked[1:])).all()
+    assert len(epochs) == 2 and epochs[1].n_objects == 88
+    got, ref = svc.run(), ref_svc.run()
+    assert _result_fields(got[rid]) == _result_fields(ref[ref_rid])
+    assert got[rid].quality.precision == 1.0

@@ -15,7 +15,10 @@ same way, with the candidates' order identical; against the dense kernel bit
 for bit (both sum each cell with fmaf in k order from 0); against itself bit
 for bit across calls and across chunkings of one tile list (positions come
 from counts alone).  ``union_deduce``, the exact answer fold and the
-service, under a perfect and under noisy crowds: bit for bit.
+service, under a perfect and under noisy crowds: bit for bit.  The
+streaming index's epochs together equal the batch call bit for bit (dense
+and blocked: a cell's score depends only on its two rows), and a lane
+grown past 46340 objects folds through the wide ``union_deduce``.
 ``flash_attention`` within 2e-5 and ``decode_attention`` within
 1e-5 of their plain versions in f32 (sums in another order, the decode
 kernel's split across the cache and merged in split order, so its repeats
@@ -1093,3 +1096,167 @@ def test_lm_engine_on_card_matches_cpu(dev):
     out = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
            for m in (card, model)]
     assert out[0] == out[1]
+
+
+def _stream_corpus(seed: int, n: int, d: int, n_ent: int):
+    """Entity-clustered (n, d) tables a side, as numpy f32."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(n_ent, d))
+    ia = rng.integers(0, n_ent, n)
+    ib = rng.integers(0, n_ent, n)
+    a = (cents[ia] + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    b = (cents[ib] + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    return ia, a, ib, b
+
+
+def _bitwise_candidates(cand) -> dict:
+    return {(int(r), int(c)): int(s) for r, c, s in
+            zip(cand.rows, cand.cols, cand.scores.view(np.int32))}
+
+
+@pytest.mark.parametrize("blocked", [False, True], ids=["dense", "blocked"])
+def test_streaming_index_union_equals_batch_bitwise(dev, blocked):
+    """On the card a cell's score depends only on its two rows (the
+    mainloop sums each cell with fmaf in k order from 0; padding rows do
+    not enter the sum), so the union of the index's epochs equals one batch
+    call over the final corpora bit for bit: the same set, the same f32
+    scores.  The corpus stays on the card."""
+    from repro_torch.kernels.pair_scores.sharded import \
+        StreamingCandidateIndex
+
+    _, a, _, b = _stream_corpus(11, 1536, 384, 200)
+    cfg = (blocking.BlockingConfig(n_bits=5, n_tables=6, bn=128, bm=128,
+                                   tiles_per_call=64) if blocked else None)
+    idx = StreamingCandidateIndex(0.7, blocking=cfg, device=dev)
+    cuts = ((0, 700, 0, 500), (700, 1100, 500, 500), (1100, 1100, 500, 1200),
+            (1100, 1536, 1200, 1536))
+    counter = ps_ops.pair_scores_compact if blocked else ps_ops.pair_scores
+    launches = counter.launches
+    got = {}
+    for a0, a1, b0, b1 in cuts:
+        cand = idx.append(
+            torch.from_numpy(a[a0:a1]).to(dev) if a1 > a0 else None,
+            torch.from_numpy(b[b0:b1]).to(dev) if b1 > b0 else None)
+        fresh = _bitwise_candidates(cand)
+        assert not set(fresh) & set(got)
+        got.update(fresh)
+        assert idx._a.device.type == "cuda"
+    assert counter.launches > launches
+    fa, fb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    full = (blocking.blocked_candidates(fa, fb, 0.7, cfg) if blocked
+            else sharded_candidates(fa, fb, 0.7))
+    want = _bitwise_candidates(full)
+    assert len(want) > 1000 and got == want
+    assert idx.pairs_scored < idx.full_rescore_pairs
+    if not blocked:
+        assert idx.pairs_scored == 1536 * 1536
+
+
+def test_grown_lane_first_fold_takes_the_wide_kernel(dev):
+    """A lane opened at 40000 objects (int32 keys, the clustered kernel)
+    grows to 65536 (int64 keys): its next fold launches the wide
+    ``union_deduce`` kernel, and the state equals the CPU's bit for bit."""
+    from repro_torch.convert import session_state_to_numpy
+    from repro_torch.core import graph
+
+    rng = np.random.default_rng(3)
+    n0, n1, P = 40000, 65536, 512
+    objs = np.sort(rng.choice(n0, 150, replace=False))
+    cluster = rng.integers(0, 30, 150)
+    x = rng.integers(0, 150, 400)
+    y = (x + 1 + rng.integers(0, 149, 400)) % 150
+    u, v = objs[x].astype(np.int32), objs[y].astype(np.int32)
+    truth = np.where(cluster[x] == cluster[y], POS, NEG).astype(np.int32)
+    hi = rng.choice(np.arange(n0, n1), 100, replace=False).astype(np.int32)
+    au = np.zeros(2 * P, np.int32)
+    av = np.zeros(2 * P, np.int32)
+    am = np.zeros(2 * P, bool)
+    au[400:500], av[400:500], am[400:500] = u[:100], hi, True
+    upd = np.full(P, 3, np.int32)
+    upd[:200] = truth[:200]
+    upd2 = np.full(2 * P, 3, np.int32)
+    upd2[200:400] = truth[200:]
+    upd2[400:500] = NEG
+    states = []
+    for device in ("cpu", dev):
+        st = graph.make_session_state(u, v, n0, pair_capacity=P,
+                                      device=device)
+        st, _ = graph.session_fold_answers(st, upd)
+        assert st.neg_keys.dtype == torch.int32
+        wide = ud_ops.union_deduce.wide_launches
+        st = graph.session_append_pairs(graph.session_grow(st, 2 * P, n1),
+                                        au, av, am)
+        assert st.neg_keys.dtype == torch.int64
+        st, _ = graph.session_fold_answers(st, upd2)
+        if device == dev:
+            assert ud_ops.union_deduce.wide_launches > wide
+        states.append(session_state_to_numpy(st))
+    for f in states[0]:
+        np.testing.assert_array_equal(states[1][f], states[0][f], err_msg=f)
+
+
+@pytest.mark.parametrize("async_mode", [False, True])
+def test_streaming_service_on_card(dev, async_mode, monkeypatch):
+    """``submit_embeddings(streaming=True)`` with two ``append_embeddings``
+    epochs on the card labels every candidate to the truth; an interleaved
+    ``submit_stream`` whose first two epochs lie below 32768 objects (int32
+    keys; the second is ingested before the first round) and whose later
+    ones reach 65535 widens the keys to int64 while real neg keys are in
+    the index, takes the wide ``union_deduce`` kernel after it, and gives
+    every result field identical on the card and on the CPU."""
+    from repro_torch.serve import join_service
+
+    grow = join_service.session_grow
+    growths = []
+
+    def rec(state, pair_capacity, object_capacity):
+        live = int((state.neg_keys
+                    != key_sentinel(state.neg_keys.dtype)).sum())
+        out = grow(state, pair_capacity, object_capacity)
+        growths.append((state.neg_keys.device.type, state.neg_keys.dtype,
+                        out.neg_keys.dtype, live))
+        return out
+
+    monkeypatch.setattr(join_service, "session_grow", rec)
+    ia, a, ib, b = _stream_corpus(5, 600, 64, 80)
+    rng = np.random.default_rng(8)
+    objs = np.sort(np.append(rng.choice(65535, 299, replace=False), 65535))
+    low = objs[objs < 32768]
+    cluster = rng.integers(0, 40, 65536)
+    parts = [rng.choice(low, (60, 2)), rng.choice(low, (60, 2)),
+             rng.choice(objs, (100, 2)), rng.choice(objs, (100, 2))]
+    epochs = []
+    for x in parts:
+        x = x[x[:, 0] != x[:, 1]].astype(np.int32)
+        t = cluster[x[:, 0]] == cluster[x[:, 1]]
+        lik = (np.where(t, 0.8, 0.3) + 0.15 * rng.random(len(x))).astype(
+            np.float32)
+        epochs.append(PairSet(x[:, 0], x[:, 1], lik, t))
+    truth = np.concatenate([e.truth for e in epochs])
+    assert max(e.n_objects for e in epochs[:2]) <= 32768
+    assert 46340 < max(e.n_objects for e in epochs)
+    results = []
+    wide = ud_ops.union_deduce.wide_launches
+    for device in (dev, "cpu"):
+        svc = JoinService(lanes=2, async_mode=async_mode, device=device)
+        rid = svc.submit_stream(epochs, PerfectCrowd(), interleave=True)
+        results.append(svc.run()[rid])
+    _assert_fields_equal(*results)
+    assert ud_ops.union_deduce.wide_launches > wide
+    assert any(where == "cuda" and old == torch.int32
+               and new == torch.int64 and live > 0
+               for where, old, new, live in growths), growths
+    np.testing.assert_array_equal(results[0].labels, truth)
+
+    svc = JoinService(lanes=2, async_mode=async_mode, device=dev)
+    rid = svc.submit_embeddings(
+        torch.from_numpy(a[:300]).to(dev), torch.from_numpy(b[:300]).to(dev),
+        0.8, crowd=PerfectCrowd(), truth_fn=lambda r, c: ia[r] == ib[c],
+        streaming=True)
+    for lo, hi in ((300, 450), (450, 600)):
+        svc.append_embeddings(rid, torch.from_numpy(a[lo:hi]).to(dev),
+                              torch.from_numpy(b[lo:hi]).to(dev))
+    assert svc._streams[rid].index._a.device.type == "cuda"
+    res = svc.run()[rid]
+    assert res.quality.precision == 1.0 and res.quality.recall == 1.0
+    assert res.n_deduced > 0

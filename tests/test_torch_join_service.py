@@ -22,8 +22,7 @@ from repro.serve.join_service import JoinService as JaxJoinService
 from repro_torch.core.cluster_graph import NEG, POS, UNKNOWN
 from repro_torch.core.crowd import Crowd, NoisyCrowd, PerfectCrowd
 from repro_torch.core.pairs import PairSet
-from repro_torch.serve.join_service import (_EMBEDDING_OPTIONS,
-                                            _SERVICE_OPTIONS, JoinService)
+from repro_torch.serve.join_service import _SERVICE_OPTIONS, JoinService
 
 ULP_ONE = 2.0 ** -23
 
@@ -140,8 +139,7 @@ def test_duplicate_rid_and_overflow_are_reported():
 # a value each unported option could take in the reference
 UNPORTED_VALUES = {
     "admission": "policy", "checkpoint_dir": "ckpt", "checkpoint_every": 2,
-    "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json",
-    "streaming": True}
+    "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json"}
 
 
 def _unported(table):
@@ -155,12 +153,14 @@ def test_service_options_not_ported_raise(name, value):
     JoinService(device="cpu", **{name: _SERVICE_OPTIONS[name][0]})
 
 
-@pytest.mark.parametrize("name,value", _unported(_EMBEDDING_OPTIONS))
-def test_submit_options_not_ported_raise(name, value):
+def test_submit_embeddings_unknown_keyword_is_a_type_error():
+    """``submit_embeddings`` takes every keyword of the reference's that is
+    ported (``streaming`` among them) and no other: a keyword neither
+    package has is a ``TypeError`` and queues nothing."""
     svc = JoinService(device="cpu")
     emb = torch.ones(4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        svc.submit_embeddings(emb, emb, 0.5, **{name: value})
+    with pytest.raises(TypeError, match="stream_mode"):
+        svc.submit_embeddings(emb, emb, 0.5, stream_mode=True)
     assert not svc.queue
 
 
