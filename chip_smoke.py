@@ -189,6 +189,38 @@ carries on.  Phases, one output line or block each:
    ``union_deduce``, on the card and on the CPU with every field identical;
    each streaming run's ``union_deduce`` launches are its own, the (b)
    batch runs apart;
+4k. kill and restore on the card (durable serving, DESIGN.md §16), every
+   run killed by ``_crash_after_checkpoints`` at a checkpoint mid-run (a
+   lane open, cents spent, less than the uninterrupted total), restored
+   and finished: (a) phase 4e's service with ``checkpoint_every=1``
+   uninterrupted (every field phase 4e's; ms and bytes a commit, its wall
+   beside 4e's), then killed half way and restored (timed): every field
+   but the wall clock phase 4e's, the same total spend, the cents a
+   restart would pay again; (b) ``tests/test_recovery.py:68-89``'s hard
+   configuration (async ID/NF, EM, requery) on phase 4h's platform at the
+   paper's datasets' full size, each alone under phase 4i's requery crowd
+   (seed 10 + k): the uninterrupted run's figures, passes and requeries
+   the reference's (``RECOVERY_RUNS``, ``sim_minutes`` as floats), the
+   kill at the reference's cadence with its cents committed, the restored
+   run's every field the uninterrupted run's, and the product run
+   restored once more on the CPU with identical fields; (c) phase 4g's
+   blocked session (65536 objects) per round, killed after a checkpoint
+   with answers folded: the restored lane's neg keys int64 padded with the
+   int64 sentinel, the wide ``union_deduce`` launched after the restore,
+   labels the truth, every field an uninterrupted per-round run's; (d)
+   ``bench_join_service.py``'s recovery stage at 2 and 4 sessions
+   (``RECOVERY_BENCH``: 0.5368 of the cents saved at 2);
+4l. the plan layer: ``bench_plan.py``'s repeat, pushdown and ordering
+   stages at its CI and full sizes, every figure the reference's
+   (``PLAN_RUNS``: the warm repeat crowdsourcing nothing with the cold
+   signature, 0.383 fewer candidates at the CI size); a filtered
+   ``MultiJoin`` at 0.7 over three tables of one ``make_corpus`` family
+   (4096, 4096 and 2048 rows x 384), cold, then warm over the cache saved
+   to disk (0 crowdsourced, the same signature); a ``JoinService
+   (cache_path=, checkpoint_dir=)`` of phase 4's corpora 0 and 1 killed
+   and restored (the cache reloaded and deposited into; a repeat of corpus
+   0 crowdsourcing nothing; the cache file and every field an
+   uninterrupted service's);
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -199,8 +231,9 @@ carries on.  Phases, one output line or block each:
    times beside its bound, its plain version and a library call
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
-   phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's
-   and phase 4j's launches in ``launches_by_path``);
+   phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
+   4j's, 4k's and 4l's launches in ``launches_by_path``, and the wide
+   kernel's after 4k's restore);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -419,6 +452,55 @@ STREAM_RUNS = {
         "paper": (1690, 7, "424831e7902f7d21", 1, 0, 10140.0, False, 0, 0,
                   0.0, 0.9790368271954675, None)}),
 }
+# phase 4k, durable serving (DESIGN.md §16).  (a) phase 4e's service with a
+# checkpoint every run-loop pass.  (b) tests/test_recovery.py:68-89's hard
+# configuration (async ID/NF, EM ballots, requery escalation) at the paper's
+# datasets' full size on phase 4h's platform, each dataset alone under the
+# crowd of phase 4i's requery runs with seed 10 + k: a cadence of about a
+# tenth of the run's passes, killed after RECOVERY_KILL commits.  Each
+# run's (passes, checkpoint_every, cents committed at the kill,
+# econ_figures) are the JAX package's JoinService on the CPU (jax 0.9.0)
+# with the same options, data and kill, from tools/recovery_reference.py.
+RECOVERY_SERVICE = dict(async_mode=True, nf=True, aggregation="em",
+                        conflict_policy="requery")
+RECOVERY_KILL = 5
+RECOVERY_RUNS = {
+    # dataset: (run-loop passes, checkpoint_every, cents at the kill,
+    #           econ_figures of the uninterrupted run)
+    "paper": (2470, 247, 9634.0, (
+        2341, 469, "25713b9ec2725a4c", 208, 129, 15336.0, False, 0, 0, 0.0,
+        0.29114670335069276, 3975.5145437597657)),
+    "product": (3781, 378, 17454.0, (
+        3776, 751, "22337b5d0776152d", 8, 5, 22706.0, False, 0, 0, 0.0,
+        0.5112443778110944, 5791.368661342403)),
+}
+# benchmarks/bench_join_service.py's recovery stage (make_session_pairsets
+# seed 5, NoisyCrowd(error_rate=0.15, seed=40 + k), two lanes, killed after
+# 2 commits): sessions -> (restart cents, cents committed at the kill), the
+# reference's (2 sessions: BENCH_join.json's recovery entry, 0.5368 of the
+# cents saved)
+RECOVERY_BENCH = {2: (570.0, 306.0), 4: (1206.0, 306.0)}
+# phase 4l, the plan layer: benchmarks/bench_plan.py's stages (catalogs of
+# dim 16 around n_ent entity centroids, threshold 0.80; seeds 3, 4, 5) at
+# its CI size and its full size.  Each stage's figures are the JAX
+# package's on the CPU, from tools/recovery_reference.py: repeat (cold and
+# warm crowdsourced, warm cache hits, cold and warm cents, candidates),
+# pushdown (raw and optimized candidates and crowdsourced), ordering (the
+# greedy leg order, its expected crowd cost, the best and worst orders').
+PLAN_TAU, PLAN_DIM = 0.80, 16
+PLAN_SIZES = {"ci": ((24, 20, 18), (24, 20, 18, 16), 12),
+              "full": ((90, 80, 70), (90, 80, 70, 60), 30)}
+PLAN_RUNS = {
+    "ci": {"repeat": (33, 0, 54, 66.0, 0.0, 51, True),
+           "pushdown": (94, 58, 49, 36, True),
+           "ordering": ("bdca", 316.0, 316.0, 407.0)},
+    "full": {"repeat": (118, 0, 289, 236.0, 0.0, 241, True),
+             "pushdown": (657, 259, 210, 125, True),
+             "ordering": ("cdba", 1780.234375, 1780.234375, 2085.3125)},
+}
+# then at the join cells' width: three collections of make_corpus's families
+# (two sides and a third), filtered, at phase 4's threshold
+PLAN_WIDE_ROWS = (4096, 4096, 2048)
 # the LM serving path (phase 4c) and its machine phase (4d)
 LM_ARCH, LM_LANES, LM_MAX_LEN = "paper-scorer", 8, 2048
 LM_REQUESTS, LM_NEW = 16, 64
@@ -453,11 +535,13 @@ LAUNCH_CALL = "cudaLaunchKernel"
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
 
 
-def make_corpus(seed: int, n: int, d: int):
+def make_corpus(seed: int, n: int, d: int, more=()):
     """Two embedding tables of ``n`` records over a shared entity universe:
     families of 1-12 near-duplicate entities (entity-to-family cosine about
     0.9), records scattered around their entity (record-to-entity cosine
-    about 0.95).  Returns (entity id per a-row, a, entity id per b-row, b)."""
+    about 0.95).  Returns (entity id per a-row, a, entity id per b-row, b),
+    and with ``more`` row counts a list of (entity ids, table) for further
+    tables over the same entities, drawn after the first two."""
     rng = np.random.default_rng(seed)
 
     def unit(x):
@@ -471,14 +555,136 @@ def make_corpus(seed: int, n: int, d: int):
     entity = unit(family[fam_of]
                   + 0.5 * unit(rng.normal(size=(len(fam_of), d))))
 
-    def side():
-        ids = rng.integers(0, len(fam_of), n)
-        rows = entity[ids] + np.sqrt(0.1) * unit(rng.normal(size=(n, d)))
+    def side(m):
+        ids = rng.integers(0, len(fam_of), m)
+        rows = entity[ids] + np.sqrt(0.1) * unit(rng.normal(size=(m, d)))
         return ids, rows.astype(np.float32)
 
-    ids_a, a = side()
-    ids_b, b = side()
+    ids_a, a = side(n)
+    ids_b, b = side(n)
+    if more:
+        return ids_a, a, ids_b, b, [side(m) for m in more]
     return ids_a, a, ids_b, b
+
+
+def plan_catalogs(seed: int, sizes, n_ent: int, dim: int = PLAN_DIM,
+                  noise: float = 0.05):
+    """``benchmarks/bench_plan.py::_catalogs``'s draws as raw tables:
+    (name, (n, dim) f32 embeddings, attrs, entity ids) a collection."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(n_ent, dim))
+    out = []
+    for name, n in zip("abcde", sizes):
+        ids = rng.integers(0, n_ent, n)
+        emb = (cents[ids] + noise * rng.normal(size=(n, dim))
+               ).astype(np.float32)
+        attrs = {"sku": np.arange(n), "price": rng.integers(5, 100, n),
+                 "region": ids % 3}
+        out.append((name, emb, attrs, ids))
+    return out
+
+
+def plan_query(ns, raw, tau: float = PLAN_TAU):
+    """``bench_plan.py::_plan`` in the plan package ``ns`` (the port's, or
+    another with the same names): a filtered multi-way join over ``raw``'s
+    collections."""
+    colls = [ns.Collection(name, emb, attrs=dict(attrs), entities=ids)
+             for name, emb, attrs, ids in raw]
+    join = ns.MultiJoin([ns.Scan(c) for c in colls], threshold=tau)
+    return ns.Filter(ns.Cmp(f"{colls[0].name}.price", "<", 70),
+                     ns.Filter(ns.Cmp(f"{colls[1].name}.region", "==", 0),
+                               join)), colls
+
+
+def plan_bench(ns, executor, size: str) -> tuple:
+    """``bench_plan.py``'s three stages at ``PLAN_SIZES[size]`` in the plan
+    package ``ns``; ``executor(cache, optimize_plans)`` builds a
+    ``PlanExecutor``.  Returns (figures, seconds): figures comparable with
+    ``==`` (``PLAN_RUNS``), the stages' walls."""
+    import itertools
+
+    sizes3, sizes4, n_ent = PLAN_SIZES[size]
+    secs = {}
+    plan, _ = plan_query(ns, plan_catalogs(3, sizes3, n_ent))
+    cache = ns.ClusterCache()
+    t0 = time.perf_counter()
+    cold = executor(cache, True).execute(plan)
+    secs["cold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = executor(cache, True).execute(plan)
+    secs["warm"] = time.perf_counter() - t0
+    repeat = (cold.n_crowdsourced, warm.n_crowdsourced, warm.n_cache_hits,
+              cold.spent_cents, warm.spent_cents, cold.n_candidates,
+              warm.signature() == cold.signature())
+    plan, _ = plan_query(ns, plan_catalogs(4, sizes3, n_ent))
+    t0 = time.perf_counter()
+    raw = executor(ns.ClusterCache(), False).execute(plan)
+    secs["raw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt = executor(ns.ClusterCache(), True).execute(plan)
+    secs["optimized"] = time.perf_counter() - t0
+    pushdown = (raw.n_candidates, opt.n_candidates, raw.n_crowdsourced,
+                opt.n_crowdsourced, opt.signature() == raw.signature())
+    colls = [ns.Collection(name, emb, attrs=dict(attrs), entities=ids)
+             for name, emb, attrs, ids in plan_catalogs(5, sizes4, n_ent)]
+    opt = ns.optimize(ns.MultiJoin([ns.Scan(c) for c in colls],
+                                   threshold=PLAN_TAU))
+    names = [c.name for c in colls]
+    order = [next(iter(kid.collections())) for kid in opt.children()]
+    n = len(colls)
+    sampled = [ns.optimizer._sample_rows(c.embeddings, np.ones(len(c), bool),
+                                         64, i) for i, c in enumerate(colls)]
+    sel = np.zeros((n, n))
+    for i, j in itertools.combinations(range(n), 2):
+        sel[i, j] = sel[j, i] = ns.optimizer._pair_selectivity(
+            sampled[i], sampled[j], PLAN_TAU)
+    costs = {perm: ns.expected_crowd_cost([len(c) for c in colls], sel,
+                                          list(perm))
+             for perm in itertools.permutations(range(n))}
+    ordering = ("".join(order),
+                float(costs[tuple(names.index(x) for x in order)]),
+                float(min(costs.values())), float(max(costs.values())))
+    return {"repeat": repeat, "pushdown": pushdown,
+            "ordering": ordering}, secs
+
+
+def recovery_bench(join_service, noisy_crowd, make_session_pairsets,
+                   n_sessions: int, ckpt_dir: str, **device) -> dict:
+    """``benchmarks/bench_join_service.py::_bench_recovery`` with the
+    service class, crowd class and session generator of one package:
+    uninterrupted, then killed after 2 commits, restored and finished.
+    ``device`` goes to the port's constructor and ``restore``."""
+    pairsets = make_session_pairsets(n_sessions, seed=5, n_objects=(20, 30),
+                                     n_pairs=(60, 110))
+
+    def service(**kw):
+        svc = join_service.JoinService(lanes=2, **kw, **device)
+        rids = [svc.submit(ps, noisy_crowd(error_rate=0.15, seed=40 + k))
+                for k, ps in enumerate(pairsets)]
+        return svc, rids
+
+    svc, rids = service()
+    base = svc.run()
+    restart = sum(base[r].n_spent_cents for r in rids)
+    svc, _ = service(checkpoint_dir=ckpt_dir)
+    svc._crash_after_checkpoints = 2
+    try:
+        svc.run()
+        killed = False
+    except join_service.ServiceKilled:
+        killed = True
+    t0 = time.perf_counter()
+    restored = join_service.JoinService.restore(ckpt_dir, **device)
+    restore_s = time.perf_counter() - t0
+    at_kill = restored.last_recovery["spent_cents"]
+    rec = restored.run()
+    identical = killed and all(
+        np.array_equal(base[r].labels, rec[r].labels)
+        and np.array_equal(base[r].crowdsourced, rec[r].crowdsourced)
+        for r in rids)
+    return {"restart_cents": restart, "at_kill": at_kill,
+            "recovered_cents": sum(rec[r].n_spent_cents for r in rids),
+            "identical": identical, "restore_s": restore_s}
 
 
 def split_epochs(pairs, k: int, seed: int):
@@ -654,7 +860,27 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def noisy_path(dev, corpora) -> dict:
+def noisy_service(dev, corpora, **options):
+    """Phase 4e's service: ``JoinService(lanes=4, fused_rounds=False)`` on
+    ``dev`` (with ``options``), the four corpora queued through
+    ``submit_embeddings`` under ``NoisyCrowd(seed=SEED + i, **NOISY_CROWD)``
+    with their true-match counts."""
+    from repro_torch.core.crowd import NoisyCrowd
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.serve import join_service
+
+    svc = join_service.JoinService(lanes=N_SESSIONS, fused_rounds=False,
+                                   device=dev, **options)
+    for i, (ids_a, ea, ids_b, eb) in enumerate(corpora):
+        svc.submit_embeddings(
+            embeddings_from_numpy(ea, dev), embeddings_from_numpy(eb, dev),
+            THRESHOLD, crowd=NoisyCrowd(seed=SEED + i, **NOISY_CROWD),
+            truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
+            total_true_matches=int((ids_a[:, None] == ids_b[None, :]).sum()))
+    return svc
+
+
+def noisy_path(dev, corpora) -> tuple:
     """Phase 4e: phase 4's four dense corpora through
     ``JoinService(lanes=4, fused_rounds=False)`` under ``NoisyCrowd``s
     (``NOISY_CROWD``, seeds ``SEED + i``), then ``run()``.  Every session must
@@ -663,7 +889,8 @@ def noisy_path(dev, corpora) -> dict:
     launch on the folds.  Session 0 again on the CPU with the same crowd
     seed must give every result field identical.  Then a run split on the
     host clock (each stage synchronized) and a profiled run.  Returns the
-    path's kernel launches."""
+    path's kernel launches, every result field of its run (by rid) and its
+    ``run()`` wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -671,7 +898,6 @@ def noisy_path(dev, corpora) -> dict:
     from repro_torch.core.crowd import CrowdGateway, NoisyCrowd
     from repro_torch.core.metrics import transitively_consistent
     from repro_torch.core.pairs import PairSet
-    from repro_torch.convert import embeddings_from_numpy
     from repro_torch.kernels.pair_scores import ops as ps_ops
     from repro_torch.kernels.union_deduce import ops as ud_ops
     from repro_torch.serve import join_service
@@ -683,16 +909,7 @@ def noisy_path(dev, corpora) -> dict:
         return NoisyCrowd(seed=SEED + i, **NOISY_CROWD)
 
     def serve():
-        """A four-lane per-round service with the four corpora queued."""
-        svc = join_service.JoinService(lanes=N_SESSIONS, fused_rounds=False,
-                                       device=dev)
-        for i, (ids_a, ea, ids_b, eb) in enumerate(corpora):
-            svc.submit_embeddings(
-                embeddings_from_numpy(ea, dev),
-                embeddings_from_numpy(eb, dev), THRESHOLD, crowd=crowd(i),
-                truth_fn=lambda r, c, ia=ids_a, ib=ids_b: ia[r] == ib[c],
-                total_true_matches=ttms[i])
-        return svc
+        return noisy_service(dev, corpora)
 
     spent = {"gateway asks": 0.0, "frontier": 0.0, "fold": 0.0,
              "exact replays": 0.0, "deduce": 0.0}
@@ -822,7 +1039,8 @@ def noisy_path(dev, corpora) -> dict:
     for e in top[:6] + [e for e in top[6:] if "union_deduce" in e.key]:
         print(f"[4e profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
-    return launches
+    fields = {rid: result_fields(results[rid]) for rid in rids}
+    return launches, fields, wall
 
 
 def large_pairset(n: int, m: int, seed: int):
@@ -2861,6 +3079,423 @@ def lm_machine_phase(dev, cfg, model) -> dict:
     return {"launches": launches, "err": err, "embeds": (ea, eb)}
 
 
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def recovery_path(dev, corpora, noisy_fields: dict, noisy_wall: float,
+                  root: Path) -> dict:
+    """Phase 4k: kill and restore on the card.  Every run is killed with
+    ``_crash_after_checkpoints`` at a checkpoint mid-run (with a lane open,
+    cents spent, less than the uninterrupted total), restored and finished.
+    (a) phase 4e's service checkpointed every pass: an uninterrupted run
+    whose fields equal phase 4e's (checkpoint ms and bytes a commit, its
+    wall beside 4e's), then killed half way, restored (timed) and finished:
+    every field but the wall clock phase 4e's, the same total spend, the
+    cents a restart would pay again printed.  (b) ``RECOVERY_RUNS``: the
+    paper's datasets alone under ``RECOVERY_SERVICE`` on phase 4h's
+    platform, the uninterrupted run held to the reference's figures (passes
+    and requeries too), killed after ``RECOVERY_KILL`` commits at the
+    reference's cadence with the reference's cents committed, restored on
+    the card with every field the uninterrupted run's; the product run
+    restored once more from a copy of the same directory on the CPU, with
+    identical fields.  (c) phase 4g's blocked session (65536 objects, int64
+    keys) per round, killed after a checkpoint with answers folded: the
+    restored lane's neg keys int64 with the int64 sentinel, the wide
+    ``union_deduce`` launched after the restore, labels the truth and every
+    field an uninterrupted per-round run's.  (d)
+    ``bench_join_service.py``'s recovery stage, held to ``RECOVERY_BENCH``.
+    Returns the phase's launches."""
+    import shutil
+
+    import torch
+
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.cluster_graph import UNKNOWN
+    from repro_torch.core.crowd import LatencyModel, NoisyCrowd, PerfectCrowd
+    from repro_torch.core.graph import key_sentinel
+    from repro_torch.data.entities import make_session_pairsets
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service, recovery
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    JoinService = join_service.JoinService
+
+    def killed(svc, k):
+        svc._crash_after_checkpoints = k
+        try:
+            svc.run()
+        except join_service.ServiceKilled:
+            return
+        raise AssertionError("the run ended before its kill")
+
+    def restore(path, device=dev):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc = JoinService.restore(str(path), device=device)
+        torch.cuda.synchronize()
+        return svc, time.perf_counter() - t0
+
+    def check_kill(tag, info, total):
+        print(f"[4k {tag}] killed at step {info['step']}: {info['n_lanes']} "
+              f"lanes open, {info['n_queued']} queued, {info['n_results']} "
+              f"finished, {info['in_flight']} tickets in flight, "
+              f"{info['spent_cents']} of {total} cents committed (a restart "
+              f"pays them again: {info['spent_cents'] / total:.4f} saved)")
+        if not (info["n_lanes"] >= 1 and 0 < info["spent_cents"] < total):
+            raise AssertionError(f"phase 4k {tag}: the kill did not land "
+                                 f"mid-run: {info}")
+
+    for counter in (ps_ops.pair_scores, ps_ops.pair_scores_compact,
+                    ud_ops.union_deduce):
+        counter.launches = 0
+    ud_ops.union_deduce.wide_launches = 0
+
+    # (a) phase 4e's service, a checkpoint every pass; each commit split
+    # into the capture (flush, lanes to the host, state dicts) and the
+    # write (npz, sidecar JSON, renames)
+    commits = {"n": 0, "s": 0.0, "bytes": 0, "capture": 0.0, "write": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                commits[key] += time.perf_counter() - t0
+        return call
+
+    capture, write = recovery.capture_service, CheckpointManager._write
+
+    def timed_commits(svc):
+        now = svc._checkpoint_now
+
+        def commit(active, gateway):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                now(active, gateway)
+            finally:
+                torch.cuda.synchronize()
+                commits["s"] += time.perf_counter() - t0
+                commits["n"] += 1
+                commits["bytes"] += _dir_bytes(
+                    svc._ckpt.dir / f"step_{svc._ckpt_step - 1:08d}")
+        svc._checkpoint_now = commit
+
+    svc = noisy_service(dev, corpora, checkpoint_dir=str(root / "a_full"))
+    timed_commits(svc)
+    recovery.capture_service = timed(capture, "capture")
+    CheckpointManager._write = timed(write, "write")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = svc.run()
+        torch.cuda.synchronize()
+        ckpt_wall = time.perf_counter() - t0
+    finally:
+        recovery.capture_service, CheckpointManager._write = capture, write
+    same = {rid: result_fields(res) for rid, res in full.items()} \
+        == noisy_fields
+    n_commits = commits["n"]
+    print(f"[4k a] phase 4e's run() with a checkpoint every pass: "
+          f"{ckpt_wall:.4f} s against 4e's {noisy_wall:.4f} s without; "
+          f"{n_commits} commits, {1e3 * commits['s'] / n_commits:.2f} ms and "
+          f"{commits['bytes'] / n_commits / 2 ** 20:.2f} MiB a commit "
+          f"(capture {1e3 * commits['capture'] / n_commits:.2f} ms, write "
+          f"{1e3 * commits['write'] / n_commits:.2f} ms); every field equal "
+          f"to 4e's {same}")
+    if not same:
+        raise AssertionError("phase 4k a: checkpointing changed phase 4e's "
+                             "results")
+    total = sum(f["n_spent_cents"] for f in noisy_fields.values())
+    svc = noisy_service(dev, corpora, checkpoint_dir=str(root / "a_kill"))
+    killed(svc, n_commits // 2)
+    restored, restore_s = restore(root / "a_kill")
+    check_kill("a", restored.last_recovery, total)
+    t0 = time.perf_counter()
+    rec = restored.run()
+    torch.cuda.synchronize()
+    finish_s = time.perf_counter() - t0
+    same = {rid: result_fields(res) for rid, res in rec.items()} \
+        == noisy_fields
+    print(f"[4k a] restore {1e3 * restore_s:.2f} ms, finish {finish_s:.4f} "
+          f"s; every field but the wall equal to 4e's uninterrupted run "
+          f"{same}; recovered total "
+          f"{sum(r.n_spent_cents for r in rec.values())} cents of {total}")
+    if not same:
+        raise AssertionError("phase 4k a: the restored run differs from "
+                             "phase 4e's")
+    out = {"a": {"restore_ms": 1e3 * restore_s,
+                 "commit_ms": 1e3 * commits["s"] / n_commits,
+                 "commit_bytes": commits["bytes"] / n_commits,
+                 "wall_with": ckpt_wall, "wall_without": noisy_wall}}
+
+    # (b) the hard configuration at the paper's datasets' full size
+    for name, (passes, every, at_kill, figures) in RECOVERY_RUNS.items():
+        k = ("paper", "product").index(name)  # the crowd's seed offset
+        ds, pairs = _pipeline_candidates(name, ASYNC_TAU)
+
+        def service(path, every, device=dev):
+            svc = JoinService(lanes=ASYNC_LANES,
+                              latency=LatencyModel(**ASYNC_LATENCY),
+                              **RECOVERY_SERVICE, checkpoint_dir=str(path),
+                              checkpoint_every=every, device=device)
+            crowd = NoisyCrowd(**dict(REQUERY_CROWD,
+                                      seed=REQUERY_CROWD["seed"] + k))
+            return svc, svc.submit(pairs, crowd,
+                                   total_true_matches=ds.total_true_matches)
+
+        svc, rid = service(root / f"b_{name}_count", 10 ** 9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base = svc.run()[rid]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (svc._ckpt_tick, econ_figures(base))
+        print(f"[4k b {name}] uninterrupted: {len(pairs)} pairs, "
+              f"{base.n_crowdsourced} crowdsourced, {base.n_requeried} "
+              f"requeried, {base.n_spent_cents} cents, sim_minutes "
+              f"{base.sim_minutes!r}, {got[0]} run-loop passes, run() "
+              f"{wall:.4f} s; the reference's figures {got == (passes, figures)}")
+        if got != (passes, figures) or base.n_requeried < 1:
+            raise AssertionError(f"phase 4k b {name}: {got} against the "
+                                 f"reference's {(passes, figures)}")
+        kill_dir = root / f"b_{name}_kill"
+        svc, _ = service(kill_dir, every)
+        killed(svc, RECOVERY_KILL)
+        if name == "product":
+            shutil.copytree(kill_dir, root / "b_product_cpu")
+        restored, restore_s = restore(kill_dir)
+        info = restored.last_recovery
+        check_kill(f"b {name}", info, base.n_spent_cents)
+        if info["spent_cents"] != at_kill:
+            raise AssertionError(f"phase 4k b {name}: {info['spent_cents']}"
+                                 f" cents at the kill, the reference's "
+                                 f"{at_kill}")
+        rec = restored.run()[rid]
+        same = result_fields(rec) == result_fields(base)
+        print(f"[4k b {name}] a checkpoint every {every} passes, killed "
+              f"after {RECOVERY_KILL}: restore {1e3 * restore_s:.2f} ms, "
+              f"every field equal to the uninterrupted run's {same}")
+        if not same:
+            raise AssertionError(f"phase 4k b {name}: the restored run "
+                                 f"differs")
+        out[f"b_{name}"] = {"restore_ms": 1e3 * restore_s, "wall": wall}
+        if name == "product":
+            t0 = time.perf_counter()
+            cpu = JoinService.restore(str(root / "b_product_cpu"),
+                                      device="cpu").run()[rid]
+            same = result_fields(cpu) == result_fields(base)
+            print(f"[4k b product] restored on the CPU: every field equal "
+                  f"{same} ({time.perf_counter() - t0:.4f} s)")
+            if not same:
+                raise AssertionError("phase 4k b: the product run restored "
+                                     "on the CPU differs")
+
+    # (c) phase 4g's blocked session, int64 keys, per round
+    cfg = blocking.BlockingConfig(**BLOCKING)
+    ids_a, ea, ids_b, eb = make_corpus(LARGE_SEED, LARGE_ROWS, DIM)
+    svc = JoinService(lanes=1, fused_rounds=False, device=dev,
+                      checkpoint_dir=str(root / "c"))
+    rid = svc.submit_embeddings(
+        embeddings_from_numpy(ea, dev), embeddings_from_numpy(eb, dev),
+        THRESHOLD, crowd=PerfectCrowd(),
+        truth_fn=lambda r, c: ids_a[r] == ids_b[c], blocking=cfg)
+    ps = svc.queue[-1].pairs
+    killed(svc, 3)
+    restored, restore_s = restore(root / "c")
+    (lane,), _ = restored._resume
+    keys = lane.state.neg_keys
+    pad = keys == key_sentinel(torch.int64)
+    folded = int(lane.state.rounds)
+    print(f"[4k c] {len(ps)} pairs among {ps.n_objects} objects, killed "
+          f"after round {folded}: {int((lane.labels_host != UNKNOWN).sum())}"
+          f" pairs labelled, neg keys {keys.dtype} ({int((~pad).sum())} "
+          f"keys, {int(pad.sum())} int64 sentinels); restore "
+          f"{1e3 * restore_s:.2f} ms")
+    if keys.dtype != torch.int64 or not bool(pad.any()) or folded < 1 \
+            or not bool((~pad).any()):
+        raise AssertionError("phase 4k c: the restored lane lost its int64 "
+                             "keys or holds no folded answer")
+    wide = ud_ops.union_deduce.wide_launches
+    res = restored.run()[rid]
+    wide = ud_ops.union_deduce.wide_launches - wide
+    one = JoinService(lanes=1, fused_rounds=False, device=dev)
+    one_rid = one.submit(ps, PerfectCrowd())
+    base = one.run()[one_rid]
+    check_kill("c", restored.last_recovery, base.n_spent_cents)
+    same = result_fields(base) == result_fields(res)
+    truth = np.array_equal(res.labels, ps.truth)
+    print(f"[4k c] after the restore: {wide} wide union_deduce launches, "
+          f"labels the truth {truth}, every field the uninterrupted "
+          f"per-round run's {same}")
+    if wide < 1 or not truth or not same:
+        raise AssertionError("phase 4k c: the restored int64 lane failed")
+    out["c"] = {"restore_ms": 1e3 * restore_s, "wide_after_restore": wide}
+
+    # (d) the recovery stage of benchmarks/bench_join_service.py
+    for n, expected in RECOVERY_BENCH.items():
+        got = recovery_bench(join_service, NoisyCrowd, make_session_pairsets,
+                             n, str(root / f"d_{n}"), device=dev)
+        print(f"[4k d] bench recovery stage, {n} sessions: restart "
+              f"{got['restart_cents']} cents, {got['at_kill']} committed at "
+              f"the kill ({got['at_kill'] / got['restart_cents']:.4f} saved),"
+              f" labels identical {got['identical']}, restore "
+              f"{1e3 * got['restore_s']:.2f} ms")
+        if (got["restart_cents"], got["at_kill"]) != expected \
+                or not got["identical"] \
+                or got["recovered_cents"] != got["restart_cents"]:
+            raise AssertionError(f"phase 4k d: {got} against {expected}")
+    out["launches"] = {
+        "pair_scores": ps_ops.pair_scores.launches,
+        "pair_scores_compact": ps_ops.pair_scores_compact.launches,
+        "union_deduce": ud_ops.union_deduce.launches,
+        "union_deduce_wide": ud_ops.union_deduce.wide_launches}
+    print(f"[4k recovery] launches {out['launches']}")
+    return out
+
+
+def plan_path(dev, corpora, root: Path) -> dict:
+    """Phase 4l: the plan layer.  (a) ``bench_plan.py``'s three stages at
+    its CI and full sizes, each figure the reference's (``PLAN_RUNS``):
+    the warm repeat crowdsources nothing and keeps the cold signature,
+    pushdown keeps the signature on fewer candidates, the greedy order and
+    its cost.  (b) three collections of one ``make_corpus`` family
+    (``PLAN_WIDE_ROWS`` rows x 384) under a filtered ``MultiJoin`` at
+    ``THRESHOLD``, cold, then warm over the cache saved to disk: the warm
+    run crowdsources 0 pairs with the cold signature.  (c) a
+    ``JoinService(cache_path=, checkpoint_dir=)`` of phase 4's corpora 0 and
+    1 through ``submit_embeddings``, killed after 2 commits and restored:
+    the restored service reloads the cache, deposits into it, and a repeat
+    of corpus 0 on it crowdsources nothing; the cache file and every field
+    equal an uninterrupted service's.  Returns the phase's launches."""
+    import torch
+
+    import repro_torch.plan as tp
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.serve import join_service
+
+    for counter in (ps_ops.pair_scores, ud_ops.union_deduce):
+        counter.launches = 0
+    out = {}
+
+    def executor(cache, optimize_plans):
+        return tp.PlanExecutor(cache=cache, optimize_plans=optimize_plans,
+                               device=dev)
+
+    # (a) bench_plan.py's stages
+    for size in PLAN_SIZES:
+        figures, secs = plan_bench(tp, executor, size)
+        (cold, warm, hits, cents, _, cands, sig), pushdown, order = \
+            (figures[k] for k in ("repeat", "pushdown", "ordering"))
+        print(f"[4l a {size}] repeat: cold {cold} crowdsourced ({cents} "
+              f"cents, {cands} candidates), warm {warm} with {hits} cache "
+              f"hits, saved {1 - warm / max(cold, 1):.4f}, signature equal "
+              f"{sig}; pushdown: {pushdown[0]} -> {pushdown[1]} candidates "
+              f"({1 - pushdown[1] / pushdown[0]:.4f} fewer), crowdsourced "
+              f"{pushdown[2]} -> {pushdown[3]}; order {order[0]} cost "
+              f"{order[1]} (best {order[2]}, worst {order[3]}); walls "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in secs.items())
+              + f"; the reference's {figures == PLAN_RUNS[size]}")
+        if figures != PLAN_RUNS[size] or warm or not sig:
+            raise AssertionError(f"phase 4l a {size}: {figures} against "
+                                 f"{PLAN_RUNS[size]}")
+        out[size] = secs
+
+    # (b) at the join cells' width
+    n_a, n_b, n_c = PLAN_WIDE_ROWS
+    ids_a, ea, ids_b, eb, ((ids_c, ec),) = make_corpus(SEED + 30, n_a, DIM,
+                                                       more=(n_c,))
+    colls = [tp.Collection(name, emb, attrs={"oid": np.arange(len(emb)),
+                                             "g": np.arange(len(emb)) % 3},
+                           entities=ids)
+             for name, emb, ids in (("a", ea, ids_a), ("b", eb, ids_b),
+                                    ("c", ec, ids_c))]
+    plan = tp.Filter(tp.Cmp("a.g", "<", 2),
+                     tp.MultiJoin([tp.Scan(c) for c in colls], THRESHOLD))
+    path = root / "plan_cache.json"
+    cache = tp.ClusterCache()
+    t0 = time.perf_counter()
+    cold = executor(cache, True).execute(plan)
+    cold_s = time.perf_counter() - t0
+    cache.save(str(path))
+    t0 = time.perf_counter()
+    warm = executor(tp.ClusterCache.load(str(path)), True).execute(plan)
+    warm_s = time.perf_counter() - t0
+    sig = warm.signature() == cold.signature()
+    print(f"[4l b] {PLAN_WIDE_ROWS} rows x {DIM}: {cold.n_candidates} "
+          f"candidates in {len(cold.stages)} stages, cold {cold.n_crowdsourced}"
+          f" crowdsourced ({cold.spent_cents} cents, {len(cold.tuples)} "
+          f"tuples) in {cold_s:.4f} s; warm over the saved cache "
+          f"{warm.n_crowdsourced} crowdsourced, {warm.n_cache_hits} hits, "
+          f"{warm_s:.4f} s; signature equal {sig}")
+    if warm.n_crowdsourced or not sig or not cold.n_crowdsourced:
+        raise AssertionError("phase 4l b: the warm repeat paid again or "
+                             "changed the result")
+    out["wide"] = {"cold_s": cold_s, "warm_s": warm_s}
+
+    # (c) the service's cache wiring across a kill
+    def service(tag, **kw):
+        svc = join_service.JoinService(
+            lanes=1, cache_path=str(root / f"svc_{tag}.json"), device=dev,
+            **kw)
+        return svc
+
+    def submit(svc, i):
+        ids_a, ea, ids_b, eb = corpora[i]
+        return svc.submit_embeddings(
+            embeddings_from_numpy(ea, dev), embeddings_from_numpy(eb, dev),
+            THRESHOLD, crowd=PerfectCrowd(),
+            truth_fn=lambda r, c: ids_a[r] == ids_b[c])
+
+    base = service("base")
+    for i in (0, 1):
+        submit(base, i)
+    base.run()
+    repeat = submit(base, 0)
+    base_res = base.run()
+    svc = service("kill", checkpoint_dir=str(root / "svc_ckpt"))
+    for i in (0, 1):
+        submit(svc, i)
+    svc._crash_after_checkpoints = 2
+    try:
+        svc.run()
+        raise AssertionError("phase 4l c: the run ended before its kill")
+    except join_service.ServiceKilled:
+        pass
+    restored = join_service.JoinService.restore(str(root / "svc_ckpt"),
+                                                device=dev)
+    reloaded = restored.cluster_cache.n_objects
+    restored.run()
+    again = submit(restored, 0)
+    res = restored.run()
+    same = {r: result_fields(x) for r, x in res.items()} == \
+        {r: result_fields(x) for r, x in base_res.items()}
+    files = (root / "svc_base.json").read_bytes() == \
+        (root / "svc_kill.json").read_bytes()
+    print(f"[4l c] killed at step {restored.last_recovery['step']}: the "
+          f"restored service reloaded {reloaded} cached objects; the repeat "
+          f"crowdsourced {res[again].n_crowdsourced} with "
+          f"{res[again].n_cache_hits} cache hits; every field equal to the "
+          f"uninterrupted service's {same}; cache files equal {files}")
+    if not (reloaded and same and files and again == repeat
+            and res[again].n_crowdsourced == 0):
+        raise AssertionError("phase 4l c: the restored service's cache "
+                             "differs")
+    torch.cuda.synchronize()
+    out["launches"] = {"pair_scores": ps_ops.pair_scores.launches,
+                       "union_deduce": ud_ops.union_deduce.launches}
+    print(f"[4l plan] launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3211,7 +3846,7 @@ def run(dev) -> None:
     del lm_model
 
     # -- 4e. the noisy dense path --------------------------------------------
-    noisy_launches = noisy_path(dev, corpora)
+    noisy_launches, noisy_fields, noisy_wall = noisy_path(dev, corpora)
 
     # -- 4f. the paper's pipeline -------------------------------------------
     pipeline = paper_pipeline(dev)
@@ -3236,6 +3871,25 @@ def run(dev) -> None:
     # -- 4j. streaming ingest -----------------------------------------------
     stream = streaming_path(dev, corpora, large["signatures_s"])
     s_launch = stream["launches"]
+
+    # -- 4k. kill and restore on the card; 4l. the plan layer ---------------
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        recovery = recovery_path(dev, corpora, noisy_fields, noisy_wall,
+                                 scratch)
+        t_4k = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan = plan_path(dev, corpora, scratch)
+        print(f"[4k/4l] phase 4k {t_4k:.1f} s, phase 4l "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    r_launch, p_launch = recovery["launches"], plan["launches"]
 
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
@@ -3313,7 +3967,9 @@ def run(dev) -> None:
              "lm_machine_phase": machine["launches"]["pair_scores"],
              "noisy_dense": noisy_launches["pair_scores"],
              "crowd_economics": econ["pair_scores"],
-             "streaming": s_launch["dense"]["pair_scores"]},
+             "streaming": s_launch["dense"]["pair_scores"],
+             "recovery": r_launch["pair_scores"],
+             "plan": p_launch["pair_scores"]},
          "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
@@ -3330,7 +3986,8 @@ def run(dev) -> None:
          "launches_by_path": {
              "blocked": blocked_launches["pair_scores_compact"],
              "large_universe": large["launches"]["pair_scores_compact"],
-             "streaming": s_launch["blocked"]["pair_scores_compact"]},
+             "streaming": s_launch["blocked"]["pair_scores_compact"],
+             "recovery": r_launch["pair_scores_compact"]},
          "max_abs_err": cs_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores_compact(
              *chunk_args, THRESHOLD, c_call, bn, bm)),
@@ -3356,7 +4013,9 @@ def run(dev) -> None:
              "crowd_economics": econ["union_deduce"],
              "streaming": s_launch["dense"]["union_deduce"]
              + s_launch["pairs"]["union_deduce"]
-             + s_launch["blocked"]["union_deduce"]},
+             + s_launch["blocked"]["union_deduce"],
+             "recovery": r_launch["union_deduce"],
+             "plan": p_launch["union_deduce"]},
          "crowd_economics_by_run": econ["union_deduce_by_run"],
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
@@ -3381,7 +4040,9 @@ def run(dev) -> None:
              "large_universe": large["launches"]["union_deduce_wide"],
              "large_pairs": large["large_pairs_wide"],
              "streaming": s_launch["blocked"]["union_deduce_wide"]
-             + s_launch["large_pairs_wide"]},
+             + s_launch["large_pairs_wide"],
+             "recovery": r_launch["union_deduce_wide"],
+             "recovery_after_restore": recovery["c"]["wide_after_restore"]},
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,
          "shape": [wide_B, wide_n, wide_P],

@@ -1,6 +1,6 @@
 """Crowd platform simulators, the worker-quality model and the crowd
-transport (§2.1, §6.4, DESIGN.md §9, §15): ``repro/core/crowd.py`` but
-its checkpoint state dicts.
+transport (§2.1, §6.4, DESIGN.md §9, §15, §16): the port of
+``repro/core/crowd.py``.
 
 * :class:`PerfectCrowd` — always returns ground truth (the §2.1 assumption);
   its ``precomputed_answers`` let the round engine fold many rounds without
@@ -29,15 +29,22 @@ its checkpoint state dicts.
   voting; ``requery`` escalates rejected answers; ``post_cluster`` posts a
   cluster task.
 
+Every crowd, the worker model and the gateway have a JSON ``state_dict`` /
+``load_state_dict`` pair for the service's checkpoints (DESIGN.md §16),
+which emits the reference's schema key for key; :func:`crowd_to_state` /
+:func:`crowd_from_state` carry a crowd with its class name
+(:func:`register_crowd`).
+
 Labels are in engine encoding (``POS`` / ``NEG``) throughout, ballots'
-included.  The state dicts of checkpoints are not ported yet (ROADMAP A10).
+included.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import math
-from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 
@@ -144,7 +151,62 @@ class Crowd:
         self._worker_seq = start + k
         return tuple(range(start, start + k))
 
+    # -- persistence (DESIGN.md §16) ------------------------------------
+    def state_dict(self) -> dict:
+        """JSON snapshot of the crowd's mutable state; subclasses with rng
+        streams or worker pools extend it."""
+        return {"n_asked": int(self.n_asked),
+                "worker_seq": int(getattr(self, "_worker_seq", 0))}
 
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot in place."""
+        self.n_asked = int(state.get("n_asked", 0))
+        self._worker_seq = int(state.get("worker_seq", 0))
+
+
+_CROWD_CLASSES: Dict[str, type] = {}
+
+
+def register_crowd(cls: type) -> type:
+    """Register a :class:`Crowd` subclass for checkpoint restore, under
+    its class name (usable as a decorator; the built-in crowds are
+    registered)."""
+    _CROWD_CLASSES[cls.__name__] = cls
+    return cls
+
+
+def crowd_to_state(crowd: Crowd) -> dict:
+    """``{"class": name, "state": state_dict}`` — JSON, as the reference
+    writes it."""
+    return {"class": type(crowd).__name__, "state": crowd.state_dict()}
+
+
+def crowd_from_state(payload: dict) -> Crowd:
+    """Rebuild a crowd from :func:`crowd_to_state` output, without running
+    ``__init__`` (its rng draws are already in the snapshot): future
+    answers match the snapshotted instance's."""
+    name = payload["class"]
+    cls = _CROWD_CLASSES.get(name)
+    if cls is None:
+        raise KeyError(
+            f"unknown crowd class {name!r} — register it with "
+            "repro_torch.core.crowd.register_crowd before restoring")
+    crowd = cls.__new__(cls)
+    crowd.load_state_dict(payload["state"])
+    return crowd
+
+
+def _rng_to_state(rng: np.random.Generator) -> dict:
+    return rng.bit_generator.state
+
+
+def _rng_from_state(state: dict) -> np.random.Generator:
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    return rng
+
+
+@register_crowd
 class PerfectCrowd(Crowd):
     """Ground-truth oracle crowd — the §2.1 assumption."""
 
@@ -159,6 +221,7 @@ class PerfectCrowd(Crowd):
         return np.where(pairs.truth, POS, NEG).astype(np.int32)
 
 
+@register_crowd
 class NoisyCrowd(Crowd):
     """§6.4 deployment model: majority vote over error-prone workers.
 
@@ -306,6 +369,33 @@ class NoisyCrowd(Crowd):
         return sum(math.comb(k, j) * e**j * (1 - e) ** (k - j)
                    * min(j, k - j) / k for j in range(k + 1))
 
+    def state_dict(self) -> dict:
+        """Snapshot with the rng stream and the drawn worker pool:
+        ``error_rate`` after the qualification screen, so a restore replays
+        no constructor draw."""
+        state = super().state_dict()
+        state.update(
+            error_rate=float(self.error_rate),
+            n_assignments=int(self.n_assignments),
+            n_workers=(None if self.n_workers is None
+                       else int(self.n_workers)),
+            worker_errors=(None if self.worker_errors is None
+                           else [float(e) for e in self.worker_errors]),
+            rng=_rng_to_state(self.rng),
+        )
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        self.error_rate = float(state["error_rate"])
+        self.n_assignments = int(state["n_assignments"])
+        self.n_workers = (None if state["n_workers"] is None
+                          else int(state["n_workers"]))
+        we = state["worker_errors"]
+        self.worker_errors = (None if we is None
+                              else np.asarray(we, np.float64))
+        self.rng = _rng_from_state(state["rng"])
+
 
 class WorkerModel:
     """Streaming Dawid-Skene estimator on the binary match label space
@@ -409,6 +499,30 @@ class WorkerModel:
             (w for w, c in self._n.items() if c >= min_votes),
             key=lambda w: (self.error_rate(w), w))
         return ranked[:limit]
+
+    def state_dict(self) -> dict:
+        """JSON snapshot: the prior, the soft counts (worker ids as string
+        keys) and the recorded ballots."""
+        return {
+            "prior_error": float(self.prior_error),
+            "strength": float(self.strength),
+            "min_error": float(self.min_error),
+            "max_error": float(self.max_error),
+            "n": {str(w): float(c) for w, c in self._n.items()},
+            "wrong": {str(w): float(c) for w, c in self._wrong.items()},
+            "ballots": [[list(map(int, votes)), list(map(int, workers))]
+                        for votes, workers in self._ballots],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.prior_error = float(state["prior_error"])
+        self.strength = float(state["strength"])
+        self.min_error = float(state["min_error"])
+        self.max_error = float(state["max_error"])
+        self._n = {int(w): float(c) for w, c in state["n"].items()}
+        self._wrong = {int(w): float(c) for w, c in state["wrong"].items()}
+        self._ballots = [(tuple(votes), tuple(workers))
+                         for votes, workers in state["ballots"]]
 
 
 @dataclasses.dataclass
@@ -567,6 +681,11 @@ class CrowdGateway:
         # them are a cluster task's beyond its first (a task is one in flight)
         self._waiting: List[CrowdAnswer] = []
         self._waiting_extra = 0
+        # ... and the tasks they came from, for checkpoints: consecutive
+        # runs of _waiting as (n answers, likelihood, one task).  A run of
+        # pair ballots keeps the posted pairs' likelihood array (a task an
+        # answer, keyed by its index); a cluster task keeps its float.
+        self._waiting_runs: List[Tuple[int, Any, bool]] = []
         self._seen: Dict[Tuple[int, int], Set[int]] = {}
         # one-vote posts not yet folded into _seen: per request, a list of
         # (indices, workers), aligned
@@ -667,6 +786,9 @@ class CrowdGateway:
                         rid, i, label, 0.0, ballot.votes, ballot.workers))
             if self.latency is not None:
                 self._assign()
+            elif indices:
+                self._waiting_runs.append(
+                    (len(indices), pairs.likelihood, False))
         self.n_posted += len(indices)
         return indices
 
@@ -721,6 +843,8 @@ class CrowdGateway:
             waiting.append(CrowdAnswer(rid, i, label, 0.0, votes, (worker,)))
             spent += cents_per_assignment  # times one vote: exact
         self._seen_runs.setdefault(rid, []).append((indices, workers))
+        if indices:
+            self._waiting_runs.append((len(indices), pairs.likelihood, False))
         self._spent_cents[rid] = spent
         self._assignments[rid] = self._assignments.get(rid, 0) + len(indices)
         self.n_votes += len(indices)
@@ -768,14 +892,16 @@ class CrowdGateway:
         self._cluster_pairs[rid] = (self._cluster_pairs.get(rid, 0)
                                     + len(answers))
         if answers:
+            likelihood = float(min(float(pairs.likelihood[i])
+                                   for i, *_ in answers))
             if self.latency is not None:
-                self._push_task(_Task(rid, answers, float(min(
-                    float(pairs.likelihood[i]) for i, *_ in answers))))
+                self._push_task(_Task(rid, answers, likelihood))
             else:
                 self._waiting.extend(
                     CrowdAnswer(rid, i, lab, 0.0, votes, ws)
                     for i, lab, votes, ws in answers)
                 self._waiting_extra += len(answers) - 1
+                self._waiting_runs.append((len(answers), likelihood, True))
         if escalate:
             self._enqueue(rid, pairs, escalate, crowd, None,
                           pair_cents_per_assignment)
@@ -843,6 +969,7 @@ class CrowdGateway:
         if self.latency is None:
             out, self._waiting = self._waiting, []
             self._waiting_extra = 0
+            self._waiting_runs = []
             self.n_answered += len(out)
             return out
         if not self._running:
@@ -866,3 +993,137 @@ class CrowdGateway:
         while self.in_flight:
             out.extend(self.poll())
         return out
+
+    # -- persistence (DESIGN.md §16) ------------------------------------
+    @staticmethod
+    def _task_to_state(rid: int, likelihood: float, answers) -> dict:
+        return {"rid": int(rid),
+                "likelihood": float(likelihood),
+                "answers": [[int(i), int(lab), list(map(int, votes)),
+                             list(map(int, workers))]
+                            for i, lab, votes, workers in answers]}
+
+    @staticmethod
+    def _task_from_state(d: dict) -> _Task:
+        return _Task(
+            rid=int(d["rid"]),
+            answers=[(int(i), int(lab), tuple(votes), tuple(workers))
+                     for i, lab, votes, workers in d["answers"]],
+            likelihood=float(d["likelihood"]))
+
+    def _waiting_tasks(self) -> List[dict]:
+        """The tasks not yet picked up (latency mode) or not yet polled
+        (immediate mode), in the reference's list order: posting order, a
+        pair ballot or a cluster task each."""
+        if self.latency is not None:
+            tasks = self._tasks
+            if self.nf:  # heap entries (lik, rid, index, posting seq, task)
+                tasks = [e[-1] for e in sorted(tasks, key=lambda e: e[3])]
+            return [self._task_to_state(t.rid, t.likelihood, t.answers)
+                    for t in tasks]
+        out, pos = [], 0
+        for n, likelihood, one_task in self._waiting_runs:
+            run = self._waiting[pos:pos + n]
+            pos += n
+            entries = [(a.index, a.label, a.votes, a.workers) for a in run]
+            if one_task:
+                out.append(self._task_to_state(run[0].rid, likelihood,
+                                               entries))
+            else:
+                out.extend(self._task_to_state(a.rid,
+                                               float(likelihood[a.index]),
+                                               [e])
+                           for a, e in zip(run, entries))
+        return out
+
+    def state_dict(self) -> dict:
+        """JSON snapshot of everything the platform remembers, in the
+        reference's schema: the tasks in flight (waiting and running, their
+        answers drawn and billed at post time — a restored service must not
+        buy them again), the spend and assignment ledgers, the requery and
+        seen-worker bookkeeping (one-vote runs folded in first), the vote
+        tallies, the clock, the platform rng and the worker model."""
+        for rid in list(self._seen_runs):
+            self._settle_seen(rid)
+        return {
+            "now": float(self._now),
+            "seq": int(self._seq),
+            "next_tid": int(self._next_tid),
+            "rng": (None if self._rng is None else _rng_to_state(self._rng)),
+            "waiting": self._waiting_tasks(),
+            "running": [[float(t), int(s),
+                         self._task_to_state(task.rid, task.likelihood,
+                                             task.answers)]
+                        for t, s, task in self._running],
+            "attempts": [[int(rid), int(i), int(n)]
+                         for (rid, i), n in sorted(self._attempts.items())],
+            "seen": [[int(rid), int(i), sorted(int(w) for w in ws)]
+                     for (rid, i), ws in sorted(self._seen.items())],
+            "counters": {
+                "n_posted": int(self.n_posted),
+                "n_answered": int(self.n_answered),
+                "n_requeried": int(self.n_requeried),
+                "n_votes": int(self.n_votes),
+                "n_minority_votes": int(self.n_minority_votes),
+                "n_cluster_tasks": int(self.n_cluster_tasks),
+                "n_cluster_pairs": int(self.n_cluster_pairs),
+            },
+            "cluster_pairs": {str(r): int(n)
+                              for r, n in self._cluster_pairs.items()},
+            "spent_cents": {str(r): float(c)
+                            for r, c in self._spent_cents.items()},
+            "assignments": {str(r): int(n)
+                            for r, n in self._assignments.items()},
+            "worker_model": (None if self.worker_model is None
+                             else self.worker_model.state_dict()),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot (the port's or the
+        reference's) into a gateway built with the same ``(latency, nf,
+        aggregation)``: waiting tasks back on the platform queue (under
+        ``nf`` the heap, ties in posting order) or, in immediate mode, back
+        as unpolled answers; running tasks back on the completion heap with
+        their finish times; the free workers recounted."""
+        self._now = float(state["now"])
+        self._seq = int(state["seq"])
+        self._next_tid = int(state["next_tid"])
+        if state["rng"] is not None:
+            self._rng = _rng_from_state(state["rng"])
+        waiting = [self._task_from_state(d) for d in state["waiting"]]
+        self._tasks, self._waiting, self._waiting_runs = [], [], []
+        self._waiting_extra = 0
+        self._posted = 0
+        if self.latency is not None:
+            for task in waiting:
+                self._push_task(task)
+        else:
+            for task in waiting:
+                self._waiting.extend(
+                    CrowdAnswer(task.rid, i, lab, 0.0, votes, workers)
+                    for i, lab, votes, workers in task.answers)
+                self._waiting_extra += len(task.answers) - 1
+                self._waiting_runs.append(
+                    (len(task.answers), task.likelihood, True))
+        self._running = [(float(t), int(s), self._task_from_state(d))
+                         for t, s, d in state["running"]]
+        heapq.heapify(self._running)
+        if self.latency is not None:
+            self._free_workers = self.latency.n_workers - len(self._running)
+        self._attempts = {(int(rid), int(i)): int(n)
+                          for rid, i, n in state["attempts"]}
+        self._seen = {(int(rid), int(i)): {int(w) for w in ws}
+                      for rid, i, ws in state["seen"]}
+        self._seen_runs = {}
+        for k, v in state["counters"].items():
+            setattr(self, k, int(v))
+        self._cluster_pairs = {int(r): int(n)
+                               for r, n in state["cluster_pairs"].items()}
+        self._spent_cents = {int(r): float(c)
+                             for r, c in state["spent_cents"].items()}
+        self._assignments = {int(r): int(n)
+                             for r, n in state["assignments"].items()}
+        if state["worker_model"] is not None:
+            if self.worker_model is None:
+                self.worker_model = WorkerModel()
+            self.worker_model.load_state_dict(state["worker_model"])

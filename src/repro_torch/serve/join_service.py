@@ -67,15 +67,27 @@ An epoch grows the live lane in place (``session_grow`` then
 ``session_append_pairs``): existing pair slots never move, so in-flight
 crowd work, budgets and requery ladders carry over.
 
-Every option of the reference that the port does not implement (admission
-and checkpoints, the cluster cache) raises :class:`NotImplementedError`
-naming the ROADMAP item that will bring it, instead of being silently
-ignored.
+**Durable serving** (DESIGN.md §16): with ``checkpoint_dir`` set, every
+``checkpoint_every``-th pass of the run loop commits the whole serving state
+(lanes pulled to the host, the queue, results, arrival epochs, the gateway's
+tickets and ledgers, the admission envelope) through
+:class:`~repro_torch.train.checkpoint.CheckpointManager`;
+:meth:`JoinService.restore` rebuilds the service from the latest one on any
+device, and its :meth:`run` resumes mid-wave with labels, spend and
+``sim_minutes`` identical to an uninterrupted run.  An
+:class:`AdmissionPolicy` caps the queue and a service-wide crowd-spend
+envelope; a submission it cannot admit is shed with :class:`AdmissionError`.
+
+**Cross-query cache** (DESIGN.md §14): with a ``cluster_cache`` (or a
+``cache_path`` it persists to), :meth:`submit_embeddings` fingerprints the
+candidate rows, seeds the request from the verdicts the cache already holds,
+and deposits the finished session's verdicts back.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -110,28 +122,33 @@ from repro_torch.kernels.pair_scores.blocking import (BlockingConfig,
 from repro_torch.kernels.pair_scores.sharded import (StreamingCandidateIndex,
                                                      sharded_candidates)
 
-# Options of the reference that the port does not implement yet: each maps to
-# the value the port's behaviour already equals and the ROADMAP item that
-# brings the rest.  Any other value raises NotImplementedError.
-_SERVICE_OPTIONS = {
-    "admission": (None, "A10 (admission control and recovery)"),
-    "checkpoint_dir": (None, "A10 (recovery)"),
-    "checkpoint_every": (1, "A10 (recovery)"),
-    "checkpoint_keep": (3, "A10 (recovery)"),
-    "cluster_cache": (None, "A11 (cross-query cluster cache)"),
-    "cache_path": (None, "A9.5 (cache_path) and A11"),
-}
+
+@dataclasses.dataclass
+class AdmissionPolicy:
+    """Global admission envelope for new submissions (DESIGN.md §16).
+
+    ``max_pending`` caps the submit queue: with the lanes busy and the queue
+    full, further submits shed with :class:`AdmissionError` instead of
+    growing an unbounded backlog.  ``global_budget_cents`` is a service-wide
+    crowd-spend envelope: each admitted request reserves its budget against
+    it (a request without a budget of its own is clamped to what remains,
+    reported as ``JoinSessionResult.envelope_clamped``), and a submission
+    the exhausted envelope cannot fund is shed."""
+
+    max_pending: Optional[int] = None
+    global_budget_cents: Optional[float] = None
 
 
-def _reject_unported(where: str, given: dict, table: dict) -> None:
-    for name, value in given.items():
-        if name not in table:
-            raise TypeError(f"{where}() got an unexpected keyword argument "
-                            f"{name!r}")
-        ported, item = table[name]
-        if not (value is None if ported is None else value == ported):
-            raise NotImplementedError(
-                f"{where}({name}={value!r}) is not ported yet: ROADMAP {item}")
+class AdmissionError(RuntimeError):
+    """A submission was shed by the admission envelope (DESIGN.md §16): the
+    queue is at ``max_pending`` or the crowd-budget envelope has no cents
+    left to reserve.  Nothing was enqueued."""
+
+
+class ServiceKilled(RuntimeError):
+    """An injected crash: raised right after a checkpoint commits when
+    ``JoinService._crash_after_checkpoints`` is set, so a run dies at a
+    known point with a restorable checkpoint on disk."""
 
 
 @dataclasses.dataclass
@@ -164,13 +181,16 @@ class JoinRequest:
     # cross-query warm start (DESIGN.md §14): (P,) int32 {UNKNOWN, NEG, POS}
     # in the request's pair order, folded at lane open and never billed
     seed_labels: Optional[np.ndarray] = None
+    # admission provenance (DESIGN.md §16), set by the service: whether the
+    # request waited behind fully occupied lanes, and whether its budget
+    # was clamped to the remaining spend envelope
     admission_deferred: bool = False
+    envelope_clamped: bool = False
 
 
 @dataclasses.dataclass
 class JoinSessionResult:
-    """Served outcome of one join request — the reference's fields, with
-    the provenance of unported features at their neutral values."""
+    """Served outcome of one join request — the reference's fields."""
 
     rid: int
     labels: np.ndarray             # (P,) bool over the request's pairs
@@ -274,8 +294,12 @@ class JoinService:
     defaults; ``slots_per_round`` caps a round's questions across lanes;
     ``aggregation`` (``"majority"`` or ``"em"``) collapses ballots;
     ``cluster_tasks`` posts tasks of up to ``cluster_size`` objects, each
-    partitioned by ``cluster_assignments`` workers.  See the module
-    docstring for what is ported."""
+    partitioned by ``cluster_assignments`` workers.  ``admission`` is the
+    :class:`AdmissionPolicy`; ``cluster_cache`` (or ``cache_path``, loaded
+    when the file exists and saved after every deposit) is the cross-query
+    :class:`~repro_torch.plan.cache.ClusterCache`; ``checkpoint_dir``,
+    ``checkpoint_every`` and ``checkpoint_keep`` make the serving state
+    durable (see :meth:`restore`)."""
 
     # rounds per round-engine call
     FUSED_ROUNDS_PER_DISPATCH = 8
@@ -289,9 +313,12 @@ class JoinService:
                  slots_per_round: Optional[int] = None,
                  fused_rounds: bool = True, aggregation: str = "majority",
                  cluster_tasks: bool = False, cluster_size: int = 8,
-                 cluster_assignments: int = 2, device: DeviceLike = None,
-                 **unported):
-        _reject_unported("JoinService", unported, _SERVICE_OPTIONS)
+                 cluster_assignments: int = 2,
+                 admission: Optional[AdmissionPolicy] = None,
+                 cluster_cache=None, cache_path: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 1, checkpoint_keep: int = 3,
+                 device: DeviceLike = None):
         if conflict_policy not in ("drop", "requery"):
             raise ValueError(
                 f"conflict_policy must be 'drop' or 'requery', "
@@ -317,6 +344,10 @@ class JoinService:
             raise ValueError(
                 f"cluster_assignments must be positive, "
                 f"got {cluster_assignments}")
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be positive, got {checkpoint_every}"
+                " — a non-positive cadence would never checkpoint")
         if lanes < 1:
             raise ValueError(f"lanes must be positive, got {lanes}")
         self.lanes = lanes
@@ -353,10 +384,67 @@ class JoinService:
         self._pending_arrivals: Dict[int, Deque[PairSet]] = {}
         self._stream_interleave: Dict[int, bool] = {}
         self._streams: Dict[int, _EmbeddingStream] = {}
+        # admission control (DESIGN.md §16): the shed counter, and the
+        # envelope's finalized spend plus the budgets reserved by admitted
+        # requests not yet finished
+        self.admission = admission
+        self.n_shed = 0
+        self._envelope_spent = 0.0
+        self._envelope_reserved = 0.0
+        # the cross-query cluster cache (DESIGN.md §14): submit_embeddings
+        # seeds from it, _finalize deposits into it (and saves to
+        # cache_path); the fingerprints of each request's candidate rows
+        if cluster_cache is None and cache_path is not None:
+            from repro_torch.plan.cache import ClusterCache
+            cluster_cache = (ClusterCache.load(cache_path)
+                             if os.path.exists(cache_path) else ClusterCache())
+        self.cluster_cache = cluster_cache
+        self.cache_path = cache_path
+        self._cache_fps: Dict[int, Tuple[List[str], List[str]]] = {}
+        # durable serving state (DESIGN.md §16): checkpoints of the run
+        # loop through train/checkpoint.py; _crash_after_checkpoints is the
+        # kill switch of the recovery tests and the chip script
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.checkpoint_keep = checkpoint_keep
+        self._ckpt = None
+        if checkpoint_dir is not None:
+            from repro_torch.train.checkpoint import CheckpointManager
+            self._ckpt = CheckpointManager(checkpoint_dir,
+                                           keep=checkpoint_keep)
+        self._ckpt_step = 0
+        self._ckpt_tick = 0
+        self._crash_after_checkpoints: Optional[int] = None
+        self._resume: Optional[Tuple[List[_Lane], CrowdGateway]] = None
+        self.last_recovery: Optional[dict] = None
 
     # -- request ingestion ---------------------------------------------------
     def _admit(self, req: JoinRequest) -> int:
-        """Resolve defaults, validate, assign the rid and enqueue."""
+        """Resolve defaults, validate, assign the rid and enqueue.  Under an
+        :class:`AdmissionPolicy` a submit that finds the queue at
+        ``max_pending`` or the spend envelope empty is shed (counted in
+        ``n_shed``, raised as :class:`AdmissionError`, nothing enqueued);
+        an admitted request reserves its budget against the envelope,
+        clamped to what remains (``envelope_clamped``)."""
+        remaining = None
+        if self.admission is not None:
+            pol = self.admission
+            if pol.max_pending is not None and \
+                    len(self.queue) >= pol.max_pending:
+                self.n_shed += 1
+                raise AdmissionError(
+                    f"admission queue full ({len(self.queue)} >= "
+                    f"max_pending={pol.max_pending}) — request shed; retry "
+                    "after sessions finish")
+            if pol.global_budget_cents is not None:
+                remaining = (pol.global_budget_cents - self._envelope_spent
+                             - self._envelope_reserved)
+                if remaining <= 1e-9:
+                    self.n_shed += 1
+                    raise AdmissionError(
+                        "crowd-budget envelope exhausted "
+                        f"({pol.global_budget_cents:.2f} cents committed) — "
+                        "request shed")
         req.order = validate_order(self.order if req.order is None
                                    else req.order)
         if req.crowd is None:
@@ -379,6 +467,11 @@ class JoinService:
                 f"duplicate join request rid {req.rid}: already "
                 f"{'served' if req.rid in self.results else 'queued'}")
         self._next_rid = max(self._next_rid, req.rid) + 1
+        if remaining is not None:
+            if req.budget_cents is None or req.budget_cents > remaining:
+                req.budget_cents = remaining
+                req.envelope_clamped = True
+            self._envelope_reserved += req.budget_cents
         self.queue.append(req)
         return req.rid
 
@@ -442,7 +535,12 @@ class JoinService:
         (with ``blocking=``, arrivals hash into the existing buckets);
         ``truth_fn`` is kept and must then take global row and column
         indices into the grown corpora.  A capacity overflow rolls the
-        index back before it raises."""
+        index back before it raises.
+
+        With a ``cluster_cache`` the candidate rows are fingerprinted (their
+        f32 bytes, on the host), the request is seeded from the verdicts the
+        cache holds, and its verdicts are deposited back when it
+        finishes."""
         emb_a = torch.as_tensor(emb_a, device=self.device)
         emb_b = torch.as_tensor(emb_b, device=self.device)
         if streaming:
@@ -470,10 +568,24 @@ class JoinService:
         pairs = PairSet(u=cand.rows, v=cand.cols + n_a,
                         likelihood=(cand.scores + 1.0) / 2.0, truth=truth,
                         n_objects=n_a + n_b)
+        seed_labels = None
+        fps = None
+        if self.cluster_cache is not None:
+            # warm-start from the cached verdicts, and keep the fingerprints
+            # for _finalize's deposit (an all-UNKNOWN seed folds nothing)
+            from repro_torch.plan.algebra import row_fingerprints
+            fa = row_fingerprints(emb_a)
+            fb = row_fingerprints(emb_b)
+            fps = ([fa[int(i)] for i in np.asarray(cand.rows)],
+                   [fb[int(j)] for j in np.asarray(cand.cols)])
+            seed_labels = self.cluster_cache.seed(fps[0], fps[1])
         rid = self._admit(JoinRequest(
             None, pairs, crowd, order, total_true_matches,
             budget_cents=budget_cents,
-            cost_per_assignment=cost_per_assignment))
+            cost_per_assignment=cost_per_assignment,
+            seed_labels=seed_labels))
+        if fps is not None:
+            self._cache_fps[rid] = fps
         if streaming:
             self._streams[rid] = _EmbeddingStream(
                 index=index, truth_fn=truth_fn,
@@ -630,7 +742,7 @@ class JoinService:
                 ttm = int(req.pairs.truth.sum())
             q = quality(req.pairs, labels, ttm)
         n_crowd = int(crowdsourced.sum())
-        self.results[req.rid] = JoinSessionResult(
+        self.results[req.rid] = res = JoinSessionResult(
             rid=req.rid,
             labels=labels,
             crowdsourced=crowdsourced,
@@ -652,7 +764,26 @@ class JoinService:
             n_cluster_pairs=gateway.cluster_pairs(req.rid),
             n_cluster_cents=lane.n_cluster_cents,
             admission_deferred=req.admission_deferred,
+            envelope_clamped=req.envelope_clamped,
         )
+        # cross-query deposit (DESIGN.md §14): the verdicts under the
+        # fingerprints recorded at submit (UNKNOWN ones deposit nothing;
+        # pairs appended after submit have none and are sliced off)
+        fps = self._cache_fps.pop(req.rid, None)
+        if fps is not None and self.cluster_cache is not None:
+            verdicts = np.full(P, UNKNOWN, np.int32)
+            verdicts[lane.perm] = lane.labels_host
+            self.cluster_cache.deposit(fps[0], fps[1],
+                                       verdicts[: len(fps[0])])
+            if self.cache_path is not None:
+                self.cluster_cache.save(self.cache_path)
+        # the envelope's reservation turns into realized spend: the rest
+        # returns to the pool
+        if self.admission is not None and \
+                self.admission.global_budget_cents is not None:
+            self._envelope_reserved = max(
+                0.0, self._envelope_reserved - (req.budget_cents or 0.0))
+            self._envelope_spent += res.n_spent_cents
         self._streams.pop(req.rid, None)
         self._stream_interleave.pop(req.rid, None)
 
@@ -1285,9 +1416,9 @@ class JoinService:
         """Event-driven serving (§5.2 lifted into the service): lanes fold
         answers as the gateway delivers them; a non-matching answer or a
         drained lane triggers deduce + re-frontier + post immediately."""
-        gateway = self._gateway()
-        active: List[_Lane] = []
+        gateway, active = self._resume_run_state()
         while self.queue or active or gateway.in_flight:
+            self._checkpoint_tick(active, gateway)
             refilled = False
             while self.queue and len(active) < self.lanes:
                 active.append(self._open_lane(self.queue.popleft()))
@@ -1351,12 +1482,66 @@ class JoinService:
             active = self._retire_done(active, gateway)
         return dict(self.results)
 
-    # -- entry point ---------------------------------------------------------
-    def _gateway(self) -> CrowdGateway:
-        """A fresh crowd transport for one run."""
+    # -- durable serving state (DESIGN.md §16) -------------------------------
+    def _resume_run_state(self) -> Tuple[CrowdGateway, List[_Lane]]:
+        """A run's starting state: a fresh gateway and no lanes, or the
+        lanes and gateway :meth:`restore` rebuilt (the run resumes mid-wave
+        with its tickets in flight)."""
+        if self._resume is not None:
+            active, gateway = self._resume
+            self._resume = None
+            return gateway, list(active)
         return CrowdGateway(latency=self.latency, nf=self.nf,
-                            aggregation=self.aggregation)
+                            aggregation=self.aggregation), []
 
+    def _checkpoint_tick(self, active: List[_Lane],
+                         gateway: CrowdGateway) -> None:
+        """The checkpoint hook at the top of every run-loop pass: every
+        ``checkpoint_every``-th pass commits one (the first always does)."""
+        if self._ckpt is None:
+            return
+        tick = self._ckpt_tick
+        self._ckpt_tick += 1
+        if tick % self.checkpoint_every:
+            return
+        self._checkpoint_now(active, gateway)
+
+    def _checkpoint_now(self, active: List[_Lane],
+                        gateway: CrowdGateway) -> None:
+        """Commit one checkpoint of the whole serving state through the
+        atomic ``CheckpointManager`` path.  Group stacks are written back
+        first so the lane states are authoritative (a pure writeback: the
+        run's semantics do not move)."""
+        from repro_torch.serve import recovery
+        self._flush_stacks()
+        tree, side = recovery.capture_service(self, active, gateway)
+        self._ckpt.save(self._ckpt_step, tree, sidecar=side)
+        self._ckpt_step += 1
+        if self._crash_after_checkpoints is not None and \
+                self._ckpt_step >= self._crash_after_checkpoints:
+            raise ServiceKilled(
+                f"injected crash after checkpoint {self._ckpt_step - 1} "
+                f"(step dir committed under {self.checkpoint_dir})")
+
+    @classmethod
+    def restore(cls, checkpoint_dir: str, step: Optional[int] = None,
+                cluster_cache=None,
+                device: DeviceLike = None) -> "JoinService":
+        """Rebuild a service from the latest (or given) checkpoint under
+        ``checkpoint_dir``, on ``device`` (the card unless ``"cpu"`` is
+        asked for; a checkpoint written on either restores on the other):
+        configuration, queued and open requests, finished results, ledgers
+        and the gateway's tickets come back, and :meth:`run` resumes
+        mid-wave with labels identical to an uninterrupted run, billing no
+        answered pair twice.  ``cluster_cache`` overrides the cache (by
+        default the saved ``cache_path`` is reloaded);
+        ``service.last_recovery`` reports what came back."""
+        from repro_torch.serve import recovery
+        return recovery.restore_service(cls, checkpoint_dir, step=step,
+                                        cluster_cache=cluster_cache,
+                                        device=device)
+
+    # -- entry point ---------------------------------------------------------
     def run(self) -> Dict[int, JoinSessionResult]:
         """Drain the queue: lanes refill as sessions finish.  Under
         ``async_mode`` the event-driven discipline; otherwise whole crowd
@@ -1366,11 +1551,11 @@ class JoinService:
         served."""
         if self.async_mode:
             return self._run_async()
-        gateway = self._gateway()
+        gateway, active = self._resume_run_state()
         self._stacks.clear()
         self._prior_stacks.clear()
-        active: List[_Lane] = []
         while self.queue or active:
+            self._checkpoint_tick(active, gateway)
             while self.queue and len(active) < self.lanes:
                 active.append(self._open_lane(self.queue.popleft()))
             for r in self.queue:  # still queued behind fully-occupied lanes

@@ -19,6 +19,10 @@ service, under a perfect and under noisy crowds: bit for bit.  The
 streaming index's epochs together equal the batch call bit for bit (dense
 and blocked: a cell's score depends only on its two rows), and a lane
 grown past 46340 objects folds through the wide ``union_deduce``.
+A checkpoint written on the card restores on the CPU and the other way
+round, and a lane whose keys widened to int64 restores with its dtype and
+sentinel and folds through the wide kernel after the restore, every result
+field the uninterrupted run's.
 ``flash_attention`` within 2e-5 and ``decode_attention`` within
 1e-5 of their plain versions in f32 (sums in another order, the decode
 kernel's split across the cache and merged in split order, so its repeats
@@ -1260,3 +1264,105 @@ def test_streaming_service_on_card(dev, async_mode, monkeypatch):
     res = svc.run()[rid]
     assert res.quality.precision == 1.0 and res.quality.recall == 1.0
     assert res.n_deduced > 0
+
+
+def _recovery_pairs(seed, n=36, p=110, clusters=7):
+    """``tests/test_recovery.py``'s session generator."""
+    rng = np.random.default_rng(seed)
+    assign = rng.integers(0, clusters, n)
+    u = rng.integers(0, n, p).astype(np.int32)
+    v = rng.integers(0, n, p).astype(np.int32)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    truth = assign[u] == assign[v]
+    lik = np.clip(rng.random(len(u)) * 0.5 + truth * 0.4, 0.0, 1.0)
+    return PairSet(u, v, lik.astype(np.float32), truth, n)
+
+
+@pytest.mark.parametrize("async_mode", [False, True],
+                         ids=["round_barrier", "async"])
+def test_checkpoint_moves_between_card_and_cpu(dev, tmp_path, async_mode):
+    """A run killed at a checkpoint written on the card restores on the CPU
+    and on the card, and one written on the CPU restores on the card: every
+    restored run gives every result field of the uninterrupted card run."""
+    from repro_torch.core.crowd import NoisyCrowd
+    from repro_torch.serve.join_service import ServiceKilled
+
+    def service(device, **kw):
+        svc = JoinService(lanes=2, async_mode=async_mode, device=device,
+                          **kw)
+        for s in range(3):
+            svc.submit(_recovery_pairs(s), crowd=NoisyCrowd(seed=s))
+        return svc
+
+    base = service(dev).run()
+    for written, restored_on in ((dev, "cpu"), (dev, dev), ("cpu", dev)):
+        ckpt = tmp_path / f"{written}_{restored_on}"
+        svc = service(written, checkpoint_dir=str(ckpt))
+        svc._crash_after_checkpoints = 2
+        with pytest.raises(ServiceKilled):
+            svc.run()
+        restored = JoinService.restore(str(ckpt), device=restored_on)
+        lanes, _ = restored._resume
+        assert lanes and all(lane.state.u.device.type ==
+                             torch.device(restored_on).type
+                             for lane in lanes)
+        out = restored.run()
+        assert sorted(out) == sorted(base)
+        for r in base:
+            _assert_fields_equal(out[r], base[r])
+
+
+def test_int64_lane_restores_on_card(dev, tmp_path):
+    """A lane whose universe passed 46340 objects while open (keys widened
+    to int64 at ingest) is checkpointed on the card and restored on the
+    card: int64 neg keys padded with the int64 sentinel, real keys among
+    them, the wide ``union_deduce`` launching after the restore, and every
+    result field the uninterrupted CPU run's."""
+    from repro_torch.core.crowd import NoisyCrowd
+    from repro_torch.serve.join_service import ServiceKilled
+
+    rng = np.random.default_rng(7)
+    low = rng.choice(30000, 60, replace=False)
+    high = 46341 + rng.choice(65536 - 46341, 60, replace=False)
+    ent = np.zeros(65536, np.int64)
+    ent[low] = rng.integers(0, 6, 60)
+    ent[high] = rng.integers(0, 6, 60)
+
+    def epoch(pool, p):
+        u, v = rng.choice(pool, p), rng.choice(pool, p)
+        keep = u != v
+        u, v = u[keep], v[keep]
+        truth = ent[u] == ent[v]
+        lik = np.clip(0.5 + 0.3 * (truth - 0.5)
+                      + 0.2 * rng.random(len(u)), 0, 1).astype(np.float32)
+        return PairSet(u, v, lik, truth,
+                       n_objects=int(max(u.max(), v.max())) + 1)
+
+    both = np.concatenate([low, high])
+    epochs = [epoch(low, 200), epoch(both, 200), epoch(both, 200),
+              epoch(both, 200)]
+
+    def serve(device, **kw):
+        svc = JoinService(lanes=1, fused_rounds=False, device=device, **kw)
+        rid = svc.submit_stream(epochs, crowd=NoisyCrowd(seed=1,
+                                                         error_rate=0.2),
+                                interleave=True)
+        return svc, rid
+
+    svc, rid = serve("cpu")
+    base = svc.run()[rid]
+    svc, _ = serve(dev, checkpoint_dir=str(tmp_path))
+    svc._crash_after_checkpoints = 3
+    with pytest.raises(ServiceKilled):
+        svc.run()
+    restored = JoinService.restore(str(tmp_path), device=dev)
+    lanes, _ = restored._resume
+    keys = lanes[0].state.neg_keys
+    assert keys.device.type == "cuda" and keys.dtype == torch.int64
+    pad = keys == key_sentinel(torch.int64)
+    assert bool(pad.any()) and bool((~pad).any())
+    wide = ud_ops.union_deduce.wide_launches
+    res = restored.run()[rid]
+    assert ud_ops.union_deduce.wide_launches > wide
+    _assert_fields_equal(res, base)

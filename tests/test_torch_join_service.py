@@ -4,8 +4,7 @@ sessions through ``submit`` (the fused round engine under a
 ``fused_rounds=False``, after a fused lane's conflict screen fires, and with
 ``seed_labels``) and the same embeddings through ``submit_embeddings`` must
 give every ``JoinSessionResult`` field identical (the wall clock aside).
-Also the port's refusal surface: every option it does not implement raises
-``NotImplementedError`` naming its ROADMAP item."""
+Also the port's refusal surface: unknown keywords are a ``TypeError``."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -22,7 +21,7 @@ from repro.serve.join_service import JoinService as JaxJoinService
 from repro_torch.core.cluster_graph import NEG, POS, UNKNOWN
 from repro_torch.core.crowd import Crowd, NoisyCrowd, PerfectCrowd
 from repro_torch.core.pairs import PairSet
-from repro_torch.serve.join_service import _SERVICE_OPTIONS, JoinService
+from repro_torch.serve.join_service import JoinService
 
 ULP_ONE = 2.0 ** -23
 
@@ -136,23 +135,6 @@ def test_duplicate_rid_and_overflow_are_reported():
                               truth_fn=lambda r, c: r == c)
 
 
-# a value each unported option could take in the reference
-UNPORTED_VALUES = {
-    "admission": "policy", "checkpoint_dir": "ckpt", "checkpoint_every": 2,
-    "checkpoint_keep": 1, "cluster_cache": "cache", "cache_path": "c.json"}
-
-
-def _unported(table):
-    return [(name, UNPORTED_VALUES[name]) for name in table]
-
-
-@pytest.mark.parametrize("name,value", _unported(_SERVICE_OPTIONS))
-def test_service_options_not_ported_raise(name, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        JoinService(device="cpu", **{name: value})
-    JoinService(device="cpu", **{name: _SERVICE_OPTIONS[name][0]})
-
-
 def test_submit_embeddings_unknown_keyword_is_a_type_error():
     """``submit_embeddings`` takes every keyword of the reference's that is
     ported (``streaming`` among them) and no other: a keyword neither
@@ -165,8 +147,8 @@ def test_submit_embeddings_unknown_keyword_is_a_type_error():
 
 
 def test_submit_embeddings_refuses_seed_labels():
-    """Seeds reach ``submit_embeddings`` only through a cluster cache
-    (ROADMAP A11), as in the reference, which has no such keyword."""
+    """Seeds reach ``submit_embeddings`` only through a cluster cache, as
+    in the reference, which has no such keyword."""
     svc = JoinService(device="cpu")
     with pytest.raises(TypeError, match="seed_labels"):
         svc.submit_embeddings(torch.ones(4, 8), torch.ones(4, 8), 0.5,
