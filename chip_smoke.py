@@ -221,6 +221,16 @@ carries on.  Phases, one output line or block each:
    and restored (the cache reloaded and deposited into; a repeat of corpus
    0 crowdsourcing nothing; the cache file and every field an
    uninterrupted service's);
+4m. training: ``paper-scorer`` at full width through the port's
+   ``Runner`` (loss and gradients through the flash kernel's forward,
+   AdamW, checkpoints): the same 40 steps uninterrupted, with a failure
+   injected at step 25 and resumed, and again, the three final states
+   equal bit for bit, the loss falling, the flash kernel launched twice a
+   layer a step; a reduced config on the card against the CPU, and
+   ``FlashAttentionFn``'s backward against the plain version's autograd;
+   a batch of 64 in 2 microbatches with int8 compression timed and
+   profiled (ms a step, tokens a second, peak memory, idle share, the
+   split into forward, backward, compression and optimizer);
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -232,8 +242,8 @@ carries on.  Phases, one output line or block each:
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
-   4j's, 4k's and 4l's launches in ``launches_by_path``, and the wide
-   kernel's after 4k's restore);
+   4j's, 4k's, 4l's and 4m's launches in ``launches_by_path``, and the
+   wide kernel's after 4k's restore);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -523,6 +533,19 @@ ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
 # the SIMT kernel's time recorded in PERF.md section 6, row 4 (H100 80GB
 # HBM3, 700 W). Printed as a recorded figure, never as a measurement.
 FLASH_MS_BEFORE = 1.4197
+# phase 4m (training): examples/train_likelihood_model.py --full's run
+# (paper-scorer at full width on the paper dataset's 181 packed rows of 128
+# tokens, batch 8), 40 steps with a checkpoint every 10 and a failure
+# injected at 25; then a card-sized batch of 64 in 2 microbatches with
+# int8 gradient compression, 20 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 128, 8, 40, \
+    10, 25
+TRAIN_BIG = dict(batch=64, microbatches=2, steps=20)
+# phase 4m (b): 3 reduced steps on the card against the CPU within the bf16
+# loss bound of tests/test_torch_train.py; FlashAttentionFn's backward at
+# the full model's per-layer shape
+TRAIN_CPU_STEPS, TRAIN_LOSS_RTOL = 3, 2e-3
+TRAIN_ATTN_SHAPE = (8, 128, 12, 12, 64)
 # card clock cycles cuda_ms spins before its timed calls: about 12 ms at
 # the H100's 1.7-2.0 GHz, room for 20 calls of a wrapper costing up to
 # 0.5 ms on the host
@@ -3496,6 +3519,274 @@ def plan_path(dev, corpora, root: Path) -> dict:
     return out
 
 
+def _same_state(a, b) -> list:
+    """The paths where two train states differ (dtype or any bit)."""
+    import torch
+
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.train_step import state_tree
+
+    return [p for (p, x), (_, y) in zip(tree_leaves(state_tree(a)),
+                                        tree_leaves(state_tree(b)))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def _sync_split(step_fn, state, batch) -> dict:
+    """One train step with the forward (``loss_fn``), the backward (the
+    top-level ``torch.autograd.grad``), the compression round trip and
+    AdamW each timed on the host clock between two synchronizes: seconds
+    by part, device time included."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.train import train_step
+
+    spent = {"forward": 0.0, "backward": 0.0, "compress": 0.0,
+             "optimizer": 0.0}
+    depth = [0]
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            if depth[0]:
+                return fn(*args, **kwargs)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = [(M, "loss_fn"), (torch.autograd, "grad"),
+             (train_step, "compress_tree"), (train_step, "decompress_tree"),
+             (train_step, "adamw_update")]
+    old = [getattr(mod, name) for mod, name in saved]
+    keys = ["forward", "backward", "compress", "compress", "optimizer"]
+    for (mod, name), fn, key in zip(saved, old, keys):
+        setattr(mod, name, timed(fn, key))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        spent["step"] = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in zip(saved, old):
+            setattr(mod, name, fn)
+    return spent
+
+
+def _train_profile(tag: str, step_fn, state, batch, wall_s: float) -> None:
+    """One step under ``torch.profiler``: device busy, idle share against
+    the unprofiled step's ``wall_s``, launches and host syncs, the top
+    kernels; then a synchronized host-clock split of one more step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    on_card, busy, syncs, launches = profile_counts(prof)
+    attn = sum(dev_us(e) for e in on_card
+               if "flash_attention" in e.key) / 1e3
+    print(f"[4m {tag} profile] one step ({torch.cuda.get_device_name(0)})"
+          f": device busy {1e3 * busy:.4f} ms "
+          f"(idle share {1 - busy / wall_s:.4f} of the unprofiled "
+          f"{1e3 * wall_s:.4f} ms), flash_attention kernels {attn:.4f} ms;"
+          f" {launches} kernel launches, {syncs} host syncs a step")
+    for e in sorted(on_card, key=dev_us, reverse=True)[:8]:
+        print(f"[4m {tag} profile]   {dev_us(e) / 1e3:9.4f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}")
+    split = _sync_split(step_fn, state, batch)
+    total = split.pop("step")
+    print(f"[4m {tag} split] synchronized step {1e3 * total:.4f} ms: "
+          + ", ".join(f"{k} {1e3 * v:.4f} ms ({v / total:.3f})"
+                      for k, v in split.items())
+          + f", rest {1e3 * (total - sum(split.values())):.4f} ms")
+
+
+def train_path(dev, root: Path) -> dict:
+    """Phase 4m: the port's training on the card.  (a) ``paper-scorer`` at
+    full width (163,597,056 bf16 parameters, f32 moments) through the
+    ``Runner`` on the paper dataset's record corpus at seq ``TRAIN_SEQ``,
+    batch ``TRAIN_BATCH``: ``TRAIN_STEPS`` steps with a checkpoint every
+    ``TRAIN_EVERY``, the same steps with a failure injected at
+    ``TRAIN_FAIL``, and once more uninterrupted; the three final states
+    (parameters and moments) equal bit for bit, the loss falling, the
+    flash kernel launched 2 x n_layers a step (remat recomputes each
+    layer's forward).  (b) one reduced ``init_state`` drawn on the CPU and
+    moved to the card: ``TRAIN_CPU_STEPS`` steps on each, the losses within
+    ``TRAIN_LOSS_RTOL``; ``FlashAttentionFn``'s backward at
+    ``TRAIN_ATTN_SHAPE`` in bf16 and f32 against the plain version's
+    autograd gradients on the card.  (c) full width at ``TRAIN_BIG``
+    (microbatches, int8 compression): ms a step, tokens a second, peak
+    memory, and a profile and a split of one step.  Returns the flash
+    launches of (a)'s first run."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.convert import (train_state_from_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+    from repro_torch.models.layers import FlashAttentionFn
+    from repro_torch.models.model import n_params
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.runner import Runner, RunnerConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = get("paper-scorer")
+    records = make_paper_dataset().records
+    rows = corpus_from_records(records, cfg.vocab, TRAIN_SEQ)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    per_step = 2 * cfg.n_layers
+
+    # -- (a) the runner: uninterrupted, failed and resumed, again ----------
+    def run(tag, fail=()):
+        d = root / f"train_{tag}"
+        runner = Runner(cfg, ocfg, RunnerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_EVERY,
+            checkpoint_dir=str(d), log_every=TRAIN_STEPS), dev,
+            TokenPipeline(rows, TRAIN_BATCH),
+            injector=FailureInjector(fail_at_steps=fail),
+            log=lambda m: print(f"[4m a {tag}] {m}"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(d, ignore_errors=True)
+        return out, wall
+
+    fa_ops.flash_attention.launches = 0
+    first, wall_1 = run("first")
+    launches = fa_ops.flash_attention.launches
+    failed, wall_2 = run("failed", (TRAIN_FAIL,))
+    again, wall_3 = run("again")
+    hist = first["history"]
+    step_ms = sorted(h["s"] for h in hist[1:])[len(hist[1:]) // 2] * 1e3
+    print(f"[4m a] paper-scorer {n_params(cfg)} parameters, {len(rows)} "
+          f"packed rows of {TRAIN_SEQ}, batch {TRAIN_BATCH}: {TRAIN_STEPS} "
+          f"steps in {wall_1:.3f} s (checkpoints every {TRAIN_EVERY} "
+          f"included), {step_ms:.4f} ms a step (median host clock of steps "
+          f"2-{TRAIN_STEPS}, a loss read each); loss {hist[0]['loss']:.4f} "
+          f"-> {hist[-1]['loss']:.4f}; flash_attention {launches} launches,"
+          f" {launches / TRAIN_STEPS:.1f} a step ({smi})")
+    print(f"[4m a] failed at step {TRAIN_FAIL} and resumed: "
+          f"{len(failed['history'])} steps run in {wall_2:.3f} s; again "
+          f"uninterrupted in {wall_3:.3f} s")
+    if first["final_step"] != TRAIN_STEPS or failed["final_step"] \
+            != TRAIN_STEPS:
+        raise AssertionError("a training run stopped short")
+    if launches != per_step * TRAIN_STEPS:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"{TRAIN_STEPS} steps, not {per_step} a step")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError("the training loss did not fall")
+    for name, other in (("resumed", failed), ("second", again)):
+        diff = _same_state(first["state"], other["state"])
+        print(f"[4m a] {name} run against the first: "
+              f"{'bit for bit' if not diff else 'differs in ' + str(diff)}")
+        if diff:
+            raise AssertionError(f"the {name} training run differs from "
+                                 f"the first in {diff}")
+    if [h["loss"] for h in again["history"]] != \
+            [h["loss"] for h in hist]:
+        raise AssertionError("two uninterrupted runs' losses differ")
+    batch = TokenPipeline(rows, TRAIN_BATCH).batch_at(0)
+    state = first["state"]
+    step_fn = make_train_step(cfg, ocfg)
+    del failed, again
+    _train_profile("a", step_fn, state, batch, step_ms / 1e3)
+    del first, state
+
+    # -- (b) the card against the CPU; FlashAttentionFn's backward ----------
+    small = cfg.reduced()
+    host = init_state(small, torch.Generator().manual_seed(SEED),
+                      device="cpu")
+    card = train_state_from_numpy(small, train_state_to_numpy(host), dev)
+    small_step = make_train_step(small, ocfg)
+    pipe = TokenPipeline(corpus_from_records(records, small.vocab,
+                                             TRAIN_SEQ), TRAIN_BATCH)
+    losses = {}
+    for name, state in (("cpu", host), ("card", card)):
+        losses[name] = [float(small_step(state, pipe.batch_at(i))[1]["loss"])
+                        for i in range(TRAIN_CPU_STEPS)]
+    worst = max(abs(a - b) / b for a, b in zip(losses["card"],
+                                                losses["cpu"]))
+    print(f"[4m b] reduced config, {TRAIN_CPU_STEPS} steps: card "
+          f"{losses['card']} against cpu {losses['cpu']}; worst relative "
+          f"difference {worst:.3e} (bound {TRAIN_LOSS_RTOL})")
+    if worst > TRAIN_LOSS_RTOL:
+        raise AssertionError("training on the card and on the CPU disagree")
+    B, S, H, K, d = TRAIN_ATTN_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (_randn(dev, (B, S, n, d), dtype, SEED + i)
+                   .requires_grad_() for i, n in enumerate((H, K, K)))
+        g = _randn(dev, (B, S, H, d), dtype, SEED + 3)
+        got = torch.autograd.grad(FlashAttentionFn.apply(
+            q, k, v, cfg.attn_chunk_q), (q, k, v), g)
+        exp = torch.autograd.grad(mha_causal_ref(q, k, v), (q, k, v), g)
+        for name, a, b in zip("qkv", got, exp):
+            err, ok, tol = attn_error("flash", a, b)
+            print(f"[4m b] FlashAttentionFn d{name} {TRAIN_ATTN_SHAPE} "
+                  f"{str(dtype).split('.')[-1]}: max|d| {err:.3e} "
+                  f"(tolerance {tol})")
+            if not ok:
+                raise AssertionError("FlashAttentionFn's gradient disagrees "
+                                     "with the plain version's")
+    del host, card
+
+    # -- (c) a card-sized batch --------------------------------------------
+    big = TokenPipeline(rows, TRAIN_BIG["batch"])
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       True, dev)
+    step_fn = make_train_step(cfg, ocfg, TRAIN_BIG["microbatches"], True)
+    times, big_losses = [], []
+    before = fa_ops.flash_attention.launches
+    for i in range(TRAIN_BIG["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = step_fn(state, big.batch_at(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        big_losses.append(float(met["loss"]))
+    big_launches = fa_ops.flash_attention.launches - before
+    med = sorted(times[1:])[len(times[1:]) // 2]
+    tokens = TRAIN_BIG["batch"] * TRAIN_SEQ
+    print(f"[4m c] full width, batch {TRAIN_BIG['batch']} x {TRAIN_SEQ} in "
+          f"{TRAIN_BIG['microbatches']} microbatches, int8 compression: "
+          f"{1e3 * med:.4f} ms a step (median of steps 2-"
+          f"{TRAIN_BIG['steps']}; first {1e3 * times[0]:.4f} ms), "
+          f"{tokens / med:.1f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; loss "
+          f"{big_losses[0]:.4f} -> {big_losses[-1]:.4f}; flash_attention "
+          f"{big_launches / TRAIN_BIG['steps']:.1f} launches a step "
+          f"({smi})")
+    if big_launches != per_step * TRAIN_BIG["microbatches"] \
+            * TRAIN_BIG["steps"]:
+        raise AssertionError("the microbatched step skipped the flash kernel")
+    _train_profile("c", step_fn, state, big.batch_at(0), med)
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3872,7 +4163,7 @@ def run(dev) -> None:
     stream = streaming_path(dev, corpora, large["signatures_s"])
     s_launch = stream["launches"]
 
-    # -- 4k. kill and restore on the card; 4l. the plan layer ---------------
+    # -- 4k. kill and restore on the card; 4l. the plan layer; 4m. training -
     import shutil
     import tempfile
 
@@ -3887,6 +4178,11 @@ def run(dev) -> None:
         plan = plan_path(dev, corpora, scratch)
         print(f"[4k/4l] phase 4k {t_4k:.1f} s, phase 4l "
               f"{time.perf_counter() - t0:.1f} s")
+
+        # -- 4m. training -----------------------------------------------
+        t0 = time.perf_counter()
+        train = train_path(dev, scratch)
+        print(f"[4m] phase 4m {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     r_launch, p_launch = recovery["launches"], plan["launches"]
@@ -4058,7 +4354,8 @@ def run(dev) -> None:
          "launches": serving["launches"]["flash_attention"],
          "launches_by_path": {
              "lm_serving": serving["launches"]["flash_attention"],
-             "lm_machine_phase": machine["launches"]["flash_attention"]},
+             "lm_machine_phase": machine["launches"]["flash_attention"],
+             "training": train["launches"]},
          "max_abs_err": fa_err,
          "ms": cuda_ms(lambda: fa_kernel.flash_attention(fq, fk, fv)),
          "plain_ms": cuda_ms(lambda: mha_causal_ref(fq, fk, fv), 5),

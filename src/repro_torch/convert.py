@@ -1,9 +1,11 @@
 """Carry state between the JAX package and the port as numpy arrays.
 
 The join side's state is the embeddings and the ``SessionState`` pytree;
-the LM scorer's is the model's parameter pytree.  These functions move them
-across, so the two packages can start from the same state (the parity
-tests) and what one side captured can continue on the other.
+the LM scorer's is the model's parameter pytree, and its training's the
+train state ``{"params", "opt": {"m", "v", "step"}, ["err"]}``.  These
+functions move them across, so the two packages can start from the same
+state (the parity tests) and what one side captured can continue on the
+other.
 """
 from __future__ import annotations
 
@@ -77,11 +79,52 @@ def model_params_from_numpy(cfg: ModelConfig, params: Dict[str, Any],
     arrays, every tensor in its ``ParamSpec`` dtype on ``device``.  numpy
     has no bf16: pass bf16 leaves as ``np.asarray(x, np.float32)``, which is
     exact, and the cast back to bf16 here is exact too.  Raises ValueError
-    on a missing, unexpected or misshaped leaf (:class:`Model` checks)."""
+    on a missing, unexpected or misshaped leaf (:class:`Model` checks).
+    The tensors are copies: the caller's arrays are never written."""
     dev = pick_device(device)
     specs = model_specs(cfg)
     flat = _flatten(params)
     return Model(cfg, {
-        path: torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=dev, dtype=specs[path].dtype if path in specs else None)
+        path: torch.tensor(np.asarray(arr), device=dev,
+                           dtype=specs[path].dtype if path in specs else None)
         for path, arr in flat.items()})
+
+
+def _tensors(tree: Dict[str, Any], dev: torch.device) -> Dict[str, Any]:
+    return {k: _tensors(v, dev) if isinstance(v, dict)
+            else torch.tensor(np.asarray(v), device=dev)
+            for k, v in tree.items()}
+
+
+def _arrays(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _arrays(v) if isinstance(v, dict) else _host(v)
+            for k, v in tree.items()}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state from the JAX package's (``train_step.
+    init_state``'s tree) as numpy arrays: the parameters as a trainable
+    :class:`Model` (:func:`model_params_from_numpy`; bf16 leaves as f32
+    arrays), the f32 moments, the int32 step and, when present, the f32
+    error buffers, all copies on ``device``."""
+    dev = pick_device(device)
+    model = model_params_from_numpy(cfg, state["params"], dev)
+    model.requires_grad_(True)
+    out: Dict[str, Any] = {"params": model,
+                           "opt": _tensors(state["opt"], dev)}
+    if "err" in state:
+        out["err"] = _tensors(state["err"], dev)
+    return out
+
+
+def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The train state as the reference's tree of host numpy arrays (bf16
+    leaves as f32, which is exact)."""
+    out = {k: v for k, v in state.items() if k != "params"}
+    return {"params": _arrays(state["params"].params), **_arrays(out)}

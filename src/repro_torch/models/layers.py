@@ -1,7 +1,14 @@
 """Core transformer layers of the port: RMSNorm, RoPE, GQA attention through
 the hand-written flash and decode kernels, SwiGLU MLP.  A port of the JAX
-package's ``models/layers.py`` for the attention families; M-RoPE, the int8
-KV cache and the custom VJP are not ported (ROADMAP A12).
+package's ``models/layers.py`` for the attention families; M-RoPE and the
+int8 KV cache are not ported (ROADMAP A12).
+
+Training: ``rmsnorm`` is an autograd Function whose backward is the
+reference's custom VJP term for term, and attention under autograd goes
+through :class:`FlashAttentionFn`: the flash kernel's forward, and a
+backward that recomputes the attention in plain f32 one query chunk at a
+time (the reference, too, differentiates its jnp stand-in and not the
+Pallas kernel, which has no VJP).
 
 Parameter convention, as in the reference: every builder contributes to a
 flat ``{path: ParamSpec(shape, axes, fan_in)}`` dict, and per-layer params
@@ -12,6 +19,7 @@ parameters' dtype (``torch.matmul``, as the reference leaves them to XLA).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,13 +55,47 @@ def rmsnorm_specs(d: int) -> Specs:
     return {"scale": ParamSpec((d,), (None,), fan_in=0)}
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """Forward only: f32 inside, scaled by ``1 + scale``, x's dtype out."""
+def _rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor,
+                 eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` of ``rmsnorm``: the input's
+    cotangent comes back in x's dtype (bf16 on the residual stream), not
+    the f32 that differentiating the f32 arithmetic would give."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        gf = g.to(torch.float32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        rstd = torch.rsqrt(var + ctx.eps)
+        xhat = xf * rstd
+        gy = gf * (1.0 + scale.to(torch.float32))
+        # d/dx of xhat: rstd * (gy - xhat * mean(gy * xhat))
+        dx = rstd * (gy - xhat * torch.mean(gy * xhat, dim=-1, keepdim=True))
+        dscale = torch.sum(gf * xhat, dim=tuple(range(x.dim() - 1)))
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """f32 inside, scaled by ``1 + scale``, x's dtype out; differentiable
+    by the reference's custom VJP (:class:`_RMSNorm`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm_fwd(x, scale, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +151,72 @@ def _position_encode(q, k, positions, cfg: ModelConfig):
             apply_rope(k, positions, cfg.rope_theta))
 
 
+def _attention_chunk(q, k, v, q0: int) -> torch.Tensor:
+    """Plain f32 causal attention of the queries at positions ``q0 ...
+    q0 + cq - 1`` against the keys and values at ``0 ... q0 + cq - 1``.
+    q: (B, cq, H, d); k, v: (B, q0 + cq, K, d), all f32."""
+    B, cq, H, d = q.shape
+    S, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, cq, K, H // K, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(d)
+    mask = (torch.arange(q0, q0 + cq, device=q.device)[:, None]
+            >= torch.arange(S, device=q.device)[None, :])
+    w = torch.softmax(s.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v).reshape(B, cq, H, d)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Causal GQA attention with a gradient.  The forward is the
+    ``flash_attention`` op (the hand-written CUDA kernel on the card, its
+    plain version on the CPU).  The backward recomputes the attention with
+    grad enabled in plain f32, one chunk of ``chunk`` query rows at a time
+    against the causal triangle of keys before it: the reference's
+    recompute-per-block schedule (``jax.checkpoint`` on each block of
+    ``chunked_causal_attention``), so memory stays O(chunk x S).  dq, dk
+    and dv come back in the inputs' dtypes, dk and dv summed over each
+    kv head's group of query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.chunk = chunk
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        S = q.shape[1]
+        dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for q0 in range(0, S, ctx.chunk):
+            q1 = min(q0 + ctx.chunk, S)
+            with torch.enable_grad():
+                qc = q[:, q0:q1].to(torch.float32).requires_grad_()
+                kc = k[:, :q1].to(torch.float32).requires_grad_()
+                vc = v[:, :q1].to(torch.float32).requires_grad_()
+                o = _attention_chunk(qc, kc, vc, q0)
+                gq, gk, gv = torch.autograd.grad(
+                    o, (qc, kc, vc), g[:, q0:q1].to(torch.float32))
+            dq[:, q0:q1] = gq
+            dk[:, :q1] += gk
+            dv[:, :q1] += gv
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
 def causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     """The attention of a prefill or backbone layer by ``cfg.attn_impl``:
     ``"chunked"`` (the reference's jnp stand-in for the flash kernel) and
     ``"pallas"`` run the ``flash_attention`` op, hand-written CUDA on the
-    card.  ``"naive"`` raises: it would run plain PyTorch on the card in
-    place of the kernel (the plain version is the op's CPU path)."""
+    card; under autograd (grad mode on and an input requiring a gradient)
+    through :class:`FlashAttentionFn`, whose backward takes query chunks of
+    ``cfg.attn_chunk_q`` rows.  ``"naive"`` raises: it would run plain
+    PyTorch on the card in place of the kernel (the plain version is the
+    op's CPU path)."""
     if cfg.attn_impl in ("chunked", "pallas"):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, cfg.attn_chunk_q)
         return flash_attention(q, k, v)
     if cfg.attn_impl == "kernel_stub":
         raise _unported("attn_impl='kernel_stub' (the dry-run's stand-in)")

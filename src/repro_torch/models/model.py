@@ -4,7 +4,7 @@ A port of the JAX package's ``models/model.py`` for ``family="dense"``
 (``paper-scorer``, ``granite-3-2b``, ``deepseek-67b`` and the other dense
 configs).  MoE, the SSM and hybrid families, the VLM and audio front ends,
 RWKV, M-RoPE and the int8 KV cache raise ``NotImplementedError`` naming
-ROADMAP A12; training (``loss_fn``) is not ported.
+ROADMAP A12.
 
 The parameters live in a :class:`Model` (an ``nn.Module``), stacked per
 layer with a leading ``layers`` axis as in the reference, so the JAX
@@ -14,10 +14,22 @@ entry points keep their names as functions of this module that read the
 model:
 
   init_params(cfg, generator)          — a Model from a torch.Generator
+  param_axes / abstract_params         — logical axes; meta-tensor stand-ins
+  n_params / n_active_params           — parameter counts
+  loss_fn(model, batch)                — next-token CE train loss
   backbone(model, x, positions)        — hidden states after every layer
+                                         (each under activation checkpoint
+                                         when training with remat="block")
   prefill(model, batch, max_len)       — (cache, last-position logits)
   decode_step(model, cache, batch)     — (logits, cache) for one new token
   make_cache / decode_layer_step
+
+Training: ``model.requires_grad_()`` (``nn.Module``'s) turns the
+parameters' gradients on; while one is on and grad mode is on, each
+forward takes its per-layer views afresh (:meth:`Model.layers`).  The
+optimizer updates the parameters in place, so the views that serving
+reads stay bound to them.  ``prefill`` and ``decode_step`` are inference
+entry points and run without autograd.
 
 The KV cache is a dict of tensors updated in place (the reference returns
 a fresh one; the serving engine never reuses an old cache, so what callers
@@ -31,7 +43,9 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, pick_device
 
@@ -94,6 +108,24 @@ def n_params(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for s in model_specs(cfg).values())
 
 
+def n_active_params(cfg: ModelConfig) -> int:
+    """Per-token active parameters: all of them for the dense family (the
+    reference scales its MoE experts by top_k / n_experts)."""
+    return n_params(cfg)
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The specs' logical axis names, nested like the parameters (metadata
+    for the mesh's sharding rules, ROADMAP A8)."""
+    return _nest({p: s.axes for p, s in model_specs(cfg).items()})
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """Meta tensors of the parameters' shapes and dtypes (no storage)."""
+    return _nest({p: torch.empty(s.shape, dtype=s.dtype, device="meta")
+                  for p, s in model_specs(cfg).items()})
+
+
 def _nest(flat: Dict[str, Any]) -> Params:
     out: Params = {}
     for path, v in flat.items():
@@ -113,8 +145,8 @@ class Model(nn.Module):
     """The parameters of one config, as ``nn.Parameter``s named by their
     reference path (``layers/attn/wq`` -> ``layers_attn_wq``), with
     ``params`` (the reference's nested dict) and ``layer_params`` (one
-    nested dict of views per layer) bound to them.  Inference only: no
-    parameter requires a gradient."""
+    nested dict of views per layer) bound to them.  No parameter requires
+    a gradient until ``requires_grad_()`` turns them on for training."""
 
     def __init__(self, cfg: ModelConfig, flat: Dict[str, torch.Tensor]):
         super().__init__()
@@ -135,13 +167,33 @@ class Model(nn.Module):
         self._bind()
 
     def _bind(self) -> None:
-        flat = {p: getattr(self, _attr(p)) for p in self._paths}
-        self.params: Params = _nest(flat)
-        per_layer = {p[len("layers/"):]: t for p, t in flat.items()
-                     if p.startswith("layers/")}
-        self.layer_params: List[Params] = [
-            _nest({p: t[i] for p, t in per_layer.items()})
-            for i in range(self.cfg.n_layers)]
+        self.params: Params = _nest(
+            {p: getattr(self, _attr(p)) for p in self._paths})
+        self.layer_params: List[Params] = self._layer_views()
+
+    def _layer_views(self) -> List[Params]:
+        per_layer = {p[len("layers/"):]: getattr(self, _attr(p))
+                     for p in self._paths if p.startswith("layers/")}
+        return [_nest({p: t[i] for p, t in per_layer.items()})
+                for i in range(self.cfg.n_layers)]
+
+    @property
+    def trainable(self) -> bool:
+        return self.params["embed"]["table"].requires_grad
+
+    def layers(self) -> List[Params]:
+        """Each layer's parameters: the views bound at construction, or,
+        while the parameters require a gradient and grad mode is on, views
+        taken now (a view made before its base required a gradient
+        carries none)."""
+        if self.trainable and torch.is_grad_enabled():
+            return self._layer_views()
+        return self.layer_params
+
+    def named_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """``(path, parameter)`` in sorted path order: the reference's tree
+        order for the parameter dict."""
+        return [(p, getattr(self, _attr(p))) for p in self._paths]
 
     def _apply(self, fn, *args, **kwargs):
         # .to() / .float() may give the parameters new storage: rebind the
@@ -203,8 +255,10 @@ def _embed_inputs(model: Model, batch: Dict[str, Any]
     if batch.get("prefix_embeds") is not None \
             or batch.get("positions3") is not None:
         raise _unported("prefix embeddings and M-RoPE positions")
-    tokens = batch["tokens"]
-    x = model.params["embed"]["table"][tokens.to(torch.int64)]
+    # F.embedding's backward is deterministic on the card (indexing's
+    # index_put_ accumulates with atomics)
+    x = F.embedding(batch["tokens"].to(torch.int64),
+                    model.params["embed"]["table"])
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -214,9 +268,18 @@ def _embed_inputs(model: Model, batch: Dict[str, Any]
 def backbone(model: Model, x: torch.Tensor, positions: torch.Tensor
              ) -> torch.Tensor:
     """Every layer in order.  Returns the hidden states (B, S, d) before
-    the final norm; the reference's aux loss is zero for this family."""
-    for lp in model.layer_params:
-        x, _, _ = layer_step(lp, x, positions, model.cfg)
+    the final norm; the reference's aux loss is zero for this family.
+    Under autograd with ``cfg.remat == "block"`` each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward, attention's kernel
+    included."""
+    cfg = model.cfg
+    remat = cfg.remat == "block" and torch.is_grad_enabled() \
+        and model.trainable
+    for lp in model.layers():
+        def fn(h, lp=lp):
+            return layer_step(lp, h, positions, cfg)[0]
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return x
 
 
@@ -227,6 +290,23 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
             else model.params["lm_head"]["w"])
     logits = x @ head
     return logits.to(torch.float32) if cfg.logits_f32 else logits
+
+
+def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
+    """Next-token cross-entropy; positions with target < 0 are masked.
+    ``batch``: ``tokens`` and ``targets`` (B, S) on the model's device.
+    The dense family's aux loss is 0, so the reference's ``+ 0.01 * aux``
+    adds nothing."""
+    x, positions = _embed_inputs(model, batch)
+    x = backbone(model, x, positions)
+    logits = _logits(model, x)
+    targets = batch["targets"].to(torch.int64)    # (B, S) aligned with x
+    mask = (targets >= 0).to(torch.float32)
+    t = targets.clamp(min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +340,7 @@ def decode_layer_step(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp_block(h, lp["mlp"], cfg)
 
 
+@torch.no_grad()
 def decode_step(model: Model, cache: Params, batch: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Params]:
     """One new token for every sequence in the batch.
@@ -279,6 +360,7 @@ def decode_step(model: Model, cache: Params, batch: Dict[str, Any]
     return _logits(model, x), cache
 
 
+@torch.no_grad()
 def prefill(model: Model, batch: Dict[str, Any], max_len: int
             ) -> Tuple[Params, torch.Tensor]:
     """Inference prefill: the full forward, stashing each layer's K/V (bf16)

@@ -31,6 +31,10 @@ element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
 and round once to bf16, one ulp being at most 2**-7 of the value): bf16
 runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
 card gives the same greedy tokens as on the CPU under f32 weights.
+Training: ``FlashAttentionFn``'s gradients against the plain version's
+autograd gradients with the flash tolerances above; a train step bit for
+bit across two runs; 3 reduced steps on the card within 2e-3 of the CPU's
+losses (the bf16 bound of ``tests/test_torch_train.py``).
 """
 import dataclasses
 
@@ -1366,3 +1370,94 @@ def test_int64_lane_restores_on_card(dev, tmp_path):
     res = restored.run()[rid]
     assert ud_ops.union_deduce.wide_launches > wide
     _assert_fields_equal(res, base)
+
+
+# --------------------------------------------------------------------------
+# training: attention's gradient through the kernel's forward, a
+# deterministic train step, the card against the CPU
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,K,d", [(8, 128, 12, 12, 64),
+                                       (2, 200, 4, 2, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fn_gradients_match_plain(dev, B, S, H, K, d, dtype):
+    """A CUDA tensor that requires a gradient gets one through attention:
+    the output has a grad_fn, the forward launched the kernel, and dq, dk,
+    dv match the plain version's autograd gradients on the card (f32
+    within 2e-5; bf16 within 2**-7 |expected| + 1e-4 element by element:
+    both recompute in f32 and round once to bf16)."""
+    from repro_torch.models.layers import FlashAttentionFn
+
+    gen = torch.Generator(device="cpu").manual_seed(S + H)
+    q, k, v = (torch.randn(B, S, n, d, generator=gen).to(dev, dtype)
+               .requires_grad_() for n in (H, K, K))
+    g = torch.randn(B, S, H, d, generator=gen).to(dev, dtype)
+    before = fa_ops.flash_attention.launches
+    o = FlashAttentionFn.apply(q, k, v, 64)
+    assert o.grad_fn is not None
+    assert fa_ops.flash_attention.launches == before + 1
+    got = torch.autograd.grad(o, (q, k, v), g)
+    exp = torch.autograd.grad(mha_causal_ref(q, k, v), (q, k, v), g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, exp):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 2e-5
+        else:
+            assert bool((err <= 2.0 ** -7 * b.float().abs() + 1e-4).all())
+
+
+def _train(dev, steps, state=None, mb=1, comp=False):
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get("paper-scorer").reduced()
+    rows = corpus_from_records(make_paper_dataset().records, cfg.vocab, 128)
+    pipe = TokenPipeline(rows, 8)
+    if state is None:
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                           comp, dev)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=30,
+                                            warmup_steps=2), mb, comp)
+    losses = []
+    for i in range(steps):
+        state, met = step(state, pipe.batch_at(i))
+        losses.append(float(met["loss"]))
+    return state, losses
+
+
+@pytest.mark.parametrize("mb,comp", [(1, False), (2, True)])
+def test_train_step_is_deterministic_on_card(dev, mb, comp):
+    """Two runs of the same steps give bit-identical parameters, moments
+    and losses (the embedding's backward is ``F.embedding``'s, not
+    indexing's atomics), and every attention forward of a step launched
+    the flash kernel: twice a layer under remat."""
+    from repro_torch.train.train_step import state_tree
+    from repro_torch.train.optim import tree_leaves
+
+    before = fa_ops.flash_attention.launches
+    a, loss_a = _train(dev, 3, mb=mb, comp=comp)
+    assert fa_ops.flash_attention.launches - before == 3 * mb * 2 * 2
+    b, loss_b = _train(dev, 3, mb=mb, comp=comp)
+    assert loss_a == loss_b and loss_a[-1] < loss_a[0]
+    for (p, x), (_, y) in zip(tree_leaves(state_tree(a)),
+                              tree_leaves(state_tree(b))):
+        assert x.device.type == "cuda" and torch.equal(x, y), p
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One reduced ``init_state`` drawn on the CPU, moved to the card: 3
+    steps on each agree within the bf16 bound of
+    ``tests/test_torch_train.py`` (2e-3 of the loss)."""
+    from repro_torch.convert import (train_state_from_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.train.train_step import init_state
+
+    cfg = get("paper-scorer").reduced()
+    host = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = train_state_from_numpy(cfg, train_state_to_numpy(host), dev)
+    _, on_cpu = _train("cpu", 3, host)
+    _, on_card = _train(dev, 3, card)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=2e-3, atol=0)

@@ -1,7 +1,8 @@
 """The port stands alone and never drops to its plain versions on its own:
 
-* nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, ``chip_ab.py``
-  or ``examples/torch_quickstart.py``, imports ``jax``
+* nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, ``chip_ab.py``,
+  ``examples/torch_quickstart.py`` or
+  ``examples/torch_train_likelihood_model.py``, imports ``jax``
   or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
@@ -19,7 +20,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-     ROOT / "examples" / "torch_quickstart.py"]
+     ROOT / "examples" / "torch_quickstart.py",
+     ROOT / "examples" / "torch_train_likelihood_model.py"]
 
 
 def _forbidden(module: str) -> bool:
