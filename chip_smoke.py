@@ -36,7 +36,14 @@ carries on.  Phases, one output line or block each:
    2048, 12, 64) cache at lengths 1, 192, 193, 1337 and 2048 (and at the
    first split boundary and one past it, as the launch plans them on this
    card), an f32 query over a bf16 cache (the f32-weight run of phase 4c),
-   and five calls at length 2048 that agree bit for bit.  f32 outputs
+   and five calls at length 2048 that agree bit for bit; its int8 cache
+   path (the int8 KV cache with bf16 scales, dequantized in the kernel) at
+   the same shape and lengths, at (4, 8 / 2, 32) over a (4, 1024, 2, 32)
+   cache and internlm2-1.8b's (8, 16 / 8, 128) over (8, 2048, 8, 128),
+   bf16 and f32 queries, against its plain version (which dequantizes
+   first); under scales of 1 (the dequantized cache is the int8 integers)
+   against the plain f32 attention within the f32 rule; five calls bit for
+   bit.  f32 outputs
    within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
    outputs within 2**-7 |expected| + 1e-4 element by element: both sides
    sum in f32 and round once to bf16, whose 8 significant bits put one ulp
@@ -70,7 +77,8 @@ carries on.  Phases, one output line or block each:
    a short wave (2 requests of 64 tokens, 8 new) under f32-cast weights must
    give the same tokens on the card as the port's plain versions on the CPU;
    then 16 decode steps of the first wave timed and 16 more under
-   ``torch.profiler``, for where a decode step's time goes;
+   ``torch.profiler``, for where a decode step's time goes (phase 4n, after
+   4m, drives the LM stack's other families);
 4d. the LM machine phase into the join: ``score_pairs_with_lm`` over the
    whole product dataset (1081 x 1092 records: 69 backbone batches of 32
    records x 32 tokens, then one ``pair_scores`` of (1081, 768) x (1092,
@@ -231,6 +239,21 @@ carries on.  Phases, one output line or block each:
    a batch of 64 in 2 microbatches with int8 compression timed and
    profiled (ms a step, tokens a second, peak memory, idle share, the
    split into forward, backward, compression and optimizer);
+4n. the LM stack's other families at full width, each drawn on the card
+   from a seeded generator: (a) ``internlm2-1.8b`` under ``kv_quant``
+   (``ServeEngine`` on 8 requests of 256-1536 tokens, 64 new) against the
+   same weights over the bf16 cache: the int8 decode kernel launched 24 x
+   63 times and the bf16 one never, ms a decode step each, cache bytes, the
+   first step where the greedy tokens part, one decode step's logits
+   within 0.08 of the bf16 cache's scale; (b) ``qwen2-vl-2b`` (M-RoPE, 256
+   patch embeddings, ``positions3`` as ``configs/shapes.py`` builds them)
+   and (c) ``musicgen-medium`` (64 conditioning frames) through the
+   model-level ``prefill`` of 8 sequences of 256-1024 text tokens and 32
+   ``decode_step``s, launches exact, ``decode == prefill(n + 1)``; (d)
+   ``olmoe-1b-7b`` (``ServeEngine``, 8 requests of 256-1024 tokens, 32
+   new), a profiled window of decode steps (busy share, the experts'
+   products' share), ``decode == prefill(n + 1)`` at ``capacity_factor``
+   8 where the expert picks agree and near ties where they part;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -242,8 +265,9 @@ carries on.  Phases, one output line or block each:
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
-   4j's, 4k's, 4l's and 4m's launches in ``launches_by_path``, and the
-   wide kernel's after 4k's restore);
+   4j's, 4k's, 4l's, 4m's and 4n's launches in ``launches_by_path``, and
+   the wide kernel's after 4k's restore; ``decode_attention``'s int8 path
+   as an entry of its own, its launches from phase 4n a);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -546,6 +570,32 @@ TRAIN_BIG = dict(batch=64, microbatches=2, steps=20)
 # the full model's per-layer shape
 TRAIN_CPU_STEPS, TRAIN_LOSS_RTOL = 3, 2e-3
 TRAIN_ATTN_SHAPE = (8, 128, 12, 12, 64)
+# phase 4n: the LM stack's other families at full width, each drawn on
+# the card from a seeded generator.  (a) internlm2-1.8b under kv_quant, the
+# reference's own int8 config (tests/test_models.py:160-176), served by
+# ServeEngine against the same weights over the bf16 cache; (b)
+# qwen2-vl-2b (M-RoPE, 256 patch embeddings) and (c) musicgen-medium (64
+# conditioning frames) through the model-level prefill / decode_step with
+# text of FAM_TEXT tokens; (d) olmoe-1b-7b (64 experts, top 8) served by
+# ServeEngine, then decode == prefill(n + 1) at capacity_factor 8
+# (tests/test_models.py:88-101).  decode == prefill(n + 1) is held to
+# LM_BF16_TOL, the card's rule since phase 4c: the bf16 flash kernel rounds
+# P to bf16 for P.V on the tensor cores where the decode kernel keeps f32,
+# about 1e-2 of the logits' scale whatever the depth (4c reads 1.1e-2 at 12
+# layers).  Under the experts a token's last pick can flip between the two
+# paths: the first layer where it does must do so at a near tie, its 8th
+# and 9th router probabilities within FAM_MOE_TIE of each other (that same
+# 1e-2 of the hidden states moves a router probability by about as much)
+FAM_KV_ARCH, FAM_KV_NEW = "internlm2-1.8b", 64
+FAM_KV_TOL = 0.08           # int8 against bf16 logits, of their scale
+FAM_PREFIX_ARCHS = ("qwen2-vl-2b", "musicgen-medium")
+FAM_TEXT, FAM_DECODE = (256, 1024), 32
+FAM_MOE_ARCH, FAM_MOE_PROMPT, FAM_MOE_NEW = "olmoe-1b-7b", (256, 1024), 32
+FAM_MOE_CF, FAM_MOE_TIE = 8.0, 2.0 ** -5
+FAM_PROFILE_STEPS = 8
+# phase 3: the int8 decode path at head dims 32 and 128 beside the serving
+# shape's 64: (B, S, H, K, d, length)
+DECODE_INT8_SHAPES = ((4, 1024, 8, 2, 32, 700), (8, 2048, 16, 8, 128, 1500))
 # card clock cycles cuda_ms spins before its timed calls: about 12 ms at
 # the H100's 1.7-2.0 GHz, room for 20 calls of a wrapper costing up to
 # 0.5 ms on the host
@@ -2850,6 +2900,57 @@ def check_decode(dev, B, S, H, K, d, length, q_dtype, kv_dtype, seed=0):
     return err, (q, kc, vc, n)
 
 
+def int8_cache(dev, B, S, K, d, length, seed, unit_scales=False):
+    """An int8 KV cache and its bf16 scales from ``quantize_kv`` of seeded
+    bf16 rows (or small integers under scales of 1), garbage past
+    ``length``."""
+    import torch
+
+    from repro_torch.models.layers import quantize_kv
+
+    if unit_scales:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        vals = torch.randint(-4, 5, (B, S, K, d), generator=gen, device=dev,
+                             dtype=torch.int8)
+        scales = torch.ones((B, S, K), dtype=torch.bfloat16, device=dev)
+    else:
+        vals, scales = quantize_kv(_randn(dev, (B, S, K, d), torch.bfloat16,
+                                          seed))
+    vals[:, length:] = 127
+    scales[:, length:] = 1e4
+    return vals, scales
+
+
+def check_decode_int8(dev, B, S, H, K, d, length, q_dtype, seed=0,
+                      unit_scales=False):
+    """The int8 path of ``decode_attention``'s kernel against its plain
+    version (which dequantizes first): the bf16 rule for a bf16 query, the
+    f32 one for an f32 query; under scales of 1 (the dequantized cache is
+    the integers) against the plain f32 attention within the f32 rule.
+    Returns (max |error|, args)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    q = _randn(dev, (B, H, d), q_dtype, seed)
+    kc, ks = int8_cache(dev, B, S, K, d, length, seed + 1, unit_scales)
+    vc, vs = int8_cache(dev, B, S, K, d, length, seed + 2, unit_scales)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n, ks, vs)
+    exp = decode_attention_ref(q, kc.float(), vc.float(), length) \
+        if unit_scales else decode_attention_ref(q, kc, vc, length, ks, vs)
+    err, ok, tol = attn_error("decode", got, exp)
+    print(f"[3 decode_attention int8] q ({B}, {H}, {d}) "
+          f"{str(q_dtype).split('.')[-1]} cache ({B}, {S}, {K}, {d}) int8 "
+          f"{'scales 1' if unit_scales else 'with bf16 scales'} length "
+          f"{length}: max|d| {err:.3e} (tolerance {tol})")
+    if not ok:
+        raise AssertionError("decode_attention's int8 path disagrees with "
+                             "its plain version")
+    return err, (q, kc, vc, n, ks, vs)
+
+
 def lm_serving_path(dev, cfg, model) -> dict:
     """Phase 4c: ``ServeEngine.generate`` over ``lm_requests``, with the
     kernels' launches counted over exactly that call; then the card's
@@ -2924,10 +3025,8 @@ def lm_serving_path(dev, cfg, model) -> dict:
     n = LM_PROMPT[0] - 1
     toks = torch.from_numpy(np.stack([r.prompt[:n + 1]
                                       for r in reqs[:2]])).to(dev)
-    cache, _ = M.prefill(model, {"tokens": toks[:, :n]}, LM_MAX_LEN)
-    l2, _ = M.decode_step(model, cache, {"tokens": toks[:, n:n + 1]})
-    _, l3 = M.prefill(model, {"tokens": toks}, LM_MAX_LEN)
-    gap = float((l2 - l3).abs().max()) / max(float(l3.abs().max()), 1.0)
+    gap = _decode_gap(model, {"tokens": toks[:, :n]},
+                      {"tokens": toks[:, n:n + 1]}, {"tokens": toks})
     print(f"[4c decode == prefill(n+1)] n {n}, 2 sequences: max|d logits| "
           f"{gap:.3e} of their scale (tolerance {LM_BF16_TOL})")
     if not gap <= LM_BF16_TOL:
@@ -3100,6 +3199,396 @@ def lm_machine_phase(dev, cfg, model) -> dict:
             or not transitively_consistent(cand, res.labels):
         raise AssertionError("the LM machine phase's join result is wrong")
     return {"launches": launches, "err": err, "embeds": (ea, eb)}
+
+
+def _timed_generate(engine, reqs, new: int) -> tuple:
+    """``engine.generate(reqs)`` of one wave, its prefill synchronized and
+    timed apart: (tokens, prefill s, ms a decode step)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    prefill, spent = M.prefill, {}
+
+    def timed_prefill(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent["prefill_s"] = time.perf_counter() - t0
+        return out
+
+    M.prefill = timed_prefill
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(reqs)     # ends in a copy of the tokens
+        wall = time.perf_counter() - t0
+    finally:
+        M.prefill = prefill
+    return out, spent["prefill_s"], \
+        1e3 * (wall - spent["prefill_s"]) / (new - 1)
+
+
+def _family_requests(vocab: int, lo_hi, new: int, seed: int) -> list:
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(2, vocab, size=int(
+                rng.integers(lo_hi[0], lo_hi[1] + 1))).astype(np.int32),
+                max_new_tokens=new) for i in range(LM_LANES)]
+
+
+def _decode_gap(model, batch_n: dict, nxt: dict, batch_n1: dict) -> float:
+    """``prefill(n) + decode_step`` against ``prefill(n + 1)``: the largest
+    difference of the last logits over their scale."""
+    from repro_torch.models import model as M
+
+    cache, _ = M.prefill(model, batch_n, LM_MAX_LEN)
+    l2, _ = M.decode_step(model, cache, nxt)
+    _, l3 = M.prefill(model, batch_n1, LM_MAX_LEN)
+    return float((l2 - l3).abs().max()) / max(float(l3.abs().max()), 1.0)
+
+
+def _moe_gap(model, toks) -> list:
+    """``prefill(n) + decode_step`` against ``prefill(n + 1)`` under the
+    experts, a sequence at a time: (the gap of its last logits over their
+    scale, the layers where its last token's picks part between the two
+    paths, the prefill path's 8th-to-9th router probability margin, relative,
+    at the first of those layers), from ``moe.route`` recorded on both
+    paths."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    rec, real = [], moe.route
+
+    def spy(xt, router, cfg):
+        r = real(xt, router, cfg)
+        rec.append((r.expert, torch.softmax((xt @ router).float(), -1)))
+        return r
+
+    moe.route = spy
+    try:
+        cache, _ = M.prefill(model, {"tokens": toks[:, :-1]}, LM_MAX_LEN)
+        rec.clear()
+        l2, _ = M.decode_step(model, cache, {"tokens": toks[:, -1:]})
+        dec = list(rec)
+        rec.clear()
+        _, l3 = M.prefill(model, {"tokens": toks}, LM_MAX_LEN)
+        pre = list(rec)
+    finally:
+        moe.route = real
+    B, S = toks.shape
+    k = model.cfg.top_k
+    out = []
+    for b in range(B):
+        gap = float((l2[b] - l3[b]).abs().max()) \
+            / max(float(l3[b].abs().max()), 1.0)
+        parted = [li for li, (d, p) in enumerate(zip(dec, pre))
+                  if set(d[0][b].tolist())
+                  != set(p[0].view(B, S, k)[b, -1].tolist())]
+        margin = None
+        if parted:
+            probs = pre[parted[0]][1].view(B, S, -1)[b, -1]
+            top = torch.sort(probs, descending=True).values
+            margin = float((top[k - 1] - top[k]) / top[k - 1])
+        out.append((gap, parted, margin))
+    return out
+
+
+def _profile_steps(step, steps: int) -> tuple:
+    """(wall ms a step, device busy ms a step, bmm device ms a step, kernel
+    launches a step) of ``steps`` calls of ``step``, timed unprofiled and
+    then under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    on_card, busy, _, launches = profile_counts(prof)
+    bmm = sum(getattr(e, "device_time_total", getattr(
+        e, "cuda_time_total", 0.0)) for e in prof.key_averages()
+        if e.key == "aten::bmm")
+    return wall, 1e3 * busy / steps, bmm / 1e3 / steps, launches / steps
+
+
+def lm_families_path(dev) -> dict:
+    """Phase 4n: the LM stack's families at full width, each model drawn on
+    the card from a seeded generator and freed before the next.  Every
+    kernel count is zeroed just before a path and read just after it.
+    (a) ``internlm2-1.8b`` under ``kv_quant``: ``ServeEngine.generate`` of
+    8 requests of ``LM_PROMPT`` tokens, ``FAM_KV_NEW`` new, against the
+    same weights over the bf16 cache; the int8 decode kernel must launch
+    once a layer a decode step and the bf16 one never; ms a step, cache
+    bytes, the first step where the two runs' greedy tokens part, the int8
+    step's logits within 0.08 of the bf16 step's scale.  (b)
+    ``qwen2-vl-2b`` and (c) ``musicgen-medium``: ``prefill`` of 8
+    sequences of ``configs/shapes.py``'s ``dummy_batch`` (the stub's prefix
+    embeddings and image-grid positions, then a ``FAM_TEXT`` draw of text
+    tokens), then
+    ``FAM_DECODE`` greedy ``decode_step``s (under M-RoPE with their
+    ``positions3``), launches exact, ``decode == prefill(n + 1)`` within
+    ``LM_BF16_TOL``.  (d) ``olmoe-1b-7b``: ``ServeEngine.generate`` of 8
+    requests of ``FAM_MOE_PROMPT`` tokens, ``FAM_MOE_NEW`` new; a profiled
+    window of decode steps (busy share, the experts' ``bmm`` share of
+    device time); ``decode == prefill(n + 1)`` at ``capacity_factor`` 8 on
+    the 8 sequences: within ``LM_BF16_TOL`` where the last token's expert
+    picks agree in every layer (at least one sequence must), and where
+    they part, first at a near tie (``FAM_MOE_TIE``)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.configs.shapes import dummy_batch
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    def counts():
+        return {"flash_attention": fa_ops.flash_attention.launches,
+                "decode_attention": da_ops.decode_attention.launches,
+                "decode_attention_int8":
+                    da_ops.decode_attention.int8_launches}
+
+    def zero():
+        fa_ops.flash_attention.launches = 0
+        da_ops.decode_attention.launches = 0
+        da_ops.decode_attention.int8_launches = 0
+
+    def draw(cfg):
+        t0 = time.perf_counter()
+        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        torch.cuda.synchronize()
+        print(f"[4n model] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
+              f"heads of {cfg.hd}, vocab {cfg.vocab}, {M.n_params(cfg)} bf16 "
+              f"parameters ({M.n_active_params(cfg)} active a token), drawn "
+              f"in {time.perf_counter() - t0:.3f} s")
+        return model
+
+    out: dict = {"launches": {}}
+    warm_rng = np.random.default_rng(SEED + 7)
+
+    def warm(engine, vocab):
+        from repro_torch.serve.engine import Request
+
+        engine.generate([Request(rid=i, prompt=warm_rng.integers(
+            2, vocab, 64).astype(np.int32), max_new_tokens=4)
+            for i in range(2)])
+        torch.cuda.synchronize()
+
+    # -- (a) the int8 KV cache ----------------------------------------------
+    cfg = get(FAM_KV_ARCH).replace(kv_quant=True)
+    model = draw(cfg)
+    bf16 = M.Model(cfg.replace(kv_quant=False), dict(model.named_leaves()))
+    reqs = _family_requests(cfg.vocab, LM_PROMPT, FAM_KV_NEW, SEED + 11)
+    runs = {}
+    for tag, m in (("int8", model), ("bf16", bf16)):
+        engine = ServeEngine(m.cfg, m, batch_lanes=LM_LANES,
+                             max_len=LM_MAX_LEN)
+        warm(engine, cfg.vocab)
+        zero()
+        toks, pre_s, step_ms = _timed_generate(engine, reqs, FAM_KV_NEW)
+        runs[tag] = (toks, pre_s, step_ms, counts())
+    S = max(len(r.prompt) for r in reqs)
+    n_pos = cfg.n_layers * LM_LANES * LM_MAX_LEN * cfg.n_kv_heads
+    bytes_q = 2 * n_pos * (cfg.hd + 2)
+    bytes_bf = 2 * n_pos * cfg.hd * 2
+    parted = {}
+    for r in reqs:
+        a, b = runs["int8"][0][r.rid], runs["bf16"][0][r.rid]
+        parted[r.rid] = next((i for i in range(len(a)) if a[i] != b[i]),
+                             None)
+    want_q = {"flash_attention": cfg.n_layers, "decode_attention": 0,
+              "decode_attention_int8": cfg.n_layers * (FAM_KV_NEW - 1)}
+    want_bf = {"flash_attention": cfg.n_layers,
+               "decode_attention": cfg.n_layers * (FAM_KV_NEW - 1),
+               "decode_attention_int8": 0}
+    toks2 = torch.from_numpy(np.stack([r.prompt[:LM_PROMPT[0]]
+                                       for r in reqs[:2]])).to(dev)
+    logits = {}
+    for tag, m in (("int8", model), ("bf16", bf16)):
+        cache, _ = M.prefill(m, {"tokens": toks2[:, :-1]}, LM_MAX_LEN)
+        logits[tag], _ = M.decode_step(m, cache, {"tokens": toks2[:, -1:]})
+    gap = float((logits["int8"] - logits["bf16"]).abs().max()) \
+        / max(float(logits["bf16"].abs().max()), 1e-6)
+    print(f"[4n a] {cfg.name} kv_quant, {LM_LANES} requests of "
+          f"{LM_PROMPT[0]}-{LM_PROMPT[1]} tokens (longest {S}), "
+          f"{FAM_KV_NEW} new: int8 cache prefill {runs['int8'][1]:.4f} s, "
+          f"decode {runs['int8'][2]:.4f} ms a step; bf16 cache prefill "
+          f"{runs['bf16'][1]:.4f} s, decode {runs['bf16'][2]:.4f} ms a step;"
+          f" cache bytes int8 + scales {bytes_q} against bf16 {bytes_bf} "
+          f"({bytes_q / bytes_bf:.4f}); launches int8 run {runs['int8'][3]}"
+          f", bf16 run {runs['bf16'][3]}")
+    print(f"[4n a] greedy tokens int8 against bf16: first step where they "
+          f"part, by request: {parted}; one decode step's logits over "
+          f"{LM_PROMPT[0] - 1} tokens: max|d| {gap:.3e} of the bf16 scale "
+          f"(tolerance {FAM_KV_TOL})")
+    if runs["int8"][3] != want_q or runs["bf16"][3] != want_bf \
+            or any(len(t) != FAM_KV_NEW for t in runs["int8"][0].values()):
+        raise AssertionError(f"phase 4n a: launches {runs['int8'][3]} / "
+                             f"{runs['bf16'][3]}, expected {want_q} / "
+                             f"{want_bf}")
+    if not gap <= FAM_KV_TOL:
+        raise AssertionError("phase 4n a: the int8 cache's logits are not "
+                             "within 0.08 of the bf16 cache's")
+    out["kv"] = {"step_ms": runs["int8"][2], "bf16_step_ms": runs["bf16"][2],
+                 "bytes": bytes_q, "bf16_bytes": bytes_bf, "gap": gap,
+                 "parted": parted}
+    out["launches"]["kv_quant"] = runs["int8"][3]
+    out["launches"]["kv_bf16"] = runs["bf16"][3]
+    del model, bf16, engine, logits
+    torch.cuda.empty_cache()
+
+    # -- (b), (c) the prefix families ---------------------------------------
+    for tag, arch in zip("bc", FAM_PREFIX_ARCHS):
+        cfg = get(arch)
+        model = draw(cfg)
+        n_prefix = cfg.n_patch_tokens + cfg.n_cond_tokens
+        n_text = int(np.random.default_rng(SEED + 12).integers(
+            FAM_TEXT[0], FAM_TEXT[1] + 1))
+        S = n_prefix + n_text
+        # the stubs' prefix embeddings and image-grid positions, over the
+        # decode steps too
+        full = dummy_batch(cfg, S + FAM_DECODE, LM_LANES, "prefill",
+                           torch.Generator(device=dev).manual_seed(SEED + 13))
+
+        def cut(n, B=LM_LANES):
+            b = {"tokens": full["tokens"][:B, :n - n_prefix],
+                 "prefix_embeds": full["prefix_embeds"][:B]}
+            if cfg.mrope:
+                b["positions3"] = full["positions3"][:B, :n]
+            return b
+
+        M.prefill(model, cut(n_prefix + 64, 2), LM_MAX_LEN)    # warm-up
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        cache, logits = M.prefill(model, cut(S), LM_MAX_LEN)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        t0 = time.perf_counter()
+        for i in range(FAM_DECODE):
+            step = {"tokens": cur[:, None]}
+            if cfg.mrope:
+                step["positions3"] = full["positions3"][:, S + i:S + i + 1]
+            logits, cache = M.decode_step(model, cache, step)
+            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / FAM_DECODE
+        got = counts()
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * FAM_DECODE,
+                "decode_attention_int8": 0}
+        ok = bool(torch.isfinite(logits).all()) \
+            and int(cache["length"]) == S + FAM_DECODE
+        # decode == prefill(n + 1) on two of the sequences
+        nxt = {"tokens": full["tokens"][:2, n_text - 1:n_text]}
+        if cfg.mrope:
+            nxt["positions3"] = full["positions3"][:2, S - 1:S]
+        gap = _decode_gap(model, cut(S - 1, 2), nxt, cut(S, 2))
+        print(f"[4n {tag}] {arch}: prefill of {LM_LANES} x ({n_prefix} "
+              f"prefix + {n_text} text) = {S} positions {pre_s:.4f} s, "
+              f"{FAM_DECODE} decode steps {step_ms:.4f} ms a step; "
+              f"launches {got}; decode == prefill(n+1): max|d logits| "
+              f"{gap:.3e} of their scale (tolerance {LM_BF16_TOL})")
+        if got != want or not ok:
+            raise AssertionError(f"phase 4n {tag}: launches {got}, expected "
+                                 f"{want}; finite and long enough {ok}")
+        if not gap <= LM_BF16_TOL:
+            raise AssertionError(f"phase 4n {tag}: decode_step disagrees "
+                                 f"with prefill")
+        out[arch] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap,
+                     "S": S}
+        out["launches"][arch] = got
+        del model, cache, logits, full
+        torch.cuda.empty_cache()
+
+    # -- (d) the experts on one device --------------------------------------
+    cfg = get(FAM_MOE_ARCH)
+    model = draw(cfg)
+    reqs = _family_requests(cfg.vocab, FAM_MOE_PROMPT, FAM_MOE_NEW,
+                            SEED + 14)
+    engine = ServeEngine(cfg, model, batch_lanes=LM_LANES,
+                         max_len=LM_MAX_LEN)
+    warm(engine, cfg.vocab)
+    zero()
+    toks, pre_s, step_ms = _timed_generate(engine, reqs, FAM_MOE_NEW)
+    got = counts()
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (FAM_MOE_NEW - 1),
+            "decode_attention_int8": 0}
+    S = max(len(r.prompt) for r in reqs)
+    wave = np.zeros((LM_LANES, S), np.int32)
+    for j, r in enumerate(reqs):
+        wave[j, S - len(r.prompt):] = r.prompt
+    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(wave).to(
+        dev)}, LM_MAX_LEN)
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    def step():
+        nonlocal cache, cur
+        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    wall, busy, bmm, launches = _profile_steps(step, FAM_PROFILE_STEPS)
+    del cache
+    expert_bytes = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model \
+        * cfg.d_ff * 2
+    print(f"[4n d] {cfg.name}: {LM_LANES} requests of {FAM_MOE_PROMPT[0]}-"
+          f"{FAM_MOE_PROMPT[1]} tokens (longest {S}), {FAM_MOE_NEW} new: "
+          f"prefill {pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches "
+          f"{got}; profiled window of {FAM_PROFILE_STEPS} steps: wall "
+          f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy share "
+          f"{busy / wall:.4f}), the experts' bmm {bmm:.4f} ms "
+          f"({bmm / max(busy, 1e-9):.4f} of busy), {launches:.1f} launches "
+          f"a step; every expert's weights"
+          f" read a step: {expert_bytes} bytes, "
+          f"{1e3 * expert_bytes / PEAK_BYTES_PER_S:.4f} ms at the HBM peak")
+    if got != want or any(len(t) != FAM_MOE_NEW for t in toks.values()):
+        raise AssertionError(f"phase 4n d: launches {got}, expected {want}")
+    moe8 = M.Model(cfg.replace(capacity_factor=FAM_MOE_CF),
+                   dict(model.named_leaves()))
+    n = FAM_MOE_PROMPT[0]
+    seqs = _moe_gap(moe8, torch.from_numpy(np.stack(
+        [r.prompt[:n] for r in reqs])).to(dev))
+    agree = [g for g, parted, _ in seqs if not parted]
+    ties = [m for _, parted, m in seqs if parted]
+    gap = max(agree) if agree else float("nan")
+    print(f"[4n d] decode == prefill(n+1) at capacity_factor {FAM_MOE_CF}, "
+          f"n {n - 1}, {len(seqs)} sequences: (max|d logits| of their scale,"
+          f" layers where the last token's picks part, the first such "
+          f"layer's 8th-to-9th router probability margin) "
+          + ", ".join(f"({g:.3e}, {p}, "
+                      f"{'-' if m is None else f'{m:.3e}'})"
+                      for g, p, m in seqs)
+          + f"; where every pick agrees at most {gap:.3e} (tolerance "
+          f"{LM_BF16_TOL}), first partings at margins up to "
+          f"{max(ties, default=0.0):.3e} (tolerance {FAM_MOE_TIE:.4f})")
+    if not agree or not gap <= LM_BF16_TOL \
+            or not all(m <= FAM_MOE_TIE for m in ties):
+        raise AssertionError("phase 4n d: decode_step disagrees with "
+                             "prefill under the experts")
+    out["moe"] = {"prefill_s": pre_s, "step_ms": step_ms, "busy_ms": busy,
+                  "wall_ms": wall, "bmm_ms": bmm, "gap": gap}
+    out["launches"]["moe"] = got
+    del model, moe8, engine
+    torch.cuda.empty_cache()
+    return out
 
 
 def _dir_bytes(path) -> int:
@@ -4075,6 +4564,35 @@ def run(dev) -> None:
     if not da_repeat:
         raise AssertionError("decode_attention differs between calls")
     del repeats
+    # the int8 cache path: the serving shape at the same lengths, head dims
+    # 32 and 128, bf16 and f32 queries; then under scales of 1
+    d8_err, d8_args = 0.0, None
+    for length in sorted(set(DECODE_LENGTHS) | {min(da_chunk, LM_MAX_LEN),
+                                                min(da_chunk + 1,
+                                                    LM_MAX_LEN)}):
+        for q_dt in (torch.bfloat16, torch.float32):
+            err, args = check_decode_int8(dev, LM_LANES, LM_MAX_LEN, H, K, hd,
+                                          length, q_dt, seed=length)
+            if q_dt == torch.bfloat16:
+                d8_err = max(d8_err, err)
+                if length == LM_MAX_LEN:
+                    d8_args = args
+    for shape in DECODE_INT8_SHAPES:
+        for q_dt in (torch.bfloat16, torch.float32):
+            check_decode_int8(dev, *shape, q_dt, seed=3)
+    for shape in ((LM_LANES, LM_MAX_LEN, H, K, hd, 1337),) \
+            + DECODE_INT8_SHAPES:
+        check_decode_int8(dev, *shape, torch.float32, seed=4,
+                          unit_scales=True)
+    repeats = [da_kernel.decode_attention(*d8_args) for _ in range(5)]
+    d8_repeat = all(torch.equal(x.view(torch.int16), repeats[0].view(
+        torch.int16)) for x in repeats[1:])
+    print(f"[3 decode_attention int8] five calls at length "
+          f"{int(d8_args[3])} equal bit for bit {d8_repeat}")
+    if not d8_repeat:
+        raise AssertionError("decode_attention's int8 path differs between "
+                             "calls")
+    del repeats
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -4187,6 +4705,12 @@ def run(dev) -> None:
         shutil.rmtree(scratch, ignore_errors=True)
     r_launch, p_launch = recovery["launches"], plan["launches"]
 
+    # -- 4n. the LM stack's other families at full width --------------------
+    t0 = time.perf_counter()
+    fam = lm_families_path(dev)
+    print(f"[4n] phase 4n {time.perf_counter() - t0:.1f} s")
+    fam_launch = fam["launches"]
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -4248,6 +4772,20 @@ def run(dev) -> None:
 
     fa_bound, fa_by = bound(fa_flops, fa_bytes, fq.dtype)
     da_bound, da_by = bound(da_flops, da_bytes, dq.dtype)
+    # the int8 path at the same shape and length: the int8 rows and their
+    # two-byte scales up to length, q and o
+    d8q, d8k, d8v, d8n, d8ks, d8vs = d8_args
+    d8_len = int(d8n)
+    d8_bytes = 2 * LM_LANES * d8_len * K * (hd * d8k.element_size()
+                                            + d8ks.element_size()) \
+        + 2 * d8q.numel() * d8q.element_size()
+    d8_bound, d8_by = bound(4 * LM_LANES * H * hd * d8_len, d8_bytes,
+                            d8q.dtype)
+    sdpa_bf16_ms = cuda_ms(lambda: sdpa(
+        dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
+        attn_mask=da_mask, enable_gqa=True))
+    fam_flash = sum(v["flash_attention"] for v in fam_launch.values())
+    fam_decode = sum(v["decode_attention"] for v in fam_launch.values())
 
     def library_pair_scores():
         s = torch.matmul(a, b.T)
@@ -4355,7 +4893,8 @@ def run(dev) -> None:
          "launches_by_path": {
              "lm_serving": serving["launches"]["flash_attention"],
              "lm_machine_phase": machine["launches"]["flash_attention"],
-             "training": train["launches"]},
+             "training": train["launches"],
+             "lm_families": fam_flash},
          "max_abs_err": fa_err,
          "ms": cuda_ms(lambda: fa_kernel.flash_attention(fq, fk, fv)),
          "plain_ms": cuda_ms(lambda: mha_causal_ref(fq, fk, fv), 5),
@@ -4367,13 +4906,25 @@ def run(dev) -> None:
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
          "launches": serving["launches"]["decode_attention"],
+         "launches_by_path": {
+             "lm_serving": serving["launches"]["decode_attention"],
+             "lm_families": fam_decode},
          "splits": da_splits, "max_abs_err": da_err,
          "ms": cuda_ms(lambda: da_kernel.decode_attention(dq, dk, dv, dn)),
          "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
          "bound_ms": da_bound, "bound_by": da_by,
-         "library_ms": cuda_ms(lambda: sdpa(
-             dq[:, :, None], dk.transpose(1, 2), dv.transpose(1, 2),
-             attn_mask=da_mask, enable_gqa=True))},
+         "library_ms": sdpa_bf16_ms},
+        {"name": "decode_attention_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+         "launches": fam_launch["kv_quant"]["decode_attention_int8"],
+         "max_abs_err": d8_err,
+         "ms": cuda_ms(lambda: da_kernel.decode_attention(*d8_args)),
+         "plain_ms": cuda_ms(lambda: decode_attention_ref(*d8_args)),
+         "bound_ms": d8_bound, "bound_by": d8_by,
+         # no one PyTorch call reads an int8 cache; SDPA over the bf16
+         # cache at the same shape, for scale
+         "library_ms": None, "sdpa_over_bf16_cache_ms": sdpa_bf16_ms},
     ]
     print("[6 pair_scores] one call's device time by kernel: "
           + device_split(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
@@ -4393,6 +4944,8 @@ def run(dev) -> None:
               *chunk_args, THRESHOLD, c_call, bn, bm)))
     print("[6 decode_attention] one call's device time by kernel: "
           + device_split(lambda: da_kernel.decode_attention(dq, dk, dv, dn)))
+    print("[6 decode_attention int8] one call's device time by kernel: "
+          + device_split(lambda: da_kernel.decode_attention(*d8_args)))
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
           f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W)")

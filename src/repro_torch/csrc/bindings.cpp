@@ -46,14 +46,17 @@ extern "C" int decode_attention_plan(int kv_dtype, int B, int S, int H,
                                      int K, int d, int* splits, int* chunk);
 
 extern "C" cudaError_t decode_attention_launch(
-    const void* q, const void* kc, const void* vc, const int* length, void* o,
-    float* ws, int* counters, long long n_counters, int q_dtype, int kv_dtype,
-    int B, int S, int H, int K, int d, const long long* strides, float scale,
+    const void* q, const void* kc, const void* vc, const void* ks,
+    const void* vs, const int* length, void* o, float* ws, int* counters,
+    long long n_counters, int q_dtype, int kv_dtype, int B, int S, int H,
+    int K, int d, const long long* strides, float scale,
     cudaStream_t stream);
 
 namespace {
 
+// 0 = f32, 1 = bf16, 2 = int8 (decode_attention's int8 cache).
 int dtype_code(const torch::Tensor& x) {
+  if (x.scalar_type() == torch::kChar) return 2;
   return x.scalar_type() == torch::kBFloat16 ? 1 : 0;
 }
 
@@ -198,23 +201,33 @@ std::vector<int64_t> decode_attention_split(const torch::Tensor& q,
   return {splits, chunk};
 }
 
-void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
-                      const torch::Tensor& v_cache,
-                      const torch::Tensor& length, const torch::Tensor& o,
-                      const torch::Tensor& counters, double scale) {
+// The launch over any cache: k_scale and v_scale are defined for an int8
+// cache and undefined tensors otherwise.
+void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
+            const torch::Tensor& v_cache, const torch::Tensor& k_scale,
+            const torch::Tensor& v_scale, const torch::Tensor& length,
+            const torch::Tensor& o, const torch::Tensor& counters,
+            double scale) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   const int64_t splits = decode_attention_split(q, k_cache)[0];
   // the splits' partials (m, l, acc[d]), written and read inside the launch
   const torch::Tensor ws = torch::empty(
       {q.size(0) * q.size(1) * splits * (q.size(2) + 2)},
       q.options().dtype(torch::kFloat32));
-  const long long strides[10] = {
+  const bool q8 = k_scale.defined();
+  auto st = [q8](const torch::Tensor& t, int i) -> long long {
+    return q8 ? t.stride(i) : 0;
+  };
+  const long long strides[16] = {
       q.stride(0),       q.stride(1),       k_cache.stride(0),
       k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
       v_cache.stride(1), v_cache.stride(2), o.stride(0),
-      o.stride(1)};
+      o.stride(1),       st(k_scale, 0),    st(k_scale, 1),
+      st(k_scale, 2),    st(v_scale, 0),    st(v_scale, 1),
+      st(v_scale, 2)};
   C10_CUDA_CHECK(decode_attention_launch(
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+      q8 ? k_scale.data_ptr() : nullptr, q8 ? v_scale.data_ptr() : nullptr,
       length.data_ptr<int>(), o.data_ptr(), ws.data_ptr<float>(),
       counters.data_ptr<int>(), counters.numel(), dtype_code(q),
       dtype_code(k_cache), static_cast<int>(q.size(0)),
@@ -222,6 +235,26 @@ void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
       static_cast<int>(k_cache.size(2)), static_cast<int>(q.size(2)),
       strides, static_cast<float>(scale), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void decode_attention(const torch::Tensor& q, const torch::Tensor& k_cache,
+                      const torch::Tensor& v_cache,
+                      const torch::Tensor& length, const torch::Tensor& o,
+                      const torch::Tensor& counters, double scale) {
+  decode(q, k_cache, v_cache, torch::Tensor(), torch::Tensor(), length, o,
+         counters, scale);
+}
+
+// An int8 cache with its bf16 scales (B, S, K), dequantized in the kernel.
+void decode_attention_int8(const torch::Tensor& q,
+                           const torch::Tensor& k_cache,
+                           const torch::Tensor& v_cache,
+                           const torch::Tensor& k_scale,
+                           const torch::Tensor& v_scale,
+                           const torch::Tensor& length,
+                           const torch::Tensor& o,
+                           const torch::Tensor& counters, double scale) {
+  decode(q, k_cache, v_cache, k_scale, v_scale, length, o, counters, scale);
 }
 
 }  // namespace
@@ -242,6 +275,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "causal GQA flash attention, bf16, TMA + wgmma (CUDA)");
   m.def("decode_attention", &decode_attention,
         "one-token attention over a KV cache, split across it (CUDA)");
+  m.def("decode_attention_int8", &decode_attention_int8,
+        "one-token attention over an int8 KV cache with bf16 scales (CUDA)");
   m.def("decode_attention_split", &decode_attention_split,
         "(splits, chunk) of decode_attention's launch");
 }

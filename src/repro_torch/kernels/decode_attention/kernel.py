@@ -1,7 +1,9 @@
 """Launch of the hand-written CUDA flash-decode kernel,
 ``repro_torch/csrc/decode_attention.cu`` (it replaces the Pallas kernel
-``repro/kernels/decode_attention/kernel.py::decode_attention``).  The kernel
-reads ``length`` from device memory, so the host never waits on it.  It
+``repro/kernels/decode_attention/kernel.py::decode_attention``), over an
+f32, bf16 or int8 cache (the last with its scales, dequantized inside the
+kernel).  The kernel reads ``length`` from device memory, so the host never
+waits on it.  It
 splits the cache across blocks and merges the splits in the same launch;
 the last block of each (lane, kv head) finds itself through a counter in
 :data:`_COUNTERS` and sets it back to 0."""
@@ -13,10 +15,13 @@ import torch
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16   # query heads per kv head
-# (q dtype, cache dtype) pairs the kernel is built for
+# (q dtype, cache dtype) pairs the kernel is built for; an int8 cache comes
+# with bf16 scales
 DTYPE_PAIRS = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
-               (torch.float32, torch.bfloat16))
+               (torch.float32, torch.bfloat16),
+               (torch.float32, torch.int8),
+               (torch.bfloat16, torch.int8))
 # per CUDA device: int32 counters, zeroed once when allocated; every call
 # leaves them 0, so no call clears them
 _COUNTERS: dict = {}
@@ -33,13 +38,17 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     length: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, length: torch.Tensor,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, H, d), caches: (B, S, K, d) CUDA tensors (head dim contiguous;
     dtypes in ``DTYPE_PAIRS``), ``length`` a 0-d or one-element int32 tensor
-    on the same device.  Returns a new (B, H, d) tensor in q's dtype.  A
-    ``length`` below 1 stops the kernel with a trap, which surfaces as a
-    RuntimeError at the next synchronization; above S it counts as S.
+    on the same device.  An int8 cache needs its scales ``k_scale`` and
+    ``v_scale``: bf16 (B, S, K) on the same device, any strides; the
+    kernel dequantizes each value as ``ref.dequantize`` does (the int8
+    value times its bf16 scale is exact in f32 and is rounded once to
+    bf16).  Returns a new (B, H, d) tensor in q's dtype.  A ``length``
+    below 1 stops the kernel with a trap, which surfaces as a RuntimeError
+    at the next synchronization; above S it counts as S.
 
     One launch.  The partials of the sequence's splits go to a workspace
     from ``torch.empty``; the merge's counters are shared by every call on
@@ -47,8 +56,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     them (PyTorch's current stream)."""
     from repro_torch.kernels._build import extension
 
+    scales = () if k_scale is None else (("k_scale", k_scale),
+                                         ("v_scale", v_scale))
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("length", length)):
+                    ("length", length)) + scales:
         if not isinstance(x, torch.Tensor) or not x.is_cuda \
                 or x.device != q.device:
             raise ValueError(
@@ -74,10 +85,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}: H a multiple "
             f"of K with at most {MAX_GROUP} query heads per kv head, head "
             f"dim in {HEAD_DIMS} and contiguous")
+    if (k_cache.dtype == torch.int8) != bool(scales) or any(
+            s.dtype != torch.bfloat16 or s.shape != k_cache.shape[:3]
+            for _, s in scales):
+        raise ValueError(
+            f"decode_attention kernel: an int8 cache, and only an int8 "
+            f"cache, takes bf16 scales of shape {tuple(k_cache.shape[:3])}; "
+            f"got cache {k_cache.dtype} and scales "
+            f"{[(s.dtype, tuple(s.shape)) for _, s in scales]}")
     o = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    extension().decode_attention(q, k_cache, v_cache, length, o,
-                                 _counters(q.device, B * H),
-                                 1.0 / math.sqrt(d))
+    counters = _counters(q.device, B * H)
+    if scales:
+        extension().decode_attention_int8(q, k_cache, v_cache, k_scale,
+                                          v_scale, length, o, counters,
+                                          1.0 / math.sqrt(d))
+    else:
+        extension().decode_attention(q, k_cache, v_cache, length, o,
+                                     counters, 1.0 / math.sqrt(d))
     return o
 
 

@@ -1,7 +1,9 @@
-"""Core transformer layers of the port: RMSNorm, RoPE, GQA attention through
-the hand-written flash and decode kernels, SwiGLU MLP.  A port of the JAX
-package's ``models/layers.py`` for the attention families; M-RoPE and the
-int8 KV cache are not ported (ROADMAP A12).
+"""Core transformer layers of the port: RMSNorm, RoPE and M-RoPE, GQA
+attention through the hand-written flash and decode kernels (the decode
+kernel also over the int8 KV cache, which it dequantizes itself), SwiGLU
+MLP.  A port of the JAX package's ``models/layers.py`` for the attention
+families; only the dry-run's ``attn_impl="kernel_stub"`` is refused (ROADMAP
+A12, with the dry-run).
 
 Training: ``rmsnorm`` is an autograd Function whose backward is the
 reference's custom VJP term for term, and attention under autograd goes
@@ -27,6 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import \
     decode_attention as _decode_kernel_op
+from repro_torch.kernels.decode_attention.ref import \
+    dequantize as dequantize_kv
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 from .config import ModelConfig
@@ -43,9 +47,9 @@ class ParamSpec:
 Specs = Dict[str, ParamSpec]
 
 
-def _unported(what: str):
+def _unported(what: str, item: str = "A12"):
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A12)")
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -99,25 +103,46 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                          device=device) / hd))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, N, hd); positions: (B, S) int.  Half-split rotation (the
-    first and second halves of hd pair up), f32 inside."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
-    ang = positions[..., None].to(torch.float32) * freqs      # (B,S,hd/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, N, hd) rotated by the angles ``ang`` (B, S, hd/2): the first
+    and second halves of hd pair up, f32 inside, x's dtype out."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, N, hd); positions: (B, S) int.  Half-split rotation (the
+    first and second halves of hd pair up), f32 inside."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x (B, S, N, hd); positions3 (B, S, 3), the temporal,
+    height and width position of each token.  The hd/2 rotary channels
+    split into ``sections``, each rotated by its own position stream."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope_sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)                   # (hd/2,)
+    # the section of each rotary channel picks its position stream
+    sec = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                     for i, s in enumerate(sections)])
+    pos = positions3.to(torch.float32)[..., sec]              # (B,S,hd/2)
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +170,10 @@ def _qkv(x: torch.Tensor, p: Dict, cfg: ModelConfig):
 
 
 def _position_encode(q, k, positions, cfg: ModelConfig):
+    """RoPE over (B, S) positions, or M-RoPE over (B, S, 3) ones."""
     if cfg.mrope:
-        raise _unported("M-RoPE (mrope=True)")
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -226,13 +253,16 @@ def causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
-def decode_attention(q, k_cache, v_cache, length,
-                     cfg: ModelConfig) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, length, cfg: ModelConfig,
+                     k_scale=None, v_scale=None) -> torch.Tensor:
     """Single-position attention over a KV cache through the
     ``decode_attention`` op (hand-written CUDA on the card).
-    q: (B, 1, H, hd); caches: (B, S_max, K, hd); length: valid prefix."""
+    q: (B, 1, H, hd); caches: (B, S_max, K, hd); length: valid prefix.  An
+    int8 cache comes with its bf16 scales (B, S_max, K), which the op
+    applies as :func:`dequantize_kv` (the reference's dequantization) does."""
     B, _, H, hd = q.shape
-    o = _decode_kernel_op(q.reshape(B, H, hd), k_cache, v_cache, length)
+    o = _decode_kernel_op(q.reshape(B, H, hd), k_cache, v_cache, length,
+                          k_scale, v_scale)
     return o.reshape(B, 1, H, hd)
 
 
@@ -248,20 +278,44 @@ def attention_block(x, p, cfg: ModelConfig, positions):
     return o.reshape(B, S, -1) @ p["wo"], k, v
 
 
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of keys or values
+    x (..., hd): the scale is ``max |x| / 127 + 1e-8`` in f32, the values
+    ``round(x / scale)`` (half to even) clipped to +-127.  Returns (int8
+    values, bf16 scales (...,)), as the reference's ``quantize_kv``."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
 def attention_decode_block(x, p, cfg: ModelConfig, positions, k_cache,
-                           v_cache, length) -> torch.Tensor:
+                           v_cache, length, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """One-token decode.  x: (B, 1, d); caches (B, S_max, K, hd), updated in
     place at position ``length`` (a 0-d int32 tensor on x's device, never
     read on the host) before attending over ``length + 1`` positions.  The
-    reference returns fresh caches instead; the values are the same."""
-    if cfg.kv_quant:
-        raise _unported("the int8 KV cache (kv_quant=True)")
+    reference returns fresh caches instead; the values are the same.
+
+    With ``cfg.kv_quant`` the caches are int8 with bf16 scales
+    (B, S_max, K): the token's keys and values are quantized
+    (:func:`quantize_kv`) and written with their scales, and the decode
+    kernel reads the int8 cache and dequantizes it itself, where the
+    reference dequantizes the whole cache before its attention."""
     q, k, v = _qkv(x, p, cfg)
     q, k = _position_encode(q, k, positions, cfg)
     slot = length.reshape(1).to(torch.int64)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
-    o = decode_attention(q, k_cache, v_cache, length + 1, cfg)
+    if cfg.kv_quant:
+        for cache, scales, t in ((k_cache, k_scale, k), (v_cache, v_scale, v)):
+            tq, ts = quantize_kv(t)
+            cache.index_copy_(1, slot, tq)
+            scales.index_copy_(1, slot, ts)
+    else:
+        k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    o = decode_attention(q, k_cache, v_cache, length + 1, cfg,
+                         k_scale if cfg.kv_quant else None,
+                         v_scale if cfg.kv_quant else None)
     B = x.shape[0]
     return o.reshape(B, 1, -1) @ p["wo"]
 

@@ -39,7 +39,10 @@ class ServeEngine:
     ``greedy`` says, as in the reference, which stores the flag and never
     reads it.  A wave whose prompts and new tokens do not fit in
     ``max_len`` raises ValueError (the reference's cache writes clamp to
-    the last position instead)."""
+    the last position instead).  Requests are tokens only, as in the
+    reference: an audio config runs without its conditioning frames, and
+    an M-RoPE config raises ValueError (its positions come through the
+    model-level ``prefill`` / ``decode_step``)."""
 
     def __init__(self, cfg: ModelConfig, model: M.Model,
                  batch_lanes: int = 4, max_len: int = 512,
@@ -63,6 +66,13 @@ class ServeEngine:
         return results
 
     def _run_wave(self, wave: List[Request]) -> Dict[int, List[int]]:
+        if self.cfg.mrope:
+            # the reference's engine passes tokens only, so its prefill
+            # fails there too (on batch["positions3"])
+            raise ValueError(
+                f"{self.cfg.name} uses M-RoPE and the engine passes tokens "
+                "only: serve it through repro_torch.models.model.prefill and "
+                "decode_step with batch['positions3']")
         B = len(wave)
         S = max(len(r.prompt) for r in wave)
         steps = max(r.max_new_tokens for r in wave)

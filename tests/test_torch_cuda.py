@@ -24,7 +24,8 @@ round, and a lane whose keys widened to int64 restores with its dtype and
 sentinel and folds through the wide kernel after the restore, every result
 field the uninterrupted run's.
 ``flash_attention`` within 2e-5 and ``decode_attention`` within
-1e-5 of their plain versions in f32 (sums in another order, the decode
+1e-5 of their plain versions in f32 (the int8 cache too where its scales
+are 1, so that its dequantized values are its integers) (sums in another order, the decode
 kernel's split across the cache and merged in split order, so its repeats
 agree bit for bit); in bf16 each
 element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
@@ -59,6 +60,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+from repro_torch.models.layers import quantize_kv
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
@@ -1090,6 +1092,133 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take(dev):
         da_kernel.decode_attention(q[..., :32].bfloat16(),
                                    kc[..., :32].float(), kc[..., :32].float(),
                                    n)
+
+
+def _int8_cache(dev, B, S, K, d, length, seed, unit_scales=False):
+    """An int8 cache and its bf16 scales: ``quantize_kv`` of seeded bf16
+    rows, or small integers under scales of 1; garbage past ``length``."""
+    if unit_scales:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        vals = torch.randint(-4, 5, (B, S, K, d), generator=gen,
+                             dtype=torch.int8).to(dev)
+        scales = torch.ones((B, S, K), dtype=torch.bfloat16, device=dev)
+    else:
+        vals, scales = quantize_kv(_randn(dev, (B, S, K, d), torch.bfloat16,
+                                          seed))
+    vals[:, length:] = 127
+    scales[:, length:] = 1e4
+    return vals, scales
+
+
+@pytest.mark.parametrize("B,S,H,K,d,length", [
+    (8, 2048, 12, 12, 64, 1),
+    (8, 2048, 12, 12, 64, 1337),       # paper-scorer's serving shape
+    (8, 2048, 12, 12, 64, 2048),
+    (8, 2048, 16, 8, 128, 1500),       # internlm2-1.8b's heads
+    (2, 300, 32, 2, 128, 299),         # 16 query heads a kv head
+    (3, 77, 8, 2, 32, 77),
+])
+@pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_attention_int8_cache_matches_plain(dev, B, S, H, K, d,
+                                                   length, q_dt):
+    """The kernel dequantizes as the plain version does (bit for bit: an
+    int8 times a bf16 scale is exact in f32, rounded once to bf16), so the
+    two differ by the attention's summation order alone."""
+    q = _randn(dev, (B, H, d), q_dt, length)
+    kc, ks = _int8_cache(dev, B, S, K, d, length, length + 1)
+    vc, vs = _int8_cache(dev, B, S, K, d, length, length + 2)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    before = (da_ops.decode_attention.launches,
+              da_ops.decode_attention.int8_launches)
+    got = da_ops.decode_attention(q, kc, vc, n, ks, vs)
+    assert (da_ops.decode_attention.launches,
+            da_ops.decode_attention.int8_launches) == (before[0],
+                                                        before[1] + 1)
+    exp = decode_attention_ref(q, kc, vc, length, ks, vs)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_decode_attention_int8_unit_scales_within_f32(dev, d):
+    """Under scales of 1 the dequantized cache is the int8 values
+    themselves, which the f32 path reads exactly: the int8 path must agree
+    with the plain version within the f32 rule."""
+    B, S, H, K, length = 4, 700, 8, 2, 650
+    q = _randn(dev, (B, H, d), torch.float32, d)
+    kc, ks = _int8_cache(dev, B, S, K, d, length, d + 1, unit_scales=True)
+    vc, vs = _int8_cache(dev, B, S, K, d, length, d + 2, unit_scales=True)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n, ks, vs)
+    exp = decode_attention_ref(q, kc.float(), vc.float(), length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, exp, rtol=0, atol=ATTN_TOL_F32["decode"])
+
+
+@pytest.mark.parametrize("offset", [0, 3], ids=["aligned", "unaligned"])
+def test_decode_attention_int8_reads_strided_caches(dev, offset):
+    """Caches and scales as views of wider tensors: at an aligned offset
+    the int8 rows load 8 bytes a lane, three elements in byte by byte."""
+    B, S, H, K, d, length = 3, 500, 8, 2, 64, 437
+    vals, scales = _int8_cache(dev, B, S, K * 2, d + 8, length, 31)
+    kc = vals.view(B, S, K, 2, d + 8)[:, :, :, 0, offset:offset + d]
+    vc = vals.view(B, S, K, 2, d + 8)[:, :, :, 1, offset:offset + d]
+    ks = scales.view(B, S, K, 2)[..., 0]
+    vs = scales.view(B, S, K, 2)[..., 1]
+    q = _randn(dev, (B, H, d), torch.bfloat16, 32)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n, ks, vs)
+    exp = decode_attention_ref(q, kc.contiguous(), vc.contiguous(), length,
+                               ks.contiguous(), vs.contiguous())
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "decode")
+
+
+def test_decode_attention_int8_repeats_bitwise(dev):
+    B, S, H, K, d, length = 8, 2048, 12, 12, 64, 1337
+    q = _randn(dev, (B, H, d), torch.bfloat16, 41)
+    kc, ks = _int8_cache(dev, B, S, K, d, length, 42)
+    vc, vs = _int8_cache(dev, B, S, K, d, length, 43)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    outs = [da_kernel.decode_attention(q, kc, vc, n, ks, vs)
+            for _ in range(5)]
+    for out in outs[1:]:
+        assert torch.equal(out.view(torch.int16), outs[0].view(torch.int16))
+
+
+def test_decode_attention_int8_refuses_without_its_scales(dev):
+    q = torch.zeros(1, 4, 64, device=dev)
+    kc = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=dev)
+    sc = torch.ones(1, 8, 2, dtype=torch.bfloat16, device=dev)
+    n = torch.tensor(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        da_kernel.decode_attention(q, kc, kc, n)
+    with pytest.raises(ValueError, match="scales"):
+        da_kernel.decode_attention(q, kc.bfloat16(), kc.bfloat16(), n, sc, sc)
+    with pytest.raises(ValueError, match="scales"):
+        da_kernel.decode_attention(q, kc, kc, n, sc.float(), sc.float())
+
+
+def test_kv_quant_decode_runs_the_int8_kernel(dev):
+    """A model under ``kv_quant`` decodes through the int8 kernel, once a
+    layer a step, and its tokens on the card equal the CPU's under f32
+    weights, as the bf16 cache's do (``test_lm_engine_on_card_matches_cpu``)."""
+    cfg = get("internlm2-1.8b").reduced().replace(kv_quant=True)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                max_new_tokens=6) for i in range(2)]
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").float()
+    card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(
+        device=dev, dtype=torch.float32)
+    before = da_ops.decode_attention.int8_launches
+    out = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
+           for m in (card, model)]
+    assert da_ops.decode_attention.int8_launches - before \
+        == cfg.n_layers * 5
+    assert out[0] == out[1]
 
 
 def test_lm_engine_on_card_matches_cpu(dev):

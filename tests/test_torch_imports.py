@@ -1,8 +1,9 @@
 """The port stands alone and never drops to its plain versions on its own:
 
-* nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, ``chip_ab.py``,
-  ``examples/torch_quickstart.py`` or
-  ``examples/torch_train_likelihood_model.py``, imports ``jax``
+* nothing under ``src/repro_torch/`` (``models/moe.py`` among them), nor
+  ``chip_smoke.py``, ``chip_ab.py`` or the port's examples
+  (``examples/torch_{quickstart,train_likelihood_model,crowdsourced_join,
+  streaming_join,query_plan,serve_llm}.py``), imports ``jax``
   or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
@@ -19,9 +20,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py",
-     ROOT / "examples" / "torch_quickstart.py",
-     ROOT / "examples" / "torch_train_likelihood_model.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"] + \
+    [ROOT / "examples" / f"torch_{name}.py" for name in (
+        "quickstart", "train_likelihood_model", "crowdsourced_join",
+        "streaming_join", "query_plan", "serve_llm")]
 
 
 def _forbidden(module: str) -> bool:
@@ -78,10 +80,14 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
     kv = torch.empty(2, 64, 2, 64, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
         fa_ops.flash_attention(q, kv, kv)
+    kv8 = torch.empty(2, 64, 2, 64, dtype=torch.int8, device=meta)
+    sc = torch.empty(2, 64, 2, dtype=torch.bfloat16, device=meta)
     for length in (5, torch.tensor(5, dtype=torch.int32),
                    torch.empty((), dtype=torch.int32, device=meta)):
         with pytest.raises(ValueError, match="CUDA"):
             da_ops.decode_attention(q[:, 0], kv, kv, length)
+        with pytest.raises(ValueError, match="CUDA"):
+            da_ops.decode_attention(q[:, 0], kv8, kv8, length, sc, sc)
     # the kernels themselves refuse CPU tensors rather than compute
     with pytest.raises(ValueError, match="CUDA"):
         ps_kernel.pair_scores(torch.zeros(128, 16), torch.zeros(128, 16),
@@ -106,8 +112,16 @@ def test_kernel_wrappers_raise_instead_of_computing(monkeypatch):
                                    torch.zeros(1, 8, 2, 64),
                                    torch.zeros(1, 8, 2, 64),
                                    torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        da_kernel.decode_attention(
+            torch.zeros(1, 2, 64), torch.zeros(1, 8, 2, 64, dtype=torch.int8),
+            torch.zeros(1, 8, 2, 64, dtype=torch.int8),
+            torch.tensor(3, dtype=torch.int32),
+            torch.ones(1, 8, 2, dtype=torch.bfloat16),
+            torch.ones(1, 8, 2, dtype=torch.bfloat16))
     assert fa_ops.flash_attention.launches == 0
     assert da_ops.decode_attention.launches == 0
+    assert da_ops.decode_attention.int8_launches == 0
     assert ps_ops.pair_scores.launches == 0
     assert ps_ops.pair_scores_compact.launches == 0
     assert ud_ops.union_deduce.launches == 0
