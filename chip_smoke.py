@@ -254,6 +254,23 @@ carries on.  Phases, one output line or block each:
    new), a profiled window of decode steps (busy share, the experts'
    products' share), ``decode == prefill(n + 1)`` at ``capacity_factor``
    8 where the expert picks agree and near ties where they part;
+4o. the SSM and hybrid families at full width, each drawn on the card from
+   a seeded generator: (a) ``rwkv6-3b`` (attention-free) and (b)
+   ``zamba2-1.2b`` (Mamba2 layers, the shared attention block after every
+   6th) through ``ServeEngine`` (8 requests of 256-1024 tokens, 32 new):
+   no attention launch for (a), exactly 7 flash launches for the wave's
+   prefill and 7 decode launches a step for (b); prefill s, ms a step, the
+   state's bytes, the SSD's chunk length and count, a profiled window of
+   decode steps (busy share, launches, time by kernel); the flash and
+   decode kernels against their plain versions at (b)'s shapes;
+   ``decode == prefill(n + 1)`` on the 8 sequences within 5e-2 (a) and
+   the reference test's 8e-2 (b); (c) ``configs/shapes.py``'s
+   ``long_500k`` (524288 positions, batch 1): each family's cache filled
+   from a seeded draw, 8 decode steps timed ending at the last position
+   (zamba2 over 28 GiB of K/V: the bytes a step reads against the HBM
+   peak; RWKV's cache bytes the same at every ``max_len``), and the decode
+   kernel against its plain version at (1, 524288, 32 / 32, 64) bf16 at
+   length 524280, timed beside its bound, plain version and SDPA;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -267,7 +284,9 @@ carries on.  Phases, one output line or block each:
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
    4j's, 4k's, 4l's, 4m's and 4n's launches in ``launches_by_path``, and
    the wide kernel's after 4k's restore; ``decode_attention``'s int8 path
-   as an entry of its own, its launches from phase 4n a);
+   as an entry of its own, its launches from phase 4n a; phase 4o's
+   flash and decode launches under ``ssm_hybrid``, and the decode
+   kernel's figures at ``long_500k`` under ``at_long_500k``);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -593,6 +612,24 @@ FAM_TEXT, FAM_DECODE = (256, 1024), 32
 FAM_MOE_ARCH, FAM_MOE_PROMPT, FAM_MOE_NEW = "olmoe-1b-7b", (256, 1024), 32
 FAM_MOE_CF, FAM_MOE_TIE = 8.0, 2.0 ** -5
 FAM_PROFILE_STEPS = 8
+# phase 4o: the SSM and hybrid families at full width, each drawn on the
+# card from a seeded generator: (a) rwkv6-3b (attention-free) and (b)
+# zamba2-1.2b (38 Mamba2 layers, the shared attention block after every
+# 6th over concat(hidden, embedding): 7 invocations of 32 heads over 32 kv
+# heads of 64 on a 4096-wide input), each served by ServeEngine, 8 requests
+# of SSM_PROMPT tokens, SSM_NEW new, then decode == prefill(n + 1) on the
+# 8 sequences' first SSM_PROMPT[0] tokens: RWKV within LM_BF16_TOL (its
+# reference test holds 1e-3 at the reduced config), zamba2 within its
+# reference test's 8e-2 (tests/test_models.py:57-59); (c) configs/
+# shapes.py's long_500k (524288 positions, batch 1, decode) for both:
+# SSM_LONG_STEPS timed decode steps from a seeded state ending at the last
+# position, and the decode kernel against its plain version at zamba2's
+# (1, 524288, 32 / 32, 64) bf16 there.  No 524288-token prefill: the SSD's
+# intra-chunk tensors alone would be 17 GiB each at that length
+SSM_RWKV_ARCH, SSM_HYBRID_ARCH = "rwkv6-3b", "zamba2-1.2b"
+SSM_PROMPT, SSM_NEW = (256, 1024), 32
+SSM_HYBRID_TOL = 8e-2
+SSM_LONG_SHAPE, SSM_LONG_STEPS = "long_500k", 8
 # phase 3: the int8 decode path at head dims 32 and 128 beside the serving
 # shape's 64: (B, S, H, K, d, length)
 DECODE_INT8_SHAPES = ((4, 1024, 8, 2, 32, 700), (8, 2048, 16, 8, 128, 1500))
@@ -3300,8 +3337,9 @@ def _moe_gap(model, toks) -> list:
 
 def _profile_steps(step, steps: int) -> tuple:
     """(wall ms a step, device busy ms a step, bmm device ms a step, kernel
-    launches a step) of ``steps`` calls of ``step``, timed unprofiled and
-    then under ``torch.profiler``."""
+    launches a step, the six device events of most time as (ms a step,
+    launches a step, name)) of ``steps`` calls of ``step``, timed
+    unprofiled and then under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3321,7 +3359,59 @@ def _profile_steps(step, steps: int) -> tuple:
     bmm = sum(getattr(e, "device_time_total", getattr(
         e, "cuda_time_total", 0.0)) for e in prof.key_averages()
         if e.key == "aten::bmm")
-    return wall, 1e3 * busy / steps, bmm / 1e3 / steps, launches / steps
+    top = [(dev_us(e) / 1e3 / steps, e.count / steps, e.key)
+           for e in sorted(on_card, key=dev_us, reverse=True)[:6]]
+    return wall, 1e3 * busy / steps, bmm / 1e3 / steps, launches / steps, \
+        top
+
+
+def _attn_counts() -> dict:
+    """The attention kernels' launch counts."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {"flash_attention": fa_ops.flash_attention.launches,
+            "decode_attention": da_ops.decode_attention.launches,
+            "decode_attention_int8": da_ops.decode_attention.int8_launches}
+
+
+def _zero_attn_counts() -> None:
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa_ops.flash_attention.launches = 0
+    da_ops.decode_attention.launches = 0
+    da_ops.decode_attention.int8_launches = 0
+
+
+def _draw_model(dev, cfg, tag: str):
+    """``cfg``'s model at full width from a seeded generator on the card."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    torch.cuda.synchronize()
+    heads = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads of {cfg.hd}"
+             if cfg.n_heads else "attention-free")
+    print(f"[{tag} model] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {heads}, vocab {cfg.vocab}, {M.n_params(cfg)} "
+          f"bf16 parameters ({M.n_active_params(cfg)} active a token), "
+          f"drawn in {time.perf_counter() - t0:.3f} s")
+    return model
+
+
+def _warm_engine(engine, vocab: int, rng) -> None:
+    """Two short requests through ``engine``, synchronized."""
+    import torch
+
+    from repro_torch.serve.engine import Request
+
+    engine.generate([Request(rid=i, prompt=rng.integers(
+        2, vocab, 64).astype(np.int32), max_new_tokens=4) for i in range(2)])
+    torch.cuda.synchronize()
 
 
 def lm_families_path(dev) -> dict:
@@ -3351,44 +3441,19 @@ def lm_families_path(dev) -> dict:
 
     from repro_torch.configs import get
     from repro_torch.configs.shapes import dummy_batch
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
-    def counts():
-        return {"flash_attention": fa_ops.flash_attention.launches,
-                "decode_attention": da_ops.decode_attention.launches,
-                "decode_attention_int8":
-                    da_ops.decode_attention.int8_launches}
-
-    def zero():
-        fa_ops.flash_attention.launches = 0
-        da_ops.decode_attention.launches = 0
-        da_ops.decode_attention.int8_launches = 0
+    counts, zero = _attn_counts, _zero_attn_counts
 
     def draw(cfg):
-        t0 = time.perf_counter()
-        model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
-            SEED), dev)
-        torch.cuda.synchronize()
-        print(f"[4n model] {cfg.name}: {cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
-              f"heads of {cfg.hd}, vocab {cfg.vocab}, {M.n_params(cfg)} bf16 "
-              f"parameters ({M.n_active_params(cfg)} active a token), drawn "
-              f"in {time.perf_counter() - t0:.3f} s")
-        return model
+        return _draw_model(dev, cfg, "4n")
 
     out: dict = {"launches": {}}
     warm_rng = np.random.default_rng(SEED + 7)
 
     def warm(engine, vocab):
-        from repro_torch.serve.engine import Request
-
-        engine.generate([Request(rid=i, prompt=warm_rng.integers(
-            2, vocab, 64).astype(np.int32), max_new_tokens=4)
-            for i in range(2)])
-        torch.cuda.synchronize()
+        _warm_engine(engine, vocab, warm_rng)
 
     # -- (a) the int8 KV cache ----------------------------------------------
     cfg = get(FAM_KV_ARCH).replace(kv_quant=True)
@@ -3545,7 +3610,7 @@ def lm_families_path(dev) -> dict:
         logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
         cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
-    wall, busy, bmm, launches = _profile_steps(step, FAM_PROFILE_STEPS)
+    wall, busy, bmm, launches, _ = _profile_steps(step, FAM_PROFILE_STEPS)
     del cache
     expert_bytes = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model \
         * cfg.d_ff * 2
@@ -3587,6 +3652,266 @@ def lm_families_path(dev) -> dict:
                   "wall_ms": wall, "bmm_ms": bmm, "gap": gap}
     out["launches"]["moe"] = got
     del model, moe8, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_families_path(dev) -> dict:
+    """Phase 4o: the SSM and hybrid families at full width, each model
+    drawn on the card from a seeded generator and freed before the next.
+    Every kernel count is zeroed just before a path and read just after.
+    (a) ``rwkv6-3b`` and (b) ``zamba2-1.2b``: ``ServeEngine.generate`` of 8
+    requests of ``SSM_PROMPT`` tokens, ``SSM_NEW`` new; prefill s, ms a
+    decode step, a profiled window of decode steps (busy share, launches,
+    time by kernel), the state's bytes; RWKV launches no attention kernel,
+    zamba2 the flash kernel once an invocation for the wave's prefill and
+    the decode kernel once an invocation a step; zamba2's SSD chunk length
+    and chunk count for the wave; the flash and decode kernels against
+    their plain versions at the wave's shapes; ``decode == prefill(n +
+    1)`` on the 8 sequences.  (c) ``long_500k``: each family's cache at
+    524288 positions and batch 1 filled from a seeded draw, ``length`` at
+    524288 - ``SSM_LONG_STEPS``, that many decode steps timed (zamba2: the
+    decode kernel once an invocation a step; the bytes a step reads
+    against the HBM peak); RWKV's cache bytes the same at every
+    ``max_len``; the decode kernel against ``decode_attention_ref`` at
+    zamba2's shape there (``check_decode``), timed beside its bound, its
+    plain version and SDPA."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import ssd_chunk
+    from repro_torch.serve.engine import ServeEngine
+
+    out: dict = {"launches": {}}
+    warm_rng = np.random.default_rng(SEED + 8)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    long = SHAPES[SSM_LONG_SHAPE]
+    L_long, B_long = long.seq_len, long.global_batch
+
+    def nbytes(cache, names=None) -> int:
+        return sum(t.numel() * t.element_size() for n, t in cache.items()
+                   if n != "length" and (names is None or n in names))
+
+    def serve(cfg, model, seed):
+        """The engine's run with its launches, a profiled window of decode
+        steps over the same wave, and the decode-against-prefill gap."""
+        reqs = _family_requests(cfg.vocab, SSM_PROMPT, SSM_NEW, seed)
+        engine = ServeEngine(cfg, model, batch_lanes=LM_LANES,
+                             max_len=LM_MAX_LEN)
+        _warm_engine(engine, cfg.vocab, warm_rng)
+        _zero_attn_counts()
+        toks, pre_s, step_ms = _timed_generate(engine, reqs, SSM_NEW)
+        got = _attn_counts()
+        if any(len(t) != SSM_NEW for t in toks.values()):
+            raise AssertionError(f"phase 4o: {cfg.name} served "
+                                 f"{[len(t) for t in toks.values()]} tokens")
+        S = max(len(r.prompt) for r in reqs)
+        wave = np.zeros((len(reqs), S), np.int32)
+        for j, r in enumerate(reqs):
+            wave[j, S - len(r.prompt):] = r.prompt
+        cache, logits = M.prefill(model, {"tokens": torch.from_numpy(
+            wave).to(dev)}, LM_MAX_LEN)
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+        def step():
+            nonlocal cache, cur
+            logits, cache = M.decode_step(model, cache,
+                                          {"tokens": cur[:, None]})
+            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+        prof = _profile_steps(step, FAM_PROFILE_STEPS)
+        del cache
+        n = SSM_PROMPT[0]
+        seqs = torch.from_numpy(np.stack([r.prompt[:n] for r in reqs])).to(
+            dev)
+        gap = _decode_gap(model, {"tokens": seqs[:, :-1]},
+                          {"tokens": seqs[:, -1:]}, {"tokens": seqs})
+        return S, got, pre_s, step_ms, prof, gap
+
+    def window(prof) -> str:
+        wall, busy, _, launches, top = prof
+        return (f"profiled window of {FAM_PROFILE_STEPS} steps: wall "
+                f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy "
+                f"share {busy / wall:.4f}), {launches:.1f} launches a step; "
+                f"by kernel (ms a step, launches a step): " + "; ".join(
+                    f"{ms:.4f} x{k:.0f} {name[:50]}" for ms, k, name in top))
+
+    def long_decode(model, cache, vocab):
+        """``SSM_LONG_STEPS`` timed decode steps after one untimed, from
+        ``length`` 524288 - ``SSM_LONG_STEPS`` - 1: (ms a step, launches,
+        finite and at the last position)."""
+        cache["length"].fill_(L_long - SSM_LONG_STEPS - 1)
+        cur = torch.randint(2, vocab, (B_long,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        _zero_attn_counts()
+        t0 = time.perf_counter()
+        for _ in range(SSM_LONG_STEPS):
+            logits, cache = M.decode_step(model, cache,
+                                          {"tokens": cur[:, None]})
+            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SSM_LONG_STEPS
+        got = _attn_counts()
+        ok = bool(torch.isfinite(logits).all()) \
+            and int(cache["length"]) == L_long
+        return ms, got, ok
+
+    # -- (a) RWKV6, attention-free ------------------------------------------
+    cfg = get(SSM_RWKV_ARCH)
+    model = _draw_model(dev, cfg, "4o")
+    S, got, pre_s, step_ms, prof, gap = serve(cfg, model, SEED + 21)
+    lane = M.make_cache(cfg, 1, LM_MAX_LEN, dev)
+    wkv_bytes, shift_bytes = nbytes(lane, ("wkv",)), \
+        nbytes(lane, ("tm_x", "cm_x"))
+    del lane
+    want = {"flash_attention": 0, "decode_attention": 0,
+            "decode_attention_int8": 0}
+    print(f"[4o a] {cfg.name}: {LM_LANES} requests of {SSM_PROMPT[0]}-"
+          f"{SSM_PROMPT[1]} tokens (longest {S}), {SSM_NEW} new: prefill "
+          f"{pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches {got}; "
+          f"state a lane: wkv {wkv_bytes} bytes, token shifts {shift_bytes} "
+          f"bytes; " + window(prof))
+    print(f"[4o a] decode == prefill(n+1) on {LM_LANES} sequences, n "
+          f"{SSM_PROMPT[0] - 1}: max|d logits| {gap:.3e} of their scale "
+          f"(tolerance {LM_BF16_TOL})")
+    if got != want:
+        raise AssertionError(f"phase 4o a: launches {got}, expected {want}")
+    if not gap <= LM_BF16_TOL:
+        raise AssertionError("phase 4o a: decode_step disagrees with prefill")
+    out["rwkv"] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap,
+                   "wall_ms": prof[0], "busy_ms": prof[1],
+                   "launches_a_step": prof[3], "wkv_bytes_a_lane": wkv_bytes}
+    out["launches"]["rwkv"] = got
+
+    # -- (c) RWKV6 at long_500k ----------------------------------------------
+    small = nbytes(M.make_cache(cfg, B_long, LM_MAX_LEN, dev))
+    cache = M.make_cache(cfg, B_long, L_long, dev)
+    big = nbytes(cache)
+    for name in ("wkv", "tm_x", "cm_x"):
+        cache[name].normal_(generator=gen)
+    ms, got, ok = long_decode(model, cache, cfg.vocab)
+    print(f"[4o c] {cfg.name} at {SSM_LONG_SHAPE} ({L_long} positions, "
+          f"batch {B_long}): cache bytes {big} at max_len {L_long}, {small} "
+          f"at {LM_MAX_LEN}; {SSM_LONG_STEPS} decode steps from a seeded "
+          f"state {ms:.4f} ms a step, launches {got}, finite at position "
+          f"{L_long - 1} {ok}")
+    if big != small or got != want or not ok:
+        raise AssertionError(f"phase 4o c: {cfg.name}'s cache {big} / "
+                             f"{small} bytes, launches {got}, ok {ok}")
+    out["rwkv_long"] = {"step_ms": ms, "cache_bytes": big}
+    out["launches"]["rwkv_long"] = got
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # -- (b) zamba2: Mamba2 and the shared attention block -------------------
+    cfg = get(SSM_HYBRID_ARCH)
+    model = _draw_model(dev, cfg, "4o")
+    n_inv = cfg.n_shared_attn
+    S, got, pre_s, step_ms, prof, gap = serve(cfg, model, SEED + 22)
+    Q = ssd_chunk(S, cfg.ssm_chunk)
+    lanes = M.make_cache(cfg, LM_LANES, LM_MAX_LEN, dev)
+    kv_bytes, ssm_lane = nbytes(lanes, ("k", "v")), \
+        nbytes(lanes, ("ssm",)) // LM_LANES
+    del lanes
+    want = {"flash_attention": n_inv,
+            "decode_attention": n_inv * (SSM_NEW - 1),
+            "decode_attention_int8": 0}
+    print(f"[4o b] {cfg.name}: {LM_LANES} requests of {SSM_PROMPT[0]}-"
+          f"{SSM_PROMPT[1]} tokens (longest {S}: SSD chunk {Q}, {S // Q} "
+          f"chunks), {SSM_NEW} new: prefill {pre_s:.4f} s, decode "
+          f"{step_ms:.4f} ms a step; launches {got}; KV cache {kv_bytes} "
+          f"bytes at max_len {LM_MAX_LEN}, SSM state {ssm_lane} bytes a "
+          f"lane; " + window(prof))
+    n = SSM_PROMPT[0]
+    print(f"[4o b] decode == prefill(n+1) on {LM_LANES} sequences, n "
+          f"{n - 1} (SSD chunk {ssd_chunk(n - 1, cfg.ssm_chunk)}, prefill(n "
+          f"+ 1)'s {ssd_chunk(n, cfg.ssm_chunk)}): max|d logits| {gap:.3e} "
+          f"of their scale (tolerance {SSM_HYBRID_TOL})")
+    if got != want:
+        raise AssertionError(f"phase 4o b: launches {got}, expected {want}")
+    if not gap <= SSM_HYBRID_TOL:
+        raise AssertionError("phase 4o b: decode_step disagrees with prefill")
+    # the two kernels at the wave's shapes
+    fa_err, _ = check_flash(dev, LM_LANES, S, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.hd, torch.bfloat16)
+    da_err, _ = check_decode(dev, LM_LANES, LM_MAX_LEN, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.hd, S + SSM_NEW - 1,
+                             torch.bfloat16, torch.bfloat16)
+    out["hybrid"] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap,
+                     "S": S, "chunk": Q, "wall_ms": prof[0],
+                     "busy_ms": prof[1], "launches_a_step": prof[3],
+                     "kv_bytes": kv_bytes, "ssm_bytes_a_lane": ssm_lane,
+                     "flash_err": fa_err, "decode_err": da_err}
+    out["launches"]["hybrid"] = got
+
+    # -- (c) zamba2 at long_500k ---------------------------------------------
+    cache = M.make_cache(cfg, B_long, L_long, dev)
+    kv_long = nbytes(cache, ("k", "v"))
+    for name in ("k", "v"):
+        for j in range(n_inv):
+            cache[name][j].normal_(generator=gen)
+    for name in ("ssm", "conv"):
+        cache[name].normal_(generator=gen)
+    ms, got, ok = long_decode(model, cache, cfg.vocab)
+    want = {"flash_attention": 0, "decode_attention": n_inv * SSM_LONG_STEPS,
+            "decode_attention_int8": 0}
+    # a step reads the K/V up to its length, every parameter and the SSM
+    # and conv states (and writes the states back)
+    mean_len = L_long - SSM_LONG_STEPS + (SSM_LONG_STEPS + 1) / 2
+    step_bytes = int(kv_long / L_long * mean_len) + 2 * M.n_params(cfg) \
+        + 2 * nbytes(cache, ("ssm", "conv"))
+    print(f"[4o c] {cfg.name} at {SSM_LONG_SHAPE} ({L_long} positions, "
+          f"batch {B_long}): K/V {kv_long} bytes; {SSM_LONG_STEPS} decode "
+          f"steps from a seeded cache {ms:.4f} ms a step, launches {got}, "
+          f"finite at position {L_long - 1} {ok}; a step reads {step_bytes} "
+          f"bytes, {1e3 * step_bytes / PEAK_BYTES_PER_S:.4f} ms at the HBM "
+          f"peak ({1e3 * step_bytes / PEAK_BYTES_PER_S / ms:.4f} of the "
+          f"step)")
+    if got != want or not ok:
+        raise AssertionError(f"phase 4o c: {cfg.name} launches {got}, "
+                             f"expected {want}; finite {ok}")
+    out["hybrid_long"] = {"step_ms": ms, "kv_bytes": kv_long,
+                          "step_bytes": step_bytes}
+    out["launches"]["hybrid_long"] = got
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # the decode kernel alone at long_500k against its plain version
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    length = L_long - SSM_LONG_STEPS
+    err, (q, kc, vc, n) = check_decode(dev, B_long, L_long, H, K, hd, length,
+                                       torch.bfloat16, torch.bfloat16)
+    splits, chunk = da_kernel.split_plan(q, kc)
+    nbytes_long = 2 * B_long * length * K * hd * kc.element_size() \
+        + 2 * q.numel() * q.element_size()
+    flops = 4 * B_long * H * hd * length
+    t_bytes, t_ops = nbytes_long / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    mask = (torch.arange(L_long, device=dev) < length)[None, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["decode_long"] = {
+        "shape": [B_long, L_long, H, K, hd], "length": length,
+        "splits": splits, "chunk": chunk, "max_abs_err": err,
+        "ms": cuda_ms(lambda: da_kernel.decode_attention(q, kc, vc, n), 10),
+        "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc, n), 3),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": cuda_ms(lambda: sdpa(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 3)}
+    d = out["decode_long"]
+    print(f"[4o c] decode_attention at ({B_long}, {L_long}, {H} / {K}, "
+          f"{hd}) bf16, length {length}: {splits} splits of {chunk} "
+          f"positions; {d['ms']:.4f} ms against a bound of "
+          f"{d['bound_ms']:.4f} ({d['bound_by']}), plain {d['plain_ms']:.4f}"
+          f", SDPA {d['library_ms']:.4f}")
+    del q, kc, vc
     torch.cuda.empty_cache()
     return out
 
@@ -4711,6 +5036,12 @@ def run(dev) -> None:
     print(f"[4n] phase 4n {time.perf_counter() - t0:.1f} s")
     fam_launch = fam["launches"]
 
+    # -- 4o. the SSM and hybrid families at full width -----------------------
+    t0 = time.perf_counter()
+    ssm = ssm_families_path(dev)
+    print(f"[4o] phase 4o {time.perf_counter() - t0:.1f} s")
+    ssm_launch = ssm["launches"]
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -4786,6 +5117,8 @@ def run(dev) -> None:
         attn_mask=da_mask, enable_gqa=True))
     fam_flash = sum(v["flash_attention"] for v in fam_launch.values())
     fam_decode = sum(v["decode_attention"] for v in fam_launch.values())
+    ssm_flash = sum(v["flash_attention"] for v in ssm_launch.values())
+    ssm_decode = sum(v["decode_attention"] for v in ssm_launch.values())
 
     def library_pair_scores():
         s = torch.matmul(a, b.T)
@@ -4894,7 +5227,8 @@ def run(dev) -> None:
              "lm_serving": serving["launches"]["flash_attention"],
              "lm_machine_phase": machine["launches"]["flash_attention"],
              "training": train["launches"],
-             "lm_families": fam_flash},
+             "lm_families": fam_flash,
+             "ssm_hybrid": ssm_flash},
          "max_abs_err": fa_err,
          "ms": cuda_ms(lambda: fa_kernel.flash_attention(fq, fk, fv)),
          "plain_ms": cuda_ms(lambda: mha_causal_ref(fq, fk, fv), 5),
@@ -4908,12 +5242,14 @@ def run(dev) -> None:
          "launches": serving["launches"]["decode_attention"],
          "launches_by_path": {
              "lm_serving": serving["launches"]["decode_attention"],
-             "lm_families": fam_decode},
+             "lm_families": fam_decode,
+             "ssm_hybrid": ssm_decode},
          "splits": da_splits, "max_abs_err": da_err,
          "ms": cuda_ms(lambda: da_kernel.decode_attention(dq, dk, dv, dn)),
          "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
          "bound_ms": da_bound, "bound_by": da_by,
-         "library_ms": sdpa_bf16_ms},
+         "library_ms": sdpa_bf16_ms,
+         "at_long_500k": ssm["decode_long"]},
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",

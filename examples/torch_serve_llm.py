@@ -3,12 +3,13 @@
 assigned architecture at its reduced config, on the card unless
 ``--device cpu`` says otherwise.  The engine passes tokens only, as the
 reference's does: an M-RoPE config (``qwen2-vl-2b``) raises and is served
-through the model-level ``prefill`` / ``decode_step``, and the SSM and
-hybrid families are not ported (ROADMAP A12).
+through the model-level ``prefill`` / ``decode_step``.
 
     PYTHONPATH=src python examples/torch_serve_llm.py                # card
     PYTHONPATH=src python examples/torch_serve_llm.py --device cpu
     PYTHONPATH=src python examples/torch_serve_llm.py --arch olmoe-1b-7b
+    PYTHONPATH=src python examples/torch_serve_llm.py --arch rwkv6-3b
+    PYTHONPATH=src python examples/torch_serve_llm.py --arch zamba2-1.2b
 """
 from __future__ import annotations
 

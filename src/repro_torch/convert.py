@@ -75,8 +75,12 @@ def model_params_from_numpy(cfg: ModelConfig, params: Dict[str, Any],
     """The port's :class:`Model` from the JAX package's nested parameter
     dict (``embed/table``, ``layers/{ln1,ln2}/scale``,
     ``layers/attn/{wq,wk,wv,wo}``, ``layers/mlp/{wi_gate,wi_up,wo}``,
-    ``final_norm/scale``, ``lm_head/w``; the layer axis leading) as numpy
-    arrays, every tensor in its ``ParamSpec`` dtype on ``device``.  numpy
+    ``final_norm/scale``, ``lm_head/w``; the layer axis leading; the
+    experts' ``layers/moe/...``, RWKV's ``layers/{mu_*,w_*,w0,wA,wB,
+    bonus_u,ln_x}``, zamba2's ``layers/mamba/...`` and its shared block's
+    ``shared/{ln_in,attn,ln_mlp,mlp}/...`` with no layer axis; whatever
+    :func:`..models.model.model_specs` lists) as numpy arrays, every
+    tensor in its ``ParamSpec`` dtype on ``device``.  numpy
     has no bf16: pass bf16 leaves as ``np.asarray(x, np.float32)``, which is
     exact, and the cast back to bf16 here is exact too.  Raises ValueError
     on a missing, unexpected or misshaped leaf (:class:`Model` checks).

@@ -1,14 +1,16 @@
-"""Model assembly of the port: the attention families.
+"""Model assembly of the port, every family of the reference.
 
 A port of the JAX package's ``models/model.py`` for the ``dense``, ``moe``
-(one device), ``vlm`` and ``audio`` families: the dense configs, the
-expert layers of ``olmoe-1b-7b`` and ``moonshot-v1-16b-a3b``
-(:mod:`.moe`), M-RoPE and the patch embeddings of ``qwen2-vl-2b``, the
-conditioning frames of ``musicgen-medium``, and the int8 KV cache
-(``kv_quant``) of any of them.  The SSM and hybrid families and RWKV
-raise ``NotImplementedError`` naming ROADMAP A12, the all-to-all expert
-layer (``moe_impl="a2a"``) naming A8, and the dry-run's
-``attn_impl="kernel_stub"`` naming A12.
+(one device), ``vlm``, ``audio``, ``ssm`` and ``hybrid`` families: the
+dense configs, the expert layers of ``olmoe-1b-7b`` and
+``moonshot-v1-16b-a3b`` (:mod:`.moe`), M-RoPE and the patch embeddings of
+``qwen2-vl-2b``, the conditioning frames of ``musicgen-medium``, the int8
+KV cache (``kv_quant``) of the attention families, RWKV6 (``rwkv6-3b``)
+and zamba2's Mamba2 layers with their shared attention block
+(``zamba2-1.2b``; :mod:`.ssm`).  The all-to-all expert layer
+(``moe_impl="a2a"``) raises ``NotImplementedError`` naming ROADMAP A8, the
+dry-run's ``attn_impl="kernel_stub"`` naming A12, and the hybrid under
+``kv_quant`` ``ValueError`` naming R7 (the reference cannot decode it).
 
 The parameters live in a :class:`Model` (an ``nn.Module``), stacked per
 layer with a leading ``layers`` axis as in the reference, so the JAX
@@ -27,7 +29,7 @@ model:
                                          when training with remat="block")
   prefill(model, batch, max_len)       — (cache, last-position logits)
   decode_step(model, cache, batch)     — (logits, cache) for one new token
-  make_cache / cache_axes / decode_layer_step
+  make_cache / cache_axes / decode_layer_step / layer_step
 
 A batch is ``tokens`` (B, S), and for the front ends ``prefix_embeds``
 (B, P, d) (the vision stub's patches or the audio stub's frames), put
@@ -40,18 +42,21 @@ optimizer updates the parameters in place, so the views that serving
 reads stay bound to them.  ``prefill`` and ``decode_step`` are inference
 entry points and run without autograd.
 
-The KV cache is a dict of tensors updated in place (the reference returns
+The cache is a dict of tensors updated in place (the reference returns
 a fresh one; the serving engine never reuses an old cache, so what callers
-see is the same).  Under ``kv_quant`` it holds int8 keys and values with
-bf16 scales a (lane, position, kv head), which the decode kernel reads as
-they are.  ``cache["length"]`` is a 0-d int32 tensor on the card
-that the decode kernel reads, so a host loop of ``decode_step`` never
-waits on the device.
+see is the same), each state written in its entry's dtype.  Under
+``kv_quant`` it holds int8 keys and values with bf16 scales a (lane,
+position, kv head), which the decode kernel reads as they are.  RWKV's
+holds the WKV state and the two token shifts a layer, whatever
+``max_len``; the hybrid's the Mamba2 SSM and conv states a layer and the
+shared block's K/V an invocation.  ``cache["length"]`` is a 0-d int32
+tensor on the card that the decode kernel reads, so a host loop of
+``decode_step`` never waits on the device.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,19 +70,25 @@ from .layers import (ParamSpec, Specs, _unported, attention_block,
                      attention_decode_block, attention_specs, mlp_block,
                      mlp_specs, quantize_kv, rmsnorm, rmsnorm_specs)
 from .moe import moe_block, moe_specs
+from .ssm import (mamba2_block, mamba2_decode_step, mamba2_specs,
+                  rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 
 Params = Dict[str, Any]
 
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port's model does not run."""
-    if cfg.rwkv:
-        raise _unported(f"{cfg.name}: RWKV layers")
+    """Raise NotImplementedError for what the port's model does not run,
+    and ValueError for the hybrid under ``kv_quant``, which the reference
+    builds but cannot decode (ROADMAP R7: its hybrid cache stays bf16 and
+    its hybrid decode passes no scales to the int8 attention)."""
     if cfg.family not in FAMILIES:
         raise _unported(f"{cfg.name}: the {cfg.family!r} family")
+    if cfg.family == "hybrid" and cfg.kv_quant:
+        raise ValueError(f"{cfg.name}: the hybrid family under kv_quant, "
+                         "which the reference cannot decode (ROADMAP R7)")
     if cfg.is_moe and cfg.moe_impl == "a2a":
         raise _unported(f"{cfg.name}: the all-to-all expert layer "
                         "(moe_impl='a2a'), which needs the mesh", "A8")
@@ -97,6 +108,16 @@ def layer_specs(cfg: ModelConfig) -> Specs:
     """Specs for ONE layer (no leading layers axis)."""
     check_supported(cfg)
     s: Specs = {}
+    if cfg.rwkv:
+        s.update(_prefix("ln1", rmsnorm_specs(cfg.d_model)))
+        s.update(_prefix("ln2", rmsnorm_specs(cfg.d_model)))
+        s.update(rwkv6_specs(cfg))
+        return s
+    if cfg.family == "hybrid":
+        s.update(_prefix("ln1", rmsnorm_specs(cfg.d_model)))
+        s.update(_prefix("mamba", mamba2_specs(cfg)))
+        return s
+    # attention families
     s.update(_prefix("ln1", rmsnorm_specs(cfg.d_model)))
     s.update(_prefix("ln2", rmsnorm_specs(cfg.d_model)))
     s.update(_prefix("attn", attention_specs(cfg)))
@@ -104,6 +125,17 @@ def layer_specs(cfg: ModelConfig) -> Specs:
         s.update(_prefix("moe", moe_specs(cfg)))
     else:
         s.update(_prefix("mlp", mlp_specs(cfg)))
+    return s
+
+
+def shared_attn_specs(cfg: ModelConfig) -> Specs:
+    """zamba2's shared attention (+ MLP) block over concat(hidden,
+    embedding)."""
+    s: Specs = {}
+    s.update(_prefix("ln_in", rmsnorm_specs(2 * cfg.d_model)))
+    s.update(_prefix("attn", attention_specs(cfg, d_in=2 * cfg.d_model)))
+    s.update(_prefix("ln_mlp", rmsnorm_specs(cfg.d_model)))
+    s.update(_prefix("mlp", mlp_specs(cfg)))
     return s
 
 
@@ -119,6 +151,9 @@ def model_specs(cfg: ModelConfig) -> Specs:
     for k, v in layer_specs(cfg).items():
         s[f"layers/{k}"] = ParamSpec((cfg.n_layers,) + v.shape,
                                      ("layers",) + v.axes, v.fan_in, v.dtype)
+    if cfg.attn_every:
+        for k, v in shared_attn_specs(cfg).items():
+            s[f"shared/{k}"] = v
     return s
 
 
@@ -168,8 +203,9 @@ def _attr(path: str) -> str:
 class Model(nn.Module):
     """The parameters of one config, as ``nn.Parameter``s named by their
     reference path (``layers/attn/wq`` -> ``layers_attn_wq``), with
-    ``params`` (the reference's nested dict) and ``layer_params`` (one
-    nested dict of views per layer) bound to them.  No parameter requires
+    ``params`` (the reference's nested dict), ``layer_params`` (one
+    nested dict of views per layer) and ``shared`` (zamba2's shared block,
+    ``params["shared"]``; None elsewhere) bound to them.  No parameter requires
     a gradient until ``requires_grad_()`` turns them on for training."""
 
     def __init__(self, cfg: ModelConfig, flat: Dict[str, torch.Tensor]):
@@ -194,6 +230,7 @@ class Model(nn.Module):
         self.params: Params = _nest(
             {p: getattr(self, _attr(p)) for p in self._paths})
         self.layer_params: List[Params] = self._layer_views()
+        self.shared: Optional[Params] = self.params.get("shared")
 
     def _layer_views(self) -> List[Params]:
         per_layer = {p[len("layers/"):]: getattr(self, _attr(p))
@@ -235,17 +272,53 @@ class Model(nn.Module):
         return backbone(self, x, positions)
 
 
+def _special_init(path: str, spec: ParamSpec,
+                  generator: torch.Generator) -> Optional[torch.Tensor]:
+    """The reference's ``_special_init``: the SSM leaves' rules, in f32 on
+    the generator's device; None for any other leaf."""
+    leaf = path.split("/")[-1]
+    gdev = generator.device
+
+    def uniform(lo, hi):
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=gdev)
+        return lo + (hi - lo) * u
+
+    if leaf == "A_log":
+        return torch.log(uniform(1.0, 16.0))
+    if leaf == "dt_bias":         # the inverse softplus of U[1e-3, 1e-1]
+        return torch.log(torch.expm1(uniform(1e-3, 1e-1)))
+    if leaf == "D":
+        return torch.ones(spec.shape, dtype=torch.float32, device=gdev)
+    if leaf == "w0":
+        return torch.full(spec.shape, -5.0, dtype=torch.float32, device=gdev)
+    if leaf.startswith("mu_"):
+        return torch.full(spec.shape, 0.5, dtype=torch.float32, device=gdev)
+    if leaf == "bonus_u":
+        return torch.randn(spec.shape, generator=generator,
+                           dtype=torch.float32, device=gdev) * 0.1
+    return None
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Model:
-    """A :class:`Model` with the reference's init scales: zeros for norm
-    scales, ``N(0, 1) / sqrt(fan_in)`` otherwise, drawn in f32 from
-    ``generator`` (on its own device, one draw per spec in sorted path
-    order) and cast to each spec's dtype on ``device`` (the card unless
-    the caller says otherwise).  torch's numbers are not JAX's: to compare
-    with the reference, carry its parameters across instead."""
+    """A :class:`Model` with the reference's init: the SSM leaves by
+    :func:`_special_init`'s rules (``A_log`` = log U[1, 16], ``dt_bias``
+    the inverse softplus of U[1e-3, 1e-1], ``D`` = 1, ``w0`` = -5,
+    ``mu_*`` = 0.5, ``bonus_u`` = 0.1 N(0, 1)), zeros for the other leaves
+    of fan-in 0 (norm scales, biases), ``N(0, 1) / sqrt(fan_in)``
+    otherwise, drawn in f32 from ``generator`` (on its own device, in
+    sorted path order) and cast to each spec's dtype on ``device`` (the
+    card unless the caller says otherwise).  torch's numbers are not
+    JAX's: to compare with the reference, carry its parameters across
+    instead."""
     dev = pick_device(device)
     flat = {}
     for path, spec in sorted(model_specs(cfg).items()):
+        special = _special_init(path, spec, generator)
+        if special is not None:
+            flat[path] = special.to(device=dev, dtype=spec.dtype)
+            continue
         if spec.fan_in == 0:
             flat[path] = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
             continue
@@ -259,22 +332,62 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # Layer application (backbone / prefill)
 # ---------------------------------------------------------------------------
+def _shared_block(shared: Params, x: torch.Tensor, x_embed: torch.Tensor,
+                  positions: torch.Tensor, cfg: ModelConfig):
+    """zamba2's shared attention (+ MLP) block over concat(x, x_embed),
+    its attention through the flash kernel.  Returns (x, k, v)."""
+    cat = torch.cat([x, x_embed], dim=-1)
+    h = rmsnorm(cat, shared["ln_in"]["scale"], cfg.norm_eps)
+    a, k, v = attention_block(h, shared["attn"], cfg, positions)
+    x = x + a
+    h = rmsnorm(x, shared["ln_mlp"]["scale"], cfg.norm_eps)
+    return x + mlp_block(h, shared["mlp"], cfg), k, v
+
+
 def layer_step(lp: Params, x: torch.Tensor, positions: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor,
-                                          torch.Tensor, Any]:
-    """One backbone layer.  Returns (x, k, v, aux): the layer's keys (after
-    RoPE) and values are what prefill stashes in the cache; aux is the
-    expert layer's load-balancing loss, None without experts (where the
-    reference's is 0)."""
-    a, k, v = attention_block(rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps),
+               cfg: ModelConfig, layer_idx: int = 0,
+               shared: Optional[Params] = None,
+               x_embed: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
+    """One backbone layer.  Returns (x, state, aux).  ``state`` is what
+    prefill stashes in the cache: an attention layer's keys (after RoPE)
+    and values ``k``, ``v``; RWKV's WKV state ``wkv`` and the last inputs of
+    its two mixers ``tm_x``, ``cm_x`` (the token shifts start from zeros);
+    the hybrid's Mamba2 states ``ssm``, ``conv`` and, on a layer whose
+    index is a multiple of ``attn_every``, the ``k``, ``v`` of the shared
+    block (``shared``, over ``concat(x, x_embed)``, ``x_embed`` the input
+    embeddings, prefix included).  aux is the expert layer's
+    load-balancing loss, None without experts (where the reference's is
+    0)."""
+    eps = cfg.norm_eps
+    if cfg.rwkv:
+        zero = torch.zeros((x.shape[0], 1, cfg.d_model), dtype=x.dtype,
+                           device=x.device)
+        h, wkv, tm_x = rwkv6_time_mix(rmsnorm(x, lp["ln1"]["scale"], eps),
+                                      zero, lp, cfg)
+        x = x + h
+        h, cm_x = rwkv6_channel_mix(rmsnorm(x, lp["ln2"]["scale"], eps),
+                                    zero, lp, cfg)
+        return x + h, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}, None
+    if cfg.family == "hybrid":
+        h, (ssm, conv) = mamba2_block(rmsnorm(x, lp["ln1"]["scale"], eps),
+                                      lp["mamba"], cfg, return_state=True)
+        x = x + h
+        state = {"ssm": ssm, "conv": conv}
+        if cfg.attn_every and shared is not None \
+                and layer_idx % cfg.attn_every == 0:
+            x, state["k"], state["v"] = _shared_block(shared, x, x_embed,
+                                                      positions, cfg)
+        return x, state, None
+    a, k, v = attention_block(rmsnorm(x, lp["ln1"]["scale"], eps),
                               lp["attn"], cfg, positions)
     x = x + a
-    h = rmsnorm(x, lp["ln2"]["scale"], cfg.norm_eps)
+    h = rmsnorm(x, lp["ln2"]["scale"], eps)
     if cfg.is_moe:
         m, aux = moe_block(h, lp["moe"], cfg)
     else:
         m, aux = mlp_block(h, lp["mlp"], cfg), None
-    return x + m, k, v, aux
+    return x + m, {"k": k, "v": v}, aux
 
 
 def _embed_inputs(model: Model, batch: Dict[str, Any]
@@ -310,12 +423,14 @@ def _backbone(model: Model, x: torch.Tensor, positions: torch.Tensor
     cfg = model.cfg
     remat = cfg.remat == "block" and torch.is_grad_enabled() \
         and model.trainable
+    x_embed = x if cfg.attn_every else None
     aux = None
-    for lp in model.layers():
-        def fn(h, lp=lp):
-            out = layer_step(lp, h, positions, cfg)
-            return out[0], out[3]
-        x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    for i, lp in enumerate(model.layers()):
+        def fn(h, e, lp=lp, i=i):
+            out = layer_step(lp, h, positions, cfg, i, model.shared, e)
+            return out[0], out[2]
+        x, a = checkpoint(fn, x, x_embed, use_reentrant=False) if remat \
+            else fn(x, x_embed)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -366,21 +481,46 @@ def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Params:
-    """A zeroed KV cache, as the reference's: ``length`` (0-d int32) and
-    ``k``, ``v`` of (L, batch, max_len, K, hd), bf16, or int8 under
-    ``kv_quant`` with bf16 ``k_scale`` and ``v_scale`` (L, batch, max_len,
-    K)."""
+    """A zeroed cache with the reference's entries and dtypes: ``length``
+    (0-d int32) and
+    - attention families: ``k``, ``v`` of (L, batch, max_len, K, hd), bf16,
+      or int8 under ``kv_quant`` with bf16 ``k_scale`` and ``v_scale``
+      (L, batch, max_len, K);
+    - RWKV: ``wkv`` (L, batch, H, hd, hd) f32 and the token shifts
+      ``tm_x``, ``cm_x`` (L, batch, 1, d) bf16, none of them depending on
+      ``max_len``;
+    - hybrid: ``ssm`` (L, batch, H, N, P) f32, ``conv`` (L, batch, k - 1,
+      d_inner + 2N) bf16 and the shared block's ``k``, ``v``
+      (n_shared_attn, batch, max_len, K, hd) bf16."""
     check_supported(cfg)
     dev = pick_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    L = cfg.n_layers
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    c = {"length": zeros((), torch.int32)}
+    if cfg.rwkv:
+        hd = cfg.ssm_head_dim
+        c["wkv"] = zeros((L, batch, cfg.d_model // hd, hd, hd),
+                         torch.float32)
+        c["tm_x"] = zeros((L, batch, 1, cfg.d_model), torch.bfloat16)
+        c["cm_x"] = zeros((L, batch, 1, cfg.d_model), torch.bfloat16)
+        return c
+    n_kv = L
+    if cfg.family == "hybrid":
+        c["ssm"] = zeros((L, batch, cfg.n_ssm_heads, cfg.ssm_state,
+                          cfg.ssm_head_dim), torch.float32)
+        c["conv"] = zeros((L, batch, cfg.ssm_conv - 1,
+                           cfg.d_inner + 2 * cfg.ssm_state), torch.bfloat16)
+        n_kv = cfg.n_shared_attn
+    shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.hd)
     kv_dt = torch.int8 if cfg.kv_quant else torch.bfloat16
-    c = {"length": torch.zeros((), dtype=torch.int32, device=dev),
-         "k": torch.zeros(shape, dtype=kv_dt, device=dev),
-         "v": torch.zeros(shape, dtype=kv_dt, device=dev)}
+    c["k"] = zeros(shape, kv_dt)
+    c["v"] = zeros(shape, kv_dt)
     if cfg.kv_quant:
         for name in ("k_scale", "v_scale"):
-            c[name] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                  device=dev)
+            c[name] = zeros(shape[:-1], torch.bfloat16)
     return c
 
 
@@ -389,34 +529,81 @@ def cache_axes(cfg: ModelConfig) -> Params:
     model): metadata for the mesh's sharding rules (ROADMAP A8)."""
     check_supported(cfg)
     kv = (None, "batch", "kv_seq", "kv_cache_heads", None)
-    ax: Params = {"length": (), "k": kv, "v": kv}
+    ax: Params = {"length": ()}
+    if cfg.rwkv:
+        ax["wkv"] = (None, "batch", "ssm_heads", None, None)
+        ax["tm_x"] = ax["cm_x"] = (None, "batch", None, None)
+        return ax
+    if cfg.family == "hybrid":
+        ax["ssm"] = (None, "batch", "ssm_heads", None, None)
+        ax["conv"] = (None, "batch", None, None)
+    ax["k"] = ax["v"] = kv
     if cfg.kv_quant:
         ax["k_scale"] = ax["v_scale"] = kv[:-1]
     return ax
 
 
-_LAYER_ENTRIES = ("k", "v", "k_scale", "v_scale")
+# the entries a layer of each family reads and writes at decode (the
+# hybrid's k and v belong to the shared block's invocations, not to layers)
+_LAYER_ENTRIES = ("k", "v", "k_scale", "v_scale", "wkv", "tm_x", "cm_x")
+_HYBRID_ENTRIES = ("ssm", "conv")
 
 
 def decode_layer_step(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                       layer_cache: Dict[str, torch.Tensor],
                       length: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
-    """One layer of single-token decode; writes the token's keys and
-    values (under ``kv_quant`` their int8 values and scales) into the
-    layer's caches in place.  Returns x.  (The reference's
-    ``decode_layer_step`` drops the caches its attention block wrote, and
-    under ``kv_quant`` keeps the scales but drops the int8 values, so its
-    later decode steps attend over zeros there: ROADMAP queue C, R5.)"""
-    h = rmsnorm(x, lp["ln1"]["scale"], cfg.norm_eps)
+    """One layer of single-token decode; writes the layer's states in
+    place, each cast to its entry's dtype: an attention layer's token keys
+    and values (under ``kv_quant`` their int8 values and scales), RWKV's
+    ``wkv``, ``tm_x`` and ``cm_x``, the hybrid's Mamba2 ``ssm`` and
+    ``conv`` (its shared block is :func:`decode_step`'s).  Returns x.
+    (The reference's ``decode_layer_step`` drops the caches its attention
+    block wrote, and under ``kv_quant`` keeps the scales but drops the
+    int8 values, so its later decode steps attend over zeros there:
+    ROADMAP queue C, R5.  Its RWKV and hybrid decode keep every state.)"""
+    eps = cfg.norm_eps
+    if cfg.rwkv:
+        h = rmsnorm(x, lp["ln1"]["scale"], eps)
+        h, wkv, tm_x = rwkv6_time_mix(h, layer_cache["tm_x"], lp, cfg,
+                                      state0=layer_cache["wkv"])
+        x = x + h
+        h = rmsnorm(x, lp["ln2"]["scale"], eps)
+        h, cm_x = rwkv6_channel_mix(h, layer_cache["cm_x"], lp, cfg)
+        for name, t in (("wkv", wkv), ("tm_x", tm_x), ("cm_x", cm_x)):
+            layer_cache[name].copy_(t)
+        return x + h
+    if cfg.family == "hybrid":
+        h = rmsnorm(x, lp["ln1"]["scale"], eps)
+        h, ssm, conv = mamba2_decode_step(h, lp["mamba"], cfg,
+                                          layer_cache["ssm"],
+                                          layer_cache["conv"])
+        layer_cache["ssm"].copy_(ssm)
+        layer_cache["conv"].copy_(conv)
+        return x + h
+    h = rmsnorm(x, lp["ln1"]["scale"], eps)
     x = x + attention_decode_block(h, lp["attn"], cfg, positions,
                                    layer_cache["k"], layer_cache["v"],
                                    length, layer_cache.get("k_scale"),
                                    layer_cache.get("v_scale"))
-    h = rmsnorm(x, lp["ln2"]["scale"], cfg.norm_eps)
+    h = rmsnorm(x, lp["ln2"]["scale"], eps)
     if cfg.is_moe:
         return x + moe_block(h, lp["moe"], cfg)[0]
     return x + mlp_block(h, lp["mlp"], cfg)
+
+
+def _shared_decode(shared: Params, x: torch.Tensor, x_embed: torch.Tensor,
+                   positions: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, length: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """One token through zamba2's shared block: its attention through the
+    decode kernel over the invocation's caches, written in place."""
+    cat = torch.cat([x, x_embed], dim=-1)
+    h = rmsnorm(cat, shared["ln_in"]["scale"], cfg.norm_eps)
+    x = x + attention_decode_block(h, shared["attn"], cfg, positions,
+                                   k_cache, v_cache, length)
+    h = rmsnorm(x, shared["ln_mlp"]["scale"], cfg.norm_eps)
+    return x + mlp_block(h, shared["mlp"], cfg)
 
 
 @torch.no_grad()
@@ -426,7 +613,9 @@ def decode_step(model: Model, cache: Params, batch: Dict[str, Any]
     batch: {"tokens": (B, 1) int}, and under M-RoPE optionally
     ``positions3`` (B, 1, 3) (else ``length`` in all three streams).
     Returns (logits (B, 1, V), cache), the cache updated in place
-    (``length`` one more)."""
+    (``length`` one more).  The hybrid runs its shared block after the
+    Mamba2 mixer of every ``attn_every``-th layer, on the caches of
+    invocation ``layer // attn_every``, over the token's embedding."""
     cfg = model.cfg
     tokens = batch["tokens"]
     x = model.params["embed"]["table"][tokens.to(torch.int64)]   # (B,1,d)
@@ -439,10 +628,17 @@ def decode_step(model: Model, cache: Params, batch: Dict[str, Any]
             else positions.to(x.device)
     else:
         positions = length.expand(B, 1)
-    entries = [n for n in _LAYER_ENTRIES if n in cache]
+    hybrid = cfg.family == "hybrid"
+    x_embed = x
+    entries = _HYBRID_ENTRIES if hybrid \
+        else [n for n in _LAYER_ENTRIES if n in cache]
     for i, lp in enumerate(model.layer_params):
         x = decode_layer_step(lp, x, cfg, {n: cache[n][i] for n in entries},
                               length, positions)
+        if hybrid and cfg.attn_every and i % cfg.attn_every == 0:
+            j = i // cfg.attn_every
+            x = _shared_decode(model.shared, x, x_embed, positions,
+                               cache["k"][j], cache["v"][j], length, cfg)
     length.add_(1)
     return _logits(model, x), cache
 
@@ -450,24 +646,42 @@ def decode_step(model: Model, cache: Params, batch: Dict[str, Any]
 @torch.no_grad()
 def prefill(model: Model, batch: Dict[str, Any], max_len: int
             ) -> Tuple[Params, torch.Tensor]:
-    """Inference prefill: the full forward, stashing each layer's K/V in a
-    fresh cache: bf16, or under ``kv_quant`` quantized from their bf16
-    copies, as the reference's.  Returns (cache, last-position logits
-    (B, 1, V))."""
+    """Inference prefill: the full forward, stashing each layer's state in
+    a fresh cache (:func:`make_cache`): the attention layers' K/V, bf16 or
+    under ``kv_quant`` quantized from their bf16 copies; RWKV's WKV state
+    and last mixer inputs; the hybrid's Mamba2 states and its shared
+    block's K/V, as the reference's.  Returns (cache, last-position logits
+    (B, 1, V)).  Raises ValueError for a sequence longer than ``max_len``
+    (but under RWKV, whose cache has no positions) and for a hybrid prompt
+    shorter than ``ssm_conv - 1``, whose conv state the reference gets
+    the wrong shape for (ROADMAP R7)."""
     cfg = model.cfg
     x, positions = _embed_inputs(model, batch)
     B, S = x.shape[:2]
-    if S > max_len:
+    if S > max_len and not cfg.rwkv:
         raise ValueError(f"prefill of {S} tokens exceeds max_len {max_len}")
+    hybrid = cfg.family == "hybrid"
+    if hybrid and S < cfg.ssm_conv - 1:
+        raise ValueError(
+            f"{cfg.name}: a prefill of {S} tokens is shorter than the conv "
+            f"state's {cfg.ssm_conv - 1} rows, which the reference cannot "
+            "decode from (ROADMAP R7)")
     cache = make_cache(cfg, B, max_len, x.device)
     cache["length"].fill_(S)
+    x_embed = x if cfg.attn_every else None
     for i, lp in enumerate(model.layer_params):
-        x, k, v, _ = layer_step(lp, x, positions, cfg)
-        if cfg.kv_quant:
-            for name, t in (("k", k), ("v", v)):
-                cache[name][i, :, :S], cache[f"{name}_scale"][i, :, :S] = \
-                    quantize_kv(t.to(torch.bfloat16))
-        else:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+        x, state, _ = layer_step(lp, x, positions, cfg, i, model.shared,
+                                 x_embed)
+        if "k" in state:
+            j = i // cfg.attn_every if hybrid else i
+            if cfg.kv_quant:
+                for name in ("k", "v"):
+                    cache[name][j, :, :S], cache[f"{name}_scale"][j, :, :S] \
+                        = quantize_kv(state[name].to(torch.bfloat16))
+            else:
+                cache["k"][j, :, :S] = state["k"]
+                cache["v"][j, :, :S] = state["v"]
+        for name in ("wkv", "tm_x", "cm_x", "ssm", "conv"):
+            if name in state:
+                cache[name][i] = state[name]
     return cache, _logits(model, x[:, -1:])

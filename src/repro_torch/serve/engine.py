@@ -39,7 +39,8 @@ class ServeEngine:
     ``greedy`` says, as in the reference, which stores the flag and never
     reads it.  A wave whose prompts and new tokens do not fit in
     ``max_len`` raises ValueError (the reference's cache writes clamp to
-    the last position instead).  Requests are tokens only, as in the
+    the last position instead), but under RWKV, whose cache has no
+    positions.  Requests are tokens only, as in the
     reference: an audio config runs without its conditioning frames, and
     an M-RoPE config raises ValueError (its positions come through the
     model-level ``prefill`` / ``decode_step``)."""
@@ -76,7 +77,10 @@ class ServeEngine:
         B = len(wave)
         S = max(len(r.prompt) for r in wave)
         steps = max(r.max_new_tokens for r in wave)
-        if S + max(steps, 1) - 1 > self.max_len:
+        # RWKV's cache holds no positions (a state a layer whatever
+        # max_len), so a wave longer than max_len serves exactly there, as
+        # in the reference; the other families' K/V caches must fit it
+        if not self.cfg.rwkv and S + max(steps, 1) - 1 > self.max_len:
             raise ValueError(
                 f"a wave of {S}-token prompts and {steps} new tokens needs "
                 f"{S + steps - 1} cache positions; max_len is {self.max_len}")

@@ -31,7 +31,10 @@ agree bit for bit); in bf16 each
 element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
 and round once to bf16, one ulp being at most 2**-7 of the value): bf16
 runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
-card gives the same greedy tokens as on the CPU under f32 weights.
+card gives the same greedy tokens as on the CPU under f32 weights, RWKV's
+and zamba2's too; zamba2's prefill and decode logits and states under f32
+caches within 1e-4 of the CPU's, its shared block through each attention
+kernel once an invocation.
 Training: ``FlashAttentionFn``'s gradients against the plain version's
 autograd gradients with the flash tolerances above; a train step bit for
 bit across two runs; 3 reduced steps on the card within 2e-3 of the CPU's
@@ -1232,6 +1235,83 @@ def test_lm_engine_on_card_matches_cpu(dev):
         device=dev, dtype=torch.float32)
     out = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
            for m in (card, model)]
+    assert out[0] == out[1]
+
+
+def test_hybrid_prefill_and_decode_run_the_kernels(dev, monkeypatch):
+    """Reduced ``zamba2-1.2b`` under f32 weights and f32 caches (so that no
+    state rounds to bf16 on one side and not the other): the card's
+    prefill and decode steps (the shared block through the flash kernel
+    once an invocation, through the decode kernel once an invocation a
+    step) against the same model's plain path on the CPU, logits and every
+    state within 1e-4 of their scale (f32 sums in another order), and the
+    engine's greedy tokens equal."""
+    from repro_torch.models import model as M
+
+    cfg = get("zamba2-1.2b").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").float()
+    card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(
+        device=dev, dtype=torch.float32)
+    make_cache = M.make_cache
+    monkeypatch.setattr(M, "make_cache", lambda *a, **k: {
+        n: t if n == "length" else t.float()
+        for n, t in make_cache(*a, **k).items()})
+
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        2, cfg.vocab, size=(2, 45)).astype(np.int32))
+    n_inv = cfg.n_shared_attn
+    outs = []
+    for m in (card, model):
+        before = (fa_ops.flash_attention.launches,
+                  da_ops.decode_attention.launches)
+        cache, logits = M.prefill(m, {"tokens": toks[:, :41].to(m.device)},
+                                  64)
+        steps = [logits]
+        for i in range(41, 45):
+            logits, cache = M.decode_step(
+                m, cache, {"tokens": toks[:, i:i + 1].to(m.device)})
+            steps.append(logits)
+        launched = (fa_ops.flash_attention.launches - before[0],
+                    da_ops.decode_attention.launches - before[1])
+        outs.append(([t.cpu() for t in steps],
+                     {n: t.cpu() for n, t in cache.items()}, launched))
+    assert outs[0][2] == (n_inv, 4 * n_inv)
+    assert outs[1][2] == (0, 0)
+    for i, (got, ref) in enumerate(zip(outs[0][0], outs[1][0])):
+        scale = max(float(ref.abs().max()), 1.0)
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * scale, (i, err, scale)
+    for name, ref in outs[1][1].items():
+        got = outs[0][1][name]
+        scale = max(float(ref.abs().max()), 1.0)
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                max_new_tokens=6) for i in range(3)]
+    got = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
+           for m in (card, model)]
+    assert got[0] == got[1]
+
+
+def test_rwkv_engine_on_card_matches_cpu(dev):
+    """Reduced ``rwkv6-3b`` under f32 weights: the same greedy tokens on the
+    card as on the CPU, and no attention kernel launched."""
+    cfg = get("rwkv6-3b").reduced()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu").float()
+    card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(
+        device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(8)
+    reqs = [Request(rid=i, prompt=rng.integers(
+                2, cfg.vocab, size=int(rng.integers(4, 40))).astype(np.int32),
+                max_new_tokens=6) for i in range(3)]
+    before = (fa_ops.flash_attention.launches,
+              da_ops.decode_attention.launches)
+    out = [ServeEngine(cfg, m, batch_lanes=2, max_len=64).generate(reqs)
+           for m in (card, model)]
+    assert (fa_ops.flash_attention.launches,
+            da_ops.decode_attention.launches) == before
     assert out[0] == out[1]
 
 

@@ -18,14 +18,16 @@ examples of the same names, on the CPU (``--device cpu``).
   cannot change the candidate set), every ``[machine]`` candidate,
   ``[human]``, ``[quality]``, ``[serve]`` and ``[latency]`` line equals the
   reference's; only the first line's scoring time differs.
-* ``torch_serve_llm.py`` (``internlm2-1.8b`` reduced, 6 requests over 3
-  lanes, 8 new tokens): the reference engine's multi-step decode drops the
-  decoded tokens' keys and values (ROADMAP R5), so the port's tokens are
-  held as ``tests/test_torch_engine.py`` holds them: with f32 parameters
-  and caches on both sides (the reference's bf16 prefill cache cast to f32,
-  ROADMAP R6), the first two tokens of every request equal the reference
-  example's, and every token is greedy over the reference model's own
-  forward of the wave so far.
+* ``torch_serve_llm.py`` (``internlm2-1.8b`` and ``rwkv6-3b`` reduced, 6
+  requests over 3 lanes, 8 new tokens): the reference engine's multi-step
+  decode drops the decoded tokens' keys and values (ROADMAP R5), so the
+  port's tokens are held as ``tests/test_torch_engine.py`` holds them: with
+  f32 parameters and caches on both sides (the reference's bf16 prefill
+  cache cast to f32, ROADMAP R6), the first two tokens of every request
+  equal the reference example's, and every token is greedy over the
+  reference model's own forward of the wave so far.  RWKV's reference
+  decode keeps its states, so there every token equals the reference
+  example's.
 """
 import ast
 import importlib.util
@@ -116,8 +118,8 @@ def test_crowdsourced_join_example_matches_the_reference(monkeypatch):
     assert injected[1:] == ref[1:]
 
 
-def test_serve_llm_example_holds_the_reference_model(monkeypatch):
-    arch = "internlm2-1.8b"
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "rwkv6-3b"])
+def test_serve_llm_example_holds_the_reference_model(monkeypatch, arch):
     jcfg, cfg = jax_get(arch).reduced(), get(arch).reduced()
     p32 = jax.tree.map(lambda x: x.astype(jnp.float32),
                        JM.init_params(jcfg, jax.random.PRNGKey(0)))
@@ -128,11 +130,11 @@ def test_serve_llm_example_holds_the_reference_model(monkeypatch):
 
     def prefill_f32_cache(*args, **kwargs):
         cache, logits = prefill(*args, **kwargs)
-        return dict(cache, k=cache["k"].astype(jnp.float32),
-                    v=cache["v"].astype(jnp.float32)), logits
+        return {n: t if n == "length" else t.astype(jnp.float32)
+                for n, t in cache.items()}, logits
 
     monkeypatch.setattr(JM, "prefill", prefill_f32_cache)
-    monkeypatch.setattr(sys, "argv", ["serve_llm.py"])
+    monkeypatch.setattr(sys, "argv", ["serve_llm.py", "--arch", arch])
     ref = _lines(ref_mod.main)
     monkeypatch.setattr(JM, "prefill", prefill)
 
@@ -143,7 +145,8 @@ def test_serve_llm_example_holds_the_reference_model(monkeypatch):
     model = model_params_from_numpy(cfg, jax.tree.map(_np32, p32),
                                     "cpu").float()
     port_mod = _load("torch_serve_llm.py", "torch_serve_llm")
-    port = _lines(lambda: port_mod.main(["--device", "cpu"], model=model))
+    port = _lines(lambda: port_mod.main(["--device", "cpu", "--arch", arch],
+                                        model=model))
 
     def tokens(lines):
         return {int(line.split()[2]):
@@ -176,3 +179,6 @@ def test_serve_llm_example_holds_the_reference_model(monkeypatch):
     for i in range(6):
         assert len(got[i]) == 8
         assert got[i][:2] == ref_tok[i][:2]
+    if cfg.rwkv:
+        # the reference's RWKV decode keeps its states (no R5): every token
+        assert got == ref_tok

@@ -151,13 +151,12 @@ def test_decode_matches_prefill_on_the_port(pair):
     _close(_t(l2), _t(l3), 1e-2 if pair["dtype"] == "f32" else 1e-3)
 
 
-# (arch, config overrides, the ROADMAP item the refusal names): the SSM
-# and hybrid families and RWKV (A12), the all-to-all expert layer (A8) and
-# the dry-run's attention stand-in (A12); moonshot, qwen2-vl and musicgen
-# themselves build now (tests/test_torch_{moe,mrope}.py)
+# (arch, config overrides, the ROADMAP item the refusal names): the
+# all-to-all expert layer (A8) and the dry-run's attention stand-in (A12);
+# moonshot, qwen2-vl, musicgen, zamba2 and rwkv6 themselves build now
+# (tests/test_torch_{moe,mrope,ssm}.py)
 REFUSED = {"moonshot-v1-16b-a3b": ({"moe_impl": "a2a"}, "A8"),
-           "zamba2-1.2b": ({}, "A12"),
-           "rwkv6-3b": ({}, "A12"),
+           "zamba2-1.2b": ({"attn_impl": "kernel_stub"}, "A12"),
            "qwen2-vl-2b": ({"attn_impl": "kernel_stub"}, "A12"),
            "musicgen-medium": ({"attn_impl": "kernel_stub"}, "A12")}
 

@@ -201,17 +201,20 @@ def test_moe_loss_with_aux_matches_reference(arch):
 
 
 def test_model_bookkeeping_matches_reference_for_every_built_config():
-    built = [a for a in sorted(ARCHS)
-             if get(a).family in M.FAMILIES and not get(a).rwkv]
-    assert {"olmoe-1b-7b", "moonshot-v1-16b-a3b", "qwen2-vl-2b",
-            "musicgen-medium"} <= set(built)
-    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+    built = [a for a in sorted(ARCHS) if get(a).family in M.FAMILIES]
+    assert built == sorted(ARCHS) == sorted(JAX_ARCHS)
+    assert len(built) == 11
     for arch in built:
         jcfg, cfg = jax_get(arch), get(arch)
         assert M.n_active_params(cfg) == JM.n_active_params(jcfg), arch
         assert M.n_params(cfg) == JM.n_params(jcfg), arch
         assert _flat(M.param_axes(cfg)) == _flat(JM.param_axes(jcfg)), arch
         assert M.cache_axes(cfg) == JM.cache_axes(jcfg), arch
+        if cfg.family == "hybrid":
+            # the reference cannot decode the hybrid under kv_quant (R7)
+            with pytest.raises(ValueError, match="R7"):
+                M.cache_axes(cfg.replace(kv_quant=True))
+            continue
         assert M.cache_axes(cfg.replace(kv_quant=True)) \
             == JM.cache_axes(jcfg.replace(kv_quant=True)), arch
     cfg = get("olmoe-1b-7b")
