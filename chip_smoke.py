@@ -142,10 +142,7 @@ carries on.  Phases, one output line or block each:
    truth (transitively consistent under the noisy crowd), async must
    finish in fewer simulated minutes than the barrier, and the product run
    again on the CPU must give identical fields; each run's wall, answers,
-   events and ``union_deduce`` launches printed; the product run split on
-   the host clock (gateway poll, post and worker assignment, fold, sweeps,
-   publish and its frontier) and its first 300 events timed and profiled
-   (idle share, launches and syncs an event);
+   events and ``union_deduce`` launches printed;
 4i. the service's crowd economics: (a) phase 4's four corpora through
    ``submit_embeddings(..., budget_cents=ECON_DENSE_BUDGET,
    cost_per_assignment=2.0)`` on ``JoinService(lanes=4)`` under a
@@ -159,8 +156,9 @@ carries on.  Phases, one output line or block each:
    with cluster tasks), every session's figures the reference's
    (``ECON_RUNS``, ``WORKER_RUNS``), the requery runs requerying, the mixed
    workers cheaper a resolved pair than majority, the slots run identical
-   on the CPU; each run's wall, rounds, events, launches, syncs and idle
-   share, and host-clock splits of (a) and the mixed run;
+   on the CPU; each run's wall, rounds, events and launches, the syncs
+   and idle share of (a) and the requery run with a budget, and host-clock
+   splits of (a) and the mixed run;
 4j. streaming ingest: (a) phase 4's four corpora through
    ``submit_embeddings(..., streaming=True)`` on 2048 rows a side and four
    ``append_embeddings`` epochs (1024 a-rows; 1024 b-rows; 512 + 512; 512 +
@@ -271,12 +269,39 @@ carries on.  Phases, one output line or block each:
    peak; RWKV's cache bytes the same at every ``max_len``), and the decode
    kernel against its plain version at (1, 524288, 32 / 32, 64) bf16 at
    length 524280, timed beside its bound, plain version and SDPA;
+4p. the dry-run's accounting against the card, and ``moonshot-v1-16b-a3b``
+   at full width: (a) moonshot (28.06 B parameters, 56.1 GB in bf16)
+   drawn on the card from a seeded generator, its three expert leaves a
+   layer at a time (init seconds and peak bytes: at most the parameters
+   and the largest single f32 draw), served by ``ServeEngine`` (8 requests
+   of 256-1024 tokens, 16 new; exactly 48 flash launches for the wave and
+   48 decode launches a step), a profiled window of decode steps (the
+   experts' ``bmm`` share of busy), ``decode == prefill(n + 1)`` within
+   5e-2 where the expert picks agree and near ties where they part, the
+   kernels at its heads (16 / 16 of 128) against their plain versions;
+   (b) three of ``configs/shapes.py``'s cells at a cut batch, each with its
+   record from ``repro_torch.launch.dryrun`` and its roofline terms, one
+   step measured on the card: moonshot at decode_32k (batch 1 of 128, 8
+   steps from a seeded 12.9 GB cache), ``internlm2-1.8b`` at prefill_32k
+   (batch 1 of 32: one prefill of 32768 tokens) and at decode_32k (batch 8
+   of 128, 8 steps from a seeded 25.8 GB cache); no measured time may be
+   below 0.95 of its bound (the accounting would over-count), and each
+   cell prints its measured fraction, the card's peak and
+   ``fits_one_card``; ``internlm2-1.8b``'s draw equal to the whole-leaf
+   draw of before, leaf for leaf; the flash kernel at (1, 32768, 16 / 8,
+   128) (its plain version at S = 8192, its last 256 rows at 32768 against
+   the plain attention of those rows) and the decode kernel at (8, 32768,
+   16 / 8, 128) against their plain versions, timed beside their bounds
+   and SDPA; (c) the H100 roofline table of every arch x shape, traced on
+   the host;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
    ``union_deduce`` and ``decode_attention`` call by kernel (each wrapper's
    fills and memsets beside its launch: ``union_deduce`` must be one
-   kernel); a ``{"kernels": [...]}`` line with each kernel's launches on its
+   kernel), taken right after phase 4g, before the LM phases: the
+   profiler drops device records for a while after a profile taken with
+   the card nearly full; a ``{"kernels": [...]}`` line with each kernel's launches on its
    main path (and on each path, where it runs on more than one), error, and
    times beside its bound, its plain version and a library call
    (``union_deduce``'s with its cluster size, and its times and bounds at
@@ -286,7 +311,10 @@ carries on.  Phases, one output line or block each:
    the wide kernel's after 4k's restore; ``decode_attention``'s int8 path
    as an entry of its own, its launches from phase 4n a; phase 4o's
    flash and decode launches under ``ssm_hybrid``, and the decode
-   kernel's figures at ``long_500k`` under ``at_long_500k``);
+   kernel's figures at ``long_500k`` under ``at_long_500k``; phase 4p's
+   under ``moonshot`` and ``dryrun_cells``, the flash kernel's figures at
+   prefill_32k under ``at_prefill_32k`` and the decode kernel's at
+   decode_32k under ``at_decode_32k``);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -304,6 +332,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -369,8 +398,7 @@ ASYNC_RUNS = {
     "product async": (("product",), True, False, {
         "product": (3696, 637, "4361e6c81a05b5a3", 0, 5791.368661342403)}),
 }
-# the window of phase 4h's product run that is profiled, and of each phase 4i
-# run: its first events
+# the window of the phase 4i runs that are profiled: their first events
 ASYNC_PROFILE_EVENTS = 300
 # phase 4i, the service's crowd economics.  (a) phase 4's four corpora with
 # a budget of about half the cents phase 4's session 0 spends unbudgeted at
@@ -387,6 +415,8 @@ ASYNC_PROFILE_EVENTS = 300
 # tools/econ_reference.py; tests/test_torch_{budget,requery,workers}.py hold
 # the port to the reference itself.
 ECON_DENSE_BUDGET = 17340.0
+# the 4i runs timed a second time under torch.profiler (the others once)
+ECON_PROFILED = ("budgeted dense", "requery budget async")
 ECON_TAU, ECON_LANES = 0.3, 2
 ECON_BUDGET = dict(budget_cents=120.0, cost_per_assignment=2.0)
 ECON_RUNS = {
@@ -630,6 +660,27 @@ SSM_RWKV_ARCH, SSM_HYBRID_ARCH = "rwkv6-3b", "zamba2-1.2b"
 SSM_PROMPT, SSM_NEW = (256, 1024), 32
 SSM_HYBRID_TOL = 8e-2
 SSM_LONG_SHAPE, SSM_LONG_STEPS = "long_500k", 8
+# phase 4p: the dry-run's accounting against the card, and
+# moonshot-v1-16b-a3b at full width.  (a) moonshot (28.06 B parameters,
+# 48 layers of 64 experts top 6, 16 / 16 heads of 128) drawn on the card
+# (its expert leaves a layer at a time) and served as 4n (d) serves
+# olmoe-1b-7b, ACCT_NEW new tokens; (b) ACCT_CELLS: configs/shapes.py's
+# cells at a cut batch, each measured against its record from
+# repro_torch.launch.dryrun; no measured time may be below
+# ACCT_BOUND_FLOOR of its bound.  The plain flash version is held at
+# ACCT_FLASH_PLAIN_S: its f32 score matrix at S = 32768 would be 68.7 GB;
+# the kernel's last ACCT_FLASH_TAIL rows at 32768 are held to the plain
+# f32 attention of those rows
+ACCT_MOE_ARCH, ACCT_NEW = "moonshot-v1-16b-a3b", 16
+ACCT_CELLS = (("moonshot-v1-16b-a3b", "decode_32k", 1),
+              ("internlm2-1.8b", "prefill_32k", 1),
+              ("internlm2-1.8b", "decode_32k", 8))
+ACCT_DECODE_STEPS = 8
+ACCT_BOUND_FLOOR = 0.95
+ACCT_FLASH_PLAIN_S, ACCT_FLASH_TAIL = 8192, 256
+# the config whose card draw must be the whole-leaf draw of before, leaf
+# for leaf
+ACCT_DRAW_ARCH = "internlm2-1.8b"
 # phase 3: the int8 decode path at head dims 32 and 128 beside the serving
 # shape's 64: (B, S, H, K, d, length)
 DECODE_INT8_SHAPES = ((4, 1024, 8, 2, 32, 700), (8, 2048, 16, 8, 128, 1500))
@@ -840,9 +891,10 @@ def device_split(fn, iters: int = 20) -> str:
     each with its mean device time a launch and its launches a call, from
     ``torch.profiler`` over ``iters`` calls after a warm-up: what a
     wrapper's time is made of.  The profiler's device trace sometimes
-    comes back empty (an H100 run once recorded no activity for one window
-    after a long profile), so a window with no device activity at all is
-    profiled again, up to three times."""
+    comes back empty (H100 runs have recorded no activity for one window
+    after a long profile, and once for three windows in a row), so a
+    window with no device activity at all is profiled again after a pause,
+    up to five times, the later ones tracing the host too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -850,8 +902,12 @@ def device_split(fn, iters: int = 20) -> str:
     fn()
     torch.cuda.synchronize()
     parts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
+        activities = [ProfilerActivity.CUDA] if attempt < 2 else \
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -1377,13 +1433,10 @@ def async_path(dev) -> dict:
     (``ASYNC_RUNS``), its labels the truth under a ``PerfectCrowd`` and
     transitively consistent under the noisy one, and async must finish in
     fewer simulated minutes than the barrier.  The product run again on the
-    CPU must give every result field identical.  Then that run split on the
-    host clock (each stage synchronized), and its first
-    ``ASYNC_PROFILE_EVENTS`` events timed and profiled: the device's idle
-    share, launches and syncs an event.  ``union_deduce``'s launches are
+    CPU must give every result field identical.  ``union_deduce``'s
+    launches are
     counted from just before each run to just after it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.crowd import (CrowdGateway, LatencyModel,
                                         NoisyCrowd, PerfectCrowd)
@@ -1395,17 +1448,12 @@ def async_path(dev) -> dict:
              for name in ("paper", "product")}
     counts = {"events": 0, "answers": 0}
 
-    class Window(Exception):
-        """Ends a run after ``counts["stop"]`` events."""
-
     def counted(poll):
         def counted_poll(self):
             out = poll(self)
             if out:
                 counts["events"] += 1
                 counts["answers"] += len(out)
-                if counts["events"] == counts.get("stop"):
-                    raise Window
             return out
         return counted_poll
 
@@ -1418,17 +1466,14 @@ def async_path(dev) -> dict:
                            else PerfectCrowd()) for n in names]
         return svc, rids
 
-    def timed_run(svc, stop=None):
-        counts.update(events=0, answers=0, stop=stop)
+    def timed_run(svc):
+        counts.update(events=0, answers=0)
         poll = CrowdGateway.poll
         CrowdGateway.poll = counted(poll)
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            try:
-                out = svc.run()
-            except Window:
-                out = None
+            out = svc.run()
             torch.cuda.synchronize()
             return out, time.perf_counter() - t0
         finally:
@@ -1482,69 +1527,6 @@ def async_path(dev) -> dict:
     if diff:
         raise AssertionError(f"4h product run: card and CPU differ in {diff}")
 
-    # the host-clock split of the product run, each stage synchronized
-    spent = dict.fromkeys(("poll", "fold", "sweep", "publish", "frontier",
-                           "post", "assign"), 0.0)
-    calls = dict.fromkeys(spent, 0)
-
-    def timed(fn, key):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            calls[key] += 1
-            return out
-        return call
-
-    patched = [(CrowdGateway, "poll", "poll"),
-               (CrowdGateway, "post", "post"),
-               (CrowdGateway, "_assign", "assign"),
-               (join_service, "session_fold_answers", "fold"),
-               (join_service, "session_apply_answers", "fold"),
-               (join_service, "session_deduce", "sweep"),
-               (join_service, "session_frontier", "frontier"),
-               (join_service.JoinService, "_publish", "publish")]
-    originals = [getattr(obj, name) for obj, name, _ in patched]
-    svc, _ = service("product async")
-    for (obj, name, key), fn in zip(patched, originals):
-        setattr(obj, name, timed(fn, key))
-    try:
-        _, split_wall = timed_run(svc)
-    finally:
-        for (obj, name, _), fn in zip(patched, originals):
-            setattr(obj, name, fn)
-    rest = split_wall - spent["poll"] - spent["fold"] - spent["sweep"] \
-        - spent["publish"]
-    print(f"[4h split product] run() wall {split_wall:.4f} s (synchronized "
-          f"stages): gateway poll {spent['poll']:.4f} s in {calls['poll']}, "
-          f"fold {spent['fold']:.4f} s in {calls['fold']}, sweeps "
-          f"{spent['sweep']:.4f} s in {calls['sweep']}, publish "
-          f"{spent['publish']:.4f} s in {calls['publish']} (frontier "
-          f"{spent['frontier']:.4f} s, gateway post {spent['post']:.4f} s), "
-          f"worker assignment {spent['assign']:.4f} s in {calls['assign']} "
-          f"(inside poll and post), rest {rest:.4f} s")
-
-    # the product run's first events, unprofiled, then under the profiler
-    n_ev = ASYNC_PROFILE_EVENTS
-    svc, _ = service("product async")
-    _, window_wall = timed_run(svc, stop=n_ev)
-    svc, _ = service("product async")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        timed_run(svc, stop=n_ev)
-    on_card, busy, syncs, n_launch = profile_counts(prof)
-    print(f"[4h profile product] its first {n_ev} events: wall "
-          f"{window_wall:.4f} s ({1e3 * window_wall / n_ev:.3f} ms an "
-          f"event), device busy {busy:.4f} s (idle share "
-          f"{1 - busy / window_wall:.4f}); {n_launch / n_ev:.1f} kernel "
-          f"launches and {syncs / n_ev:.1f} host syncs an event")
-    top = sorted(on_card, key=dev_us, reverse=True)
-    for e in top[:6] + [e for e in top[6:] if "union_deduce" in e.key]:
-        print(f"[4h profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
-              f"{e.key[:90]}")
     return {"launches": launches, "walls": walls}
 
 
@@ -1558,10 +1540,11 @@ def econ_path(dev, corpora) -> dict:
     ``WORKER_RUNS`` on the paper's datasets: each session's figures must be
     the reference's, every requery run must requery, and the mixed workers'
     cents a resolved pair must be below majority's; the slots run again on
-    the CPU must give identical fields.  Each run's wall, rounds, events,
-    launches, ``union_deduce`` launches, host syncs and idle share are
-    printed (each run twice: unprofiled, then under ``torch.profiler``), and
-    run (a) and the mixed run are split on the host clock, each stage
+    the CPU must give identical fields.  Each run's wall, rounds, events
+    and ``union_deduce`` launches are printed, and for the runs of
+    ``ECON_PROFILED`` (run again under ``torch.profiler``) its launches,
+    host syncs and idle share; run (a) and the mixed run are split on the
+    host clock, each stage
     synchronized.  Kernel counts are zeroed just before each run and read
     just after it."""
     import torch
@@ -1597,10 +1580,11 @@ def econ_path(dev, corpora) -> dict:
 
     def measure(tag, make, svc=None):
         """Run ``svc`` (default: ``make()``'s service) once timed, kernel
-        counts zeroed just before, then a fresh ``make()`` under the
-        profiler over at most its first ``ASYNC_PROFILE_EVENTS`` events
-        (the idle share is taken over the same window of the timed run).
-        Returns the results and the union_deduce launches."""
+        counts zeroed just before, then, for the runs of
+        ``ECON_PROFILED``, a fresh ``make()`` under the profiler over at
+        most its first ``ASYNC_PROFILE_EVENTS`` events (the idle share is
+        taken over the same window of the timed run).  Returns the results
+        and the union_deduce launches."""
         svc = svc or make()
         counts.update(events=0, profiling=False, window=None)
         ud_ops.union_deduce.launches = 0
@@ -1612,27 +1596,32 @@ def econ_path(dev, corpora) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ud, events = ud_ops.union_deduce.launches, counts["events"]
-            svc = make()
-            counts.update(events=0, profiling=True)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                try:
-                    svc.run()
-                except Window:
-                    pass
+            prof = None
+            if tag in ECON_PROFILED:
+                svc = make()
+                counts.update(events=0, profiling=True)
                 torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    try:
+                        svc.run()
+                    except Window:
+                        pass
+                    torch.cuda.synchronize()
         finally:
             CrowdGateway.poll = poll
-        _, busy, syncs, n_launch = profile_counts(prof)
-        window = counts["window"] or wall
-        n_ev = min(events, ASYNC_PROFILE_EVENTS)
         rounds = sum(r.n_rounds for r in out.values())
-        print(f"[4i {tag}] run() wall {wall:.4f} s, {rounds} rounds, "
-              f"{events} events, union_deduce launches {ud}; over the "
-              f"first {n_ev} events ({window:.4f} s): {n_launch} kernel "
-              f"launches, {syncs} host syncs, device busy {busy:.4f} s "
-              f"(idle share {1 - busy / window:.4f})")
+        line = (f"[4i {tag}] run() wall {wall:.4f} s, {rounds} rounds, "
+                f"{events} events, union_deduce launches {ud}")
+        if prof is not None:
+            _, busy, syncs, n_launch = profile_counts(prof)
+            window = counts["window"] or wall
+            n_ev = min(events, ASYNC_PROFILE_EVENTS)
+            line += (f"; over the first {n_ev} events ({window:.4f} s): "
+                     f"{n_launch} kernel launches, {syncs} host syncs, "
+                     f"device busy {busy:.4f} s (idle share "
+                     f"{1 - busy / window:.4f})")
+        print(line)
         if ud < 1:
             raise AssertionError(f"4i {tag}: union_deduce never launched")
         return out, ud
@@ -3291,9 +3280,10 @@ def _moe_gap(model, toks) -> list:
     """``prefill(n) + decode_step`` against ``prefill(n + 1)`` under the
     experts, a sequence at a time: (the gap of its last logits over their
     scale, the layers where its last token's picks part between the two
-    paths, the prefill path's 8th-to-9th router probability margin, relative,
-    at the first of those layers), from ``moe.route`` recorded on both
-    paths."""
+    paths, the prefill path's k-th to (k+1)-th router probability margin,
+    relative, at the first of those layers, the largest gap of the last
+    token's router inputs over their scale up to that layer (every layer
+    where none parts)), from ``moe.route`` recorded on both paths."""
     import torch
 
     from repro_torch.models import model as M
@@ -3303,7 +3293,8 @@ def _moe_gap(model, toks) -> list:
 
     def spy(xt, router, cfg):
         r = real(xt, router, cfg)
-        rec.append((r.expert, torch.softmax((xt @ router).float(), -1)))
+        rec.append((r.expert, torch.softmax((xt @ router).float(), -1),
+                    xt))
         return r
 
     moe.route = spy
@@ -3331,7 +3322,14 @@ def _moe_gap(model, toks) -> list:
             probs = pre[parted[0]][1].view(B, S, -1)[b, -1]
             top = torch.sort(probs, descending=True).values
             margin = float((top[k - 1] - top[k]) / top[k - 1])
-        out.append((gap, parted, margin))
+        upto = parted[0] + 1 if parted else len(dec)
+        x_gap = 0.0
+        for d, p in zip(dec[:upto], pre[:upto]):
+            xd = d[2][b].float()
+            xp = p[2].view(B, S, -1)[b, -1].float()
+            x_gap = max(x_gap, float((xd - xp).abs().max())
+                        / max(float(xp.abs().max()), 1e-6))
+        out.append((gap, parted, margin, x_gap))
     return out
 
 
@@ -3631,8 +3629,8 @@ def lm_families_path(dev) -> dict:
     n = FAM_MOE_PROMPT[0]
     seqs = _moe_gap(moe8, torch.from_numpy(np.stack(
         [r.prompt[:n] for r in reqs])).to(dev))
-    agree = [g for g, parted, _ in seqs if not parted]
-    ties = [m for _, parted, m in seqs if parted]
+    agree = [g for g, parted, _, _ in seqs if not parted]
+    ties = [m for _, parted, m, _ in seqs if parted]
     gap = max(agree) if agree else float("nan")
     print(f"[4n d] decode == prefill(n+1) at capacity_factor {FAM_MOE_CF}, "
           f"n {n - 1}, {len(seqs)} sequences: (max|d logits| of their scale,"
@@ -3640,7 +3638,7 @@ def lm_families_path(dev) -> dict:
           f"layer's 8th-to-9th router probability margin) "
           + ", ".join(f"({g:.3e}, {p}, "
                       f"{'-' if m is None else f'{m:.3e}'})"
-                      for g, p, m in seqs)
+                      for g, p, m, _ in seqs)
           + f"; where every pick agrees at most {gap:.3e} (tolerance "
           f"{LM_BF16_TOL}), first partings at margins up to "
           f"{max(ties, default=0.0):.3e} (tolerance {FAM_MOE_TIE:.4f})")
@@ -3913,6 +3911,406 @@ def ssm_families_path(dev) -> dict:
           f", SDPA {d['library_ms']:.4f}")
     del q, kc, vc
     torch.cuda.empty_cache()
+    return out
+
+
+def _whole_leaf_draw(cfg, generator, dev) -> dict:
+    """``init_params``' draw as it was before a leaf could be drawn in
+    slices: each leaf one f32 draw on the generator's device, scaled and
+    cast (the plain version the card's draw of an unsliced config is held
+    to, leaf for leaf)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import model as M
+
+    flat = {}
+    for path, spec in sorted(M.model_specs(cfg).items()):
+        special = M._special_init(path, spec, generator)
+        if special is not None:
+            flat[path] = special.to(device=dev, dtype=spec.dtype)
+        elif spec.fan_in == 0:
+            flat[path] = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+        else:
+            w = torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32, device=generator.device)
+            w *= 1.0 / math.sqrt(max(spec.fan_in, 1))
+            flat[path] = w.to(device=dev, dtype=spec.dtype)
+    return flat
+
+
+def check_flash_tail(dev, B, S, H, K, d, rows, seed=0) -> float:
+    """The bf16 flash kernel at (B, S, H / K, d) against the plain f32
+    causal attention of its last ``rows`` query rows (over every key
+    before them): the plain version of the whole S would not fit.  Returns
+    max |error|."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.layers import _attention_chunk
+
+    q = _randn(dev, (B, S, H, d), torch.bfloat16, seed)
+    k = _randn(dev, (B, S, K, d), torch.bfloat16, seed + 1)
+    v = _randn(dev, (B, S, K, d), torch.bfloat16, seed + 2)
+    got = fa_kernel.flash_attention(q, k, v)[:, S - rows:]
+    exp = _attention_chunk(q[:, S - rows:].float(), k.float(), v.float(),
+                           S - rows).to(torch.bfloat16)
+    err, ok, tol = attn_error("flash", got, exp)
+    print(f"[4p flash_attention] q ({B}, {S}, {H}, {d}) kv heads {K} "
+          f"bfloat16, its last {rows} rows against the plain f32 attention"
+          f" of those rows: max|d| {err:.3e} (tolerance {tol})")
+    if not ok:
+        raise AssertionError("flash_attention kernel disagrees with the "
+                             "plain attention of its last rows")
+    return err
+
+
+def accounting_path(dev) -> dict:
+    """Phase 4p: the dry-run's cells against the card, and
+    ``moonshot-v1-16b-a3b`` at full width.  Every kernel count is zeroed
+    just before a path and read just after it.
+    (a) moonshot drawn on the card from a seeded generator (its expert
+    leaves, 35.4 GB each as one f32 draw, a layer at a time): init seconds
+    and peak bytes (at most the bf16 parameters and the largest single f32
+    draw); ``ServeEngine.generate`` of 8 requests of ``FAM_MOE_PROMPT``
+    tokens, ``ACCT_NEW`` new: prefill s, ms a step, the flash kernel once
+    a layer for the wave and the decode kernel once a layer a step; a
+    profiled window of decode steps (the experts' ``bmm`` share of busy);
+    ``decode == prefill(n + 1)`` at ``capacity_factor`` 8 as 4n (d).
+    (b) each of ``ACCT_CELLS`` at its cut batch: its record from
+    ``repro_torch.launch.dryrun.run_cell`` and its roofline terms, one
+    step measured (a 32768-token prefill, or ``ACCT_DECODE_STEPS`` decode
+    steps from a seeded cache ending at the last position), the measured
+    fraction of the bound (which must not pass 1 / ``ACCT_BOUND_FLOOR``),
+    the card's peak and ``fits_one_card``; the draw of ``ACCT_DRAW_ARCH``
+    equal to the whole-leaf draw of before, leaf for leaf; the flash kernel
+    at (1, 32768, 16 / 8, 128) (plain version at ``ACCT_FLASH_PLAIN_S``,
+    the last rows at 32768) and the decode kernel at (8, 32768, 16 / 8,
+    128) and at moonshot's heads against their plain versions.  (c) the
+    roofline table of every arch x shape on one H100, computed on the
+    host."""
+    import torch
+
+    from repro_torch.configs import ASSIGNED, get
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    out: dict = {"launches": {}, "cells": {}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def param_bytes(cfg):
+        return sum(math.prod(s.shape) * s.dtype.itemsize
+                   for s in M.model_specs(cfg).values())
+
+    # -- (a) moonshot at full width ------------------------------------------
+    cfg = get(ACCT_MOE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = _draw_model(dev, cfg, "4p a")
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    specs = M.model_specs(cfg)
+    pbytes = param_bytes(cfg)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    sliced = sorted(p for p, s in specs.items()
+                    if M._drawn_in_slices(s, pbytes, card))
+    largest = max(4 * math.prod(s.shape[1:] if p in sliced else s.shape)
+                  for p, s in specs.items() if s.fan_in)
+    print(f"[4p a] {cfg.name} drawn in {init_s:.3f} s: parameters {pbytes} "
+          f"bytes, init peak {init_peak} bytes ({init_peak - pbytes} above "
+          f"them; the largest single f32 draw {largest} bytes); drawn a "
+          f"layer at a time: {sliced}")
+    if not sliced or init_peak > pbytes + largest + 2 ** 26:
+        raise AssertionError(f"phase 4p a: init peak {init_peak} over the "
+                             f"parameters {pbytes} and one draw {largest}")
+    reqs = _family_requests(cfg.vocab, FAM_MOE_PROMPT, ACCT_NEW, SEED + 32)
+    engine = ServeEngine(cfg, model, batch_lanes=LM_LANES,
+                         max_len=LM_MAX_LEN)
+    _warm_engine(engine, cfg.vocab, np.random.default_rng(SEED + 9))
+    _zero_attn_counts()
+    toks, pre_s, step_ms = _timed_generate(engine, reqs, ACCT_NEW)
+    got = _attn_counts()
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (ACCT_NEW - 1),
+            "decode_attention_int8": 0}
+    del engine
+    S = max(len(r.prompt) for r in reqs)
+    wave = np.zeros((LM_LANES, S), np.int32)
+    for j, r in enumerate(reqs):
+        wave[j, S - len(r.prompt):] = r.prompt
+    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(wave).to(
+        dev)}, LM_MAX_LEN)
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    torch.cuda.empty_cache()    # the profiler's own buffers need room
+
+    def step():
+        nonlocal cache, cur
+        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    wall, busy, bmm, launches, _ = _profile_steps(step, FAM_PROFILE_STEPS)
+    del cache, logits
+    torch.cuda.empty_cache()
+    print(f"[4p a] {cfg.name}: {LM_LANES} requests of {FAM_MOE_PROMPT[0]}-"
+          f"{FAM_MOE_PROMPT[1]} tokens (longest {S}), {ACCT_NEW} new: "
+          f"prefill {pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches "
+          f"{got}; profiled window of {FAM_PROFILE_STEPS} steps: wall "
+          f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy share "
+          f"{busy / wall:.4f}), the experts' bmm {bmm:.4f} ms "
+          f"({bmm / max(busy, 1e-9):.4f} of busy), {launches:.1f} launches "
+          f"a step")
+    if got != want or any(len(t) != ACCT_NEW for t in toks.values()):
+        raise AssertionError(f"phase 4p a: launches {got}, expected {want}")
+    moe8 = M.Model(cfg.replace(capacity_factor=FAM_MOE_CF),
+                   dict(model.named_leaves()))
+    n = FAM_MOE_PROMPT[0]
+    seqs = _moe_gap(moe8, torch.from_numpy(np.stack(
+        [r.prompt[:n] for r in reqs])).to(dev))
+    del moe8
+    # over 48 layers of bf16 router logits every sequence's picks may part
+    # somewhere at a near tie: the two paths must agree where the picks
+    # do (the logits of a sequence none of whose picks part; the router
+    # inputs up to and at the first layer where they part), and part only
+    # at near ties
+    agree = [g for g, parted, _, _ in seqs if not parted]
+    ties = [m for _, parted, m, _ in seqs if parted]
+    x_gap = max(x for _, _, _, x in seqs)
+    gap = max(agree) if agree else float("nan")
+    print(f"[4p a] decode == prefill(n+1) at capacity_factor {FAM_MOE_CF}, "
+          f"n {n - 1}, {len(seqs)} sequences: (max|d logits| of their scale,"
+          f" layers where the last token's picks part, the first such "
+          f"layer's {cfg.top_k}th-to-{cfg.top_k + 1}th router probability "
+          f"margin, max|d router input| of its scale up to that layer) "
+          + ", ".join(f"({g:.3e}, {p}, "
+                      f"{'-' if m is None else f'{m:.3e}'}, {x:.3e})"
+                      for g, p, m, x in seqs)
+          + f"; logits where every pick agrees at most {gap:.3e}, router "
+          f"inputs where they agree at most {x_gap:.3e} (tolerance "
+          f"{LM_BF16_TOL}), first partings at margins up to "
+          f"{max(ties, default=0.0):.3e} (tolerance {FAM_MOE_TIE:.4f})")
+    if not (gap <= LM_BF16_TOL or not agree) or not x_gap <= LM_BF16_TOL \
+            or not all(m <= FAM_MOE_TIE for m in ties):
+        raise AssertionError("phase 4p a: decode_step disagrees with "
+                             "prefill under the experts")
+    out["moonshot"] = {"init_s": init_s, "init_peak": init_peak,
+                       "param_bytes": pbytes, "prefill_s": pre_s,
+                       "step_ms": step_ms, "busy_ms": busy, "wall_ms": wall,
+                       "bmm_ms": bmm, "gap": gap, "router_gap": x_gap,
+                       "logit_gaps": [g for g, _, _, _ in seqs]}
+    out["launches"]["moonshot"] = got
+    # the kernels at moonshot's heads (16 / 16 of 128)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    check_flash(dev, LM_LANES, S, H, K, hd, torch.bfloat16)
+    check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, S + ACCT_NEW - 1,
+                 torch.bfloat16, torch.bfloat16)
+
+    # -- (b) the dry-run's cells against the card ---------------------------
+    def measure_cell(model, arch, shape_name, batch):
+        """One step of the cell on the card: (seconds, launches, peak)."""
+        cfg = model.cfg
+        shape = SHAPES[shape_name]
+        S_ = shape.seq_len
+        torch.cuda.empty_cache()
+        if shape.kind == "prefill":
+            toks = torch.randint(2, cfg.vocab, (batch, S_), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            M.prefill(model, {"tokens": toks[:, :2048]}, S_)   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_attn_counts()
+            t0 = time.perf_counter()
+            cache, logits = M.prefill(model, {"tokens": toks}, S_)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ok = bool(torch.isfinite(logits).all()) \
+                and int(cache["length"]) == S_
+            del cache, logits
+        else:
+            cache = M.make_cache(cfg, batch, S_, dev)
+            for name in ("k", "v"):
+                for j in range(cache[name].shape[0]):
+                    cache[name][j].normal_(generator=gen)
+            cache["length"].fill_(S_ - ACCT_DECODE_STEPS - 1)
+            cur = torch.randint(2, cfg.vocab, (batch, 1), generator=gen,
+                                device=dev, dtype=torch.int32)
+            logits, cache = M.decode_step(model, cache, {"tokens": cur})
+            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_attn_counts()
+            t0 = time.perf_counter()
+            for _ in range(ACCT_DECODE_STEPS):
+                logits, cache = M.decode_step(model, cache, {"tokens": cur})
+                cur = torch.argmax(logits[:, -1], dim=-1).to(
+                    torch.int32)[:, None]
+            torch.cuda.synchronize()
+            secs = (time.perf_counter() - t0) / ACCT_DECODE_STEPS
+            ok = bool(torch.isfinite(logits).all()) \
+                and int(cache["length"]) == S_
+            del cache, logits
+        return secs, _attn_counts(), torch.cuda.max_memory_allocated(), ok
+
+    def report(model, arch, shape_name, batch):
+        cfg = model.cfg
+        shape = SHAPES[shape_name]
+        rec = dryrun.run_cell(arch, shape_name, batch=batch)
+        terms = roofline.cell_terms(rec)
+        secs, got, peak, ok = measure_cell(model, arch, shape_name, batch)
+        frac = roofline.measured_fraction(terms, secs)
+        n = ACCT_DECODE_STEPS
+        want = ({"flash_attention": cfg.n_layers, "decode_attention": 0,
+                 "decode_attention_int8": 0} if shape.kind == "prefill" else
+                {"flash_attention": 0, "decode_attention": cfg.n_layers * n,
+                 "decode_attention_int8": 0})
+        mem = rec["memory"]
+        tag = f"{arch} {shape_name}"
+        acc = rec["accounting"]
+        summary = {
+            "arch": arch, "shape": shape_name, "global_batch": batch,
+            "reduced": f"global_batch {shape.global_batch} -> {batch}",
+            "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+            "collective_s": terms["collective_s"],
+            "dominant": terms["dominant"], "measured_s": secs,
+            "measured_fraction": frac, "model_flops": rec["model_flops"],
+            "flops": terms["hlo_flops_dev"], "bytes": terms["hlo_bytes_dev"],
+            "kernel": acc.get("flash_kernel") if shape.kind == "prefill"
+            else acc.get("decode_kernel"),
+            "cache_bytes": rec["cache_bytes"],
+            "argument_bytes": mem["argument_bytes"],
+            "output_bytes": mem["output_bytes"],
+            "alias_bytes": mem["alias_bytes"],
+            "fits_one_card": mem["fits_one_card"],
+            "card_bytes": mem["card_bytes"],
+            "card_bytes_from": mem["card_bytes_from"],
+            "max_memory_allocated": peak, "launches": got,
+            "trace_seconds": rec["trace_seconds"]}
+        print(f"[4p b {tag}] " + json.dumps(summary))
+        print(f"[4p b {tag}] batch {batch} (reduced from "
+              f"{shape.global_batch}): bound {1e3 * max(terms['compute_s'], terms['memory_s']):.4f} ms "
+              f"(compute {1e3 * terms['compute_s']:.4f} ms, memory "
+              f"{1e3 * terms['memory_s']:.4f} ms, {terms['dominant']}); "
+              f"measured {1e3 * secs:.4f} ms a "
+              f"{'prefill' if shape.kind == 'prefill' else 'step'}, "
+              f"fraction {frac:.4f}; card peak {peak} bytes of "
+              f"{mem['card_bytes']}, fits_one_card {mem['fits_one_card']}")
+        if frac > 1.0 / ACCT_BOUND_FLOOR:
+            raise AssertionError(f"phase 4p b {tag}: measured {secs} s is "
+                                 f"below {ACCT_BOUND_FLOOR} of the bound: "
+                                 f"the accounting over-counts")
+        if got != want or not ok or not mem["fits_one_card"]:
+            raise AssertionError(f"phase 4p b {tag}: launches {got}, "
+                                 f"expected {want}; finite {ok}; fits "
+                                 f"{mem['fits_one_card']}")
+        out["cells"][tag] = summary
+        out["launches"][tag] = got
+
+    for arch, shape_name, batch in ACCT_CELLS:
+        if arch != model.cfg.name:
+            del model
+            torch.cuda.empty_cache()
+            cfg = get(arch)
+            model = _draw_model(dev, cfg, "4p b")
+            if arch == ACCT_DRAW_ARCH:
+                before = _whole_leaf_draw(cfg, torch.Generator(
+                    device=dev).manual_seed(SEED), dev)
+                same = [p for p, t in model.named_leaves()
+                        if torch.equal(t.view(torch.int16),
+                                       before[p].view(torch.int16))]
+                print(f"[4p b] {cfg.name}'s card draw against the whole-"
+                      f"leaf draw of before: {len(same)} of "
+                      f"{len(before)} leaves equal bit for bit")
+                n_leaves = len(before)
+                del before
+                if len(same) != n_leaves:
+                    raise AssertionError(f"phase 4p b: {cfg.name}'s draw "
+                                         f"changed")
+        report(model, arch, shape_name, batch)
+    del model
+    torch.cuda.empty_cache()
+
+    # the two kernels at the cells' shapes against their plain versions
+    cfg = get("internlm2-1.8b")
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L = SHAPES["prefill_32k"].seq_len
+    fa_err, _ = check_flash(dev, 1, ACCT_FLASH_PLAIN_S, H, K, hd,
+                            torch.bfloat16)
+    torch.cuda.empty_cache()
+    tail_err = check_flash_tail(dev, 1, L, H, K, hd, ACCT_FLASH_TAIL)
+    q = _randn(dev, (1, L, H, hd), torch.bfloat16, 5)
+    k = _randn(dev, (1, L, K, hd), torch.bfloat16, 6)
+    v = _randn(dev, (1, L, K, hd), torch.bfloat16, 7)
+    flops = 4 * H * hd * L * (L + 1) // 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    qs, ks, vs = (x[:, :ACCT_FLASH_PLAIN_S] for x in (q, k, v))
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+    out["flash_prefill_32k"] = {
+        "shape": [1, L, H, K, hd], "max_abs_err": max(fa_err, tail_err),
+        "ms": cuda_ms(lambda: fa_kernel.flash_attention(q, k, v), 3),
+        "plain_ms": cuda_ms(lambda: mha_causal_ref(qs, ks, vs), 3),
+        "plain_S": ACCT_FLASH_PLAIN_S,
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": cuda_ms(lambda: sdpa(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), 3)}
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    B8 = {(a, s): b for a, s, b in ACCT_CELLS}[("internlm2-1.8b",
+                                                 "decode_32k")]
+    length = L - ACCT_DECODE_STEPS
+    da_err, (q, kc, vc, n) = check_decode(dev, B8, L, H, K, hd, length,
+                                          torch.bfloat16, torch.bfloat16)
+    nbytes = 2 * B8 * length * K * hd * 2 + 2 * q.numel() * 2
+    flops = 4 * B8 * H * hd * length
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    mask = (torch.arange(L, device=dev) < length)[None, None, None]
+    out["decode_decode_32k"] = {
+        "shape": [B8, L, H, K, hd], "length": length, "max_abs_err": da_err,
+        "splits": list(da_kernel.split_plan(q, kc)),
+        "ms": cuda_ms(lambda: da_kernel.decode_attention(q, kc, vc, n), 10),
+        "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc, n), 3),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        "library_ms": cuda_ms(lambda: sdpa(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), 3)}
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    for name, d in (("flash_attention", out["flash_prefill_32k"]),
+                    ("decode_attention", out["decode_decode_32k"])):
+        print(f"[4p kernels] {name} at {tuple(d['shape'])}: {d['ms']:.4f} "
+              f"ms against a bound of {d['bound_ms']:.4f} ({d['bound_by']})"
+              f", plain {d['plain_ms']:.4f}"
+              + (f" (at S {d['plain_S']})" if "plain_S" in d else "")
+              + f", SDPA {d['library_ms']:.4f}")
+
+    # -- (c) the roofline table of every arch x shape on one H100 -----------
+    t0 = time.perf_counter()
+    cells = []
+    for arch in ASSIGNED:
+        for shape_name in SHAPES:
+            rec = dryrun.run_cell(arch, shape_name)
+            cells.append(roofline.cell_terms(rec) or {
+                "arch": arch, "shape": shape_name, "skipped": rec["status"]})
+    table_s = time.perf_counter() - t0
+    print(f"[4p c] the H100 roofline of {len(cells)} cells, traced on the "
+          f"host in {table_s:.1f} s ({dryrun.card_bytes()[1]}):")
+    for line in roofline.markdown_table(cells).splitlines():
+        print(f"[4p c] {line}")
+    for key, c in roofline.pick_hillclimb(cells).items():
+        print(f"[4p c] {key}: {c['arch']} x {c['shape']} (dominant="
+              f"{c['dominant']}, frac={c['roofline_frac']:.1%})")
+    out["table_s"] = table_s
     return out
 
 
@@ -4655,6 +5053,7 @@ def run(dev) -> None:
     extension()
     print(f"[2 build] kernels built in {time.perf_counter() - t0:.3f} s")
 
+    t_run = time.perf_counter()
     corpora = [make_corpus(SEED + i, N_ROWS, DIM)
                for i in range(N_SESSIONS)]
 
@@ -4963,7 +5362,10 @@ def run(dev) -> None:
     # -- 4b. the blocked main path -------------------------------------------
     blocked_launches = blocked_main_path(dev, blocked_corpora, cfg)
 
+    print(f"[4-4b] phases 3-4b {time.perf_counter() - t_run:.1f} s")
+
     # -- 4c. the LM serving path ---------------------------------------------
+    t0 = time.perf_counter()
     from repro_torch.models.model import init_params, n_params
 
     lm_model = init_params(lm_cfg, torch.Generator(device=dev).manual_seed(
@@ -4978,11 +5380,15 @@ def run(dev) -> None:
     # -- 4d. the LM machine phase into the join ------------------------------
     machine = lm_machine_phase(dev, lm_cfg, lm_model)
     del lm_model
+    print(f"[4c/4d] phase wall {time.perf_counter() - t0:.1f} s")
 
     # -- 4e. the noisy dense path --------------------------------------------
+    t0 = time.perf_counter()
     noisy_launches, noisy_fields, noisy_wall = noisy_path(dev, corpora)
+    print(f"[4e] phase wall {time.perf_counter() - t0:.1f} s")
 
     # -- 4f. the paper's pipeline -------------------------------------------
+    t0 = time.perf_counter()
     pipeline = paper_pipeline(dev)
     pl_args = []    # (lanes, call, args) at the pipeline's shapes
     for call, args in zip(("screen", "deduce"), pipeline_round_args(dev)):
@@ -4992,12 +5398,44 @@ def run(dev) -> None:
                                f"the sweep's round-1 {call}, {lanes} lanes",
                                lane_args)
             pl_args.append((lanes, call, lane_args))
+    print(f"[4f] phase wall {time.perf_counter() - t0:.1f} s")
 
     # -- 4g. a universe past 46340 objects ----------------------------------
+    t0 = time.perf_counter()
     large = large_universe(dev)
+    print(f"[4g] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # -- 6, taken here: one call's device time by kernel --------------------
+    # torch.profiler on the card drops device records for a while after a
+    # profile taken with the card nearly full (phase 4p a profiles
+    # moonshot's decode beside its 56 GB of weights), so these splits are
+    # taken before the LM phases; they are printed under phase 6's tag
+    wide_screen = large["screen_args"]
+    print("[6 pair_scores] one call's device time by kernel: "
+          + device_split(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
+                                                       N_ROWS)))
+    ud_split = device_split(lambda: ud_kernel.launch(*screen_args))
+    print("[6 union_deduce] one call's device time by kernel: " + ud_split)
+    if ud_split.count(" a call: ") != 1:
+        raise AssertionError("union_deduce's launch runs more than its kernel")
+    wide_split = device_split(lambda: ud_kernel.launch(*wide_screen))
+    print("[6 union_deduce wide] one call's device time by kernel: "
+          + wide_split)
+    if wide_split.count(" a call: ") != 1:
+        raise AssertionError("the wide union_deduce's launch runs more than "
+                             "its kernel")
+    print("[6 pair_scores_compact] one call's device time by kernel: "
+          + device_split(lambda: ps_kernel.pair_scores_compact(
+              *chunk_args, THRESHOLD, c_call, bn, bm)))
+    print("[6 decode_attention] one call's device time by kernel: "
+          + device_split(lambda: da_kernel.decode_attention(*da_args)))
+    print("[6 decode_attention int8] one call's device time by kernel: "
+          + device_split(lambda: da_kernel.decode_attention(*d8_args)))
 
     # -- 4h. asynchronous ID/NF serving on a latency-modelled crowd ---------
+    t0 = time.perf_counter()
     async_run = async_path(dev)
+    print(f"[4h] phase wall {time.perf_counter() - t0:.1f} s")
 
     # -- 4i. the service's crowd economics ----------------------------------
     econ = econ_path(dev, corpora)
@@ -5042,6 +5480,12 @@ def run(dev) -> None:
     print(f"[4o] phase 4o {time.perf_counter() - t0:.1f} s")
     ssm_launch = ssm["launches"]
 
+    # -- 4p. the dry-run's cells against the card; moonshot at full width ---
+    t0 = time.perf_counter()
+    acct = accounting_path(dev)
+    print(f"[4p] phase 4p {time.perf_counter() - t0:.1f} s")
+    acct_launch = acct["launches"]
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -5066,7 +5510,6 @@ def run(dev) -> None:
         return lanes * (4 * n * 2 + P * (4 + 4 + 1 + key_bytes + 4) + 4)
 
     # the wide kernel at phase 4g's round-1 screen
-    wide_screen = large["screen_args"]
     wide_B, wide_n = wide_screen[0].shape
     wide_P = wide_screen[1].shape[1]
 
@@ -5119,6 +5562,9 @@ def run(dev) -> None:
     fam_decode = sum(v["decode_attention"] for v in fam_launch.values())
     ssm_flash = sum(v["flash_attention"] for v in ssm_launch.values())
     ssm_decode = sum(v["decode_attention"] for v in ssm_launch.values())
+    cell_launch = [v for k, v in acct_launch.items() if k != "moonshot"]
+    cell_flash = sum(v["flash_attention"] for v in cell_launch)
+    cell_decode = sum(v["decode_attention"] for v in cell_launch)
 
     def library_pair_scores():
         s = torch.matmul(a, b.T)
@@ -5228,14 +5674,17 @@ def run(dev) -> None:
              "lm_machine_phase": machine["launches"]["flash_attention"],
              "training": train["launches"],
              "lm_families": fam_flash,
-             "ssm_hybrid": ssm_flash},
+             "ssm_hybrid": ssm_flash,
+             "moonshot": acct_launch["moonshot"]["flash_attention"],
+             "dryrun_cells": cell_flash},
          "max_abs_err": fa_err,
          "ms": cuda_ms(lambda: fa_kernel.flash_attention(fq, fk, fv)),
          "plain_ms": cuda_ms(lambda: mha_causal_ref(fq, fk, fv), 5),
          "bound_ms": fa_bound, "bound_by": fa_by,
          "library_ms": cuda_ms(lambda: sdpa(
              fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
-             is_causal=True, enable_gqa=True))},
+             is_causal=True, enable_gqa=True)),
+         "at_prefill_32k": acct["flash_prefill_32k"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -5243,13 +5692,16 @@ def run(dev) -> None:
          "launches_by_path": {
              "lm_serving": serving["launches"]["decode_attention"],
              "lm_families": fam_decode,
-             "ssm_hybrid": ssm_decode},
+             "ssm_hybrid": ssm_decode,
+             "moonshot": acct_launch["moonshot"]["decode_attention"],
+             "dryrun_cells": cell_decode},
          "splits": da_splits, "max_abs_err": da_err,
          "ms": cuda_ms(lambda: da_kernel.decode_attention(dq, dk, dv, dn)),
          "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
          "bound_ms": da_bound, "bound_by": da_by,
          "library_ms": sdpa_bf16_ms,
-         "at_long_500k": ssm["decode_long"]},
+         "at_long_500k": ssm["decode_long"],
+         "at_decode_32k": acct["decode_decode_32k"]},
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -5262,26 +5714,6 @@ def run(dev) -> None:
          # cache at the same shape, for scale
          "library_ms": None, "sdpa_over_bf16_cache_ms": sdpa_bf16_ms},
     ]
-    print("[6 pair_scores] one call's device time by kernel: "
-          + device_split(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
-                                                       N)))
-    ud_split = device_split(lambda: ud_kernel.launch(*screen_args))
-    print("[6 union_deduce] one call's device time by kernel: " + ud_split)
-    if ud_split.count(" a call: ") != 1:
-        raise AssertionError("union_deduce's launch runs more than its kernel")
-    wide_split = device_split(lambda: ud_kernel.launch(*wide_screen))
-    print("[6 union_deduce wide] one call's device time by kernel: "
-          + wide_split)
-    if wide_split.count(" a call: ") != 1:
-        raise AssertionError("the wide union_deduce's launch runs more than "
-                             "its kernel")
-    print("[6 pair_scores_compact] one call's device time by kernel: "
-          + device_split(lambda: ps_kernel.pair_scores_compact(
-              *chunk_args, THRESHOLD, c_call, bn, bm)))
-    print("[6 decode_attention] one call's device time by kernel: "
-          + device_split(lambda: da_kernel.decode_attention(dq, dk, dv, dn)))
-    print("[6 decode_attention int8] one call's device time by kernel: "
-          + device_split(lambda: da_kernel.decode_attention(*d8_args)))
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
           f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W)")

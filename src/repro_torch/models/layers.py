@@ -2,8 +2,8 @@
 attention through the hand-written flash and decode kernels (the decode
 kernel also over the int8 KV cache, which it dequantizes itself), SwiGLU
 MLP.  A port of the JAX package's ``models/layers.py`` for the attention
-families; only the dry-run's ``attn_impl="kernel_stub"`` is refused (ROADMAP
-A12, with the dry-run).
+families, the dry-run's ``attn_impl="kernel_stub"`` stand-in included
+(:func:`kernel_stub_attention`).
 
 Training: ``rmsnorm`` is an autograd Function whose backward is the
 reference's custom VJP term for term, and attention under autograd goes
@@ -47,7 +47,7 @@ class ParamSpec:
 Specs = Dict[str, ParamSpec]
 
 
-def _unported(what: str, item: str = "A12"):
+def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
@@ -231,22 +231,36 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
+def kernel_stub_attention(q, k, v) -> torch.Tensor:
+    """The dry-run's stand-in for the flash kernel, the reference's
+    ``attn_impl="kernel_stub"`` as it stands: ``(repeat(k, G) + q) * 0.5 +
+    repeat(v, G)``, G the query heads a kv head.  It is an accounting
+    device and runs no attention: the block keeps its projections (real
+    matrix products outside the kernel) and :mod:`repro_torch.launch.dryrun`
+    adds the kernel's analytic costs.  The serving engine, the trainer and
+    ``chip_smoke.py``'s kernel paths never select it."""
+    G = q.shape[2] // k.shape[2]
+    return (torch.repeat_interleave(k, G, dim=2) + q) * 0.5 \
+        + torch.repeat_interleave(v, G, dim=2)
+
+
 def causal_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     """The attention of a prefill or backbone layer by ``cfg.attn_impl``:
     ``"chunked"`` (the reference's jnp stand-in for the flash kernel) and
     ``"pallas"`` run the ``flash_attention`` op, hand-written CUDA on the
     card; under autograd (grad mode on and an input requiring a gradient)
     through :class:`FlashAttentionFn`, whose backward takes query chunks of
-    ``cfg.attn_chunk_q`` rows.  ``"naive"`` raises: it would run plain
-    PyTorch on the card in place of the kernel (the plain version is the
-    op's CPU path)."""
+    ``cfg.attn_chunk_q`` rows.  ``"kernel_stub"`` is the dry-run's stand-in
+    (:func:`kernel_stub_attention`), which runs no attention.  ``"naive"``
+    raises: it would run plain PyTorch on the card in place of the kernel
+    (the plain version is the op's CPU path)."""
     if cfg.attn_impl in ("chunked", "pallas"):
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
             return FlashAttentionFn.apply(q, k, v, cfg.attn_chunk_q)
         return flash_attention(q, k, v)
     if cfg.attn_impl == "kernel_stub":
-        raise _unported("attn_impl='kernel_stub' (the dry-run's stand-in)")
+        return kernel_stub_attention(q, k, v)
     if cfg.attn_impl == "naive":
         raise ValueError("attn_impl='naive' is not offered: attention runs "
                          "through the flash_attention op")
@@ -259,8 +273,14 @@ def decode_attention(q, k_cache, v_cache, length, cfg: ModelConfig,
     ``decode_attention`` op (hand-written CUDA on the card).
     q: (B, 1, H, hd); caches: (B, S_max, K, hd); length: valid prefix.  An
     int8 cache comes with its bf16 scales (B, S_max, K), which the op
-    applies as :func:`dequantize_kv` (the reference's dequantization) does."""
+    applies as :func:`dequantize_kv` (the reference's dequantization) does.
+
+    The op has no meta path: on meta tensors (no storage; the dry-run's
+    trace, :mod:`repro_torch.launch.dryrun`, which adds the kernel's
+    analytic costs) this returns an empty output of the shape."""
     B, _, H, hd = q.shape
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     o = _decode_kernel_op(q.reshape(B, H, hd), k_cache, v_cache, length,
                           k_scale, v_scale)
     return o.reshape(B, 1, H, hd)

@@ -8,9 +8,10 @@ dense configs, the expert layers of ``olmoe-1b-7b`` and
 KV cache (``kv_quant``) of the attention families, RWKV6 (``rwkv6-3b``)
 and zamba2's Mamba2 layers with their shared attention block
 (``zamba2-1.2b``; :mod:`.ssm`).  The all-to-all expert layer
-(``moe_impl="a2a"``) raises ``NotImplementedError`` naming ROADMAP A8, the
-dry-run's ``attn_impl="kernel_stub"`` naming A12, and the hybrid under
-``kv_quant`` ``ValueError`` naming R7 (the reference cannot decode it).
+(``moe_impl="a2a"``) raises ``NotImplementedError`` naming ROADMAP A8, and
+the hybrid under ``kv_quant`` ``ValueError`` naming R7 (the reference cannot
+decode it).  The dry-run's ``attn_impl="kernel_stub"`` builds: its stand-in
+runs no attention (:func:`.layers.kernel_stub_attention`).
 
 The parameters live in a :class:`Model` (an ``nn.Module``), stacked per
 layer with a leading ``layers`` axis as in the reference, so the JAX
@@ -29,7 +30,7 @@ model:
                                          when training with remat="block")
   prefill(model, batch, max_len)       — (cache, last-position logits)
   decode_step(model, cache, batch)     — (logits, cache) for one new token
-  make_cache / cache_axes / decode_layer_step / layer_step
+  make_cache / cache_specs / cache_axes / decode_layer_step / layer_step
 
 A batch is ``tokens`` (B, S), and for the front ends ``prefix_embeds``
 (B, P, d) (the vision stub's patches or the audio stub's frames), put
@@ -56,6 +57,7 @@ tensor on the card that the decode kernel reads, so a host loop of
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -80,21 +82,20 @@ FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port's model does not run,
-    and ValueError for the hybrid under ``kv_quant``, which the reference
+    """Raise NotImplementedError for what the port's model does not run
+    (the all-to-all expert layer, ROADMAP A8), and ValueError for an
+    unknown family and for the hybrid under ``kv_quant``, which the reference
     builds but cannot decode (ROADMAP R7: its hybrid cache stays bf16 and
     its hybrid decode passes no scales to the int8 attention)."""
     if cfg.family not in FAMILIES:
-        raise _unported(f"{cfg.name}: the {cfg.family!r} family")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"known: {FAMILIES}")
     if cfg.family == "hybrid" and cfg.kv_quant:
         raise ValueError(f"{cfg.name}: the hybrid family under kv_quant, "
                          "which the reference cannot decode (ROADMAP R7)")
     if cfg.is_moe and cfg.moe_impl == "a2a":
         raise _unported(f"{cfg.name}: the all-to-all expert layer "
                         "(moe_impl='a2a'), which needs the mesh", "A8")
-    if cfg.attn_impl == "kernel_stub":
-        raise _unported(f"{cfg.name}: attn_impl='kernel_stub' (the "
-                        "dry-run's stand-in)")
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +301,51 @@ def _special_init(path: str, spec: ParamSpec,
     return None
 
 
+def _device_bytes(device: torch.device) -> int:
+    """The memory of the device a draw lands on: a card's total memory, or
+    the host's physical memory."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _drawn_in_slices(spec: ParamSpec, beside: int, capacity: int) -> bool:
+    """Whether a leaf's whole f32 draw would not fit in ``capacity`` bytes
+    beside ``beside`` bytes of parameters (and it has a leading axis to
+    slice along)."""
+    return len(spec.shape) >= 2 \
+        and 4 * math.prod(spec.shape) + beside > capacity
+
+
+def _normal_leaf(spec: ParamSpec, generator: torch.Generator,
+                 dev: torch.device, param_bytes: int) -> torch.Tensor:
+    """``N(0, 1) / sqrt(fan_in)`` drawn in f32 on the generator's device and
+    cast to the spec's dtype on ``dev``.  One draw of the whole leaf, unless
+    that f32 draw would not fit beside the parameters on the generator's
+    device: then one draw a slice along the leading axis (a layer's
+    stacked weights), in the same generator order, each cast into the
+    destination, so the draw never holds more than one slice in f32.  On a
+    CPU generator slices of a multiple of 16 elements give the whole draw
+    bit for bit; on a card's they need not, which is why only a leaf that
+    cannot be drawn whole is sliced."""
+    gdev = generator.device
+    scale = 1.0 / math.sqrt(max(spec.fan_in, 1))
+    beside = param_bytes if gdev.type == dev.type else 0
+    if not _drawn_in_slices(spec, beside, _device_bytes(gdev)):
+        w = torch.randn(spec.shape, generator=generator,
+                        dtype=torch.float32, device=gdev)
+        w *= scale
+        return w.to(device=dev, dtype=spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+    for i in range(spec.shape[0]):
+        w = torch.randn(spec.shape[1:], generator=generator,
+                        dtype=torch.float32, device=gdev)
+        w *= scale
+        out[i] = w
+        del w
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Model:
     """A :class:`Model` with the reference's init: the SSM leaves by
@@ -309,12 +355,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     of fan-in 0 (norm scales, biases), ``N(0, 1) / sqrt(fan_in)``
     otherwise, drawn in f32 from ``generator`` (on its own device, in
     sorted path order) and cast to each spec's dtype on ``device`` (the
-    card unless the caller says otherwise).  torch's numbers are not
-    JAX's: to compare with the reference, carry its parameters across
-    instead."""
+    card unless the caller says otherwise).  A leaf whose f32 draw would
+    not fit beside the parameters (``moonshot-v1-16b-a3b``'s experts on an
+    80 GB card) is drawn a slice at a time (:func:`_normal_leaf`).  torch's
+    numbers are not JAX's: to compare with the reference, carry its
+    parameters across instead."""
     dev = pick_device(device)
+    specs = model_specs(cfg)
+    param_bytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                      for s in specs.values())
     flat = {}
-    for path, spec in sorted(model_specs(cfg).items()):
+    for path, spec in sorted(specs.items()):
         special = _special_init(path, spec, generator)
         if special is not None:
             flat[path] = special.to(device=dev, dtype=spec.dtype)
@@ -322,10 +373,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if spec.fan_in == 0:
             flat[path] = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
             continue
-        w = torch.randn(spec.shape, generator=generator,
-                        dtype=torch.float32, device=generator.device)
-        w *= 1.0 / math.sqrt(max(spec.fan_in, 1))
-        flat[path] = w.to(device=dev, dtype=spec.dtype)
+        flat[path] = _normal_leaf(spec, generator, dev, param_bytes)
     return Model(cfg, flat)
 
 
@@ -479,6 +527,35 @@ def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Serving: caches, prefill, decode
 # ---------------------------------------------------------------------------
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``{entry: (shape, dtype)}`` of :func:`make_cache`'s cache."""
+    check_supported(cfg)
+    L = cfg.n_layers
+    c = {"length": ((), torch.int32)}
+    if cfg.rwkv:
+        hd = cfg.ssm_head_dim
+        c["wkv"] = ((L, batch, cfg.d_model // hd, hd, hd), torch.float32)
+        c["tm_x"] = ((L, batch, 1, cfg.d_model), torch.bfloat16)
+        c["cm_x"] = ((L, batch, 1, cfg.d_model), torch.bfloat16)
+        return c
+    n_kv = L
+    if cfg.family == "hybrid":
+        c["ssm"] = ((L, batch, cfg.n_ssm_heads, cfg.ssm_state,
+                     cfg.ssm_head_dim), torch.float32)
+        c["conv"] = ((L, batch, cfg.ssm_conv - 1,
+                      cfg.d_inner + 2 * cfg.ssm_state), torch.bfloat16)
+        n_kv = cfg.n_shared_attn
+    shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    kv_dt = torch.int8 if cfg.kv_quant else torch.bfloat16
+    c["k"] = (shape, kv_dt)
+    c["v"] = (shape, kv_dt)
+    if cfg.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            c[name] = (shape[:-1], torch.bfloat16)
+    return c
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Params:
     """A zeroed cache with the reference's entries and dtypes: ``length``
@@ -492,36 +569,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     - hybrid: ``ssm`` (L, batch, H, N, P) f32, ``conv`` (L, batch, k - 1,
       d_inner + 2N) bf16 and the shared block's ``k``, ``v``
       (n_shared_attn, batch, max_len, K, hd) bf16."""
-    check_supported(cfg)
+    specs = cache_specs(cfg, batch, max_len)
     dev = pick_device(device)
-    L = cfg.n_layers
-
-    def zeros(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
-    c = {"length": zeros((), torch.int32)}
-    if cfg.rwkv:
-        hd = cfg.ssm_head_dim
-        c["wkv"] = zeros((L, batch, cfg.d_model // hd, hd, hd),
-                         torch.float32)
-        c["tm_x"] = zeros((L, batch, 1, cfg.d_model), torch.bfloat16)
-        c["cm_x"] = zeros((L, batch, 1, cfg.d_model), torch.bfloat16)
-        return c
-    n_kv = L
-    if cfg.family == "hybrid":
-        c["ssm"] = zeros((L, batch, cfg.n_ssm_heads, cfg.ssm_state,
-                          cfg.ssm_head_dim), torch.float32)
-        c["conv"] = zeros((L, batch, cfg.ssm_conv - 1,
-                           cfg.d_inner + 2 * cfg.ssm_state), torch.bfloat16)
-        n_kv = cfg.n_shared_attn
-    shape = (n_kv, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    kv_dt = torch.int8 if cfg.kv_quant else torch.bfloat16
-    c["k"] = zeros(shape, kv_dt)
-    c["v"] = zeros(shape, kv_dt)
-    if cfg.kv_quant:
-        for name in ("k_scale", "v_scale"):
-            c[name] = zeros(shape[:-1], torch.bfloat16)
-    return c
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, (shape, dtype) in specs.items()}
 
 
 def cache_axes(cfg: ModelConfig) -> Params:
@@ -669,8 +720,12 @@ def prefill(model: Model, batch: Dict[str, Any], max_len: int
     cache = make_cache(cfg, B, max_len, x.device)
     cache["length"].fill_(S)
     x_embed = x if cfg.attn_every else None
+    # the reference's prefill runs its attention whatever attn_impl says:
+    # the dry-run's stand-in is the backbone's alone
+    run_cfg = cfg.replace(attn_impl="chunked") \
+        if cfg.attn_impl == "kernel_stub" else cfg
     for i, lp in enumerate(model.layer_params):
-        x, state, _ = layer_step(lp, x, positions, cfg, i, model.shared,
+        x, state, _ = layer_step(lp, x, positions, run_cfg, i, model.shared,
                                  x_embed)
         if "k" in state:
             j = i // cfg.attn_every if hybrid else i

@@ -1670,3 +1670,90 @@ def test_train_step_on_card_matches_cpu(dev):
     _, on_cpu = _train("cpu", 3, host)
     _, on_card = _train(dev, 3, card)
     np.testing.assert_allclose(on_card, on_cpu, rtol=2e-3, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's cells (chip_smoke.py phase 4p): the kernels at their
+# shapes, and the sliced parameter draw on a card's generator
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,H,K,d", [
+    (1, 8192, 16, 8, 128),     # internlm2-1.8b, prefill_32k's plain-held S
+    (8, 1024, 16, 16, 128),    # moonshot-v1-16b-a3b's heads
+])
+def test_flash_attention_kernel_at_the_dryrun_cells(dev, B, S, H, K, d):
+    q = _randn(dev, (B, S, H, d), torch.bfloat16, S)
+    k = _randn(dev, (B, S, K, d), torch.bfloat16, S + 1)
+    v = _randn(dev, (B, S, K, d), torch.bfloat16, S + 2)
+    got = fa_kernel.flash_attention(q, k, v)
+    _assert_attn_close(got, mha_causal_ref(q, k, v), "flash")
+
+
+def test_flash_attention_kernel_at_32768_tokens_last_rows(dev):
+    """(1, 32768, 16 / 8, 128): the plain version's f32 score matrix would
+    be 68.7 GB, so the last 256 query rows are held to the plain f32
+    attention of those rows over every key before them."""
+    from repro_torch.models.layers import _attention_chunk
+
+    S, rows = 32768, 256
+    q = _randn(dev, (1, S, 16, 128), torch.bfloat16, 1)
+    k = _randn(dev, (1, S, 8, 128), torch.bfloat16, 2)
+    v = _randn(dev, (1, S, 8, 128), torch.bfloat16, 3)
+    got = fa_kernel.flash_attention(q, k, v)[:, S - rows:]
+    exp = _attention_chunk(q[:, S - rows:].float(), k.float(), v.float(),
+                           S - rows).to(torch.bfloat16)
+    _assert_attn_close(got, exp, "flash")
+
+
+@pytest.mark.parametrize("B,S,H,K,d,length", [
+    (8, 32768, 16, 8, 128, 32760),    # internlm2-1.8b at decode_32k, batch 8
+    (1, 32768, 16, 16, 128, 32760),   # moonshot-v1-16b-a3b there, batch 1
+    (8, 2048, 16, 16, 128, 1039),     # moonshot's serving wave
+])
+def test_decode_attention_kernel_at_the_dryrun_cells(dev, B, S, H, K, d,
+                                                     length):
+    q = _randn(dev, (B, H, d), torch.bfloat16, length)
+    kc = _randn(dev, (B, S, K, d), torch.bfloat16, length + 1)
+    vc = _randn(dev, (B, S, K, d), torch.bfloat16, length + 2)
+    kc[:, length:] = 1e4
+    vc[:, length:] = -1e4
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n)
+    _assert_attn_close(got, decode_attention_ref(q, kc, vc, length),
+                       "decode")
+
+
+def test_sliced_draw_on_a_card_generator(dev, monkeypatch):
+    """A leaf drawn a slice at a time on the card's generator is the
+    slices drawn one after another from that generator, scaled and cast
+    (the same generator order), and repeats bit for bit.  A config the card
+    drew before is not sliced on an 80 GB card, so its draw is the whole
+    draw of before, leaf for leaf (``paper-scorer`` here;
+    ``chip_smoke.py`` phase 4p does ``internlm2-1.8b``)."""
+    import math
+
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import ParamSpec
+
+    spec = ParamSpec((4, 8, 256, 96), (None,) * 4, fan_in=256)
+    monkeypatch.setattr(M, "_device_bytes", lambda device: 0)
+    draws = [M._normal_leaf(spec, torch.Generator(device=dev).manual_seed(5),
+                            torch.device(dev), 0) for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    want = torch.stack([(torch.randn(spec.shape[1:], generator=gen,
+                                     device=dev) * (1.0 / math.sqrt(256)))
+                        .to(torch.bfloat16) for _ in range(4)])
+    for got in draws:
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    monkeypatch.undo()
+    cfg = get("paper-scorer")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for path, spec in sorted(M.model_specs(cfg).items()):
+        leaf = getattr(model, path.replace("/", "_"))
+        if spec.fan_in == 0:
+            assert not bool(leaf.any()), path
+            continue
+        w = torch.randn(spec.shape, generator=gen, device=dev)
+        w *= 1.0 / math.sqrt(spec.fan_in)
+        assert torch.equal(leaf.view(torch.int16),
+                           w.to(torch.bfloat16).view(torch.int16)), path

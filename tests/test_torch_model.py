@@ -151,24 +151,88 @@ def test_decode_matches_prefill_on_the_port(pair):
     _close(_t(l2), _t(l3), 1e-2 if pair["dtype"] == "f32" else 1e-3)
 
 
-# (arch, config overrides, the ROADMAP item the refusal names): the
-# all-to-all expert layer (A8) and the dry-run's attention stand-in (A12);
-# moonshot, qwen2-vl, musicgen, zamba2 and rwkv6 themselves build now
-# (tests/test_torch_{moe,mrope,ssm}.py)
+# (arch, config overrides, the ROADMAP item a refusal names): the
+# all-to-all expert layer (A8) is refused; the dry-run's attention stand-in
+# builds (item None) and is held to the reference's forward
 REFUSED = {"moonshot-v1-16b-a3b": ({"moe_impl": "a2a"}, "A8"),
-           "zamba2-1.2b": ({"attn_impl": "kernel_stub"}, "A12"),
-           "qwen2-vl-2b": ({"attn_impl": "kernel_stub"}, "A12"),
-           "musicgen-medium": ({"attn_impl": "kernel_stub"}, "A12")}
+           "zamba2-1.2b": ({"attn_impl": "kernel_stub"}, None),
+           "qwen2-vl-2b": ({"attn_impl": "kernel_stub"}, None),
+           "musicgen-medium": ({"attn_impl": "kernel_stub"}, None)}
+
+
+def _stub_batches(jcfg, seed=1):
+    """The reference's ``dummy_batch`` for a prefill of S positions (prefix
+    included), as JAX and as torch inputs."""
+    from repro.configs.shapes import dummy_batch as jax_dummy_batch
+
+    jb = jax_dummy_batch(jcfg, S, B, "prefill", seed=seed)
+    jb = {k: v for k, v in jb.items() if k != "targets"}
+    tb = {}
+    for k, v in jb.items():
+        a = np.array(v, np.float32 if v.dtype == jnp.bfloat16 else v.dtype)
+        tb[k] = torch.from_numpy(a).to(torch.bfloat16) \
+            if v.dtype == jnp.bfloat16 else torch.from_numpy(a)
+    return jb, tb
 
 
 @pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_unported_families_raise(arch):
+    """The all-to-all expert layer raises naming A8.  The dry-run's
+    ``attn_impl="kernel_stub"`` builds, and its backbone's logits under f32
+    parameters carried over from the reference agree with the reference's
+    own ``kernel_stub`` backbone within the f32 tolerance (the stand-in is
+    elementwise; the products sum in another order).  Its prefill runs the
+    attention, as the reference's does whatever ``attn_impl`` says."""
     overrides, item = REFUSED[arch]
     cfg = get(arch).reduced().replace(**overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        M.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        M.make_cache(cfg, 1, 8, "cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            M.init_params(cfg, torch.Generator(), "cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            M.make_cache(cfg, 1, 8, "cpu")
+        return
+    jcfg = jax_get(arch).reduced().replace(**overrides)
+    params = jax.tree.map(
+        lambda x: np.asarray(x, np.float32),
+        JM.init_params(jcfg, jax.random.PRNGKey(0)))
+    jparams = jax.tree.map(jnp.asarray, params)
+    model = model_params_from_numpy(cfg, params, "cpu").float()
+    jb, tb = _stub_batches(jcfg)
+    jx, jpos = JM._embed_inputs(jparams, jb, jcfg)
+    ref = JM._logits(jparams, JM.backbone(jparams, jx, jpos, jcfg)[0], jcfg)
+    x, pos = M._embed_inputs(model, tb)
+    got = M._logits(model, M.backbone(model, x, pos))
+    assert got.shape == (B, S, cfg.vocab)
+    _close(_t(got), np.asarray(ref, np.float32), TOL["f32"])
+    _, jlog = JM.prefill(jparams, jb, jcfg, MAX_LEN)
+    _, tlog = M.prefill(model, tb, MAX_LEN)
+    _close(_t(tlog), np.asarray(jlog, np.float32), TOL["f32"])
+
+
+def test_kernel_stub_attention_block_is_bitwise():
+    """The port's attention block under ``kernel_stub`` against the
+    reference's, bit for bit in f32: identity projections and positions 0
+    (RoPE's angles 0) leave only the stand-in's arithmetic, which both
+    sides do in the same order."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    cfg = get("granite-3-2b").reduced().replace(attn_impl="kernel_stub")
+    jcfg = jax_get("granite-3-2b").reduced().replace(attn_impl="kernel_stub")
+    H, K, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    eye = np.eye(d, dtype=np.float32)
+    p = {"wq": eye[:, :H * hd], "wk": eye[:, :K * hd],
+         "wv": eye[:, K * hd:2 * K * hd], "wo": eye[:H * hd]}
+    x = np.random.default_rng(5).normal(size=(B, S, d)).astype(np.float32)
+    pos = np.zeros((B, S), np.int32)
+    ref = JL.attention_block(jnp.asarray(x), {k: jnp.asarray(v)
+                                              for k, v in p.items()},
+                             jcfg, jnp.asarray(pos))
+    got, _, _ = L.attention_block(torch.from_numpy(x), {
+        k: torch.from_numpy(v) for k, v in p.items()}, cfg,
+        torch.from_numpy(pos))
+    assert np.array_equal(_t(got).view(np.int32),
+                          np.asarray(ref, np.float32).view(np.int32))
 
 
 def test_converted_leaf_is_checked():
@@ -195,3 +259,83 @@ def test_naive_attention_is_refused():
     k = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
     with pytest.raises(ValueError, match="naive"):
         layers.causal_attention(q, k, k, cfg)
+
+
+# configs drawn at full width on the card before the sliced draw
+CARD_DRAWN = ("paper-scorer", "internlm2-1.8b", "qwen2-vl-2b",
+              "musicgen-medium", "olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b")
+
+
+def _whole_draw(cfg, generator):
+    """``init_params``' draw as it was before leaves could be sliced: each
+    leaf one f32 draw, scaled, cast."""
+    import math
+
+    flat = {}
+    for path, spec in sorted(M.model_specs(cfg).items()):
+        special = M._special_init(path, spec, generator)
+        if special is not None:
+            flat[path] = special.to(spec.dtype)
+        elif spec.fan_in == 0:
+            flat[path] = torch.zeros(spec.shape, dtype=spec.dtype)
+        else:
+            w = torch.randn(spec.shape, generator=generator,
+                            dtype=torch.float32)
+            w *= 1.0 / math.sqrt(max(spec.fan_in, 1))
+            flat[path] = w.to(spec.dtype)
+    return flat
+
+
+def test_sliced_draw_is_the_whole_draw_on_a_cpu_generator(monkeypatch):
+    """On a CPU generator ``torch.randn`` fills its uniforms in order and
+    transforms them in blocks of 16, so slices of a multiple of 16 elements
+    give the whole draw bit for bit, and leave the generator where the
+    whole draw does."""
+    from repro_torch.models.layers import ParamSpec
+
+    spec = ParamSpec((3, 4, 32, 48), (None,) * 4, fan_in=32)
+    whole_gen = torch.Generator().manual_seed(7)
+    whole = M._normal_leaf(spec, whole_gen, torch.device("cpu"), 0)
+    monkeypatch.setattr(M, "_device_bytes", lambda device: 0)
+    sliced_gen = torch.Generator().manual_seed(7)
+    sliced = M._normal_leaf(spec, sliced_gen, torch.device("cpu"), 0)
+    assert torch.equal(whole.view(torch.int16), sliced.view(torch.int16))
+    assert torch.equal(torch.randn(5, generator=whole_gen),
+                       torch.randn(5, generator=sliced_gen))
+
+
+def test_reduced_moonshot_draw_is_unchanged_by_slicing(monkeypatch):
+    """Every leaf of a reduced ``moonshot-v1-16b-a3b`` drawn a slice at a
+    time equals the whole draw of before, leaf for leaf."""
+    cfg = get("moonshot-v1-16b-a3b").reduced()
+    before = _whole_draw(cfg, torch.Generator().manual_seed(3))
+    monkeypatch.setattr(M, "_device_bytes", lambda device: 0)
+    model = M.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    for path, leaf in model.named_leaves():
+        assert torch.equal(leaf.view(torch.int16),
+                           before[path].view(torch.int16)), path
+
+
+def test_only_moonshots_experts_are_sliced_on_an_80_gb_card():
+    """At full width ``moonshot-v1-16b-a3b`` has 28057995264 parameters
+    (56.1 GB in bf16); each expert leaf (48, 64, 2048, 1408) is 35.4 GB as
+    one f32 draw, which does not fit beside them on an 80 GB card, so those
+    three leaves are drawn a layer at a time (738 MB of f32 a slice).  No
+    leaf of a config the card drew before is sliced, so their draws stay
+    what they were."""
+    card = 80 * 2 ** 30
+    cfg = get("moonshot-v1-16b-a3b")
+    assert M.n_params(cfg) == 28057995264
+    specs = M.model_specs(cfg)
+    params = sum(2 * np.prod(s.shape) for s in specs.values())
+    sliced = sorted(p for p, s in specs.items()
+                    if M._drawn_in_slices(s, params, card))
+    assert sliced == ["layers/moe/wi_gate", "layers/moe/wi_up",
+                      "layers/moe/wo"]
+    assert 4 * np.prod(specs["layers/moe/wi_gate"].shape) == 35433480192
+    for arch in CARD_DRAWN:
+        specs = M.model_specs(get(arch))
+        params = sum(s.dtype.itemsize * np.prod(s.shape)
+                     for s in specs.values())
+        assert not any(M._drawn_in_slices(s, params, card)
+                       for s in specs.values()), arch
