@@ -294,6 +294,27 @@ carries on.  Phases, one output line or block each:
    16 / 8, 128) against their plain versions, timed beside their bounds
    and SDPA; (c) the H100 roofline table of every arch x shape, traced on
    the host;
+4q. the (data, model) mesh on the card: a (2, 2) mesh of four ranks
+   (``repro_torch.launch.mesh.spawn``) sharing the one card on the backend
+   the launcher names (gloo: NCCL refuses two ranks of one communicator on
+   one card), the backend, each rank's place and device printed: (a)
+   phase 4's four corpora through ``sharded_candidates`` on the mesh, each
+   rank launching the ``pair_scores`` kernel once a corpus on its (2048,
+   2048) block (its count read in the rank); the candidates equal phase
+   4's single-device candidates bit for bit (a cell is summed with fmaf in
+   k order from 0 whatever the block's size, ``score_tile.cuh``), in the
+   rank-major order, no drop, identical on every rank, and the gather's ms
+   and bytes; (b) corpus 0 served by ``JoinService.submit_embeddings(...,
+   mesh)`` and ``run()`` in every rank: every result field identical on
+   the four ranks, and the same session at (1, 1): its scalar fields equal
+   and each pair's label and crowdsourcing equal (the arrays follow the
+   candidates, which come in another order); ``union_deduce`` launched in
+   every rank; (c) ``moe_block_a2a`` at ``olmoe-1b-7b``'s full width (d
+   2048, 64 experts, top 8, d_ff 1024) in bf16 at capacity factor 8 over
+   (8, 512) tokens, 32 experts a rank: forward and input gradient within
+   the reference's 8e-3 of ``moe_block`` on rank 0, the aux loss within
+   1e-5 of the ranks' router estimates averaged on one device, ms a call
+   and the all-to-all's bytes; any rank's failure fails the phase;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -694,6 +715,15 @@ LAUNCH_CALL = "cudaLaunchKernel"
 # peaks of one H100 SXM (NVIDIA data sheet, dense): f32 outside the tensor
 # cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 67e12, 989e12, 3.35e12
+# phase 4q: the (data, model) mesh of ranks sharing the card; the a2a
+# layer's tokens (B, S) at olmoe-1b-7b's full width, at the capacity factor
+# of the reference's own test (tests/test_sharding.py:87), held to its
+# bound (:103, :107); the ranks' time limit
+MESH_SHAPE = (2, 2)
+MESH_A2A_ARCH, MESH_A2A_TOKENS = "olmoe-1b-7b", (8, 512)
+MESH_A2A_CF, MESH_A2A_TOL = 8.0, 8e-3
+MESH_AUX_TOL = 1e-5     # f32 aux: the same sums, the mean in another order
+MESH_TIMEOUT = 600.0
 
 
 def make_corpus(seed: int, n: int, d: int, more=()):
@@ -3966,6 +3996,285 @@ def check_flash_tail(dev, B, S, H, K, d, rows, seed=0) -> float:
     return err
 
 
+def _digest(*values) -> str:
+    """sha256 of numpy arrays' bytes and dtypes and of other values' reprs:
+    equal digests, equal values."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in values:
+        if isinstance(v, np.ndarray):
+            h.update(str(v.dtype).encode() + v.tobytes())
+        else:
+            h.update(repr(v).encode())
+    return h.hexdigest()
+
+
+def _pair_view(fields: dict, u, v) -> tuple:
+    """A session's result as (scalar fields, {(u, v): (label,
+    crowdsourced)}): comparable across candidate orders."""
+    per_pair = {(int(a), int(b)): (bool(l), bool(c)) for a, b, l, c in zip(
+        u, v, fields["labels"][1], fields["crowdsourced"][1])}
+    return {k: x for k, x in fields.items()
+            if k not in ("labels", "crowdsourced")}, per_pair
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_a2a_config():
+    """The a2a layer's config: the arch at full width, at the reference
+    test's capacity factor."""
+    from repro_torch.configs import get
+
+    return get(MESH_A2A_ARCH).replace(capacity_factor=MESH_A2A_CF,
+                                      moe_impl="a2a")
+
+
+def mesh_rank(mesh, corpora, cfg, tokens) -> dict:
+    """Phase 4q in one rank of the mesh (``spawn``'s body): (a) the four
+    corpora through ``sharded_candidates``, (b) corpus 0 served, (c) the
+    a2a expert layer; its launch counts read in the rank, every rank's
+    digests gathered, rank 0's values returned."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+    from repro_torch.kernels.union_deduce import ops as ud_ops
+    from repro_torch.launch.mesh import all_gather
+    from repro_torch.models.moe import moe_block, route
+    from repro_torch.models.moe_a2a import a2a_capacity, moe_block_a2a
+    from repro_torch.serve.join_service import JoinService
+
+    dev = mesh.device
+    out = {"rank": mesh.rank, "coordinate": mesh.coordinate,
+           "device": str(dev), "mesh": repr(mesh)}
+    tables = [(torch.from_numpy(ea).to(dev), torch.from_numpy(eb).to(dev))
+              for _, ea, _, eb in corpora]
+    _sync(dev)
+
+    # (a) the machine phase on the mesh
+    ps_ops.pair_scores.launches = 0
+    t0 = time.perf_counter()
+    cands = [sharded_candidates(a, b, THRESHOLD, mesh) for a, b in tables]
+    out["a_s"] = time.perf_counter() - t0
+    out["a_launches"] = ps_ops.pair_scores.launches
+    out["cands"] = [(c.rows, c.cols, c.scores, c.n_dropped, c.capacity)
+                    for c in cands]
+    out["a_digest"] = _digest(*[x for c in out["cands"] for x in c])
+    buf = torch.zeros(3 * cands[0].capacity + 1, dtype=torch.int32,
+                      device=dev)
+    all_gather(buf, mesh)
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    all_gather(buf, mesh)
+    _sync(dev)
+    out["gather_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["gather_bytes"] = mesh.size * buf.numel() * buf.element_size()
+    del buf
+
+    # (b) corpus 0 served on the mesh, then run in the rank
+    ids_a, _, ids_b, _ = corpora[0]
+    ps_ops.pair_scores.launches = 0
+    ud_ops.union_deduce.launches = 0
+    t0 = time.perf_counter()
+    svc = JoinService(lanes=1, device=dev)
+    rid = svc.submit_embeddings(
+        *tables[0], THRESHOLD, mesh, crowd=PerfectCrowd(),
+        truth_fn=lambda r, c: ids_a[r] == ids_b[c],
+        total_true_matches=int((ids_a[:, None] == ids_b[None, :]).sum()))
+    pairs = svc.queue[-1].pairs
+    out["b_pairs"] = (pairs.u, pairs.v)
+    out["b_fields"] = result_fields(svc.run()[rid])
+    out["b_s"] = time.perf_counter() - t0
+    out["b_launches"] = {"pair_scores": ps_ops.pair_scores.launches,
+                         "union_deduce": ud_ops.union_deduce.launches}
+    out["b_digest"] = _digest(pairs.u, pairs.v,
+                              sorted(out["b_fields"].items()))
+    del svc, tables
+
+    # (c) the all-to-all experts
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev)
+                / math.sqrt(fan_in)).to(torch.bfloat16)
+
+    p = {"router": draw((d, E), d), "wi_gate": draw((E, d, f), d),
+         "wi_up": draw((E, d, f), d), "wo": draw((E, f, d), f)}
+    B, S = tokens
+    x = (0.5 * torch.randn((B, S, d), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    moe_block_a2a(x, p, cfg, mesh)
+    _sync(dev)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        moe_block_a2a(x, p, cfg, mesh)
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["c_ms"] = times
+    cap = a2a_capacity(cfg, B * S // mesh.size)
+    out["c_cap"] = cap
+    out["c_exchange_bytes"] = E * cap * d * x.element_size()
+    xg = x.clone().requires_grad_()
+    y, aux = moe_block_a2a(xg, p, cfg, mesh)
+    y.float().sum().backward()
+    aux = float(aux.detach())
+    out["c_digest"] = _digest(y.detach().float().cpu().numpy(),
+                              xg.grad.float().cpu().numpy(), aux)
+    if mesh.rank == 0:
+        # the aux loss: every rank's router estimate over its own tokens,
+        # averaged over the mesh, computed here on one device
+        xt = x.reshape(B * S, d)
+        t_my = B * S // mesh.size
+        plain_aux = torch.stack([
+            route(xt[r * t_my:(r + 1) * t_my], p["router"], cfg).aux
+            for r in range(mesh.size)]).mean()
+        out["c_aux"] = (aux, float(plain_aux))
+        x1 = x.clone().requires_grad_()
+        y1, _ = moe_block(x1, p, cfg)
+        y1.float().sum().backward()
+        out["c_err"] = (float((y.detach().float() - y1.detach().float())
+                              .abs().max()),
+                        float((xg.grad.float() - x1.grad.float())
+                              .abs().max()))
+        out["c_scale"] = (float(y1.detach().float().abs().max()),
+                          float(x1.grad.float().abs().max()))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, {
+        k: out[k] for k in ("rank", "coordinate", "device", "a_launches",
+                            "a_digest", "gather_ms", "b_launches",
+                            "b_digest", "c_ms", "c_digest")})
+    out["ranks"] = every
+    return out
+
+
+def mesh_path(dev, corpora) -> dict:
+    """Phase 4q: the (2, 2) mesh of four ranks on the one card, against
+    phase 4's single-device candidates and a (1, 1) session of corpus 0."""
+    import torch
+
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.kernels.pair_scores.sharded import sharded_candidates
+    from repro_torch.launch.mesh import choose_backend, spawn
+    from repro_torch.serve.join_service import JoinService
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    singles = []
+    for _, ea, _, eb in corpora:
+        a, b = torch.from_numpy(ea).to(dev), torch.from_numpy(eb).to(dev)
+        singles.append(sharded_candidates(a, b, THRESHOLD))
+    ids_a, ea, ids_b, eb = corpora[0]
+    one = JoinService(lanes=1, device=dev)
+    rid = one.submit_embeddings(
+        torch.from_numpy(ea).to(dev), torch.from_numpy(eb).to(dev),
+        THRESHOLD, crowd=PerfectCrowd(),
+        truth_fn=lambda r, c: ids_a[r] == ids_b[c],
+        total_true_matches=int((ids_a[:, None] == ids_b[None, :]).sum()))
+    one_pairs = one.queue[-1].pairs
+    one_view = _pair_view(result_fields(one.run()[rid]), one_pairs.u,
+                          one_pairs.v)
+    del one
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    n = math.prod(MESH_SHAPE)
+    backend = choose_backend(dev, n)
+    print(f"[4q mesh] {MESH_SHAPE} mesh of {n} ranks on "
+          f"{torch.cuda.device_count()} card(s), backend {backend} (chosen "
+          "from the ranks and cards when the mesh is built)")
+    t0 = time.perf_counter()
+    cfg = mesh_a2a_config()
+    out = spawn(mesh_rank, *MESH_SHAPE, device=dev.type,
+                args=(corpora, cfg, MESH_A2A_TOKENS), timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    print(f"[4q mesh] rank 0's mesh {out['mesh']}; placement "
+          + ", ".join(f"rank {r['rank']} at {tuple(r['coordinate'])} on "
+                      f"{r['device']}" for r in out["ranks"])
+          + f"; the ranks' wall {spawn_s:.1f} s")
+
+    # (a)
+    launches = [r["a_launches"] for r in out["ranks"]]
+    same = len({r["a_digest"] for r in out["ranks"]}) == 1
+    equal = True
+    for (rows, cols, scores, dropped, cap), single in zip(out["cands"],
+                                                          singles):
+        key = np.lexsort((cols, rows))
+        equal &= dropped == 0 and np.array_equal(rows[key], single.rows) \
+            and np.array_equal(cols[key], single.cols) \
+            and np.array_equal(scores[key].view(np.int32),
+                               single.scores.view(np.int32))
+    n_cand = [len(c[0]) for c in out["cands"]]
+    print(f"[4q a] {len(corpora)} corpora of ({N_ROWS}, {DIM}) x ({N_ROWS}, "
+          f"{DIM}) on the mesh: {n_cand} candidates, pair_scores launches "
+          f"by rank {launches} on ({N_ROWS // MESH_SHAPE[0]}, "
+          f"{N_ROWS // MESH_SHAPE[1]}) blocks, equal to phase 4's "
+          f"single-device candidates bit for bit {equal}, identical on "
+          f"every rank {same}; {out['a_s']:.4f} s on rank 0; the gather "
+          f"{out['gather_ms']:.2f} ms for {out['gather_bytes']} bytes a "
+          f"rank (per-device capacity {out['cands'][0][4]})")
+    if launches != [len(corpora)] * n or not same or not equal:
+        raise AssertionError("phase 4q (a): the mesh's candidates or its "
+                             "launches are wrong")
+
+    # (b)
+    same = len({r["b_digest"] for r in out["ranks"]}) == 1
+    mesh_view = _pair_view(out["b_fields"], *out["b_pairs"])
+    diff = [k for k in one_view[0] if one_view[0][k] != mesh_view[0][k]]
+    per_pair = one_view[1] == mesh_view[1]
+    b_launch = [r["b_launches"] for r in out["ranks"]]
+    print(f"[4q b] corpus 0 served on the mesh: "
+          f"{len(out['b_pairs'][0])} pairs, {mesh_view[0]['n_rounds']} "
+          f"rounds; every field identical on the four ranks {same}; against "
+          f"the (1, 1) session: scalar fields differing {diff}, each pair's "
+          f"label and crowdsourcing equal {per_pair}; launches by rank "
+          f"{b_launch}; {out['b_s']:.4f} s on rank 0")
+    if not same or diff or not per_pair \
+            or min(x["union_deduce"] for x in b_launch) < 1:
+        raise AssertionError("phase 4q (b): the mesh session is wrong")
+
+    # (c)
+    fwd_err, grad_err = out["c_err"]
+    same = len({r["c_digest"] for r in out["ranks"]}) == 1
+    ms = [round(t, 2) for r in out["ranks"] for t in r["c_ms"]]
+    print(f"[4q c] moe_block_a2a at {cfg.name} (d {cfg.d_model}, "
+          f"{cfg.n_experts} experts, top {cfg.top_k}, d_ff {cfg.d_ff}), "
+          f"bf16, {MESH_A2A_TOKENS} tokens, capacity factor "
+          f"{cfg.capacity_factor}: "
+          f"capacity {out['c_cap']} a (source, expert), "
+          f"{out['c_exchange_bytes']} bytes a rank an exchange (two a "
+          f"forward); max |y - moe_block| {fwd_err:.3e} (scale "
+          f"{out['c_scale'][0]:.3e}), max |dx - moe_block's| "
+          f"{grad_err:.3e} (scale {out['c_scale'][1]:.3e}); aux "
+          f"{out['c_aux'][0]:.7f}, the ranks' router estimates averaged on "
+          f"one device {out['c_aux'][1]:.7f} (bar {MESH_AUX_TOL}); "
+          f"identical on every rank {same}; ms a forward by rank {ms}")
+    aux_err = abs(out["c_aux"][0] - out["c_aux"][1])
+    if fwd_err > MESH_A2A_TOL or grad_err > MESH_A2A_TOL or not same \
+            or aux_err > MESH_AUX_TOL:
+        raise AssertionError("phase 4q (c): the a2a layer disagrees")
+    wall = time.perf_counter() - t_phase
+    print(f"[4q] phase wall {wall:.1f} s")
+    return {"launches": {
+        "pair_scores": sum(launches) + sum(x["pair_scores"]
+                                          for x in b_launch),
+        "union_deduce": sum(x["union_deduce"] for x in b_launch)},
+        "pair_scores_by_rank": [a + b["pair_scores"]
+                                for a, b in zip(launches, b_launch)],
+        "gather_ms": out["gather_ms"], "gather_bytes": out["gather_bytes"],
+        "wall_s": wall}
+
+
 def accounting_path(dev) -> dict:
     """Phase 4p: the dry-run's cells against the card, and
     ``moonshot-v1-16b-a3b`` at full width.  Every kernel count is zeroed
@@ -5486,6 +5795,9 @@ def run(dev) -> None:
     print(f"[4p] phase 4p {time.perf_counter() - t0:.1f} s")
     acct_launch = acct["launches"]
 
+    # -- 4q. the (data, model) mesh of ranks on the card ---------------------
+    mesh_run = mesh_path(dev, corpora)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -5582,7 +5894,9 @@ def run(dev) -> None:
              "crowd_economics": econ["pair_scores"],
              "streaming": s_launch["dense"]["pair_scores"],
              "recovery": r_launch["pair_scores"],
-             "plan": p_launch["pair_scores"]},
+             "plan": p_launch["pair_scores"],
+             "mesh": mesh_run["launches"]["pair_scores"]},
+         "mesh_by_rank": mesh_run["pair_scores_by_rank"],
          "max_abs_err": ps_err,
          "ms": cuda_ms(lambda: ps_kernel.pair_scores(*ps_args, THRESHOLD,
                                                      N)),
@@ -5628,7 +5942,8 @@ def run(dev) -> None:
              + s_launch["pairs"]["union_deduce"]
              + s_launch["blocked"]["union_deduce"],
              "recovery": r_launch["union_deduce"],
-             "plan": p_launch["union_deduce"]},
+             "plan": p_launch["union_deduce"],
+             "mesh": mesh_run["launches"]["union_deduce"]},
          "crowd_economics_by_run": econ["union_deduce_by_run"],
          "max_abs_err": 0.0,
          "cluster": ud_plan.cluster,

@@ -37,3 +37,14 @@ def pick_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one, a bare ``cuda`` being the current
+    card."""
+    def resolved(d: torch.device) -> torch.device:
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return a.type == b.type and (a.type != "cuda"
+                                 or resolved(a) == resolved(b))

@@ -1,13 +1,23 @@
-"""Candidate generation: the pair-score kernel plus compaction into
-candidate triples (the single-device case of
-``repro/kernels/pair_scores/sharded.py``).
+"""Candidate generation: the pair-score kernel across a (data, model) mesh,
+a port of ``repro/kernels/pair_scores/sharded.py``.
 
-The kernel scores the whole (N, M) grid with the threshold fused in; the
-candidates are then compacted outside the kernel, as in the reference:
-row-major ``torch.nonzero`` over the thresholded block gives the same stable
-candidate-first order as the reference's stable argsort, truncated to
-``capacity``.  Overflow is a counted contract (``n_dropped``), never a silent
-truncation.  Only a 1 x 1 mesh is ported; the multi-GPU mesh is ROADMAP A8.
+The machine phase scores an N x M similarity grid.  On a mesh (DESIGN.md
+§7) ``a``'s rows shard over ``data`` and ``b``'s over ``model``: rank
+``(i, j)`` of a :class:`~repro_torch.launch.mesh.HostMesh` scores its
+``(N/dd) x (M/dm)`` block with the ``pair_scores`` kernel on its own device
+and compacts its candidates, in the reference's stable candidate-first
+order with global row and column offsets, into a fixed-capacity buffer.
+Only those buffers cross the mesh: they are gathered in rank order, the
+layout of the reference's ``P("data", "model", None)`` out specs, so the
+candidates come back in the reference's order for the same mesh shape.
+
+A mesh call is collective, SPMD: every rank calls it with the same global
+embeddings and every rank gets the same candidates.  ``mesh=None`` (or
+``(1, 1)``) is one device, with no process group.
+
+Capacity is per device and a counted contract: a device that finds more
+than ``capacity`` candidates reports the overflow in ``n_dropped`` (summed
+over the mesh), never a silent truncation.
 
 :class:`StreamingCandidateIndex` is the incremental machine phase of
 streaming ingest (DESIGN.md §11): it keeps the normalized corpus on the
@@ -16,72 +26,135 @@ device and scores only the cells each arrival epoch adds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.graph import next_pow2
-from repro_torch.device import DeviceLike, pick_device
+from repro_torch.device import DeviceLike, pick_device, same_device
+from repro_torch.launch.mesh import all_gather, all_reduce, as_mesh
 
 from .ops import l2_normalize, pair_scores
 
 
 @dataclasses.dataclass
 class ShardedCandidates:
-    """Thresholded candidates (host numpy) from the compaction buffer."""
+    """Thresholded candidates (host numpy) gathered from the per-device
+    compaction buffers."""
 
-    rows: np.ndarray     # (C,) int32 row (index into a)
-    cols: np.ndarray     # (C,) int32 col (index into b)
+    rows: np.ndarray     # (C,) int32 global row (index into a)
+    cols: np.ndarray     # (C,) int32 global col (index into b)
     scores: np.ndarray   # (C,) float32 similarity
-    n_dropped: int       # candidates lost to capacity overflow
-    capacity: int = 0    # capacity actually used
+    n_dropped: int       # candidates lost to per-device capacity overflow
+    capacity: int = 0    # per-device capacity actually used
 
     @property
     def suggested_capacity(self) -> int:
-        """Capacity that provably fits this workload, rounded up to the next
-        power of two."""
+        """Per-device capacity that provably fits this workload (every
+        dropped candidate on one device), rounded up to the next power of
+        two."""
         return next_pow2(self.capacity + self.n_dropped)
 
 
-def _check_mesh(mesh: Optional[Tuple[int, int]]) -> None:
-    if mesh is not None and tuple(mesh) != (1, 1):
-        raise NotImplementedError(
-            f"mesh {mesh!r}: only a single device (mesh=None or (1, 1)) is "
-            "ported; the multi-GPU (data, model) mesh is ROADMAP A8")
+def _rank_block(a, b, mesh, threshold: float):
+    """Pad as the reference's ``_pad_rows`` does and score this rank's
+    block with the kernel.  Returns (block scores, counts, n_loc, m_loc,
+    row offset, col offset)."""
+    for name, x in (("a", a), ("b", b)):
+        if not same_device(x.device, mesh.device):
+            raise ValueError(f"{name} lies on {x.device}, the mesh rank's "
+                             f"device is {mesh.device}")
+    dd, dm = mesh.extent("data"), mesh.extent("model")
+    a = F.pad(a, (0, 0, 0, (-a.shape[0]) % dd))
+    b = F.pad(b, (0, 0, 0, (-b.shape[0]) % dm))
+    n_loc, m_loc = a.shape[0] // dd, b.shape[0] // dm
+    i0, j0 = mesh.index("data") * n_loc, mesh.index("model") * m_loc
+    s, c = pair_scores(a[i0:i0 + n_loc], b[j0:j0 + m_loc], threshold,
+                       normalize=False)
+    return s, c, n_loc, m_loc, i0, j0
 
 
 def sharded_candidates(a: torch.Tensor, b: torch.Tensor, threshold: float,
-                       mesh: Optional[Tuple[int, int]] = None,
-                       capacity: Optional[int] = None,
+                       mesh=None, capacity: Optional[int] = None,
                        normalize: bool = True) -> ShardedCandidates:
     """Machine phase: embeddings -> thresholded candidate pairs.
 
-    a: (N, D), b: (M, D) on one device.  ``mesh`` is ``None`` or the
-    ``(data, model)`` extents ``(1, 1)``.  ``capacity`` bounds the
-    candidates kept (default: the whole block, i.e. lossless).  Requires
-    ``threshold > 0`` so zero padding can never alias a real candidate."""
+    a: (N, D), b: (M, D), on the rank's device.  ``mesh`` is ``None`` (one
+    device) or a :class:`~repro_torch.launch.mesh.HostMesh`; a mesh call is
+    collective, and every rank passes the same global ``a`` and ``b``.
+    ``capacity`` bounds each device's candidates (default: its whole block,
+    i.e. lossless).  Requires ``threshold > 0`` so zero padding can never
+    alias a real candidate."""
     if threshold <= 0.0:
         raise ValueError("sharded_candidates requires threshold > 0 "
                          "(padding rows score exactly 0)")
-    _check_mesh(mesh)
-    N, M = a.shape[0], b.shape[0]
+    mesh = as_mesh(mesh)
     if normalize:
         a = l2_normalize(a)
         b = l2_normalize(b)
-    cap = N * M if capacity is None else min(int(capacity), N * M)
-    s, _ = pair_scores(a, b, threshold, normalize=False)
-    rows, cols = torch.nonzero(s >= threshold, as_tuple=True)
-    n_cand = int(rows.shape[0])
-    rows, cols = rows[:cap], cols[:cap]
-    scores = s[rows, cols]
+    if mesh is None:
+        N, M = a.shape[0], b.shape[0]
+        cap = N * M if capacity is None else min(int(capacity), N * M)
+        s, _ = pair_scores(a, b, threshold, normalize=False)
+        rows, cols = torch.nonzero(s >= threshold, as_tuple=True)
+        n_cand = int(rows.shape[0])
+        rows, cols = rows[:cap], cols[:cap]
+        return ShardedCandidates(
+            rows=rows.to(torch.int32).cpu().numpy(),
+            cols=cols.to(torch.int32).cpu().numpy(),
+            scores=s[rows, cols].cpu().numpy().astype(np.float32),
+            n_dropped=max(n_cand - cap, 0), capacity=cap)
+    s, _, n_loc, m_loc, i0, j0 = _rank_block(a, b, mesh, threshold)
+    cap = n_loc * m_loc if capacity is None \
+        else min(int(capacity), n_loc * m_loc)
+    # row-major nonzero is the reference's stable candidate-first order
+    r, c = torch.nonzero(s >= threshold, as_tuple=True)
+    n_cand = int(r.shape[0])
+    r, c = r[:cap], c[:cap]
+    k = int(r.shape[0])
+    # one int32 buffer a rank: rows, cols, score bits (-1, -1, 0 past k),
+    # then the dropped count
+    buf = torch.zeros(3 * cap + 1, dtype=torch.int32, device=s.device)
+    buf[:2 * cap] = -1
+    buf[:k] = r.to(torch.int32) + i0
+    buf[cap:cap + k] = c.to(torch.int32) + j0
+    buf[2 * cap:2 * cap + k] = s[r, c].view(torch.int32)
+    buf[3 * cap] = max(n_cand - cap, 0)
+    every = all_gather(buf, mesh).cpu().numpy()
+    rows = every[:, :cap].reshape(-1)
+    keep = rows >= 0
+    # zero-padded rows score 0 < threshold, so none is a candidate
     return ShardedCandidates(
-        rows=rows.to(torch.int32).cpu().numpy(),
-        cols=cols.to(torch.int32).cpu().numpy(),
-        scores=scores.cpu().numpy().astype(np.float32),
-        n_dropped=max(n_cand - cap, 0),
-        capacity=cap,
-    )
+        rows=rows[keep].astype(np.int32),
+        cols=every[:, cap:2 * cap].reshape(-1)[keep].astype(np.int32),
+        scores=every[:, 2 * cap:3 * cap].reshape(-1)[keep].view(np.float32),
+        n_dropped=int(every[:, 3 * cap].sum()), capacity=cap)
+
+
+def sharded_pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
+                        mesh=None, normalize: bool = True):
+    """The dense grid for parity testing and small grids: (scores (N, M)
+    f32 zeroed below ``threshold``, counts (N, 1) int32), as
+    :func:`.ops.pair_scores`.  On a mesh each rank scores its block with
+    the kernel, the row counts are summed over the ``model`` axis (the
+    reference's ``psum(cnt, "model")``) and gathered over ``data``, and the
+    blocks are gathered over the whole mesh: every rank gets the grid."""
+    mesh = as_mesh(mesh)
+    if normalize:
+        a = l2_normalize(a)
+        b = l2_normalize(b)
+    if mesh is None:
+        return pair_scores(a, b, threshold, normalize=False)
+    N, M = a.shape[0], b.shape[0]
+    s, cnt, n_loc, m_loc, _, _ = _rank_block(a, b, mesh, threshold)
+    cnt = all_reduce(cnt, mesh, "model")
+    dd, dm = mesh.extent("data"), mesh.extent("model")
+    grid = all_gather(s, mesh).reshape(dd, dm, n_loc, m_loc)
+    grid = grid.permute(0, 2, 1, 3).reshape(dd * n_loc, dm * m_loc)
+    cnt = all_gather(cnt, mesh, "data").reshape(dd * n_loc, 1)
+    return grid[:N, :M], cnt[:N]
 
 
 # ---------------------------------------------------------------------------
@@ -110,18 +183,22 @@ class StreamingCandidateIndex:
     existing LSH buckets (the signatures are deterministic in the seed; the
     corpus's ``(n_tables, N)`` codes are cached on the host), and only tiles
     of buckets an arrival touched reach ``pair_scores_compact``.
+
+    With a ``mesh`` the dense epochs go through :func:`sharded_candidates`
+    on it (``capacity`` is then per device), and :meth:`append` is
+    collective: every rank appends the same rows and gets the same
+    candidates.  The blocked path stays on the rank's device and ignores
+    the mesh, as the reference's does.
     """
 
-    def __init__(self, threshold: float,
-                 mesh: Optional[Tuple[int, int]] = None,
+    def __init__(self, threshold: float, mesh=None,
                  capacity: Optional[int] = None, normalize: bool = True,
                  blocking=None, device: DeviceLike = None):
         if threshold <= 0.0:
             raise ValueError("StreamingCandidateIndex requires threshold > 0 "
                              "(padding rows score exactly 0)")
-        _check_mesh(mesh)
         self.threshold = float(threshold)
-        self.mesh = mesh
+        self.mesh = as_mesh(mesh)
         self.capacity = capacity
         self.normalize = normalize
         self.blocking = blocking

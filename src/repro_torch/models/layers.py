@@ -47,11 +47,6 @@ class ParamSpec:
 Specs = Dict[str, ParamSpec]
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
 # ---------------------------------------------------------------------------
 # Norm
 # ---------------------------------------------------------------------------

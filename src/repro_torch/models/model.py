@@ -7,10 +7,12 @@ dense configs, the expert layers of ``olmoe-1b-7b`` and
 ``qwen2-vl-2b``, the conditioning frames of ``musicgen-medium``, the int8
 KV cache (``kv_quant``) of the attention families, RWKV6 (``rwkv6-3b``)
 and zamba2's Mamba2 layers with their shared attention block
-(``zamba2-1.2b``; :mod:`.ssm`).  The all-to-all expert layer
-(``moe_impl="a2a"``) raises ``NotImplementedError`` naming ROADMAP A8, and
-the hybrid under ``kv_quant`` ``ValueError`` naming R7 (the reference cannot
-decode it).  The dry-run's ``attn_impl="kernel_stub"`` builds: its stand-in
+(``zamba2-1.2b``; :mod:`.ssm`).  Under ``moe_impl="a2a"`` the backbone's
+expert layers run :func:`.moe_a2a.moe_block_a2a` on the mesh of
+:func:`repro_torch.sharding.set_current_mesh` (``ValueError`` without one),
+and prefill and decode the one-device :func:`.moe.moe_block`, as in the
+reference.  The hybrid under ``kv_quant`` is a ``ValueError`` naming R7
+(the reference cannot decode it).  The dry-run's ``attn_impl="kernel_stub"`` builds: its stand-in
 runs no attention (:func:`.layers.kernel_stub_attention`).
 
 The parameters live in a :class:`Model` (an ``nn.Module``), stacked per
@@ -66,12 +68,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, pick_device
+from repro_torch.sharding import current_mesh
 
 from .config import ModelConfig
-from .layers import (ParamSpec, Specs, _unported, attention_block,
+from .layers import (ParamSpec, Specs, attention_block,
                      attention_decode_block, attention_specs, mlp_block,
                      mlp_specs, quantize_kv, rmsnorm, rmsnorm_specs)
 from .moe import moe_block, moe_specs
+from .moe_a2a import moe_block_a2a
 from .ssm import (mamba2_block, mamba2_decode_step, mamba2_specs,
                   rwkv6_channel_mix, rwkv6_specs, rwkv6_time_mix)
 
@@ -82,20 +86,16 @@ FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port's model does not run
-    (the all-to-all expert layer, ROADMAP A8), and ValueError for an
-    unknown family and for the hybrid under ``kv_quant``, which the reference
-    builds but cannot decode (ROADMAP R7: its hybrid cache stays bf16 and
-    its hybrid decode passes no scales to the int8 attention)."""
+    """Raise ValueError for an unknown family and for the hybrid under
+    ``kv_quant``, which the reference builds but cannot decode (ROADMAP R7:
+    its hybrid cache stays bf16 and its hybrid decode passes no scales to
+    the int8 attention)."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
                          f"known: {FAMILIES}")
     if cfg.family == "hybrid" and cfg.kv_quant:
         raise ValueError(f"{cfg.name}: the hybrid family under kv_quant, "
                          "which the reference cannot decode (ROADMAP R7)")
-    if cfg.is_moe and cfg.moe_impl == "a2a":
-        raise _unported(f"{cfg.name}: the all-to-all expert layer "
-                        "(moe_impl='a2a'), which needs the mesh", "A8")
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +175,8 @@ def n_active_params(cfg: ModelConfig) -> int:
 
 
 def param_axes(cfg: ModelConfig) -> Params:
-    """The specs' logical axis names, nested like the parameters (metadata
-    for the mesh's sharding rules, ROADMAP A8)."""
+    """The specs' logical axis names, nested like the parameters (what
+    :func:`repro_torch.sharding.sharding_tree` maps to specs)."""
     return _nest({p: s.axes for p, s in model_specs(cfg).items()})
 
 
@@ -431,7 +431,9 @@ def layer_step(lp: Params, x: torch.Tensor, positions: torch.Tensor,
                               lp["attn"], cfg, positions)
     x = x + a
     h = rmsnorm(x, lp["ln2"]["scale"], eps)
-    if cfg.is_moe:
+    if cfg.is_moe and cfg.moe_impl == "a2a":
+        m, aux = moe_block_a2a(h, lp["moe"], cfg, current_mesh())
+    elif cfg.is_moe:
         m, aux = moe_block(h, lp["moe"], cfg)
     else:
         m, aux = mlp_block(h, lp["mlp"], cfg), None
@@ -577,7 +579,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def cache_axes(cfg: ModelConfig) -> Params:
     """Logical axes of the cache's entries (batch over data, heads over
-    model): metadata for the mesh's sharding rules (ROADMAP A8)."""
+    model): what :func:`repro_torch.sharding.sharding_tree` maps to
+    specs."""
     check_supported(cfg)
     kv = (None, "batch", "kv_seq", "kv_cache_heads", None)
     ax: Params = {"length": ()}
@@ -720,10 +723,12 @@ def prefill(model: Model, batch: Dict[str, Any], max_len: int
     cache = make_cache(cfg, B, max_len, x.device)
     cache["length"].fill_(S)
     x_embed = x if cfg.attn_every else None
-    # the reference's prefill runs its attention whatever attn_impl says:
-    # the dry-run's stand-in is the backbone's alone
-    run_cfg = cfg.replace(attn_impl="chunked") \
-        if cfg.attn_impl == "kernel_stub" else cfg
+    # the reference's prefill runs its attention whatever attn_impl says
+    # (the dry-run's stand-in is the backbone's alone), and its experts on
+    # one device whatever moe_impl says
+    run_cfg = cfg.replace(
+        attn_impl=("chunked" if cfg.attn_impl == "kernel_stub"
+                   else cfg.attn_impl), moe_impl="gspmd")
     for i, lp in enumerate(model.layer_params):
         x, state, _ = layer_step(lp, x, positions, run_cfg, i, model.shared,
                                  x_embed)

@@ -6,8 +6,9 @@ C = ``capacity(cfg, T)`` of the T * k assignments, in token order; an
 overflowing assignment falls through the residual connection (Switch /
 GShard semantics).  The three expert products are batched matrix products
 over (E, C, ·) (``torch.bmm``; the reference leaves its einsums to XLA,
-outside any Pallas kernel).  The all-to-all expert-parallel layer
-(``moe_impl="a2a"``) needs the multi-GPU mesh (ROADMAP A8).
+outside any Pallas kernel).  The all-to-all expert-parallel layer over
+the mesh (``moe_impl="a2a"``) is :mod:`.moe_a2a`, which routes with
+:func:`route`.
 
 The rounding follows the reference's: router logits, softmax and gates in
 f32; the gates cast to the activations' dtype before the gate multiply,

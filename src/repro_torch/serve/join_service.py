@@ -116,11 +116,12 @@ from repro_torch.core.ordering import (session_gains, session_gains_batch,
 from repro_torch.core.metrics import Quality, quality
 from repro_torch.core.pairs import PairSet
 from repro_torch.core.sorting import get_order, validate_order
-from repro_torch.device import DeviceLike, pick_device
+from repro_torch.device import DeviceLike, pick_device, same_device
 from repro_torch.kernels.pair_scores.blocking import (BlockingConfig,
                                                       blocked_candidates)
 from repro_torch.kernels.pair_scores.sharded import (StreamingCandidateIndex,
                                                      sharded_candidates)
+from repro_torch.launch.mesh import as_mesh
 
 
 @dataclasses.dataclass
@@ -495,13 +496,14 @@ class JoinService:
 
     @staticmethod
     def _check_candidate_overflow(cand) -> None:
-        """Capacity overflow is never silent; the error reports a capacity
-        that provably fits."""
+        """Capacity overflow is never silent; the error reports the
+        per-device capacity that provably fits."""
         if cand.n_dropped:
             raise RuntimeError(
                 f"candidate buffers overflowed: {cand.n_dropped} candidates "
-                f"dropped at capacity {cand.capacity} — re-submit with "
-                f"capacity={cand.suggested_capacity} or raise the threshold")
+                f"dropped at per-device capacity {cand.capacity} — re-submit "
+                f"with capacity={cand.suggested_capacity} (the per-device "
+                "capacity this workload needs) or raise the threshold")
 
     def submit_embeddings(self, emb_a: torch.Tensor, emb_b: torch.Tensor,
                           threshold: float, mesh=None,
@@ -516,11 +518,19 @@ class JoinService:
         """Machine phase + enqueue: score (emb_a x emb_b) with the pair-score
         kernel, keep pairs at or above ``threshold`` (cosine, mapped to a
         [0, 1] likelihood), and queue the session.  The embeddings move to
-        the service's device.  ``mesh`` is ``None`` or ``(1, 1)``.
+        the service's device.
+
+        ``mesh`` is ``None`` (one device) or a
+        :class:`~repro_torch.launch.mesh.HostMesh`, whose rank's device must
+        be the service's (else ``ValueError``).  A mesh call is collective:
+        every rank calls it with the same arguments, each rank scores its
+        block (:func:`sharded_candidates`), and afterwards every rank holds
+        the same candidates and the same queued request.  :meth:`run` then
+        runs on each rank by itself and gives each rank the same results.
 
         ``truth_fn(rows, cols) -> bool array`` attaches ground truth.
-        ``capacity`` bounds the candidate buffer (default: lossless).  Object
-        ids: a-row i -> i, b-row j -> N + j.
+        ``capacity`` bounds each device's candidate buffer (default:
+        lossless).  Object ids: a-row i -> i, b-row j -> N + j.
 
         ``blocking`` (a :class:`BlockingConfig`, DESIGN.md §12) puts the LSH
         blocking stage in front of the scorer: only bucket-colliding pairs
@@ -543,6 +553,11 @@ class JoinService:
         finishes."""
         emb_a = torch.as_tensor(emb_a, device=self.device)
         emb_b = torch.as_tensor(emb_b, device=self.device)
+        mesh = as_mesh(mesh)
+        if mesh is not None and not same_device(self.device, mesh.device):
+            raise ValueError(
+                f"the service runs on {self.device}, the mesh rank's device "
+                f"is {mesh.device}: give each rank a service on its device")
         if streaming:
             index = StreamingCandidateIndex(threshold, mesh,
                                             capacity=capacity,
@@ -646,7 +661,8 @@ class JoinService:
         fresh object ids, and queue the candidates as an arrival epoch for
         ``rid``, which must have been submitted with ``streaming=True``.
         An overflowing epoch is rolled back before the error surfaces, so
-        the stream stays usable."""
+        the stream stays usable.  For a request submitted on a mesh the call
+        is collective, as :meth:`submit_embeddings` is."""
         stream = self._streams.get(rid)
         if stream is None:
             raise ValueError(
@@ -660,8 +676,9 @@ class JoinService:
             stream.index.rollback_append()
             raise RuntimeError(
                 f"candidate buffers overflowed: {cand.n_dropped} candidates "
-                f"dropped at capacity {cand.capacity} — the epoch was rolled "
-                "back (the stream stays usable); re-submit the request with "
+                f"dropped at per-device capacity {cand.capacity} — the epoch "
+                "was rolled back (the stream stays usable); re-submit the "
+                "request with "
                 f"capacity={cand.suggested_capacity} or split the arrival "
                 "into smaller epochs")
         for side, new in (("a", new_a), ("b", new_b)):

@@ -1757,3 +1757,81 @@ def test_sliced_draw_on_a_card_generator(dev, monkeypatch):
         w *= 1.0 / math.sqrt(spec.fan_in)
         assert torch.equal(leaf.view(torch.int16),
                            w.to(torch.bfloat16).view(torch.int16)), path
+
+
+# ---------------------------------------------------------------------------
+# the (data, model) mesh: ranks sharing the card (tests/torch_mesh_ranks.py)
+# ---------------------------------------------------------------------------
+def test_mesh_ranks_on_the_card_gather_the_kernel_s_candidates(dev):
+    """A (2, 2) mesh of four ranks on the card(s): the backend the launcher
+    names (gloo where ranks share a card), each rank launching the
+    pair_scores kernel once on its block, and the gathered candidates the
+    single-device call's bit for bit (every cell fmaf-summed in k order from
+    0 whatever the block's size), identical on every rank."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+
+    rng = np.random.default_rng(11)
+    cents = rng.normal(size=(40, 64))
+    ea = (cents[rng.integers(0, 40, 301)]
+          + 0.3 * rng.normal(size=(301, 64))).astype(np.float32)
+    eb = (cents[rng.integers(0, 40, 263)]
+          + 0.3 * rng.normal(size=(263, 64))).astype(np.float32)
+    out = spawn(ranks.card_candidates, 2, 2, device="cuda",
+                args=(ea, eb, 0.7), timeout=300)
+    backend = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    assert f"backend='{backend}'" in out["mesh"]
+    assert "device='cuda:0'" in out["mesh"]
+    assert out["launches"] == [1, 1, 1, 1]
+    assert len(set(out["digests"])) == 1
+    single = sharded_candidates(torch.from_numpy(ea).to(dev),
+                                torch.from_numpy(eb).to(dev), 0.7)
+    got = out["cand"]
+    key = np.lexsort((got["cols"], got["rows"]))
+    assert got["n_dropped"] == 0 and len(single.rows) > 100
+    np.testing.assert_array_equal(got["rows"][key], single.rows)
+    np.testing.assert_array_equal(got["cols"][key], single.cols)
+    np.testing.assert_array_equal(got["scores"][key].view(np.int32),
+                                  single.scores.view(np.int32))
+
+
+def test_mesh_launcher_fails_with_a_failing_rank_on_the_card(dev):
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+
+    with pytest.raises(RuntimeError, match="rank one fails on purpose"):
+        spawn(ranks.one_rank_raises, 1, 2, device="cuda", timeout=120)
+
+
+def test_a2a_experts_on_the_card(dev):
+    """moe_block_a2a on a (2, 2) mesh of ranks on the card (two experts a
+    rank of the reduced olmoe-1b-7b): in bf16 within the reference test's
+    8e-3 of the one-device moe_block, forward and input gradient; in f32
+    the output and the input's, router's and experts' gradients within
+    1e-4 (cuBLAS sums the batched products in orders of its own choosing
+    for the two shapes)."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+
+    cfg = get("olmoe-1b-7b").reduced()
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    rng = np.random.default_rng(5)
+
+    def bf16(shape, scale):
+        x = torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32))
+        return x.to(torch.bfloat16).float().numpy()
+
+    ins = {"capacity_factor": 8.0, "moe_x": bf16((4, 64, d), 0.5),
+           "moe_router": bf16((d, E), d ** -0.5),
+           "moe_wi_gate": bf16((E, d, f), d ** -0.5),
+           "moe_wi_up": bf16((E, d, f), d ** -0.5),
+           "moe_wo": bf16((E, f, d), f ** -0.5)}
+    out = spawn(ranks.a2a, 2, 2, device="cuda", args=(ins,), timeout=300)
+    for key in ("y", "x_grad"):
+        assert np.abs(out["bf16_a2a"][key]
+                      - out["bf16_one"][key]).max() < 8e-3, key
+    for key in ("y", "x_grad", "router_grad", "wi_gate_grad", "wi_up_grad",
+                "wo_grad"):
+        np.testing.assert_allclose(out["f32_a2a"][key], out["f32_one"][key],
+                                   rtol=1e-4, atol=1e-4, err_msg=key)

@@ -1,6 +1,10 @@
 """The port's examples (``examples/torch_*.py``) against the reference's
 examples of the same names, on the CPU (``--device cpu``).
 
+* ``torch_sharded_join.py``: at ``--mesh 1x1`` its seven lines equal
+  ``sharded_join.py``'s on its 1 x 1 host mesh (two lanes, the blocked
+  run, async against the round barrier); at ``--mesh 4x2`` (8 gloo CPU
+  ranks) the same rows after its mesh line.
 * ``torch_streaming_join.py``: its three lines equal
   ``streaming_join.py``'s (numpy-seeded embeddings, ``PerfectCrowd``; the
   reference's 1 x 1 host mesh is the port's ``mesh=None``).
@@ -81,6 +85,23 @@ def test_join_example_prints_the_reference_example(name):
         run_name="example")["main"](["--device", "cpu"]))
     assert len(ref) == (3 if name == "streaming_join" else 21)
     assert port == ref
+
+
+def test_sharded_join_example_prints_the_reference_rows(monkeypatch):
+    """``torch_sharded_join.py`` at ``--mesh 1x1`` prints the reference
+    example's rows on its 1 x 1 host mesh, and at ``--mesh 4x2`` (8 gloo
+    ranks on the CPU) the same rows after its mesh line."""
+    ref = _lines(lambda: runpy.run_path(str(EXAMPLES / "sharded_join.py"),
+                                        run_name="reference_example"))
+    # the ranks import the example by name
+    monkeypatch.syspath_prepend(str(EXAMPLES))
+    import torch_sharded_join as example
+
+    one = _lines(lambda: example.main(["--device", "cpu"]))
+    mesh = _lines(lambda: example.main(["--device", "cpu", "--mesh", "4x2"]))
+    assert len(ref) == 7 and ref[0] == "mesh: {'data': 1, 'model': 1}"
+    assert one == ref
+    assert mesh[0] == "mesh: {'data': 4, 'model': 2}" and mesh[1:] == ref[1:]
 
 
 def test_crowdsourced_join_example_matches_the_reference(monkeypatch):

@@ -3,7 +3,8 @@
 * nothing under ``src/repro_torch/`` (``models/moe.py`` among them), nor
   ``chip_smoke.py``, ``chip_ab.py`` or the port's examples
   (``examples/torch_{quickstart,train_likelihood_model,crowdsourced_join,
-  streaming_join,query_plan,serve_llm}.py``), imports ``jax``
+  streaming_join,query_plan,serve_llm,sharded_join}.py``), nor the mesh
+  tests' rank bodies (``tests/torch_mesh_ranks.py``), imports ``jax``
   or the JAX package ``repro`` (checked on the syntax tree, so lazy imports
   inside functions count too);
 * each kernel wrapper, given tensors that do not lie on the CPU, goes to its
@@ -23,7 +24,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"] + \
     [ROOT / "examples" / f"torch_{name}.py" for name in (
         "quickstart", "train_likelihood_model", "crowdsourced_join",
-        "streaming_join", "query_plan", "serve_llm")]
+        "streaming_join", "query_plan", "serve_llm", "sharded_join")] + \
+    [ROOT / "tests" / "torch_mesh_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:

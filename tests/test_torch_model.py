@@ -151,10 +151,11 @@ def test_decode_matches_prefill_on_the_port(pair):
     _close(_t(l2), _t(l3), 1e-2 if pair["dtype"] == "f32" else 1e-3)
 
 
-# (arch, config overrides, the ROADMAP item a refusal names): the
-# all-to-all expert layer (A8) is refused; the dry-run's attention stand-in
-# builds (item None) and is held to the reference's forward
-REFUSED = {"moonshot-v1-16b-a3b": ({"moe_impl": "a2a"}, "A8"),
+# (arch, config overrides, what the backbone's refusal names): the
+# all-to-all expert layer builds, and its backbone without a mesh is a
+# ValueError naming the mesh; the dry-run's attention stand-in builds (None)
+# and is held to the reference's forward
+REFUSED = {"moonshot-v1-16b-a3b": ({"moe_impl": "a2a"}, "mesh"),
            "zamba2-1.2b": ({"attn_impl": "kernel_stub"}, None),
            "qwen2-vl-2b": ({"attn_impl": "kernel_stub"}, None),
            "musicgen-medium": ({"attn_impl": "kernel_stub"}, None)}
@@ -177,20 +178,20 @@ def _stub_batches(jcfg, seed=1):
 
 @pytest.mark.parametrize("arch", sorted(REFUSED))
 def test_unported_families_raise(arch):
-    """The all-to-all expert layer raises naming A8.  The dry-run's
+    """The all-to-all expert layer (``moe_impl="a2a"``) builds, its cache
+    too; its backbone without a current mesh is a ``ValueError`` (its
+    parity on the mesh is tests/test_torch_sharded.py's), and its prefill
+    runs the experts on one device, as the reference's does: the logits
+    agree with the reference's prefill.  The dry-run's
     ``attn_impl="kernel_stub"`` builds, and its backbone's logits under f32
     parameters carried over from the reference agree with the reference's
     own ``kernel_stub`` backbone within the f32 tolerance (the stand-in is
     elementwise; the products sum in another order).  Its prefill runs the
     attention, as the reference's does whatever ``attn_impl`` says."""
+    from repro_torch.sharding import set_current_mesh
+
     overrides, item = REFUSED[arch]
     cfg = get(arch).reduced().replace(**overrides)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            M.init_params(cfg, torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            M.make_cache(cfg, 1, 8, "cpu")
-        return
     jcfg = jax_get(arch).reduced().replace(**overrides)
     params = jax.tree.map(
         lambda x: np.asarray(x, np.float32),
@@ -198,12 +199,19 @@ def test_unported_families_raise(arch):
     jparams = jax.tree.map(jnp.asarray, params)
     model = model_params_from_numpy(cfg, params, "cpu").float()
     jb, tb = _stub_batches(jcfg)
-    jx, jpos = JM._embed_inputs(jparams, jb, jcfg)
-    ref = JM._logits(jparams, JM.backbone(jparams, jx, jpos, jcfg)[0], jcfg)
     x, pos = M._embed_inputs(model, tb)
-    got = M._logits(model, M.backbone(model, x, pos))
-    assert got.shape == (B, S, cfg.vocab)
-    _close(_t(got), np.asarray(ref, np.float32), TOL["f32"])
+    if item is not None:
+        set_current_mesh(None)
+        M.make_cache(cfg, 1, 8, "cpu")
+        with pytest.raises(ValueError, match=item):
+            M.backbone(model, x, pos)
+    else:
+        jx, jpos = JM._embed_inputs(jparams, jb, jcfg)
+        ref = JM._logits(jparams, JM.backbone(jparams, jx, jpos, jcfg)[0],
+                         jcfg)
+        got = M._logits(model, M.backbone(model, x, pos))
+        assert got.shape == (B, S, cfg.vocab)
+        _close(_t(got), np.asarray(ref, np.float32), TOL["f32"])
     _, jlog = JM.prefill(jparams, jb, jcfg, MAX_LEN)
     _, tlog = M.prefill(model, tb, MAX_LEN)
     _close(_t(tlog), np.asarray(jlog, np.float32), TOL["f32"])

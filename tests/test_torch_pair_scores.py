@@ -112,11 +112,17 @@ def test_candidates_ref_is_the_dense_candidate_list():
 
 
 def test_sharded_candidates_rejects_bad_threshold_and_mesh():
+    """A bare tuple of extents other than (1, 1) is a TypeError: a
+    multi-device mesh is a HostMesh (served in tests/test_torch_sharded.py);
+    (1, 1) is one device, as None is."""
     a = torch.ones(4, 8)
     with pytest.raises(ValueError, match="threshold > 0"):
         sharded_candidates(a, a, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="HostMesh"):
         sharded_candidates(a, a, 0.5, mesh=(2, 1))
+    one = sharded_candidates(a, a, 0.5, mesh=(1, 1))
+    none = sharded_candidates(a, a, 0.5)
+    assert len(one.rows) == 16 and np.array_equal(one.rows, none.rows)
 
 
 U32 = 2.0 ** -24       # unit roundoff of f32

@@ -555,10 +555,14 @@ def test_streaming_candidate_index_rollback(blocked):
 
 
 def test_streaming_candidate_index_refusals():
+    """A bare tuple mesh other than (1, 1) is a TypeError; a HostMesh is
+    served (tests/test_torch_sharded.py), and (1, 1) is one device."""
     with pytest.raises(ValueError, match="threshold"):
         StreamingCandidateIndex(0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="HostMesh"):
         StreamingCandidateIndex(0.5, mesh=(2, 1), device="cpu")
+    assert StreamingCandidateIndex(0.5, mesh=(1, 1), device="cpu").mesh \
+        is None
 
 
 # ---------------------------------------------------------------------------
