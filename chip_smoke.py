@@ -504,7 +504,10 @@ WORKER_RUNS = {
 # interleaved, whose first two epochs lie below LARGE_STREAM_FIRST_IDS
 # (int32 keys; an interleaved stream ingests its second epoch before the
 # first round) and whose later epochs reach its top id, so its keys widen
-# to int64 with answers folded into them
+# to int64 with answers folded into them.  The up-front stream on phase
+# 4h's platform is not run: its figures are 4h's two-lane async run's
+# (ASYNC_RUNS["async"]), which 4h holds, and an up-front stream's equality
+# with its batch run is held by the other up-front runs
 STREAM_FIRST = 2048
 STREAM_EPOCHS = ((1024, 0), (0, 1024), (512, 512), (512, 512))
 STREAM_K, STREAM_SPLIT_SEED = 4, SEED
@@ -525,13 +528,6 @@ STREAM_RUNS = {
                   0.0, 0.9963274868612677, None),
         "product": (3670, 4, "99c52893d4627b8a", 0, 0, 7340.0, False, 0, 0,
                     0.0, 0.9558194774346793, None)}),
-    "upfront async latency": (("paper", "product"),
-                              {"latency": True, "async_mode": True,
-                               "nf": True}, {}, "perfect", {
-        "paper": (1810, 297, "935bb7ad58aca263", 0, 0, 3620.0, False, 0, 0,
-                  0.0, 0.9963274868612677, 8324.949865851608),
-        "product": (3698, 654, "5361fe657173bdb4", 0, 0, 7396.0, False, 0,
-                    0, 0.0, 0.9558194774346793, 8244.928055729753)}),
     "interleave barrier": (("paper", "product"), {}, {"interleave": True},
                            "perfect", {
         "paper": (1796, 8, "e90d34a6a0747244", 0, 0, 3592.0, False, 0, 0,
@@ -629,11 +625,11 @@ ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
 FLASH_MS_BEFORE = 1.4197
 # phase 4m (training): examples/train_likelihood_model.py --full's run
 # (paper-scorer at full width on the paper dataset's 181 packed rows of 128
-# tokens, batch 8), 40 steps with a checkpoint every 10 and a failure
-# injected at 25; then a card-sized batch of 64 in 2 microbatches with
+# tokens, batch 8), 20 steps with a checkpoint every 5 and a failure
+# injected at 12; then a card-sized batch of 64 in 2 microbatches with
 # int8 gradient compression, 20 steps
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 128, 8, 40, \
-    10, 25
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 128, 8, 20, \
+    5, 12
 TRAIN_BIG = dict(batch=64, microbatches=2, steps=20)
 # phase 4m (b): 3 reduced steps on the card against the CPU within the bf16
 # loss bound of tests/test_torch_train.py; FlashAttentionFn's backward at
@@ -724,6 +720,19 @@ MESH_A2A_ARCH, MESH_A2A_TOKENS = "olmoe-1b-7b", (8, 512)
 MESH_A2A_CF, MESH_A2A_TOL = 8.0, 8e-3
 MESH_AUX_TOL = 1e-5     # f32 aux: the same sums, the mean in another order
 MESH_TIMEOUT = 600.0
+# phase 4r: the trainer on the (2, 2) mesh of ranks sharing the card:
+# paper-scorer at full width on phase 4m a's corpus, batch and seed, under
+# the reference's baseline rule set; MESH_TRAIN_STEPS steps with a
+# checkpoint every MESH_TRAIN_EVERY, once uninterrupted and once failed at
+# MESH_TRAIN_FAIL; the step-MESH_TRAIN_EVERY checkpoint restored onto a
+# MESH_RESTORE_SHAPE mesh and onto one device.  The losses against 4m a's
+# first step and the uninterrupted run's: the same parameters and rows,
+# split over the ranks (bf16 products of other shapes), within the bf16
+# loss bound of tests/test_torch_train.py
+MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_FAIL = 4, 2, 3
+MESH_TRAIN_RULES = "fsdp_tp"
+MESH_RESTORE_SHAPE = (2, 1)
+MESH_TRAIN_LOSS_RTOL = 2e-3
 
 
 def make_corpus(seed: int, n: int, d: int, more=()):
@@ -1462,10 +1471,10 @@ def async_path(dev) -> dict:
     dataset alone async.  Each session's figures must be the reference's
     (``ASYNC_RUNS``), its labels the truth under a ``PerfectCrowd`` and
     transitively consistent under the noisy one, and async must finish in
-    fewer simulated minutes than the barrier.  The product run again on the
-    CPU must give every result field identical.  ``union_deduce``'s
-    launches are
-    counted from just before each run to just after it."""
+    fewer simulated minutes than the barrier.  (The async path's card-vs-CPU
+    parity is phase 4k b's: its product run, async under EM and requery,
+    restored on the CPU.)  ``union_deduce``'s launches are counted from
+    just before each run to just after it."""
     import torch
 
     from repro_torch.core.crowd import (CrowdGateway, LatencyModel,
@@ -1545,17 +1554,6 @@ def async_path(dev) -> dict:
           f"{sim['async'] < sim['barrier']}")
     if not sim["async"] < sim["barrier"]:
         raise AssertionError(f"async ID/NF is not faster: {sim}")
-
-    svc, rids = service("product async", "cpu")
-    t0 = time.perf_counter()
-    cpu = result_fields(svc.run()[rids[0]])
-    card = result_fields(results["product async", "product"])
-    diff = [k for k in card if card[k] != cpu[k]]
-    print(f"[4h parity] the product run on the card and on the CPU "
-          f"({time.perf_counter() - t0:.4f} s): {len(card)} fields, "
-          f"differing {diff}")
-    if diff:
-        raise AssertionError(f"4h product run: card and CPU differ in {diff}")
 
     return {"launches": launches, "walls": walls}
 
@@ -1890,15 +1888,12 @@ def streaming_path(dev, corpora, batch_signatures_s: float) -> dict:
     epochs through ``submit_stream`` alone on the CPU must give every
     result field identical; the machine phase a session and epoch (beside
     the batch ``submit_embeddings`` of the full corpora, timed the same
-    way), ``_ingest`` a call, ``run()``'s wall and, from a
-    second run under ``torch.profiler``, its idle share, launches and syncs
-    are printed.  (b) ``STREAM_RUNS`` on the paper's datasets: every
+    way), ``_ingest`` a call and ``run()``'s wall are printed.  (b) ``STREAM_RUNS`` on the paper's datasets: every
     session's figures the reference's, its labels the truth under a
     ``PerfectCrowd`` (transitively consistent under the noisy one and after
     a budget stop); each up-front stream under a ``PerfectCrowd`` equal to
-    the single-shot ``submit`` of the same pairs (every result field; for
-    the run on phase 4h's platform, ``ASYNC_RUNS``' async figures,
-    ``sim_minutes`` as floats).  (c) phase 4g's corpus as a
+    the single-shot ``submit`` of the same pairs (every result field).
+    (c) phase 4g's corpus as a
     blocked stream of ``LARGE_STREAM_EPOCHS`` past 46340 objects: the union
     equal to ``blocked_candidates`` over the full corpus bit for bit, fewer
     cells scored than dense, labels the truth, the lane's keys widened from
@@ -1960,7 +1955,6 @@ def _streaming_runs(dev, corpora, batch_signatures_s, recorded, grown,
                     spent) -> dict:
     """The body of :func:`streaming_path`, its stages instrumented."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.convert import embeddings_from_numpy
     from repro_torch.core.crowd import LatencyModel, NoisyCrowd, PerfectCrowd
@@ -2111,19 +2105,6 @@ def _streaming_runs(dev, corpora, batch_signatures_s, recorded, grown,
     if diff:
         raise AssertionError(f"4j dense session 0: card and CPU differ in "
                              f"{diff}")
-    svc = dense_stream_service()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        svc.run()
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    _, busy, syncs, n_launch = profile_counts(prof)
-    print(f"[4j profile dense] run() under the profiler {prof_s:.4f} s: "
-          f"device busy {busy:.4f} s (idle share {1 - busy / prof_s:.4f}), "
-          f"{n_launch} kernel launches, {syncs} host syncs")
-
     # (b) pair streams of the paper's datasets against the reference
     cands = {name: _pipeline_candidates(name, ASYNC_TAU)
              for name in ("paper", "product")}
@@ -2182,12 +2163,8 @@ def _streaming_runs(dev, corpora, batch_signatures_s, recorded, grown,
                      if kind == "perfect" and not res.stopped_on_budget
                      else (transitively_consistent(ps, res.labels)
                            and res.n_crowdsourced + res.n_deduced == len(ps)))
-            if batch is not None:
-                same = result_fields(batch[rid]) == result_fields(res)
-            elif upfront:
-                same = _async_figures(res) == ASYNC_RUNS["async"][3][name]
-            else:
-                same = None
+            same = None if batch is None else \
+                result_fields(batch[rid]) == result_fields(res)
             print(f"[4j {tag} {name}] P {len(ps)} crowdsourced "
                   f"{res.n_crowdsourced} rounds {res.n_rounds} rejected "
                   f"{res.n_conflicts} spent {res.n_spent_cents!r} stopped "
@@ -3725,8 +3702,9 @@ def ssm_families_path(dev) -> dict:
                    if n != "length" and (names is None or n in names))
 
     def serve(cfg, model, seed):
-        """The engine's run with its launches, a profiled window of decode
-        steps over the same wave, and the decode-against-prefill gap."""
+        """The engine's run with its launches, and the
+        decode-against-prefill gap (no profiled window: it re-prefilled the
+        wave)."""
         reqs = _family_requests(cfg.vocab, SSM_PROMPT, SSM_NEW, seed)
         engine = ServeEngine(cfg, model, batch_lanes=LM_LANES,
                              max_len=LM_MAX_LEN)
@@ -3738,35 +3716,12 @@ def ssm_families_path(dev) -> dict:
             raise AssertionError(f"phase 4o: {cfg.name} served "
                                  f"{[len(t) for t in toks.values()]} tokens")
         S = max(len(r.prompt) for r in reqs)
-        wave = np.zeros((len(reqs), S), np.int32)
-        for j, r in enumerate(reqs):
-            wave[j, S - len(r.prompt):] = r.prompt
-        cache, logits = M.prefill(model, {"tokens": torch.from_numpy(
-            wave).to(dev)}, LM_MAX_LEN)
-        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-        def step():
-            nonlocal cache, cur
-            logits, cache = M.decode_step(model, cache,
-                                          {"tokens": cur[:, None]})
-            cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-        prof = _profile_steps(step, FAM_PROFILE_STEPS)
-        del cache
         n = SSM_PROMPT[0]
         seqs = torch.from_numpy(np.stack([r.prompt[:n] for r in reqs])).to(
             dev)
         gap = _decode_gap(model, {"tokens": seqs[:, :-1]},
                           {"tokens": seqs[:, -1:]}, {"tokens": seqs})
-        return S, got, pre_s, step_ms, prof, gap
-
-    def window(prof) -> str:
-        wall, busy, _, launches, top = prof
-        return (f"profiled window of {FAM_PROFILE_STEPS} steps: wall "
-                f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy "
-                f"share {busy / wall:.4f}), {launches:.1f} launches a step; "
-                f"by kernel (ms a step, launches a step): " + "; ".join(
-                    f"{ms:.4f} x{k:.0f} {name[:50]}" for ms, k, name in top))
+        return S, got, pre_s, step_ms, gap
 
     def long_decode(model, cache, vocab):
         """``SSM_LONG_STEPS`` timed decode steps after one untimed, from
@@ -3794,7 +3749,7 @@ def ssm_families_path(dev) -> dict:
     # -- (a) RWKV6, attention-free ------------------------------------------
     cfg = get(SSM_RWKV_ARCH)
     model = _draw_model(dev, cfg, "4o")
-    S, got, pre_s, step_ms, prof, gap = serve(cfg, model, SEED + 21)
+    S, got, pre_s, step_ms, gap = serve(cfg, model, SEED + 21)
     lane = M.make_cache(cfg, 1, LM_MAX_LEN, dev)
     wkv_bytes, shift_bytes = nbytes(lane, ("wkv",)), \
         nbytes(lane, ("tm_x", "cm_x"))
@@ -3805,7 +3760,7 @@ def ssm_families_path(dev) -> dict:
           f"{SSM_PROMPT[1]} tokens (longest {S}), {SSM_NEW} new: prefill "
           f"{pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches {got}; "
           f"state a lane: wkv {wkv_bytes} bytes, token shifts {shift_bytes} "
-          f"bytes; " + window(prof))
+          f"bytes")
     print(f"[4o a] decode == prefill(n+1) on {LM_LANES} sequences, n "
           f"{SSM_PROMPT[0] - 1}: max|d logits| {gap:.3e} of their scale "
           f"(tolerance {LM_BF16_TOL})")
@@ -3814,8 +3769,7 @@ def ssm_families_path(dev) -> dict:
     if not gap <= LM_BF16_TOL:
         raise AssertionError("phase 4o a: decode_step disagrees with prefill")
     out["rwkv"] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap,
-                   "wall_ms": prof[0], "busy_ms": prof[1],
-                   "launches_a_step": prof[3], "wkv_bytes_a_lane": wkv_bytes}
+                   "wkv_bytes_a_lane": wkv_bytes}
     out["launches"]["rwkv"] = got
 
     # -- (c) RWKV6 at long_500k ----------------------------------------------
@@ -3842,7 +3796,7 @@ def ssm_families_path(dev) -> dict:
     cfg = get(SSM_HYBRID_ARCH)
     model = _draw_model(dev, cfg, "4o")
     n_inv = cfg.n_shared_attn
-    S, got, pre_s, step_ms, prof, gap = serve(cfg, model, SEED + 22)
+    S, got, pre_s, step_ms, gap = serve(cfg, model, SEED + 22)
     Q = ssd_chunk(S, cfg.ssm_chunk)
     lanes = M.make_cache(cfg, LM_LANES, LM_MAX_LEN, dev)
     kv_bytes, ssm_lane = nbytes(lanes, ("k", "v")), \
@@ -3856,7 +3810,7 @@ def ssm_families_path(dev) -> dict:
           f"chunks), {SSM_NEW} new: prefill {pre_s:.4f} s, decode "
           f"{step_ms:.4f} ms a step; launches {got}; KV cache {kv_bytes} "
           f"bytes at max_len {LM_MAX_LEN}, SSM state {ssm_lane} bytes a "
-          f"lane; " + window(prof))
+          f"lane")
     n = SSM_PROMPT[0]
     print(f"[4o b] decode == prefill(n+1) on {LM_LANES} sequences, n "
           f"{n - 1} (SSD chunk {ssd_chunk(n - 1, cfg.ssm_chunk)}, prefill(n "
@@ -3873,9 +3827,7 @@ def ssm_families_path(dev) -> dict:
                              cfg.n_kv_heads, cfg.hd, S + SSM_NEW - 1,
                              torch.bfloat16, torch.bfloat16)
     out["hybrid"] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap,
-                     "S": S, "chunk": Q, "wall_ms": prof[0],
-                     "busy_ms": prof[1], "launches_a_step": prof[3],
-                     "kv_bytes": kv_bytes, "ssm_bytes_a_lane": ssm_lane,
+                     "S": S, "chunk": Q, "kv_bytes": kv_bytes, "ssm_bytes_a_lane": ssm_lane,
                      "flash_err": fa_err, "decode_err": da_err}
     out["launches"]["hybrid"] = got
 
@@ -4275,6 +4227,289 @@ def mesh_path(dev, corpora) -> dict:
         "wall_s": wall}
 
 
+def _state_bytes(tree) -> int:
+    from repro_torch.train.optim import tree_leaves
+
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves(tree))
+
+
+def _leaf_bytes(x) -> bytes:
+    import torch
+
+    x = x.detach().cpu()
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x) \
+        .numpy().tobytes()
+
+
+def _restore_check(mesh, path: str, step: int, s_shard,
+                   device=None) -> tuple:
+    """The step-``step`` checkpoint restored onto ``mesh`` (``None``: one
+    ``device``): whether every block, gathered whole again, and every leaf's
+    block shape equal the saved arrays bit for bit; the restored state."""
+    from repro_torch.sharding import block_slices, gather_full
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optim import tree_leaves
+
+    host = dict(tree_leaves(CheckpointManager(path).restore(step)[1]))
+    if mesh is None:
+        _, tree, _ = CheckpointManager(path).restore(step, device=device)
+        got = dict(tree_leaves(tree))
+        same = all(_leaf_bytes(got[p]) == _leaf_bytes(x)
+                   for p, x in host.items())
+        return same, tree
+    _, state, _ = CheckpointManager(path, mesh=mesh).restore(
+        step, shardings=s_shard)
+    same = True
+    for (p, block), (_, sh) in zip(tree_leaves(state),
+                                   tree_leaves(s_shard)):
+        want = tuple(s.stop - s.start for s in block_slices(
+            sh, tuple(host[p].shape)))
+        same &= tuple(block.shape) == want and \
+            _leaf_bytes(gather_full(block, sh)) == _leaf_bytes(host[p])
+    return same, state
+
+
+def mesh_train_rank(mesh, root: str) -> dict:
+    """Phase 4r (a) in one rank of the (2, 2) mesh: the ``Runner`` on the
+    mesh, uninterrupted and with a failure injected; each step timed and
+    its collective counters read, the flash launches counted from just
+    before the uninterrupted run to just after it; the final states'
+    digests (the gathered leaves); every rank's figures gathered."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optim import AdamWConfig, tree_leaves
+    from repro_torch.train.runner import Runner, RunnerConfig
+    from repro_torch.train.train_step import gather_state
+
+    cfg = get("paper-scorer")
+    rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
+                               TRAIN_SEQ)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "coordinate": mesh.coordinate,
+           "mesh": repr(mesh)}
+
+    def run(tag, fail=()):
+        runner = Runner(cfg, ocfg, RunnerConfig(
+            total_steps=MESH_TRAIN_STEPS, checkpoint_every=MESH_TRAIN_EVERY,
+            checkpoint_dir=f"{root}/{tag}", log_every=MESH_TRAIN_STEPS,
+            rules=MESH_TRAIN_RULES), mesh, TokenPipeline(rows, TRAIN_BATCH),
+            injector=FailureInjector(fail_at_steps=fail), log=lambda m: None)
+        plain, times, counts = runner.step_fn, [], []
+
+        def step(state, batch):
+            reset_collective_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = plain(state, batch)
+            met = {k: float(v) for k, v in met.items()}
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(collective_bytes())
+            return state, met
+
+        runner.step_fn = step
+        res = runner.run()
+        full = gather_state(res["state"], runner.s_shard)
+        h = hashlib.sha256()
+        for p, x in tree_leaves(full):
+            h.update(p.encode() + _leaf_bytes(x))
+        del full
+        return res, runner, times, counts, h.hexdigest()
+
+    fa_ops.flash_attention.launches = 0
+    res, runner, times, counts, digest = run("plain")
+    out["flash_launches"] = fa_ops.flash_attention.launches
+    out["losses"] = [h["loss"] for h in res["history"]]
+    out["step_ms"] = [1e3 * t for t in times]
+    out["counts"] = counts[0]
+    out["same_counts"] = all(c == counts[0] for c in counts)
+    out["resident_bytes"] = _state_bytes(res["state"])
+    out["digest"] = digest
+    s_shard = runner.s_shard
+    del res, runner
+    res, _, _, _, out["failed_digest"] = run("failed", (MESH_TRAIN_FAIL,))
+    out["failed_losses"] = {h["step"]: h["loss"] for h in res["history"]}
+    out["failed_entries"] = len(res["history"])
+    del res
+    same, state = _restore_check(mesh, f"{root}/plain", MESH_TRAIN_EVERY,
+                                 s_shard)
+    out["same_restore"] = same
+    del state
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks}
+
+
+def mesh_restore_rank(mesh, path: str) -> dict:
+    """Phase 4r (b) in one rank of a smaller mesh: the (2, 2) run's
+    step-``MESH_TRAIN_EVERY`` checkpoint restored onto this mesh (each
+    block, gathered again, the saved arrays bit for bit), then one step on
+    the next batch, its loss returned."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.sharding import local_block
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import abstract_state, jit_train_step
+
+    cfg = get("paper-scorer")
+    rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
+                               TRAIN_SEQ)
+    batch = TokenPipeline(rows, TRAIN_BATCH).batch_at(MESH_TRAIN_EVERY)
+    specs = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+             for k, v in batch.items()}
+    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    step, s_shard, b_shard = jit_train_step(
+        cfg, ocfg, mesh, abstract_state(cfg), specs, MESH_TRAIN_RULES)
+    same, state = _restore_check(mesh, path, MESH_TRAIN_EVERY, s_shard)
+    _, met = step(state, {k: local_block(torch.from_numpy(v), b_shard[k])
+                          for k, v in batch.items()})
+    return {"same": same, "loss": float(met["loss"]),
+            "resident_bytes": _state_bytes(state)}
+
+
+def mesh_train_path(dev, first_loss: float, root: Path) -> dict:
+    """Phase 4r: the trainer on the (2, 2) mesh of four ranks on the one
+    card.  (a) ``paper-scorer`` at full width through the ``Runner`` on the
+    mesh: uninterrupted and failed at ``MESH_TRAIN_FAIL``, the final states
+    equal bit for bit, the flash kernel launched 2 x n_layers a step in
+    every rank, the first loss within ``MESH_TRAIN_LOSS_RTOL`` of phase 4m
+    a's (the same seed and batch).  (b) the step-``MESH_TRAIN_EVERY``
+    checkpoint restored onto a ``MESH_RESTORE_SHAPE`` mesh and onto one
+    device without a mesh, every block and tensor the saved arrays bit for
+    bit, one step on each within the same tolerance of (a)'s.  (c)
+    ``account_cell`` on ``AbstractMesh((2, 2))`` at (a)'s shape counts the
+    bytes by kind that every rank's counters recorded in a step of (a).
+    Returns the flash launches of (a)'s uninterrupted run."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import n_params
+    from repro_torch.sharding import AbstractMesh
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import make_train_step, state_from_tree
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = get("paper-scorer")
+    n = math.prod(MESH_SHAPE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = spawn(mesh_train_rank, *MESH_SHAPE, device=dev.type,
+                args=(str(root),), timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    ranks = out["ranks"]
+
+    # (a)
+    per_step = 2 * cfg.n_layers
+    launches = [r["flash_launches"] for r in ranks]
+    losses = ranks[0]["losses"]
+    step_ms = [t for r in ranks for t in r["step_ms"][1:]]
+    med = sorted(step_ms)[len(step_ms) // 2]
+    full_bytes = n_params(cfg) * (2 + 8) + 4
+    counts = ranks[0]["counts"]
+    kinds = {k: v for k, v in counts.items()
+             if v and k not in ("total", "count")}
+    first_err = abs(losses[0] - first_loss) / first_loss
+    same_runs = all(r["digest"] == r["failed_digest"] for r in ranks) \
+        and len({r["digest"] for r in ranks}) == 1
+    same_losses = all(
+        r["failed_losses"] == {i + 1: x for i, x in enumerate(r["losses"])}
+        and r["failed_entries"] == MESH_TRAIN_STEPS + 1 for r in ranks)
+    print(f"[4r a] {cfg.name} {n_params(cfg)} parameters on the "
+          f"{MESH_SHAPE} mesh ({ranks[0]['mesh']}), rules {MESH_TRAIN_RULES},"
+          f" batch {TRAIN_BATCH} x {TRAIN_SEQ}: {MESH_TRAIN_STEPS} steps, "
+          f"{med:.2f} ms a step (median of every rank's steps 2-"
+          f"{MESH_TRAIN_STEPS}, synchronized); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, the first {first_err:.3e} from phase 4m a's "
+          f"{first_loss:.4f} (bound {MESH_TRAIN_LOSS_RTOL}); a step moves "
+          f"from each rank {kinds} bytes in {counts['count']} collectives "
+          f"(every step alike "
+          f"{all(r['same_counts'] for r in ranks)}); flash_attention "
+          f"launches by rank {launches} ({per_step} a step); resident state"
+          f" by rank {[r['resident_bytes'] for r in ranks]} bytes against "
+          f"{full_bytes} on one device; peak memory by rank "
+          f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB; "
+          f"failed at step {MESH_TRAIN_FAIL} and resumed: final state equal"
+          f" bit for bit {same_runs}, losses equal {same_losses}; the ranks'"
+          f" wall {spawn_s:.1f} s ({smi})")
+    if launches != [per_step * MESH_TRAIN_STEPS] * n or not same_runs \
+            or not same_losses or first_err > MESH_TRAIN_LOSS_RTOL \
+            or not all(r["same_counts"] for r in ranks) \
+            or len({str(r["counts"]) for r in ranks}) != 1:
+        raise AssertionError("phase 4r (a): the mesh trainer is wrong")
+
+    # (b)
+    path = str(root / "plain")
+    want = losses[MESH_TRAIN_EVERY]
+    t0 = time.perf_counter()
+    small = spawn(mesh_restore_rank, *MESH_RESTORE_SHAPE, device=dev.type,
+                  args=(path,), timeout=MESH_TIMEOUT)
+    small_s = time.perf_counter() - t0
+    same_one, tree = _restore_check(None, path, MESH_TRAIN_EVERY, None, dev)
+    rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
+                               TRAIN_SEQ)
+    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    state = state_from_tree(cfg, tree)
+    one_loss = float(make_train_step(cfg, ocfg)(state, TokenPipeline(
+        rows, TRAIN_BATCH).batch_at(MESH_TRAIN_EVERY))[1]["loss"])
+    del state, tree
+    errs = [abs(small["loss"] - want) / want, abs(one_loss - want) / want]
+    same_ranks = all(r["same_restore"] for r in ranks)
+    print(f"[4r b] the (2, 2) run's step-{MESH_TRAIN_EVERY} checkpoint: "
+          f"restored onto its own ranks the saved arrays bit for bit "
+          f"{same_ranks}; onto a {MESH_RESTORE_SHAPE} mesh {small['same']} "
+          f"(resident {small['resident_bytes']} bytes a rank; "
+          f"{small_s:.1f} s with the ranks' start), one step's loss "
+          f"{small['loss']:.6f}; onto one device {same_one}, one step's "
+          f"loss {one_loss:.6f}; (a)'s step {MESH_TRAIN_EVERY + 1} "
+          f"{want:.6f}: relative {errs[0]:.3e}, {errs[1]:.3e} (bound "
+          f"{MESH_TRAIN_LOSS_RTOL})")
+    if not (same_ranks and small["same"] and same_one) \
+            or max(errs) > MESH_TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 4r (b): the elastic restore is wrong")
+
+    # (c)
+    acc = dryrun.account_cell(cfg, "train_4k", AbstractMesh.of(MESH_SHAPE),
+                              batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    got = {k: counts[k] for k in acc["collectives"]}
+    print(f"[4r c] account_cell on AbstractMesh({MESH_SHAPE}) at batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {acc['collectives']}; a step's "
+          f"counters in (a): {got}; equal {got == acc['collectives']}")
+    if got != acc["collectives"]:
+        raise AssertionError("phase 4r (c): the accounting's collectives "
+                             "are not the ranks' counters")
+    wall = time.perf_counter() - t_phase
+    print(f"[4r] phase wall {wall:.1f} s")
+    return {"launches": sum(launches), "step_ms": med, "counts": counts,
+            "wall_s": wall}
+
+
 def accounting_path(dev) -> dict:
     """Phase 4p: the dry-run's cells against the card, and
     ``moonshot-v1-16b-a3b`` at full width.  Every kernel count is zeroed
@@ -4639,12 +4874,12 @@ def recovery_path(dev, corpora, noisy_fields: dict, noisy_wall: float,
     every field but the wall clock phase 4e's, the same total spend, the
     cents a restart would pay again printed.  (b) ``RECOVERY_RUNS``: the
     paper's datasets alone under ``RECOVERY_SERVICE`` on phase 4h's
-    platform, the uninterrupted run held to the reference's figures (passes
-    and requeries too), killed after ``RECOVERY_KILL`` commits at the
-    reference's cadence with the reference's cents committed, restored on
-    the card with every field the uninterrupted run's; the product run
-    restored once more from a copy of the same directory on the CPU, with
-    identical fields.  (c) phase 4g's blocked session (65536 objects, int64
+    platform, killed after ``RECOVERY_KILL`` commits at the reference's
+    cadence with the reference's cents committed, restored on the card and
+    finished with the reference's uninterrupted figures (passes and
+    requeries too; an uninterrupted run on the card is not repeated here);
+    the product run restored once more from a copy of the same directory
+    on the CPU, with every field the card's.  (c) phase 4g's blocked session (65536 objects, int64
     keys) per round, killed after a checkpoint with answers folded: the
     restored lane's neg keys int64 with the int64 sentinel, the wide
     ``union_deduce`` launched after the restore, labels the truth and every
@@ -4793,49 +5028,46 @@ def recovery_path(dev, corpora, noisy_fields: dict, noisy_wall: float,
             return svc, svc.submit(pairs, crowd,
                                    total_true_matches=ds.total_true_matches)
 
-        svc, rid = service(root / f"b_{name}_count", 10 ** 9)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        base = svc.run()[rid]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = (svc._ckpt_tick, econ_figures(base))
-        print(f"[4k b {name}] uninterrupted: {len(pairs)} pairs, "
-              f"{base.n_crowdsourced} crowdsourced, {base.n_requeried} "
-              f"requeried, {base.n_spent_cents} cents, sim_minutes "
-              f"{base.sim_minutes!r}, {got[0]} run-loop passes, run() "
-              f"{wall:.4f} s; the reference's figures {got == (passes, figures)}")
-        if got != (passes, figures) or base.n_requeried < 1:
-            raise AssertionError(f"phase 4k b {name}: {got} against the "
-                                 f"reference's {(passes, figures)}")
         kill_dir = root / f"b_{name}_kill"
-        svc, _ = service(kill_dir, every)
+        svc, rid = service(kill_dir, every)
         killed(svc, RECOVERY_KILL)
         if name == "product":
             shutil.copytree(kill_dir, root / "b_product_cpu")
         restored, restore_s = restore(kill_dir)
         info = restored.last_recovery
-        check_kill(f"b {name}", info, base.n_spent_cents)
+        check_kill(f"b {name}", info, figures[5])
         if info["spent_cents"] != at_kill:
             raise AssertionError(f"phase 4k b {name}: {info['spent_cents']}"
                                  f" cents at the kill, the reference's "
                                  f"{at_kill}")
+        t0 = time.perf_counter()
         rec = restored.run()[rid]
-        same = result_fields(rec) == result_fields(base)
-        print(f"[4k b {name}] a checkpoint every {every} passes, killed "
-              f"after {RECOVERY_KILL}: restore {1e3 * restore_s:.2f} ms, "
-              f"every field equal to the uninterrupted run's {same}")
-        if not same:
-            raise AssertionError(f"phase 4k b {name}: the restored run "
-                                 f"differs")
-        out[f"b_{name}"] = {"restore_ms": 1e3 * restore_s, "wall": wall}
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t0
+        # the restored run repeats the pass its checkpoint opened, so its
+        # counter of run-loop passes ends one past the uninterrupted run's
+        got = (restored._ckpt_tick - 1, econ_figures(rec))
+        same = got == (passes, figures)
+        print(f"[4k b {name}] {len(pairs)} pairs, a checkpoint every "
+              f"{every} passes, killed after {RECOVERY_KILL}: restore "
+              f"{1e3 * restore_s:.2f} ms, finish {finish_s:.4f} s; "
+              f"{rec.n_crowdsourced} crowdsourced, {rec.n_requeried} "
+              f"requeried, {rec.n_spent_cents} cents, sim_minutes "
+              f"{rec.sim_minutes!r}, {got[0]} run-loop passes: the "
+              f"reference's uninterrupted figures {same}")
+        if not same or rec.n_requeried < 1:
+            raise AssertionError(f"phase 4k b {name}: {got} against the "
+                                 f"reference's {(passes, figures)}")
+        out[f"b_{name}"] = {"restore_ms": 1e3 * restore_s,
+                            "finish_s": finish_s}
         if name == "product":
             t0 = time.perf_counter()
             cpu = JoinService.restore(str(root / "b_product_cpu"),
                                       device="cpu").run()[rid]
-            same = result_fields(cpu) == result_fields(base)
+            same = result_fields(cpu) == result_fields(rec)
             print(f"[4k b product] restored on the CPU: every field equal "
-                  f"{same} ({time.perf_counter() - t0:.4f} s)")
+                  f"to the card's restored run {same} "
+                  f"({time.perf_counter() - t0:.4f} s)")
             if not same:
                 raise AssertionError("phase 4k b: the product run restored "
                                      "on the CPU differs")
@@ -5148,7 +5380,7 @@ def train_path(dev, root: Path) -> dict:
     autograd gradients on the card.  (c) full width at ``TRAIN_BIG``
     (microbatches, int8 compression): ms a step, tokens a second, peak
     memory, and a profile and a split of one step.  Returns the flash
-    launches of (a)'s first run."""
+    launches of (a)'s first run and its first step's loss."""
     import shutil
 
     import torch
@@ -5230,12 +5462,8 @@ def train_path(dev, root: Path) -> dict:
     if [h["loss"] for h in again["history"]] != \
             [h["loss"] for h in hist]:
         raise AssertionError("two uninterrupted runs' losses differ")
-    batch = TokenPipeline(rows, TRAIN_BATCH).batch_at(0)
-    state = first["state"]
-    step_fn = make_train_step(cfg, ocfg)
-    del failed, again
-    _train_profile("a", step_fn, state, batch, step_ms / 1e3)
-    del first, state
+    first_loss = hist[0]["loss"]
+    del failed, again, first
 
     # -- (b) the card against the CPU; FlashAttentionFn's backward ----------
     small = cfg.reduced()
@@ -5305,7 +5533,7 @@ def train_path(dev, root: Path) -> dict:
             * TRAIN_BIG["steps"]:
         raise AssertionError("the microbatched step skipped the flash kernel")
     _train_profile("c", step_fn, state, big.batch_at(0), med)
-    return {"launches": launches}
+    return {"launches": launches, "first_loss": first_loss}
 
 
 def main() -> int:
@@ -5798,6 +6026,13 @@ def run(dev) -> None:
     # -- 4q. the (data, model) mesh of ranks on the card ---------------------
     mesh_run = mesh_path(dev, corpora)
 
+    # -- 4r. the trainer on the mesh, its elastic restore, its accounting ----
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    try:
+        mesh_train = mesh_train_path(dev, train["first_loss"], scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
     for device in (dev, "cpu"):
@@ -5988,6 +6223,7 @@ def run(dev) -> None:
              "lm_serving": serving["launches"]["flash_attention"],
              "lm_machine_phase": machine["launches"]["flash_attention"],
              "training": train["launches"],
+             "mesh_training": mesh_train["launches"],
              "lm_families": fam_flash,
              "ssm_hybrid": ssm_flash,
              "moonshot": acct_launch["moonshot"]["flash_attention"],

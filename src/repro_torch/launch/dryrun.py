@@ -56,21 +56,36 @@ present, else 80 GiB; the record says which).  XLA's ``temp_bytes`` (its
 buffer assignment's peak) has no eager counterpart and is left out; a card
 run reads the peak with ``torch.cuda.max_memory_allocated``.
 
-One card: every collective term is 0.  The multi-pod mesh (``--multi-pod``)
-and the all-to-all expert layer (``--moe-a2a``) wait for the multi-GPU mesh
-(ROADMAP A8).  Run on the CPU: ``python -m repro_torch.launch.dryrun``
-writes one JSON record a cell under ``--out``; ``python -m
-repro_torch.launch.roofline`` prints the H100 table from them.
+On one card every collective term is 0.  On a mesh (``--mesh 16x16``,
+``--multi-pod`` for the reference's (2, 16, 16) ``("pod", "data",
+"model")`` mesh) the record is one rank's, as the reference's records are
+per device, traced on an ``AbstractMesh`` (rank 0's view, no process
+group): the pieces run at the rows the rank computes
+(``train_step.rank_rows``), ``memory`` counts the rank's blocks under the
+rule set, ``sharding_fallbacks`` lists the dims the rules left replicated
+(the reference's ``name:dim{d}%{e}``), and ``full_collectives`` counts
+the bytes by kind that one step moves from the rank, from the collective
+counters of ``repro_torch.launch.mesh``: for train the port's own mesh
+step (``jit_train_step``) run on ``meta`` blocks, the counters the ranks'
+own in a real step; for prefill and decode the gather of every parameter
+whole and the layers' own collectives (the all-to-all experts' under
+``--moe-a2a``, which sets ``moe_impl="a2a"``).  As in the reference,
+the multi-pod record has no per-layer accounting.  Run on the CPU:
+``python -m repro_torch.launch.dryrun`` writes one JSON record a cell
+under ``--out``, tagged by mesh (``h100x1``, ``h100x16x16``,
+``h100x2x16x16``); ``python -m repro_torch.launch.roofline`` prints the
+H100 table from them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
 import types
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -78,9 +93,16 @@ from torch.utils.checkpoint import checkpoint
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS, get
-from repro_torch.configs.shapes import SHAPES, input_specs, shape_applicable
+from repro_torch.configs.shapes import (SHAPES, Shape, decode_input_specs,
+                                        prefill_input_specs,
+                                        shape_applicable, train_input_specs)
+from repro_torch.launch.mesh import collective_bytes
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import (AbstractMesh, batch_sharding,
+                                  block_slices, current_mesh, current_rules,
+                                  local_block, set_current_mesh,
+                                  sharding_tree)
 
 MESH = "h100x1"
 # the accounting's card when it runs without one: an H100 80GB
@@ -178,15 +200,34 @@ class Tally(TorchDispatchMode):
         return out
 
 
+class collectives:
+    """``with collectives() as c: ...`` — ``c.result()`` is the bytes by
+    kind (and ``count``, ``total``) that the collectives run inside moved
+    from this rank (the counters of ``repro_torch.launch.mesh``)."""
+
+    def __enter__(self):
+        self._before = collective_bytes()
+        return self
+
+    def __exit__(self, *exc):
+        self._after = collective_bytes()
+        return False
+
+    def result(self) -> dict:
+        return {k: v - self._before[k] for k, v in self._after.items()}
+
+
 class count:
     """``with count() as c: ...`` — ``c.result()`` is the reference's cost
     record of what ran inside: ``flops`` (matrix products plus elementwise
-    and reductions), ``matmul_flops``, ``bytes``, and ``collectives``
-    (0 on one card)."""
+    and reductions), ``matmul_flops``, ``bytes``, and ``collectives`` (the
+    bytes by kind of :class:`collectives`; 0 on one card)."""
 
     def __enter__(self):
         self._flops = FlopCounterMode(display=False)
         self._tally = Tally()
+        self._coll = collectives()
+        self._coll.__enter__()
         self._flops.__enter__()
         self._tally.__enter__()
         return self
@@ -194,13 +235,14 @@ class count:
     def __exit__(self, *exc):
         self._tally.__exit__(*exc)
         self._flops.__exit__(*exc)
+        self._coll.__exit__(*exc)
         return False
 
     def result(self) -> dict:
         mm = float(self._flops.get_total_flops())
         return {"flops": mm + float(self._tally.other_flops),
                 "matmul_flops": mm, "bytes": float(self._tally.bytes),
-                "collectives": {"total": 0.0}}
+                "collectives": self._coll.result()}
 
 
 # ---------------------------------------------------------------------------
@@ -240,19 +282,154 @@ def _grad(loss, inputs) -> None:
 # ---------------------------------------------------------------------------
 # Per-layer accounting
 # ---------------------------------------------------------------------------
-def account_cell(cfg: ModelConfig, shape_name: str, n_dev: int = 1,
-                 batch: int = 0) -> dict:
+def cell_shape(shape_name: str, batch: int = 0, seq: int = 0) -> Shape:
+    """The shape of a cell, its global batch or sequence cut where asked."""
+    shape = SHAPES[shape_name]
+    return dataclasses.replace(shape, global_batch=batch or
+                               shape.global_batch,
+                               seq_len=seq or shape.seq_len)
+
+
+def cell_inputs(cfg: ModelConfig, shape: Shape) -> Dict[str, torch.Tensor]:
+    fn = {"train": train_input_specs, "prefill": prefill_input_specs,
+          "decode": decode_input_specs}[shape.kind]
+    return fn(cfg, shape)
+
+
+def mesh_of(shape) -> Optional[AbstractMesh]:
+    """``None`` (one card) for ``1`` or ``(1,)``, else the reference's axes
+    over ``shape`` (``"16x16"`` and ``"2x16x16"`` too)."""
+    if isinstance(shape, str):
+        shape = tuple(int(n) for n in shape.split("x"))
+    shape = tuple(shape) if isinstance(shape, (tuple, list)) else (shape,)
+    return None if math.prod(shape) == 1 else AbstractMesh.of(shape)
+
+
+def mesh_tag(mesh) -> str:
+    return MESH if mesh is None else "h100x" + "x".join(
+        str(n) for n in mesh.shape)
+
+
+def account_cell(cfg: ModelConfig, shape_name: str, mesh=None,
+                 batch: int = 0, rules: str = "fsdp_tp",
+                 seq: int = 0) -> dict:
     """The reference's decomposition, ``outer + n_layers x layer (+ zamba2's
     shared block)``, each piece traced on meta tensors and counted
-    (:class:`count`), at the shape's global batch or ``batch``; attention
-    under ``kernel_stub`` with the kernels' analytic costs added.  One card
-    only (``n_dev`` other than 1 needs the mesh, ROADMAP A8)."""
-    if n_dev != 1:
-        raise NotImplementedError("accounting over more than one card needs "
-                                  "the multi-GPU mesh (ROADMAP A8)")
-    shape = SHAPES[shape_name]
+    (:class:`count`), at the shape's global batch or ``batch`` (and its
+    sequence or ``seq``); attention under ``kernel_stub`` with the kernels'
+    analytic costs added.  ``mesh``: an ``AbstractMesh`` (``None``: one
+    card); the pieces then run at the rows rank 0 computes, under the mesh
+    as the current one, and ``collectives`` holds one step's bytes by kind
+    from the rank (:func:`step_collectives`)."""
+    shape = cell_shape(shape_name, batch, seq)
     cfg = cfg.replace(attn_impl="kernel_stub")
-    B, S = batch or shape.global_batch, shape.seq_len
+    if mesh is None:
+        return _account(cfg, shape, shape.global_batch)
+    saved = (current_mesh(), current_rules())
+    set_current_mesh(mesh, rules)
+    try:
+        rows = _rank_rows(cfg, shape, mesh, rules, cell_inputs(cfg, shape))
+        out = _account(cfg, shape, rows)
+        out["rows"] = rows
+        out["collectives"] = step_collectives(cfg, shape, mesh, rules, out)
+        if shape.kind == "train":
+            out["optimizer_flops_analytic"] = 14.0 * _block_elements(
+                cfg, mesh, rules)
+    finally:
+        set_current_mesh(*saved)
+    return out
+
+
+def _rank_rows(cfg, shape, mesh, rules, specs) -> int:
+    from repro_torch.train.train_step import rank_rows
+
+    b_shard = batch_sharding(mesh, specs, rules)
+    return rank_rows(cfg, mesh, b_shard["tokens"], shape.global_batch)[1]
+
+
+def _param_shardings(cfg, mesh, rules, fallbacks=None):
+    return sharding_tree(mesh, M.param_axes(cfg), M.abstract_params(cfg),
+                         rules, fallbacks)
+
+
+def _block_elements(cfg, mesh, rules) -> int:
+    """The parameter elements a rank holds."""
+    from repro_torch.train.optim import tree_leaves
+
+    specs = M.model_specs(cfg)
+    return sum(_block_numel(sh, specs[path].shape) for path, sh
+               in tree_leaves(_param_shardings(cfg, mesh, rules)))
+
+
+def _block_numel(sharding, shape) -> int:
+    return math.prod(s.stop - s.start for s in block_slices(sharding, shape))
+
+
+def step_collectives(cfg: ModelConfig, shape: Shape, mesh,
+                     rules: str = "fsdp_tp", acc: Optional[dict] = None
+                     ) -> dict:
+    """The bytes by kind one step moves from a rank of ``mesh`` (an
+    ``AbstractMesh``), counted by the collectives as they run on ``meta``
+    blocks: for train the port's mesh step (``jit_train_step`` with
+    AdamW's defaults, one microbatch, no compression), whose counters a
+    rank's real step of the same shapes equals; for prefill and decode the
+    gather of every parameter whole, then the model's layers on the rows
+    the rank computes (their own collectives: the all-to-all experts', from
+    the pieces of ``acc``, the rank's accounting, traced here if not
+    given)."""
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import (abstract_state, jit_train_step,
+                                              shard_state)
+
+    cfg = cfg.replace(attn_impl="kernel_stub")
+    specs = cell_inputs(cfg, shape)
+    saved = (current_mesh(), current_rules())
+    set_current_mesh(mesh, rules)
+    try:
+        if shape.kind == "train":
+            full = abstract_state(cfg)
+            step, s_shard, b_shard = jit_train_step(
+                cfg, AdamWConfig(), mesh, full, specs, rules)
+            state = shard_state(full, s_shard)
+            batch = {k: local_block(v, b_shard[k]) for k, v in specs.items()}
+            with collectives() as c:
+                step(state, batch)
+            return c.result()
+        return _serve_collectives(cfg, shape, mesh, rules, specs, acc)
+    finally:
+        set_current_mesh(*saved)
+
+
+def _serve_collectives(cfg, shape, mesh, rules, specs, acc) -> dict:
+    from repro_torch.sharding import gather_full
+    from repro_torch.train.optim import tree_leaves
+
+    specs_by_path = M.model_specs(cfg)
+    p_shard = tree_leaves(_param_shardings(cfg, mesh, rules))
+    blocks = [local_block(_meta(specs_by_path[path].shape,
+                                specs_by_path[path].dtype), sh)
+              for path, sh in p_shard]
+    with collectives() as c:
+        for x, (_, sh) in zip(blocks, p_shard):
+            gather_full(x, sh)
+    out = c.result()
+    if acc is None:
+        acc = _account(cfg, shape, _rank_rows(cfg, shape, mesh, rules,
+                                              specs))
+    parts = [(acc["layer"], cfg.n_layers * acc["layer_scale"]),
+             (acc["outer"], 1)]
+    if "shared" in acc:
+        parts.append((acc["shared"], acc["n_shared"]))
+    for piece, times in parts:
+        for k, v in piece["collectives"].items():
+            out[k] += v * times
+    return out
+
+
+def _account(cfg: ModelConfig, shape: Shape, B: int) -> dict:
+    """The pieces at ``B`` rows of ``shape``, and one card's analytic
+    optimizer FLOPs."""
+    S = shape.seq_len
     out: dict = {"n_layers": cfg.n_layers}
     d = cfg.d_model
     if shape.kind in ("train", "prefill"):
@@ -299,7 +476,7 @@ def account_cell(cfg: ModelConfig, shape_name: str, n_dev: int = 1,
 
         # outer: embedding + head + loss (train) / head only (prefill)
         prm = _outer_params(cfg, grad=train)
-        specs = input_specs(cfg, shape_name, batch_override=B)
+        specs = cell_inputs(cfg, dataclasses.replace(shape, global_batch=B))
         with count() as c, torch.set_grad_enabled(train):
             xe, _ = M._embed_inputs(prm, specs)
             logits = M._logits(prm, xe)
@@ -318,8 +495,8 @@ def account_cell(cfg: ModelConfig, shape_name: str, n_dev: int = 1,
 
         # AdamW update flops (train): elementwise over params — analytic
         if train:
-            out["optimizer_flops_analytic"] = 14.0 * M.n_params(cfg) / n_dev
-        out["flash_kernel"] = flash_kernel_costs(cfg, shape_name, n_dev, B)
+            out["optimizer_flops_analytic"] = 14.0 * M.n_params(cfg)
+        out["flash_kernel"] = flash_kernel_costs(cfg, shape, 1, B)
         return out
 
     # ---- decode accounting ----
@@ -351,7 +528,7 @@ def account_cell(cfg: ModelConfig, shape_name: str, n_dev: int = 1,
         xe = prm.params["embed"]["table"][toks.to(torch.int64)]
         M._logits(prm, xe)
     out["outer"] = c.result()
-    out["decode_kernel"] = decode_kernel_costs(cfg, shape_name, n_dev, B)
+    out["decode_kernel"] = decode_kernel_costs(cfg, shape, 1, B)
     return out
 
 
@@ -376,6 +553,11 @@ def _meta_cache(cfg: ModelConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # Analytic reference (MODEL_FLOPS) and the kernels' costs
 # ---------------------------------------------------------------------------
+def _shape(shape) -> Shape:
+    """A shape's name, or a :class:`Shape` (a cut cell's)."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
 def flash_kernel_costs(cfg: ModelConfig, shape_name: str, n_dev: int,
                        batch: int = 0) -> dict:
     """Analytic per-device cost of the flash-attention kernel for one step:
@@ -383,7 +565,7 @@ def flash_kernel_costs(cfg: ModelConfig, shape_name: str, n_dev: int,
     incl. recompute); HBM bytes = q/k/v read + o written (x2.5 train).
     Scores and probabilities stay on chip (that is the point of the
     kernel).  ``batch`` (default the shape's) for a cut batch."""
-    shape = SHAPES[shape_name]
+    shape = _shape(shape_name)
     if shape.kind == "decode" or cfg.n_heads == 0:
         return {"flops": 0.0, "bytes": 0.0}
     S, B = shape.seq_len, batch or shape.global_batch
@@ -405,7 +587,7 @@ def decode_kernel_costs(cfg: ModelConfig, shape_name: str, n_dev: int,
     included); bytes = q read and o written in bf16, the K and V caches read
     once in their dtype (int8 and their bf16 scales under ``kv_quant``).
     Zero outside decode shapes and for attention-free configs."""
-    shape = SHAPES[shape_name]
+    shape = _shape(shape_name)
     if shape.kind != "decode" or cfg.n_heads == 0:
         return {"flops": 0.0, "bytes": 0.0}
     S, B = shape.seq_len, batch or shape.global_batch
@@ -425,7 +607,7 @@ def attn_score_hbm_bytes(cfg: ModelConfig, shape_name: str, n_dev: int,
     kernel keeps these on chip; the port never runs the stand-in).
     Counted as ~3 f32 traversals (scores out, exp in/out) of the triangular
     S^2/2 block area per layer, q-heads wide."""
-    shape = SHAPES[shape_name]
+    shape = _shape(shape_name)
     if shape.kind == "decode" or cfg.n_heads == 0:
         return 0.0
     S, B = shape.seq_len, batch or shape.global_batch
@@ -469,26 +651,51 @@ def cache_bytes(cfg: ModelConfig, batch: int, max_len: int) -> int:
     return _bytes_of(_meta_cache(cfg, batch, max_len).values())
 
 
-def mem_summary(cfg: ModelConfig, shape_name: str, batch: int = 0) -> dict:
+def mem_summary(cfg: ModelConfig, shape_name: str, batch: int = 0,
+                mesh=None, rules: str = "fsdp_tp") -> dict:
     """Exact bytes of one step's arguments, outputs and in-place updates
-    (see the module docstring), and whether they fit one card."""
+    (see the module docstring), and whether they fit one card.  On a
+    ``mesh``: a rank's, each leaf's block under the rule set (the
+    parameters, AdamW's moments, the inputs, the cache; the logits'
+    rows)."""
     shape = SHAPES[shape_name]
     B, S = batch or shape.global_batch, shape.seq_len
-    params = _bytes_of(_meta(s.shape, s.dtype)
-                       for s in M.model_specs(cfg).values())
-    inputs = _bytes_of(input_specs(cfg, shape_name, batch_override=B)
-                       .values())
+    cell = cell_shape(shape_name, B)
+    if mesh is None:
+        params = _bytes_of(_meta(s.shape, s.dtype)
+                           for s in M.model_specs(cfg).values())
+        n_params = M.n_params(cfg)
+        inputs = _bytes_of(cell_inputs(cfg, cell).values())
+        cache = cache_bytes(cfg, B, S)
+        rows = B
+    else:
+        from repro_torch.train.optim import tree_leaves
+
+        specs = M.model_specs(cfg)
+        p_shard = tree_leaves(_param_shardings(cfg, mesh, rules))
+        params = sum(_block_numel(sh, specs[p].shape) * specs[p].dtype.itemsize
+                     for p, sh in p_shard)
+        n_params = sum(_block_numel(sh, specs[p].shape) for p, sh in p_shard)
+        ins = cell_inputs(cfg, cell)
+        b_shard = batch_sharding(mesh, ins, rules)
+        inputs = sum(_block_numel(b_shard[k], tuple(v.shape))
+                     * v.element_size() for k, v in ins.items())
+        caches = _meta_cache(cfg, B, S)
+        c_shard = sharding_tree(mesh, M.cache_axes(cfg), caches, rules)
+        cache = sum(_block_numel(c_shard[k], tuple(v.shape))
+                    * v.element_size() for k, v in caches.items())
+        rows = block_slices(b_shard["tokens"], (B,))[0]
+        rows = rows.stop - rows.start
     if shape.kind == "train":
-        opt = 2 * 4 * M.n_params(cfg) + 4             # f32 m and v, step
+        opt = 2 * 4 * n_params + 4                    # f32 m and v, step
         arg, alias = params + opt + inputs, params + opt
         out = params + opt + 4                        # new state, f32 loss
     elif shape.kind == "prefill":
         arg, alias = params + inputs, 0
-        out = cache_bytes(cfg, B, S) + B * cfg.vocab * 4
+        out = cache + rows * cfg.vocab * 4
     else:
-        cache = cache_bytes(cfg, B, S)
         arg, alias = params + cache + inputs, cache
-        out = cache + B * cfg.vocab * 4
+        out = cache + rows * cfg.vocab * 4
     total, source = card_bytes()
     return {"argument_bytes": arg, "output_bytes": out, "alias_bytes": alias,
             "parameter_bytes": params, "card_bytes": total,
@@ -496,40 +703,72 @@ def mem_summary(cfg: ModelConfig, shape_name: str, batch: int = 0) -> dict:
             "fits_one_card": arg + out - alias <= total}
 
 
+def sharding_fallbacks(cfg: ModelConfig, shape_name: str, mesh,
+                       rules: str = "fsdp_tp") -> list:
+    """The dims the rules leave replicated, as the reference's dry-run
+    records them (``name:dim{d}%{e}``): the parameters', then, for prefill
+    and decode, the cache's at the shape's global batch and length."""
+    fallbacks: list = []
+    _param_shardings(cfg, mesh, rules, fallbacks)
+    shape = SHAPES[shape_name]
+    if shape.kind != "train":
+        sharding_tree(mesh, M.cache_axes(cfg), _meta_cache(
+            cfg, shape.global_batch, shape.seq_len), rules, fallbacks)
+    return [f"{n}:dim{d}%{e}" for n, _, d, e in fallbacks]
+
+
 # ---------------------------------------------------------------------------
 # Cells and the command line
 # ---------------------------------------------------------------------------
 def run_cell(arch: str, shape_name: str, kv_quant: bool = False,
-             batch: int = 0) -> dict:
+             batch: int = 0, mesh=None, rules: str = "fsdp_tp",
+             moe_a2a: bool = False, skip_accounting: bool = False) -> dict:
     """One cell's record: the reference's keys where they mean the same,
-    tagged ``h100x1``; ``batch`` cuts the shape's global batch."""
+    tagged by mesh (``h100x1`` for one card); ``batch`` cuts the shape's
+    global batch.  On a ``mesh`` (an ``AbstractMesh``) the record is one
+    rank's: the fallbacks, the memory of its blocks and one step's
+    ``full_collectives``, with the per-layer ``accounting`` unless
+    ``skip_accounting`` (the reference skips it on the multi-pod mesh)."""
     cfg = get(arch)
     if kv_quant:
         cfg = cfg.replace(kv_quant=True)
+    if moe_a2a:
+        cfg = cfg.replace(moe_impl="a2a")
     skip = shape_applicable(cfg, shape_name)
-    rec = {"arch": arch, "shape": shape_name, "mesh": MESH, "rules": "none",
-           "ts": time.time()}
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_tag(mesh),
+           "rules": "none" if mesh is None else rules, "ts": time.time()}
     if skip:
         rec["status"] = skip
         return rec
     B = batch or SHAPES[shape_name].global_batch
+    n_dev = 1 if mesh is None else mesh.size
     t0 = time.time()
-    acc = account_cell(cfg, shape_name, batch=B)
     rec.update(
         status="ok",
-        n_devices=1,
+        n_devices=n_dev,
         global_batch=B,
         kv_quant=kv_quant,
-        trace_seconds=time.time() - t0,
-        memory=mem_summary(cfg, shape_name, B),
+        memory=mem_summary(cfg, shape_name, B, mesh, rules),
         model_flops=model_flops(cfg, shape_name, B),
-        attn_score_hbm_bytes=attn_score_hbm_bytes(cfg, shape_name, 1, B),
+        attn_score_hbm_bytes=attn_score_hbm_bytes(cfg, shape_name, n_dev,
+                                                  B),
         n_params=M.n_params(cfg),
         n_active_params=M.n_active_params(cfg),
         cache_bytes=cache_bytes(cfg, B, SHAPES[shape_name].seq_len),
-        collectives_note="one card: no collective (the mesh is ROADMAP A8)",
-        accounting=acc,
     )
+    if mesh is None:
+        rec["collectives_note"] = "one card: no collective"
+    else:
+        rec["moe_impl"] = cfg.moe_impl
+        rec["sharding_fallbacks"] = sharding_fallbacks(cfg, shape_name, mesh,
+                                                       rules)
+    if not skip_accounting:
+        rec["accounting"] = account_cell(cfg, shape_name, mesh, B, rules)
+    if mesh is not None:
+        rec["full_collectives"] = rec["accounting"]["collectives"] \
+            if not skip_accounting else step_collectives(
+                cfg, cell_shape(shape_name, B), mesh, rules)
+    rec["trace_seconds"] = time.time() - t0
     return rec
 
 
@@ -540,31 +779,44 @@ def main(argv=None):
     ap.add_argument("--out", default="build/dryrun_h100")
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--tag", default="")
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--moe-a2a", action="store_true")
+    ap.add_argument("--mesh", default="1",
+                    help="1 (one card), or a mesh such as 16x16")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) (pod, data, model) mesh")
+    ap.add_argument("--rules", default="fsdp_tp")
+    ap.add_argument("--moe-a2a", action="store_true",
+                    help="moe_impl='a2a' (on the 16x16 mesh unless another "
+                         "is named)")
+    ap.add_argument("--skip-accounting", action="store_true")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.moe_a2a:
-        raise NotImplementedError(
-            "--multi-pod and --moe-a2a need the multi-GPU mesh (ROADMAP A8)")
+    mesh = mesh_of((2, 16, 16) if args.multi_pod else args.mesh)
+    if mesh is None and args.moe_a2a:
+        mesh = mesh_of((16, 16))    # the all-to-all experts need a mesh
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
     archs = [args.arch] if args.arch else [a for a in ARCHS
                                            if a != "paper-scorer"]
     shapes = [args.shape] if args.shape else list(SHAPES)
+    name = mesh_tag(mesh)
+    rules = "" if mesh is None else f"__{args.rules}"
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}__{shape}__{MESH}{args.tag}"
+            tag = f"{arch}__{shape}__{name}{rules}{args.tag}"
             path = out_dir / f"{tag}.json"
             if path.exists():
                 print(f"[skip cached] {tag}")
                 continue
             t0 = time.time()
             try:
-                rec = run_cell(arch, shape, kv_quant=args.kv_quant)
+                rec = run_cell(arch, shape, kv_quant=args.kv_quant,
+                               mesh=mesh, rules=args.rules,
+                               moe_a2a=args.moe_a2a,
+                               skip_accounting=args.skip_accounting
+                               or args.multi_pod)
             except Exception as e:  # noqa: BLE001 — record the failure
                 import traceback
-                rec = {"arch": arch, "shape": shape, "mesh": MESH,
+                rec = {"arch": arch, "shape": shape, "mesh": name,
                        "status": f"FAILED: {type(e).__name__}: {e}",
                        "traceback": traceback.format_exc()[-2000:]}
             rec["wall_seconds"] = time.time() - t0

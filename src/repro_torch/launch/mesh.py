@@ -36,6 +36,16 @@ rank's chunk) gathers the chunks' gradients back; :func:`all_to_all`'s is
 the reverse exchange; :func:`all_reduce`'s passes the gradient through; and
 :func:`replicate` (the identity on a replicated input that each rank uses
 for its own part of the work) sums the ranks' gradients.
+
+Every collective adds the bytes it moves to this process's counters, one
+rank's view, keyed as the reference's dry-run keys its HLO parse
+(``launch/dryrun.py::collective_bytes``): an all-gather and an all-to-all
+count their result, an all-reduce twice its result (a ring's reduce-scatter
+and all-gather), and ``count`` the calls.  :func:`collective_bytes` reads
+them and :func:`reset_collective_bytes` zeroes them.  On a mesh without
+ranks (``repro_torch.sharding.AbstractMesh``) each collective returns a
+tensor of its output's shape and dtype (``meta`` in, ``meta`` out) and
+counts, with no process group: the dry-run traces a rank's step that way.
 """
 from __future__ import annotations
 
@@ -358,23 +368,63 @@ def _failures(results, rank: int, payload: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Collectives (differentiable)
+# Collectives (differentiable), counted
 # ---------------------------------------------------------------------------
-def _gather(x: torch.Tensor, mesh: HostMesh, axis: Optional[str]):
-    parts = [torch.empty_like(x) for _ in range(mesh.group_size(axis))]
-    dist.all_gather(parts, x, group=mesh.group(axis))
-    return torch.stack(parts)
+KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
+         "collective-permute")
+_COUNTS = {k: 0 for k in KINDS + ("count",)}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
-def _exchange(x: torch.Tensor, mesh: HostMesh, axis: Optional[str]):
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=mesh.group(axis))
+def collective_bytes() -> dict:
+    """Bytes this rank's collectives moved since the last reset, by kind,
+    with ``count`` (calls) and ``total`` (every kind's bytes)."""
+    out = dict(_COUNTS)
+    out["total"] = sum(out[k] for k in KINDS)
     return out
 
 
-def _reduce(x: torch.Tensor, mesh: HostMesh, axis: Optional[str]):
+def reset_collective_bytes() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    nbytes = out.numel() * out.element_size()
+    _COUNTS[kind] += 2 * nbytes if kind == "all-reduce" else nbytes
+    _COUNTS["count"] += 1
+
+
+def _abstract(mesh) -> bool:
+    """A mesh without ranks: shapes only, no process group."""
+    return not isinstance(mesh, HostMesh)
+
+
+def _gather(x: torch.Tensor, mesh, axis: Optional[str]):
+    n = mesh.group_size(axis)
+    if _abstract(mesh):
+        out = x.new_empty((n, *x.shape))
+    else:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=mesh.group(axis))
+        out = torch.stack(parts)
+    _count("all-gather", out)
+    return out
+
+
+def _exchange(x: torch.Tensor, mesh, axis: Optional[str]):
+    out = torch.empty_like(x)
+    if not _abstract(mesh):
+        dist.all_to_all_single(out, x, group=mesh.group(axis))
+    _count("all-to-all", out)
+    return out
+
+
+def _reduce(x: torch.Tensor, mesh, axis: Optional[str], op: str = "sum"):
     w = x.detach().clone()
-    dist.all_reduce(w, group=mesh.group(axis))
+    if not _abstract(mesh):
+        dist.all_reduce(w, op=_REDUCE_OPS[op], group=mesh.group(axis))
+    _count("all-reduce", w)
     return w
 
 
@@ -415,12 +465,12 @@ class _AllToAll(torch.autograd.Function):
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return _reduce(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, op):
+        return _reduce(x, mesh, axis, op)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _Replicate(torch.autograd.Function):
@@ -463,9 +513,14 @@ def all_to_all(x: torch.Tensor, mesh: HostMesh,
 
 
 def all_reduce(x: torch.Tensor, mesh: HostMesh,
-               axis: Optional[str] = None) -> torch.Tensor:
-    """The sum of every rank's ``x`` over ``axis``, on every rank."""
-    return _AllReduce.apply(x.contiguous(), mesh, axis)
+               axis: Optional[str] = None, op: str = "sum") -> torch.Tensor:
+    """The sum (or, ``op="max"``, the maximum, which has no gradient) of
+    every rank's ``x`` over ``axis``, on every rank."""
+    if op not in _REDUCE_OPS:
+        raise ValueError(f"op {op!r}: use 'sum' or 'max'")
+    if op != "sum" and x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("all_reduce(op='max') has no gradient")
+    return _AllReduce.apply(x.contiguous(), mesh, axis, op)
 
 
 def replicate(x: torch.Tensor, mesh: HostMesh,

@@ -12,9 +12,12 @@ sheet for the H100 SXM at its 700 W limit (peaks, not measurements):
 
 The FLOPs and bytes are the accounting's per-layer decomposition
 (outer + L x layer [+ shared] + the optimizer's and the kernels' analytic
-costs).  The port's accounting is for one card, so its collective term is
-0 until the multi-GPU mesh (ROADMAP A8) brings collectives.  The roofline
-fraction is the reference's:
+costs), one rank's on a mesh.  The collective bytes are the bytes one
+step moves from the rank, counted by the collectives of
+``repro_torch.launch.mesh`` as the dry-run traces the step (the
+accounting's ``collectives``; 0 on one card); NVLink's rate stands for
+every link, so a mesh wider than one NVLink domain reads optimistic.  The
+roofline fraction is the reference's:
 
   frac = (MODEL_FLOPS / devices / PEAK_FLOPS) / max(terms)
 
@@ -59,6 +62,8 @@ def cell_terms(rec: dict) -> Optional[dict]:
     f += acc["outer"]["flops"]
     b += acc["outer"]["bytes"]
     c += acc["outer"]["collectives"]["total"]
+    if "collectives" in acc:     # the whole step's, on a mesh
+        c = acc["collectives"]["total"]
     f += acc.get("optimizer_flops_analytic", 0.0)
     for key in KERNEL_KEYS:
         if key in acc:
@@ -111,11 +116,13 @@ def measured_fraction(terms: dict, seconds: float) -> float:
     return bound / seconds
 
 
-def load_cells(art_dir: Path, tag: str = "") -> List[dict]:
-    """The terms of every ``<arch>__<shape>__h100x1<tag>.json`` record in
-    ``art_dir``, skipped cells as ``{"skipped": reason}``."""
+def load_cells(art_dir: Path, tag: str = "", mesh: str = "h100x1"
+               ) -> List[dict]:
+    """The terms of every ``<arch>__<shape>__<mesh>[__<rules>]<tag>.json``
+    record in ``art_dir``, skipped cells as ``{"skipped": reason}``."""
     cells = []
-    for p in sorted(art_dir.glob(f"*__h100x1{tag}.json")):
+    rules = "" if mesh == "h100x1" else "__*"
+    for p in sorted(art_dir.glob(f"*__{mesh}{rules}{tag}.json")):
         rec = json.loads(p.read_text())
         t = cell_terms(rec)
         if t:
@@ -129,19 +136,20 @@ def load_cells(art_dir: Path, tag: str = "") -> List[dict]:
 
 def markdown_table(cells: List[dict]) -> str:
     hdr = ("| arch | shape | compute (ms) | memory (ms) | collective (ms) | "
-           "dominant | useful FLOP ratio | roofline frac |\n"
-           "|---|---|---|---|---|---|---|---|")
+           "dominant | useful FLOP ratio | roofline frac | fallbacks |\n"
+           "|---|---|---|---|---|---|---|---|---|")
     rows = [hdr]
     for c in cells:
         if "skipped" in c:
             rows.append(f"| {c['arch']} | {c['shape']} | — | — | — | "
-                        f"{c['skipped'].split('(')[0]} | — | — |")
+                        f"{c['skipped'].split('(')[0]} | — | — | — |")
             continue
         rows.append(
             f"| {c['arch']} | {c['shape']} | {c['compute_s']*1e3:.1f} | "
             f"{c['memory_s']*1e3:.1f} | {c['collective_s']*1e3:.1f} | "
             f"**{c['dominant']}** | {c['useful_ratio']:.2f} | "
-            f"{c['roofline_frac']:.1%} |")
+            f"{c['roofline_frac']:.1%} | "
+            f"{', '.join(c['fallbacks']) or '—'} |")
     return "\n".join(rows)
 
 
@@ -162,8 +170,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--artifacts", default="build/dryrun_h100")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--mesh", default="h100x1",
+                    help="the records' mesh tag, e.g. h100x16x16")
     args = ap.parse_args(argv)
-    cells = load_cells(Path(args.artifacts), args.tag)
+    cells = load_cells(Path(args.artifacts), args.tag, args.mesh)
     print(markdown_table(cells))
     print()
     picks = pick_hillclimb(cells)

@@ -8,9 +8,14 @@
 
 Flags as the JAX package's ``launch/train.py`` has them, plus ``--device``
 (the card unless ``cpu`` is asked for).  ``--reduced`` is the default and
-``--full`` turns it off, as in the reference.  ``--production-mesh`` (the
-reference's 16x16 TPU mesh) raises ``NotImplementedError``: the mesh is
-ROADMAP A8.
+``--full`` turns it off, as in the reference.  ``--production-mesh``
+builds the reference's 16 x 16 mesh over the process group this process
+is a rank of (256 ranks, one a card, started by a cluster launcher that
+initializes ``torch.distributed``), and trains on it; with fewer ranks it
+raises ``make_production_mesh``'s ``RuntimeError``.  The default is one
+device.  A smaller mesh of ranks on one host:
+``repro_torch.launch.mesh.spawn`` of a function that builds the ``Runner``
+on the mesh it is given (``README.md``).
 """
 from __future__ import annotations
 
@@ -33,27 +38,25 @@ def main(argv=None):
     ap.add_argument("--dataset", default="paper",
                     help="entity dataset providing the training text")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's 16x16 mesh (not ported: A8)")
+                    help="use the 16x16 mesh (requires 256 ranks)")
     ap.add_argument("--fail-at", type=int, default=-1,
                     help="inject a simulated node failure at this step")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.production_mesh:
-        raise NotImplementedError(
-            "--production-mesh: the multi-device mesh is not ported to "
-            "repro_torch yet (ROADMAP A8)")
-
     from repro_torch.configs import get
     from repro_torch.data.entities import load_dataset
     from repro_torch.data.tokens import TokenPipeline, corpus_from_records
     from repro_torch.device import pick_device
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.train.fault import FailureInjector
     from repro_torch.train.optim import AdamWConfig
     from repro_torch.train.runner import Runner, RunnerConfig
 
     dev = pick_device(args.device)
+    mesh = make_production_mesh(device=dev) if args.production_mesh \
+        else dev
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -71,7 +74,7 @@ def main(argv=None):
                      checkpoint_dir=args.checkpoint_dir,
                      microbatches=args.microbatches,
                      compress_grads=args.compress_grads),
-        dev, pipe, injector=injector)
+        mesh, pipe, injector=injector)
     out = runner.run()
     hist = out["history"]
     print(f"[train] done: {out['final_step']} steps, "

@@ -506,13 +506,11 @@ def _logits(model: Model, x: torch.Tensor) -> torch.Tensor:
     return logits.to(torch.float32) if cfg.logits_f32 else logits
 
 
-def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
-    """Next-token cross-entropy; positions with target < 0 are masked.
-    ``batch``: ``tokens`` and ``targets`` (B, S_total, the prefix
-    included), with the front ends' ``prefix_embeds`` and ``positions3``
-    where the config has them, on the model's device.  Plus 0.01 x the
-    summed aux loss of the expert layers (0 without experts), as the
-    reference's."""
+def loss_parts(model: Model, batch: Dict[str, Any]
+               ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """(the masked next-token NLL (B, S), the f32 mask (B, S), the expert
+    layers' summed aux loss or None): :func:`loss_fn`'s pieces, which a
+    rank of a mesh step weighs by every rank's counts before it sums."""
     x, positions = _embed_inputs(model, batch)
     x, aux = _backbone(model, x, positions)
     logits = _logits(model, x)
@@ -521,7 +519,17 @@ def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
     t = targets.clamp(min=0)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, t[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    return (logz - gold) * mask, mask, aux
+
+
+def loss_fn(model: Model, batch: Dict[str, Any]) -> torch.Tensor:
+    """Next-token cross-entropy; positions with target < 0 are masked.
+    ``batch``: ``tokens`` and ``targets`` (B, S_total, the prefix
+    included), with the front ends' ``prefix_embeds`` and ``positions3``
+    where the config has them, on the model's device.  Plus 0.01 x the
+    summed aux loss of the expert layers (0 without experts), as the
+    reference's."""
+    nll, mask, aux = loss_parts(model, batch)
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return loss if aux is None else loss + 0.01 * aux
 

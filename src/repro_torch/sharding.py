@@ -22,7 +22,10 @@ hillclimb alternatives.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
 
 # logical axis -> mesh axes (tuple = use several mesh axes for one dim)
 RULE_SETS: Dict[str, Dict[str, Any]] = {
@@ -124,9 +127,42 @@ Spec = Tuple[Any, ...]
 
 class AbstractMesh(NamedTuple):
     """A mesh's axis names and extents, without ranks (what the rules
-    read)."""
+    read).  It answers as rank 0 of such a mesh (its coordinate all
+    zeros), so a rank's step runs on it with ``meta`` tensors and the
+    collectives of ``repro_torch.launch.mesh`` return their shapes."""
     mesh_dim_names: Tuple[str, ...]
     shape: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, shape: Tuple[int, ...]) -> "AbstractMesh":
+        """``(data, model)``, or ``(pod, data, model)`` for three extents:
+        the reference's mesh axes."""
+        names = {2: ("data", "model"), 3: ("pod", "data", "model")}
+        return cls(names[len(shape)], tuple(shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def rank(self) -> int:
+        return 0
+
+    @property
+    def coordinate(self) -> Tuple[int, ...]:
+        return (0,) * len(self.shape)
+
+    def extent(self, name: str) -> int:
+        return _extents(self).get(name, 1)
+
+    def index(self, name: str) -> int:
+        return 0
+
+    def group_size(self, name: Optional[str] = None) -> int:
+        return self.size if name is None else self.extent(name)
+
+    def group_index(self, name: Optional[str] = None) -> int:
+        return 0
 
 
 def _extents(mesh) -> Dict[str, int]:
@@ -225,9 +261,11 @@ class NamedSharding:
 
 
 def _tree_map(fn, axes_tree, shapes_tree):
+    # sorted keys: the reference's jax.tree order, which orders the
+    # fallbacks a tree records
     if isinstance(axes_tree, dict):
-        return {k: _tree_map(fn, v, shapes_tree[k])
-                for k, v in axes_tree.items()}
+        return {k: _tree_map(fn, axes_tree[k], shapes_tree[k])
+                for k in sorted(axes_tree)}
     return fn(axes_tree, shapes_tree)
 
 
@@ -266,6 +304,75 @@ def replicated(mesh) -> NamedSharding:
 
 
 # ---------------------------------------------------------------------------
+# A leaf's block on a rank, and the inverse
+# ---------------------------------------------------------------------------
+def _axes_of(target) -> Tuple[str, ...]:
+    if target is None:
+        return ()
+    return (target,) if isinstance(target, str) else tuple(target)
+
+
+def sharding_axes(sharding: NamedSharding) -> Tuple[str, ...]:
+    """The mesh axes that shard some dim of a leaf, in the mesh's order."""
+    used = {a for t in sharding.spec for a in _axes_of(t)}
+    return tuple(a for a in sharding.mesh.mesh_dim_names if a in used)
+
+
+def block_slices(sharding: NamedSharding, shape: Tuple[int, ...],
+                 coordinate: Optional[Tuple[int, ...]] = None
+                 ) -> Tuple[slice, ...]:
+    """The rank's block of a ``shape`` leaf: on each dim sharded over mesh
+    axes ``(a1, a2, ...)`` the chunk at index ``((i1 * n2) + i2) ...`` of
+    ``n1 * n2 ...`` equal chunks (major-first in the mesh's order, as
+    :func:`placements_for` and the reference's ``NamedSharding`` split).
+    ``coordinate`` defaults to the mesh's own rank's."""
+    mesh = sharding.mesh
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, coordinate if coordinate is not None
+                     else mesh.coordinate))
+    ext = _extents(mesh)
+    out = []
+    for d, size in enumerate(shape):
+        axes = _axes_of(sharding.spec[d]) if d < len(sharding.spec) else ()
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * ext[a], i * ext[a] + coord[a]
+        if size % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {axes} ({n} ranks)")
+        step = size // n
+        out.append(slice(i * step, (i + 1) * step))
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The rank's block of the full tensor ``x`` under ``sharding``, as its
+    own tensor: the counterpart of ``jax.device_put(x, s)`` for one device
+    of the mesh.  Always a copy, outside autograd: a view (a slice along
+    dim 0 is one) would keep the whole of ``x`` alive."""
+    return x.detach()[block_slices(sharding, tuple(x.shape))].clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_full(block: torch.Tensor, sharding: NamedSharding
+                ) -> torch.Tensor:
+    """The full tensor on every rank from each rank's block (the
+    counterpart of ``np.asarray`` of a sharded array): one all-gather over
+    each axis that shards it, the minor axis first, each concatenating its
+    blocks along their dim.  A replicated leaf moves nothing."""
+    from repro_torch.launch.mesh import all_gather
+
+    mesh = sharding.mesh
+    out = block
+    for a in reversed(sharding_axes(sharding)):
+        dim = next(d for d, t in enumerate(sharding.spec)
+                   if a in _axes_of(t))
+        parts = all_gather(out, mesh, a)
+        out = torch.cat(list(parts.unbind(0)), dim=dim)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Current-mesh context: lets model code find the mesh without threading it
 # through every call (set by the launchers; read by the all-to-all experts)
 # ---------------------------------------------------------------------------
@@ -280,6 +387,11 @@ def set_current_mesh(mesh, rules: str = "fsdp_tp") -> None:
 def current_mesh():
     """The mesh :func:`set_current_mesh` set, or ``None``."""
     return _CURRENT["mesh"]
+
+
+def current_rules() -> str:
+    """The rule set :func:`set_current_mesh` set."""
+    return _CURRENT["rules"]
 
 
 def constrain(x, logical_axes: Tuple[Optional[str], ...]):

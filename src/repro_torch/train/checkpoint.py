@@ -23,6 +23,15 @@
 * Async: ``save(..., background=True)`` hands the host copy to a writer
   thread.  A failed background write is never silent: the exception is
   re-raised from ``wait()`` or the next ``save`` / ``restore``.
+* Mesh: a manager built with ``mesh=`` (a ``HostMesh``) is called by every
+  rank alike.  ``save(..., shardings=...)`` gathers each leaf whole in
+  every rank, in the calling thread (the writer thread runs no
+  collective), and only rank 0 writes; ``wait()`` then meets the other
+  ranks at a barrier, so every rank that reads the directory after it
+  (``restore``, ``latest_step``) sees the same steps.
+* Elastic: ``restore(shardings=...)`` loads on the host and cuts each
+  rank's block under the shardings of the mesh it restores onto, whatever
+  mesh wrote the directory (the reference's elastic path).
 """
 from __future__ import annotations
 
@@ -141,18 +150,41 @@ def _from_host(a: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, keep: int = 3):
+    def __init__(self, directory: str | Path, keep: int = 3, mesh=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        if self._writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier()     # the directory exists before any rank reads it
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group())
 
     # ---------------- save ----------------
     def save(self, step: int, state: Any, extra: Optional[dict] = None,
              background: bool = False,
-             sidecar: Optional[dict] = None) -> Path:
+             sidecar: Optional[dict] = None,
+             shardings: Optional[Any] = None) -> Path:
+        """Write ``state`` as ``step``.  ``shardings`` (a tree matching the
+        state): its leaves are each rank's blocks, gathered whole here in
+        every rank (collective) before rank 0 writes."""
         self.wait()  # joins a previous writer and re-raises its failure
+        if shardings is not None:
+            from .train_step import gather_state
+
+            state = gather_state(state, shardings)
+        if not self._writer:
+            return self.dir / f"step_{step:08d}"
         statics: Dict[str, Any] = {}
         classes: Dict[str, str] = {}
         flat = _flatten(state, statics=statics, classes=classes)
@@ -212,9 +244,12 @@ class CheckpointManager:
         return final
 
     def wait(self):
+        """Join the writer and re-raise its failure; on a mesh, every rank
+        then meets the others at a barrier."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("background checkpoint save failed") from err
@@ -273,9 +308,20 @@ class CheckpointManager:
         return json.loads(p.read_text()) if p.exists() else None
 
     def restore(self, step: Optional[int] = None,
-                device: DeviceLike = None) -> Tuple[int, Any, dict]:
+                device: DeviceLike = None,
+                shardings: Optional[Any] = None) -> Tuple[int, Any, dict]:
         """Returns (step, state, extra).  Every array leaf comes back as a
-        torch tensor, on the CPU or on ``device``."""
+        torch tensor, on the CPU or on ``device``.  With ``shardings`` (a
+        tree matching the state, on the mesh to restore onto) each leaf is
+        the rank's block under its sharding, on the mesh's device: the
+        elastic re-shard."""
+        if shardings is not None:
+            from .train_step import shard_state
+
+            step, state, extra = self.restore(step)
+            state = _to_device(shard_state(state, shardings),
+                               _mesh_device(shardings))
+            return step, state, extra
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -292,3 +338,16 @@ class CheckpointManager:
         state = _unflatten(flat, manifest.get("statics", {}),
                            manifest.get("classes", {}))
         return step, state, manifest.get("extra", {})
+
+
+def _mesh_device(shardings: Any):
+    node = shardings
+    while isinstance(node, dict):
+        node = node[sorted(node)[0]]
+    return getattr(node.mesh, "device", None)
+
+
+def _to_device(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree if device is None else tree.to(device)

@@ -10,9 +10,11 @@ control-plane logic in a hardware-independent, testable form:
   (fail step N, straggle step M by T seconds).
 * ``StepGuard`` — per-step deadline; a step exceeding ``deadline_s`` is
   declared a straggler.  Mitigation policy: after ``patience`` consecutive
-  straggler steps, the runner re-mesh-es (elastic restore onto the reduced
-  healthy device set) — on real hardware this maps to excluding the slow host
-  and re-sharding over the survivors (ROADMAP A8).
+  straggler steps, the verdict is "remesh" (elastic restore onto the
+  reduced healthy device set: ``CheckpointManager.restore(shardings=...)``
+  onto a smaller mesh) — on real hardware this maps to excluding the slow
+  host and re-sharding over the survivors.  The runner logs the verdict
+  and goes on, as the reference's does.
 * ``ElasticPlan`` — maps a device count to the largest (data, model) mesh it
   supports, so the runner can restore a checkpoint onto whatever survives.
 """

@@ -9,6 +9,13 @@ the reference's ``jax.tree`` order, so the global norm sums its leaves in
 the same order.  ``adamw_update`` updates the parameters and the moments in
 place, under ``torch.no_grad()``: views of the parameters (the model's
 per-layer dicts that serving reads) stay bound to them.
+
+On a mesh the trees hold each rank's blocks, and ``shardings`` (the
+leaves' ``NamedSharding`` s, as ``jit_train_step`` gives them) says how
+each leaf is cut.  The update is elementwise on the blocks; only the
+global norm needs the other ranks: each leaf's sum of squares is summed
+over the ranks that hold its distinct blocks, once per block (a leaf that
+a fallback left replicated counts once, not once a rank).
 """
 from __future__ import annotations
 
@@ -102,24 +109,49 @@ def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def _first_copy(mesh, sharding) -> bool:
+    """Whether this rank holds the first copy of its block of a leaf: index
+    0 along every mesh axis that does not shard it."""
+    from repro_torch.sharding import sharding_axes
+
+    cut = set(sharding_axes(sharding))
+    return all(mesh.index(a) == 0 for a in mesh.mesh_dim_names
+               if a not in cut)
+
+
+def global_norm(tree: Tree, shardings: Any = None) -> torch.Tensor:
+    """The f32 norm of every leaf together, leaves summed in tree order.
+    With ``shardings`` (a matching tree of ``NamedSharding`` s) the leaves
+    are blocks: one all-reduce of each leaf's block sum of squares over
+    the mesh, counted on the first copy of each block only."""
+    leaves = [leaf for _, leaf in tree_leaves(tree)]
+    squares = [torch.sum(torch.square(x.to(torch.float32)))
+               for x in leaves]
+    if shardings is not None:
+        from repro_torch.launch.mesh import all_reduce
+
+        shs = [sh for _, sh in tree_leaves(shardings)]
+        mesh = shs[0].mesh
+        own = torch.stack([q if _first_copy(mesh, sh) else torch.zeros_like(q)
+                           for q, sh in zip(squares, shs)])
+        squares = list(all_reduce(own, mesh).unbind(0))
     total = 0
-    for _, leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    for q in squares:
+        total = total + q
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(grads: Tree, params: Tree, opt_state: Dict[str, Any],
-                 cfg: AdamWConfig
+                 cfg: AdamWConfig, shardings: Any = None
                  ) -> Tuple[Tree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (params, opt_state, metrics) as the
     reference does, but ``params`` and ``opt_state`` are the objects passed
     in, updated in place: each parameter gets its new value in its own
     dtype, the moments theirs in f32, and ``opt_state["step"]`` is one
-    more."""
+    more.  ``shardings``: the parameters' (blocks on a mesh)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

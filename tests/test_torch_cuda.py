@@ -1835,3 +1835,36 @@ def test_a2a_experts_on_the_card(dev):
                 "wo_grad"):
         np.testing.assert_allclose(out["f32_a2a"][key], out["f32_one"][key],
                                    rtol=1e-4, atol=1e-4, err_msg=key)
+
+
+def test_mesh_train_step_on_the_card(dev):
+    """The reduced paper-scorer's mesh step on a (2, 2) mesh of ranks on
+    the card, 3 steps twice from the same seeded draw in the same ranks:
+    the two runs' losses and final states equal bit for bit on every rank,
+    every rank launched the flash kernel twice a layer a step (remat), and
+    the losses are the one-device step's on the card within the bf16
+    bound of tests/test_torch_train.py (2e-3 of the loss)."""
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = get("paper-scorer").reduced()
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(3):
+        toks = rng.integers(2, cfg.vocab, size=(8, 65)).astype(np.int32)
+        tgt = toks[:, 1:].copy()
+        tgt[:, -1] = -1
+        batches.append({"tokens": toks[:, :-1].copy(), "targets": tgt})
+    out = spawn(ranks.card_train, 2, 2, device="cuda", args=(batches,),
+                timeout=300)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+    state = init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    one = [float(step(state, b)[1]["loss"]) for b in batches]
+    for rank in out:
+        a, b = rank["runs"]
+        assert a == b and a == out[0]["runs"][0]
+        assert rank["launches"] == 2 * 3 * 2 * cfg.n_layers
+        np.testing.assert_allclose(a["losses"], one, rtol=2e-3, atol=0)

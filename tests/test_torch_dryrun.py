@@ -320,11 +320,25 @@ def test_main_writes_a_record_a_cell_and_refuses_the_mesh(tmp_path):
                            for s in SHAPE_NAMES)
     rec = json.loads((tmp_path / names[0]).read_text())
     assert "wall_seconds" in rec
-    for flag in ("--multi-pod", "--moe-a2a"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            D.main([flag, "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A8"):
-        D.account_cell(get("granite-3-2b"), "decode_32k", n_dev=256)
+    # the mesh serves now: --multi-pod accounts the (2, 16, 16) mesh (no
+    # per-layer accounting there, as in the reference), --moe-a2a the
+    # all-to-all experts on the 16 x 16 mesh; each writes its record
+    D.main(["--multi-pod", "--arch", "granite-3-2b", "--shape",
+            "decode_32k", "--out", str(tmp_path)])
+    D.main(["--moe-a2a", "--arch", "olmoe-1b-7b", "--shape", "prefill_32k",
+            "--out", str(tmp_path)])
+    pod = json.loads((tmp_path / "granite-3-2b__decode_32k__h100x2x16x16"
+                      "__fsdp_tp.json").read_text())
+    a2a = json.loads((tmp_path / "olmoe-1b-7b__prefill_32k__h100x16x16"
+                      "__fsdp_tp.json").read_text())
+    assert pod["status"] == a2a["status"] == "ok"
+    assert pod["n_devices"] == 512 and "accounting" not in pod
+    assert pod["full_collectives"]["all-gather"] > 0
+    assert a2a["moe_impl"] == "a2a" and a2a["full_collectives"][
+        "all-to-all"] > 0
+    acc = D.account_cell(get("granite-3-2b"), "decode_32k",
+                         D.mesh_of((16, 16)))
+    assert acc["collectives"]["total"] > 0 and acc["rows"] == 8
 
 
 def test_port_tally_counts_indexed_writes_by_their_rows():

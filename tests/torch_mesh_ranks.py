@@ -274,3 +274,183 @@ def backbone_a2a(mesh, ins: dict) -> dict:
     finally:
         set_current_mesh(None)
     return {"logits": logits.float().cpu().numpy(), "loss": float(loss)}
+
+
+# ---------------------------------------------------------------------------
+# the trainer on the mesh (test_torch_mesh_train.py)
+# ---------------------------------------------------------------------------
+def _tree_to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _blocks_match(mesh, blocks: dict, full: dict, slices: dict) -> dict:
+    """Each leaf of this rank's blocks against ``full`` cut at the
+    reference's slices of the rank's device: equal, bit for bit."""
+    out = {}
+    for path, block in blocks.items():
+        idx = tuple(slice(a, b) for a, b in slices[path][mesh.coordinate])
+        want = np.asarray(full[path])[idx]
+        out[path] = block.shape == want.shape and \
+            block.dtype == want.dtype and block.tobytes() == want.tobytes()
+    return out
+
+
+def _flat_numpy(tree) -> dict:
+    from repro_torch.train.optim import tree_leaves
+
+    return {p: (x.view(torch.int16).numpy().view(np.uint16)
+                if x.dtype == torch.bfloat16 else x.numpy()).copy()
+            for p, x in tree_leaves(tree)}
+
+
+def _specs(batch: dict) -> dict:
+    return {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+            for k, v in batch.items()}
+
+
+def train_mesh(mesh, ins: dict, dirs: dict) -> dict:
+    """The mesh step's cases against the reference's inputs; the state
+    blocks against the reference's device slices; one bf16 step's
+    collective counters; the checkpoint saves and restores ``dirs`` asks
+    for; the failure-injected Runner against its uninterrupted run."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.sharding import local_block
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import (abstract_state,
+                                              gather_state, init_mesh_state,
+                                              jit_train_step, shard_state)
+
+    cfg = get("paper-scorer").reduced()
+    ocfg = AdamWConfig(**ins["ocfg"])
+    shape = (mesh.extent("data"), mesh.extent("model"))
+    slices = ins["slices"][shape]
+    specs = _specs(ins["batches"][0])
+
+    def cut(batch, b_shard):
+        return {k: local_block(torch.from_numpy(v), b_shard[k])
+                for k, v in batch.items()}
+
+    out = {"coord": mesh.coordinate, "cases": {}}
+    for mb, comp in ins["cases"]:
+        step, s_shard, b_shard = jit_train_step(
+            cfg, ocfg, mesh, abstract_state(cfg, comp), specs, "fsdp_tp",
+            mb, comp)
+        full = _tree_to_torch(ins["state"])
+        if comp:
+            full["err"] = {k: v for k, v in _tree_to_torch(
+                ins["zeros"]).items()}
+        state = shard_state(full, s_shard)
+        rec = {"loss": [], "grad_norm": []}
+        for batch in ins["batches"]:
+            state, m = step(state, cut(batch, b_shard))
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+        got = _flat_numpy(gather_state(state, s_shard))
+        rec["blocks_ok"] = _blocks_match(mesh, _flat_numpy(state), got,
+                                         slices)
+        if mesh.rank == 0:
+            rec["params"] = {p: v for p, v in got.items()
+                             if p.startswith("params/")}
+        out["cases"][(mb, comp)] = rec
+        if (mb, comp) == (1, False) and "save" in dirs:
+            CheckpointManager(dirs["save"], mesh=mesh).save(
+                2, state, shardings=s_shard)
+            out["saved_step_2"] = got if mesh.rank == 0 else None
+
+    # one bf16 step at the dry-run's cut shape: the collective counters
+    step, s_shard, b_shard = jit_train_step(cfg, AdamWConfig(), mesh,
+                                            abstract_state(cfg), specs)
+    state = init_mesh_state(cfg, torch.Generator().manual_seed(0), s_shard,
+                            device="cpu")
+    reset_collective_bytes()
+    step(state, cut(ins["batches"][0], b_shard))
+    out["counters"] = collective_bytes()
+
+    # elastic restores: onto this mesh, every rank its device's block
+    s_shard = jit_train_step(cfg, ocfg, mesh, abstract_state(cfg), specs)[1]
+    if "restore" in dirs:
+        _, state, _ = CheckpointManager(dirs["restore"], mesh=mesh).restore(
+            shardings=s_shard)
+        host = CheckpointManager(dirs["restore"]).restore()[1]
+        out["restore_ok"] = _blocks_match(mesh, _flat_numpy(state),
+                                          _flat_numpy(host), slices)
+        if "resave" in dirs:
+            CheckpointManager(dirs["resave"], mesh=mesh).save(
+                4, state, shardings=s_shard)
+
+    if "runner" in dirs:
+        out["runner"] = [_runner_run(mesh, ins, f"{dirs['runner']}_{tag}",
+                                     fail)
+                         for tag, fail in (("plain", ()), ("failed", (3,)))]
+    return everyone(out)
+
+
+def _runner_run(mesh, ins: dict, ckpt_dir: str, fail) -> dict:
+    from repro_torch.configs import get
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.runner import Runner, RunnerConfig
+    from repro_torch.train.train_step import gather_state
+
+    logs = []
+    runner = Runner(
+        get("paper-scorer").reduced(),
+        AdamWConfig(total_steps=20, warmup_steps=2),
+        RunnerConfig(total_steps=6, checkpoint_every=2,
+                     checkpoint_dir=ckpt_dir, log_every=100),
+        mesh, TokenPipeline(ins["rows"], 8),
+        injector=FailureInjector(fail_at_steps=fail), log=logs.append)
+    res = runner.run()
+    full = _flat_numpy(gather_state(res["state"], runner.s_shard))
+    return {"final_step": res["final_step"],
+            "losses": {h["step"]: h["loss"] for h in res["history"]},
+            "entries": len(res["history"]),
+            "digest": digest(sorted((p, v.tobytes()) for p, v in
+                                    full.items())),
+            "restored": any("restarting" in line for line in logs)}
+
+
+def card_train(mesh, batches: list) -> dict:
+    """The reduced paper-scorer's mesh step on the card, twice from the
+    same draw: each run's losses, its final state's digest, and the flash
+    kernel's launches in this rank."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.sharding import local_block
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import (abstract_state, gather_state,
+                                              init_mesh_state,
+                                              jit_train_step)
+
+    cfg = get("paper-scorer").reduced()
+    step, s_shard, b_shard = jit_train_step(
+        cfg, AdamWConfig(warmup_steps=1), mesh, abstract_state(cfg),
+        _specs(batches[0]))
+    out = {"runs": []}
+    fa_ops.flash_attention.launches = 0
+    for _ in range(2):
+        gen = torch.Generator(device=mesh.device).manual_seed(0)
+        state = init_mesh_state(cfg, gen, s_shard, device=mesh.device)
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: local_block(
+                torch.from_numpy(v).to(mesh.device), b_shard[k])
+                for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        full = _flat_numpy(_to_cpu(gather_state(state, s_shard)))
+        out["runs"].append({"losses": losses, "digest": digest(sorted(
+            (p, v.tobytes()) for p, v in full.items()))})
+    out["launches"] = fa_ops.flash_attention.launches
+    return everyone(out)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.detach().cpu()
