@@ -40,10 +40,9 @@ cs.profile_run(dev, corpora)
 """
 
 # the summary lines of chip_smoke.py's paths, by their prefixes
-WHOLE_LINES = ("[4 main path]", "[4 profile] run() wall", "[4b blocked path]",
-               "[4c serving]", "[4c profile] decode step", "[4d machine phase]",
-               "[4e noisy path]", "[4e split]", "[4f paper pipeline]",
-               "[4f split paper 0.1]")
+WHOLE_LINES = ("[4 main path]", "[4b blocked path]", "[4c serving]",
+               "[4d machine phase]", "[4e noisy path]", "[4e split]",
+               "[4f paper pipeline]", "[4f split paper 0.1]")
 
 
 def run_pass(root: Path, whole: bool) -> list:

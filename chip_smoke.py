@@ -52,8 +52,8 @@ carries on.  Phases, one output line or block each:
    sessions of (4096, 384) x (4096, 384) f32 embeddings under a
    ``PerfectCrowd``, then ``run()``; every kernel of the path must have
    launched, every session must label all its pairs with precision 1.0 and
-   a transitively consistent result; then the same ``run()`` once more under
-   ``torch.profiler``, for where its time goes;
+   a transitively consistent result (``profile_run``, which ``chip_ab.py``
+   drives, times the same ``run()`` and profiles it);
 4b. the blocked main path: ``JoinService(lanes=4)``, four
    ``submit_embeddings(..., blocking=BlockingConfig(n_bits=6, n_tables=8,
    bn=128, bm=128, tiles_per_call=256))`` sessions of (16384, 384) x
@@ -75,10 +75,8 @@ carries on.  Phases, one output line or block each:
    12 x 63 times; ``prefill(n) + decode_step`` must agree with
    ``prefill(n + 1)`` on the card within 5e-2 of the logits' scale (bf16);
    a short wave (2 requests of 64 tokens, 8 new) under f32-cast weights must
-   give the same tokens on the card as the port's plain versions on the CPU;
-   then 16 decode steps of the first wave timed and 16 more under
-   ``torch.profiler``, for where a decode step's time goes (phase 4n, after
-   4m, drives the LM stack's other families);
+   give the same tokens on the card as the port's plain versions on the CPU
+   (phase 4n, after 4m, drives the LM stack's other families);
 4d. the LM machine phase into the join: ``score_pairs_with_lm`` over the
    whole product dataset (1081 x 1092 records: 69 backbone batches of 32
    records x 32 tokens, then one ``pair_scores`` of (1081, 768) x (1092,
@@ -98,7 +96,7 @@ carries on.  Phases, one output line or block each:
    the folds; session 0 on the CPU with the same crowd seed must give every
    result field identical; then a run split on the host clock into gateway
    asks, frontier, fast fold, exact replays and deduce (each stage
-   synchronized), and a profiled run;
+   synchronized);
 4f. the paper's pipeline: ``crowdsourced_join(labeler="torch")`` (the
    array engine: a from-scratch rebuild, the priority-Boruvka frontier, the
    crowd's asks in index order, the screened fold and deduce, every round)
@@ -114,8 +112,8 @@ carries on.  Phases, one output line or block each:
    equal to its run alone and to the reference's figures; the first
    frontier on the card equal to Algorithm 3's selection
    (``parallel_crowdsourced_pairs``) as a set; the noisy and the product
-   runs again on the CPU with identical fields; each run profiled and the
-   paper-0.1 run split into rebuild, frontier, crowd and fold;
+   runs again on the CPU with identical fields; the paper-0.1 run split
+   into rebuild, frontier, crowd and fold;
    ``union_deduce`` bitwise against its plain version on the sweep's first
    round (one lane and five, n = 997, P = 77096);
 4g. a universe past 46340 objects: phase 4b's corpus generator and blocking
@@ -156,9 +154,8 @@ carries on.  Phases, one output line or block each:
    with cluster tasks), every session's figures the reference's
    (``ECON_RUNS``, ``WORKER_RUNS``), the requery runs requerying, the mixed
    workers cheaper a resolved pair than majority, the slots run identical
-   on the CPU; each run's wall, rounds, events and launches, the syncs
-   and idle share of (a) and the requery run with a budget, and host-clock
-   splits of (a) and the mixed run;
+   on the CPU; each run's wall, rounds, events and launches, and
+   host-clock splits of (a) and the mixed run;
 4j. streaming ingest: (a) phase 4's four corpora through
    ``submit_embeddings(..., streaming=True)`` on 2048 rows a side and four
    ``append_embeddings`` epochs (1024 a-rows; 1024 b-rows; 512 + 512; 512 +
@@ -315,6 +312,22 @@ carries on.  Phases, one output line or block each:
    the reference's 8e-3 of ``moe_block`` on rank 0, the aux loss within
    1e-5 of the ranks' router estimates averaged on one device, ms a call
    and the all-to-all's bytes; any rank's failure fails the phase;
+4r. the trainer on that (2, 2) mesh: ``paper-scorer`` at full width through
+   the ``Runner``, uninterrupted and failed and resumed (bit for bit), its
+   checkpoint restored onto a (2, 1) mesh and onto one device, and
+   ``account_cell``'s collectives equal to the ranks' counters;
+4s. the MoE trainer on that (2, 2) mesh: ``olmoe-1b-7b`` at full width (d
+   2048, 16 heads of 128, 64 experts, top 8, d_ff 1024, vocab 50304) cut
+   to one layer, f32 parameters from a seeded draw, phase 4m a's batches
+   of 8 x 128 under ``fsdp_tp``, every rank computing the whole batch
+   (the expert layer routes the global batch's tokens): (a) one
+   microbatch and (b) two with int8 gradient compression, two steps each,
+   each step's loss and ``grad_norm`` on every rank within 1e-5 relative
+   of the one-device ``make_train_step`` on the card from the same draw,
+   the f32 flash kernel launched 2 x n_layers a microbatch a step in every
+   rank, ms a step, bytes a step by collective kind, resident and peak
+   bytes a rank; (c) one bf16 step of the same config in the same ranks,
+   its collective bytes by kind equal to ``account_cell``'s;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -335,7 +348,9 @@ carries on.  Phases, one output line or block each:
    kernel's figures at ``long_500k`` under ``at_long_500k``; phase 4p's
    under ``moonshot`` and ``dryrun_cells``, the flash kernel's figures at
    prefill_32k under ``at_prefill_32k`` and the decode kernel's at
-   decode_32k under ``at_decode_32k``);
+   decode_32k under ``at_decode_32k``; the flash launches of phases 4r
+   and 4s over their ranks under ``mesh_training`` and
+   ``mesh_moe_training``);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -419,8 +434,6 @@ ASYNC_RUNS = {
     "product async": (("product",), True, False, {
         "product": (3696, 637, "4361e6c81a05b5a3", 0, 5791.368661342403)}),
 }
-# the window of the phase 4i runs that are profiled: their first events
-ASYNC_PROFILE_EVENTS = 300
 # phase 4i, the service's crowd economics.  (a) phase 4's four corpora with
 # a budget of about half the cents phase 4's session 0 spends unbudgeted at
 # 2 cents an assignment, so every lane stops on budget mid-run.  (b) the
@@ -436,8 +449,6 @@ ASYNC_PROFILE_EVENTS = 300
 # tools/econ_reference.py; tests/test_torch_{budget,requery,workers}.py hold
 # the port to the reference itself.
 ECON_DENSE_BUDGET = 17340.0
-# the 4i runs timed a second time under torch.profiler (the others once)
-ECON_PROFILED = ("budgeted dense", "requery budget async")
 ECON_TAU, ECON_LANES = 0.3, 2
 ECON_BUDGET = dict(budget_cents=120.0, cost_per_assignment=2.0)
 ECON_RUNS = {
@@ -733,6 +744,17 @@ MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_FAIL = 4, 2, 3
 MESH_TRAIN_RULES = "fsdp_tp"
 MESH_RESTORE_SHAPE = (2, 1)
 MESH_TRAIN_LOSS_RTOL = 2e-3
+# phase 4s: the MoE trainer on the same (2, 2) mesh: olmoe-1b-7b at full
+# width cut to MESH_MOE_LAYERS layer (about 0.63 B parameters, 2.5 GB in
+# f32, so four ranks' f32 states fit the card beside their gathered
+# copies) on phase 4m a's batches at olmoe's vocab, from the seeded draw of
+# MESH_MOE_SEED, in f32; (microbatches, compression) of (a) and (b), each
+# MESH_MOE_STEPS steps; every step's loss and grad_norm within
+# MESH_MOE_RTOL of the one-device step's: the same rows and kernels in
+# every rank, the ranks' weights and sums powers of two apart
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_SEED = "olmoe-1b-7b", 1, 0
+MESH_MOE_CASES = {"a": (1, False), "b": (2, True)}
+MESH_MOE_STEPS, MESH_MOE_RTOL = 2, 1e-5
 
 
 def make_corpus(seed: int, n: int, d: int, more=()):
@@ -1093,11 +1115,10 @@ def noisy_path(dev, corpora) -> tuple:
     answers (conflicts), the exact replay must run and ``union_deduce`` must
     launch on the folds.  Session 0 again on the CPU with the same crowd
     seed must give every result field identical.  Then a run split on the
-    host clock (each stage synchronized) and a profiled run.  Returns the
+    host clock (each stage synchronized).  Returns the
     path's kernel launches, every result field of its run (by rid) and its
     ``run()`` wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import graph
     from repro_torch.core.crowd import CrowdGateway, NoisyCrowd
@@ -1230,20 +1251,6 @@ def noisy_path(dev, corpora) -> tuple:
           f"{spent['exact replays']:.4f} s, deduce {spent['deduce']:.4f} s, "
           f"rest {rest:.4f} s")
 
-    svc = serve()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        svc.run()
-        torch.cuda.synchronize()
-    on_card, busy, syncs, n_launch = profile_counts(prof)
-    print(f"[4e profile] device busy {busy:.4f} s (idle share "
-          f"{1 - busy / wall:.4f} of the unprofiled run() wall); {n_launch} "
-          f"kernel launches, {syncs} host syncs")
-    top = sorted(on_card, key=dev_us, reverse=True)
-    for e in top[:6] + [e for e in top[6:] if "union_deduce" in e.key]:
-        print(f"[4e profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
-              f"{e.key[:90]}")
     fields = {rid: result_fields(results[rid]) for rid in rids}
     return launches, fields, wall
 
@@ -1569,14 +1576,10 @@ def econ_path(dev, corpora) -> dict:
     the reference's, every requery run must requery, and the mixed workers'
     cents a resolved pair must be below majority's; the slots run again on
     the CPU must give identical fields.  Each run's wall, rounds, events
-    and ``union_deduce`` launches are printed, and for the runs of
-    ``ECON_PROFILED`` (run again under ``torch.profiler``) its launches,
-    host syncs and idle share; run (a) and the mixed run are split on the
-    host clock, each stage
-    synchronized.  Kernel counts are zeroed just before each run and read
-    just after it."""
+    and ``union_deduce`` launches are printed; run (a) and the mixed run
+    are split on the host clock, each stage synchronized.  Kernel counts
+    are zeroed just before each run and read just after it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.crowd import (CostModel, CrowdGateway,
                                         LatencyModel, NoisyCrowd,
@@ -1592,64 +1595,32 @@ def econ_path(dev, corpora) -> dict:
     counts = {"events": 0}
     poll = CrowdGateway.poll
 
-    class Window(Exception):
-        """Ends a profiled run after ``ASYNC_PROFILE_EVENTS`` events."""
-
     def counted_poll(self):
         out = poll(self)
         if out:
             counts["events"] += 1
-            if counts["events"] == ASYNC_PROFILE_EVENTS:
-                if counts["profiling"]:
-                    raise Window
-                torch.cuda.synchronize()
-                counts["window"] = time.perf_counter() - counts["t0"]
         return out
 
     def measure(tag, make, svc=None):
         """Run ``svc`` (default: ``make()``'s service) once timed, kernel
-        counts zeroed just before, then, for the runs of
-        ``ECON_PROFILED``, a fresh ``make()`` under the profiler over at
-        most its first ``ASYNC_PROFILE_EVENTS`` events (the idle share is
-        taken over the same window of the timed run).  Returns the results
-        and the union_deduce launches."""
+        counts zeroed just before.  Returns the results and the
+        union_deduce launches."""
         svc = svc or make()
-        counts.update(events=0, profiling=False, window=None)
+        counts.update(events=0)
         ud_ops.union_deduce.launches = 0
         CrowdGateway.poll = counted_poll
         try:
             torch.cuda.synchronize()
-            counts["t0"] = t0 = time.perf_counter()
+            t0 = time.perf_counter()
             out = svc.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             ud, events = ud_ops.union_deduce.launches, counts["events"]
-            prof = None
-            if tag in ECON_PROFILED:
-                svc = make()
-                counts.update(events=0, profiling=True)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    try:
-                        svc.run()
-                    except Window:
-                        pass
-                    torch.cuda.synchronize()
         finally:
             CrowdGateway.poll = poll
         rounds = sum(r.n_rounds for r in out.values())
-        line = (f"[4i {tag}] run() wall {wall:.4f} s, {rounds} rounds, "
-                f"{events} events, union_deduce launches {ud}")
-        if prof is not None:
-            _, busy, syncs, n_launch = profile_counts(prof)
-            window = counts["window"] or wall
-            n_ev = min(events, ASYNC_PROFILE_EVENTS)
-            line += (f"; over the first {n_ev} events ({window:.4f} s): "
-                     f"{n_launch} kernel launches, {syncs} host syncs, "
-                     f"device busy {busy:.4f} s (idle share "
-                     f"{1 - busy / window:.4f})")
-        print(line)
+        print(f"[4i {tag}] run() wall {wall:.4f} s, {rounds} rounds, "
+              f"{events} events, union_deduce launches {ud}")
         if ud < 1:
             raise AssertionError(f"4i {tag}: union_deduce never launched")
         return out, ud
@@ -2364,14 +2335,12 @@ def paper_pipeline(dev) -> dict:
     run alone and to the reference's figures.  The first frontier on the
     card must equal Algorithm 3's selection by the host
     ``parallel_crowdsourced_pairs``, as a set; the noisy and the product
-    runs again on the CPU must give identical fields.  Then each run
-    profiled (device busy, kernel launches, host syncs) and the paper-0.1
+    runs again on the CPU must give identical fields.  Then the paper-0.1
     run split on the host clock (each stage synchronized): rebuild,
     frontier, crowd, fold.  ``union_deduce``'s launches are counted from
     just before the runs to just after them and must be above 0.  Returns
     them with the per-run figures."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import graph
     from repro_torch.core.cluster_graph import UNKNOWN
@@ -2491,24 +2460,6 @@ def paper_pipeline(dev) -> dict:
         if diff:
             raise AssertionError(f"4f {case[0]}: card and CPU differ in "
                                  f"{diff}")
-
-    # each run profiled: device busy against its unprofiled wall
-    for case, wall in zip(cases, walls):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            join(case, dev)
-            torch.cuda.synchronize()
-        on_card, busy, syncs, n_launch = profile_counts(prof)
-        print(f"[4f profile {case[0]}] device busy {busy:.4f} s (idle share "
-              f"{1 - busy / wall:.4f} of the unprofiled wall); {n_launch} "
-              f"kernel launches, {syncs} host syncs")
-        if case[0] == "paper 0.1 expected":
-            top = sorted(on_card, key=dev_us, reverse=True)
-            for e in top[:6] + [e for e in top[6:]
-                                if "union_deduce" in e.key]:
-                print(f"[4f profile]   {dev_us(e) / 1e3:9.3f} ms  "
-                      f"x{e.count:<6d} {e.key[:90]}")
 
     # the paper-0.1 run split on the host clock, each stage synchronized
     big = next(c for c in cases if c[0] == "paper 0.1 expected")
@@ -3081,62 +3032,6 @@ def lm_serving_path(dev, cfg, model) -> dict:
         raise AssertionError("card and CPU tokens differ on the short wave")
     return {"launches": launches, "waves": waves, "gen_s": gen_s,
             "tokens": n_tok}
-
-
-def lm_profile(dev, cfg, model, steps: int = 16) -> None:
-    """Where a decode step's time goes: the first wave prefilled, then
-    ``steps`` decode steps timed on the host clock, and as many more under
-    ``torch.profiler`` for the device time by kernel.  The idle share is
-    taken against the unprofiled steps' wall clock."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import model as M
-
-    wave = lm_requests(cfg.vocab)[:LM_LANES]
-    S = max(len(r.prompt) for r in wave)
-    toks = np.zeros((len(wave), S), np.int32)
-    for j, r in enumerate(wave):
-        toks[j, S - len(r.prompt):] = r.prompt
-    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(toks).to(
-        dev)}, LM_MAX_LEN)
-    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    def step():
-        nonlocal cache, cur
-        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
-        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-
-    busy = sum(dev_us(e) for e in on_card) / 1e3 / steps
-    attn = sum(dev_us(e) for e in on_card
-               if "decode_attention_kernel" in e.key) / 1e3 / steps
-    launches = sum(e.count for e in events
-                   if e.key.startswith(LAUNCH_CALL)) / steps
-    print(f"[4c profile] decode step at context {S + 1}-{S + 2 * steps + 1}"
-          f", {LM_LANES} lanes: wall {1e3 * wall:.4f} ms a step; device "
-          f"busy {busy:.4f} ms (idle share {1 - busy / (1e3 * wall):.4f}), "
-          f"decode_attention {attn:.4f} ms ({attn / max(busy, 1e-9):.4f} of "
-          f"busy); "
-          f"{launches:.1f} kernel launches a step")
-    for e in sorted(on_card, key=dev_us, reverse=True)[:8]:
-        print(f"[4c profile]   {dev_us(e) / 1e3 / steps:9.4f} ms a step  "
-              f"x{e.count // steps:<4d} {e.key[:90]}")
 
 
 def lm_machine_phase(dev, cfg, model) -> dict:
@@ -4227,6 +4122,15 @@ def mesh_path(dev, corpora) -> dict:
         "wall_s": wall}
 
 
+def train_ocfg():
+    """The optimizer of phases 4m, 4r and 4s: examples/
+    train_likelihood_model.py --full's schedule over ``TRAIN_STEPS``."""
+    from repro_torch.train.optim import AdamWConfig
+
+    return AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                       warmup_steps=max(2, TRAIN_STEPS // 20))
+
+
 def _state_bytes(tree) -> int:
     from repro_torch.train.optim import tree_leaves
 
@@ -4287,15 +4191,14 @@ def mesh_train_rank(mesh, root: str) -> dict:
     from repro_torch.launch.mesh import (collective_bytes,
                                          reset_collective_bytes)
     from repro_torch.train.fault import FailureInjector
-    from repro_torch.train.optim import AdamWConfig, tree_leaves
+    from repro_torch.train.optim import tree_leaves
     from repro_torch.train.runner import Runner, RunnerConfig
     from repro_torch.train.train_step import gather_state
 
     cfg = get("paper-scorer")
     rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
                                TRAIN_SEQ)
-    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
-                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    ocfg = train_ocfg()
     torch.cuda.reset_peak_memory_stats()
     out = {"rank": mesh.rank, "coordinate": mesh.coordinate,
            "mesh": repr(mesh)}
@@ -4365,7 +4268,6 @@ def mesh_restore_rank(mesh, path: str) -> dict:
     from repro_torch.data.entities import make_paper_dataset
     from repro_torch.data.tokens import TokenPipeline, corpus_from_records
     from repro_torch.sharding import local_block
-    from repro_torch.train.optim import AdamWConfig
     from repro_torch.train.train_step import abstract_state, jit_train_step
 
     cfg = get("paper-scorer")
@@ -4374,8 +4276,7 @@ def mesh_restore_rank(mesh, path: str) -> dict:
     batch = TokenPipeline(rows, TRAIN_BATCH).batch_at(MESH_TRAIN_EVERY)
     specs = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
              for k, v in batch.items()}
-    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
-                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    ocfg = train_ocfg()
     step, s_shard, b_shard = jit_train_step(
         cfg, ocfg, mesh, abstract_state(cfg), specs, MESH_TRAIN_RULES)
     same, state = _restore_check(mesh, path, MESH_TRAIN_EVERY, s_shard)
@@ -4407,7 +4308,6 @@ def mesh_train_path(dev, first_loss: float, root: Path) -> dict:
     from repro_torch.launch.mesh import spawn
     from repro_torch.models.model import n_params
     from repro_torch.sharding import AbstractMesh
-    from repro_torch.train.optim import AdamWConfig
     from repro_torch.train.train_step import make_train_step, state_from_tree
 
     t_phase = time.perf_counter()
@@ -4473,8 +4373,7 @@ def mesh_train_path(dev, first_loss: float, root: Path) -> dict:
     same_one, tree = _restore_check(None, path, MESH_TRAIN_EVERY, None, dev)
     rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
                                TRAIN_SEQ)
-    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
-                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    ocfg = train_ocfg()
     state = state_from_tree(cfg, tree)
     one_loss = float(make_train_step(cfg, ocfg)(state, TokenPipeline(
         rows, TRAIN_BATCH).batch_at(MESH_TRAIN_EVERY))[1]["loss"])
@@ -4508,6 +4407,227 @@ def mesh_train_path(dev, first_loss: float, root: Path) -> dict:
     print(f"[4r] phase wall {wall:.1f} s")
     return {"launches": sum(launches), "step_ms": med, "counts": counts,
             "wall_s": wall}
+
+
+def mesh_moe_config():
+    """Phase 4s's config: ``MESH_MOE_ARCH`` at full width, cut in depth."""
+    from repro_torch.configs import get
+
+    return get(MESH_MOE_ARCH).replace(n_layers=MESH_MOE_LAYERS)
+
+
+def mesh_moe_batches(cfg) -> list:
+    """Phase 4m a's corpus at ``cfg``'s vocab: the first
+    ``MESH_MOE_STEPS`` batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ``."""
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+
+    rows = corpus_from_records(make_paper_dataset().records, cfg.vocab,
+                               TRAIN_SEQ)
+    pipe = TokenPipeline(rows, TRAIN_BATCH)
+    return [pipe.batch_at(i) for i in range(MESH_MOE_STEPS)]
+
+
+def mesh_moe_one_device(dev, cfg, batches) -> dict:
+    """Phase 4s's oracle: the one-device ``make_train_step`` on ``dev`` from
+    the seeded draw with f32 parameters, for each case of
+    ``MESH_MOE_CASES``: each step's loss and grad_norm."""
+    import torch
+
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    out = {}
+    for tag, (mb, comp) in MESH_MOE_CASES.items():
+        gen = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED)
+        state = init_state(cfg, gen, comp, dev)
+        state["params"] = state["params"].float()
+        step = make_train_step(cfg, train_ocfg(), mb, comp)
+        rec = {"loss": [], "grad_norm": []}
+        for b in batches:
+            state, met = step(state, b)
+            rec["loss"].append(float(met["loss"]))
+            rec["grad_norm"].append(float(met["grad_norm"]))
+        out[tag] = rec
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_rank(mesh) -> dict:
+    """Phase 4s in one rank of the (2, 2) mesh: (a) and (b) of
+    ``MESH_MOE_CASES`` from the seeded draw cut to the rank's blocks, its
+    parameters in f32, each step timed (synchronized) with its collective
+    counters and loss and grad_norm, the flash kernel's launches a case;
+    (c) one bf16 step's counters; resident and peak bytes; every rank's
+    figures gathered."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.sharding import local_block
+    from repro_torch.train.optim import AdamWConfig, tree_map
+    from repro_torch.train.train_step import (abstract_state,
+                                              init_mesh_state,
+                                              jit_train_step)
+
+    cfg = mesh_moe_config()
+    batches = mesh_moe_batches(cfg)
+    specs = {k: torch.empty(v.shape, dtype=torch.int32, device="meta")
+             for k, v in batches[0].items()}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "coordinate": mesh.coordinate,
+           "mesh": repr(mesh), "cases": {}}
+
+    def cut(batch, b_shard):
+        return {k: local_block(torch.from_numpy(v).to(mesh.device),
+                               b_shard[k]) for k, v in batch.items()}
+
+    def timed(step, state, batch):
+        reset_collective_bytes()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        met = {k: float(v) for k, v in met.items()}
+        torch.cuda.synchronize()
+        return state, met, 1e3 * (time.perf_counter() - t0), \
+            collective_bytes()
+
+    for tag, (mb, comp) in MESH_MOE_CASES.items():
+        step, s_shard, b_shard = jit_train_step(
+            cfg, train_ocfg(), mesh, abstract_state(cfg, comp), specs,
+            MESH_TRAIN_RULES, mb, comp)
+        gen = torch.Generator(device=mesh.device).manual_seed(MESH_MOE_SEED)
+        state = init_mesh_state(cfg, gen, s_shard, comp, mesh.device)
+        state["params"] = tree_map(lambda x: x.float(), state["params"])
+        rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+        fa_ops.flash_attention.launches = 0
+        for b in batches:
+            state, met, ms, counts = timed(step, state, cut(b, b_shard))
+            rec["loss"].append(met["loss"])
+            rec["grad_norm"].append(met["grad_norm"])
+            rec["ms"].append(ms)
+            rec["counts"].append(counts)
+        rec["flash_launches"] = fa_ops.flash_attention.launches
+        rec["resident_bytes"] = _state_bytes(state)
+        out["cases"][tag] = rec
+        del state, step
+        torch.cuda.empty_cache()
+
+    # (c) one bf16 step at the accounting's settings
+    step, s_shard, b_shard = jit_train_step(
+        cfg, AdamWConfig(), mesh, abstract_state(cfg), specs,
+        MESH_TRAIN_RULES)
+    gen = torch.Generator(device=mesh.device).manual_seed(MESH_MOE_SEED)
+    state = init_mesh_state(cfg, gen, s_shard, device=mesh.device)
+    fa_ops.flash_attention.launches = 0
+    _, met, ms, counts = timed(step, state, cut(batches[0], b_shard))
+    out["bf16"] = {"loss": met["loss"], "ms": ms, "counts": counts,
+                   "flash_launches": fa_ops.flash_attention.launches,
+                   "resident_bytes": _state_bytes(state)}
+    del state, step
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, out)
+    return {"ranks": ranks}
+
+
+def mesh_moe_train_path(dev) -> dict:
+    """Phase 4s: the MoE trainer on the (2, 2) mesh of four ranks on the
+    one card.  The one-device oracle first, on the card, its state freed
+    before the ranks start; then (a) and (b) in every rank, each step's
+    loss and grad_norm within ``MESH_MOE_RTOL`` of the oracle's, the flash
+    kernel launched 2 x n_layers a microbatch a step in every rank; (c)
+    the bf16 step's collective bytes by kind equal to ``account_cell``'s
+    on ``AbstractMesh((2, 2))`` at the batch's shape.  Returns the flash
+    launches of (a), (b) and (c) over the ranks."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import n_params
+    from repro_torch.sharding import AbstractMesh
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = mesh_moe_config()
+    n = math.prod(MESH_SHAPE)
+    t0 = time.perf_counter()
+    oracle = mesh_moe_one_device(dev, cfg, mesh_moe_batches(cfg))
+    oracle_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_moe_rank, *MESH_SHAPE, device=dev.type,
+                  timeout=MESH_TIMEOUT)["ranks"]
+    spawn_s = time.perf_counter() - t0
+    print(f"[4s] {cfg.name} at full width, {cfg.n_layers} layer: "
+          f"{n_params(cfg)} parameters, f32, on the {MESH_SHAPE} mesh "
+          f"({ranks[0]['mesh']}), rules {MESH_TRAIN_RULES}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, every rank computing the whole "
+          f"batch; the one-device oracle on the card {oracle_s:.1f} s, the "
+          f"ranks' wall {spawn_s:.1f} s ({smi})")
+    launches, ok = 0, True
+    for tag, (mb, comp) in MESH_MOE_CASES.items():
+        want = oracle[tag]
+        recs = [r["cases"][tag] for r in ranks]
+        err = max(abs(got - ref) / abs(ref) for rec in recs
+                  for key in ("loss", "grad_norm")
+                  for got, ref in zip(rec[key], want[key]))
+        per_rank = 2 * cfg.n_layers * mb * MESH_MOE_STEPS
+        flash = [rec["flash_launches"] for rec in recs]
+        launches += sum(flash)
+        ms = sorted(t for rec in recs for t in rec["ms"])
+        counts = recs[0]["counts"][-1]
+        kinds = {k: v for k, v in counts.items()
+                 if v and k not in ("total", "count")}
+        same_counts = all(c == counts for rec in recs for c in rec["counts"])
+        print(f"[4s {tag}] microbatches {mb}, int8 compression {comp}: "
+              f"loss {want['loss']} and grad_norm {want['grad_norm']} on one "
+              f"device; every rank's {[rec['loss'] for rec in recs]} and "
+              f"{[rec['grad_norm'] for rec in recs]}, at most {err:.3e} "
+              f"relative (bound {MESH_MOE_RTOL}); ms a step by rank "
+              f"{[[round(t, 2) for t in rec['ms']] for rec in recs]} "
+              f"(median {ms[len(ms) // 2]:.2f}); a step moves from each rank "
+              f"{kinds} bytes in {counts['count']} collectives (every step "
+              f"and rank alike {same_counts}); flash_attention launches by "
+              f"rank {flash} ({per_rank} expected); resident state by rank "
+              f"{[rec['resident_bytes'] for rec in recs]} bytes")
+        ok &= err <= MESH_MOE_RTOL and flash == [per_rank] * n \
+            and same_counts
+    peaks = [r["peak_bytes"] for r in ranks]
+    print(f"[4s] peak memory by rank {[round(p / 2**30, 3) for p in peaks]}"
+          f" GiB ({peaks} bytes)")
+    if not ok:
+        raise AssertionError("phase 4s (a)/(b): the MoE mesh step is not "
+                             "the one-device step")
+
+    # (c)
+    acc = dryrun.account_cell(cfg, "train_4k", AbstractMesh.of(MESH_SHAPE),
+                              batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    bf16 = [r["bf16"] for r in ranks]
+    got = [{k: b["counts"][k] for k in acc["collectives"]} for b in bf16]
+    launches += sum(b["flash_launches"] for b in bf16)
+    print(f"[4s c] one bf16 step in every rank: loss {bf16[0]['loss']:.6f},"
+          f" ms by rank {[round(b['ms'], 2) for b in bf16]}, flash launches "
+          f"by rank {[b['flash_launches'] for b in bf16]}, resident by rank "
+          f"{[b['resident_bytes'] for b in bf16]} bytes; account_cell on "
+          f"AbstractMesh({MESH_SHAPE}) at batch {TRAIN_BATCH} x {TRAIN_SEQ}"
+          f" (rows {acc['rows']}): {acc['collectives']}; the ranks' "
+          f"counters {got[0]}; equal on every rank "
+          f"{all(g == acc['collectives'] for g in got)}")
+    if any(g != acc["collectives"] for g in got) or acc["rows"] != \
+            TRAIN_BATCH or any(b["flash_launches"] != 2 * cfg.n_layers
+                               for b in bf16):
+        raise AssertionError("phase 4s (c): the accounting's collectives "
+                             "are not the ranks' counters")
+    wall = time.perf_counter() - t_phase
+    print(f"[4s] phase wall {wall:.1f} s")
+    return {"launches": launches, "wall_s": wall}
 
 
 def accounting_path(dev) -> dict:
@@ -5395,7 +5515,6 @@ def train_path(dev, root: Path) -> dict:
     from repro_torch.models.layers import FlashAttentionFn
     from repro_torch.models.model import n_params
     from repro_torch.train.fault import FailureInjector
-    from repro_torch.train.optim import AdamWConfig
     from repro_torch.train.runner import Runner, RunnerConfig
     from repro_torch.train.train_step import init_state, make_train_step
 
@@ -5406,8 +5525,7 @@ def train_path(dev, root: Path) -> dict:
     cfg = get("paper-scorer")
     records = make_paper_dataset().records
     rows = corpus_from_records(records, cfg.vocab, TRAIN_SEQ)
-    ocfg = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
-                       warmup_steps=max(2, TRAIN_STEPS // 20))
+    ocfg = train_ocfg()
     per_step = 2 * cfg.n_layers
 
     # -- (a) the runner: uninterrupted, failed and resumed, again ----------
@@ -5894,7 +6012,6 @@ def run(dev) -> None:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{launches}")
-    profile_run(dev, corpora)
 
     # -- 4b. the blocked main path -------------------------------------------
     blocked_launches = blocked_main_path(dev, blocked_corpora, cfg)
@@ -5912,7 +6029,6 @@ def run(dev) -> None:
           f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab}, {n_params(lm_cfg)} bf16 "
           f"parameters")
     serving = lm_serving_path(dev, lm_cfg, lm_model)
-    lm_profile(dev, lm_cfg, lm_model)
 
     # -- 4d. the LM machine phase into the join ------------------------------
     machine = lm_machine_phase(dev, lm_cfg, lm_model)
@@ -6032,6 +6148,9 @@ def run(dev) -> None:
         mesh_train = mesh_train_path(dev, train["first_loss"], scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+
+    # -- 4s. the MoE trainer on the mesh --------------------------------------
+    mesh_moe = mesh_moe_train_path(dev)
 
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
@@ -6224,6 +6343,7 @@ def run(dev) -> None:
              "lm_machine_phase": machine["launches"]["flash_attention"],
              "training": train["launches"],
              "mesh_training": mesh_train["launches"],
+             "mesh_moe_training": mesh_moe["launches"],
              "lm_families": fam_flash,
              "ssm_hybrid": ssm_flash,
              "moonshot": acct_launch["moonshot"]["flash_attention"],

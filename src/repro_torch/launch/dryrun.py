@@ -61,15 +61,18 @@ On one card every collective term is 0.  On a mesh (``--mesh 16x16``,
 "model")`` mesh) the record is one rank's, as the reference's records are
 per device, traced on an ``AbstractMesh`` (rank 0's view, no process
 group): the pieces run at the rows the rank computes
-(``train_step.rank_rows``), ``memory`` counts the rank's blocks under the
-rule set, ``sharding_fallbacks`` lists the dims the rules left replicated
-(the reference's ``name:dim{d}%{e}``), and ``full_collectives`` counts
-the bytes by kind that one step moves from the rank, from the collective
-counters of ``repro_torch.launch.mesh``: for train the port's own mesh
-step (``jit_train_step``) run on ``meta`` blocks, the counters the ranks'
-own in a real step; for prefill and decode the gather of every parameter
-whole and the layers' own collectives (the all-to-all experts' under
-``--moe-a2a``, which sets ``moe_impl="a2a"``).  As in the reference,
+(``train_step.rank_rows``: the whole global batch for a config with
+experts, whose expert layers route every row's tokens at once, and the
+train step's batch gather with it), ``memory`` counts the rank's blocks
+under the rule set, ``sharding_fallbacks`` lists the dims the rules left
+replicated (the reference's ``name:dim{d}%{e}``), and
+``full_collectives`` counts the bytes by kind that one step moves from
+the rank, from the collective counters of ``repro_torch.launch.mesh``:
+for train the port's own mesh step (``jit_train_step``) run on ``meta``
+blocks, the counters the ranks' own in a real step; for prefill and
+decode the gather of every parameter whole and the layers' own
+collectives (the all-to-all experts' under ``--moe-a2a``, which sets
+``moe_impl="a2a"``).  As in the reference,
 the multi-pod record has no per-layer accounting.  Run on the CPU:
 ``python -m repro_torch.launch.dryrun`` writes one JSON record a cell
 under ``--out``, tagged by mesh (``h100x1``, ``h100x16x16``,

@@ -31,18 +31,21 @@ Tree = Any
 def tree_leaves(tree: Tree) -> List[Tuple[str, torch.Tensor]]:
     """``(path, leaf)`` of a nested dict (or a Model's parameters) in the
     reference's tree order."""
-    tree = getattr(tree, "params", tree)
     out: List[Tuple[str, torch.Tensor]] = []
-
-    def walk(node, prefix):
-        for k in sorted(node):
-            if isinstance(node[k], dict):
-                walk(node[k], f"{prefix}{k}/")
-            else:
-                out.append((f"{prefix}{k}", node[k]))
-
-    walk(tree, "")
+    _walk(getattr(tree, "params", tree), "", out)
     return out
+
+
+def _walk(node: Dict[str, Any], prefix: str,
+          out: List[Tuple[str, torch.Tensor]]) -> None:
+    # a module-level function: a nested one calling itself is a reference
+    # cycle through its closure, which would hold ``out`` (every leaf)
+    # until the garbage collector runs
+    for k in sorted(node):
+        if isinstance(node[k], dict):
+            _walk(node[k], f"{prefix}{k}/", out)
+        else:
+            out.append((f"{prefix}{k}", node[k]))
 
 
 def tree_unflatten(paths: List[str], leaves: List[Any]) -> Dict[str, Any]:

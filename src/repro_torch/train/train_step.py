@@ -175,12 +175,16 @@ def init_mesh_state(cfg: ModelConfig, generator: torch.Generator,
 
 def rank_rows(cfg: ModelConfig, mesh, sharding, B: int) -> Tuple[int, int]:
     """(first row, rows) of the global batch of ``B`` rows that the rank
-    computes: all of them under ``moe_impl="a2a"`` (its expert layers
-    split the tokens themselves), else a part of its batch block under
-    ``sharding``: the block split again over each mesh axis (in the mesh's
-    order) that the batch sharding leaves out and that divides what is
-    left.  The ranks along an axis that does not divide compute alike."""
-    if cfg.moe_impl == "a2a":
+    computes.  A config with experts computes all of them, whatever its
+    ``moe_impl``: the reference's expert layer routes the whole batch's
+    tokens at once (its capacity, its drops and its aux loss are the
+    global batch's), and the all-to-all layer splits the tokens over the
+    mesh itself.  Any other config computes a part of its batch block
+    under ``sharding``: the block split again over each mesh axis (in the
+    mesh's order) that the batch sharding leaves out and that divides what
+    is left.  The ranks along an axis that does not divide compute
+    alike."""
+    if cfg.is_moe:
         return 0, B
     block = block_slices(sharding, (B,))[0]
     rows, index = block.stop - block.start, 0
@@ -207,24 +211,31 @@ def jit_train_step(cfg: ModelConfig, ocfg: AdamWConfig, mesh, state_shapes,
 
     How the rank computes: it gathers every parameter whole
     (:func:`~repro_torch.sharding.gather_full`, one all-gather an axis that
-    shards the leaf) and runs the whole model on a part of its batch block
-    (:func:`rank_rows`: split again over ``model`` where the rows
-    divide), in ``microbatches`` equal pieces for memory.  Its loss weighs
+    shards the leaf) and runs the whole model on the rows of
+    :func:`rank_rows`, in ``microbatches`` equal pieces, each row in its
+    microbatch of the reference's split (rows ``[i B / microbatches,
+    (i + 1) B / microbatches)`` of the global batch).  Its loss weighs
     each of its rows' masked NLL sum by 1 / (microbatches x the unmasked
-    positions of that row's microbatch in the reference's split, rows
-    ``[i B / microbatches, (i + 1) B / microbatches)`` of the global
-    batch), every rank's counts summed by one all-reduce before the
-    backward; plus 0.01 x its expert layers' aux over the mesh size and
-    the microbatches.  So the ranks' losses and gradients sum to the
-    reference's; each gradient is summed over the mesh (an all-reduce) and
-    cut to the rank's block, where AdamW runs.  A config under ``moe_impl="a2a"``
-    gathers the whole batch in every rank instead: its expert layers
-    split the tokens over the mesh themselves (``models/moe_a2a.py``,
-    under the current mesh), whose collectives read every rank's tokens
-    as the same.  Under local experts the aux loss is each rank's own
-    tokens', averaged over the ranks, not the global batch's.  Gradients
-    keep :func:`make_train_step`'s dtypes: the parameters' with one
-    microbatch (the all-reduce too), f32 sums with several.
+    positions of that row's microbatch), every rank's counts summed by one
+    all-reduce before the backward; plus 0.01 x its expert layers' aux
+    over the mesh size and the microbatches.  So the ranks' losses and
+    gradients sum to the reference's; each gradient is summed over the
+    mesh (an all-reduce) and cut to the rank's block, where AdamW runs.
+
+    A dense, SSM or hybrid config computes a part of its batch block
+    (split again over ``model`` where the rows divide).  A config with
+    experts gathers the whole batch in every rank and computes all of it
+    (its counts are then the mesh size times the true ones, and its aux is
+    the global batch's in every rank): the reference's expert layer
+    routes a microbatch's tokens at once, so an expert's capacity, the
+    tokens it drops and the aux loss depend on every row of the
+    microbatch, and rows split over the ranks would change all three.
+    Under ``moe_impl="a2a"`` the expert layers split those tokens over the
+    mesh themselves (``models/moe_a2a.py``, under the current mesh), and
+    their collectives read every rank's tokens as the same.  Every rank
+    of such a config does the whole batch's work.  Gradients keep
+    :func:`make_train_step`'s dtypes: the parameters' with one microbatch
+    (the all-reduce too), f32 sums with several.
 
     ``mesh``: a ``HostMesh`` of ranks, or an ``AbstractMesh`` with
     ``meta`` state and batch (one rank's collectives counted, none run).
@@ -236,14 +247,14 @@ def jit_train_step(cfg: ModelConfig, ocfg: AdamWConfig, mesh, state_shapes,
     paths = [p for p, _ in p_flat]
     p_shard = [sh for _, sh in p_flat]
     world = mesh.size
-    a2a = cfg.moe_impl == "a2a"
+    whole = cfg.is_moe
     B = tuple(batch_specs["tokens"].shape)[0]
     if B % microbatches:
         raise ValueError(f"batch of {B} rows does not split into "
                          f"{microbatches} microbatches")
     first, rows = rank_rows(cfg, mesh, b_shard["tokens"], B)
     # the part of the rank's batch block that it computes
-    index = 0 if a2a else \
+    index = 0 if whole else \
         (first - block_slices(b_shard["tokens"], (B,))[0].start) // rows
     if rows % microbatches:
         raise ValueError(f"a rank's {rows} rows do not split into "
@@ -256,7 +267,7 @@ def jit_train_step(cfg: ModelConfig, ocfg: AdamWConfig, mesh, state_shapes,
         blocks = [x for _, x in tree_leaves(state["params"])]
         dev = blocks[0].device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        if a2a:
+        if whole:
             batch = {k: gather_full(v, b_shard[k]) for k, v in batch.items()}
         else:
             batch = {k: v[index * rows:(index + 1) * rows]

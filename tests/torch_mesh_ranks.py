@@ -450,7 +450,138 @@ def card_train(mesh, batches: list) -> dict:
     return everyone(out)
 
 
+def _zeros(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    return torch.zeros_like(tree)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.detach().cpu()
+
+
+# ---------------------------------------------------------------------------
+# the mesh step for every rule set and family (test_torch_mesh_train_moe.py)
+# ---------------------------------------------------------------------------
+def case_config(case: dict):
+    from repro_torch.configs import get
+
+    return get(case["arch"]).reduced().replace(**case["replace"])
+
+
+def one_device(ins: dict, case: dict) -> dict:
+    """The port's one-device ``make_train_step`` on the case's f32 state
+    and batches: each step's loss and grad_norm, the final parameters."""
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.train.optim import AdamWConfig, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = case_config(case)
+    state = train_state_from_numpy(cfg, ins["states"][case["key"]], "cpu")
+    state["params"] = state["params"].float()
+    if case["compress"]:
+        state["err"] = _zeros(state["params"].params)
+    step = make_train_step(cfg, AdamWConfig(**ins["ocfg"]), case["mb"],
+                           case["compress"])
+    out = {"loss": [], "grad_norm": []}
+    for b in ins["batches"][case["key"]]:
+        state, m = step(state, b)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["params"] = {p: x.detach().numpy().copy()
+                     for p, x in tree_leaves(state["params"].params)}
+    return out
+
+
+def train_mesh_cases(mesh, ins: dict) -> dict:
+    """Every case of ``ins["cases"]`` on this mesh's shape, two steps from
+    the case's f32 state: each step's loss and grad_norm, and the final
+    parameters gathered whole (rank 0's); the cases' one-device steps
+    (:func:`one_device`, under ``moe_impl="gspmd"``), shared out over the
+    ranks; each of ``ins["row_archs"]``' ``rank_rows`` under ``fsdp_tp``;
+    on 2 x 2 one bf16 step of ``ins["count_arch"]`` at its batch, its
+    collective counters.
+
+    Every rank computes on one thread: with two, about one run in ten has
+    a rank whose step differs from the others' in its last bits (seen in
+    a layer's forward input), and the expert routing and AdamW's near-zero
+    gradients carry that to 2.5e-4 of the parameters (ROADMAP C11)."""
+    from repro_torch.launch.mesh import (collective_bytes,
+                                         reset_collective_bytes)
+    from repro_torch.sharding import batch_sharding, local_block, \
+        set_current_mesh
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.train_step import (abstract_state, gather_state,
+                                              init_mesh_state,
+                                              jit_train_step, rank_rows,
+                                              shard_state)
+
+    torch.set_num_threads(1)
+    shape = (mesh.extent("data"), mesh.extent("model"))
+
+    def cut(batch, b_shard):
+        return {k: local_block(torch.from_numpy(v), b_shard[k])
+                for k, v in batch.items()}
+
+    def specs_of(batch):
+        return {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                               device="meta") for k, v in batch.items()}
+
+    out = {"coord": mesh.coordinate, "cases": {}, "rows": {},
+           "one_device": {}}
+    ocfg = AdamWConfig(**ins["ocfg"])
+    for case in ins["cases"]:
+        if tuple(case["shape"]) != shape:
+            continue
+        cfg, comp = case_config(case), case["compress"]
+        batches = ins["batches"][case["key"]]
+        set_current_mesh(mesh, case["rules"])
+        try:
+            step, s_shard, b_shard = jit_train_step(
+                cfg, ocfg, mesh, abstract_state(cfg, comp),
+                specs_of(batches[0]), case["rules"], case["mb"], comp)
+            full = _tree_to_torch(ins["states"][case["key"]])
+            if comp:
+                full["err"] = _zeros(full["params"])
+            state = shard_state(full, s_shard)
+            rec = {"loss": [], "grad_norm": []}
+            for batch in batches:
+                state, m = step(state, cut(batch, b_shard))
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+            got = _flat_numpy(gather_state(state["params"],
+                                           s_shard["params"]))
+        finally:
+            set_current_mesh(None)
+        if mesh.rank == 0:
+            rec["params"] = got
+        out["cases"][case["id"]] = rec
+
+    mine = [c for c in ins["cases"] if tuple(c["shape"]) == shape]
+    for case in mine[mesh.rank::mesh.size]:
+        out["one_device"][case["id"]] = one_device(ins, dict(
+            case, replace={**case["replace"], "moe_impl": "gspmd"}))
+
+    B = ins["B"]
+    tokens = batch_sharding(mesh, {"tokens": torch.empty(
+        (B, 1), dtype=torch.int32, device="meta")}, "fsdp_tp")["tokens"]
+    for arch in ins["row_archs"]:
+        cfg = case_config({"arch": arch, "replace": {}})
+        for impl in ("gspmd", "a2a") if cfg.is_moe else ("gspmd",):
+            out["rows"][(arch, impl)] = rank_rows(
+                cfg.replace(moe_impl=impl), mesh, tokens, B)
+
+    if shape == (2, 2):
+        arch = ins["count_arch"]
+        cfg = case_config({"arch": arch, "replace": {}})
+        batch = ins["batches"][arch][0]
+        step, s_shard, b_shard = jit_train_step(
+            cfg, AdamWConfig(), mesh, abstract_state(cfg), specs_of(batch))
+        state = init_mesh_state(cfg, torch.Generator().manual_seed(0),
+                                s_shard, device="cpu")
+        reset_collective_bytes()
+        step(state, cut(batch, b_shard))
+        out["counters"] = collective_bytes()
+    return everyone(out)
