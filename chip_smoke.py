@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device and exits non-zero on any failure; no phase catches an error and
-carries on.  Phases, one output line or block each:
+carries on.  ``python3 chip_smoke.py --phase 4t`` (or ``4s``) builds the
+kernels and runs that phase alone.  Phases, one output line or block each:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the port's CUDA kernels, compiled from ``src/repro_torch/csrc``;
@@ -28,15 +29,18 @@ carries on.  Phases, one output line or block each:
    concatenated, bit for bit; five calls on the chunk agree bit for bit;
    ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
    at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
-   granite-3-2b's (2, 2048, 32 / 8, 64) and deepseek-67b's (1, 2048, 64 /
-   8, 128) head layouts, bf16 on the tensor-core kernel and f32 on the SIMT
-   one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
+   granite-3-2b's (2, 2048, 32 / 8, 64), deepseek-67b's (1, 2048, 64 /
+   8, 128) and phi3-medium-14b's (1, 2048, 40 / 10, 128) head layouts, bf16
+   on the tensor-core kernel and f32 on the SIMT one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
    loads (``UTMALDG``), counted on a line of their own;
    ``decode_attention`` at (8, 12, 64) against an (8,
    2048, 12, 64) cache at lengths 1, 192, 193, 1337 and 2048 (and at the
    first split boundary and one past it, as the launch plans them on this
    card), an f32 query over a bf16 cache (the f32-weight run of phase 4c),
-   and five calls at length 2048 that agree bit for bit; its int8 cache
+   and five calls at length 2048 that agree bit for bit; at phase 4t's
+   served layouts, granite-3-2b's (8, 32 / 8, 64) and phi3-medium-14b's
+   (8, 40 / 10, 128) over (8, 2048) caches at lengths 1337 and 2048, bf16
+   and f32; its int8 cache
    path (the int8 KV cache with bf16 scales, dequantized in the kernel) at
    the same shape and lengths, at (4, 8 / 2, 32) over a (4, 1024, 2, 32)
    cache and internlm2-1.8b's (8, 16 / 8, 128) over (8, 2048, 8, 128),
@@ -94,9 +98,7 @@ carries on.  Phases, one output line or block each:
    must label all its pairs, transitively consistent, the sessions must
    reject answers, the exact replay must run and ``union_deduce`` launch on
    the folds; session 0 on the CPU with the same crowd seed must give every
-   result field identical; then a run split on the host clock into gateway
-   asks, frontier, fast fold, exact replays and deduce (each stage
-   synchronized);
+   result field identical;
 4f. the paper's pipeline: ``crowdsourced_join(labeler="torch")`` (the
    array engine: a from-scratch rebuild, the priority-Boruvka frontier, the
    crowd's asks in index order, the screened fold and deduce, every round)
@@ -226,14 +228,14 @@ carries on.  Phases, one output line or block each:
    uninterrupted service's);
 4m. training: ``paper-scorer`` at full width through the port's
    ``Runner`` (loss and gradients through the flash kernel's forward,
-   AdamW, checkpoints): the same 40 steps uninterrupted, with a failure
-   injected at step 25 and resumed, and again, the three final states
+   AdamW, checkpoints): the same 10 steps uninterrupted, with a failure
+   injected at step 7 and resumed, and again, the three final states
    equal bit for bit, the loss falling, the flash kernel launched twice a
    layer a step; a reduced config on the card against the CPU, and
    ``FlashAttentionFn``'s backward against the plain version's autograd;
-   a batch of 64 in 2 microbatches with int8 compression timed and
-   profiled (ms a step, tokens a second, peak memory, idle share, the
-   split into forward, backward, compression and optimizer);
+   a batch of 64 in 2 microbatches with int8 compression timed (ms a
+   step, tokens a second, peak memory; phase 4t c profiles and splits a
+   larger step);
 4n. the LM stack's other families at full width, each drawn on the card
    from a seeded generator: (a) ``internlm2-1.8b`` under ``kv_quant``
    (``ServeEngine`` on 8 requests of 256-1536 tokens, 64 new) against the
@@ -246,9 +248,31 @@ carries on.  Phases, one output line or block each:
    model-level ``prefill`` of 8 sequences of 256-1024 text tokens and 32
    ``decode_step``s, launches exact, ``decode == prefill(n + 1)``; (d)
    ``olmoe-1b-7b`` (``ServeEngine``, 8 requests of 256-1024 tokens, 32
-   new), a profiled window of decode steps (busy share, the experts'
-   products' share), ``decode == prefill(n + 1)`` at ``capacity_factor``
+   new), ``decode == prefill(n + 1)`` at ``capacity_factor``
    8 where the expert picks agree and near ties where they part;
+4t. the two dense configurations never run at full width before, each
+   drawn on the card from a seeded generator (whole leaves: the room the
+   card has free when the draw starts fits each f32 draw beside the
+   parameters): (a) ``granite-3-2b`` (40 layers, d_model 2048, 32 / 8
+   heads of 64, d_ff 8192, vocab 49155) and (b) ``phi3-medium-14b`` (40
+   layers, d_model 5120, 40 / 10 heads of 128, d_ff 17920, vocab 100352;
+   29.3 GB in bf16) served by ``ServeEngine`` (8 requests of 256-1536
+   tokens, 32 new, 8 lanes x 2048 positions): exactly 40 flash launches for
+   the wave and 40 decode launches a step, ``decode == prefill(n + 1)``
+   within 5e-2 on each of the 8 sequences; prefill s, ms a step beside its
+   least time, cache bytes, peak memory; then phi3 through ``python -m
+   repro_torch.launch.serve --arch phi3-medium-14b --full`` as a user runs
+   it, its lines printed and its launches counted; (c) ``granite-3-2b``
+   trained at full width (bf16 parameters, f32 moments: a 31.6 GB state):
+   the ``Runner`` on phase 4m a's corpus at granite's vocab, batch 8 x 128,
+   3 steps with a checkpoint every 2 (26.3 GB a checkpoint), failed at 2,
+   restored and finished, its final parameters and moments bit for bit 3
+   uninterrupted ``make_train_step`` steps' from the same draw, 80 flash
+   launches a step; ms a step, tokens/s, peak memory, each checkpoint
+   write's and the restore's bytes and seconds, the free disk; and the
+   config cut to 2 layers at full width, one ``init_state`` drawn on the
+   CPU and moved to the card, 2 steps of 2 x 64 on each, the losses within
+   2e-3;
 4o. the SSM and hybrid families at full width, each drawn on the card from
    a seeded generator: (a) ``rwkv6-3b`` (attention-free) and (b)
    ``zamba2-1.2b`` (Mamba2 layers, the shared attention block after every
@@ -272,8 +296,7 @@ carries on.  Phases, one output line or block each:
    layer at a time (init seconds and peak bytes: at most the parameters
    and the largest single f32 draw), served by ``ServeEngine`` (8 requests
    of 256-1024 tokens, 16 new; exactly 48 flash launches for the wave and
-   48 decode launches a step), a profiled window of decode steps (the
-   experts' ``bmm`` share of busy), ``decode == prefill(n + 1)`` within
+   48 decode launches a step), ``decode == prefill(n + 1)`` within
    5e-2 where the expert picks agree and near ties where they part, the
    kernels at its heads (16 / 16 of 128) against their plain versions;
    (b) three of ``configs/shapes.py``'s cells at a cut batch, each with its
@@ -327,7 +350,18 @@ carries on.  Phases, one output line or block each:
    the f32 flash kernel launched 2 x n_layers a microbatch a step in every
    rank, ms a step, bytes a step by collective kind, resident and peak
    bytes a rank; (c) one bf16 step of the same config in the same ranks,
-   its collective bytes by kind equal to ``account_cell``'s;
+   its collective bytes by kind equal to ``account_cell``'s; (d) the same
+   config under ``moe_impl="a2a"`` (32 experts a rank on the model axis,
+   the tokens exchanged both ways by the differentiable all-to-all, its
+   backward included) at capacity factor 8 (no token dropped), two steps,
+   each step's loss and ``grad_norm`` on every rank within 1e-5 relative of
+   the one-device step at that capacity factor with its aux loss taken as
+   the all-to-all layer takes it (the mean of the four token shards'
+   estimates, as in the reference's layer), and their distance to the
+   one-device step as it is (its aux over the whole batch) printed beside
+   both aux losses; the all-to-all's bytes an exchange and a step (six
+   exchanges a layer: forward, remat recompute, backward), ms a step, peak
+   bytes a rank;
 5. engine parity: the first session's candidates through ``submit`` on the
    card and on the CPU (the plain versions) give identical results;
 6. the device time of one ``pair_scores``, ``pair_scores_compact``,
@@ -341,7 +375,8 @@ carries on.  Phases, one output line or block each:
    (``union_deduce``'s with its cluster size, and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
-   4j's, 4k's, 4l's, 4m's and 4n's launches in ``launches_by_path``, and
+   4j's, 4k's, 4l's, 4m's and 4n's launches in ``launches_by_path`` (4t's
+   under ``full_width``), and
    the wide kernel's after 4k's restore; ``decode_attention``'s int8 path
    as an entry of its own, its launches from phase 4n a; phase 4o's
    flash and decode launches under ``ssm_hybrid``, and the decode
@@ -620,8 +655,15 @@ LM_JOIN_TAU = 0.62          # examples/crowdsourced_join.py's threshold
 LM_SIDES = (1081, 1092)     # the product dataset's two tables
 LM_EMBED_BATCH, LM_EMBED_LEN = 32, 32   # score_pairs_with_lm's batches
 LM_BF16_TOL = 5e-2          # of the logits' scale, tests/test_torch_model.py
-# kernel-only head layouts (B, S, H, K, d): granite-3-2b, deepseek-67b
-FLASH_GQA_SHAPES = ((2, 2048, 32, 8, 64), (1, 2048, 64, 8, 128))
+# kernel-only head layouts (B, S, H, K, d): granite-3-2b, deepseek-67b,
+# phi3-medium-14b
+FLASH_GQA_SHAPES = ((2, 2048, 32, 8, 64), (1, 2048, 64, 8, 128),
+                    (1, 2048, 40, 10, 128))
+# the decode kernel at phase 4t's served head layouts over LM_LANES x
+# LM_MAX_LEN caches (H, K, d): granite-3-2b, phi3-medium-14b; at these
+# lengths
+DECODE_GQA_LAYOUTS = ((32, 8, 64), (40, 10, 128))
+DECODE_GQA_LENGTHS = (1337, 2048)
 # 192 and 193: the first split boundary and one past it at (8, 2048, 12,
 # 64) on a 132-SM H100 (chunks of 192 positions); phase 3 adds the boundary
 # the launch plans on the card at hand
@@ -636,12 +678,12 @@ ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
 FLASH_MS_BEFORE = 1.4197
 # phase 4m (training): examples/train_likelihood_model.py --full's run
 # (paper-scorer at full width on the paper dataset's 181 packed rows of 128
-# tokens, batch 8), 20 steps with a checkpoint every 5 and a failure
-# injected at 12; then a card-sized batch of 64 in 2 microbatches with
-# int8 gradient compression, 20 steps
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 128, 8, 20, \
-    5, 12
-TRAIN_BIG = dict(batch=64, microbatches=2, steps=20)
+# tokens, batch 8), 10 steps with a checkpoint every 5 and a failure
+# injected at 7; then a card-sized batch of 64 in 2 microbatches with int8
+# gradient compression, 5 steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAIL = 128, 8, 10, \
+    5, 7
+TRAIN_BIG = dict(batch=64, microbatches=2, steps=5)
 # phase 4m (b): 3 reduced steps on the card against the CPU within the bf16
 # loss bound of tests/test_torch_train.py; FlashAttentionFn's backward at
 # the full model's per-layer shape
@@ -669,7 +711,6 @@ FAM_PREFIX_ARCHS = ("qwen2-vl-2b", "musicgen-medium")
 FAM_TEXT, FAM_DECODE = (256, 1024), 32
 FAM_MOE_ARCH, FAM_MOE_PROMPT, FAM_MOE_NEW = "olmoe-1b-7b", (256, 1024), 32
 FAM_MOE_CF, FAM_MOE_TIE = 8.0, 2.0 ** -5
-FAM_PROFILE_STEPS = 8
 # phase 4o: the SSM and hybrid families at full width, each drawn on the
 # card from a seeded generator: (a) rwkv6-3b (attention-free) and (b)
 # zamba2-1.2b (38 Mamba2 layers, the shared attention block after every
@@ -755,6 +796,40 @@ MESH_TRAIN_LOSS_RTOL = 2e-3
 MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_SEED = "olmoe-1b-7b", 1, 0
 MESH_MOE_CASES = {"a": (1, False), "b": (2, True)}
 MESH_MOE_STEPS, MESH_MOE_RTOL = 2, 1e-5
+# phase 4s (d): the same config under moe_impl="a2a" (each rank's 32 of the
+# 64 experts on the model axis of 2, the tokens exchanged both ways by the
+# differentiable all_to_all, backward included) at MESH_A2A_CF, where
+# neither a2a_capacity's per-source slots nor moe_block's drop a token; one
+# microbatch, MESH_MOE_STEPS steps, against the one-device step at the
+# same capacity factor
+MESH_MOE_A2A_CASE = "d"
+# phase 4t: the two dense configurations of configs/ never run at full
+# width before, each drawn on the card from a seeded generator and freed
+# before the next: (a) granite-3-2b and (b) phi3-medium-14b served by
+# ServeEngine (LM_LANES requests of LM_PROMPT tokens, FULL_NEW new, at
+# LM_LANES x LM_MAX_LEN), launches exact, decode == prefill(n + 1) within
+# LM_BF16_TOL on the 8 sequences; then phi3 once more through the serving
+# launcher as a user runs it (--full: 8 requests in waves of 4 lanes, 16
+# new, max_len 256).  (c) granite-3-2b trained at full width (bf16
+# parameters, f32 moments): (i) the Runner on phase 4m a's corpus at
+# granite's vocab, FULL_TRAIN_STEPS steps with a checkpoint every
+# FULL_TRAIN_EVERY and a failure injected at FULL_TRAIN_FAIL, restored and
+# finished, bit for bit against as many uninterrupted make_train_step steps
+# from the same draw; (ii) granite at full width cut to FULL_CPU_LAYERS
+# layers, one init_state drawn on the CPU and moved to the card,
+# FULL_CPU_STEPS steps of FULL_CPU_BATCH x FULL_CPU_SEQ on each device,
+# the losses within TRAIN_LOSS_RTOL
+FULL_ARCHS, FULL_NEW = ("granite-3-2b", "phi3-medium-14b"), 32
+FULL_LAUNCHER = ["--arch", "phi3-medium-14b", "--full"]
+FULL_LAUNCHER_WAVES, FULL_LAUNCHER_NEW = 2, 16    # launch/serve.py's defaults
+FULL_TRAIN_ARCH = "granite-3-2b"
+FULL_TRAIN_STEPS, FULL_TRAIN_EVERY, FULL_TRAIN_FAIL = 3, 2, 2
+# the Runner's depth: the script keeps what it writes to disk in all under
+# 45 GiB (deleted files count); a checkpoint of granite at full depth is
+# 26.3 GB, and 4m's and 4r's checkpoints take about 17 GB; two of these
+# (4.4 GB each) stand at once
+FULL_RUNNER_LAYERS = 4
+FULL_CPU_LAYERS, FULL_CPU_BATCH, FULL_CPU_SEQ, FULL_CPU_STEPS = 2, 2, 64, 2
 
 
 def make_corpus(seed: int, n: int, d: int, more=()):
@@ -1114,14 +1189,13 @@ def noisy_path(dev, corpora) -> tuple:
     label all its pairs, transitively consistent; the sessions must reject
     answers (conflicts), the exact replay must run and ``union_deduce`` must
     launch on the folds.  Session 0 again on the CPU with the same crowd
-    seed must give every result field identical.  Then a run split on the
-    host clock (each stage synchronized).  Returns the
-    path's kernel launches, every result field of its run (by rid) and its
+    seed must give every result field identical.  Returns the path's
+    kernel launches, every result field of its run (by rid) and its
     ``run()`` wall."""
     import torch
 
     from repro_torch.core import graph
-    from repro_torch.core.crowd import CrowdGateway, NoisyCrowd
+    from repro_torch.core.crowd import NoisyCrowd
     from repro_torch.core.metrics import transitively_consistent
     from repro_torch.core.pairs import PairSet
     from repro_torch.kernels.pair_scores import ops as ps_ops
@@ -1134,51 +1208,23 @@ def noisy_path(dev, corpora) -> tuple:
     def crowd(i):
         return NoisyCrowd(seed=SEED + i, **NOISY_CROWD)
 
-    def serve():
-        return noisy_service(dev, corpora)
+    replays = 0
+    apply_sequential = graph._apply_sequential
 
-    spent = {"gateway asks": 0.0, "frontier": 0.0, "fold": 0.0,
-             "exact replays": 0.0, "deduce": 0.0}
-    calls = dict.fromkeys(spent, 0)
+    def counted(*args, **kwargs):
+        nonlocal replays
+        replays += 1
+        return apply_sequential(*args, **kwargs)
 
-    def timed(fn, key, sync):
-        def call(*args, **kwargs):
-            if sync:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            calls[key] += 1
-            return out
-        return call
-
-    patched = [(CrowdGateway, "post", "gateway asks"),
-               (join_service, "session_frontier_batch", "frontier"),
-               (join_service, "session_fold_answers_batch", "fold"),
-               (graph, "_apply_sequential", "exact replays"),
-               (graph, "_deduce_impl", "deduce")]
-    originals = [getattr(obj, name) for obj, name, _ in patched]
-
-    def patch(sync, only=None):
-        for (obj, name, key), fn in zip(patched, originals):
-            if only is None or key == only:
-                setattr(obj, name, timed(fn, key, sync))
-
-    def unpatch():
-        for (obj, name, _), fn in zip(patched, originals):
-            setattr(obj, name, fn)
-
-    # the run: replays counted (unsynchronized), kernel counts zeroed just
-    # before the path and read just after it
+    # the run: replays counted, kernel counts zeroed just before the path
+    # and read just after it
     ps_ops.pair_scores.launches = 0
-    svc = serve()
+    svc = noisy_service(dev, corpora)
     rids = [req.rid for req in svc.queue]
     pairsets = [req.pairs for req in svc.queue]
     ps_launches = ps_ops.pair_scores.launches
     ud_ops.union_deduce.launches = 0
-    patch(sync=False, only="exact replays")
+    graph._apply_sequential = counted
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1186,10 +1232,9 @@ def noisy_path(dev, corpora) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        unpatch()
+        graph._apply_sequential = apply_sequential
     launches = {"pair_scores": ps_launches,
                 "union_deduce": ud_ops.union_deduce.launches}
-    replays = calls["exact replays"]
     conflicts = 0
     for rid, ps in zip(rids, pairsets):
         res = results[rid]
@@ -1226,30 +1271,6 @@ def noisy_path(dev, corpora) -> tuple:
     if diff:
         raise AssertionError(f"noisy session 0: card and CPU differ in "
                              f"{diff}")
-
-    # the host-clock split: each stage synchronized before and after
-    for key in spent:
-        spent[key], calls[key] = 0.0, 0
-    svc = serve()
-    patch(sync=True)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        svc.run()
-        torch.cuda.synchronize()
-        split_wall = time.perf_counter() - t0
-    finally:
-        unpatch()
-    fast = spent["fold"] - spent["exact replays"] - spent["deduce"]
-    rest = split_wall - spent["gateway asks"] - spent["frontier"] \
-        - spent["fold"]
-    print(f"[4e split] run() wall {split_wall:.4f} s (synchronized stages): "
-          f"gateway asks {spent['gateway asks']:.4f} s in "
-          f"{calls['gateway asks']} posts, frontier {spent['frontier']:.4f} "
-          f"s in {calls['frontier']} calls, fast fold {fast:.4f} s in "
-          f"{calls['fold']} folds, exact replays {calls['exact replays']} in "
-          f"{spent['exact replays']:.4f} s, deduce {spent['deduce']:.4f} s, "
-          f"rest {rest:.4f} s")
 
     fields = {rid: result_fields(results[rid]) for rid in rids}
     return launches, fields, wall
@@ -3235,36 +3256,6 @@ def _moe_gap(model, toks) -> list:
     return out
 
 
-def _profile_steps(step, steps: int) -> tuple:
-    """(wall ms a step, device busy ms a step, bmm device ms a step, kernel
-    launches a step, the six device events of most time as (ms a step,
-    launches a step, name)) of ``steps`` calls of ``step``, timed
-    unprofiled and then under ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    on_card, busy, _, launches = profile_counts(prof)
-    bmm = sum(getattr(e, "device_time_total", getattr(
-        e, "cuda_time_total", 0.0)) for e in prof.key_averages()
-        if e.key == "aten::bmm")
-    top = [(dev_us(e) / 1e3 / steps, e.count / steps, e.key)
-           for e in sorted(on_card, key=dev_us, reverse=True)[:6]]
-    return wall, 1e3 * busy / steps, bmm / 1e3 / steps, launches / steps, \
-        top
-
-
 def _attn_counts() -> dict:
     """The attention kernels' launch counts."""
     from repro_torch.kernels.decode_attention import ops as da_ops
@@ -3331,9 +3322,8 @@ def lm_families_path(dev) -> dict:
     ``FAM_DECODE`` greedy ``decode_step``s (under M-RoPE with their
     ``positions3``), launches exact, ``decode == prefill(n + 1)`` within
     ``LM_BF16_TOL``.  (d) ``olmoe-1b-7b``: ``ServeEngine.generate`` of 8
-    requests of ``FAM_MOE_PROMPT`` tokens, ``FAM_MOE_NEW`` new; a profiled
-    window of decode steps (busy share, the experts' ``bmm`` share of
-    device time); ``decode == prefill(n + 1)`` at ``capacity_factor`` 8 on
+    requests of ``FAM_MOE_PROMPT`` tokens, ``FAM_MOE_NEW`` new;
+    ``decode == prefill(n + 1)`` at ``capacity_factor`` 8 on
     the 8 sequences: within ``LM_BF16_TOL`` where the last token's expert
     picks agree in every layer (at least one sequence must), and where
     they part, first at a near tie (``FAM_MOE_TIE``)."""
@@ -3498,30 +3488,12 @@ def lm_families_path(dev) -> dict:
             "decode_attention": cfg.n_layers * (FAM_MOE_NEW - 1),
             "decode_attention_int8": 0}
     S = max(len(r.prompt) for r in reqs)
-    wave = np.zeros((LM_LANES, S), np.int32)
-    for j, r in enumerate(reqs):
-        wave[j, S - len(r.prompt):] = r.prompt
-    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(wave).to(
-        dev)}, LM_MAX_LEN)
-    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    def step():
-        nonlocal cache, cur
-        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
-        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    wall, busy, bmm, launches, _ = _profile_steps(step, FAM_PROFILE_STEPS)
-    del cache
     expert_bytes = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model \
         * cfg.d_ff * 2
     print(f"[4n d] {cfg.name}: {LM_LANES} requests of {FAM_MOE_PROMPT[0]}-"
           f"{FAM_MOE_PROMPT[1]} tokens (longest {S}), {FAM_MOE_NEW} new: "
           f"prefill {pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches "
-          f"{got}; profiled window of {FAM_PROFILE_STEPS} steps: wall "
-          f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy share "
-          f"{busy / wall:.4f}), the experts' bmm {bmm:.4f} ms "
-          f"({bmm / max(busy, 1e-9):.4f} of busy), {launches:.1f} launches "
-          f"a step; every expert's weights"
+          f"{got}; every expert's weights"
           f" read a step: {expert_bytes} bytes, "
           f"{1e3 * expert_bytes / PEAK_BYTES_PER_S:.4f} ms at the HBM peak")
     if got != want or any(len(t) != FAM_MOE_NEW for t in toks.values()):
@@ -3548,11 +3520,386 @@ def lm_families_path(dev) -> dict:
             or not all(m <= FAM_MOE_TIE for m in ties):
         raise AssertionError("phase 4n d: decode_step disagrees with "
                              "prefill under the experts")
-    out["moe"] = {"prefill_s": pre_s, "step_ms": step_ms, "busy_ms": busy,
-                  "wall_ms": wall, "bmm_ms": bmm, "gap": gap}
+    out["moe"] = {"prefill_s": pre_s, "step_ms": step_ms, "gap": gap}
     out["launches"]["moe"] = got
     del model, moe8, engine
     torch.cuda.empty_cache()
+    return out
+
+
+def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
+    """Phase 4t (a) or (b): ``arch`` at full width drawn on the card from a
+    seeded generator, ``ServeEngine.generate`` of ``LM_LANES`` requests of
+    ``LM_PROMPT`` tokens, ``FULL_NEW`` new, at ``LM_LANES`` x
+    ``LM_MAX_LEN``: the flash kernel launched once a layer for the wave and
+    the decode kernel once a layer a step, every request ``FULL_NEW``
+    tokens, ``decode == prefill(n + 1)`` within ``LM_BF16_TOL`` on each of
+    the 8 sequences (their first ``LM_PROMPT[0]`` tokens); prefill s, ms a
+    decode step, the cache's bytes, peak memory, and a decode step's least
+    time (the weights and the cache read once at the HBM peak)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get(arch)
+    torch.cuda.empty_cache()
+    room = M._device_bytes(dev)
+    model = _draw_model(dev, cfg, f"4t {tag}")
+    specs = M.model_specs(cfg)
+    pbytes = sum(math.prod(s.shape) * s.dtype.itemsize
+                 for s in specs.values())
+    sliced = sorted(p for p, s in specs.items()
+                    if M._drawn_in_slices(s, pbytes, room))
+    reqs = _family_requests(cfg.vocab, LM_PROMPT, FULL_NEW, SEED + 40)
+    engine = ServeEngine(cfg, model, batch_lanes=LM_LANES,
+                         max_len=LM_MAX_LEN)
+    _warm_engine(engine, cfg.vocab, np.random.default_rng(SEED + 41))
+    torch.cuda.reset_peak_memory_stats()
+    _zero_attn_counts()
+    toks, pre_s, step_ms = _timed_generate(engine, reqs, FULL_NEW)
+    got = _attn_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (FULL_NEW - 1),
+            "decode_attention_int8": 0}
+    S = max(len(r.prompt) for r in reqs)
+    row_bytes = 2 * cfg.n_layers * LM_LANES * cfg.n_kv_heads * cfg.hd * 2
+    cache_bytes = row_bytes * LM_MAX_LEN
+    # a decode step reads every weight once and the cache to its length:
+    # the wave's steps run from S to S + FULL_NEW - 2 positions
+    bound_ms = 1e3 * (pbytes + row_bytes * (S + (FULL_NEW - 2) / 2)) \
+        / PEAK_BYTES_PER_S
+    n = LM_PROMPT[0]
+    seqs = torch.from_numpy(np.stack([r.prompt[:n] for r in reqs])).to(dev)
+    cache, _ = M.prefill(model, {"tokens": seqs[:, :-1]}, LM_MAX_LEN)
+    l2, _ = M.decode_step(model, cache, {"tokens": seqs[:, -1:]})
+    del cache
+    _, l3 = M.prefill(model, {"tokens": seqs}, LM_MAX_LEN)
+    gaps = [float((l2[b] - l3[b]).abs().max())
+            / max(float(l3[b].abs().max()), 1.0) for b in range(LM_LANES)]
+    finite = bool(torch.isfinite(l2).all()) and bool(torch.isfinite(l3).all())
+    print(f"[4t {tag}] {arch}: {pbytes} bytes of bf16 parameters drawn with "
+          f"{room} bytes free on the card, leaves drawn a slice at a time "
+          f"{sliced}; {LM_LANES} requests of {LM_PROMPT[0]}-{LM_PROMPT[1]} "
+          f"tokens (longest {S}), {FULL_NEW} new: prefill {pre_s:.4f} s, "
+          f"decode {step_ms:.4f} ms a step (its least time {bound_ms:.4f} "
+          f"ms: the parameters and the cache to the steps' mean length at "
+          f"the HBM peak); cache "
+          f"{cache_bytes} bytes at {LM_LANES} x {LM_MAX_LEN}; peak memory "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB); launches {got} ({smi})")
+    print(f"[4t {tag}] decode == prefill(n+1), n {n - 1}, by sequence: "
+          f"max|d logits| of their scale "
+          f"{[float(f'{g:.3e}') for g in gaps]} (tolerance {LM_BF16_TOL}); "
+          f"finite {finite} ({smi})")
+    if got != want or any(len(t) != FULL_NEW for t in toks.values()):
+        raise AssertionError(f"phase 4t {tag}: launches {got}, expected "
+                             f"{want}")
+    if not finite or not max(gaps) <= LM_BF16_TOL:
+        raise AssertionError(f"phase 4t {tag}: decode_step disagrees with "
+                             f"prefill")
+    del model, engine, l2, l3
+    torch.cuda.empty_cache()
+    return {"prefill_s": pre_s, "step_ms": step_ms, "bound_ms": bound_ms,
+            "cache_bytes": cache_bytes, "peak_bytes": peak,
+            "gap": max(gaps), "launches": got, "sliced": sliced}
+
+
+def _full_launcher(smi: str) -> dict:
+    """Phase 4t (b), then: ``repro_torch.launch.serve.main`` with
+    ``FULL_LAUNCHER`` on the card, as a user runs it; its lines printed,
+    its launches counted (its waves of 4 lanes: the flash kernel once a
+    layer a wave, the decode kernel once a layer a step)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.launch import serve
+
+    cfg = get(FULL_LAUNCHER[1])
+    torch.cuda.empty_cache()
+    _zero_attn_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(FULL_LAUNCHER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _attn_counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[4t b launcher] {line}")
+    want = {"flash_attention": cfg.n_layers * FULL_LAUNCHER_WAVES,
+            "decode_attention": cfg.n_layers * FULL_LAUNCHER_WAVES
+            * (FULL_LAUNCHER_NEW - 1), "decode_attention_int8": 0}
+    print(f"[4t b launcher] python -m repro_torch.launch.serve "
+          f"{' '.join(FULL_LAUNCHER)}: {wall:.1f} s, the draw included; "
+          f"launches {got} ({smi})")
+    if got != want or not lines or "8 requests completed on cuda" \
+            not in lines[-1]:
+        raise AssertionError(f"phase 4t b: the launcher's launches {got}, "
+                             f"expected {want}; last line {lines[-1:]}")
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "launches": got}
+
+
+def _bitwise_equal(a, b) -> bool:
+    """Whether two CPU tensors hold the same dtype, shape and bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return torch.equal(a, b)
+
+
+def _full_train(dev, root: Path, smi: str) -> dict:
+    """Phase 4t (c): ``FULL_TRAIN_ARCH`` trained on the card (bf16
+    parameters, f32 moments) on phase 4m a's corpus at the config's vocab,
+    batch ``TRAIN_BATCH`` x ``TRAIN_SEQ``.  (i) At full width and depth:
+    ``FULL_TRAIN_STEPS`` ``make_train_step`` steps from a seeded draw, the
+    loss finite, the flash kernel launched 2 x n_layers a step;
+    ms a step, tokens/s, the state's bytes, peak memory, and one more step
+    profiled and one split.  (ii) The
+    ``Runner`` at full width cut to ``FULL_RUNNER_LAYERS`` layers (two of
+    its checkpoints stand at once, and with the script's other writes they
+    stay under its 45 GiB of disk writes, which two of the full depth's
+    would not): ``FULL_TRAIN_STEPS`` steps, a checkpoint every
+    ``FULL_TRAIN_EVERY`` (and at the last), a failure injected at
+    ``FULL_TRAIN_FAIL``, restored and finished; its final parameters and
+    moments bit for bit those of as many uninterrupted ``make_train_step``
+    steps from the same draw, which write no checkpoint (the resumed state
+    waits on the host meanwhile); the bytes and seconds of each checkpoint
+    write and of the restore.  (iii) The config cut to ``FULL_CPU_LAYERS``
+    layers at full width: one ``init_state`` on the CPU moved to the card,
+    ``FULL_CPU_STEPS`` steps of ``FULL_CPU_BATCH`` x ``FULL_CPU_SEQ`` on
+    each, the losses within ``TRAIN_LOSS_RTOL``."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.convert import (train_state_from_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.data.entities import make_paper_dataset
+    from repro_torch.data.tokens import TokenPipeline, corpus_from_records
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.model import n_params
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.runner import Runner, RunnerConfig
+    from repro_torch.train.train_step import (init_state, make_train_step,
+                                              state_tree)
+
+    full = get(FULL_TRAIN_ARCH)
+    records = make_paper_dataset().records
+    rows = corpus_from_records(records, full.vocab, TRAIN_SEQ)
+    ocfg = train_ocfg()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def steps(cfg, profiled=False):
+        """``FULL_TRAIN_STEPS`` uninterrupted steps from the seeded draw:
+        (state, losses, seconds a step, flash launches, peak bytes); with
+        ``profiled``, then two more steps: one profiled, one split."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                           False, dev)
+        step_fn = make_train_step(cfg, ocfg)
+        pipe = TokenPipeline(rows, TRAIN_BATCH)
+        fa_ops.flash_attention.launches = 0
+        times, losses = [], []
+        for i in range(FULL_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step_fn(state, pipe.batch_at(i))
+            losses.append(float(met["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = fa_ops.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        if profiled:
+            _train_profile("4t c i", step_fn, state,
+                           pipe.batch_at(FULL_TRAIN_STEPS),
+                           sum(times[1:]) / len(times[1:]))
+        return state, losses, times, launches, peak
+
+    # -- (i) full width and depth -------------------------------------------
+    state, losses, times, launches, peak = steps(full, profiled=True)
+    state_bytes = _state_bytes(state_tree(state))
+    step_s = sum(times[1:]) / len(times[1:])
+    print(f"[4t c i] {full.name} at full width and depth, {n_params(full)} "
+          f"parameters, train state {state_bytes} bytes (bf16 parameters, "
+          f"f32 moments; the gradients beside them a step): "
+          f"{FULL_TRAIN_STEPS} make_train_step steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, losses {losses}, {1e3 * step_s:.2f} ms a step "
+          f"(steps 2-{FULL_TRAIN_STEPS}; first {1e3 * times[0]:.2f} ms), "
+          f"{tokens / step_s:.1f} tokens/s, peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB), flash_attention {launches} launches "
+          f"({smi})")
+    if launches != 2 * full.n_layers * FULL_TRAIN_STEPS \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 4t c i: {launches} flash launches, "
+                             f"losses {losses}")
+    out = {"launches": launches, "step_ms": 1e3 * step_s,
+           "tokens_per_s": tokens / step_s, "peak_bytes": peak,
+           "state_bytes": state_bytes}
+    del state
+    torch.cuda.empty_cache()
+
+    # -- (ii) the Runner, failed and resumed --------------------------------
+    cfg = full.replace(n_layers=FULL_RUNNER_LAYERS)
+    d = root / "train_full"
+    disk = shutil.disk_usage(root)
+    saves, writes, restores = [], [], []
+    real = (ck.CheckpointManager.save, ck.CheckpointManager._write,
+            ck.CheckpointManager.restore)
+
+    def save(self, step, state, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real[0](self, step, state, *args, **kwargs)
+        saves.append((step, round(time.perf_counter() - t0, 3)))
+        return out
+
+    def write(self, step, host, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real[1](self, step, host, *args, **kwargs)
+        writes.append((step, sum(a.nbytes for a in host.values()),
+                       round(time.perf_counter() - t0, 3), _dir_bytes(out)))
+        return out
+
+    def restore(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        self.wait()         # the writer the restore would wait for
+        t1 = time.perf_counter()
+        out = real[2](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        restores.append((round(t1 - t0, 3), round(time.perf_counter() - t1,
+                                                  3)))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.CheckpointManager.save, ck.CheckpointManager._write, \
+        ck.CheckpointManager.restore = save, write, restore
+    fa_ops.flash_attention.launches = 0
+    try:
+        runner = Runner(cfg, ocfg, RunnerConfig(
+            total_steps=FULL_TRAIN_STEPS, checkpoint_every=FULL_TRAIN_EVERY,
+            checkpoint_dir=str(d), log_every=FULL_TRAIN_STEPS), dev,
+            TokenPipeline(rows, TRAIN_BATCH),
+            injector=FailureInjector(fail_at_steps=(FULL_TRAIN_FAIL,)),
+            log=lambda m: print(f"[4t c ii] {m}"))
+        t0 = time.perf_counter()
+        resumed = runner.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        ck.CheckpointManager.save, ck.CheckpointManager._write, \
+            ck.CheckpointManager.restore = real
+        shutil.rmtree(d, ignore_errors=True)
+    run_launches = fa_ops.flash_attention.launches
+    run_peak = torch.cuda.max_memory_allocated()
+    runner_losses = [h["loss"] for h in resumed["history"]]
+    final_step = resumed["final_step"]
+    kept = {p: x.detach().to("cpu") for p, x
+            in tree_leaves(state_tree(resumed["state"]))}
+    del runner, resumed
+
+    state, losses, times, plain_launches, _ = steps(cfg)
+    flat = tree_leaves(state_tree(state))
+    diff = [p for p, x in flat if not _bitwise_equal(x.detach().cpu(),
+                                                     kept[p])]
+    if sorted(kept) != sorted(p for p, _ in flat):
+        diff.append("the leaves themselves")
+    print(f"[4t c ii] the Runner at full width cut to {cfg.n_layers} layers "
+          f"({n_params(cfg)} parameters), disk {disk.free} bytes free of "
+          f"{disk.total}: {FULL_TRAIN_STEPS} steps, a checkpoint every "
+          f"{FULL_TRAIN_EVERY}, failed at {FULL_TRAIN_FAIL} and resumed, "
+          f"{run_s:.1f} s, losses {runner_losses}, flash_attention "
+          f"{run_launches} launches, peak memory {run_peak / 2**30:.3f} GiB;"
+          f" checkpoint saves (step, s to the host): {saves}; writes (step, "
+          f"host bytes, s, bytes on disk): {writes}; restores (s waiting "
+          f"for the writer, s restoring): {restores} ({smi})")
+    print(f"[4t c ii] uninterrupted: losses {losses}; resumed against "
+          f"uninterrupted: "
+          f"{'bit for bit' if not diff else 'differs in ' + str(diff)}")
+    if final_step != FULL_TRAIN_STEPS:
+        raise AssertionError("phase 4t c ii: the resumed run stopped short")
+    per_step = 2 * cfg.n_layers * FULL_TRAIN_STEPS
+    if run_launches != per_step or plain_launches != per_step:
+        raise AssertionError(f"phase 4t c ii: flash_attention launched "
+                             f"{run_launches} / {plain_launches} times, not "
+                             f"{per_step}")
+    if diff or runner_losses != losses:
+        raise AssertionError(f"phase 4t c ii: the resumed run differs from "
+                             f"the uninterrupted one in {diff}")
+    if len(writes) != 2 or len(restores) != 1:
+        raise AssertionError(f"phase 4t c ii: {len(writes)} checkpoint "
+                             f"writes and {len(restores)} restores, "
+                             f"expected 2 and 1")
+    out.update(launches=out["launches"] + run_launches + plain_launches,
+               writes=writes, restores=restores)
+    del kept, flat, state
+    torch.cuda.empty_cache()
+
+    # -- (iii) the card against the CPU -------------------------------------
+    small = full.replace(n_layers=FULL_CPU_LAYERS)
+    t0 = time.perf_counter()
+    host = init_state(small, torch.Generator().manual_seed(SEED),
+                      device="cpu")
+    card = train_state_from_numpy(small, train_state_to_numpy(host), dev)
+    small_step = make_train_step(small, ocfg)
+    pipe = TokenPipeline(corpus_from_records(records, small.vocab,
+                                             FULL_CPU_SEQ), FULL_CPU_BATCH)
+    cpu_losses = {}
+    for name, st in (("cpu", host), ("card", card)):
+        cpu_losses[name] = [float(small_step(st, pipe.batch_at(i))[1]["loss"])
+                            for i in range(FULL_CPU_STEPS)]
+    worst = max(abs(a - b) / b for a, b in zip(cpu_losses["card"],
+                                                cpu_losses["cpu"]))
+    print(f"[4t c iii] {full.name} at full width cut to {FULL_CPU_LAYERS} "
+          f"layers ({n_params(small)} parameters), {FULL_CPU_STEPS} steps of "
+          f"{FULL_CPU_BATCH} x {FULL_CPU_SEQ}: card {cpu_losses['card']} "
+          f"against cpu {cpu_losses['cpu']}; worst relative difference "
+          f"{worst:.3e} (bound {TRAIN_LOSS_RTOL}); "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    if not worst <= TRAIN_LOSS_RTOL:
+        raise AssertionError("phase 4t c iii: training on the card and on "
+                             "the CPU disagree")
+    del host, card
+    torch.cuda.empty_cache()
+    out["cpu_gap"] = worst
+    return out
+
+
+def full_width_path(dev, root: Path) -> dict:
+    """Phase 4t: ``granite-3-2b`` and ``phi3-medium-14b`` served at full
+    width (:func:`_full_served`), phi3 through the serving launcher
+    (:func:`_full_launcher`), and granite trained at full width
+    (:func:`_full_train`); every figure beside the card's name and power
+    limit.  Returns the attention kernels' launches by part."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    out = {"smi": smi}
+    t0 = time.perf_counter()
+    for tag, arch in zip("ab", FULL_ARCHS):
+        out[arch] = _full_served(dev, arch, tag, smi)
+    out["launcher"] = _full_launcher(smi)
+    t_serve = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = _full_train(dev, root, smi)
+    print(f"[4t] serving {t_serve:.1f} s, training "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
     return out
 
 
@@ -4431,26 +4778,62 @@ def mesh_moe_batches(cfg) -> list:
 def mesh_moe_one_device(dev, cfg, batches) -> dict:
     """Phase 4s's oracle: the one-device ``make_train_step`` on ``dev`` from
     the seeded draw with f32 parameters, for each case of
-    ``MESH_MOE_CASES``: each step's loss and grad_norm."""
+    ``MESH_MOE_CASES``: each step's loss and grad_norm.  For case (d) at
+    ``MESH_A2A_CF``, twice: as it is, and with its expert layer's aux loss
+    as the all-to-all layer takes it (:func:`_shard_aux_moe_block`); each
+    with the aux loss of the state before each step."""
     import torch
 
     from repro_torch.train.train_step import init_state, make_train_step
 
+    from repro_torch.models import model as M
+
     out = {}
-    for tag, (mb, comp) in MESH_MOE_CASES.items():
+    cases = dict(MESH_MOE_CASES)
+    d = MESH_MOE_A2A_CASE
+    cases[d] = cases[d + "_shards"] = (1, False)
+    for tag, (mb, comp) in cases.items():
+        c = cfg.replace(capacity_factor=MESH_A2A_CF) \
+            if tag.startswith(d) else cfg
         gen = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED)
-        state = init_state(cfg, gen, comp, dev)
+        state = init_state(c, gen, comp, dev)
         state["params"] = state["params"].float()
-        step = make_train_step(cfg, train_ocfg(), mb, comp)
-        rec = {"loss": [], "grad_norm": []}
-        for b in batches:
-            state, met = step(state, b)
-            rec["loss"].append(float(met["loss"]))
-            rec["grad_norm"].append(float(met["grad_norm"]))
+        step = make_train_step(c, train_ocfg(), mb, comp)
+        rec = {"loss": [], "grad_norm": [], "aux": []}
+        real = M.moe_block
+        if tag == d + "_shards":
+            M.moe_block = _shard_aux_moe_block
+        try:
+            for b in batches:
+                if tag.startswith(d):
+                    with torch.no_grad():
+                        rec["aux"].append(float(M.loss_parts(
+                            state["params"], {k: torch.from_numpy(v).to(dev)
+                                              for k, v in b.items()})[2]))
+                state, met = step(state, b)
+                rec["loss"].append(float(met["loss"]))
+                rec["grad_norm"].append(float(met["grad_norm"]))
+        finally:
+            M.moe_block = real
         out[tag] = rec
         del state, step
         torch.cuda.empty_cache()
     return out
+
+
+def _shard_aux_moe_block(x, p, cfg):
+    """``moe_block`` with its aux loss as the all-to-all layer takes it:
+    the mean of the router's estimates over the mesh's token shards (rank
+    r routes tokens [r T / n, (r + 1) T / n)), each over its own tokens;
+    the layer's output is ``moe_block``'s."""
+    from repro_torch.models import moe
+
+    y, _ = moe.moe_block(x, p, cfg)
+    xt = x.reshape(-1, x.shape[-1])
+    n = math.prod(MESH_SHAPE)
+    aux = sum(moe.route(part, p["router"], cfg).aux
+              for part in xt.chunk(n)) / n
+    return y, aux
 
 
 def mesh_moe_rank(mesh) -> dict:
@@ -4466,7 +4849,7 @@ def mesh_moe_rank(mesh) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.mesh import (collective_bytes,
                                          reset_collective_bytes)
-    from repro_torch.sharding import local_block
+    from repro_torch.sharding import local_block, set_current_mesh
     from repro_torch.train.optim import AdamWConfig, tree_map
     from repro_torch.train.train_step import (abstract_state,
                                               init_mesh_state,
@@ -4515,6 +4898,36 @@ def mesh_moe_rank(mesh) -> dict:
         del state, step
         torch.cuda.empty_cache()
 
+    # (d) the all-to-all expert layer: the rank's experts on the model
+    # axis, the tokens exchanged both ways, the backward's exchanges too
+    a2a = cfg.replace(moe_impl="a2a", capacity_factor=MESH_A2A_CF)
+    peak_ab = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    set_current_mesh(mesh, MESH_TRAIN_RULES)
+    try:
+        step, s_shard, b_shard = jit_train_step(
+            a2a, train_ocfg(), mesh, abstract_state(a2a), specs,
+            MESH_TRAIN_RULES)
+        gen = torch.Generator(device=mesh.device).manual_seed(MESH_MOE_SEED)
+        state = init_mesh_state(a2a, gen, s_shard, device=mesh.device)
+        state["params"] = tree_map(lambda x: x.float(), state["params"])
+        rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
+        fa_ops.flash_attention.launches = 0
+        for b in batches:
+            state, met, ms, counts = timed(step, state, cut(b, b_shard))
+            rec["loss"].append(met["loss"])
+            rec["grad_norm"].append(met["grad_norm"])
+            rec["ms"].append(ms)
+            rec["counts"].append(counts)
+        rec["flash_launches"] = fa_ops.flash_attention.launches
+        rec["resident_bytes"] = _state_bytes(state)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["cases"][MESH_MOE_A2A_CASE] = rec
+        del state, step
+        torch.cuda.empty_cache()
+    finally:
+        set_current_mesh(None)
+
     # (c) one bf16 step at the accounting's settings
     step, s_shard, b_shard = jit_train_step(
         cfg, AdamWConfig(), mesh, abstract_state(cfg), specs,
@@ -4528,7 +4941,7 @@ def mesh_moe_rank(mesh) -> dict:
                    "resident_bytes": _state_bytes(state)}
     del state, step
     torch.cuda.synchronize()
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_bytes"] = max(peak_ab, torch.cuda.max_memory_allocated())
     ranks = [None] * mesh.size
     dist.all_gather_object(ranks, out)
     return {"ranks": ranks}
@@ -4541,13 +4954,17 @@ def mesh_moe_train_path(dev) -> dict:
     loss and grad_norm within ``MESH_MOE_RTOL`` of the oracle's, the flash
     kernel launched 2 x n_layers a microbatch a step in every rank; (c)
     the bf16 step's collective bytes by kind equal to ``account_cell``'s
-    on ``AbstractMesh((2, 2))`` at the batch's shape.  Returns the flash
-    launches of (a), (b) and (c) over the ranks."""
+    on ``AbstractMesh((2, 2))`` at the batch's shape; (d) under
+    ``moe_impl="a2a"``, each step within ``MESH_MOE_RTOL`` of the oracle
+    whose aux loss is the shards' mean, the all-to-all's bytes six
+    exchanges a layer a step.  Returns the flash launches of (a)-(d) over
+    the ranks."""
     import torch
 
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import spawn
     from repro_torch.models.model import n_params
+    from repro_torch.models.moe_a2a import a2a_capacity
     from repro_torch.sharding import AbstractMesh
 
     t_phase = time.perf_counter()
@@ -4606,6 +5023,66 @@ def mesh_moe_train_path(dev) -> dict:
         raise AssertionError("phase 4s (a)/(b): the MoE mesh step is not "
                              "the one-device step")
 
+    # (d)
+    a2a = cfg.replace(moe_impl="a2a", capacity_factor=MESH_A2A_CF)
+    recs = [r["cases"][MESH_MOE_A2A_CASE] for r in ranks]
+
+    def dist(want):
+        return {key: max(abs(got - ref) / abs(ref) for rec in recs
+                         for got, ref in zip(rec[key], want[key]))
+                for key in ("loss", "grad_norm")}
+
+    # the one-device step as it is (its aux over the whole batch), and with
+    # the aux as the all-to-all layer takes it (its shards' mean)
+    plain, want = oracle[MESH_MOE_A2A_CASE], \
+        oracle[MESH_MOE_A2A_CASE + "_shards"]
+    errs, plain_errs = dist(want), dist(plain)
+    per_rank = 2 * cfg.n_layers * MESH_MOE_STEPS
+    flash = [rec["flash_launches"] for rec in recs]
+    launches += sum(flash)
+    cap = a2a_capacity(a2a, TRAIN_BATCH * TRAIN_SEQ // n)
+    exchange = a2a.n_experts * cap * a2a.d_model * 4
+    # two exchanges a layer forward, again in the remat recompute, and two
+    # in the backward
+    exchanges = (3 if a2a.remat == "block" else 2) * 2 * a2a.n_layers
+    counts = recs[0]["counts"][-1]
+    kinds = {k: v for k, v in counts.items()
+             if v and k not in ("total", "count")}
+    same_counts = all(c == counts for rec in recs for c in rec["counts"])
+    ms = sorted(t for rec in recs for t in rec["ms"])
+    print(f"[4s d] moe_impl a2a, {a2a.n_experts // MESH_SHAPE[1]} experts a "
+          f"rank on the model axis of {MESH_SHAPE[1]}, capacity factor "
+          f"{MESH_A2A_CF} ({cap} slots a source a destination expert, "
+          f"no drop): every rank's loss {[rec['loss'] for rec in recs]} and"
+          f" grad_norm {[rec['grad_norm'] for rec in recs]}; the one-device "
+          f"step's {plain['loss']} and {plain['grad_norm']}, at most "
+          f"{plain_errs['loss']:.3e} (loss) and "
+          f"{plain_errs['grad_norm']:.3e} (grad_norm) relative, its aux "
+          f"loss before each step (the whole batch's) {plain['aux']}; with "
+          f"the aux as the all-to-all layer takes it (the mean of the "
+          f"{n} token shards' estimates) {want['aux']}: {want['loss']} and "
+          f"{want['grad_norm']}, at most {errs['loss']:.3e} and "
+          f"{errs['grad_norm']:.3e} relative (bound {MESH_MOE_RTOL})")
+    print(f"[4s d] ms a step by rank "
+          f"{[[round(t, 2) for t in rec['ms']] for rec in recs]} (median "
+          f"{ms[len(ms) // 2]:.2f}); a step moves from each rank {kinds} "
+          f"bytes in {counts['count']} collectives (every step and rank "
+          f"alike {same_counts}); all-to-all {exchange} bytes an exchange, "
+          f"{exchanges} exchanges a step expected (forward, the remat "
+          f"recompute, backward: {exchanges * exchange} bytes); "
+          f"flash_attention launches by rank {flash} ({per_rank} "
+          f"expected); resident state by rank "
+          f"{[rec['resident_bytes'] for rec in recs]} bytes; peak by rank "
+          f"{[round(rec['peak_bytes'] / 2**30, 3) for rec in recs]} GiB "
+          f"({smi})")
+    if flash != [per_rank] * n or not same_counts \
+            or counts["all-to-all"] != exchanges * exchange:
+        raise AssertionError("phase 4s (d): the all-to-all step's launches "
+                             "or exchanges are not the expected ones")
+    if max(errs.values()) > MESH_MOE_RTOL:
+        raise AssertionError("phase 4s (d): the all-to-all mesh step is not "
+                             "the one-device step")
+
     # (c)
     acc = dryrun.account_cell(cfg, "train_4k", AbstractMesh.of(MESH_SHAPE),
                               batch=TRAIN_BATCH, seq=TRAIN_SEQ)
@@ -4639,8 +5116,7 @@ def accounting_path(dev) -> dict:
     and peak bytes (at most the bf16 parameters and the largest single f32
     draw); ``ServeEngine.generate`` of 8 requests of ``FAM_MOE_PROMPT``
     tokens, ``ACCT_NEW`` new: prefill s, ms a step, the flash kernel once
-    a layer for the wave and the decode kernel once a layer a step; a
-    profiled window of decode steps (the experts' ``bmm`` share of busy);
+    a layer for the wave and the decode kernel once a layer a step;
     ``decode == prefill(n + 1)`` at ``capacity_factor`` 8 as 4n (d).
     (b) each of ``ACCT_CELLS`` at its cut batch: its record from
     ``repro_torch.launch.dryrun.run_cell`` and its roofline terms, one
@@ -4707,31 +5183,12 @@ def accounting_path(dev) -> dict:
             "decode_attention": cfg.n_layers * (ACCT_NEW - 1),
             "decode_attention_int8": 0}
     del engine
-    S = max(len(r.prompt) for r in reqs)
-    wave = np.zeros((LM_LANES, S), np.int32)
-    for j, r in enumerate(reqs):
-        wave[j, S - len(r.prompt):] = r.prompt
-    cache, logits = M.prefill(model, {"tokens": torch.from_numpy(wave).to(
-        dev)}, LM_MAX_LEN)
-    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    torch.cuda.empty_cache()    # the profiler's own buffers need room
-
-    def step():
-        nonlocal cache, cur
-        logits, cache = M.decode_step(model, cache, {"tokens": cur[:, None]})
-        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-
-    wall, busy, bmm, launches, _ = _profile_steps(step, FAM_PROFILE_STEPS)
-    del cache, logits
     torch.cuda.empty_cache()
+    S = max(len(r.prompt) for r in reqs)
     print(f"[4p a] {cfg.name}: {LM_LANES} requests of {FAM_MOE_PROMPT[0]}-"
           f"{FAM_MOE_PROMPT[1]} tokens (longest {S}), {ACCT_NEW} new: "
           f"prefill {pre_s:.4f} s, decode {step_ms:.4f} ms a step; launches "
-          f"{got}; profiled window of {FAM_PROFILE_STEPS} steps: wall "
-          f"{wall:.4f} ms a step, device busy {busy:.4f} ms (busy share "
-          f"{busy / wall:.4f}), the experts' bmm {bmm:.4f} ms "
-          f"({bmm / max(busy, 1e-9):.4f} of busy), {launches:.1f} launches "
-          f"a step")
+          f"{got}")
     if got != want or any(len(t) != ACCT_NEW for t in toks.values()):
         raise AssertionError(f"phase 4p a: launches {got}, expected {want}")
     moe8 = M.Model(cfg.replace(capacity_factor=FAM_MOE_CF),
@@ -4767,8 +5224,7 @@ def accounting_path(dev) -> dict:
                              "prefill under the experts")
     out["moonshot"] = {"init_s": init_s, "init_peak": init_peak,
                        "param_bytes": pbytes, "prefill_s": pre_s,
-                       "step_ms": step_ms, "busy_ms": busy, "wall_ms": wall,
-                       "bmm_ms": bmm, "gap": gap, "router_gap": x_gap,
+                       "step_ms": step_ms, "gap": gap, "router_gap": x_gap,
                        "logit_gaps": [g for g, _, _, _ in seqs]}
     out["launches"]["moonshot"] = got
     # the kernels at moonshot's heads (16 / 16 of 128)
@@ -5456,7 +5912,8 @@ def _sync_split(step_fn, state, batch) -> dict:
 def _train_profile(tag: str, step_fn, state, batch, wall_s: float) -> None:
     """One step under ``torch.profiler``: device busy, idle share against
     the unprofiled step's ``wall_s``, launches and host syncs, the top
-    kernels; then a synchronized host-clock split of one more step."""
+    kernels; then a synchronized host-clock split of one more step.  Its
+    lines carry ``tag`` (the phase and part)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5468,17 +5925,17 @@ def _train_profile(tag: str, step_fn, state, batch, wall_s: float) -> None:
     on_card, busy, syncs, launches = profile_counts(prof)
     attn = sum(dev_us(e) for e in on_card
                if "flash_attention" in e.key) / 1e3
-    print(f"[4m {tag} profile] one step ({torch.cuda.get_device_name(0)})"
+    print(f"[{tag} profile] one step ({torch.cuda.get_device_name(0)})"
           f": device busy {1e3 * busy:.4f} ms "
           f"(idle share {1 - busy / wall_s:.4f} of the unprofiled "
           f"{1e3 * wall_s:.4f} ms), flash_attention kernels {attn:.4f} ms;"
           f" {launches} kernel launches, {syncs} host syncs a step")
     for e in sorted(on_card, key=dev_us, reverse=True)[:8]:
-        print(f"[4m {tag} profile]   {dev_us(e) / 1e3:9.4f} ms  "
+        print(f"[{tag} profile]   {dev_us(e) / 1e3:9.4f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
     split = _sync_split(step_fn, state, batch)
     total = split.pop("step")
-    print(f"[4m {tag} split] synchronized step {1e3 * total:.4f} ms: "
+    print(f"[{tag} split] synchronized step {1e3 * total:.4f} ms: "
           + ", ".join(f"{k} {1e3 * v:.4f} ms ({v / total:.3f})"
                       for k, v in split.items())
           + f", rest {1e3 * (total - sum(split.values())):.4f} ms")
@@ -5499,7 +5956,7 @@ def train_path(dev, root: Path) -> dict:
     ``TRAIN_ATTN_SHAPE`` in bf16 and f32 against the plain version's
     autograd gradients on the card.  (c) full width at ``TRAIN_BIG``
     (microbatches, int8 compression): ms a step, tokens a second, peak
-    memory, and a profile and a split of one step.  Returns the flash
+    memory.  Returns the flash
     launches of (a)'s first run and its first step's loss."""
     import shutil
 
@@ -5650,13 +6107,21 @@ def train_path(dev, root: Path) -> dict:
     if big_launches != per_step * TRAIN_BIG["microbatches"] \
             * TRAIN_BIG["steps"]:
         raise AssertionError("the microbatched step skipped the flash kernel")
-    _train_profile("c", step_fn, state, big.batch_at(0), med)
     return {"launches": launches, "first_loss": first_loss}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every phase, or with ``--phase 4t`` / ``--phase 4s`` the build and
+    that phase alone (its lines, no kernels line and no ok line)."""
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    phases = {"4t": run_full_width, "4s": mesh_moe_train_path}
+    if argv and (len(argv) != 2 or argv[0] != "--phase"
+                 or argv[1] not in phases):
+        print(f"usage: chip_smoke.py [--phase {{{','.join(phases)}}}]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -5665,8 +6130,34 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if argv:
+        from repro_torch.device import set_precision
+        from repro_torch.kernels._build import extension
+
+        set_precision()
+        t0 = time.perf_counter()
+        extension()
+        print(f"[2 build] {time.perf_counter() - t0:.1f} s")
+        phases[argv[1]](torch.device("cuda"))
+        return 0
     run(torch.device("cuda"))
     return 0
+
+
+def run_full_width(dev) -> dict:
+    """Phase 4t in a scratch directory under ``build/``, removed after."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    try:
+        out = full_width_path(dev, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(f"[4t] phase 4t {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def run(dev) -> None:
@@ -5935,6 +6426,12 @@ def run(dev) -> None:
                      torch.float32, torch.float32)
     check_decode(dev, LM_LANES, LM_MAX_LEN, H, K, hd, 1337, torch.float32,
                  torch.bfloat16)
+    # phase 4t's served head layouts (granite-3-2b, phi3-medium-14b)
+    for gH, gK, gd in DECODE_GQA_LAYOUTS:
+        for length in DECODE_GQA_LENGTHS:
+            for dt in (torch.bfloat16, torch.float32):
+                check_decode(dev, LM_LANES, LM_MAX_LEN, gH, gK, gd, length,
+                             dt, dt, seed=length)
     repeats = [da_kernel.decode_attention(*da_args) for _ in range(5)]
     da_repeat = all(torch.equal(x.view(torch.int16), repeats[0].view(
         torch.int16)) for x in repeats[1:])
@@ -6127,6 +6624,11 @@ def run(dev) -> None:
     print(f"[4n] phase 4n {time.perf_counter() - t0:.1f} s")
     fam_launch = fam["launches"]
 
+    # -- 4t. granite-3-2b and phi3-medium-14b at full width ------------------
+    full = run_full_width(dev)
+    full_launch = [full[a]["launches"] for a in FULL_ARCHS] \
+        + [full["launcher"]["launches"]]
+
     # -- 4o. the SSM and hybrid families at full width -----------------------
     t0 = time.perf_counter()
     ssm = ssm_families_path(dev)
@@ -6226,6 +6728,9 @@ def run(dev) -> None:
         attn_mask=da_mask, enable_gqa=True))
     fam_flash = sum(v["flash_attention"] for v in fam_launch.values())
     fam_decode = sum(v["decode_attention"] for v in fam_launch.values())
+    full_flash = sum(v["flash_attention"] for v in full_launch) \
+        + full["train"]["launches"]
+    full_decode = sum(v["decode_attention"] for v in full_launch)
     ssm_flash = sum(v["flash_attention"] for v in ssm_launch.values())
     ssm_decode = sum(v["decode_attention"] for v in ssm_launch.values())
     cell_launch = [v for k, v in acct_launch.items() if k != "moonshot"]
@@ -6345,6 +6850,7 @@ def run(dev) -> None:
              "mesh_training": mesh_train["launches"],
              "mesh_moe_training": mesh_moe["launches"],
              "lm_families": fam_flash,
+             "full_width": full_flash,
              "ssm_hybrid": ssm_flash,
              "moonshot": acct_launch["moonshot"]["flash_attention"],
              "dryrun_cells": cell_flash},
@@ -6363,6 +6869,7 @@ def run(dev) -> None:
          "launches_by_path": {
              "lm_serving": serving["launches"]["decode_attention"],
              "lm_families": fam_decode,
+             "full_width": full_decode,
              "ssm_hybrid": ssm_decode,
              "moonshot": acct_launch["moonshot"]["decode_attention"],
              "dryrun_cells": cell_decode},

@@ -302,10 +302,15 @@ def _special_init(path: str, spec: ParamSpec,
 
 
 def _device_bytes(device: torch.device) -> int:
-    """The memory of the device a draw lands on: a card's total memory, or
-    the host's physical memory."""
+    """The memory a draw on ``device`` can take: on a card what CUDA
+    reports free plus what the caching allocator holds unused (blocks an
+    earlier model or phase left behind), so a draw after other work sees
+    the room it really has, not the card's total; on the host its physical
+    memory."""
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).total_memory
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
     return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
@@ -318,20 +323,24 @@ def _drawn_in_slices(spec: ParamSpec, beside: int, capacity: int) -> bool:
 
 
 def _normal_leaf(spec: ParamSpec, generator: torch.Generator,
-                 dev: torch.device, param_bytes: int) -> torch.Tensor:
+                 dev: torch.device, param_bytes: int,
+                 room: Optional[int] = None) -> torch.Tensor:
     """``N(0, 1) / sqrt(fan_in)`` drawn in f32 on the generator's device and
     cast to the spec's dtype on ``dev``.  One draw of the whole leaf, unless
-    that f32 draw would not fit beside the parameters on the generator's
-    device: then one draw a slice along the leading axis (a layer's
-    stacked weights), in the same generator order, each cast into the
-    destination, so the draw never holds more than one slice in f32.  On a
-    CPU generator slices of a multiple of 16 elements give the whole draw
-    bit for bit; on a card's they need not, which is why only a leaf that
-    cannot be drawn whole is sliced."""
+    that f32 draw would not fit beside the parameters in ``room`` bytes of
+    the generator's device (:func:`_device_bytes` when not given): then one
+    draw a slice along the leading axis (a layer's stacked weights), in the
+    same generator order, each cast into the destination, so the draw
+    never holds more than one slice in f32.  On a CPU generator slices of a
+    multiple of 16 elements give the whole draw bit for bit; on a card's
+    they need not, which is why only a leaf that cannot be drawn whole is
+    sliced."""
     gdev = generator.device
     scale = 1.0 / math.sqrt(max(spec.fan_in, 1))
     beside = param_bytes if gdev.type == dev.type else 0
-    if not _drawn_in_slices(spec, beside, _device_bytes(gdev)):
+    if room is None:
+        room = _device_bytes(gdev)
+    if not _drawn_in_slices(spec, beside, room):
         w = torch.randn(spec.shape, generator=generator,
                         dtype=torch.float32, device=gdev)
         w *= scale
@@ -356,14 +365,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     otherwise, drawn in f32 from ``generator`` (on its own device, in
     sorted path order) and cast to each spec's dtype on ``device`` (the
     card unless the caller says otherwise).  A leaf whose f32 draw would
-    not fit beside the parameters (``moonshot-v1-16b-a3b``'s experts on an
-    80 GB card) is drawn a slice at a time (:func:`_normal_leaf`).  torch's
+    not fit beside the parameters in the room the generator's device has
+    when the draw starts (``moonshot-v1-16b-a3b``'s experts on an 80 GB
+    card) is drawn a slice at a time (:func:`_normal_leaf`).  torch's
     numbers are not JAX's: to compare with the reference, carry its
     parameters across instead."""
     dev = pick_device(device)
     specs = model_specs(cfg)
     param_bytes = sum(math.prod(s.shape) * s.dtype.itemsize
                       for s in specs.values())
+    room = _device_bytes(generator.device)
     flat = {}
     for path, spec in sorted(specs.items()):
         special = _special_init(path, spec, generator)
@@ -373,7 +384,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if spec.fan_in == 0:
             flat[path] = torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
             continue
-        flat[path] = _normal_leaf(spec, generator, dev, param_bytes)
+        flat[path] = _normal_leaf(spec, generator, dev, param_bytes, room)
     return Model(cfg, flat)
 
 

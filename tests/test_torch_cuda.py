@@ -909,6 +909,7 @@ def _randn(dev, shape, dtype, seed):
     (8, 1491, 12, 12, 64),     # paper-scorer's first prefill wave
     (2, 2048, 32, 8, 64),      # granite-3-2b's head layout
     (1, 2048, 64, 8, 128),     # deepseek-67b's head layout
+    (1, 2048, 40, 10, 128),    # phi3-medium-14b's head layout
     (3, 200, 6, 2, 32),        # ragged S, the reduced configs' head dim
     (2, 1, 4, 1, 64),          # one token
     (1, 65, 2, 2, 128),        # one row past a 64-row tile
@@ -991,6 +992,8 @@ def test_flash_attention_bf16_kernel_runs_on_tensor_cores(dev):
     (2, 300, 32, 2, 128, 299),      # 16 query heads a kv head
     (2, 2048, 32, 2, 128, 1500),    # and the most splits the launch plans
     (3, 77, 8, 2, 32, 77),          # S not a multiple of the 64-row tile
+    (8, 2048, 32, 8, 64, 1337),     # granite-3-2b's served layout
+    (8, 2048, 40, 10, 128, 2048),   # phi3-medium-14b's served layout
 ])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.bfloat16),
@@ -1757,6 +1760,23 @@ def test_sliced_draw_on_a_card_generator(dev, monkeypatch):
         w *= 1.0 / math.sqrt(spec.fan_in)
         assert torch.equal(leaf.view(torch.int16),
                            w.to(torch.bfloat16).view(torch.int16)), path
+
+
+def test_draw_room_counts_the_allocator_s_cached_blocks(dev):
+    """``init_params`` sizes its draw by the room the card has when the draw
+    starts: a block the caching allocator keeps after an earlier tensor is
+    freed counts as room, a live tensor does not."""
+    from repro_torch.models import model as M
+
+    torch.cuda.synchronize()
+    before = M._device_bytes(torch.device(dev))
+    block = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    held = M._device_bytes(torch.device(dev))
+    del block
+    freed = M._device_bytes(torch.device(dev))
+    assert before - held >= 2 ** 30
+    assert torch.cuda.memory_reserved(dev) >= 2 ** 30
+    assert abs(freed - before) < 2 ** 26
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@ The cases (all ``.reduced()``, f32 parameters, two steps, a batch of 16 x
 * ``granite-3-2b`` (GQA) under ``fsdp_tp`` on 4 x 2 with two microbatches;
 * ``qwen2-vl-2b`` under ``fsdp_tp`` on 2 x 2, its batch with
   ``prefix_embeds`` and ``positions3`` (the reference's vision stub's
-  layout, ``configs/shapes.py::dummy_batch``).
+  layout, ``configs/shapes.py::dummy_batch``);
+* ``musicgen-medium`` under ``fsdp_tp`` on 2 x 2, its batch with its
+  conditioning frames as ``prefix_embeds``; ``moonshot-v1-16b-a3b``
+  (experts: the whole batch in every rank) and ``internlm2-1.8b`` under
+  ``fsdp_tp`` on 2 x 2.
 
 The test process draws each config's state with the port's ``init_state``
 (seed 0) and hands it, as numpy, to one reference subprocess
@@ -98,6 +102,9 @@ CASES = [
     _case("rwkv6-2x2", "rwkv6-3b", (2, 2)),
     _case("granite-4x2-mb2", "granite-3-2b", (4, 2), mb=2),
     _case("qwen2-vl-2x2", "qwen2-vl-2b", (2, 2)),
+    _case("musicgen-2x2", "musicgen-medium", (2, 2)),
+    _case("moonshot-2x2", "moonshot-v1-16b-a3b", (2, 2)),
+    _case("internlm2-2x2", "internlm2-1.8b", (2, 2)),
 ]
 IDS = [c["id"] for c in CASES]
 ROW_ARCHS = ("olmoe-1b-7b", "paper-scorer", "zamba2-1.2b", "rwkv6-3b")

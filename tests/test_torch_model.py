@@ -269,9 +269,11 @@ def test_naive_attention_is_refused():
         layers.causal_attention(q, k, k, cfg)
 
 
-# configs drawn at full width on the card before the sliced draw
+# configs drawn at full width on the card, whole: before the sliced draw,
+# and the two dense configs first drawn at full width since
 CARD_DRAWN = ("paper-scorer", "internlm2-1.8b", "qwen2-vl-2b",
-              "musicgen-medium", "olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b")
+              "musicgen-medium", "olmoe-1b-7b", "rwkv6-3b", "zamba2-1.2b",
+              "granite-3-2b", "phi3-medium-14b")
 
 
 def _whole_draw(cfg, generator):
@@ -330,7 +332,10 @@ def test_only_moonshots_experts_are_sliced_on_an_80_gb_card():
     one f32 draw, which does not fit beside them on an 80 GB card, so those
     three leaves are drawn a layer at a time (738 MB of f32 a slice).  No
     leaf of a config the card drew before is sliced, so their draws stay
-    what they were."""
+    what they were; nor one of ``granite-3-2b`` (5.27 GB in bf16, its
+    largest f32 draw 2.68 GB) or ``phi3-medium-14b`` (29.3 GB in bf16,
+    its largest f32 draw ``layers/mlp/wo``'s 14.68 GB: 44.0 GB together),
+    both drawn whole at full width on the card."""
     card = 80 * 2 ** 30
     cfg = get("moonshot-v1-16b-a3b")
     assert M.n_params(cfg) == 28057995264
@@ -347,3 +352,8 @@ def test_only_moonshots_experts_are_sliced_on_an_80_gb_card():
                      for s in specs.values())
         assert not any(M._drawn_in_slices(s, params, card)
                        for s in specs.values()), arch
+    phi3 = M.model_specs(get("phi3-medium-14b"))
+    assert sum(2 * np.prod(s.shape) for s in phi3.values()) == 29319014400
+    assert max(4 * np.prod(s.shape) for s in phi3.values()) == 14680064000
+    granite = M.model_specs(get("granite-3-2b"))
+    assert sum(2 * np.prod(s.shape) for s in granite.values()) == 5268402176
