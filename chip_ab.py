@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the join and LM paths of two checkouts on one CUDA card.
 
-    python3 chip_ab.py ROOT_A ROOT_B [--passes-each 2] [--whole]
+    python3 chip_ab.py ROOT_A ROOT_B [--passes-each 2] [--whole | --kernels]
 
 Passes alternate A, B, B, A (with ``--passes-each 2``), each a subprocess
 in that checkout, which builds its own kernels (kept in ``ROOT/build``
@@ -12,9 +12,15 @@ after its first pass).  By default a pass imports the checkout's
 gateway replay on the host clock; the second, warm, run's summary line is
 printed.  With ``--whole`` a pass runs the checkout's ``python3
 chip_smoke.py`` and prints its summary lines of phases 4-4f, so each path
-is read where the script drives it.  The card's name and power limit come
-first, each line is tagged with its checkout, and a failed pass exits
-non-zero.
+is read where the script drives it.  With ``--kernels`` a pass times two
+kernels with CUDA events (``chip_smoke.cuda_ms``, 20 calls after a spin,
+three times): the wide ``union_deduce`` on a seeded ``wide_lanes`` lane of
+65536 objects and 524288 pairs (phase 4g's round-1 screen size), and the
+int8 path of ``decode_attention`` at the kernel table's shape (q (8, 12,
+64) bf16 over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's
+internlm2-1.8b shape (q (8, 16, 128) over (8, 2048, 8, 128)), length 2048.
+The card's name and power limit come first, each line is tagged with its
+checkout, and a failed pass exits non-zero.
 """
 import argparse
 import subprocess
@@ -39,24 +45,54 @@ print("=== warm ===", flush=True)
 cs.profile_run(dev, corpora)
 """
 
+KERNELS = r"""
+import sys
+root = sys.argv[1]
+sys.path[:0] = [root, root + "/src"]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels._build import extension
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.union_deduce import kernel as ud_kernel
+extension()
+dev = torch.device("cuda")
+wide = cs.wide_lanes(dev, 65536, 524288, 1, seed=cs.SEED + 3)
+ud_kernel.union_deduce(*wide)   # raises on a failed lane
+ms = [cs.cuda_ms(lambda: ud_kernel.launch(*wide)) for _ in range(3)]
+print("[kernels] union_deduce_wide (1, 65536, 524288): "
+      + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+for B, S, H, K, d in ((8, 2048, 12, 12, 64), (8, 2048, 16, 8, 128)):
+    q = cs._randn(dev, (B, H, d), torch.bfloat16, 0)
+    kc, ks = cs.int8_cache(dev, B, S, K, d, S, 1)
+    vc, vs = cs.int8_cache(dev, B, S, K, d, S, 2)
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    ms = [cs.cuda_ms(lambda: da_kernel.decode_attention(q, kc, vc, n, ks, vs))
+          for _ in range(3)]
+    print(f"[kernels] decode_attention_int8 q ({B}, {H}, {d}) bf16 cache "
+          f"({B}, {S}, {K}, {d}) length {S}: "
+          + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+"""
+
 # the summary lines of chip_smoke.py's paths, by their prefixes
 WHOLE_LINES = ("[4 main path]", "[4b blocked path]", "[4c serving]",
                "[4d machine phase]", "[4e noisy path]", "[4e split]",
                "[4f paper pipeline]", "[4f split paper 0.1]")
 
 
-def run_pass(root: Path, whole: bool) -> list:
+def run_pass(root: Path, whole: bool, kernels: bool = False) -> list:
     cmd = ([sys.executable, "chip_smoke.py"] if whole
-           else [sys.executable, "-c", PASS, str(root)])
+           else [sys.executable, "-c", KERNELS if kernels else PASS,
+                 str(root)])
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
                          timeout=1200)
     if out.returncode != 0:
         sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
         raise SystemExit(f"chip_ab: pass in {root} failed "
                          f"(exit {out.returncode})")
-    if whole:
+    if whole or kernels:
         return [line[:300] for line in out.stdout.splitlines()
-                if line.startswith(WHOLE_LINES)]
+                if line.startswith(("[kernels]",) if kernels
+                                   else WHOLE_LINES)]
     warm = out.stdout.split("=== warm ===", 1)[1]
     return [next(line for line in warm.splitlines()
                  if line.startswith("[4 profile] run() wall"))]
@@ -67,8 +103,11 @@ def main() -> int:
     ap.add_argument("root_a", type=Path)
     ap.add_argument("root_b", type=Path)
     ap.add_argument("--passes-each", type=int, default=2)
-    ap.add_argument("--whole", action="store_true",
-                    help="run each checkout's chip_smoke.py end to end")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--whole", action="store_true",
+                      help="run each checkout's chip_smoke.py end to end")
+    mode.add_argument("--kernels", action="store_true",
+                      help="time the wide union_deduce and the int8 decode")
     args = ap.parse_args()
     roots = [args.root_a.resolve(), args.root_b.resolve()]
     print(subprocess.run(
@@ -79,7 +118,7 @@ def main() -> int:
     for k in range(args.passes_each):
         order += roots if k % 2 == 0 else roots[::-1]
     for n, root in enumerate(order):
-        for line in run_pass(root, args.whole):
+        for line in run_pass(root, args.whole, args.kernels):
             print(f"[pass {n}] {root.name}: {line}", flush=True)
     return 0
 

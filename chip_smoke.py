@@ -17,9 +17,12 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    pointer-jumping worst case), its launch plan (a cluster of blocks a
    lane) printed, five calls on each round-1 call bit for bit; the wide
    ``union_deduce`` kernel (past 46340 objects, int64 keys, the forest in
-   global memory) bitwise on an n = 65536 path graph with int64 sentinel
-   keys and on three stacked lanes of (65536, 131072) with int64 neg keys
-   and a conflict, five calls on those lanes bit for bit;
+   global memory, one cooperative grid over every lane) bitwise on an n =
+   65536 path graph with int64 sentinel keys, on three stacked lanes of
+   (65536, 131072) with int64 neg keys and a conflict, at phase 4g's
+   round-1 screen size (one lane of (65536, 524288), and eight stacked) and
+   on a star centred on the largest id, five calls on each bit for bit, its
+   launch plans (blocks a lane, lanes at a time, the grid) printed;
    ``pair_scores_compact`` on the first 256-tile chunk of blocked session 0
    (phase 4b): rows and cols equal but for cells within 1e-5 of tau, scores
    within 1e-5, the order identical; through ``dense_block_pairs`` on phase
@@ -46,8 +49,11 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    cache and internlm2-1.8b's (8, 16 / 8, 128) over (8, 2048, 8, 128),
    bf16 and f32 queries, against its plain version (which dequantizes
    first); under scales of 1 (the dequantized cache is the int8 integers)
-   against the plain f32 attention within the f32 rule; five calls bit for
-   bit.  f32 outputs
+   against the plain f32 attention within the f32 rule; at length 1 under
+   an f32 query the dequantized v row itself, bit for bit, with rows that
+   hold every int8 value under B x K distinct scales, head dims 32, 64 and
+   128, one and two query heads a kv head; five calls bit for bit.  f32
+   outputs
    within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
    outputs within 2**-7 |expected| + 1e-4 element by element: both sides
    sum in f32 and round once to bf16, whose 8 significant bits put one ulp
@@ -372,7 +378,8 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    the card nearly full; a ``{"kernels": [...]}`` line with each kernel's launches on its
    main path (and on each path, where it runs on more than one), error, and
    times beside its bound, its plain version and a library call
-   (``union_deduce``'s with its cluster size, and its times and bounds at
+   (``union_deduce``'s with its cluster size, the wide one's with its grid,
+   and its times and bounds at
    phase 4f's shapes; the wide ``union_deduce`` as an entry of its own, at
    phase 4g's round-1 screen, with its launches in phase 4g; phase 4i's,
    4j's, 4k's, 4l's, 4m's and 4n's launches in ``launches_by_path`` (4t's
@@ -2954,6 +2961,42 @@ def check_decode_int8(dev, B, S, H, K, d, length, q_dtype, seed=0,
         raise AssertionError("decode_attention's int8 path disagrees with "
                              "its plain version")
     return err, (q, kc, vc, n, ks, vs)
+
+
+def check_decode_int8_row(dev, B, S, H, K, d, seed=0) -> None:
+    """The int8 path at length 1 under an f32 query: the softmax weighs the
+    one row by exactly 1, so the output is the dequantized v row itself,
+    bit for bit ``dequantize``'s; its rows hold every int8 value in [-127,
+    127] under B x K distinct scales (2**-20 to 2**20)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import dequantize
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    vals = torch.randint(-127, 128, (B, S, K, d), generator=gen,
+                         dtype=torch.int8)
+    every = torch.arange(-127, 128, dtype=torch.int8)
+    vals[:, 0] = every.repeat(-(-B * K * d // 255))[:B * K * d].view(B, K, d)
+    exps = torch.randperm(41, generator=gen)[:B * K].view(B, K) - 20
+    scales = torch.rand((B, S, K), generator=gen).to(torch.bfloat16)
+    scales[:, 0] = (2.0 ** exps.double() * 1.5).to(torch.bfloat16)
+    kvals = torch.randint(-127, 128, (B, S, K, d), generator=gen,
+                          dtype=torch.int8)
+    q = torch.randn((B, H, d), generator=gen)
+    got = da_kernel.decode_attention(
+        q.to(dev), kvals.to(dev), vals.to(dev),
+        torch.tensor(1, dtype=torch.int32, device=dev), scales.to(dev),
+        scales.to(dev)).cpu()
+    want = dequantize(vals[:, :1], scales[:, :1])[:, 0].float() \
+        .repeat_interleave(H // K, dim=1)
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"[3 decode_attention int8] length 1, f32 q ({B}, {H}, {d}) over "
+          f"({B}, {S}, {K}, {d}): every int8 value under {B * K} distinct "
+          f"scales, the output the dequantized row bit for bit {same}")
+    if not same:
+        raise AssertionError("decode_attention's int8 path at length 1 is "
+                             "not the dequantized row")
 
 
 def lm_serving_path(dev, cfg, model) -> dict:
@@ -6274,24 +6317,47 @@ def run(dev) -> None:
                  torch.full_like(wide_u, key_sentinel(torch.int64),
                                  dtype=torch.int64), n_wide)
     wide_args = wide_lanes(dev, n_wide, 131072, 3, seed=SEED + 3)
-    wide_plan = ud_kernel.plan(n_wide, 131072, 3)
-    print(f"[3 union_deduce wide] launch plan at (3, {n_wide}, 131072): "
-          f"wide {wide_plan.wide}, a cluster of {wide_plan.cluster} blocks a"
-          f" lane, {wide_plan.smem_bytes} B of dynamic shared memory, the "
-          f"forest in global memory, a hash set of {wide_plan.table_size} "
-          f"64-bit slots a lane")
-    if not wide_plan.wide:
-        raise AssertionError("the plan past 46340 objects is not the wide "
-                             "kernel's")
+    # at phase 4g's round-1 screen size: one lane on the whole grid, and
+    # eight stacked lanes sharing it; a star centred on the largest id,
+    # every hook of the lock-free union landing on one root
+    wide_4g = wide_lanes(dev, n_wide, 4 * 131072, 1, seed=SEED + 4)
+    wide_4g8 = wide_lanes(dev, n_wide, 4 * 131072, 8, seed=SEED + 5)
+    star = torch.arange(n_wide - 1, dtype=torch.int32, device=dev)[None]
+    wide_star = (torch.arange(n_wide, dtype=torch.int32, device=dev)[None],
+                 torch.full_like(star, n_wide - 1), star,
+                 torch.ones_like(star, dtype=torch.bool),
+                 torch.full_like(star, key_sentinel(torch.int64),
+                                 dtype=torch.int64), n_wide)
+    wide_blocks = ud_kernel._wide_blocks(torch.cuda.current_device())
+    for lanes, p in ((3, 131072), (1, 4 * 131072), (8, 4 * 131072)):
+        wide_plan = ud_kernel.plan(n_wide, p, lanes, wide_blocks)
+        print(f"[3 union_deduce wide] launch plan at ({lanes}, {n_wide}, "
+              f"{p}): wide {wide_plan.wide}, one cooperative grid of "
+              f"{wide_plan.grid} blocks of {ud_kernel.WIDE_THREADS} threads "
+              f"({wide_blocks} fit the card at once), "
+              f"{wide_plan.blocks_per_lane} blocks a lane, "
+              f"{wide_plan.lane_slots} lanes at a time, {wide_plan.pair_slice}"
+              f" pairs a block, the forest in global memory, a hash set of "
+              f"{wide_plan.table_size} 64-bit slots a lane")
+        if not wide_plan.wide or (lanes == 1 and wide_plan.grid <= 16):
+            raise AssertionError("the wide kernel's plan is not one grid "
+                                 "over more than a cluster's 16 blocks")
     for name, args in (("path graph", wide_path),
-                       ("stacked lanes", wide_args)):
+                       ("stacked lanes", wide_args),
+                       ("4g-size lane", wide_4g),
+                       ("4g-size 8 lanes", wide_4g8),
+                       ("star on the largest id", wide_star)):
         check_union_deduce("3 union_deduce wide", name, args)
-    if not bool(union_deduce_ref(*wide_args)[2][0]):
+    if not all(bool(union_deduce_ref(*a)[2][0])
+               for a in (wide_args, wide_4g, wide_4g8)):
         raise AssertionError("the wide kernel's stacked lanes do not "
                              "conflict")
     for name, args in (("round-1 screen", screen_args),
                        ("round-1 deduce", deduce_args),
-                       ("wide stacked lanes", wide_args)):
+                       ("wide stacked lanes", wide_args),
+                       ("wide 4g-size lane", wide_4g),
+                       ("wide 4g-size 8 lanes", wide_4g8),
+                       ("wide star", wide_star)):
         outs = [ud_kernel.union_deduce(*args) for _ in range(5)]
         same = all(torch.equal(x, y) for out in outs[1:]
                    for x, y in zip(out, outs[0]))
@@ -6300,7 +6366,7 @@ def run(dev) -> None:
         if not same:
             raise AssertionError(f"union_deduce differs between calls "
                                  f"({name})")
-    del probe
+    del probe, wide_4g8
 
     # pair_scores_compact on the first chunk of blocked session 0's tiles
     cfg = blocking.BlockingConfig(**BLOCKING)
@@ -6460,6 +6526,10 @@ def run(dev) -> None:
             + DECODE_INT8_SHAPES:
         check_decode_int8(dev, *shape, torch.float32, seed=4,
                           unit_scales=True)
+    for hd_row in (32, 64, 128):
+        for H_row, K_row in ((8, 8), (8, 4)):
+            check_decode_int8_row(dev, 4, 256, H_row, K_row, hd_row,
+                                  seed=hd_row + K_row)
     repeats = [da_kernel.decode_attention(*d8_args) for _ in range(5)]
     d8_repeat = all(torch.equal(x.view(torch.int16), repeats[0].view(
         torch.int16)) for x in repeats[1:])
@@ -6831,7 +6901,9 @@ def run(dev) -> None:
              "recovery": r_launch["union_deduce_wide"],
              "recovery_after_restore": recovery["c"]["wide_after_restore"]},
          "max_abs_err": 0.0,
-         "cluster": ud_plan.cluster,
+         "grid": ud_kernel.plan(wide_n, wide_P, wide_B,
+                                ud_kernel._wide_blocks(
+                                    torch.cuda.current_device())).grid,
          "shape": [wide_B, wide_n, wide_P],
          "ms": cuda_ms(lambda: ud_kernel.launch(*wide_screen)),
          "plain_ms": cuda_ms(lambda: union_deduce_ref(*wide_screen), 5),

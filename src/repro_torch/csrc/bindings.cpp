@@ -28,11 +28,14 @@ extern "C" cudaError_t union_deduce_launch(
 extern "C" cudaError_t union_deduce_wide_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
     const long long* neg_keys, int* roots, int* deduced, int* conflict,
-    int* error, int* scratch, int B, int n, int P, int pair_slice,
-    int table_size, int stride, int max_trips, cudaStream_t stream);
+    int* error, int* scratch, int B, int n, int P, int bpl, int slots,
+    int pair_slice, int id_slice, int fill_slice, int table_size,
+    long long stride, unsigned long long magic, int shift,
+    cudaStream_t stream);
 
-extern "C" cudaError_t union_deduce_max_clusters(int smem, int wide,
-                                                int* count);
+extern "C" cudaError_t union_deduce_max_clusters(int smem, int* count);
+
+extern "C" cudaError_t union_deduce_wide_max_blocks(int* count);
 
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
@@ -114,8 +117,9 @@ void union_deduce(const torch::Tensor& parent0, const torch::Tensor& u,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// The wide kernel (n > 46340, int64 keys): one launch of B clusters of 16
-// blocks, no dynamic shared memory.
+// The wide kernel (n > 46340, int64 keys): one cooperative launch over
+// every lane, laid out by kernel.py::plan (blocks a lane, lanes at a time,
+// the blocks' slices, the magic multiplier of n and its shift).
 void union_deduce_wide(const torch::Tensor& parent0, const torch::Tensor& u,
                        const torch::Tensor& v, const torch::Tensor& pos,
                        const torch::Tensor& neg_keys,
@@ -123,8 +127,10 @@ void union_deduce_wide(const torch::Tensor& parent0, const torch::Tensor& u,
                        const torch::Tensor& deduced,
                        const torch::Tensor& conflict,
                        const torch::Tensor& error,
-                       const torch::Tensor& scratch, int64_t pair_slice,
-                       int64_t table_size, int64_t max_trips) {
+                       const torch::Tensor& scratch, int64_t blocks_per_lane,
+                       int64_t lane_slots, int64_t pair_slice,
+                       int64_t id_slice, int64_t fill_slice,
+                       int64_t table_size, int64_t magic, int64_t shift) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   C10_CUDA_CHECK(union_deduce_wide_launch(
       parent0.data_ptr<int>(), u.data_ptr<int>(), v.data_ptr<int>(),
@@ -134,19 +140,29 @@ void union_deduce_wide(const torch::Tensor& parent0, const torch::Tensor& u,
       conflict.data_ptr<int>(), error.data_ptr<int>(),
       scratch.data_ptr<int>(), static_cast<int>(parent0.size(0)),
       static_cast<int>(parent0.size(1)), static_cast<int>(u.size(1)),
-      static_cast<int>(pair_slice), static_cast<int>(table_size),
-      static_cast<int>(scratch.size(1)), static_cast<int>(max_trips),
+      static_cast<int>(blocks_per_lane), static_cast<int>(lane_slots),
+      static_cast<int>(pair_slice), static_cast<int>(id_slice),
+      static_cast<int>(fill_slice), static_cast<int>(table_size),
+      static_cast<long long>(scratch.size(1)),
+      static_cast<unsigned long long>(magic), static_cast<int>(shift),
       stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // Clusters of union_deduce blocks with `smem` bytes of dynamic shared
-// memory each (of the wide kernel's, with `wide`) that the current device
-// can hold at once; sets the kernel's attributes on the device first.
-int64_t union_deduce_clusters(int64_t smem, bool wide) {
+// memory each that the current device can hold at once; sets the kernel's
+// attributes on the device first.
+int64_t union_deduce_clusters(int64_t smem) {
   int count = 0;
-  C10_CUDA_CHECK(union_deduce_max_clusters(static_cast<int>(smem),
-                                           wide ? 1 : 0, &count));
+  C10_CUDA_CHECK(union_deduce_max_clusters(static_cast<int>(smem), &count));
+  return count;
+}
+
+// Blocks of the wide kernel the current device holds at once: the largest
+// grid its cooperative launch may take.
+int64_t union_deduce_wide_blocks() {
+  int count = 0;
+  C10_CUDA_CHECK(union_deduce_wide_max_blocks(&count));
   return count;
 }
 
@@ -266,9 +282,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("union_deduce", &union_deduce,
         "fused union + deduce, a cluster of blocks a lane (CUDA)");
   m.def("union_deduce_wide", &union_deduce_wide,
-        "fused union + deduce past 46340 objects, int64 keys (CUDA)");
+        "fused union + deduce past 46340 objects, int64 keys, one "
+        "cooperative grid (CUDA)");
   m.def("union_deduce_max_clusters", &union_deduce_clusters,
         "union_deduce clusters the device can hold at once");
+  m.def("union_deduce_wide_max_blocks", &union_deduce_wide_blocks,
+        "blocks of the wide union_deduce the device can hold at once");
   m.def("flash_attention_f32", &flash_attention_f32,
         "causal GQA flash attention, f32, SIMT (CUDA)");
   m.def("flash_attention_bf16", &flash_attention_bf16,

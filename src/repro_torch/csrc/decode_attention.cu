@@ -11,11 +11,13 @@
 // its parameters' type).  The caches may also be int8 with bf16 scales a
 // (lane, position, kv head), the model's int8 KV cache (kv_quant): the
 // kernel dequantizes each value as it loads it, the int8 value times its
-// scale (exact in f32: 7 bits by 8) rounded once to bf16 with
-// __float2bfloat16_rn, which is the reference's dequantization
-// (src/repro/models/layers.py:306-308, a bf16 product, run there in XLA over
-// the whole cache before its decode kernel) bit for bit; only the
-// attention's summation order differs.  `length` is read from device
+// scale (exact: 7 bits by 8) rounded once to bf16, which is the reference's
+// dequantization (src/repro/models/layers.py:306-308, a bf16 product, run
+// there in XLA over the whole cache before its decode kernel) bit for bit;
+// only the attention's summation order differs.  It does so without the
+// conversion pipe (16 results a clock an SM on this card, against 128 for
+// an f32 FMA), which an int8 -> f32 and an f32 -> bf16 conversion a value
+// would take: see dequant4.  `length` is read from device
 // memory, so a host loop of decode steps never waits on the card; a
 // `length` below 1 (no valid position: the Pallas kernel and its ref give
 // NaN there) stops the kernel with a trap, and one above S counts as S, as
@@ -34,12 +36,14 @@
 // about 8 blocks an SM are in flight (at the serving shape: 96 x 11 = 1056
 // blocks of 192 positions), and at most kMaxSplits.
 //   Inside a block, a row group of LPR = d / EPL lanes reads a cache row
-// with one 16-byte load a lane (EPL = 8 bf16 or 4 f32 elements), so every
-// thread works whatever G is.  An int8 row is read 8 bytes a lane (EPL = 8
-// again), so it keeps the bf16 path's lanes a row, row groups and launch
-// plan, and each row group also reads the row's k and v scales.  Each row
-// group walks its share of the chunk kUnroll rows at a time, all loads
-// issued before any is used, and keeps
+// with one 16-byte load a lane (EPL = 8 bf16, 4 f32 or 16 int8 elements),
+// so every thread works whatever G is; an int8 row takes half the bf16
+// path's lanes, so a block has twice its row groups in flight, and each row
+// group also reads the row's k and v scales (one 2-byte load a row that
+// its lanes share).  An int8 block serves GC = 2 query heads (not 4) when
+// G > 1, which keeps its 16 columns a lane of q and acc per head within the
+// registers.  Each row group walks its share of the chunk kUnroll rows at a
+// time, all loads issued before any is used, and keeps
 // its own online softmax (m, l, and acc over its lanes' columns); a score
 // is the lanes' partial dots summed by an xor butterfly, which leaves the
 // same sum on every lane.  At the chunk's end the block merges its row
@@ -55,9 +59,8 @@
 // calls agree bit for bit.  The counters are zeroed once when the caller
 // allocates them; no memset or second kernel runs per call.  Calls must be
 // ordered on one stream (a second stream would share the counters).
-//   Cache rows are read with 16-byte (int8: 8-byte) loads where the bases
-// and the batch, position and head strides allow it, element by element
-// otherwise.
+//   Cache rows are read with 16-byte loads where the bases and the batch,
+// position and head strides allow it, element by element otherwise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -90,16 +93,11 @@ struct Strides {  // in elements: q (b, h), k and v (b, s, k), o (b, h),
       ss_v, sh_v;
 };
 
-// One lane's load of a cache row: 16 bytes of f32 or bf16, 8 of int8.
+// One lane's load of a cache row: 16 bytes of f32, bf16 or int8.
 template <typename TKV>
 struct Load {
   using type = uint4;
   static constexpr int kBytes = 16;
-};
-template <>
-struct Load<int8_t> {
-  using type = uint2;
-  static constexpr int kBytes = 8;
 };
 
 // How a cache of element type TKV and head dim D is read.
@@ -109,6 +107,13 @@ struct Rows {
   static constexpr int kLPR = D / kEPL;             // lanes a row
   static constexpr int kGroups = kThreads / kLPR;   // row groups a block
   static constexpr int kStep = kGroups * kUnroll;   // rows a block iteration
+  // query heads a block when G > 1: an int8 lane holds 16 columns of each
+  static constexpr int kGC = sizeof(TKV) == 1 ? 2 : 4;
+  // blocks an SM the registers must leave room for: 4 for int8, whose
+  // two-head blocks would take 168 registers a thread (3 blocks) uncapped
+  // and ran 18% faster capped at 128 (q (8, 16, 128) over (8, 2048, 8, 128)
+  // on an H100); no cap for the others
+  static constexpr int kMinBlocks = sizeof(TKV) == 1 ? 4 : 1;
   static_assert(kLPR <= 32 && D % kEPL == 0, "a row fits one warp");
 };
 
@@ -131,21 +136,22 @@ __device__ __forceinline__ uint4 load_row(const TKV* p, bool vec) {
   return u;
 }
 
-// 8 bytes of int8 cache row at p, likewise.
-__device__ __forceinline__ uint2 load_row(const int8_t* p, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint2*>(p));
+// 16 bytes of int8 cache row at p, likewise.
+__device__ __forceinline__ uint4 load_row(const int8_t* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
   const unsigned char* e = reinterpret_cast<const unsigned char*>(p);
-  unsigned char x[8];
+  unsigned char x[16];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = __ldg(e + i);
-  uint2 u;
-  memcpy(&u, x, 8);
+  for (int i = 0; i < 16; ++i) x[i] = __ldg(e + i);
+  uint4 u;
+  memcpy(&u, x, 16);
   return u;
 }
 
-// A bf16 scale as f32 (exact: the bits go to the high half).
-__device__ __forceinline__ float load_scale(const unsigned short* p) {
-  return __uint_as_float(static_cast<unsigned>(__ldg(p)) << 16);
+// A bf16 scale twice, as both halves of a bf16x2 word.
+__device__ __forceinline__ unsigned load_scale2(const unsigned short* p) {
+  const unsigned s = __ldg(p);
+  return s | s << 16;
 }
 
 // The EPL elements of a 16-byte load as f32 (bf16 -> f32 is exact: the
@@ -162,23 +168,53 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
     x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
-// The 8 int8 values of an 8-byte load dequantized with the row's scale s:
-// each product, exact in f32, rounded once to bf16 and widened back.
-__device__ __forceinline__ void unpack(const uint2& u, float (&x)[8],
-                                       float s) {
-  const unsigned w[2] = {u.x, u.y};
+// Two bf16 products (a bf16x2 word of values times one of scales), each
+// exact product rounded once to bf16, to nearest even: one packed bf16 fma
+// with -0 as the addend, which leaves a product's sign of zero as it is.
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d)
+      : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+
+// The 4 int8 values of a 32-bit word (byte j is element j) dequantized with
+// the row's bf16 scale (s2, twice) into f32: each value times its scale
+// rounded once to bf16, ref.py::dequantize bit for bit, on no conversion
+// pipe.  Each byte with its sign bit flipped (v + 128, in [0, 255]) goes
+// into the low mantissa byte of 2^23 (one byte permute a value), and one
+// subtract of 2^23 + 128 leaves v exactly.  |v| <= 127 has at most 7
+// significant bits, so each f32's low half is zero and its high half is v
+// in bf16: one permute packs two.  A packed bf16 multiply rounds the exact
+// products, and the widen back to f32 is a shift or a mask.
+__device__ __forceinline__ void dequant4(unsigned w, unsigned s2, float* x) {
+  const unsigned b = w ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = static_cast<float>(
-          static_cast<signed char>((w[i] >> (8 * j)) & 0xffu));
-      x[4 * i + j] = __bfloat162float(__float2bfloat16_rn(v * s));
-    }
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(b, 0x4bu, 0x4550u + j)) - 8388736.f;
+  const unsigned lo = mul_bf16x2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632u), s2);
+  const unsigned hi = mul_bf16x2(
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u), s2);
+  x[0] = __uint_as_float(lo << 16);
+  x[1] = __uint_as_float(lo & 0xffff0000u);
+  x[2] = __uint_as_float(hi << 16);
+  x[3] = __uint_as_float(hi & 0xffff0000u);
+}
+
+// The 16 int8 values of a 16-byte load dequantized with the row's scale.
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[16],
+                                       unsigned s2) {
+  dequant4(u.x, s2, x);
+  dequant4(u.y, s2, x + 4);
+  dequant4(u.z, s2, x + 8);
+  dequant4(u.w, s2, x + 12);
 }
 
 template <typename TQ, typename TKV, int D, int GC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
     decode_attention_kernel(const TQ* __restrict__ q,
                             const TKV* __restrict__ kc,
                             const TKV* __restrict__ vc,
@@ -236,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int base = c0; base < c1; base += R::kStep) {  // block-uniform
       V rk[kUnroll], rv[kUnroll];
-      float sk[kUnroll], sv[kUnroll];  // the int8 rows' scales
+      unsigned sk[kUnroll], sv[kUnroll];  // the int8 rows' scales, bf16x2
       bool in[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -245,8 +281,8 @@ __global__ void __launch_bounds__(kThreads)
         rk[u] = in[u] ? load_row(kb + pos * st.ks, vec) : V{};
         rv[u] = in[u] ? load_row(vb + pos * st.vs, vec) : V{};
         if constexpr (kQ8) {
-          sk[u] = in[u] ? load_scale(ksb + pos * st.ss_k) : 0.f;
-          sv[u] = in[u] ? load_scale(vsb + pos * st.ss_v) : 0.f;
+          sk[u] = in[u] ? load_scale2(ksb + pos * st.ss_k) : 0u;
+          sv[u] = in[u] ? load_scale2(vsb + pos * st.ss_v) : 0u;
         }
       }
       float s[GC][kUnroll];
@@ -268,36 +304,73 @@ __global__ void __launch_bounds__(kThreads)
           s[gg][u] = dot;
         }
       }
-      float vf[kUnroll][EPL];
+      if constexpr (kQ8) {
+        // the softmax's statistics first, then the v rows dequantized a
+        // word (4 columns) at a time into the accumulators: each column's
+        // sum in the order of the other paths, acc * alpha then the rows
+        float alpha[GC], p[GC][kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if constexpr (kQ8)
-          unpack(rv[u], vf[u], sv[u]);
-        else
-          unpack(rv[u], vf[u]);
-      }
+        for (int gg = 0; gg < GC; ++gg) {
+          float mx = m[gg];
 #pragma unroll
-      for (int gg = 0; gg < GC; ++gg) {
-        float mx = m[gg];
+          for (int u = 0; u < kUnroll; ++u)
+            if (in[u]) mx = fmaxf(mx, s[gg][u]);
+          alpha[gg] = expf(m[gg] - mx);
+          float psum = 0.f;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (in[u]) mx = fmaxf(mx, s[gg][u]);
-        const float alpha = expf(m[gg] - mx);
-        float p[kUnroll], psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          p[u] = in[u] ? expf(s[gg][u] - mx) : 0.f;
-          psum += p[u];
+          for (int u = 0; u < kUnroll; ++u) {
+            p[gg][u] = in[u] ? expf(s[gg][u] - mx) : 0.f;
+            psum += p[gg][u];
+          }
+          l[gg] = l[gg] * alpha[gg] + psum;
+          m[gg] = mx;
         }
-        l[gg] = l[gg] * alpha + psum;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          float a = acc[gg][e] * alpha;
+        for (int w = 0; w < EPL / 4; ++w) {
+          float vw[kUnroll][4];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vf[u][e], a);
-          acc[gg][e] = a;
+          for (int u = 0; u < kUnroll; ++u) {
+            const unsigned word[4] = {rv[u].x, rv[u].y, rv[u].z, rv[u].w};
+            dequant4(word[w], sv[u], vw[u]);
+          }
+#pragma unroll
+          for (int gg = 0; gg < GC; ++gg)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              float a = acc[gg][4 * w + c] * alpha[gg];
+#pragma unroll
+              for (int u = 0; u < kUnroll; ++u)
+                a = fmaf(p[gg][u], vw[u][c], a);
+              acc[gg][4 * w + c] = a;
+            }
         }
-        m[gg] = mx;
+      } else {
+        float vf[kUnroll][EPL];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) unpack(rv[u], vf[u]);
+#pragma unroll
+        for (int gg = 0; gg < GC; ++gg) {
+          float mx = m[gg];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            if (in[u]) mx = fmaxf(mx, s[gg][u]);
+          const float alpha = expf(m[gg] - mx);
+          float p[kUnroll], psum = 0.f;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            p[u] = in[u] ? expf(s[gg][u] - mx) : 0.f;
+            psum += p[u];
+          }
+          l[gg] = l[gg] * alpha + psum;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) {
+            float a = acc[gg][e] * alpha;
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vf[u][e], a);
+            acc[gg][e] = a;
+          }
+          m[gg] = mx;
+        }
       }
     }
 
@@ -409,7 +482,7 @@ struct Plan {
 // multiple of a block iteration's rows, at most kMaxSplits splits.
 template <typename TKV, int D>
 Plan plan(int B, int S, int K, int G, int sms) {
-  const int gc = G == 1 ? 1 : 4;
+  const int gc = G == 1 ? 1 : Rows<TKV, D>::kGC;
   const int gx = B * K * ((G + gc - 1) / gc);
   const int step = Rows<TKV, D>::kStep;
   auto cdiv = [](long long a, long long b) {
@@ -485,9 +558,9 @@ cudaError_t launch_g(const Call& c) {
     return launch<TQ, TKV, D, 1>(c.q, c.kc, c.vc, c.ks, c.vs, c.length, c.o,
                                  c.ws, c.counters, c.p, c.S, c.K, c.G, c.st,
                                  c.scale, c.stream);
-  return launch<TQ, TKV, D, 4>(c.q, c.kc, c.vc, c.ks, c.vs, c.length, c.o,
-                               c.ws, c.counters, c.p, c.S, c.K, c.G, c.st,
-                               c.scale, c.stream);
+  return launch<TQ, TKV, D, Rows<TKV, D>::kGC>(
+      c.q, c.kc, c.vc, c.ks, c.vs, c.length, c.o, c.ws, c.counters, c.p, c.S,
+      c.K, c.G, c.st, c.scale, c.stream);
 }
 
 template <typename TQ, typename TKV>

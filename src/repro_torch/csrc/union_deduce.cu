@@ -1,5 +1,6 @@
-// Fused union + conflict screen + transitive deduce, one thread-block
-// cluster per lane.
+// Fused union + conflict screen + transitive deduce: one thread-block
+// cluster a lane up to 46340 objects, one cooperative grid over every lane
+// past it.
 //
 // Replaces: src/repro/kernels/union_deduce/kernel.py::union_deduce (Pallas,
 // TPU), which the JAX round engine reaches from _screen_fused and
@@ -69,29 +70,61 @@
 //
 // Past 46340 objects (n * n >= 2^31) the keys are int64 and the forest does
 // not fit a block's shared memory, so a second kernel, union_deduce_wide,
-// serves those lanes (the wrapper picks it by n).  It keeps the cluster of
-// C blocks a lane and the four steps, with these changes:
-//   - the lane's one forest lives in global memory, in `roots` itself: each
-//     block copies its slice of parent0 there, and the blocks hook it in
-//     place with global atomicMin (at n = 65536 it is 256 KB, resident in
-//     the 50 MB L2); every read of it goes to L2 (__ldcg), never to a
-//     stale L1 line;
-//   - a union trip is a hook pass over each block's own POS edges, a
-//     cluster barrier, a compress of each block's slice of the ids (the
-//     roots are fixed while no hook runs, so a block needs only its own
-//     barriers until its slice points at roots), and a cluster barrier;
-//     a flag in global scratch says whether any block hooked in the trip;
-//   - edges are two int32 lists, u and v, with no 16-bit packing;
+// serves those lanes (the wrapper picks it by n).  Its bound is bytes too,
+// about 8n + 21P per lane (forest in and out; u, v, the mask, the 8-byte
+// keys in, deduced out), and what holds it back is again latency: chains
+// of dependent L2 accesses at random addresses (a pair, its endpoints'
+// parents, their parents, a slot of the set) and the barriers between the
+// steps.  So it runs on the whole card, and keeps kBatch items a thread in
+// flight in every pass:
+//   - one cooperative launch (cudaLaunchKernelEx with the cooperative
+//     attribute) of as many blocks as the card holds at once, as the
+//     occupancy query says, dealt to the lanes evenly: `bpl` blocks a lane,
+//     `slots` lanes at a time, block b serving lanes b / bpl, b / bpl +
+//     slots, ... as block b % bpl of each (one block a lane and several
+//     lanes a block when the lanes outnumber the blocks); the steps meet at
+//     grid barriers (cg::this_grid().sync()), five in all;
+//   - the lane's one forest lives in global memory, in `roots` itself (at
+//     n = 65536 it is 256 KB, resident in the 50 MB L2); every read of it
+//     goes to L2 (__ldcg), never to a stale L1 line;
+//   - the union is one lock-free pass in the ECL-CC style (Jaiganesh and
+//     Burtscher, HPDC 2018): for each POS edge of the block's pairs, find
+//     both roots with path halving (each object passed is pointed at its
+//     grandparent), then atomicCAS the larger root's parent from itself to
+//     the smaller root, and on a failure climb to what the slot now holds
+//     and try again.  A parent is always smaller than its child, so every
+//     root is the least id of its tree, and once every edge is in, every
+//     component is one tree: the fixed point the plain version computes,
+//     bit for bit, in any order.  It cannot fail, so error[b] stays 0.
+//     Before it, behind a barrier of its own, every POS edge lowers its
+//     larger endpoint root's parent to the smaller root with an atomicMin
+//     that no thread waits on: where a round's edges are dense within small
+//     components (phase 4g's first screen: 44210 edges, components of up to
+//     14 objects) the CAS pass's hooks otherwise collide on a few roots and
+//     climb one link an atomic (on an H100: 0.0822 ms against 0.0690 with
+//     this pass, which costs 2-6% where edges are few);
+//   - after a grid barrier each block points its slice of the ids at their
+//     roots (and fills its share of the lane's set), so that after another
+//     an endpoint's root is one load, which may stay in L1: the forest is
+//     read-only from there on;
+//   - each block re-keys its share of the neg index into the set; a key's
+//     endpoints decompose without 64-bit division: lo = umulhi(key, magic)
+//     >> shift, hi = key - lo * n, with the magic multiplier and shift of
+//     kernel.py::wide_magic (Granlund and Montgomery's round-up method,
+//     exact for every key below 2^62 > n^2);
 //   - the hash set has 64-bit slots (atomicCAS on unsigned long long, empty
-//     = all ones) and a mix of both halves; keys decompose with 64-bit
-//     division.
-// The fixed point is the same unique one, so its outputs equal the plain
-// version's bit for bit.  Its bound is bytes too, about 8n + 21P per lane
-// (forest in and out; u, v, the mask, the 8-byte keys in, deduced out);
-// one cluster a lane leaves most SMs idle at one lane, and each union trip
-// waits on two cluster barriers and dependent L2 loads.  A wide lane's scratch is `stride` ints: the set
-// (T 64-bit slots, 2T ints), C edge counts, 4 ints of trip flags, then the
-// two P-long edge lists.
+//     = all ones, a mix of both halves), filled with 16-byte stores spread
+//     over the lane's blocks; after a last grid barrier each block probes
+//     its pairs' canonical root keys.  A chain of collisions is walked a
+//     slot a round for all of a thread's open items at once, not an item
+//     after another: on an H100 the re-key and the probe run at about 60-90
+//     G random L2 accesses a second, which sets the kernel's pace.
+// A wide lane's scratch is `stride` ints: the set, T 64-bit slots (2T ints).
+// The slices (kernel.py::plan sizes them): block rank
+// r of a lane's bpl takes pairs [min(P, r * pair_slice), ...) up to P, ids
+// [min(n, r * id_slice), ...) up to n, the fill's 16-byte runs
+// [min(T / 2, r * fill_slice), ...) up to T / 2, and neg keys in chunks of
+// kWideThreads, chunks r, r + bpl, r + 2 bpl, ....
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -402,8 +435,9 @@ union_deduce_kernel(const int* __restrict__ parent0, const int* __restrict__ u,
 
 // ---------------------------------------------------------------------------
 // union_deduce_wide: n > 46340 objects, int64 keys, the forest in global
-// memory (see the note at the top)
+// memory, one cooperative grid over every lane (see the note at the top)
 // ---------------------------------------------------------------------------
+constexpr int kWideThreads = 512;  // kernel.py's WIDE_THREADS
 constexpr unsigned long long kEmpty64 = ~0ull;
 constexpr long long kSentinel64 = 0x7fffffffffffffffll;
 
@@ -416,197 +450,324 @@ __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
   return x;
 }
 
-// Point every object of [begin, end) at its root, as compress() does for a
-// block's shared forest, on the lane's global forest: no hook runs
-// meanwhile, so a root seen is a root for good, and the other blocks'
-// concurrent writes only move an object closer to its root.  flag[0..2]
-// are zero on entry and on return.
-__device__ void compress_global(int* p, int begin, int end, int* flag) {
-  for (int pass = 0;; ++pass) {
-    bool short_of_root = false;
-    for (int x = begin + threadIdx.x; x < end; x += kThreads) {
-      int r = __ldcg(p + x);
-      int up = __ldcg(p + r);
-      if (up == r) continue;
-      for (int s = 0; s < kChase && up != r; ++s) {
-        r = up;
-        up = __ldcg(p + r);
-      }
-      __stcg(p + x, r);
-      if (up != r) short_of_root = true;
-    }
-    if (short_of_root) flag[pass % 3] = 1;
-    if (threadIdx.x == 0) flag[(pass + 1) % 3] = 0;
-    __syncthreads();
-    if (!flag[pass % 3]) {
-      if (threadIdx.x == 0) flag[(pass + 2) % 3] = 0;
-      return;
-    }
+// The root of x in the lane's forest p, given x's parent px and px's parent
+// gx, loaded beforehand with the rest of a batch.  Every parent is smaller
+// than its child, so the root is the first object on the way up that is its
+// own parent.  With `halve` each object passed is pointed at its grandparent
+// (path halving): a non-root's parent only ever moves to one of its
+// ancestors and a root is never written here, so the forest stays a forest
+// while other threads hook roots.
+template <bool halve>
+__device__ __forceinline__ int find_root(int* p, int x, int px, int gx) {
+  if (gx == px) return px;  // px is a root (x itself when px == x)
+  int prev = x, curr = px, next = gx;
+  for (;;) {
+    if (halve) __stcg(p + prev, next);
+    prev = curr;
+    curr = next;
+    next = __ldcg(p + curr);
+    if (next == curr) return curr;
   }
 }
 
-__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster) {
-  __threadfence();  // this thread's global writes, before the others read
-  cluster.sync();
+// Unite the trees of roots a and b: hook the larger root under the smaller
+// with an atomicCAS of its parent from itself; if another thread hooked it
+// first, climb to what its slot holds now and try again.
+__device__ __forceinline__ void hook(int* p, int a, int b) {
+  while (a != b) {
+    const int hi = max(a, b), lo = min(a, b);
+    const int was = atomicCAS(p + hi, hi, lo);
+    if (was == hi) return;
+    if (a == hi)
+      a = was;
+    else
+      b = was;
+  }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// key / n for 0 <= key < 2^62, from kernel.py::wide_magic's multiplier and
+// shift: no 64-bit division on the device.
+__device__ __forceinline__ int key_lo(long long key, unsigned long long magic,
+                                      int shift) {
+  return static_cast<int>(
+      __umul64hi(static_cast<unsigned long long>(key), magic) >> shift);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
 union_deduce_wide_kernel(const int* __restrict__ parent0,
                          const int* __restrict__ u, const int* __restrict__ v,
                          const uint8_t* __restrict__ pos,
                          const long long* __restrict__ neg_keys, int* roots,
                          int* __restrict__ deduced, int* __restrict__ conflict,
                          int* __restrict__ error, int* __restrict__ scratch,
-                         int n, int P, int pair_slice, int table_size,
-                         int stride, int max_trips) {
-  __shared__ int n_edges;
-  __shared__ int flag;
-  __shared__ int jumps[3];  // compress_global's pass flags
-  __shared__ int conf;
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr int C = kCluster;
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int lane = blockIdx.x / C;
+                         int B, int n, int P, int bpl, int slots,
+                         int pair_slice, int id_slice, int fill_slice,
+                         int table_size, long long stride,
+                         unsigned long long magic, int shift) {
+  constexpr int NT = kWideThreads;
+  cg::grid_group grid = cg::this_grid();
+  const int rank = static_cast<int>(blockIdx.x) % bpl;  // in each lane
+  const int first = static_cast<int>(blockIdx.x) / bpl;  // lanes first, +slots
   const int tid = threadIdx.x;
-  parent0 += static_cast<size_t>(lane) * n;
-  roots += static_cast<size_t>(lane) * n;
-  u += static_cast<size_t>(lane) * P;
-  v += static_cast<size_t>(lane) * P;
-  pos += static_cast<size_t>(lane) * P;
-  neg_keys += static_cast<size_t>(lane) * P;
-  deduced += static_cast<size_t>(lane) * P;
-  int* base = scratch + static_cast<size_t>(lane) * stride;
-  unsigned long long* table = reinterpret_cast<unsigned long long*>(base);
-  int* counts = base + 2 * static_cast<size_t>(table_size);
-  int* hooked = counts + C;  // a trip's "anything hooked", two in turn
-  int* eu = hooked + 4;
-  int* ev = eu + P;
   const unsigned long long mask =
       static_cast<unsigned long long>(table_size - 1);
-  const int lo = min(P, rank * pair_slice);
+  const long long r = rank;
+  const int lo = static_cast<int>(min(static_cast<long long>(P),
+                                      r * pair_slice));
   const int hi = min(P, lo + pair_slice);
-  const int ids = (n + C - 1) / C;
-  const int id_lo = min(n, rank * ids);
-  const int id_hi = min(n, id_lo + ids);
+  const int id_lo = static_cast<int>(min(static_cast<long long>(n),
+                                         r * id_slice));
+  const int id_hi = static_cast<int>(
+      min(static_cast<long long>(n), static_cast<long long>(id_lo) + id_slice));
+  const int runs = table_size / 2;  // 16-byte runs of the set
+  const int f_lo = static_cast<int>(min(static_cast<long long>(runs),
+                                        r * fill_slice));
+  const int f_hi = min(runs, f_lo + fill_slice);
 
-  // 1. this block's share of the set's fill, its slice of the forest, its
-  //    POS edges
-  {
-    const int share = table_size / C;
-    for (int h = tid; h < share; h += kThreads)
-      table[static_cast<size_t>(rank) * share + h] = kEmpty64;
-  }
-  for (int x = id_lo + tid; x < id_hi; x += kThreads)
-    __stcg(roots + x, parent0[x]);
-  if (tid == 0) {
-    n_edges = 0;
-    conf = 0;
-    jumps[0] = jumps[1] = jumps[2] = 0;
-  }
-  __syncthreads();
-  for (int i0 = lo; i0 < hi; i0 += kThreads) {
-    const int i = i0 + tid;
-    const bool take = i < hi && pos[i];
-    const unsigned ballot = __ballot_sync(0xffffffffu, take);
-    int at = 0;
-    if ((tid & 31) == 0 && ballot) at = atomicAdd(&n_edges, __popc(ballot));
-    at = __shfl_sync(0xffffffffu, at, 0);
-    if (take) {
-      const int slot = lo + at + __popc(ballot & ((1u << (tid & 31)) - 1u));
-      eu[slot] = u[i];
-      ev[slot] = v[i];
+  // 1. this block's ids' parents copied into roots, and the lane's flags
+  //    zeroed
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t ln = static_cast<size_t>(lane);
+    const int* src = parent0 + ln * n;
+    int* dst = roots + ln * n;
+    for (int x0 = id_lo + tid; x0 < id_hi; x0 += kBatch * NT) {
+      int t[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int x = x0 + k * NT;
+        t[k] = x < id_hi ? src[x] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int x = x0 + k * NT;
+        if (x < id_hi) __stcg(dst + x, t[k]);
+      }
     }
-  }
-  __syncthreads();
-  const int mine = n_edges;
-  if (tid == 0) {
-    counts[rank] = mine;
-    if (rank == 0) {
+    if (rank == 0 && tid == 0) {
       conflict[lane] = 0;
-      error[lane] = 0;
-      hooked[0] = hooked[1] = 0;
+      error[lane] = 0;  // the union below cannot fail
     }
   }
-  cluster_barrier(cluster);  // the set is empty, the forest copied
+  grid.sync();
 
-  // 2. union: hook this block's POS edges into the lane's forest, then
-  //    compress this block's ids, until a trip hooks nothing
-  for (int trips = 0;; ++trips) {
-    if (tid == 0) flag = 0;
-    __syncthreads();
-    bool any_hook = false;
-    for (int j = tid; j < mine; j += kThreads) {
-      const int ru = __ldcg(roots + __ldcg(eu + lo + j));
-      const int rv = __ldcg(roots + __ldcg(ev + lo + j));
-      if (ru != rv) {
-        atomicMin(roots + max(ru, rv), min(ru, rv));
-        any_hook = true;
+  // 2a. every POS edge of this block's pairs lowers its larger endpoint
+  //     root's parent to the smaller root (atomicMin, nobody waits on it):
+  //     the forest stays one, its trees each inside a component, and a
+  //     clique of edges becomes a star at once; a link that a smaller
+  //     minimum overwrote is restored by 2b, which sees every edge again
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t lp = static_cast<size_t>(lane) * P;
+    int* p = roots + static_cast<size_t>(lane) * n;
+    for (int i0 = lo + tid; i0 < hi; i0 += kBatch * NT) {
+      int x[kBatch], y[kBatch];
+      bool take[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * NT;
+        take[k] = i < hi && pos[lp + i];
+        x[k] = i < hi ? u[lp + i] : 0;
+        y[k] = i < hi ? v[lp + i] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // parent0 is compressed: roots
+        x[k] = take[k] ? __ldcg(p + x[k]) : 0;
+        y[k] = take[k] ? __ldcg(p + y[k]) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (x[k] != y[k]) atomicMin(p + max(x[k], y[k]), min(x[k], y[k]));
+    }
+  }
+  grid.sync();
+
+  // 2b. the union: every POS edge of this block's pairs, its endpoints'
+  //     roots found with path halving, the larger hooked under the smaller
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t lp = static_cast<size_t>(lane) * P;
+    int* p = roots + static_cast<size_t>(lane) * n;
+    for (int i0 = lo + tid; i0 < hi; i0 += kBatch * NT) {
+      int x[kBatch], y[kBatch], px[kBatch], py[kBatch];
+      bool take[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * NT;
+        take[k] = i < hi && pos[lp + i];
+        x[k] = i < hi ? u[lp + i] : 0;
+        y[k] = i < hi ? v[lp + i] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // the parents, all in flight
+        px[k] = take[k] ? __ldcg(p + x[k]) : 0;
+        py[k] = take[k] ? __ldcg(p + y[k]) : 0;
+      }
+      int gx[kBatch], gy[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // then the grandparents
+        gx[k] = take[k] ? __ldcg(p + px[k]) : 0;
+        gy[k] = take[k] ? __ldcg(p + py[k]) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // the roots; first hooks in flight
+        if (!take[k]) continue;
+        x[k] = find_root<true>(p, x[k], px[k], gx[k]);
+        y[k] = find_root<true>(p, y[k], py[k], gy[k]);
+        if (x[k] != y[k])
+          px[k] = atomicCAS(p + max(x[k], y[k]), max(x[k], y[k]),
+                            min(x[k], y[k]));
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // then the hooks another beat
+        if (!take[k] || x[k] == y[k] || px[k] == max(x[k], y[k])) continue;
+        if (x[k] > y[k])
+          hook(p, px[k], y[k]);
+        else
+          hook(p, x[k], px[k]);
       }
     }
-    if (any_hook) flag = 1;
-    __syncthreads();
-    if (tid == 0 && flag) atomicExch(hooked + (trips & 1), 1);
-    cluster_barrier(cluster);  // every hook of the trip has landed
-    const int any = __ldcg(hooked + (trips & 1));
-    // the next trip's flag was last read before this trip's hooks began
-    if (tid == 0 && rank == 0) atomicExch(hooked + ((trips + 1) & 1), 0);
-    if (!any && trips > 0) break;  // the last trip left the forest compressed
-    compress_global(roots, id_lo, id_hi, jumps);
-    cluster_barrier(cluster);  // every slice points at its root
-    if (!any) break;
-    if (trips + 1 >= max_trips) {
-      if (tid == 0) error[lane] = 1;
-      break;
-    }
   }
+  grid.sync();
 
-  // 3. this block's neg keys re-keyed into the set, in chunks of kThreads
-  //    dealt round the cluster
-  for (int g = rank * kThreads + tid; g < P; g += C * kThreads) {
-    long long key = neg_keys[g];
-    if (key == kSentinel64) continue;
-    const int rlo = __ldcg(roots + static_cast<int>(key / n));
-    const int rhi = __ldcg(roots + static_cast<int>(key % n));
-    if (rlo == rhi) {
-      conf = 1;
-      continue;
-    }
-    key = static_cast<long long>(min(rlo, rhi)) * n + max(rlo, rhi);
-    const unsigned long long k = static_cast<unsigned long long>(key);
-    unsigned long long h = mix64(k) & mask;
-    for (;;) {
-      const unsigned long long prev = atomicCAS(table + h, kEmpty64, k);
-      if (prev == kEmpty64 || prev == k) break;
-      h = (h + 1) & mask;
-    }
-  }
-  __syncthreads();
-  if (tid == 0 && conf) conflict[lane] = 1;
-  cluster_barrier(cluster);  // every block's keys are in the set
-
-  // 4. probe the set with each pair of this block's slice
-  for (int i = lo + tid; i < hi; i += kThreads) {
-    const int ru = __ldcg(roots + u[i]);
-    const int rv = __ldcg(roots + v[i]);
-    int out = kPos;
-    if (ru != rv) {
-      const unsigned long long k = static_cast<unsigned long long>(
-          static_cast<long long>(min(ru, rv)) * n + max(ru, rv));
-      unsigned long long h = mix64(k) & mask;
-      for (;;) {
-        const unsigned long long got = __ldcg(table + h);
-        if (got == k) {
-          out = kNeg;
-          break;
-        }
-        if (got == kEmpty64) {
-          out = kUnknown;
-          break;
-        }
-        h = (h + 1) & mask;
+  // 3. this block's ids pointed at their roots, and its share of the
+  //    lane's set filled with empty slots (16-byte stores)
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t ln = static_cast<size_t>(lane);
+    int* p = roots + ln * n;
+    uint4* t4 = reinterpret_cast<uint4*>(scratch + ln * stride);
+    const uint4 empty = make_uint4(~0u, ~0u, ~0u, ~0u);
+    for (int h = f_lo + tid; h < f_hi; h += NT) __stcg(t4 + h, empty);
+    for (int x0 = id_lo + tid; x0 < id_hi; x0 += kBatch * NT) {
+      int px[kBatch], gx[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int x = x0 + k * NT;
+        px[k] = x < id_hi ? __ldcg(p + x) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int x = x0 + k * NT;
+        gx[k] = x < id_hi ? __ldcg(p + px[k]) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int x = x0 + k * NT;
+        if (x < id_hi && gx[k] != px[k])
+          __stcg(p + x, find_root<false>(p, x, px[k], gx[k]));
       }
     }
-    deduced[i] = out;
+  }
+  grid.sync();
+
+  // 4. this block's neg keys, dealt round the lane's blocks in chunks of NT
+  //    (the index is sorted, its keys ahead of its padding), re-keyed into
+  //    the set; every object points at its root now, so a root is one load,
+  //    and the forest is read-only from here on, so its loads may stay in
+  //    L1 (the grid barrier's acquire drops the SM's stale lines)
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t ln = static_cast<size_t>(lane);
+    const int* p = roots + ln * n;
+    unsigned long long* table =
+        reinterpret_cast<unsigned long long*>(scratch + ln * stride);
+    const long long* keys = neg_keys + ln * P;
+    bool conf = false;
+    for (int g0 = rank * NT; g0 < P; g0 += bpl * kBatch * NT) {
+      long long key[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = g0 + k * bpl * NT + tid;
+        key[k] = i < P ? keys[i] : kSentinel64;
+      }
+      int ra[kBatch], rb[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // the endpoints' roots
+        if (key[k] == kSentinel64) continue;
+        const int a = key_lo(key[k], magic, shift);
+        ra[k] = p[a];
+        rb[k] = p[static_cast<int>(key[k] - static_cast<long long>(a) * n)];
+      }
+      unsigned long long want[kBatch], h[kBatch], prev[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {  // first probes, all in flight
+        if (key[k] == kSentinel64) continue;
+        if (ra[k] == rb[k]) {
+          conf = true;
+          key[k] = kSentinel64;
+          continue;
+        }
+        want[k] = static_cast<unsigned long long>(
+            static_cast<long long>(min(ra[k], rb[k])) * n + max(ra[k], rb[k]));
+        h[k] = mix64(want[k]) & mask;
+        prev[k] = atomicCAS(table + h[k], kEmpty64, want[k]);
+      }
+      // then along the collision chains, a slot of each open one a round,
+      // so a thread waits on one L2 trip a round and not one an item
+      for (bool open = true; open;) {
+        open = false;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (key[k] == kSentinel64 || prev[k] == kEmpty64 ||
+              prev[k] == want[k])
+            continue;
+          h[k] = (h[k] + 1) & mask;
+          prev[k] = atomicCAS(table + h[k], kEmpty64, want[k]);
+          open = true;
+        }
+      }
+    }
+    if (__syncthreads_or(conf) && tid == 0) conflict[lane] = 1;
+  }
+  grid.sync();
+
+  // 5. probe the set with the canonical root key of each of this block's
+  //    pairs
+  for (int lane = first; lane < B; lane += slots) {
+    const size_t lp = static_cast<size_t>(lane) * P;
+    const int* p = roots + static_cast<size_t>(lane) * n;
+    const unsigned long long* table =
+        reinterpret_cast<const unsigned long long*>(
+            scratch + static_cast<size_t>(lane) * stride);
+    for (int i0 = lo + tid; i0 < hi; i0 += kBatch * NT) {
+      int ru[kBatch], rv[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * NT;
+        ru[k] = i < hi ? u[lp + i] : 0;
+        rv[k] = i < hi ? v[lp + i] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        ru[k] = p[ru[k]];
+        rv[k] = p[rv[k]];
+      }
+      unsigned long long want[kBatch], got[kBatch], h[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (ru[k] == rv[k]) continue;
+        want[k] = static_cast<unsigned long long>(
+            static_cast<long long>(min(ru[k], rv[k])) * n + max(ru[k], rv[k]));
+        h[k] = mix64(want[k]) & mask;
+        got[k] = __ldcg(table + h[k]);
+      }
+      // along the collision chains, a slot of each open one a round
+      for (bool open = true; open;) {
+        open = false;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (ru[k] == rv[k] || got[k] == want[k] || got[k] == kEmpty64)
+            continue;
+          h[k] = (h[k] + 1) & mask;
+          got[k] = __ldcg(table + h[k]);
+          open = true;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * NT;
+        if (i < hi)
+          deduced[lp + i] = ru[k] == rv[k]     ? kPos
+                            : got[k] == want[k] ? kNeg
+                                                : kUnknown;
+      }
+    }
   }
 }
 
@@ -632,21 +793,9 @@ cudaLaunchConfig_t launch_config(int B, int smem, cudaLaunchAttribute* attr,
 // current device can have beside its static variables, and clusters of
 // kCluster blocks; then says how many clusters of blocks with `smem` bytes
 // of dynamic shared memory each the device can hold at once (0: none can be
-// placed).  With `wide` set, the same for union_deduce_wide_kernel, which
-// takes no dynamic shared memory.  The wrapper calls it once per device,
-// kernel and size, before the launches, which set no attribute themselves.
-extern "C" cudaError_t union_deduce_max_clusters(int smem, int wide,
-                                                int* count) {
-  if (wide) {  // no dynamic shared memory
-    cudaError_t err = cudaFuncSetAttribute(
-        union_deduce_wide_kernel,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config(1, 0, &attr, 0);
-    return cudaOccupancyMaxActiveClusters(count, union_deduce_wide_kernel,
-                                          &cfg);
-  }
+// placed).  The wrapper calls it once per device and size, before the
+// launches, which set no attribute themselves.
+extern "C" cudaError_t union_deduce_max_clusters(int smem, int* count) {
   int device = 0, optin = 0;
   cudaFuncAttributes fa;
   cudaError_t err = cudaGetDevice(&device);
@@ -666,6 +815,25 @@ extern "C" cudaError_t union_deduce_max_clusters(int smem, int wide,
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(1, smem, &attr, 0);
   return cudaOccupancyMaxActiveClusters(count, union_deduce_kernel, &cfg);
+}
+
+// Blocks of union_deduce_wide_kernel the current device holds at once (the
+// blocks a multiprocessor holds times the multiprocessors): the largest
+// grid a cooperative launch of it may take; 0 where none can be placed or
+// the device has no cooperative launch.
+extern "C" cudaError_t union_deduce_wide_max_blocks(int* count) {
+  int device = 0, sms = 0, coop = 0, per_sm = 0;
+  *count = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, union_deduce_wide_kernel, kWideThreads, 0);
+  if (err == cudaSuccess && coop) *count = sms * per_sm;
+  return err;
 }
 
 // Plain C entry point: one launch of B clusters of kCluster blocks, each
@@ -688,21 +856,35 @@ extern "C" cudaError_t union_deduce_launch(
 }
 
 // Plain C entry point of the wide kernel (n > 46340, int64 keys): one
-// launch of B clusters of kCluster blocks on `stream`; scratch holds
-// B * stride ints (see the note at the top), 8-byte aligned a lane; nothing
-// needs zeroing.  union_deduce_max_clusters(0, 1, ...) must have run on the
-// device first.
+// cooperative launch of bpl * slots blocks of kWideThreads on `stream`, at
+// most union_deduce_wide_max_blocks; the layout (bpl, slots and the
+// slices) and the magic multiplier come from kernel.py::plan.  scratch
+// holds B * stride ints (the set: 2 * table_size of them a lane), 16-byte
+// aligned a lane; nothing needs zeroing.
 extern "C" cudaError_t union_deduce_wide_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
     const long long* neg_keys, int* roots, int* deduced, int* conflict,
-    int* error, int* scratch, int B, int n, int P, int pair_slice,
-    int table_size, int stride, int max_trips, cudaStream_t stream) {
-  if (stride % 2 || stride < 2 * table_size + kCluster + 4 + 2 * P)
+    int* error, int* scratch, int B, int n, int P, int bpl, int slots,
+    int pair_slice, int id_slice, int fill_slice, int table_size,
+    long long stride, unsigned long long magic, int shift,
+    cudaStream_t stream) {
+  if (bpl < 1 || slots < 1 || table_size < 64 ||
+      (table_size & (table_size - 1)) || stride % 4 ||
+      stride < 2LL * table_size)
     return cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config(B, 0, &attr, stream);
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bpl * slots);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, union_deduce_wide_kernel, parent0, u, v,
                             pos, neg_keys, roots, deduced, conflict, error,
-                            scratch, n, P, pair_slice, table_size, stride,
-                            max_trips);
+                            scratch, B, n, P, bpl, slots, pair_slice,
+                            id_slice, fill_slice, table_size, stride, magic,
+                            shift);
 }

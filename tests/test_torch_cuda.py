@@ -59,7 +59,8 @@ from repro_torch.kernels.pair_scores.sharded import sharded_candidates
 from repro_torch.configs import get
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      dequantize)
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import mha_causal_ref
@@ -536,6 +537,62 @@ def test_union_deduce_kernel_refuses_oversized_forest(dev, n):
         torch.ones_like(u, dtype=torch.bool),
         torch.full_like(u, key_sentinel(torch.int64), dtype=torch.int64), n))
     assert not roots.any() and (ded == POS).all() and not conflict.any()
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_union_deduce_wide_kernel_at_the_large_universe_size(dev, lanes):
+    """The wide kernel at phase 4g's round-1 screen size (65536 objects,
+    524288 pairs): one lane on the whole cooperative grid, and eight stacked
+    lanes sharing it; lane 0 unites the roots of its first neg key (a
+    conflict).  Bit for bit against the plain version, five calls bit for
+    bit, on more blocks than one cluster's 16."""
+    n, p = 65536, 524288
+    parent0, u, v, pos, negk = _lanes(dev, n, p, lanes, seed=lanes)
+    u[0, 0], v[0, 0], pos[0, 0] = negk[0, 0] // n, negk[0, 0] % n, True
+    args = (parent0, u, v, pos, negk, n)
+    pl = ud_kernel.plan(n, p, lanes,
+                        ud_kernel._wide_blocks(torch.cuda.current_device()))
+    assert pl.wide and pl.grid > ud_kernel.CLUSTER
+    roots, ded, conflict = _assert_union_deduce_equal(args)
+    assert conflict[0] and (ded == NEG).any() and (ded == POS).any()
+    for _ in range(5):
+        out = ud_kernel.union_deduce(*args)
+        for x, y in zip(out, (roots, ded, conflict)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [50000, 65536])
+def test_union_deduce_wide_kernel_star_on_the_largest_id(dev, n):
+    """Every edge meets the largest id: each hook of the lock-free union
+    lands on one root, so its atomicCAS loses and climbs again and again.
+    Every object ends at 0, bit for bit the plain version's."""
+    c = n - 1
+    others = torch.arange(n - 1, dtype=torch.int32, device=dev)[None]
+    args = (torch.arange(n, dtype=torch.int32, device=dev)[None],
+            torch.full_like(others, c), others,
+            torch.ones_like(others, dtype=torch.bool),
+            torch.full_like(others, key_sentinel(torch.int64),
+                            dtype=torch.int64), n)
+    roots, ded, conflict = _assert_union_deduce_equal(args)
+    assert not roots.any() and (ded == POS).all() and not conflict.any()
+
+
+def test_union_deduce_wide_kernel_refuses_rather_than_the_plain_version(dev):
+    """What the wide kernel does not take raises a ValueError through the
+    public wrapper, which counts no launch and never runs the plain
+    version for a CUDA forest."""
+    n = 50000
+    z = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+    forest = torch.zeros(1, n, dtype=torch.int32, device=dev)
+    before = (ud_ops.union_deduce.launches, ud_ops.union_deduce.wide_launches)
+    for bad in ((forest, z, z, z.bool(), z.long().cpu(), n),    # keys on CPU
+                (forest, z, z, z.bool(), z, n),                # int32 keys
+                (forest, z, z[:, :3], z.bool(), z.long(), n),  # shapes
+                (forest, z, z, z.bool(), z.long(), n + 1)):    # n
+        with pytest.raises(ValueError):
+            ud_ops.union_deduce(*bad)
+    assert (ud_ops.union_deduce.launches,
+            ud_ops.union_deduce.wide_launches) == before
 
 
 def test_service_on_card_matches_cpu(dev):
@@ -1205,6 +1262,56 @@ def test_decode_attention_int8_refuses_without_its_scales(dev):
         da_kernel.decode_attention(q, kc.bfloat16(), kc.bfloat16(), n, sc, sc)
     with pytest.raises(ValueError, match="scales"):
         da_kernel.decode_attention(q, kc, kc, n, sc.float(), sc.float())
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 4)], ids=["G1", "G2"])
+def test_decode_attention_int8_at_length_1_is_the_dequantized_row(dev, H, K,
+                                                                   d):
+    """At length 1 the softmax weighs one row by exactly 1, so under an f32
+    query the output is the dequantized v row itself: bit for bit
+    ``dequantize``'s, with rows that hold every int8 value in [-127, 127]
+    under B x K distinct scales (2**-20 to 2**20)."""
+    B, S = 4, 256
+    gen = torch.Generator(device="cpu").manual_seed(d + H + K)
+    vals = torch.randint(-127, 128, (B, S, K, d), generator=gen,
+                         dtype=torch.int8)
+    every = torch.arange(-127, 128, dtype=torch.int8)
+    row0 = every.repeat(-(-B * K * d // 255))[:B * K * d]
+    vals[:, 0] = row0.view(B, K, d)
+    exps = torch.randperm(41, generator=gen)[:B * K].view(B, K) - 20
+    scales = torch.rand((B, S, K), generator=gen).to(torch.bfloat16)
+    scales[:, 0] = (2.0 ** exps.double() * 1.5).to(torch.bfloat16)
+    assert scales[:, 0].unique().numel() == B * K
+    kvals = torch.randint(-127, 128, (B, S, K, d), generator=gen,
+                          dtype=torch.int8)
+    q = torch.randn((B, H, d), generator=gen)
+    kc, vc, ks, vs = (x.to(dev) for x in (kvals, vals, scales, scales))
+    got = da_kernel.decode_attention(
+        q.to(dev), kc, vc, torch.tensor(1, dtype=torch.int32, device=dev),
+        ks, vs)
+    want = dequantize(vals[:, :1], scales[:, :1])[:, 0].float()
+    want = want.repeat_interleave(H // K, dim=1)      # (B, H, d)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_decode_attention_int8_refuses_rather_than_the_plain_version(dev):
+    """An int8 cache the kernel does not take raises a ValueError through
+    the public wrapper (scales on the CPU beside CUDA caches, a head dim of
+    48), counting no launch and never running the plain version."""
+    q = torch.zeros(1, 4, 64, device=dev)
+    kc = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=dev)
+    sc = torch.ones(1, 8, 2, dtype=torch.bfloat16, device=dev)
+    n = torch.tensor(3, dtype=torch.int32, device=dev)
+    before = (da_ops.decode_attention.launches,
+              da_ops.decode_attention.int8_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        da_ops.decode_attention(q, kc, kc, n, sc.cpu(), sc.cpu())
+    with pytest.raises(ValueError, match="head"):
+        da_ops.decode_attention(q[..., :48], kc[..., :48], kc[..., :48], n,
+                                sc, sc)
+    assert (da_ops.decode_attention.launches,
+            da_ops.decode_attention.int8_launches) == before
 
 
 def test_kv_quant_decode_runs_the_int8_kernel(dev):

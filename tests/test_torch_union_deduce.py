@@ -3,8 +3,9 @@
 union–deduce, both its XLA oracle (``impl="ref"``) and its Pallas kernel in
 interpret mode: roots, deductions and the conflict bit, bit for bit.  The
 port runs stacked lanes in one call; the reference runs them one by one.
-Then the CUDA kernel's launch planner, which runs on the CPU: its slices,
-hash-set size and shared memory."""
+Then the CUDA kernels' launch planner, which runs on the CPU: its slices,
+hash-set size and shared memory, the wide kernel's grid shares and its
+division by n through a magic multiplier."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,16 +139,114 @@ def test_plan_shared_memory_fits_a_hopper_block(n, P):
     (ud_kernel.MAX_OBJECTS + 1, 8, 1), (0, 8, 1), (8, 0, 1), (8, 8, 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(n, P, lanes):
     """Past ``MAX_OBJECTS`` the plan is the wide kernel's (int64 keys, the
-    forest in global memory): no dynamic shared memory, a lane's scratch
-    the set's 64-bit slots, the counts, four flags and two edge lists, 8-byte
-    aligned a lane.  No objects, no pairs or no lanes are refused."""
+    forest in global memory): no cluster and no dynamic shared memory, a
+    cooperative grid of blocks dealt to the lanes, a lane's scratch its
+    set's 64-bit slots (16-byte aligned a lane).  No objects, no pairs or no
+    lanes are refused, and so is a wide grid of no blocks."""
     if n > ud_kernel.MAX_OBJECTS:
-        pl = ud_kernel.plan(n, P, lanes)
+        pl = ud_kernel.plan(n, P, lanes, 132)
         assert pl.wide and pl.smem_bytes == 0 and pl.edge_cache == 0
-        assert pl.cluster == C and pl.pair_slice == -(-P // C)
-        assert pl.scratch_ints % 2 == 0
-        assert pl.scratch_ints >= 2 * pl.table_size + C + 4 + 2 * P
+        # a block a WIDE_THREADS ids at most: 91 for 46341 objects
+        assert pl.cluster == 0 and pl.blocks_per_lane == -(-n // 512) == 91
+        assert pl.grid == pl.blocks_per_lane * pl.lane_slots
+        assert pl.lane_slots == lanes
+        assert pl.pair_slice == -(-P // pl.blocks_per_lane)
+        assert pl.scratch_ints == 2 * pl.table_size
+        assert pl.scratch_ints % 4 == 0
         assert not ud_kernel.plan(ud_kernel.MAX_OBJECTS, P, lanes).wide
+        with pytest.raises(ValueError):
+            ud_kernel.plan(n, P, lanes, 0)
         return
     with pytest.raises(ValueError):
         ud_kernel.plan(n, P, lanes)
+
+
+def _lanes_of_block(pl, lanes, block):
+    """The lanes block ``block`` of a wide launch serves, in turn (as the
+    lane's block ``block % pl.blocks_per_lane``), as the kernel deals them."""
+    return range(block // pl.blocks_per_lane, lanes, pl.lane_slots)
+
+
+def _wide_shares(pl, n, P, rank):
+    """What the lane's block ``rank`` of a wide launch takes, as
+    ``union_deduce_wide_kernel`` computes it from the plan: ``[lo, hi)`` of
+    the pairs, the ids and the 16-byte runs of the set's fill, and the
+    neg-key index's chunks of ``WIDE_THREADS`` entries (dealt round the
+    lane's blocks)."""
+    def cut(total, size):
+        lo = min(total, rank * size)
+        return lo, min(total, lo + size)
+
+    return {"pairs": cut(P, pl.pair_slice), "ids": cut(n, pl.id_slice),
+            "fill": cut(pl.table_size // 2, pl.fill_slice),
+            "key_chunks": range(rank, -(-P // ud_kernel.WIDE_THREADS),
+                                pl.blocks_per_lane)}
+
+
+# (P, lanes, blocks): one lane on a card's grid (phase 4g's round-1 screen
+# at 132 and 264 blocks), stacked lanes sharing it, few pairs, more lanes
+# than blocks, a grid of one block
+@pytest.mark.parametrize("n,P,lanes,blocks", [
+    (65536, 524288, 1, 132), (65536, 524288, 1, 264), (65536, 524288, 8, 264),
+    (50000, 20000, 3, 264), (65536, 131072, 3, 528), (46341, 1, 1, 264),
+    (60000, 8003, 5, 7), (50000, 777, 300, 132), (70001, 4099, 4, 1)])
+def test_wide_plan_shares_cover_each_item_once(n, P, lanes, blocks):
+    """Every lane's pairs, ids, neg-key chunks and 16-byte runs of the set's
+    fill fall to exactly one of the blocks serving it, every block of the
+    grid serves a lane, and the grid fits the blocks the card holds."""
+    pl = ud_kernel.plan(n, P, lanes, blocks)
+    assert pl.wide and 1 <= pl.grid <= blocks
+    assert pl.grid == pl.blocks_per_lane * pl.lane_slots
+    assert pl.lane_slots == min(lanes, blocks // pl.blocks_per_lane)
+    if lanes <= blocks:   # the lanes share the grid evenly
+        assert pl.lane_slots == lanes
+        assert pl.blocks_per_lane == min(blocks // lanes,
+                                         -(-max(P, n) // 512))
+    T = pl.table_size
+    n_chunks = -(-P // ud_kernel.WIDE_THREADS)
+    cover = {k: np.zeros((lanes, size), np.int64) for k, size in (
+        ("pairs", P), ("ids", n), ("fill", T // 2), ("key_chunks", n_chunks))}
+    served = np.zeros((lanes, pl.blocks_per_lane), np.int64)
+    for block in range(pl.grid):
+        mine = _lanes_of_block(pl, lanes, block)
+        assert len(mine) >= 1
+        rank = block % pl.blocks_per_lane
+        shares = _wide_shares(pl, n, P, rank)
+        for lane in mine:
+            served[lane, rank] += 1
+            for k in ("pairs", "ids", "fill"):
+                lo, hi = shares[k]
+                cover[k][lane, lo:hi] += 1
+            cover["key_chunks"][lane, list(shares["key_chunks"])] += 1
+    assert (served == 1).all()
+    for k, c in cover.items():
+        assert (c == 1).all(), k
+
+
+@pytest.mark.parametrize("n", [46341, 50000, 65536, 2 ** 20 + 7,
+                               2 ** 31 - 1])
+def test_wide_magic_divides_every_key_exactly(n):
+    """The wide kernel's ``key / n`` without division, emulated in Python
+    integers: ``__umul64hi(key, magic) >> shift`` and the remainder by one
+    multiply-subtract equal ``divmod(key, n)`` at the ends of the key range,
+    at the ends of every endpoint's range, and on 10**5 seeded keys below
+    n * n."""
+    magic, shift = ud_kernel.wide_magic(n)
+    assert 0 < magic < 2 ** 63 and 0 <= shift < 64   # an int64 to the card
+
+    def device(key):
+        lo = ((key * magic) >> 64) >> shift     # __umul64hi, then the shift
+        return lo, key - lo * n
+
+    ends = (0, 1, 2, n - 2, n - 1)
+    keys = {0, n - 1, n, n * n - 1} | {a * n + b for a in ends
+                                       for b in ends}
+    rng = np.random.default_rng(n)
+    hi = rng.integers(0, n, 10 ** 5, dtype=np.int64)
+    lo = rng.integers(0, n, 10 ** 5, dtype=np.int64)
+    keys |= {int(a) * n + int(b) for a, b in zip(lo, hi)}
+    for key in sorted(keys):
+        assert 0 <= key < n * n
+        assert device(key) == divmod(key, n), key
+    with pytest.raises(ValueError):
+        ud_kernel.wide_magic(2)
