@@ -12,14 +12,16 @@ after its first pass).  By default a pass imports the checkout's
 gateway replay on the host clock; the second, warm, run's summary line is
 printed.  With ``--whole`` a pass runs the checkout's ``python3
 chip_smoke.py`` and prints its summary lines of phases 4-4f, so each path
-is read where the script drives it.  With ``--kernels`` a pass times two
+is read where the script drives it.  With ``--kernels`` a pass times three
 kernels with CUDA events (``chip_smoke.cuda_ms``, 20 calls after a spin,
 three times): the wide ``union_deduce`` on a seeded ``wide_lanes`` lane of
-65536 objects and 524288 pairs (phase 4g's round-1 screen size), and the
+65536 objects and 524288 pairs (phase 4g's round-1 screen size), the
 int8 path of ``decode_attention`` at the kernel table's shape (q (8, 12,
 64) bf16 over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's
-internlm2-1.8b shape (q (8, 16, 128) over (8, 2048, 8, 128)), length 2048.
-The card's name and power limit come first, each line is tagged with its
+internlm2-1.8b shape (q (8, 16, 128) over (8, 2048, 8, 128)), length 2048,
+and the f32 route of ``flash_attention`` at the kernel table's shape (8,
+1491, 12 / 12, 64) and at deepseek-67b's head layout (1, 2048, 64 / 8,
+128).  The card's name and power limit come first, each line is tagged with its
 checkout, and a failed pass exits non-zero.
 """
 import argparse
@@ -71,6 +73,14 @@ for B, S, H, K, d in ((8, 2048, 12, 12, 64), (8, 2048, 16, 8, 128)):
     print(f"[kernels] decode_attention_int8 q ({B}, {H}, {d}) bf16 cache "
           f"({B}, {S}, {K}, {d}) length {S}: "
           + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+for B, S, H, K, d in ((8, 1491, 12, 12, 64), (1, 2048, 64, 8, 128)):
+    q, k, v = (cs._randn(dev, (B, S, n, d), torch.float32, i)
+               for i, n in enumerate((H, K, K)))
+    ms = [cs.cuda_ms(lambda: fa_kernel.flash_attention(q, k, v))
+          for _ in range(3)]
+    print(f"[kernels] flash_attention_f32 q ({B}, {S}, {H}, {d}) kv heads "
+          f"{K}: " + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
 """
 
 # the summary lines of chip_smoke.py's paths, by their prefixes
@@ -107,7 +117,8 @@ def main() -> int:
     mode.add_argument("--whole", action="store_true",
                       help="run each checkout's chip_smoke.py end to end")
     mode.add_argument("--kernels", action="store_true",
-                      help="time the wide union_deduce and the int8 decode")
+                      help="time the wide union_deduce, the int8 decode "
+                      "and the f32 flash kernel")
     args = ap.parse_args()
     roots = [args.root_a.resolve(), args.root_b.resolve()]
     print(subprocess.run(

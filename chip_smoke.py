@@ -35,7 +35,11 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    granite-3-2b's (2, 2048, 32 / 8, 64), deepseek-67b's (1, 2048, 64 /
    8, 128) and phi3-medium-14b's (1, 2048, 40 / 10, 128) head layouts, bf16
    on the tensor-core kernel and f32 on the SIMT one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
-   loads (``UTMALDG``), counted on a line of their own;
+   loads (``UTMALDG``), counted on a line of their own; the f32 kernel
+   also one row below, at and past its plan's kv tile and q tile for head
+   dims 32, 64 and 128 (GQA 4:1), and its SASS must hold FMAs (``FFMA``)
+   and cp.async copies (``LDGSTS``) and no tensor-core product (``HMMA``,
+   ``HGMMA``), counted on a line of their own;
    ``decode_attention`` at (8, 12, 64) against an (8,
    2048, 12, 64) cache at lengths 1, 192, 193, 1337 and 2048 (and at the
    first split boundary and one past it, as the launch plans them on this
@@ -392,7 +396,13 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    prefill_32k under ``at_prefill_32k`` and the decode kernel's at
    decode_32k under ``at_decode_32k``; the flash launches of phases 4r
    and 4s over their ranks under ``mesh_training`` and
-   ``mesh_moe_training``);
+   ``mesh_moe_training``); the f32 flash kernel as an entry of its own at
+   (8, 1491, 12 / 12, 64), its launches by path counted on the f32 route
+   alone (each phase's own process, 4s's ranks by case), SDPA in f32 under
+   its own choice and pinned to ``EFFICIENT_ATTENTION`` and ``MATH``, and
+   its figures at deepseek-67b's (1, 2048, 64 / 8, 128); the decode
+   kernel's f32 path at its table shape under ``f32``; then the parent
+   kernels' recorded times on a line of their own, never as measurements);
 7. last line: ``{"ok": true, "device": {...}}``.
 
 The embeddings come from a seed: two-level centroid hierarchies (families of
@@ -683,6 +693,12 @@ ATTN_TOL_BF16 = (2.0 ** -7, 1e-4)
 # the SIMT kernel's time recorded in PERF.md section 6, row 4 (H100 80GB
 # HBM3, 700 W). Printed as a recorded figure, never as a measurement.
 FLASH_MS_BEFORE = 1.4197
+# the f32 flash kernel at the kernel table's shape (8, 1491, 12 / 12, 64)
+# and at deepseek-67b's (1, 2048, 64 / 8, 128), both f32: the SIMT kernel
+# before its register-tile design, PERF.md section 6, row 4 (f32)
+FLASH_F32_SHAPES = {"table": (8, 1491, 12, 12, 64),
+                    "deepseek_67b": (1, 2048, 64, 8, 128)}
+FLASH_F32_MS_BEFORE = {"table": 1.3931, "deepseek_67b": 4.0088}
 # phase 4m (training): examples/train_likelihood_model.py --full's run
 # (paper-scorer at full width on the paper dataset's 181 packed rows of 128
 # tokens, batch 8), 10 steps with a checkpoint every 5 and a failure
@@ -1027,6 +1043,41 @@ def cuda_ms(fn, iters: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def sdpa_ms_by_backend(q, k, v, **kw) -> dict:
+    """SDPA's time on (B, H, S, d) ``q`` and (B, K, S, d) ``k`` and ``v``
+    with ``enable_gqa``, under its own choice of backend and pinned to
+    ``EFFICIENT_ATTENTION`` and to ``MATH``.  A backend that refuses
+    ``enable_gqa`` is timed on k and v expanded to every query head and
+    said so; one that refuses the call altogether is None."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    G = q.shape[1] // k.shape[1]
+    out = {}
+    for name, backend in (("default", None),
+                          ("EFFICIENT_ATTENTION",
+                           SDPBackend.EFFICIENT_ATTENTION),
+                          ("MATH", SDPBackend.MATH)):
+        out[name] = None
+        for gqa in (True, False):
+            kk, vv = (k, v) if gqa else (x.repeat_interleave(G, dim=1)
+                                         for x in (k, v))
+            try:
+                if backend is None:
+                    ms = cuda_ms(lambda: sdpa(q, kk, vv, enable_gqa=gqa,
+                                              **kw))
+                else:
+                    with sdpa_kernel(backend):
+                        ms = cuda_ms(lambda: sdpa(q, kk, vv, enable_gqa=gqa,
+                                                  **kw))
+            except RuntimeError:
+                continue
+            out[name] = ms if gqa else {"ms": ms, "kv_expanded": G}
+            break
+    return out
 
 
 def device_split(fn, iters: int = 20) -> str:
@@ -3309,6 +3360,16 @@ def _attn_counts() -> dict:
             "decode_attention_int8": da_ops.decode_attention.int8_launches}
 
 
+def f32_flash_launches(fn, *args):
+    """``fn(*args)`` and the f32 flash kernel's launches in this process
+    over the call, counted from 0 just before it."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa_ops.flash_attention.f32_launches = 0
+    out = fn(*args)
+    return out, fa_ops.flash_attention.f32_launches
+
+
 def _zero_attn_counts() -> None:
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4929,6 +4990,7 @@ def mesh_moe_rank(mesh) -> dict:
         state["params"] = tree_map(lambda x: x.float(), state["params"])
         rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
         fa_ops.flash_attention.launches = 0
+        fa_ops.flash_attention.f32_launches = 0
         for b in batches:
             state, met, ms, counts = timed(step, state, cut(b, b_shard))
             rec["loss"].append(met["loss"])
@@ -4936,6 +4998,7 @@ def mesh_moe_rank(mesh) -> dict:
             rec["ms"].append(ms)
             rec["counts"].append(counts)
         rec["flash_launches"] = fa_ops.flash_attention.launches
+        rec["flash_f32_launches"] = fa_ops.flash_attention.f32_launches
         rec["resident_bytes"] = _state_bytes(state)
         out["cases"][tag] = rec
         del state, step
@@ -4956,6 +5019,7 @@ def mesh_moe_rank(mesh) -> dict:
         state["params"] = tree_map(lambda x: x.float(), state["params"])
         rec = {"loss": [], "grad_norm": [], "ms": [], "counts": []}
         fa_ops.flash_attention.launches = 0
+        fa_ops.flash_attention.f32_launches = 0
         for b in batches:
             state, met, ms, counts = timed(step, state, cut(b, b_shard))
             rec["loss"].append(met["loss"])
@@ -4963,6 +5027,7 @@ def mesh_moe_rank(mesh) -> dict:
             rec["ms"].append(ms)
             rec["counts"].append(counts)
         rec["flash_launches"] = fa_ops.flash_attention.launches
+        rec["flash_f32_launches"] = fa_ops.flash_attention.f32_launches
         rec["resident_bytes"] = _state_bytes(state)
         rec["peak_bytes"] = torch.cuda.max_memory_allocated()
         out["cases"][MESH_MOE_A2A_CASE] = rec
@@ -4978,9 +5043,11 @@ def mesh_moe_rank(mesh) -> dict:
     gen = torch.Generator(device=mesh.device).manual_seed(MESH_MOE_SEED)
     state = init_mesh_state(cfg, gen, s_shard, device=mesh.device)
     fa_ops.flash_attention.launches = 0
+    fa_ops.flash_attention.f32_launches = 0
     _, met, ms, counts = timed(step, state, cut(batches[0], b_shard))
     out["bf16"] = {"loss": met["loss"], "ms": ms, "counts": counts,
                    "flash_launches": fa_ops.flash_attention.launches,
+                   "flash_f32_launches": fa_ops.flash_attention.f32_launches,
                    "resident_bytes": _state_bytes(state)}
     del state, step
     torch.cuda.synchronize()
@@ -5000,8 +5067,9 @@ def mesh_moe_train_path(dev) -> dict:
     on ``AbstractMesh((2, 2))`` at the batch's shape; (d) under
     ``moe_impl="a2a"``, each step within ``MESH_MOE_RTOL`` of the oracle
     whose aux loss is the shards' mean, the all-to-all's bytes six
-    exchanges a layer a step.  Returns the flash launches of (a)-(d) over
-    the ranks."""
+    exchanges a layer a step; every f32 step's flash launches on the f32
+    kernel, the bf16 step's on the other.  Returns the flash launches of
+    (a)-(d) over the ranks, and those of the f32 kernel by case."""
     import torch
 
     from repro_torch.launch import dryrun
@@ -5031,7 +5099,7 @@ def mesh_moe_train_path(dev) -> dict:
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, every rank computing the whole "
           f"batch; the one-device oracle on the card {oracle_s:.1f} s, the "
           f"ranks' wall {spawn_s:.1f} s ({smi})")
-    launches, ok = 0, True
+    launches, ok, f32_launches = 0, True, {}
     for tag, (mb, comp) in MESH_MOE_CASES.items():
         want = oracle[tag]
         recs = [r["cases"][tag] for r in ranks]
@@ -5041,6 +5109,8 @@ def mesh_moe_train_path(dev) -> dict:
         per_rank = 2 * cfg.n_layers * mb * MESH_MOE_STEPS
         flash = [rec["flash_launches"] for rec in recs]
         launches += sum(flash)
+        f32 = [rec["flash_f32_launches"] for rec in recs]
+        f32_launches[tag] = sum(f32)
         ms = sorted(t for rec in recs for t in rec["ms"])
         counts = recs[0]["counts"][-1]
         kinds = {k: v for k, v in counts.items()
@@ -5055,10 +5125,11 @@ def mesh_moe_train_path(dev) -> dict:
               f"(median {ms[len(ms) // 2]:.2f}); a step moves from each rank "
               f"{kinds} bytes in {counts['count']} collectives (every step "
               f"and rank alike {same_counts}); flash_attention launches by "
-              f"rank {flash} ({per_rank} expected); resident state by rank "
+              f"rank {flash} ({per_rank} expected), on the f32 kernel {f32}; "
+              f"resident state by rank "
               f"{[rec['resident_bytes'] for rec in recs]} bytes")
         ok &= err <= MESH_MOE_RTOL and flash == [per_rank] * n \
-            and same_counts
+            and f32 == flash and same_counts
     peaks = [r["peak_bytes"] for r in ranks]
     print(f"[4s] peak memory by rank {[round(p / 2**30, 3) for p in peaks]}"
           f" GiB ({peaks} bytes)")
@@ -5083,6 +5154,8 @@ def mesh_moe_train_path(dev) -> dict:
     per_rank = 2 * cfg.n_layers * MESH_MOE_STEPS
     flash = [rec["flash_launches"] for rec in recs]
     launches += sum(flash)
+    f32 = [rec["flash_f32_launches"] for rec in recs]
+    f32_launches[MESH_MOE_A2A_CASE] = sum(f32)
     cap = a2a_capacity(a2a, TRAIN_BATCH * TRAIN_SEQ // n)
     exchange = a2a.n_experts * cap * a2a.d_model * 4
     # two exchanges a layer forward, again in the remat recompute, and two
@@ -5114,11 +5187,11 @@ def mesh_moe_train_path(dev) -> dict:
           f"{exchanges} exchanges a step expected (forward, the remat "
           f"recompute, backward: {exchanges * exchange} bytes); "
           f"flash_attention launches by rank {flash} ({per_rank} "
-          f"expected); resident state by rank "
+          f"expected), on the f32 kernel {f32}; resident state by rank "
           f"{[rec['resident_bytes'] for rec in recs]} bytes; peak by rank "
           f"{[round(rec['peak_bytes'] / 2**30, 3) for rec in recs]} GiB "
           f"({smi})")
-    if flash != [per_rank] * n or not same_counts \
+    if flash != [per_rank] * n or f32 != flash or not same_counts \
             or counts["all-to-all"] != exchanges * exchange:
         raise AssertionError("phase 4s (d): the all-to-all step's launches "
                              "or exchanges are not the expected ones")
@@ -5142,12 +5215,13 @@ def mesh_moe_train_path(dev) -> dict:
           f"{all(g == acc['collectives'] for g in got)}")
     if any(g != acc["collectives"] for g in got) or acc["rows"] != \
             TRAIN_BATCH or any(b["flash_launches"] != 2 * cfg.n_layers
-                               for b in bf16):
+                               or b["flash_f32_launches"] for b in bf16):
         raise AssertionError("phase 4s (c): the accounting's collectives "
                              "are not the ranks' counters")
     wall = time.perf_counter() - t_phase
     print(f"[4s] phase wall {wall:.1f} s")
-    return {"launches": launches, "wall_s": wall}
+    return {"launches": launches, "wall_s": wall,
+            "f32_launches": f32_launches}
 
 
 def accounting_path(dev) -> dict:
@@ -6467,6 +6541,23 @@ def run(dev) -> None:
           f"{ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
     if not ops["HGMMA"] or not ops["UTMALDG"]:
         raise AssertionError("the bf16 flash kernel runs no wgmma or no TMA")
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
+                                                            f32_plan)
+
+    for d in HEAD_DIMS:
+        p = f32_plan(1, 1, 1, d)
+        for edge in sorted({p.kv_rows, p.q_rows}):
+            for S in (edge - 1, edge, edge + 1):
+                check_flash(dev, 2, S, 8, 2, d, torch.float32, seed=S)
+    fa_sass = sass("flash_attention_kernel")
+    ops = {op: fa_sass.count(op) for op in ("FFMA", "LDGSTS", "HMMA",
+                                            "HGMMA")}
+    print(f"[3 flash_attention] f32 kernel SASS (cuobjdump): "
+          f"{ops['FFMA']} FFMA, {ops['LDGSTS']} LDGSTS, {ops['HMMA']} HMMA, "
+          f"{ops['HGMMA']} HGMMA")
+    if not ops["FFMA"] or not ops["LDGSTS"] or ops["HMMA"] or ops["HGMMA"]:
+        raise AssertionError("the f32 flash kernel runs no FMA or no "
+                             "cp.async, or a tensor-core product")
     from repro_torch.kernels.decode_attention import kernel as da_kernel
 
     probe_q = torch.zeros((LM_LANES, H, hd), dtype=torch.bfloat16, device=dev)
@@ -6595,10 +6686,15 @@ def run(dev) -> None:
           f"{lm_cfg.d_model}, {H} heads / {K} kv heads of {hd}, d_ff "
           f"{lm_cfg.d_ff}, vocab {lm_cfg.vocab}, {n_params(lm_cfg)} bf16 "
           f"parameters")
-    serving = lm_serving_path(dev, lm_cfg, lm_model)
+    # the f32 flash kernel's launches by path (the f32-weight parity wave
+    # of 4c, the f32 steps of 4m and 4s, ...), each phase's own process
+    f32_paths = {}
+    serving, f32_paths["lm_serving"] = f32_flash_launches(
+        lm_serving_path, dev, lm_cfg, lm_model)
 
     # -- 4d. the LM machine phase into the join ------------------------------
-    machine = lm_machine_phase(dev, lm_cfg, lm_model)
+    machine, f32_paths["lm_machine_phase"] = f32_flash_launches(
+        lm_machine_phase, dev, lm_cfg, lm_model)
     del lm_model
     print(f"[4c/4d] phase wall {time.perf_counter() - t0:.1f} s")
 
@@ -6682,7 +6778,8 @@ def run(dev) -> None:
 
         # -- 4m. training -----------------------------------------------
         t0 = time.perf_counter()
-        train = train_path(dev, scratch)
+        train, f32_paths["training"] = f32_flash_launches(
+            train_path, dev, scratch)
         print(f"[4m] phase 4m {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
@@ -6690,24 +6787,27 @@ def run(dev) -> None:
 
     # -- 4n. the LM stack's other families at full width --------------------
     t0 = time.perf_counter()
-    fam = lm_families_path(dev)
+    fam, f32_paths["lm_families"] = f32_flash_launches(lm_families_path,
+                                                       dev)
     print(f"[4n] phase 4n {time.perf_counter() - t0:.1f} s")
     fam_launch = fam["launches"]
 
     # -- 4t. granite-3-2b and phi3-medium-14b at full width ------------------
-    full = run_full_width(dev)
+    full, f32_paths["full_width"] = f32_flash_launches(run_full_width, dev)
     full_launch = [full[a]["launches"] for a in FULL_ARCHS] \
         + [full["launcher"]["launches"]]
 
     # -- 4o. the SSM and hybrid families at full width -----------------------
     t0 = time.perf_counter()
-    ssm = ssm_families_path(dev)
+    ssm, f32_paths["ssm_hybrid"] = f32_flash_launches(ssm_families_path,
+                                                      dev)
     print(f"[4o] phase 4o {time.perf_counter() - t0:.1f} s")
     ssm_launch = ssm["launches"]
 
     # -- 4p. the dry-run's cells against the card; moonshot at full width ---
     t0 = time.perf_counter()
-    acct = accounting_path(dev)
+    acct, f32_paths["dryrun_cells_and_moonshot"] = f32_flash_launches(
+        accounting_path, dev)
     print(f"[4p] phase 4p {time.perf_counter() - t0:.1f} s")
     acct_launch = acct["launches"]
 
@@ -6717,12 +6817,22 @@ def run(dev) -> None:
     # -- 4r. the trainer on the mesh, its elastic restore, its accounting ----
     scratch = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=ROOT / "build"))
     try:
-        mesh_train = mesh_train_path(dev, train["first_loss"], scratch)
+        mesh_train, f32_paths["mesh_training"] = f32_flash_launches(
+            mesh_train_path, dev, train["first_loss"], scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
     # -- 4s. the MoE trainer on the mesh --------------------------------------
-    mesh_moe = mesh_moe_train_path(dev)
+    mesh_moe, f32_paths["mesh_moe_one_device"] = f32_flash_launches(
+        mesh_moe_train_path, dev)
+    for tag, n in mesh_moe["f32_launches"].items():
+        f32_paths[f"mesh_moe_ranks_{tag}"] = n
+    print(f"[4 f32 flash] launches by path, the f32 route alone: "
+          f"{f32_paths}")
+    if not (f32_paths["lm_serving"] and f32_paths["mesh_moe_ranks_a"]
+            and f32_paths["mesh_moe_ranks_b"]):
+        raise AssertionError("the f32 flash kernel never launched in 4c's "
+                             "parity wave or in 4s (a) / (b)'s ranks")
 
     # -- 5. engine parity, card against CPU ----------------------------------
     fields = []
@@ -6810,6 +6920,45 @@ def run(dev) -> None:
     def library_pair_scores():
         s = torch.matmul(a, b.T)
         return torch.where(s >= THRESHOLD, s, 0.0)
+
+    # the f32 flash kernel at the table's shape and deepseek-67b's layout,
+    # on phase 3's seeded inputs
+    f32_flash = {}
+    for tag, (B_, S_, H_, K_, d_) in FLASH_F32_SHAPES.items():
+        f32_err, (q32, k32, v32) = check_flash(dev, B_, S_, H_, K_, d_,
+                                               torch.float32)
+        f32_bound, f32_by = bound(4 * B_ * H_ * d_ * S_ * (S_ + 1) // 2,
+                                  4 * (2 * q32.numel() + k32.numel()
+                                       + v32.numel()), torch.float32)
+        f32_flash[tag] = {
+            "shape": [B_, S_, H_, K_, d_], "max_abs_err": f32_err,
+            "ms": cuda_ms(lambda: fa_kernel.flash_attention(q32, k32, v32)),
+            "plain_ms": cuda_ms(lambda: mha_causal_ref(q32, k32, v32), 5),
+            "bound_ms": f32_bound, "bound_by": f32_by,
+            "sdpa_ms_by_backend": sdpa_ms_by_backend(
+                *(x.transpose(1, 2) for x in (q32, k32, v32)),
+                is_causal=True)}
+        f32_flash[tag]["library_ms"] = \
+            f32_flash[tag]["sdpa_ms_by_backend"]["default"]
+        del q32, k32, v32
+    # the decode kernel's f32 path at its table shape
+    d32_err, (d32q, d32k, d32v, d32n) = check_decode(
+        dev, LM_LANES, LM_MAX_LEN, H, K, hd, da_len, torch.float32,
+        torch.float32)
+    d32_bound, d32_by = bound(4 * LM_LANES * H * hd * da_len,
+                              4 * (2 * LM_LANES * da_len * K * hd
+                                   + 2 * d32q.numel()), torch.float32)
+    decode_f32 = {
+        "max_abs_err": d32_err,
+        "ms": cuda_ms(lambda: da_kernel.decode_attention(d32q, d32k, d32v,
+                                                         d32n)),
+        "plain_ms": cuda_ms(lambda: decode_attention_ref(d32q, d32k, d32v,
+                                                         d32n)),
+        "bound_ms": d32_bound, "bound_by": d32_by,
+        "library_ms": cuda_ms(lambda: sdpa(
+            d32q[:, :, None], d32k.transpose(1, 2), d32v.transpose(1, 2),
+            attn_mask=da_mask, enable_gqa=True))}
+    del d32q, d32k, d32v
 
     kernels = [
         {"name": "pair_scores", "route": "cuda",
@@ -6912,7 +7061,6 @@ def run(dev) -> None:
          "bound_by": "bytes", "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
-         "source_f32": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
          "launches": serving["launches"]["flash_attention"],
          "launches_by_path": {
@@ -6934,6 +7082,13 @@ def run(dev) -> None:
              fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
              is_causal=True, enable_gqa=True)),
          "at_prefill_32k": acct["flash_prefill_32k"]},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "launches": sum(f32_paths.values()),
+         "launches_by_path": f32_paths,
+         **f32_flash["table"],
+         "at_deepseek_67b": f32_flash["deepseek_67b"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -6950,6 +7105,7 @@ def run(dev) -> None:
          "plain_ms": cuda_ms(lambda: decode_attention_ref(dq, dk, dv, dn)),
          "bound_ms": da_bound, "bound_by": da_by,
          "library_ms": sdpa_bf16_ms,
+         "f32": decode_f32,
          "at_long_500k": ssm["decode_long"],
          "at_decode_32k": acct["decode_decode_32k"]},
         {"name": "decode_attention_int8", "route": "cuda",
@@ -6966,7 +7122,11 @@ def run(dev) -> None:
     ]
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
-          f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W)")
+          f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W); in f32, "
+          f"the SIMT kernel before its register-tile design took "
+          + ", ".join(f"{FLASH_F32_MS_BEFORE[t]} ms at {FLASH_F32_SHAPES[t]}"
+                      for t in FLASH_F32_SHAPES)
+          + " (PERF.md section 6, row 4 (f32); H100 80GB HBM3, 700 W)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,8 @@ extern "C" cudaError_t union_deduce_wide_max_blocks(int* count);
 
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int K, int d, const long long* strides, float scale, cudaStream_t stream);
+    int K, int d, const long long* strides, float scale, int q_rows,
+    int kv_rows, int threads, int smem_bytes, cudaStream_t stream);
 
 extern "C" cudaError_t flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
@@ -166,41 +167,47 @@ int64_t union_deduce_wide_blocks() {
   return count;
 }
 
-// Both flash kernels take (q, k, v, o, B, S, H, K, d, 12 element strides
-// of q, k, v, o, scale, stream); the Python wrapper picks one by dtype.
-using FlashLaunch = cudaError_t (*)(const void*, const void*, const void*,
-                                    void*, int, int, int, int, int,
-                                    const long long*, float, cudaStream_t);
+// The 12 element strides (batch, sequence, head) of q, k, v and o.
+void flash_strides(const torch::Tensor& q, const torch::Tensor& k,
+                   const torch::Tensor& v, const torch::Tensor& o,
+                   long long* strides) {
+  const torch::Tensor* ts[4] = {&q, &k, &v, &o};
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 3; ++i) strides[3 * t + i] = ts[t]->stride(i);
+}
 
-void flash(FlashLaunch launch, const torch::Tensor& q,
-           const torch::Tensor& k, const torch::Tensor& v,
-           const torch::Tensor& o, double scale) {
-  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
-  const long long strides[12] = {
-      q.stride(0), q.stride(1), q.stride(2), k.stride(0),
-      k.stride(1), k.stride(2), v.stride(0), v.stride(1),
-      v.stride(2), o.stride(0), o.stride(1), o.stride(2)};
-  C10_CUDA_CHECK(launch(
+// f32: the SIMT kernel of flash_attention.cu, laid out by kernel.py's
+// f32_plan (q rows, kv rows, threads, shared memory).
+void flash_attention_f32(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         double scale, int64_t q_rows, int64_t kv_rows,
+                         int64_t threads, int64_t smem_bytes) {
+  long long strides[12];
+  flash_strides(q, k, v, o, strides);
+  C10_CUDA_CHECK(flash_attention_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
       static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
       static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
       static_cast<int>(q.size(3)), strides, static_cast<float>(scale),
-      stream));
+      static_cast<int>(q_rows), static_cast<int>(kv_rows),
+      static_cast<int>(threads), static_cast<int>(smem_bytes),
+      c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-// f32: the SIMT kernel of flash_attention.cu.
-void flash_attention_f32(const torch::Tensor& q, const torch::Tensor& k,
-                         const torch::Tensor& v, const torch::Tensor& o,
-                         double scale) {
-  flash(flash_attention_launch, q, k, v, o, scale);
 }
 
 // bf16: the tensor-core kernel of flash_attention_wgmma.cu.
 void flash_attention_bf16(const torch::Tensor& q, const torch::Tensor& k,
                           const torch::Tensor& v, const torch::Tensor& o,
                           double scale) {
-  flash(flash_attention_bf16_launch, q, k, v, o, scale);
+  long long strides[12];
+  flash_strides(q, k, v, o, strides);
+  C10_CUDA_CHECK(flash_attention_bf16_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+      static_cast<int>(q.size(0)), static_cast<int>(q.size(1)),
+      static_cast<int>(q.size(2)), static_cast<int>(k.size(2)),
+      static_cast<int>(q.size(3)), strides, static_cast<float>(scale),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // (splits, chunk) of decode_attention's launch for these shapes.
@@ -289,7 +296,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("union_deduce_wide_max_blocks", &union_deduce_wide_blocks,
         "blocks of the wide union_deduce the device can hold at once");
   m.def("flash_attention_f32", &flash_attention_f32,
-        "causal GQA flash attention, f32, SIMT (CUDA)");
+        "causal GQA flash attention, f32, SIMT register tiles (CUDA)");
   m.def("flash_attention_bf16", &flash_attention_bf16,
         "causal GQA flash attention, bf16, TMA + wgmma (CUDA)");
   m.def("decode_attention", &decode_attention,

@@ -11,213 +11,478 @@
 // accumulator in f32 (online softmax, masked scores at -1e30); kv tiles past
 // the diagonal are skipped; out = acc / l.
 //
-// Design (SIMT f32 FMAs: the f32 path keeps full f32 products, which the
-// tensor cores would round to TF32).  One block of 256 threads per (64-row
-// q tile, batch * head).  The q tile and each 64-row k and v tile are
-// staged in shared memory (rows padded by one float so column walks across
-// rows are conflict-free).  A thread computes a 4 x 4 patch of the 64 x 64
-// score tile; four threads share each row for its max and sum (warp
-// shuffles) and keep the row's running max and denominator in registers; a
-// thread accumulates a 4 x d/16 patch of the output in registers.  The loop
-// over kv tiles stops at the diagonal; inside the diagonal tile a
-// per-element mask qpos >= kpos applies.  Any S works: rows past S are
-// zero-filled on load and never written.  The tensors are read in place
-// through their strides (the last dimension contiguous).  Blocks take the q
-// tiles longest-first.
-//
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the f32 rate
-// outside the tensor cores (67 TFLOP/s on an H100 SXM) against the bytes of
-// q, k, v and o read or written once.  Every product is an FMA from shared
-// memory, so shared-memory bandwidth holds it well below that bound; the
-// f32 path serves parity runs (f32 weights), not the bf16 serving path.
+// outside the tensor cores (67 TFLOP/s on an H100 SXM), far above the bytes
+// of q, k, v and o.  Every product stays an exact f32 FMA (the tensor cores
+// would round the inputs to TF32), so the FMA pipe is the limit, and the
+// design keeps shared-memory loads, global loads and the softmax off its
+// path.
+//
+// Design.  A block of Plan<D>::kThreads threads per (q tile of BQ rows,
+// batch * head), on a one-dimensional grid, every head's longest q tile
+// first; any B * H runs.  Threads form TY row groups x TX column groups, TX
+// = d / 8.  A thread holds 8 q rows (8 ty .. 8 ty + 7) in both products:
+//   S = Q.K^T: an 8 x NS register tile of scores, keys 4 tx + e + g BK/2.
+//   Q (scaled) and K are kept transposed in shared memory, Q once a block
+//   and K after each tile lands, so each dim of the sum is two 16-byte
+//   loads of Q^T and NS/4 of K^T: at d = 64 four loads for 64 FMAs, the
+//   same register plan as P.V, which lets the compiler load a dim ahead.
+//   Scores are summed over d in order from 0, as the SIMT kernel before.
+//   Softmax in registers: a row's max and sum over the thread's keys, then
+//   shuffles across the TX lanes that share the row; the running max and
+//   denominator of the thread's 8 rows stay in registers.  exp(x - m) is
+//   2^(x log2 e - m log2 e) on the MUFU's ex2 (one FMA and one ex2 where
+//   expf took about ten instructions).  Only tiles that reach past the
+//   block's first row are masked, per element.  P goes to shared memory
+//   once, transposed (P^T[key][row]) with its 16-byte row chunks
+//   XOR-swizzled by (key / 4) & 7, the layout the P.V loop reads.
+//   O += P.V: an 8 x 8 register tile of the output (columns 4 tx .. 4 tx + 3
+//   and d/2 + 4 tx ..), four 16-byte loads (two of P^T, two of V) for 64
+//   FMAs, keys in order from 0.
+// K and V tiles of BK rows are copied by 16-byte cp.async (4-byte when a
+// base address or stride is not a multiple of 16 bytes): V[kt] while K[kt]
+// is transposed and Q.K^T runs, K[kt + 1] into the freed copy buffer while
+// Q.K^T, the softmax and P.V run.  Three barriers a tile.  Rows past S are
+// zero-filled by the copies and never stored.  Shared memory holds Q^T, the
+// K copy (rows padded by 4 floats, so the transpose's reads of 8 rows fall
+// in distinct banks), K^T, V and P^T: 113 KB at d = 64, two blocks an SM.
+// The launch plan (threads, BQ, BK, shared memory) is kernel.py's f32_plan,
+// checked here against the compiled constants.
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // k/v rows per tile
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;   // the Pallas kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Strides {  // in elements: batch, sequence, head of q, k, v and o
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
 
+// The plan of a head dim, kernel.py's F32_PLANS: threads and kv rows a tile.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (static_cast<size_t>(kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1) +
-          2 * kBQ);
+struct Plan;
+template <>
+struct Plan<32> {
+  static constexpr int kThreads = 64, kBK = 32;
+};
+template <>
+struct Plan<64> {
+  static constexpr int kThreads = 128, kBK = 64;
+};
+template <>
+struct Plan<128> {
+  static constexpr int kThreads = 256, kBK = 64;
+};
+
+template <int D>
+struct Tile {
+  static constexpr int NT = Plan<D>::kThreads;
+  static constexpr int BK = Plan<D>::kBK;
+  static constexpr int TX = D / 8;        // column groups
+  static constexpr int TY = NT / TX;      // row groups of 8 q rows
+  static constexpr int BQ = 8 * TY;       // q rows a block
+  static constexpr int NS = BK / TX;      // keys a thread in Q.K^T
+  static constexpr int LDK = D + 4;       // K copy row, padded: see stage
+  static constexpr int kQt = D * BQ;      // Q^T: D x BQ
+  static constexpr int kKs = BK * LDK;    // K as copied: BK x LDK
+  static constexpr int kKt = D * BK;      // K^T: D x BK
+  static constexpr int kVs = BK * D;
+  static constexpr int kPt = BK * BQ;     // P^T: BK x BQ, swizzled chunks
+  static constexpr size_t kSmem =
+      sizeof(float) * (kQt + kKs + kKt + kVs + kPt);
+  static_assert(NT % TX == 0 && BK % TX == 0 && BQ % 32 == 0 && NS % 4 == 0,
+                "the plan must tile the block and P^T's swizzle groups");
+  static_assert((BK * D / 4) % NT == 0 && (BQ * D / 4) % NT == 0,
+                "copies must divide among the threads");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x by the MUFU's ex2 (within about 2 ulp; subnormal results flushed
+// to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lane(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// Rows [r0, r0 + R) of one head of k or v into dst (row pitch ld floats),
+// zero past S.
+template <int D, int R, int NT>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
+                                      long long stride, int r0, int S,
+                                      bool vec, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int n = 0; n < R * C4 / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i / C4, c = 4 * (i % C4), pos = r0 + r;
+    const bool in = pos < S;
+    const float* s = src + (in ? pos : S - 1) * stride + c;
+    float* d = dst + r * ld + c;
+    if (vec) {
+      cp_async16(d, s, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async4(d + e, s + e, in ? 4 : 0);
+    }
+  }
+}
+
+// S = Q.K^T for the thread's 8 q rows (row0 ..) and NS keys (4 tx + e +
+// g BK/2: NS/4 chunks of 4), each summed over d in order from 0.  Both
+// operands come from transposed tiles, so each dim is two 16-byte loads of
+// Q^T and NS/4 of K^T for 8 NS FMAs.
+template <int D>
+__device__ __forceinline__ void scores(const float* Qt, const float* Kt,
+                                       int row0, int tx,
+                                       float (&s)[8][Tile<D>::NS]) {
+  using T = Tile<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, NS = T::NS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
+  const float* qp = Qt + row0;
+  const float* kp = Kt + 4 * tx;
+#pragma unroll 8
+  for (int c = 0; c < D; ++c) {
+    const float4 qa = *reinterpret_cast<const float4*>(qp + c * BQ);
+    const float4 qz = *reinterpret_cast<const float4*>(qp + c * BQ + 4);
+    const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qz.x, qz.y, qz.z, qz.w};
+    float kv[NS];
+#pragma unroll
+    for (int g = 0; g < NS / 4; ++g) {
+      const float4 kg =
+          *reinterpret_cast<const float4*>(kp + c * BK + g * (BK / 2));
+      kv[4 * g] = kg.x;
+      kv[4 * g + 1] = kg.y;
+      kv[4 * g + 2] = kg.z;
+      kv[4 * g + 3] = kg.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  }
+}
+
+// The key of the thread's score column j among the tile's: 4 tx + (j & 3)
+// + (j / 4) BK/2.
+template <int D>
+__device__ __forceinline__ int key_of(int tx, int j) {
+  return 4 * tx + (j & 3) + (j >> 2) * (Tile<D>::BK / 2);
+}
+
+// The online softmax of one tile: the scores become P in place, the running
+// max and denominator move on, the output rows are rescaled.  A row's max
+// and sum are taken over the thread's keys, then across the TX lanes that
+// share the row.  Scores of keys past a row (pos_q < pos_k) are masked
+// first when ``masked``.
+template <int D>
+__device__ __forceinline__ void softmax(float (&s)[8][Tile<D>::NS],
+                                        float (&m_run)[8], float (&l_run)[8],
+                                        float (&acc)[8][8], bool masked,
+                                        int q_pos, int k_pos) {
+  using T = Tile<D>;
+  constexpr int TX = T::TX, NS = T::NS;
+  if (masked) {  // k_pos: the position of the thread's key 4 tx
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        if (q_pos + i < k_pos + key_of<D>(0, j)) s[i][j] = kNegInf;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mx = s[i][0];
+#pragma unroll
+    for (int j = 1; j < NS; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+    for (int off = 1; off < TX; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    // exp(x - m) as 2^(x log2 e - m log2 e): one FMA and one ex2
+    const float m_new = fmaxf(m_run[i], mx);
+    const float ml = m_new * kLog2e;
+    const float alpha = exp2_approx(fmaf(m_run[i], kLog2e, -ml));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[i][j] = exp2_approx(fmaf(s[i][j], kLog2e, -ml));
+      sum += s[i][j];
+    }
+#pragma unroll
+    for (int off = 1; off < TX; off <<= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    l_run[i] = l_run[i] * alpha + sum;
+    m_run[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// P^T[key][row]: the thread's 8 rows of each of its keys as two 16-byte
+// stores, chunk (row / 4) ^ ((key / 4) & 7) of the key's row, so the 8
+// lanes of a row group, which hold keys 4 apart, store to distinct banks.
+template <int D>
+__device__ __forceinline__ void store_p(const float (&p)[8][Tile<D>::NS],
+                                        float* Pt, int ty, int tx) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int j = 0; j < T::NS; ++j) {
+    const int key = key_of<D>(tx, j), sw = (key >> 2) & 7;
+    float* prow = Pt + key * T::BQ;
+    *reinterpret_cast<float4*>(prow + 4 * ((2 * ty) ^ sw)) =
+        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+    *reinterpret_cast<float4*>(prow + 4 * ((2 * ty + 1) ^ sw)) =
+        make_float4(p[4][j], p[5][j], p[6][j], p[7][j]);
+  }
+}
+
+// O += P.V for the thread's 8 rows and 8 columns (4 tx .., d/2 + 4 tx ..),
+// keys in order from 0, 8 a step: keys j0 .. j0 + 3 have swizzle sw (even),
+// the next four sw + 1, and the rows' second chunk sits 4 floats after the
+// first (sw even) or before it (sw + 1, odd).
+template <int D>
+__device__ __forceinline__ void accumulate(const float* Pt, const float* Vs,
+                                           int ty, int tx,
+                                           float (&acc)[8][8]) {
+  using T = Tile<D>;
+  const float* vp = Vs + 4 * tx;
+#pragma unroll 1
+  for (int j0 = 0; j0 < T::BK; j0 += 8) {
+    const int sw = (j0 >> 2) & 7;
+    const int off[2] = {4 * ((2 * ty) ^ sw), 4 * ((2 * ty) ^ (sw + 1))};
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = j0 + jj;
+      const float* prow = Pt + j * T::BQ + off[jj >> 2];
+      const float4 pa = *reinterpret_cast<const float4*>(prow);
+      const float4 pz =
+          *reinterpret_cast<const float4*>(prow + (jj < 4 ? 4 : -4));
+      const float4 va = *reinterpret_cast<const float4*>(vp + j * D);
+      const float4 vz = *reinterpret_cast<const float4*>(vp + j * D + D / 2);
+      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pz.x, pz.y, pz.z, pz.w};
+      const float vv[8] = {va.x, va.y, va.z, va.w, vz.x, vz.y, vz.z, vz.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::NT)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int H, int G, Strides st, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int NC = D / 16;  // output columns a thread holds
-  extern __shared__ float smem[];
-  float* qs = smem;                         // kBQ x LD, scaled q
-  float* ks = qs + kBQ * LD;                // kBK x LD
-  float* vs = ks + kBK * LD;                // kBK x LD
-  float* ps = vs + kBK * LD;                // kBQ x (kBK + 1): scores, then p
-  float* row_alpha = ps + kBQ * (kBK + 1);  // kBQ
-  float* row_l = row_alpha + kBQ;           // kBQ
+                           int S, int H, int G, int BH, Strides st,
+                           float scale, bool vec) {
+  using T = Tile<D>;
+  constexpr int NT = T::NT, BK = T::BK, TX = T::TX, BQ = T::BQ, NS = T::NS;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Ks = Qt + T::kQt;
+  float* Kt = Ks + T::kKs;
+  float* Vs = Kt + T::kKt;
+  float* Pt = Vs + T::kVs;
 
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
-  const int q0 = qi * kBQ;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int q0 = qi * BQ;
   const int tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX, row0 = 8 * ty;
   const float* qb = q + b * st.qb + h * st.qh;
   const float* kb = k + b * st.kb + kh * st.kh;
   const float* vb = v + b * st.vb + kh * st.vh;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, pos = q0 + r;
-    qs[r * LD + c] = pos < S ? qb[pos * st.qs + c] * scale : 0.f;
+  stage<D, BK, NT>(Ks, T::LDK, kb, st.ks, 0, S, vec, tid);
+  cp_async_commit();
+
+  // Q^T, scaled: consecutive threads take consecutive rows, so the
+  // transposed stores are conflict-free
+#pragma unroll
+  for (int n = 0; n < BQ * D / 4 / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i % BQ, c = 4 * (i / BQ), pos = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (pos < S) {
+      const float* p = qb + pos * st.qs + c;
+      x = vec ? *reinterpret_cast<const float4*>(p)
+              : make_float4(p[0], p[1], p[2], p[3]);
+    }
+    Qt[(c + 0) * BQ + r] = x.x * scale;
+    Qt[(c + 1) * BQ + r] = x.y * scale;
+    Qt[(c + 2) * BQ + r] = x.z * scale;
+    Qt[(c + 3) * BQ + r] = x.w * scale;
   }
 
-  const int ty = tid / 16, tx = tid % 16;  // rows 4ty..4ty+3, cols tx+16j
-  const int sr = tid / 4, sp = tid % 4;    // softmax: row sr, quarter sp
-  float acc[4][NC];
+  float acc[8][8], m_run[8], l_run[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
-
-  for (int kt = 0; kt <= qi; ++kt) {  // kv tiles up to the diagonal
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers of ks, vs, ps are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, pos = k0 + r;
-      const bool in = pos < S;
-      ks[r * LD + c] = in ? kb[pos * st.ks + c] : 0.f;
-      vs[r * LD + c] = in ? vb[pos * st.vs + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * ty + i, c = tx + 16 * j;
-        ps[r * (kBK + 1) + c] = (q0 + r >= k0 + c) ? s[i][j] : kNegInf;
-      }
-    __syncthreads();
-
-    // online softmax over this tile; the four threads of a row are
-    // neighbouring lanes of one warp
-    float* prow = ps + sr * (kBK + 1);
-    float mx = kNegInf;
-    for (int j = sp; j < kBK; j += 4) mx = fmaxf(mx, prow[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.f;
-    for (int j = sp; j < kBK; j += 4) {
-      const float p = expf(prow[j] - m_new);
-      prow[j] = p;
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l_run = l_run * alpha + sum;
-    m_run = m_new;
-    if (sp == 0) row_alpha[sr] = alpha;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_alpha[4 * ty + i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= a;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = vs[j * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   }
 
-  if (sp == 0) row_l[sr] = l_run;
-  __syncthreads();
+  for (int kt = 0; kt <= kt_last; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // K[kt] (and Q^T) in; P.V of kt - 1 done with Vs, Pt
+    stage<D, BK, NT>(Vs, D, vb, st.vs, k0, S, vec, tid);
+    cp_async_commit();
+    // K^T: consecutive threads take consecutive keys, so the transposed
+    // stores are conflict-free
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i, pos = q0 + r;
+    for (int n = 0; n < BK * D / 4 / NT; ++n) {
+      const int i = tid + n * NT;
+      const int r = i % BK, c = 4 * (i / BK);
+      const float4 x = *reinterpret_cast<const float4*>(Ks + r * T::LDK + c);
+      Kt[(c + 0) * BK + r] = x.x;
+      Kt[(c + 1) * BK + r] = x.y;
+      Kt[(c + 2) * BK + r] = x.z;
+      Kt[(c + 3) * BK + r] = x.w;
+    }
+    __syncthreads();  // K^T in; the copy buffer free
+    if (kt < kt_last) {
+      stage<D, BK, NT>(Ks, T::LDK, kb, st.ks, k0 + BK, S, vec, tid);
+      cp_async_commit();
+    }
+
+    float s[8][NS];
+    scores<D>(Qt, Kt, row0, tx, s);
+    // only a tile reaching past the block's first row has keys to mask
+    softmax<D>(s, m_run, l_run, acc, k0 + BK - 1 > q0, q0 + row0,
+               k0 + 4 * tx);
+    store_p<D>(s, Pt, ty, tx);
+    if (kt < kt_last)
+      cp_async_wait<1>();  // V[kt] in; K[kt + 1] may still be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // P^T and V[kt] visible
+    accumulate<D>(Pt, Vs, ty, tx, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pos = q0 + row0 + i;
     if (pos >= S) continue;
-    const float l = row_l[r];
-    float* orow = o + b * st.ob + pos * st.os + h * st.oh;
+    const float l = l_run[i];
+    float* orow = o + b * st.ob + pos * st.os + h * st.oh + 4 * tx;
+    const float4 lo = make_float4(acc[i][0] / l, acc[i][1] / l,
+                                  acc[i][2] / l, acc[i][3] / l);
+    const float4 hi = make_float4(acc[i][4] / l, acc[i][5] / l,
+                                  acc[i][6] / l, acc[i][7] / l);
+    if (vec) {
+      *reinterpret_cast<float4*>(orow) = lo;
+      *reinterpret_cast<float4*>(orow + D / 2) = hi;
+    } else {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / l;
+      for (int c = 0; c < 4; ++c) {
+        orow[c] = lane(lo, c);
+        orow[D / 2 + c] = lane(hi, c);
+      }
+    }
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int K, const Strides& st,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
-  const cudaError_t err = cudaFuncSetAttribute(
+                   int B, int S, int H, int K, const Strides& st, float scale,
+                   int q_rows, int kv_rows, int threads, int smem_bytes,
+                   bool vec, cudaStream_t stream) {
+  using T = Tile<D>;
+  if (q_rows != T::BQ || kv_rows != T::BK || threads != T::NT ||
+      smem_bytes != static_cast<int>(T::kSmem))
+    return cudaErrorInvalidValue;  // kernel.py's plan and this build differ
+  const long long BH = static_cast<long long>(B) * H;
+  const long long blocks = BH * ((S + T::BQ - 1) / T::BQ);
+  if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int smem = static_cast<int>(T::kSmem);
+  cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  flash_attention_kernel<D><<<static_cast<unsigned>(blocks), T::NT, smem,
+                              stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K, st,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
+      static_cast<int>(BH), st, scale, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v and o f32; strides: 12 element strides (batch, sequence, head) of
-// q, k, v, o; the head dim is contiguous.
+// q, k, v, o; the head dim is contiguous.  q_rows, kv_rows, threads and
+// smem_bytes: kernel.py's f32_plan for d, refused unless they are this
+// build's.
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-    int K, int d, const long long* strides, float scale,
-    cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || B * H > 65535)
-    return cudaErrorInvalidValue;
+    int K, int d, const long long* strides, float scale, int q_rows,
+    int kv_rows, int threads, int smem_bytes, cudaStream_t stream) {
+  if (B < 1 || S < 1 || K < 1 || H % K != 0) return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
+  // 16-byte copies and stores need every base and row stride on 16 bytes
+  bool vec = true;
+  const void* bases[4] = {q, k, v, o};
+  for (const void* p : bases)
+    vec = vec && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
   switch (d) {
     case 32:
-      return launch<32>(q, k, v, o, B, S, H, K, st, scale, stream);
+      return launch<32>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
+                        threads, smem_bytes, vec, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, S, H, K, st, scale, stream);
+      return launch<64>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
+                        threads, smem_bytes, vec, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, S, H, K, st, scale, stream);
+      return launch<128>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
+                         threads, smem_bytes, vec, stream);
     default:
       return cudaErrorInvalidValue;
   }

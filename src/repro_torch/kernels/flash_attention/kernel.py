@@ -1,18 +1,90 @@
 """Launch of the hand-written CUDA flash-attention kernels (they replace the
 Pallas kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``):
 ``repro_torch/csrc/flash_attention_wgmma.cu`` on the tensor cores for bf16
-and ``repro_torch/csrc/flash_attention.cu`` (SIMT) for f32.  Both read q, k
-and v in place by their strides and take any S."""
+and ``repro_torch/csrc/flash_attention.cu`` (SIMT f32 FMAs, register tiles,
+cp.async) for f32.  Both read q, k and v in place by their strides and take
+any S.  :func:`f32_plan` lays out the f32 kernel's launch; it runs on the
+CPU."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535   # batch * heads: the grid's second axis
+MAX_GRID_Y = 65535   # the bf16 kernel's batch * heads: its grid's y axis
+MAX_GRID_X = 2 ** 31 - 1   # the f32 kernel's blocks: q tiles x batch * heads
 TMA_ALIGN = 16       # bytes: TMA's rule for a base address and a stride
+SMEM_LIMIT = 232448  # shared memory a Hopper block can use (227 KB)
+SM_SMEM = 233472     # shared memory of an H100 SM (228 KB)
+SMEM_RESERVED = 1024  # of it kept by CUDA for each resident block
+# the f32 kernel's plan by head dim, flash_attention.cu's Plan<D>: threads
+# a block and kv rows a tile.  A thread holds 8 q rows by 8 output columns,
+# so d / 8 column groups and 8 * threads / (d / 8) q rows a block
+F32_PLANS = {32: (64, 32), 64: (128, 64), 128: (256, 64)}
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """One launch of the f32 kernel (see the design note in
+    ``flash_attention.cu``)."""
+    threads: int         # a block
+    col_groups: int      # TX: d / 8, a thread's 8 output columns
+    row_groups: int      # TY: threads / TX, a thread's 8 q rows
+    q_rows: int          # BQ: 8 * TY, q rows a block
+    kv_rows: int         # BK: k and v rows a tile
+    keys: int            # NS: BK / TX, a thread's keys in Q.K^T
+    smem_bytes: int      # Q^T, K (rows padded by 4), K^T, V and P^T, f32
+    q_tiles: int         # ceil(S / BQ)
+    grid: int            # q_tiles * B * H blocks, longest q tiles first
+    blocks_per_sm: int   # as shared memory allows
+
+
+def f32_plan(B: int, S: int, H: int, d: int) -> F32Plan:
+    """Lay out the f32 kernel's launch for (B, S, H, d) queries: a block a
+    (q tile, batch * head) pair on a one-dimensional grid."""
+    if d not in F32_PLANS:
+        raise ValueError(f"flash_attention's f32 kernel takes head dims "
+                         f"{tuple(F32_PLANS)}, got {d}")
+    threads, bk = F32_PLANS[d]
+    tx = d // 8
+    ty = threads // tx
+    bq = 8 * ty
+    smem = 4 * (d * bq + bk * (d + 4) + d * bk + bk * d + bk * bq)
+    q_tiles = -(-S // bq)
+    return F32Plan(threads=threads, col_groups=tx, row_groups=ty, q_rows=bq,
+                   kv_rows=bk, keys=bk // tx, smem_bytes=smem,
+                   q_tiles=q_tiles, grid=q_tiles * B * H,
+                   blocks_per_sm=SM_SMEM // (smem + SMEM_RESERVED))
+
+
+def f32_block_tile(plan: F32Plan, block: int, bh: int) -> tuple:
+    """(q tile, batch * head) of the f32 kernel's block ``block`` among
+    ``bh`` = B * H heads: the kernel's own order, every head's last q tile
+    first."""
+    return plan.q_tiles - 1 - block // bh, block % bh
+
+
+def refusal(dtype: torch.dtype, B: int, S: int, H: int, K: int,
+            d: int) -> str | None:
+    """Why the kernels do not take q (B, S, H, d) against k, v (B, S, K,
+    d) of ``dtype``, or None if they do."""
+    if dtype not in DTYPES:
+        return f"dtype {dtype}: the kernels take {DTYPES}"
+    if min(B, S, H, K) < 1 or H % K:
+        return "B, S, H and K at least 1, H a multiple of K"
+    if d not in HEAD_DIMS:
+        return f"head dim {d}: the kernels take {HEAD_DIMS}"
+    if dtype == torch.bfloat16 and B * H > MAX_GRID_Y:
+        return (f"B * H = {B * H}: the bf16 kernel takes B * H <= "
+                f"{MAX_GRID_Y} (its grid's y axis); the f32 kernel has no "
+                f"such limit")
+    if dtype == torch.float32 and f32_plan(B, S, H, d).grid > MAX_GRID_X:
+        return (f"{f32_plan(B, S, H, d).grid} blocks: the f32 kernel's grid "
+                f"takes {MAX_GRID_X}")
+    return None
 
 
 def tma_misalignment(x: torch.Tensor) -> str | None:
@@ -33,9 +105,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     The route is chosen by dtype, here and nowhere else: bf16 goes to the
     tensor-core kernel (TMA loads, wgmma products, P split into bf16 hi and
-    lo), f32 to the SIMT kernel.  Neither falls back to the other.  bf16
-    inputs must also suit TMA: a base address or stride that is not a
-    multiple of 16 bytes raises ``ValueError``."""
+    lo), f32 to the SIMT kernel laid out by :func:`f32_plan`.  Neither
+    falls back to the other.  What :func:`refusal` names raises
+    ``ValueError``: bf16 takes B * H <= ``MAX_GRID_Y``, f32 any B * H.
+    bf16 inputs must also suit TMA: a base address or stride that is not a
+    multiple of 16 bytes raises ``ValueError`` (the f32 kernel copies
+    4 bytes at a time there)."""
     from repro_torch.kernels._build import extension
 
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -49,12 +124,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                 f"{x.device}")
     B, S, H, d = q.shape
     K = k.shape[2]
-    if k.shape != v.shape or k.shape != (B, S, K, d) or K < 1 or H % K \
-            or d not in HEAD_DIMS or B * H > MAX_GRID_Y or S < 1:
+    why = "k and v must be (B, S, K, d) of q's B, S and d" \
+        if k.shape != v.shape or k.shape != (B, S, K, d) \
+        else refusal(q.dtype, B, S, H, K, d)
+    if why is not None:
         raise ValueError(
             f"flash_attention kernel shapes q {tuple(q.shape)} k "
-            f"{tuple(k.shape)} v {tuple(v.shape)}: H a multiple of K, head "
-            f"dim in {HEAD_DIMS}, B * H <= {MAX_GRID_Y}")
+            f"{tuple(k.shape)} v {tuple(v.shape)}: {why}")
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     if q.dtype == torch.bfloat16:
         for name, x in (("q", q), ("k", k), ("v", v)):
@@ -65,8 +141,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     f"which needs its base address and its batch, sequence "
                     f"and head strides to be multiples of {TMA_ALIGN} bytes;"
                     f" {name} has a {why}")
-        launch = extension().flash_attention_bf16
+        extension().flash_attention_bf16(q, k, v, o, 1.0 / math.sqrt(d))
     else:
-        launch = extension().flash_attention_f32
-    launch(q, k, v, o, 1.0 / math.sqrt(d))
+        p = f32_plan(B, S, H, d)
+        extension().flash_attention_f32(q, k, v, o, 1.0 / math.sqrt(d),
+                                        p.q_rows, p.kv_rows, p.threads,
+                                        p.smem_bytes)
     return o

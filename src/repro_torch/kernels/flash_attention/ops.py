@@ -15,12 +15,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     tensors take :func:`.ref.mha_causal_ref`, CUDA tensors the kernels of
     :func:`.kernel.flash_attention` (any S; d of 32, 64 or 128; bf16 on the
     tensor cores, f32 SIMT), which raise on what they do not take.
-    ``flash_attention.launches`` counts kernel launches."""
+    ``flash_attention.launches`` counts kernel launches of either route,
+    ``flash_attention.f32_launches`` those of the f32 kernel alone."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return mha_causal_ref(q, k, v)
     o = kernel.flash_attention(q, k, v)
     flash_attention.launches += 1
+    flash_attention.f32_launches += q.dtype == torch.float32
     return o
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0

@@ -30,7 +30,10 @@ kernel's split across the cache and merged in split order, so its repeats
 agree bit for bit); in bf16 each
 element within 2**-7 of the expected value plus 1e-4 (both sides sum in f32
 and round once to bf16, one ulp being at most 2**-7 of the value): bf16
-runs on the tensor-core kernel, f32 on the SIMT one.  The LM engine on the
+runs on the tensor-core kernel, f32 on the SIMT one, which is also held at
+its plan's tile boundaries, GQA groups 1-8, views of a fused projection
+(16-byte aligned or not) and B * H = 65536, and bit for bit across five
+calls; its SASS has FMAs and cp.async copies and no tensor-core product.  The LM engine on the
 card gives the same greedy tokens as on the CPU under f32 weights, RWKV's
 and zamba2's too; zamba2's prefill and decode logits and states under f32
 caches within 1e-4 of the CPU's, its shared block through each attention
@@ -1042,6 +1045,96 @@ def test_flash_attention_bf16_kernel_runs_on_tensor_cores(dev):
     assert f32 and "HGMMA" not in f32
 
 
+def _f32_case(dev, B, S, H, K, d, seed):
+    return [_randn(dev, (B, S, n, d), torch.float32, seed + i)
+            for i, n in enumerate((H, K, K))]
+
+
+def _f32_boundaries():
+    """(d, S): one below, at and one past the f32 plan's kv tile and q
+    tile, for each head dim."""
+    out = []
+    for d in fa_kernel.HEAD_DIMS:
+        p = fa_kernel.f32_plan(1, 1, 1, d)
+        for edge in sorted({p.kv_rows, p.q_rows}):
+            out += [(d, edge - 1), (d, edge), (d, edge + 1)]
+    return out
+
+
+@pytest.mark.parametrize("d,S", _f32_boundaries())
+def test_flash_attention_f32_kernel_at_tile_boundaries(dev, d, S):
+    q, k, v = _f32_case(dev, 2, S, 8, 2, d, S)
+    got = fa_kernel.flash_attention(q, k, v)
+    torch.testing.assert_close(got, mha_causal_ref(q, k, v), rtol=0,
+                               atol=ATTN_TOL_F32["flash"])
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_f32_kernel_gqa_groups(dev, groups, d):
+    q, k, v = _f32_case(dev, 2, 333, 8, 8 // groups, d, groups + d)
+    got = fa_kernel.flash_attention(q, k, v)
+    torch.testing.assert_close(got, mha_causal_ref(q, k, v), rtol=0,
+                               atol=ATTN_TOL_F32["flash"])
+
+
+@pytest.mark.parametrize("width", [8 * 64, 8 * 64 + 1],
+                         ids=["aligned", "unaligned"])
+def test_flash_attention_f32_kernel_reads_fused_projection_views(dev, width):
+    """q, k and v as views of one fused projection; rows of 513 floats are
+    not a multiple of 16 bytes, so the kernel copies 4 bytes at a time."""
+    qkv = _randn(dev, (2, 300, width), torch.float32, width)
+    x = qkv[..., :8 * 64].unflatten(-1, (8, 64))
+    q, k, v = x[:, :, :4], x[:, :, 4:6], x[:, :, 6:]
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, exp, rtol=0, atol=ATTN_TOL_F32["flash"])
+
+
+def test_flash_attention_f32_kernel_takes_65536_heads(dev):
+    """B * H = 65536, past the bf16 kernel's grid: the f32 kernel's blocks
+    lie on one axis.  The plain version agrees on slices of heads at both
+    ends."""
+    B, S, H, d = 1024, 64, 64, 32
+    assert fa_kernel.refusal(torch.bfloat16, B, S, H, H, d) is not None
+    q, k, v = _f32_case(dev, B, S, H, H, d, 11)
+    got = fa_kernel.flash_attention(q, k, v)
+    for b, h in ((slice(0, 4), slice(0, 3)), (slice(B - 4, B),
+                                              slice(H - 3, H))):
+        exp = mha_causal_ref(q[b, :, h], k[b, :, h], v[b, :, h])
+        torch.testing.assert_close(got[b, :, h], exp, rtol=0,
+                                   atol=ATTN_TOL_F32["flash"])
+    assert bool(torch.isfinite(got).all())
+
+
+def test_flash_attention_f32_kernel_repeats_bitwise(dev):
+    q, k, v = _f32_case(dev, 8, 1491, 12, 12, 64, 5)
+    outs = [fa_kernel.flash_attention(q, k, v) for _ in range(5)]
+    assert all(torch.equal(o.view(torch.int32), outs[0].view(torch.int32))
+               for o in outs[1:])
+
+
+def test_flash_attention_f32_kernel_runs_exact_fmas_from_async_copies(dev):
+    """The f32 kernel's SASS holds FMAs (FFMA) and cp.async copies
+    (LDGSTS), and no tensor-core product (HMMA, HGMMA), which would round
+    its inputs to TF32."""
+    from repro_torch.kernels._build import sass
+
+    f32 = sass("flash_attention_kernel")
+    assert f32.count("FFMA") > 0 and f32.count("LDGSTS") > 0
+    assert "HMMA" not in f32 and "HGMMA" not in f32
+
+
+def test_flash_attention_op_counts_the_f32_route(dev):
+    q, k, v = _f32_case(dev, 1, 64, 2, 2, 64, 1)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.f32_launches)
+    fa_ops.flash_attention(q, k, v)
+    fa_ops.flash_attention(*(x.bfloat16() for x in (q, k, v)))
+    assert (fa_ops.flash_attention.launches - before[0],
+            fa_ops.flash_attention.f32_launches - before[1]) == (2, 1)
+
+
 @pytest.mark.parametrize("B,S,H,K,d,length", [
     (8, 2048, 12, 12, 64, 1),
     (8, 2048, 12, 12, 64, 1337),
@@ -1696,7 +1789,8 @@ def test_int64_lane_restores_on_card(dev, tmp_path):
 # deterministic train step, the card against the CPU
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("B,S,H,K,d", [(8, 128, 12, 12, 64),
-                                       (2, 200, 4, 2, 32)])
+                                       (2, 200, 4, 2, 32),
+                                       (8, 128, 16, 16, 128)])  # 4s' layer
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_fn_gradients_match_plain(dev, B, S, H, K, d, dtype):
     """A CUDA tensor that requires a gradient gets one through attention:
