@@ -12,17 +12,22 @@ after its first pass).  By default a pass imports the checkout's
 gateway replay on the host clock; the second, warm, run's summary line is
 printed.  With ``--whole`` a pass runs the checkout's ``python3
 chip_smoke.py`` and prints its summary lines of phases 4-4f, so each path
-is read where the script drives it.  With ``--kernels`` a pass times three
+is read where the script drives it.  With ``--kernels`` a pass times the
 kernels with CUDA events (``chip_smoke.cuda_ms``, 20 calls after a spin,
-three times): the wide ``union_deduce`` on a seeded ``wide_lanes`` lane of
-65536 objects and 524288 pairs (phase 4g's round-1 screen size), the
-int8 path of ``decode_attention`` at the kernel table's shape (q (8, 12,
-64) bf16 over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's
-internlm2-1.8b shape (q (8, 16, 128) over (8, 2048, 8, 128)), length 2048,
-and the f32 route of ``flash_attention`` at the kernel table's shape (8,
-1491, 12 / 12, 64) and at deepseek-67b's head layout (1, 2048, 64 / 8,
-128).  The card's name and power limit come first, each line is tagged with its
-checkout, and a failed pass exits non-zero.
+three times) on seeded inputs: the wide ``union_deduce`` on a
+``wide_lanes`` lane of 65536 objects and 524288 pairs (phase 4g's round-1
+screen size); ``pair_scores_compact`` on the first 256-tile chunk of 128 x
+128 tiles of blocked session 0 (the kernel table's shape); the int8 path
+of ``decode_attention`` at the kernel table's shape (q (8, 12, 64) bf16
+over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's internlm2-1.8b
+shape (q (8, 16, 128) over (8, 2048, 8, 128)), its bf16 and f32 paths at
+the table's shape, length 2048; and both routes of ``flash_attention`` at
+the kernel table's shape (8, 1491, 12 / 12, 64) and at deepseek-67b's head
+layout (1, 2048, 64 / 8, 128).  Each line ends in a digest of the call's
+outputs, and after the passes each kernel's digests must agree across the
+checkouts (the outputs bit for bit), else it exits non-zero.  The card's
+name and power limit come first, each line is tagged with its checkout,
+and a failed pass exits non-zero.
 """
 import argparse
 import subprocess
@@ -48,39 +53,79 @@ cs.profile_run(dev, corpora)
 """
 
 KERNELS = r"""
+import hashlib
 import sys
 root = sys.argv[1]
 sys.path[:0] = [root, root + "/src"]
+import numpy as np
 import torch
 import chip_smoke as cs
+from repro_torch.convert import embeddings_from_numpy
 from repro_torch.kernels._build import extension
 from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.pair_scores import blocking
+from repro_torch.kernels.pair_scores import kernel as ps_kernel
+from repro_torch.kernels.pair_scores import ops as ps_ops
 from repro_torch.kernels.union_deduce import kernel as ud_kernel
 extension()
 dev = torch.device("cuda")
+
+
+def line(name, fn):
+    out = fn()
+    out = out if isinstance(out, tuple) else (out,)
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    ms = [cs.cuda_ms(fn) for _ in range(3)]
+    print(f"[kernels] {name}: " + " ".join(f"{t:.4f}" for t in ms)
+          + f" ms digest {h.hexdigest()[:16]}", flush=True)
+
+
 wide = cs.wide_lanes(dev, 65536, 524288, 1, seed=cs.SEED + 3)
 ud_kernel.union_deduce(*wide)   # raises on a failed lane
-ms = [cs.cuda_ms(lambda: ud_kernel.launch(*wide)) for _ in range(3)]
-print("[kernels] union_deduce_wide (1, 65536, 524288): "
-      + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+line("union_deduce_wide (1, 65536, 524288)",
+     lambda: ud_kernel.launch(*wide))
+del wide
+_, ea, _, eb = cs.make_corpus(cs.BLOCK_SEED, cs.BLOCK_ROWS, cs.DIM)
+a = ps_ops.l2_normalize(embeddings_from_numpy(ea, dev))
+b = ps_ops.l2_normalize(embeddings_from_numpy(eb, dev))
+cfg = blocking.BlockingConfig(**cs.BLOCKING)
+every = np.arange(cs.BLOCK_ROWS)
+ta, tb = blocking.block_pairs(blocking.signatures(a, cfg), every,
+                              blocking.signatures(b, cfg), every, cfg.bn,
+                              cfg.bm)
+T = cfg.tiles_per_call
+chunk = cs.gather_chunk(a, b, ta[:T], tb[:T])
+line(f"pair_scores_compact {T} tiles of {cfg.bn} x {cfg.bm}, depth {cs.DIM}",
+     lambda: ps_kernel.pair_scores_compact(*chunk, cs.THRESHOLD,
+                                           T * cfg.bn * cfg.bm, cfg.bn,
+                                           cfg.bm))
+del a, b, chunk
 for B, S, H, K, d in ((8, 2048, 12, 12, 64), (8, 2048, 16, 8, 128)):
     q = cs._randn(dev, (B, H, d), torch.bfloat16, 0)
     kc, ks = cs.int8_cache(dev, B, S, K, d, S, 1)
     vc, vs = cs.int8_cache(dev, B, S, K, d, S, 2)
     n = torch.tensor(S, dtype=torch.int32, device=dev)
-    ms = [cs.cuda_ms(lambda: da_kernel.decode_attention(q, kc, vc, n, ks, vs))
-          for _ in range(3)]
-    print(f"[kernels] decode_attention_int8 q ({B}, {H}, {d}) bf16 cache "
-          f"({B}, {S}, {K}, {d}) length {S}: "
-          + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
-from repro_torch.kernels.flash_attention import kernel as fa_kernel
-for B, S, H, K, d in ((8, 1491, 12, 12, 64), (1, 2048, 64, 8, 128)):
-    q, k, v = (cs._randn(dev, (B, S, n, d), torch.float32, i)
-               for i, n in enumerate((H, K, K)))
-    ms = [cs.cuda_ms(lambda: fa_kernel.flash_attention(q, k, v))
-          for _ in range(3)]
-    print(f"[kernels] flash_attention_f32 q ({B}, {S}, {H}, {d}) kv heads "
-          f"{K}: " + " ".join(f"{t:.4f}" for t in ms) + " ms", flush=True)
+    line(f"decode_attention_int8 q ({B}, {H}, {d}) bf16 cache ({B}, {S}, "
+         f"{K}, {d}) length {S}",
+         lambda: da_kernel.decode_attention(q, kc, vc, n, ks, vs))
+B, S, H, K, d = 8, 2048, 12, 12, 64
+for dt in (torch.bfloat16, torch.float32):
+    q = cs._randn(dev, (B, H, d), dt, 0)
+    kc = cs._randn(dev, (B, S, K, d), dt, 1)
+    vc = cs._randn(dev, (B, S, K, d), dt, 2)
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    line(f"decode_attention q ({B}, {H}, {d}) cache ({B}, {S}, {K}, {d}) "
+         f"{dt} length {S}",
+         lambda: da_kernel.decode_attention(q, kc, vc, n))
+for dt in (torch.bfloat16, torch.float32):
+    for B, S, H, K, d in ((8, 1491, 12, 12, 64), (1, 2048, 64, 8, 128)):
+        q, k, v = (cs._randn(dev, (B, S, n, d), dt, i)
+                   for i, n in enumerate((H, K, K)))
+        line(f"flash_attention {dt} q ({B}, {S}, {H}, {d}) kv heads {K}",
+             lambda: fa_kernel.flash_attention(q, k, v))
 """
 
 # the summary lines of chip_smoke.py's paths, by their prefixes
@@ -128,10 +173,18 @@ def main() -> int:
     order = []
     for k in range(args.passes_each):
         order += roots if k % 2 == 0 else roots[::-1]
+    digests: dict = {}
     for n, root in enumerate(order):
         for line in run_pass(root, args.whole, args.kernels):
             print(f"[pass {n}] {root.name}: {line}", flush=True)
-    return 0
+            if " digest " in line:
+                name = line.split(": ", 1)[0]
+                digests.setdefault(name, set()).add(line.rsplit(" ", 1)[1])
+    differ = [name for name, d in digests.items() if len(d) > 1]
+    if args.kernels:
+        print(f"[digests] {len(digests)} kernel calls, outputs equal bit for "
+              f"bit across the passes but {differ}")
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

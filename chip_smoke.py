@@ -30,6 +30,10 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    the capacity it keeps the first half of the list and the true count; one
    call over all of session 0's tiles equals its 256-tile chunk calls
    concatenated, bit for bit; five calls on the chunk agree bit for bit;
+   the same at tiles past 128 rows a side (its band kernel: 256 x 256, 200
+   x 136 and 512 x 64, on chunks of session 0's tiles at that shape with
+   one 256-tile chunk's cells), and a dense tiling at each equal to the
+   dense kernel's candidates bit for bit;
    ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
    at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
    granite-3-2b's (2, 2048, 32 / 8, 64), deepseek-67b's (1, 2048, 64 /
@@ -37,7 +41,7 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    on the tensor-core kernel and f32 on the SIMT one, and the bf16 kernel's SASS must hold wgmma (``HGMMA``) and TMA
    loads (``UTMALDG``), counted on a line of their own; the f32 kernel
    also one row below, at and past its plan's kv tile and q tile for head
-   dims 32, 64 and 128 (GQA 4:1), and its SASS must hold FMAs (``FFMA``)
+   dims 32, 64, 128 and 256 (GQA 4:1), and its SASS must hold FMAs (``FFMA``)
    and cp.async copies (``LDGSTS``) and no tensor-core product (``HMMA``,
    ``HGMMA``), counted on a line of their own;
    ``decode_attention`` at (8, 12, 64) against an (8,
@@ -56,7 +60,13 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    against the plain f32 attention within the f32 rule; at length 1 under
    an f32 query the dequantized v row itself, bit for bit, with rows that
    hold every int8 value under B x K distinct scales, head dims 32, 64 and
-   128, one and two query heads a kv head; five calls bit for bit.  f32
+   128, one and two query heads a kv head; five calls bit for bit; then
+   both attention kernels at public models' layers (``MODEL_ATTN``: Gemma-7B
+   and Gemma-2B at head dim 256, Phi-3-mini at 96, phi-2 at 80, falcon-7b's
+   71 and StarCoder's 48 query heads on one kv head): flash over 2 prompts
+   of 2048 tokens in bf16 and f32, decode over bf16, f32 and int8 caches of
+   2048 at 8 lanes, lengths 1337 and 2048, each timed beside its bound, its
+   plain version and SDPA, and a bf16 flash call of B * H = 65600.  f32
    outputs
    within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
    outputs within 2**-7 |expected| + 1e-4 element by element: both sides
@@ -79,7 +89,12 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    machine phase is split into host LSH, gather + kernel chunks and dedup,
    beside the dense machine phase at the same size; then ``union_deduce``
    bitwise against its plain version on these lanes' first round
-   (n = 32768);
+   (n = 32768); then session 0 again through ``submit_embeddings`` at 128 x
+   128 tiles, and at 256 x 256 and 512 x 64 on the card and on the CPU:
+   each wide tiling's candidate ``PairSet`` must be the 128 x 128 one field
+   for field (likelihoods bit for bit), the CPU's pairs and truth the
+   card's and its likelihoods within 1e-5, and each has its compact
+   launches counted;
 4c. the LM serving path: ``paper-scorer`` at full width (12 layers, d_model
    768, 12 heads of 64, vocab 32768; bf16 weights from ``init_params`` with
    a seeded generator on the card), ``ServeEngine(batch_lanes=8,
@@ -401,7 +416,12 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    alone (each phase's own process, 4s's ranks by case), SDPA in f32 under
    its own choice and pinned to ``EFFICIENT_ATTENTION`` and ``MATH``, and
    its figures at deepseek-67b's (1, 2048, 64 / 8, 128); the decode
-   kernel's f32 path at its table shape under ``f32``; then the parent
+   kernel's f32 path at its table shape under ``f32``; phase 3's wide
+   tiles under ``at_wide_tiles`` and 4b's wide sessions' launches under
+   ``launches_at_wide_sessions``, the model layers under ``at_head_dims``
+   (both flash entries, decode and its int8 path) and ``at_mqa`` (decode
+   and its int8 path), the bf16 flash call past 65535 heads under
+   ``at_65600_heads``; then the parent
    kernels' recorded times on a line of their own, never as measurements);
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -776,6 +796,25 @@ ACCT_DRAW_ARCH = "internlm2-1.8b"
 # phase 3: the int8 decode path at head dims 32 and 128 beside the serving
 # shape's 64: (B, S, H, K, d, length)
 DECODE_INT8_SHAPES = ((4, 1024, 8, 2, 32, 700), (8, 2048, 16, 8, 128, 1500))
+# phase 3: pair_scores_compact's tiles past 128 rows a side (its band
+# kernel), on chunks of blocked session 0 with the cells of one 256-tile
+# chunk of 128 x 128; phase 4b: whole blocked sessions at two of them
+WIDE_TILES = ((256, 256), (200, 136), (512, 64))
+WIDE_SESSIONS = ((256, 256), (512, 64))
+# phase 3: attention layers of public models, by their published configs
+# (attention heads, kv heads, head dim): Gemma-7B and Gemma-2B (head_dim
+# 256; 2B multi-query), Phi-3-mini (3072 / 32 = 96), phi-2 (2560 / 32 =
+# 80), falcon-7b (4544 / 71 = 64, multi-query: 71 heads on one kv head) and
+# StarCoder (6144 / 48 = 128, multi-query); prompts of MODEL_LEN tokens,
+# MODEL_FLASH_BATCH a prefill, and caches of MODEL_LEN at LM_LANES a decode
+# step
+MODEL_ATTN = {"gemma-7b": (16, 16, 256), "gemma-2b": (8, 1, 256),
+              "phi-3-mini": (32, 32, 96), "phi-2": (32, 32, 80),
+              "falcon-7b": (71, 1, 64), "starcoder": (48, 1, 128)}
+MODEL_MQA = ("falcon-7b", "starcoder")
+MODEL_LEN, MODEL_FLASH_BATCH = 2048, 2
+# phase 3: a bf16 flash call past 65535 batch x heads, (B, S, H, K, d)
+FLASH_MANY_HEADS = (1025, 64, 64, 8, 64)
 # card clock cycles cuda_ms spins before its timed calls: about 12 ms at
 # the H100's 1.7-2.0 GHz, room for 20 calls of a wrapper costing up to
 # 0.5 ms on the host
@@ -2724,6 +2763,154 @@ def check_compact(a_g, b_g, ida, idb, bn: int, bm: int) -> float:
     return err
 
 
+def bound(flops: float, nbytes: float, dtype) -> tuple:
+    """(bound ms, "operations" or "bytes"): the least time the card takes
+    for ``flops`` at the peak rate for the inputs' type and ``nbytes`` at
+    its memory rate."""
+    import torch
+
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops > t_bytes else "bytes"
+
+
+def wide_tile_checks(dev, a16, b16, sigs, a, b, dense) -> list:
+    """Phase 3: ``pair_scores_compact`` at each ``WIDE_TILES`` tile (its
+    band kernel) on a chunk of blocked session 0's tiles at that shape, as
+    many tiles as hold one 256-tile chunk's cells of 128 x 128:
+    ``check_compact`` against the plain version, five calls bit for bit,
+    an overflowing capacity's prefix and count; then a dense tiling of
+    phase 4's corpus 0 (``a``, ``b``) at that shape equal to the dense
+    kernel's candidates ``dense`` bit for bit.  Returns the kernels line's
+    ``at_wide_tiles`` figures."""
+    import torch
+
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import kernel as ps_kernel
+    from repro_torch.kernels.pair_scores.ref import pair_scores_compact_ref
+
+    every = np.arange(BLOCK_ROWS)
+    out = []
+    for bn, bm in WIDE_TILES:
+        tiles_a, tiles_b = blocking.block_pairs(sigs[0], every, sigs[1],
+                                                every, bn, bm)
+        T = min(len(tiles_a),
+                BLOCKING["tiles_per_call"] * 128 * 128 // (bn * bm))
+        args = gather_chunk(a16, b16, tiles_a[:T], tiles_b[:T])
+        err = check_compact(*args, bn, bm)
+        cap = T * bn * bm
+        outs = [ps_kernel.pair_scores_compact(*args, THRESHOLD, cap, bn, bm)
+                for _ in range(5)]
+        repeat = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                     for o in outs[1:] for x, y in zip(o, outs[0]))
+        n = int(outs[0][3])
+        half = n // 2
+        part = ps_kernel.pair_scores_compact(*args, THRESHOLD, half, bn, bm)
+        prefix = int(part[3]) == n and all(
+            torch.equal(x[:half], y[:half])
+            for x, y in zip(part[:3], outs[0][:3]))
+        cfg = blocking.BlockingConfig(**dict(BLOCKING, bn=bn, bm=bm))
+        ta, tb = blocking.dense_block_pairs(N_ROWS, N_ROWS, bn, bm)
+        tiled = blocking.score_block_pairs(a, b, ta, tb, THRESHOLD, cfg)
+        bitwise = tiled.n_dropped == dense.n_dropped == 0 \
+            and np.array_equal(tiled.rows, dense.rows) \
+            and np.array_equal(tiled.cols, dense.cols) \
+            and np.array_equal(tiled.scores.view(np.int32),
+                               dense.scores.view(np.int32))
+        print(f"[3 pair_scores_compact wide] tiles {bn} x {bm}: {T} tiles, "
+              f"{ps_kernel.compact_items(T, bn, bm)} band items, {n} "
+              f"candidates; five calls equal bit for bit {repeat}; capacity "
+              f"{half}: n_total {int(part[3])}, prefix equal {prefix}; dense "
+              f"tiling of ({N_ROWS}, {DIM})^2 in {len(ta)} tiles: "
+              f"{len(tiled.rows)} candidates, the dense kernel's bit for bit "
+              f"{bitwise}")
+        if not (repeat and prefix and bitwise and n > 0):
+            raise AssertionError(f"pair_scores_compact at {bn} x {bm} tiles")
+        t_bound, by = bound(2 * T * bn * bm * DIM,
+                            T * (bn + bm) * (4 * DIM + 4) + 12 * min(n, cap),
+                            torch.float32)
+        out.append({
+            "tile": [bn, bm], "tiles": T,
+            "items": ps_kernel.compact_items(T, bn, bm), "candidates": n,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ps_kernel.pair_scores_compact(
+                *args, THRESHOLD, cap, bn, bm)),
+            "plain_ms": cuda_ms(lambda: pair_scores_compact_ref(
+                *args, THRESHOLD, cap, bn, bm), 5),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.bmm(
+                args[0].view(T, bn, -1),
+                args[1].view(T, bm, -1).transpose(1, 2)))})
+        del args, outs, part, tiled
+    return out
+
+
+def blocked_wide_sessions(dev, corpus) -> dict:
+    """Phase 4b at tiles past 128 rows a side: blocked session 0's
+    ``submit_embeddings`` at 128 x 128, then at each ``WIDE_SESSIONS`` tile
+    on the card and on the CPU (the plain version).  A tile only chunks a
+    bucket's members, so every tiling scores the same cells: the card's
+    candidate ``PairSet`` at a wide tile must be the 128 x 128 one field for
+    field, likelihoods bit for bit, and the CPU's pairs and truth the
+    card's, its likelihoods within 1e-5 (f32 sums in another order).
+    Returns each wide tile's compact launches."""
+    import torch
+
+    from repro_torch.convert import embeddings_from_numpy
+    from repro_torch.core.crowd import PerfectCrowd
+    from repro_torch.kernels.pair_scores import blocking
+    from repro_torch.kernels.pair_scores import ops as ps_ops
+    from repro_torch.serve.join_service import JoinService
+
+    ids_a, ea, ids_b, eb = corpus
+
+    def candidates(device, bn, bm):
+        cfg = blocking.BlockingConfig(**dict(BLOCKING, bn=bn, bm=bm))
+        svc = JoinService(lanes=1, device=device)
+        ps_ops.pair_scores_compact.launches = 0
+        t0 = time.perf_counter()
+        svc.submit_embeddings(
+            embeddings_from_numpy(ea, device),
+            embeddings_from_numpy(eb, device), THRESHOLD,
+            crowd=PerfectCrowd(),
+            truth_fn=lambda r, c: ids_a[r] == ids_b[c], blocking=cfg)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return (svc.queue[-1].pairs, ps_ops.pair_scores_compact.launches,
+                time.perf_counter() - t0)
+
+    def arrays(ps):
+        return [np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+                for x in (ps.u, ps.v, ps.likelihood, ps.truth)]
+
+    base, base_launches, base_s = candidates(dev, 128, 128)
+    base = arrays(base)
+    launches = {}
+    for bn, bm in WIDE_SESSIONS:
+        card, n_launch, card_s = candidates(dev, bn, bm)
+        cpu, _, cpu_s = candidates("cpu", bn, bm)
+        card, cpu = arrays(card), arrays(cpu)
+        same = all(np.array_equal(x, y) for x, y in zip(card[:2], base[:2])) \
+            and np.array_equal(card[2].view(np.int32), base[2].view(np.int32)) \
+            and np.array_equal(card[3], base[3])
+        same_cpu = all(np.array_equal(x, y) for x, y in
+                       ((card[0], cpu[0]), (card[1], cpu[1]),
+                        (card[3], cpu[3])))
+        cpu_err = float(np.abs(card[2] - cpu[2]).max()) if same_cpu \
+            else math.inf
+        launches[f"{bn}x{bm}"] = n_launch
+        print(f"[4b wide tiles {bn} x {bm}] session 0: P {len(card[0])} in "
+              f"{card_s:.4f} s, {n_launch} compact launches (128 x 128: "
+              f"P {len(base[0])} in {base_s:.4f} s, {base_launches} "
+              f"launches); the 128 x 128 PairSet bit for bit {same}; the "
+              f"CPU's ({cpu_s:.4f} s) pairs and truth equal {same_cpu}, "
+              f"max|dlikelihood| {cpu_err:.3e}")
+        if not same or not same_cpu or cpu_err > 1e-5 or n_launch < 1:
+            raise AssertionError(f"blocked session 0 at {bn} x {bm} tiles")
+    return launches
+
+
 def blocked_main_path(dev, corpora, cfg) -> dict:
     """Phase 4b: four blocked ``submit_embeddings`` sessions through
     ``run()``, then each checked against the dense kernel's candidates on
@@ -3048,6 +3235,100 @@ def check_decode_int8_row(dev, B, S, H, K, d, seed=0) -> None:
     if not same:
         raise AssertionError("decode_attention's int8 path at length 1 is "
                              "not the dequantized row")
+
+
+def _sdpa_ms(q, k, v, **kw):
+    """SDPA's time on these (B, H, S, d) / (B, K, S, d) inputs with
+    ``enable_gqa``, or None where no backend takes the call."""
+    import torch
+
+    try:
+        return cuda_ms(lambda: torch.nn.functional.
+                       scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                    **kw))
+    except RuntimeError:
+        return None
+
+
+def model_attention(dev) -> dict:
+    """Phase 3: the attention kernels at ``MODEL_ATTN``'s layers (head dims
+    between the compiled widths and 256, groups of 48 and 71 query heads a
+    kv head) against their plain versions, timed beside their bounds, the
+    plain versions and SDPA: flash in bf16 and f32 over ``MODEL_FLASH_BATCH``
+    prompts of ``MODEL_LEN`` tokens, decode over bf16, f32 and int8 caches
+    of ``MODEL_LEN`` at ``LM_LANES`` lanes (checked at two lengths, timed
+    at the full one), each layout's cache rows as the decode kernel reads
+    them; then a bf16 flash call of ``FLASH_MANY_HEADS`` (B * H past 65535).
+    Returns the kernels line's figures by entry."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    figs = {k: [] for k in ("flash", "flash_f32", "decode", "decode_int8",
+                            "mqa", "mqa_int8")}
+    S, B, L = MODEL_LEN, MODEL_FLASH_BATCH, LM_LANES
+
+    def flash_fig(name, shape, dtype):
+        B_, S_, H_, K_, d_ = shape
+        err, (q, k, v) = check_flash(dev, *shape, dtype, seed=d_)
+        t_bound, by = bound(4 * B_ * H_ * d_ * S_ * (S_ + 1) // 2,
+                            q.element_size() * (2 * q.numel() + k.numel()
+                                                + v.numel()), dtype)
+        return {"model": name, "shape": list(shape),
+                "width": fa_kernel.width(d_), "max_abs_err": err,
+                "ms": cuda_ms(lambda: fa_kernel.flash_attention(q, k, v)),
+                "plain_ms": cuda_ms(lambda: mha_causal_ref(q, k, v), 3),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": _sdpa_ms(*(x.transpose(1, 2) for x in
+                                         (q, k, v)), is_causal=True)}
+
+    for name, (H, K, d) in MODEL_ATTN.items():
+        lanes = {str(dt).split(".")[-1]: da_kernel.lane_layout(dt, d)
+                 for dt in (bf16, f32, torch.int8)}
+        print(f"[3 attention {name}] {H} heads / {K} kv heads of {d}: "
+              f"compiled width {fa_kernel.width(d)}; decode cache rows "
+              f"(elements a lane, lanes a row, active lanes) "
+              + ", ".join(f"{k} ({v['elements']}, {v['lanes']}, "
+                          f"{v['active']})" for k, v in lanes.items()))
+        figs["flash"].append(flash_fig(name, (B, S, H, K, d), bf16))
+        figs["flash_f32"].append(flash_fig(name, (B, S, H, K, d), f32))
+        row = {"model": name, "shape": [L, S, H, K, d], "length": S}
+        for dt in (bf16, f32):
+            check_decode(dev, L, S, H, K, d, 1337, dt, dt, seed=d + 1)
+            err, (q, kc, vc, n) = check_decode(dev, L, S, H, K, d, S, dt, dt,
+                                               seed=d)
+            t_bound, by = bound(4 * L * H * d * S,
+                                kc.element_size() * 2 * L * S * K * d
+                                + 2 * q.numel() * q.element_size(), dt)
+            row[str(dt).split(".")[-1]] = {
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: da_kernel.decode_attention(q, kc, vc,
+                                                                 n)),
+                "plain_ms": cuda_ms(lambda: decode_attention_ref(q, kc, vc,
+                                                                 n)),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": _sdpa_ms(q[:, :, None], kc.transpose(1, 2),
+                                       vc.transpose(1, 2))}
+            del q, kc, vc
+        figs["mqa" if name in MODEL_MQA else "decode"].append(row)
+        check_decode_int8(dev, L, S, H, K, d, 1337, f32, seed=d + 1)
+        err, args = check_decode_int8(dev, L, S, H, K, d, S, bf16, seed=d)
+        t_bound, by = bound(4 * L * H * d * S,
+                            2 * L * S * K * (d + 2) + 2 * args[0].numel() * 2,
+                            bf16)
+        figs["mqa_int8" if name in MODEL_MQA else "decode_int8"].append({
+            "model": name, "shape": [L, S, H, K, d], "length": S,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: da_kernel.decode_attention(*args)),
+            "plain_ms": cuda_ms(lambda: decode_attention_ref(*args)),
+            "bound_ms": t_bound, "bound_by": by, "library_ms": None})
+        del args
+    figs["many_heads"] = flash_fig("many heads", FLASH_MANY_HEADS, bf16)
+    return figs
 
 
 def lm_serving_path(dev, cfg, model) -> dict:
@@ -6450,9 +6731,9 @@ def run(dev) -> None:
     a16 = ps_ops.l2_normalize(embeddings_from_numpy(ea, dev))
     b16 = ps_ops.l2_normalize(embeddings_from_numpy(eb, dev))
     every = np.arange(BLOCK_ROWS)
-    tiles_a, tiles_b = blocking.block_pairs(
-        blocking.signatures(a16, cfg), every, blocking.signatures(b16, cfg),
-        every, cfg.bn, cfg.bm)
+    sigs = (blocking.signatures(a16, cfg), blocking.signatures(b16, cfg))
+    tiles_a, tiles_b = blocking.block_pairs(sigs[0], every, sigs[1], every,
+                                            cfg.bn, cfg.bm)
     chunk, bn, bm = cfg.tiles_per_call, cfg.bn, cfg.bm
     if len(tiles_a) < chunk:
         raise AssertionError(f"blocked session 0 has {len(tiles_a)} tiles, "
@@ -6521,7 +6802,8 @@ def run(dev) -> None:
     if not bitwise:
         raise AssertionError("pair_scores_compact differs from the dense "
                              "kernel on a dense tiling")
-    del a16, b16, full, part, tiled, dense
+    wide_figs = wide_tile_checks(dev, a16, b16, sigs, a, b, dense)
+    del a16, b16, full, part, tiled, dense, sigs
 
     # flash_attention and decode_attention at the LM paths' shapes
     lm_cfg = lm_config()
@@ -6541,10 +6823,9 @@ def run(dev) -> None:
           f"{ops['HGMMA']} HGMMA, {ops['UTMALDG']} UTMALDG")
     if not ops["HGMMA"] or not ops["UTMALDG"]:
         raise AssertionError("the bf16 flash kernel runs no wgmma or no TMA")
-    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS,
-                                                            f32_plan)
+    from repro_torch.kernels.flash_attention.kernel import WIDTHS, f32_plan
 
-    for d in HEAD_DIMS:
+    for d in WIDTHS:
         p = f32_plan(1, 1, 1, d)
         for edge in sorted({p.kv_rows, p.q_rows}):
             for S in (edge - 1, edge, edge + 1):
@@ -6630,6 +6911,7 @@ def run(dev) -> None:
         raise AssertionError("decode_attention's int8 path differs between "
                              "calls")
     del repeats
+    attn_figs = model_attention(dev)
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -6673,6 +6955,7 @@ def run(dev) -> None:
 
     # -- 4b. the blocked main path -------------------------------------------
     blocked_launches = blocked_main_path(dev, blocked_corpora, cfg)
+    wide_launches = blocked_wide_sessions(dev, blocked_corpora[0])
 
     print(f"[4-4b] phases 3-4b {time.perf_counter() - t_run:.1f} s")
 
@@ -6885,13 +7168,6 @@ def run(dev) -> None:
     da_mask = (torch.arange(dk.shape[1], device=dev) < da_len)[None, None,
                                                                 None]
 
-    def bound(flops, nbytes, dtype):
-        """The least time at the peak rate for the inputs' type."""
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-        return 1e3 * max(t_ops, t_bytes), \
-            "operations" if t_ops > t_bytes else "bytes"
-
     fa_bound, fa_by = bound(fa_flops, fa_bytes, fq.dtype)
     da_bound, da_by = bound(da_flops, da_bytes, dq.dtype)
     # the int8 path at the same shape and length: the int8 rows and their
@@ -7004,7 +7280,9 @@ def run(dev) -> None:
                       > cs_bytes / PEAK_BYTES_PER_S else "bytes"),
          "library_ms": cuda_ms(lambda: torch.bmm(
              chunk_args[0].view(chunk, bn, -1),
-             chunk_args[1].view(chunk, bm, -1).transpose(1, 2)))},
+             chunk_args[1].view(chunk, bm, -1).transpose(1, 2))),
+         "at_wide_tiles": wide_figs,
+         "launches_at_wide_sessions": wide_launches},
         {"name": "union_deduce", "route": "cuda",
          "source": "src/repro_torch/csrc/union_deduce.cu",
          "replaces": "src/repro/kernels/union_deduce/kernel.py:129",
@@ -7081,14 +7359,17 @@ def run(dev) -> None:
          "library_ms": cuda_ms(lambda: sdpa(
              fq.transpose(1, 2), fk.transpose(1, 2), fv.transpose(1, 2),
              is_causal=True, enable_gqa=True)),
-         "at_prefill_32k": acct["flash_prefill_32k"]},
+         "at_prefill_32k": acct["flash_prefill_32k"],
+         "at_head_dims": attn_figs["flash"],
+         "at_65600_heads": attn_figs["many_heads"]},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
          "launches": sum(f32_paths.values()),
          "launches_by_path": f32_paths,
          **f32_flash["table"],
-         "at_deepseek_67b": f32_flash["deepseek_67b"]},
+         "at_deepseek_67b": f32_flash["deepseek_67b"],
+         "at_head_dims": attn_figs["flash_f32"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -7107,7 +7388,9 @@ def run(dev) -> None:
          "library_ms": sdpa_bf16_ms,
          "f32": decode_f32,
          "at_long_500k": ssm["decode_long"],
-         "at_decode_32k": acct["decode_decode_32k"]},
+         "at_decode_32k": acct["decode_decode_32k"],
+         "at_head_dims": attn_figs["decode"],
+         "at_mqa": attn_figs["mqa"]},
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -7118,7 +7401,9 @@ def run(dev) -> None:
          "bound_ms": d8_bound, "bound_by": d8_by,
          # no one PyTorch call reads an int8 cache; SDPA over the bf16
          # cache at the same shape, for scale
-         "library_ms": None, "sdpa_over_bf16_cache_ms": sdpa_bf16_ms},
+         "library_ms": None, "sdpa_over_bf16_cache_ms": sdpa_bf16_ms,
+         "at_head_dims": attn_figs["decode_int8"],
+         "at_mqa": attn_figs["mqa_int8"]},
     ]
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"

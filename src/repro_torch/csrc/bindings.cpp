@@ -90,7 +90,7 @@ void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
       idb.data_ptr<int>(),
       reinterpret_cast<unsigned long long*>(status.data_ptr<int64_t>()),
       rows.data_ptr<int>(), cols.data_ptr<int>(), scores.data_ptr<float>(),
-      n_total.data_ptr<int>(), static_cast<int>(status.size(0) - 1),
+      n_total.data_ptr<int>(), static_cast<int>(a_g.size(0) / bn),
       static_cast<int>(bn), static_cast<int>(bm), static_cast<int>(a_g.size(1)),
       static_cast<float>(tau), static_cast<int>(capacity), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

@@ -31,13 +31,21 @@
 // Design: split across the sequence, in one launch.  The grid is (B * K *
 // head chunks, splits): a block serves one (lane, kv head) and a chunk of
 // GC of its query heads (GC = 1 when G = 1, else 4, so a kv row is read
-// once for up to four heads), over `chunk` cache positions.  splits is
+// once for up to four heads), over `chunk` cache positions.  Any group G
+// runs: its heads take ceil(G / GC) chunks, each with its own blocks,
+// counter and partials, so nothing in a block grows with G.  splits is
 // fixed on the host from S (the cache's capacity) and the SM count, so that
 // about 8 blocks an SM are in flight (at the serving shape: 96 x 11 = 1056
 // blocks of 192 positions), and at most kMaxSplits.
-//   Inside a block, a row group of LPR = d / EPL lanes reads a cache row
-// with one 16-byte load a lane (EPL = 8 bf16, 4 f32 or 16 int8 elements),
-// so every thread works whatever G is; an int8 row takes half the bf16
+//   Inside a block, a row group of LPR = D / EPL lanes reads a cache row
+// with one 16-byte load a lane (EPL = 8 bf16, 4 f32 or 16 int8 elements;
+// two loads, 8 elements, for f32 at width 256, so that LPR stays a power
+// of two of at most 32 for the butterfly), so every thread works whatever
+// G is.  D is the compiled width (32, 64, 128 or 256) at or above the head
+// dim d, a multiple of 8: a lane whose columns are all past d loads
+// nothing and counts zeros (at d = 96 in bf16, 4 of 16 lanes), an int8
+// lane half past d (d % 16 == 8) loads its 8 bytes below d, and only the d
+// real columns reach the partials and the output; an int8 row takes half the bf16
 // path's lanes, so a block has twice its row groups in flight, and each row
 // group also reads the row's k and v scales (one 2-byte load a row that
 // its lanes share).  An int8 block serves GC = 2 query heads (not 4) when
@@ -73,7 +81,6 @@ namespace {
 
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kUnroll = 4;      // cache rows a row group has in flight
-constexpr int kMaxG = 16;       // query heads per kv head
 constexpr int kMaxSplits = 64;  // partials one combine merges (two a lane)
 constexpr int kBlocksPerSM = 8;
 constexpr float kNegInf = -1e30f;   // the Pallas kernel's NEG_INF
@@ -93,17 +100,21 @@ struct Strides {  // in elements: q (b, h), k and v (b, s, k), o (b, h),
       ss_v, sh_v;
 };
 
-// One lane's load of a cache row: 16 bytes of f32, bf16 or int8.
-template <typename TKV>
-struct Load {
-  using type = uint4;
-  static constexpr int kBytes = 16;
+// One lane's share of a cache row: NV 16-byte vectors of f32, bf16 or
+// int8.
+template <int NV>
+struct Lane {
+  uint4 v[NV];
 };
 
-// How a cache of element type TKV and head dim D is read.
+// How a cache of element type TKV and width D is read.
 template <typename TKV, int D>
 struct Rows {
-  static constexpr int kEPL = Load<TKV>::kBytes / static_cast<int>(sizeof(TKV));
+  // elements of a 16-byte vector, and vectors a lane: two for f32 at
+  // width 256, where one a lane would take 64 lanes a row
+  static constexpr int kE = 16 / static_cast<int>(sizeof(TKV));
+  static constexpr int kVecs = D / kE > 32 ? 2 : 1;
+  static constexpr int kEPL = kVecs * kE;           // elements a lane
   static constexpr int kLPR = D / kEPL;             // lanes a row
   static constexpr int kGroups = kThreads / kLPR;   // row groups a block
   static constexpr int kStep = kGroups * kUnroll;   // rows a block iteration
@@ -114,7 +125,8 @@ struct Rows {
   // and ran 18% faster capped at 128 (q (8, 16, 128) over (8, 2048, 8, 128)
   // on an H100); no cap for the others
   static constexpr int kMinBlocks = sizeof(TKV) == 1 ? 4 : 1;
-  static_assert(kLPR <= 32 && D % kEPL == 0, "a row fits one warp");
+  static_assert(kLPR <= 32 && D % kEPL == 0 && (kLPR & (kLPR - 1)) == 0,
+                "a row is a power-of-two share of one warp");
 };
 
 // 16 bytes of cache row at p: one load when aligned, else element by
@@ -148,20 +160,70 @@ __device__ __forceinline__ uint4 load_row(const int8_t* p, bool vec) {
   return u;
 }
 
+// The first 8 bytes of int8 cache row at p, zeros after them: an int8
+// lane half past the head dim.
+__device__ __forceinline__ uint4 load_half(const int8_t* p, bool vec) {
+  if (vec) {
+    const uint2 h = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(h.x, h.y, 0u, 0u);
+  }
+  const unsigned char* e = reinterpret_cast<const unsigned char*>(p);
+  unsigned char x[16] = {};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = __ldg(e + i);
+  uint4 u;
+  memcpy(&u, x, 16);
+  return u;
+}
+
+// A lane's share of a cache row at p, of which its first nv elements lie
+// below the head dim: its vectors loaded there, zeros past it.  nv is the
+// lane's whole share, 0, or (int8 only) 8 of 16; without kPart it is the
+// whole share, and the vectors load with no test.
+template <int NV, bool kPart, typename TKV>
+__device__ __forceinline__ Lane<NV> load_lane(const TKV* p, bool vec,
+                                              int nv) {
+  constexpr int E = 16 / static_cast<int>(sizeof(TKV));
+  Lane<NV> r;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int n = nv - i * E;  // elements of vector i below the head dim
+    if (!kPart || n >= E) {
+      r.v[i] = load_row(p + i * E, vec);
+    } else if (n <= 0) {
+      r.v[i] = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      if constexpr (sizeof(TKV) == 1)
+        r.v[i] = load_half(p + i * E, vec);
+      else
+        r.v[i] = make_uint4(0u, 0u, 0u, 0u);  // d % 8 == 0: never taken
+    }
+  }
+  return r;
+}
+
 // A bf16 scale twice, as both halves of a bf16x2 word.
 __device__ __forceinline__ unsigned load_scale2(const unsigned short* p) {
   const unsigned s = __ldg(p);
   return s | s << 16;
 }
 
-// The EPL elements of a 16-byte load as f32 (bf16 -> f32 is exact: the
-// bits go to the high half).
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
-  x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
-  x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+// The EPL elements of a lane's f32 or bf16 vectors as f32 (bf16 -> f32 is
+// exact: the bits go to the high half).
+template <int NV>
+__device__ __forceinline__ void unpack(const Lane<NV>& l, float (&x)[4 * NV],
+                                       float) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    x[4 * i] = __uint_as_float(l.v[i].x);
+    x[4 * i + 1] = __uint_as_float(l.v[i].y);
+    x[4 * i + 2] = __uint_as_float(l.v[i].z);
+    x[4 * i + 3] = __uint_as_float(l.v[i].w);
+  }
 }
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+__device__ __forceinline__ void unpack(const Lane<1>& l, float (&x)[8],
+                                       __nv_bfloat16) {
+  const unsigned w[4] = {l.v[0].x, l.v[0].y, l.v[0].z, l.v[0].w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     x[2 * i] = __uint_as_float(w[i] << 16);
@@ -205,15 +267,17 @@ __device__ __forceinline__ void dequant4(unsigned w, unsigned s2, float* x) {
 }
 
 // The 16 int8 values of a 16-byte load dequantized with the row's scale.
-__device__ __forceinline__ void unpack(const uint4& u, float (&x)[16],
+__device__ __forceinline__ void unpack(const Lane<1>& l, float (&x)[16],
                                        unsigned s2) {
-  dequant4(u.x, s2, x);
-  dequant4(u.y, s2, x + 4);
-  dequant4(u.z, s2, x + 8);
-  dequant4(u.w, s2, x + 12);
+  dequant4(l.v[0].x, s2, x);
+  dequant4(l.v[0].y, s2, x + 4);
+  dequant4(l.v[0].z, s2, x + 8);
+  dequant4(l.v[0].w, s2, x + 12);
 }
 
-template <typename TQ, typename TKV, int D, int GC>
+// kPart: the head dim d is below the width D, so lanes past d load nothing
+// (else d == D, and no lane tests it).
+template <typename TQ, typename TKV, int D, int GC, bool kPart>
 __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
     decode_attention_kernel(const TQ* __restrict__ q,
                             const TKV* __restrict__ kc,
@@ -223,13 +287,14 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
                             const int* __restrict__ length_ptr,
                             TQ* __restrict__ o, float* __restrict__ ws,
                             int* __restrict__ counters, int S, int K, int G,
-                            int chunk, int splits, bool vec, Strides st,
-                            float scale) {
+                            int d, int chunk, int splits, bool vec,
+                            Strides st, float scale) {
   using R = Rows<TKV, D>;
-  using V = typename Load<TKV>::type;
+  using V = Lane<R::kVecs>;
   constexpr bool kQ8 = std::is_same<TKV, int8_t>::value;
   constexpr int EPL = R::kEPL, LPR = R::kLPR, NG = R::kGroups;
-  constexpr int W = D + 2;                 // a partial: m, l, acc[D]
+  const int DC = kPart ? d : D;            // the columns that are d's
+  const int W = DC + 2;                    // a partial: m, l, acc[d]
   constexpr int NW = kMaxSplits > NG ? kMaxSplits : NG;
   __shared__ float sm_acc[GC][NG][D];
   __shared__ float sm_m[GC][NG], sm_l[GC][NG];
@@ -243,6 +308,8 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
   const int H = K * G;
   const int split = blockIdx.y;
   const int tid = threadIdx.x, grp = tid / LPR, j = tid % LPR;
+  // this lane's elements below the head dim: EPL, 0 or (int8) 8
+  const int nv = kPart ? min(max(d - j * EPL, 0), EPL) : EPL;
   const int length_in = *length_ptr;
   if (length_in < 1) __trap();
   const int len = length_in < S ? length_in : S;
@@ -257,9 +324,10 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
       const int g = g0 + gg;
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
-        qr[gg][e] = g < G ? to_f32(q[b * st.qb + (kh * G + g) * st.qh +
-                                     j * EPL + e]) * scale
-                          : 0.f;
+        qr[gg][e] = g < G && (!kPart || e < nv)
+                        ? to_f32(q[b * st.qb + (kh * G + g) * st.qh +
+                                   j * EPL + e]) * scale
+                        : 0.f;
         acc[gg][e] = 0.f;
       }
       m[gg] = kNegInf;
@@ -278,8 +346,10 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
       for (int u = 0; u < kUnroll; ++u) {
         const int pos = base + u * NG + grp;
         in[u] = pos < c1;
-        rk[u] = in[u] ? load_row(kb + pos * st.ks, vec) : V{};
-        rv[u] = in[u] ? load_row(vb + pos * st.vs, vec) : V{};
+        rk[u] = in[u] ? load_lane<R::kVecs, kPart>(kb + pos * st.ks, vec, nv)
+                      : V{};
+        rv[u] = in[u] ? load_lane<R::kVecs, kPart>(vb + pos * st.vs, vec, nv)
+                      : V{};
         if constexpr (kQ8) {
           sk[u] = in[u] ? load_scale2(ksb + pos * st.ss_k) : 0u;
           sv[u] = in[u] ? load_scale2(vsb + pos * st.ss_v) : 0u;
@@ -292,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
         if constexpr (kQ8)
           unpack(rk[u], kf, sk[u]);
         else
-          unpack(rk[u], kf);
+          unpack(rk[u], kf, TKV{});
 #pragma unroll
         for (int gg = 0; gg < GC; ++gg) {
           float dot = 0.f;
@@ -330,7 +400,8 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
           float vw[kUnroll][4];
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) {
-            const unsigned word[4] = {rv[u].x, rv[u].y, rv[u].z, rv[u].w};
+            const unsigned word[4] = {rv[u].v[0].x, rv[u].v[0].y,
+                                      rv[u].v[0].z, rv[u].v[0].w};
             dequant4(word[w], sv[u], vw[u]);
           }
 #pragma unroll
@@ -347,7 +418,7 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
       } else {
         float vf[kUnroll][EPL];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) unpack(rv[u], vf[u]);
+        for (int u = 0; u < kUnroll; ++u) unpack(rv[u], vf[u], TKV{});
 #pragma unroll
         for (int gg = 0; gg < GC; ++gg) {
           float mx = m[gg];
@@ -392,8 +463,8 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
       sm_w[gg][r] = expf(sm_m[gg][r] - M);
     }
     __syncthreads();
-    for (int i = tid; i < GC * D; i += kThreads) {
-      const int gg = i / D, c = i % D, g = g0 + gg;
+    for (int i = tid; i < GC * DC; i += kThreads) {
+      const int gg = i / DC, c = i % DC, g = g0 + gg;
       if (g >= G) continue;
       float a = 0.f;
       for (int r = 0; r < NG; ++r) a = fmaf(sm_w[gg][r], sm_acc[gg][r][c], a);
@@ -446,8 +517,8 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
     if (lane == 0) sm_L[warp] = L;
   }
   __syncthreads();
-  for (int i = tid; i < GC * D; i += kThreads) {
-    const int gg = i / D, c = i % D, g = g0 + gg;
+  for (int i = tid; i < GC * DC; i += kThreads) {
+    const int gg = i / DC, c = i % DC, g = g0 + gg;
     if (g >= G) continue;
     const float* parts =
         ws + static_cast<long long>(b * H + kh * G + g) * splits * W;
@@ -494,18 +565,21 @@ Plan plan(int B, int S, int K, int G, int sms) {
   return {gx, cdiv(S, chunk), chunk};
 }
 
+// The compiled width a head dim runs at: the next of 32, 64, 128, 256.
+int width(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
 template <typename TKV>
 Plan plan_d(int d, int B, int S, int K, int G, int sms) {
-  switch (d) {
+  switch (width(d)) {
     case 32: return plan<TKV, 32>(B, S, K, G, sms);
     case 64: return plan<TKV, 64>(B, S, K, G, sms);
     case 128: return plan<TKV, 128>(B, S, K, G, sms);
-    default: return {0, 0, 0};
+    default: return plan<TKV, 256>(B, S, K, G, sms);
   }
 }
 
 Plan plan_for(int kv_dtype, int d, int B, int S, int H, int K) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || H / K > kMaxG)
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
     return {0, 0, 0};
   const int sms = sm_count();
   if (sms < 1) return {0, 0, 0};
@@ -517,27 +591,6 @@ Plan plan_for(int kv_dtype, int d, int B, int S, int H, int K) {
   }
 }
 
-template <typename TQ, typename TKV, int D, int GC>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* ks, const void* vs, const int* length, void* o,
-                   float* ws, int* counters, const Plan& p, int S, int K,
-                   int G, const Strides& st, float scale,
-                   cudaStream_t stream) {
-  constexpr int EPL = Rows<TKV, D>::kEPL, BYTES = Load<TKV>::kBytes;
-  const bool vec = reinterpret_cast<uintptr_t>(kc) % BYTES == 0 &&
-                   reinterpret_cast<uintptr_t>(vc) % BYTES == 0 &&
-                   st.kb % EPL == 0 && st.ks % EPL == 0 && st.kh % EPL == 0 &&
-                   st.vb % EPL == 0 && st.vs % EPL == 0 && st.vh % EPL == 0;
-  const dim3 grid(p.gx, p.splits);
-  decode_attention_kernel<TQ, TKV, D, GC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kc),
-      static_cast<const TKV*>(vc), static_cast<const unsigned short*>(ks),
-      static_cast<const unsigned short*>(vs), length, static_cast<TQ*>(o), ws,
-      counters,
-      S, K, G, p.chunk, p.splits, vec, st, scale);
-  return cudaGetLastError();
-}
-
 // The pointers and sizes of one call, passed down the dispatch.
 struct Call {
   const void *q, *kc, *vc, *ks, *vs;
@@ -546,30 +599,51 @@ struct Call {
   float* ws;
   int* counters;
   Plan p;
-  int S, K, G;
+  int S, K, G, d;
   Strides st;
   float scale;
   cudaStream_t stream;
 };
 
+template <typename TQ, typename TKV, int D, int GC, bool kPart>
+cudaError_t launch(const Call& c) {
+  constexpr int E = Rows<TKV, D>::kE;  // elements of a 16-byte load
+  const Strides& st = c.st;
+  const bool vec = reinterpret_cast<uintptr_t>(c.kc) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(c.vc) % 16 == 0 &&
+                   st.kb % E == 0 && st.ks % E == 0 && st.kh % E == 0 &&
+                   st.vb % E == 0 && st.vs % E == 0 && st.vh % E == 0;
+  const dim3 grid(c.p.gx, c.p.splits);
+  decode_attention_kernel<TQ, TKV, D, GC, kPart>
+      <<<grid, kThreads, 0, c.stream>>>(
+          static_cast<const TQ*>(c.q), static_cast<const TKV*>(c.kc),
+          static_cast<const TKV*>(c.vc),
+          static_cast<const unsigned short*>(c.ks),
+          static_cast<const unsigned short*>(c.vs), c.length,
+          static_cast<TQ*>(c.o), c.ws, c.counters, c.S, c.K, c.G, c.d,
+          c.p.chunk, c.p.splits, vec, st, c.scale);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D, int GC>
+cudaError_t launch_part(const Call& c) {
+  return c.d == D ? launch<TQ, TKV, D, GC, false>(c)
+                  : launch<TQ, TKV, D, GC, true>(c);
+}
+
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_g(const Call& c) {
-  if (c.G == 1)
-    return launch<TQ, TKV, D, 1>(c.q, c.kc, c.vc, c.ks, c.vs, c.length, c.o,
-                                 c.ws, c.counters, c.p, c.S, c.K, c.G, c.st,
-                                 c.scale, c.stream);
-  return launch<TQ, TKV, D, Rows<TKV, D>::kGC>(
-      c.q, c.kc, c.vc, c.ks, c.vs, c.length, c.o, c.ws, c.counters, c.p, c.S,
-      c.K, c.G, c.st, c.scale, c.stream);
+  if (c.G == 1) return launch_part<TQ, TKV, D, 1>(c);
+  return launch_part<TQ, TKV, D, Rows<TKV, D>::kGC>(c);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t dispatch_d(const Call& c, int d) {
-  switch (d) {
+cudaError_t dispatch_d(const Call& c) {
+  switch (width(c.d)) {
     case 32: return launch_g<TQ, TKV, 32>(c);
     case 64: return launch_g<TQ, TKV, 64>(c);
     case 128: return launch_g<TQ, TKV, 128>(c);
-    default: return cudaErrorInvalidValue;
+    default: return launch_g<TQ, TKV, 256>(c);
   }
 }
 
@@ -611,14 +685,14 @@ extern "C" cudaError_t decode_attention_launch(
                    strides[8],  strides[9],  strides[10], strides[11],
                    strides[12], strides[13], strides[14], strides[15]};
   const Call c{q, kc, vc, ks, vs, length, o, ws, counters, p, S, K, H / K,
-               st, scale, stream};
-  if (q_dtype == 0 && kv_dtype == 0) return dispatch_d<float, float>(c, d);
+               d, st, scale, stream};
+  if (q_dtype == 0 && kv_dtype == 0) return dispatch_d<float, float>(c);
   if (q_dtype == 1 && kv_dtype == 1)
-    return dispatch_d<__nv_bfloat16, __nv_bfloat16>(c, d);
+    return dispatch_d<__nv_bfloat16, __nv_bfloat16>(c);
   if (q_dtype == 0 && kv_dtype == 1)
-    return dispatch_d<float, __nv_bfloat16>(c, d);
-  if (q_dtype == 0 && kv_dtype == 2) return dispatch_d<float, int8_t>(c, d);
+    return dispatch_d<float, __nv_bfloat16>(c);
+  if (q_dtype == 0 && kv_dtype == 2) return dispatch_d<float, int8_t>(c);
   if (q_dtype == 1 && kv_dtype == 2)
-    return dispatch_d<__nv_bfloat16, int8_t>(c, d);
+    return dispatch_d<__nv_bfloat16, int8_t>(c);
   return cudaErrorInvalidValue;
 }

@@ -9,7 +9,10 @@
 // (B,S,H,d) against k, v (B,S,K,d), head h reading kv head h / (H/K); q is
 // scaled by 1/sqrt(d) before the dot; running max, denominator and
 // accumulator in f32 (online softmax, masked scores at -1e30); kv tiles past
-// the diagonal are skipped; out = acc / l.
+// the diagonal are skipped; out = acc / l.  Any d that is a multiple of 8
+// up to 256 runs at the compiled width above it (32, 64, 128 or 256): the
+// copies zero-fill the columns past d, whose products add exact zeros, and
+// only the d real output columns are stored.
 //
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the f32 rate
 // outside the tensor cores (67 TFLOP/s on an H100 SXM), far above the bytes
@@ -46,6 +49,9 @@
 // zero-filled by the copies and never stored.  Shared memory holds Q^T, the
 // K copy (rows padded by 4 floats, so the transpose's reads of 8 rows fall
 // in distinct banks), K^T, V and P^T: 113 KB at d = 64, two blocks an SM.
+// At width 256 a row group is a whole warp (TX = 32), so a tile of 32 keys
+// gives each thread one key (NS = 1) in Q.K^T; 256 threads, 64 q rows and
+// 32-row kv tiles take 169 KB, one block an SM.
 // The launch plan (threads, BQ, BK, shared memory) is kernel.py's f32_plan,
 // checked here against the compiled constants.
 #include <cuda_runtime.h>
@@ -77,6 +83,10 @@ template <>
 struct Plan<128> {
   static constexpr int kThreads = 256, kBK = 64;
 };
+template <>
+struct Plan<256> {
+  static constexpr int kThreads = 256, kBK = 32;
+};
 
 template <int D>
 struct Tile {
@@ -94,7 +104,8 @@ struct Tile {
   static constexpr int kPt = BK * BQ;     // P^T: BK x BQ, swizzled chunks
   static constexpr size_t kSmem =
       sizeof(float) * (kQt + kKs + kKt + kVs + kPt);
-  static_assert(NT % TX == 0 && BK % TX == 0 && BQ % 32 == 0 && NS % 4 == 0,
+  static_assert(NT % TX == 0 && BK % TX == 0 && BQ % 32 == 0 &&
+                    (NS == 1 || NS == 4 || NS == 8),
                 "the plan must tile the block and P^T's swizzle groups");
   static_assert((BK * D / 4) % NT == 0 && (BQ * D / 4) % NT == 0,
                 "copies must divide among the threads");
@@ -140,18 +151,18 @@ __device__ __forceinline__ float lane(const float4& x, int i) {
 }
 
 // Rows [r0, r0 + R) of one head of k or v into dst (row pitch ld floats),
-// zero past S.
-template <int D, int R, int NT>
+// zero past S and, with kPart, past column d.
+template <int D, int R, int NT, bool kPart>
 __device__ __forceinline__ void stage(float* dst, int ld, const float* src,
-                                      long long stride, int r0, int S,
+                                      long long stride, int r0, int S, int d,
                                       bool vec, int tid) {
   constexpr int C4 = D / 4;
 #pragma unroll
   for (int n = 0; n < R * C4 / NT; ++n) {
     const int i = tid + n * NT;
     const int r = i / C4, c = 4 * (i % C4), pos = r0 + r;
-    const bool in = pos < S;
-    const float* s = src + (in ? pos : S - 1) * stride + c;
+    const bool in = pos < S && (!kPart || c < d);
+    const float* s = src + (in ? pos : S - 1) * stride + (in || !kPart ? c : 0);
     float* d = dst + r * ld + c;
     if (vec) {
       cp_async16(d, s, in ? 16 : 0);
@@ -163,9 +174,10 @@ __device__ __forceinline__ void stage(float* dst, int ld, const float* src,
 }
 
 // S = Q.K^T for the thread's 8 q rows (row0 ..) and NS keys (4 tx + e +
-// g BK/2: NS/4 chunks of 4), each summed over d in order from 0.  Both
-// operands come from transposed tiles, so each dim is two 16-byte loads of
-// Q^T and NS/4 of K^T for 8 NS FMAs.
+// g BK/2: NS/4 chunks of 4; key tx when NS = 1), each summed over d in
+// order from 0.  Both operands come from transposed tiles, so each dim is
+// two 16-byte loads of Q^T and NS/4 of K^T (one 4-byte load when NS = 1)
+// for 8 NS FMAs.
 template <int D>
 __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
                                        int row0, int tx,
@@ -184,6 +196,7 @@ __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
     const float4 qz = *reinterpret_cast<const float4*>(qp + c * BQ + 4);
     const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qz.x, qz.y, qz.z, qz.w};
     float kv[NS];
+    if constexpr (NS == 1) kv[0] = Kt[c * BK + tx];
 #pragma unroll
     for (int g = 0; g < NS / 4; ++g) {
       const float4 kg =
@@ -201,9 +214,10 @@ __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
 }
 
 // The key of the thread's score column j among the tile's: 4 tx + (j & 3)
-// + (j / 4) BK/2.
+// + (j / 4) BK/2, or tx when the thread has one key.
 template <int D>
 __device__ __forceinline__ int key_of(int tx, int j) {
+  if constexpr (Tile<D>::NS == 1) return tx;
   return 4 * tx + (j & 3) + (j >> 2) * (Tile<D>::BK / 2);
 }
 
@@ -216,15 +230,15 @@ template <int D>
 __device__ __forceinline__ void softmax(float (&s)[8][Tile<D>::NS],
                                         float (&m_run)[8], float (&l_run)[8],
                                         float (&acc)[8][8], bool masked,
-                                        int q_pos, int k_pos) {
+                                        int q_pos, int k0, int tx) {
   using T = Tile<D>;
   constexpr int TX = T::TX, NS = T::NS;
-  if (masked) {  // k_pos: the position of the thread's key 4 tx
+  if (masked) {  // k0: the position of the tile's first key
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < NS; ++j)
-        if (q_pos + i < k_pos + key_of<D>(0, j)) s[i][j] = kNegInf;
+        if (q_pos + i < k0 + key_of<D>(tx, j)) s[i][j] = kNegInf;
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -305,12 +319,14 @@ __device__ __forceinline__ void accumulate(const float* Pt, const float* Vs,
   }
 }
 
-template <int D>
+// kPart: the head dim d is below the width D, so the copies zero the
+// columns past d and only d are stored (else d == D, and nothing tests it).
+template <int D, bool kPart>
 __global__ void __launch_bounds__(Tile<D>::NT)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int H, int G, int BH, Strides st,
+                           int S, int H, int G, int BH, int d, Strides st,
                            float scale, bool vec) {
   using T = Tile<D>;
   constexpr int NT = T::NT, BK = T::BK, TX = T::TX, BQ = T::BQ, NS = T::NS;
@@ -333,7 +349,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
   const float* vb = v + b * st.vb + kh * st.vh;
   const int kt_last = (min(q0 + BQ, S) - 1) / BK;
 
-  stage<D, BK, NT>(Ks, T::LDK, kb, st.ks, 0, S, vec, tid);
+  stage<D, BK, NT, kPart>(Ks, T::LDK, kb, st.ks, 0, S, d, vec, tid);
   cp_async_commit();
 
   // Q^T, scaled: consecutive threads take consecutive rows, so the
@@ -343,7 +359,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
     const int i = tid + n * NT;
     const int r = i % BQ, c = 4 * (i / BQ), pos = q0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S) {
+    if (pos < S && (!kPart || c < d)) {
       const float* p = qb + pos * st.qs + c;
       x = vec ? *reinterpret_cast<const float4*>(p)
               : make_float4(p[0], p[1], p[2], p[3]);
@@ -367,7 +383,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
     const int k0 = kt * BK;
     cp_async_wait<0>();
     __syncthreads();  // K[kt] (and Q^T) in; P.V of kt - 1 done with Vs, Pt
-    stage<D, BK, NT>(Vs, D, vb, st.vs, k0, S, vec, tid);
+    stage<D, BK, NT, kPart>(Vs, D, vb, st.vs, k0, S, d, vec, tid);
     cp_async_commit();
     // K^T: consecutive threads take consecutive keys, so the transposed
     // stores are conflict-free
@@ -383,15 +399,15 @@ __global__ void __launch_bounds__(Tile<D>::NT)
     }
     __syncthreads();  // K^T in; the copy buffer free
     if (kt < kt_last) {
-      stage<D, BK, NT>(Ks, T::LDK, kb, st.ks, k0 + BK, S, vec, tid);
+      stage<D, BK, NT, kPart>(Ks, T::LDK, kb, st.ks, k0 + BK, S, d, vec,
+                              tid);
       cp_async_commit();
     }
 
     float s[8][NS];
     scores<D>(Qt, Kt, row0, tx, s);
     // only a tile reaching past the block's first row has keys to mask
-    softmax<D>(s, m_run, l_run, acc, k0 + BK - 1 > q0, q0 + row0,
-               k0 + 4 * tx);
+    softmax<D>(s, m_run, l_run, acc, k0 + BK - 1 > q0, q0 + row0, k0, tx);
     store_p<D>(s, Pt, ty, tx);
     if (kt < kt_last)
       cp_async_wait<1>();  // V[kt] in; K[kt + 1] may still be in flight
@@ -411,24 +427,28 @@ __global__ void __launch_bounds__(Tile<D>::NT)
                                   acc[i][2] / l, acc[i][3] / l);
     const float4 hi = make_float4(acc[i][4] / l, acc[i][5] / l,
                                   acc[i][6] / l, acc[i][7] / l);
+    // columns 4 tx .. and D/2 + 4 tx .., each group of 4 all below d or
+    // all past it (d % 8 == 0)
+    const bool in_lo = !kPart || 4 * tx < d;
+    const bool in_hi = !kPart || D / 2 + 4 * tx < d;
     if (vec) {
-      *reinterpret_cast<float4*>(orow) = lo;
-      *reinterpret_cast<float4*>(orow + D / 2) = hi;
+      if (in_lo) *reinterpret_cast<float4*>(orow) = lo;
+      if (in_hi) *reinterpret_cast<float4*>(orow + D / 2) = hi;
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        orow[c] = lane(lo, c);
-        orow[D / 2 + c] = lane(hi, c);
+        if (in_lo) orow[c] = lane(lo, c);
+        if (in_hi) orow[D / 2 + c] = lane(hi, c);
       }
     }
   }
 }
 
-template <int D>
+template <int D, bool kPart>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int K, const Strides& st, float scale,
-                   int q_rows, int kv_rows, int threads, int smem_bytes,
-                   bool vec, cudaStream_t stream) {
+                   int B, int S, int H, int K, int d, const Strides& st,
+                   float scale, int q_rows, int kv_rows, int threads,
+                   int smem_bytes, bool vec, cudaStream_t stream) {
   using T = Tile<D>;
   if (q_rows != T::BQ || kv_rows != T::BK || threads != T::NT ||
       smem_bytes != static_cast<int>(T::kSmem))
@@ -438,32 +458,49 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
   constexpr int smem = static_cast<int>(T::kSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel<D, kPart>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<D>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<D, kPart>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  flash_attention_kernel<D><<<static_cast<unsigned>(blocks), T::NT, smem,
-                              stream>>>(
+  flash_attention_kernel<D, kPart><<<static_cast<unsigned>(blocks), T::NT,
+                                     smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
-      static_cast<int>(BH), st, scale, vec);
+      static_cast<int>(BH), d, st, scale, vec);
   return cudaGetLastError();
+}
+
+// Width D, its d == D kernel or the one for a d below it.
+template <int D>
+cudaError_t launch_width(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int H, int K, int d, const Strides& st,
+                         float scale, int q_rows, int kv_rows, int threads,
+                         int smem_bytes, bool vec, cudaStream_t stream) {
+  return d == D ? launch<D, false>(q, k, v, o, B, S, H, K, d, st, scale,
+                                   q_rows, kv_rows, threads, smem_bytes, vec,
+                                   stream)
+                : launch<D, true>(q, k, v, o, B, S, H, K, d, st, scale,
+                                  q_rows, kv_rows, threads, smem_bytes, vec,
+                                  stream);
 }
 
 }  // namespace
 
 // q, k, v and o f32; strides: 12 element strides (batch, sequence, head) of
-// q, k, v, o; the head dim is contiguous.  q_rows, kv_rows, threads and
+// q, k, v, o; the head dim is contiguous.  d: a multiple of 8 from 8 to
+// 256, run at the next compiled width.  q_rows, kv_rows, threads and
 // smem_bytes: kernel.py's f32_plan for d, refused unless they are this
 // build's.
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale, int q_rows,
     int kv_rows, int threads, int smem_bytes, cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0) return cudaErrorInvalidValue;
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
+    return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
@@ -473,17 +510,19 @@ extern "C" cudaError_t flash_attention_launch(
   for (const void* p : bases)
     vec = vec && reinterpret_cast<unsigned long long>(p) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
-  switch (d) {
+  const int w = d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  switch (w) {
     case 32:
-      return launch<32>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
-                        threads, smem_bytes, vec, stream);
+      return launch_width<32>(q, k, v, o, B, S, H, K, d, st, scale, q_rows,
+                              kv_rows, threads, smem_bytes, vec, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
-                        threads, smem_bytes, vec, stream);
+      return launch_width<64>(q, k, v, o, B, S, H, K, d, st, scale, q_rows,
+                              kv_rows, threads, smem_bytes, vec, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, S, H, K, st, scale, q_rows, kv_rows,
-                         threads, smem_bytes, vec, stream);
+      return launch_width<128>(q, k, v, o, B, S, H, K, d, st, scale, q_rows,
+                               kv_rows, threads, smem_bytes, vec, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch_width<256>(q, k, v, o, B, S, H, K, d, st, scale, q_rows,
+                               kv_rows, threads, smem_bytes, vec, stream);
   }
 }

@@ -9,7 +9,8 @@
 // against k, v (B,S,K,d), head h reading kv head h / (H/K), scores scaled
 // by 1/sqrt(d), running max, denominator and accumulator in f32 (online
 // softmax, masked scores at -1e30), kv tiles past the diagonal skipped,
-// out = acc / l in bf16.  Any S; d of 32, 64 or 128.
+// out = acc / l in bf16.  Any S, any B * H; any d that is a multiple of 8
+// up to 256, run at the compiled width above it (32, 64, 128 or 256).
 //
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the bf16
 // tensor-core peak (989 TFLOP/s on an H100 SXM: 0.028 ms at
@@ -18,14 +19,23 @@
 // shared memory, 51x that bound; this one puts both products on the
 // tensor cores and takes the loads off the threads.
 //
-// Design.  One CTA of one warpgroup (128 threads) per (64-row q tile,
-// batch * head), longest q tiles first.  Thread 0 loads the q tile once and
-// each 64-row k and v tile by TMA (a 4-D tensor map over (d, heads, S, B)
-// built on the host from the tensors' own strides, so q, k and v are read
-// in place; TMA's zero fill covers rows past S) into a two-stage ring, with
-// an mbarrier a stage: tile kt + 2 is requested as soon as tile kt is
-// consumed.  Rows are stored 128B-swizzled (64B for d = 32) in slabs of
-// 64 columns, the layout wgmma's descriptors read; d = 128 spans two slabs.
+// Design.  One CTA per (64-row q tile, batch * head), on a one-dimensional
+// grid with every head's longest q tile first (so any B * H runs: the grid
+// takes q tiles x B * H < 2^31 blocks).  A CTA is one warpgroup (128
+// threads), two at width 256.  Thread 0 loads the q tile once and each
+// 64-row k and v tile by TMA (a 4-D tensor map over (d, heads, S, B) built
+// on the host from the tensors' own strides, so q, k and v are read in
+// place; TMA's zero fill covers rows past S and, for a d below the
+// compiled width, the columns past d, whose products then add exact zeros)
+// into a two-stage ring, with an mbarrier a stage: tile kt + 2 is
+// requested as soon as tile kt is consumed.  Rows are stored 128B-swizzled
+// (64B at width 32) in slabs of 64 columns, the layout wgmma's descriptors
+// read; width 128 spans two slabs, 256 four (161 KB of shared memory at two
+// stages).  At width 256 a 64 x 256 f32 accumulator would take 128
+// registers a thread before S and P, so each of the two warpgroups computes
+// the whole S (the same wgmmas on the same tiles, so the same bits and the
+// same softmax statistics) and keeps the P.V accumulator of two of the
+// four slabs.  Only the d real output columns are stored.
 //   S = Q.K^T is a wgmma m64n64k16 chain (A and B both from shared memory,
 //   K-major), f32 accumulate: bf16 products are exact in f32, so only the
 //   order of the sums differs from the SIMT kernel.  The 1/sqrt(d) scale
@@ -53,14 +63,14 @@
 #include <dlfcn.h>
 
 #include <atomic>
-
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr int kBQ = 64;         // q rows per CTA
 constexpr int kBK = 64;         // k/v rows per tile
-constexpr int kThreads = 128;   // one warpgroup
+constexpr int kWarpgroup = 128;
 constexpr int kStages = 2;      // k/v tiles in flight
 constexpr float kNegInf = -1e30f;   // the Pallas kernel's NEG_INF
 
@@ -70,7 +80,11 @@ constexpr float kNegInf = -1e30f;   // the Pallas kernel's NEG_INF
 template <int D>
 struct Tile {
   static constexpr int kCols = D < 64 ? D : 64;    // columns a slab holds
-  static constexpr int kSlabs = D / kCols;         // 1, 1 or 2
+  static constexpr int kSlabs = D / kCols;         // 1, 1, 2 or 4
+  // warpgroups a CTA, and the output slabs each accumulates
+  static constexpr int kGroups = D > 128 ? 2 : 1;
+  static constexpr int kThreads = kWarpgroup * kGroups;
+  static constexpr int kGroupSlabs = kSlabs / kGroups;
   static constexpr int kRowBytes = 2 * kCols;      // the swizzle span
   static constexpr int kSlabBytes = kBK * kRowBytes;
   static constexpr int kBytes = kSlabs * kSlabBytes;
@@ -230,14 +244,16 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<D>::kThreads)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ o, int S, int H,
-                                int G, long long ob, long long os,
-                                long long oh, float scale_log2) {
+                                int G, int BH, int d, long long ob,
+                                long long os, long long oh,
+                                float scale_log2) {
   using T = Tile<D>;
+  constexpr int kGS = T::kGroupSlabs;
   constexpr int kN = T::kCols;          // N of a P.V wgmma: one slab
   constexpr int kOR = kN / 2;           // its f32 registers a thread
   constexpr int kKSlab = T::kCols / 16; // k16 steps of Q.K^T in a slab
@@ -249,22 +265,39 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t kv_bar = q_bar + 8;               // one a stage
 
   const int nq = (S + kBQ - 1) / kBQ;
-  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
-  const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / G;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H, kh = h / G;
   const int q0 = qi * kBQ;
   const int n_kv = qi + 1;  // kv tiles up to the diagonal
   const int tid = threadIdx.x;
 
+  // slabs holding a column below d: only these are loaded; the others (at
+  // width 256, d <= 192) are zeroed once here, and no copy ever lands there
+  const int n_slabs = (d + T::kCols - 1) / T::kCols;
   auto load_kv = [&](int kt, int stage) {
     const uint32_t bar = kv_bar + 8 * stage;
-    mbar_expect_tx(bar, 2 * T::kBytes);
+    mbar_expect_tx(bar, 2 * n_slabs * T::kSlabBytes);
 #pragma unroll
     for (int s = 0; s < T::kSlabs; ++s) {
+      if (s >= n_slabs) break;
       const uint32_t off = stage * T::kBytes + s * T::kSlabBytes;
       tma_load(sk + off, &tk, s * T::kCols, kh, kt * kBK, b, bar);
       tma_load(sv + off, &tv, s * T::kCols, kh, kt * kBK, b, bar);
     }
   };
+  if (n_slabs < T::kSlabs) {  // q, then each stage of k and of v
+    const int words = (T::kSlabs - n_slabs) * T::kSlabBytes / 16;
+    for (int i = tid; i < (1 + 2 * kStages) * words; i += T::kThreads) {
+      const uint32_t addr = sq + (i / words) * T::kBytes +
+                            n_slabs * T::kSlabBytes + (i % words) * 16;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+                   "r"(0u)
+                   : "memory");
+    }
+    // the zeros must be seen by wgmma, which reads through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (tid == 0) {
     mbar_init(q_bar, 1);
     for (int s = 0; s < kStages; ++s) mbar_init(kv_bar + 8 * s, 1);
@@ -273,19 +306,24 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(q_bar, T::kBytes);
+    mbar_expect_tx(q_bar, n_slabs * T::kSlabBytes);
 #pragma unroll
-    for (int s = 0; s < T::kSlabs; ++s)
+    for (int s = 0; s < T::kSlabs; ++s) {
+      if (s >= n_slabs) break;
       tma_load(sq + s * T::kSlabBytes, &tq, s * T::kCols, h, q0, b, q_bar);
+    }
     for (int kt = 0; kt < kStages && kt < n_kv; ++kt) load_kv(kt, kt);
   }
 
-  // this thread's rows r0 and r0 + 8, columns 8j + c0 + {0, 1}
-  const int warp = tid / 32, lane = tid % 32;
+  // this thread's rows r0 and r0 + 8, columns 8j + c0 + {0, 1} of its
+  // warpgroup's output slabs s0 ..
+  const int warp = (T::kGroups > 1 ? tid % kWarpgroup : tid) / 32;
+  const int lane = tid % 32;
   const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
-  float acc[T::kSlabs][kOR];
+  const int s0 = T::kGroups > 1 ? (tid / kWarpgroup) * kGS : 0;
+  float acc[kGS][kOR];
 #pragma unroll
-  for (int n = 0; n < T::kSlabs; ++n)
+  for (int n = 0; n < kGS; ++n)
 #pragma unroll
     for (int i = 0; i < kOR; ++i) acc[n][i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf};
@@ -351,18 +389,18 @@ __global__ void __launch_bounds__(kThreads)
       p_lo[i] = bf16x2(p0 - bf16_lo(p_hi[i]), p1 - bf16_hi(p_hi[i]));
     }
 #pragma unroll
-    for (int n = 0; n < T::kSlabs; ++n)
+    for (int n = 0; n < kGS; ++n)
 #pragma unroll
       for (int i = 0; i < kOR; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
 
     // O += P_hi.V + P_lo.V
     wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < T::kSlabs; ++n)
+    for (int n = 0; n < kGS; ++n)
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t dv = smem_desc(
-            v_tile + n * T::kSlabBytes + kk * 2 * T::kAtomBytes,
+            v_tile + (s0 + n) * T::kSlabBytes + kk * 2 * T::kAtomBytes,
             T::kAtomBytes, T::kAtomBytes, T::kLayout);
         if constexpr (kN == 64) {
           wgmma_rs_n64(acc[n], p_hi + 4 * kk, dv);
@@ -375,7 +413,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int n = 0; n < T::kSlabs; ++n)
+    for (int n = 0; n < kGS; ++n)
 #pragma unroll
       for (int i = 0; i < kOR; ++i) fence_reg(acc[n][i]);
 #pragma unroll
@@ -388,7 +426,8 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0 && kt + kStages < n_kv) load_kv(kt + kStages, stage);
   }
 
-  // out = acc / l, rows below S only
+  // out = acc / l, rows below S and columns below d only (d % 8 == 0, so
+  // a thread's column pair is both in or both out)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
@@ -400,12 +439,15 @@ __global__ void __launch_bounds__(kThreads)
     if (pos >= S) continue;
     __nv_bfloat16* orow = o + b * ob + pos * os + h * oh;
 #pragma unroll
-    for (int n = 0; n < T::kSlabs; ++n)
+    for (int n = 0; n < kGS; ++n)
 #pragma unroll
-      for (int j = 0; j < kN / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + n * kN + 8 * j + c0) =
-            bf16x2(acc[n][4 * j + 2 * r] / l_run[r],
-                   acc[n][4 * j + 2 * r + 1] / l_run[r]);
+      for (int j = 0; j < kN / 8; ++j) {
+        const int col = (s0 + n) * kN + 8 * j + c0;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              bf16x2(acc[n][4 * j + 2 * r] / l_run[r],
+                     acc[n][4 * j + 2 * r + 1] / l_run[r]);
+      }
   }
 }
 
@@ -427,15 +469,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map of a (B, S, heads, D) bf16 tensor, innermost first, boxes of
-// one slab: 64 rows of one head.  Strides in elements.
+// A 4-D map of a (B, S, heads, d) bf16 tensor, innermost first, boxes of
+// one slab of width D: 64 rows of one head, zero-filled past d.  Strides in
+// elements.
 template <int D>
 bool encode(CUtensorMap* map, const void* base, int B, int S, int heads,
-            long long sb, long long ss, long long sh) {
+            int d, long long sb, long long ss, long long sh) {
   using T = Tile<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
@@ -457,12 +500,15 @@ struct Strides {  // in elements: batch, sequence, head of q, k, v and o
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int K, const Strides& st,
+                   int B, int S, int H, int K, int d, const Strides& st,
                    float scale_log2, cudaStream_t stream) {
+  const long long BH = static_cast<long long>(B) * H;
+  const long long blocks = BH * ((S + kBQ - 1) / kBQ);
+  if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!encode<D>(&tq, q, B, S, H, st.qb, st.qs, st.qh) ||
-      !encode<D>(&tk, k, B, S, K, st.kb, st.ks, st.kh) ||
-      !encode<D>(&tv, v, B, S, K, st.vb, st.vs, st.vh))
+  if (!encode<D>(&tq, q, B, S, H, d, st.qb, st.qs, st.qh) ||
+      !encode<D>(&tk, k, B, S, K, d, st.kb, st.ks, st.kh) ||
+      !encode<D>(&tv, v, B, S, K, d, st.vb, st.vs, st.vh))
     return cudaErrorInvalidValue;
   constexpr int bytes = smem_bytes<D>();
   // The shared-memory limit is raised once per device and head dim, not on
@@ -479,10 +525,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     raised.fetch_or(bit, std::memory_order_relaxed);
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_attention_bf16_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, H / K, st.ob, st.os,
-      st.oh, scale_log2);
+  flash_attention_bf16_kernel<D>
+      <<<static_cast<unsigned>(blocks), Tile<D>::kThreads, bytes, stream>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, H / K,
+          static_cast<int>(BH), d, st.ob, st.os, st.oh, scale_log2);
   return cudaGetLastError();
 }
 
@@ -491,24 +537,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // q, k, v and o bf16; strides: 12 element strides (batch, sequence, head)
 // of q, k, v, o, the head dim contiguous.  The caller has checked that the
 // bases and the q, k, v strides are multiples of 16 bytes (TMA's rule).
+// d: a multiple of 8 from 8 to 256, run at the next compiled width.
 extern "C" cudaError_t flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale,
     cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || B * H > 65535)
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
-  switch (d) {
-    case 32:
-      return launch<32>(q, k, v, o, B, S, H, K, st, scale_log2, stream);
-    case 64:
-      return launch<64>(q, k, v, o, B, S, H, K, st, scale_log2, stream);
-    case 128:
-      return launch<128>(q, k, v, o, B, S, H, K, st, scale_log2, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (d <= 32)
+    return launch<32>(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
+  if (d <= 64)
+    return launch<64>(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
+  if (d <= 128)
+    return launch<128>(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
+  return launch<256>(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
 }

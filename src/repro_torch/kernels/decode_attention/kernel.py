@@ -13,8 +13,10 @@ import math
 
 import torch
 
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16   # query heads per kv head
+from repro_torch.kernels.flash_attention.kernel import (WIDTHS,
+                                                        head_dim_refusal)
+
+INT32_LIMIT = 2 ** 31
 # (q dtype, cache dtype) pairs the kernel is built for; an int8 cache comes
 # with bf16 scales
 DTYPE_PAIRS = ((torch.float32, torch.float32),
@@ -40,8 +42,9 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: torch.Tensor,
                      k_scale=None, v_scale=None) -> torch.Tensor:
-    """q: (B, H, d), caches: (B, S, K, d) CUDA tensors (head dim contiguous;
-    dtypes in ``DTYPE_PAIRS``), ``length`` a 0-d or one-element int32 tensor
+    """q: (B, H, d), caches: (B, S, K, d) CUDA tensors (head dim contiguous,
+    a multiple of 8 up to 256; any H a multiple of K; dtypes in
+    ``DTYPE_PAIRS``), ``length`` a 0-d or one-element int32 tensor
     on the same device.  An int8 cache needs its scales ``k_scale`` and
     ``v_scale``: bf16 (B, S, K) on the same device, any strides; the
     kernel dequantizes each value as ``ref.dequantize`` does (the int8
@@ -77,14 +80,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, d = q.shape if q.dim() == 3 else (0, 0, 0)
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != d or B < 1 \
-            or k_cache.shape[1] < 1 or H % k_cache.shape[2] \
-            or H // k_cache.shape[2] > MAX_GROUP or d not in HEAD_DIMS \
+            or k_cache.shape[1] < 1 or k_cache.shape[2] < 1 \
+            or H % k_cache.shape[2] \
             or any(x.stride(-1) != 1 for x in (q, k_cache, v_cache)):
         raise ValueError(
             f"decode_attention kernel shapes q {tuple(q.shape)} caches "
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}: H a multiple "
-            f"of K with at most {MAX_GROUP} query heads per kv head, head "
-            f"dim in {HEAD_DIMS} and contiguous")
+            f"of K and the head dim contiguous")
+    why = head_dim_refusal(d)
+    if why is None and B * H >= INT32_LIMIT:
+        why = (f"B * H = {B * H}: the kernel indexes its (lane, head) "
+               f"partials and counters with int32")
+    if why is not None:
+        raise ValueError(f"decode_attention kernel: {why}")
     if (k_cache.dtype == torch.int8) != bool(scales) or any(
             s.dtype != torch.bfloat16 or s.shape != k_cache.shape[:3]
             for _, s in scales):
@@ -103,6 +111,25 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         extension().decode_attention(q, k_cache, v_cache, length, o,
                                      counters, 1.0 / math.sqrt(d))
     return o
+
+
+def lane_layout(kv_dtype: torch.dtype, d: int) -> dict:
+    """How the kernel reads a cache row of head dim ``d`` (its
+    ``Rows<TKV, D>`` and ``load_lane``): the compiled ``width`` D at or
+    above d, the ``elements`` a lane loads (16 bytes, or 32 for f32 at
+    width 256), the ``lanes`` of a row group (a power of two of at most 32,
+    for the xor butterfly), the ``active`` lanes that hold a column below
+    d, and how many elements of the last active lane lie below d
+    (``last``: all of them, or 8 of an int8 lane's 16)."""
+    why = head_dim_refusal(d)
+    if why is not None:
+        raise ValueError(why)
+    D = next(w for w in WIDTHS if w >= d)
+    per_vec = 16 // torch.empty((), dtype=kv_dtype).element_size()
+    elements = per_vec * (2 if D // per_vec > 32 else 1)
+    active = -(-d // elements)
+    return {"width": D, "elements": elements, "lanes": D // elements,
+            "active": active, "last": d - (active - 1) * elements}
 
 
 def split_plan(q: torch.Tensor, k_cache: torch.Tensor):

@@ -3,8 +3,9 @@ Pallas kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``):
 ``repro_torch/csrc/flash_attention_wgmma.cu`` on the tensor cores for bf16
 and ``repro_torch/csrc/flash_attention.cu`` (SIMT f32 FMAs, register tiles,
 cp.async) for f32.  Both read q, k and v in place by their strides and take
-any S.  :func:`f32_plan` lays out the f32 kernel's launch; it runs on the
-CPU."""
+any S, any B * H and any head dim that is a multiple of 8 up to 256, which
+runs at the compiled width above it (:func:`width`).  :func:`f32_plan` lays
+out the f32 kernel's launch; it runs on the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,18 +13,40 @@ import math
 
 import torch
 
-HEAD_DIMS = (32, 64, 128)
+WIDTHS = (32, 64, 128, 256)   # head dims the kernels are compiled for
+HEAD_DIM_STEP = 8    # a head dim is a multiple of this: bf16's 16-byte rows
+MAX_HEAD_DIM = WIDTHS[-1]
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GRID_Y = 65535   # the bf16 kernel's batch * heads: its grid's y axis
-MAX_GRID_X = 2 ** 31 - 1   # the f32 kernel's blocks: q tiles x batch * heads
+MAX_GRID_X = 2 ** 31 - 1   # either kernel's blocks: q tiles x batch * heads
+BF16_Q_ROWS = 64     # the bf16 kernel's q rows a block
 TMA_ALIGN = 16       # bytes: TMA's rule for a base address and a stride
 SMEM_LIMIT = 232448  # shared memory a Hopper block can use (227 KB)
 SM_SMEM = 233472     # shared memory of an H100 SM (228 KB)
 SMEM_RESERVED = 1024  # of it kept by CUDA for each resident block
-# the f32 kernel's plan by head dim, flash_attention.cu's Plan<D>: threads
-# a block and kv rows a tile.  A thread holds 8 q rows by 8 output columns,
-# so d / 8 column groups and 8 * threads / (d / 8) q rows a block
-F32_PLANS = {32: (64, 32), 64: (128, 64), 128: (256, 64)}
+# the f32 kernel's plan by compiled width, flash_attention.cu's Plan<D>:
+# threads a block and kv rows a tile.  A thread holds 8 q rows by 8 output
+# columns, so D / 8 column groups and 8 * threads / (D / 8) q rows a block
+F32_PLANS = {32: (64, 32), 64: (128, 64), 128: (256, 64), 256: (256, 32)}
+
+
+def width(d: int) -> int:
+    """The compiled width head dim ``d`` runs at: the least of
+    ``WIDTHS`` at or above it.  Raises ``ValueError`` for a ``d`` the
+    kernels do not take (see :func:`head_dim_refusal`)."""
+    why = head_dim_refusal(d)
+    if why is not None:
+        raise ValueError(why)
+    return next(w for w in WIDTHS if w >= d)
+
+
+def head_dim_refusal(d: int) -> str | None:
+    """Why the attention kernels do not take head dim ``d``, or None."""
+    if not HEAD_DIM_STEP <= d <= MAX_HEAD_DIM or d % HEAD_DIM_STEP:
+        return (f"head dim {d}: the kernels take multiples of "
+                f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM} "
+                f"(a bf16 row must be a multiple of 16 bytes for TMA, and "
+                f"{MAX_HEAD_DIM} is the widest compiled tile)")
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,11 +54,12 @@ class F32Plan:
     """One launch of the f32 kernel (see the design note in
     ``flash_attention.cu``)."""
     threads: int         # a block
-    col_groups: int      # TX: d / 8, a thread's 8 output columns
+    width: int           # D: the compiled width d runs at
+    col_groups: int      # TX: D / 8, a thread's 8 output columns
     row_groups: int      # TY: threads / TX, a thread's 8 q rows
     q_rows: int          # BQ: 8 * TY, q rows a block
     kv_rows: int         # BK: k and v rows a tile
-    keys: int            # NS: BK / TX, a thread's keys in Q.K^T
+    keys: int            # NS: BK / TX, a thread's keys in Q.K^T (1, 4, 8)
     smem_bytes: int      # Q^T, K (rows padded by 4), K^T, V and P^T, f32
     q_tiles: int         # ceil(S / BQ)
     grid: int            # q_tiles * B * H blocks, longest q tiles first
@@ -44,17 +68,17 @@ class F32Plan:
 
 def f32_plan(B: int, S: int, H: int, d: int) -> F32Plan:
     """Lay out the f32 kernel's launch for (B, S, H, d) queries: a block a
-    (q tile, batch * head) pair on a one-dimensional grid."""
-    if d not in F32_PLANS:
-        raise ValueError(f"flash_attention's f32 kernel takes head dims "
-                         f"{tuple(F32_PLANS)}, got {d}")
-    threads, bk = F32_PLANS[d]
-    tx = d // 8
+    (q tile, batch * head) pair on a one-dimensional grid, at the compiled
+    width :func:`width` of ``d``."""
+    D = width(d)
+    threads, bk = F32_PLANS[D]
+    tx = D // 8
     ty = threads // tx
     bq = 8 * ty
-    smem = 4 * (d * bq + bk * (d + 4) + d * bk + bk * d + bk * bq)
+    smem = 4 * (D * bq + bk * (D + 4) + D * bk + bk * D + bk * bq)
     q_tiles = -(-S // bq)
-    return F32Plan(threads=threads, col_groups=tx, row_groups=ty, q_rows=bq,
+    return F32Plan(width=D, threads=threads, col_groups=tx, row_groups=ty,
+                   q_rows=bq,
                    kv_rows=bk, keys=bk // tx, smem_bytes=smem,
                    q_tiles=q_tiles, grid=q_tiles * B * H,
                    blocks_per_sm=SM_SMEM // (smem + SMEM_RESERVED))
@@ -75,15 +99,14 @@ def refusal(dtype: torch.dtype, B: int, S: int, H: int, K: int,
         return f"dtype {dtype}: the kernels take {DTYPES}"
     if min(B, S, H, K) < 1 or H % K:
         return "B, S, H and K at least 1, H a multiple of K"
-    if d not in HEAD_DIMS:
-        return f"head dim {d}: the kernels take {HEAD_DIMS}"
-    if dtype == torch.bfloat16 and B * H > MAX_GRID_Y:
-        return (f"B * H = {B * H}: the bf16 kernel takes B * H <= "
-                f"{MAX_GRID_Y} (its grid's y axis); the f32 kernel has no "
-                f"such limit")
-    if dtype == torch.float32 and f32_plan(B, S, H, d).grid > MAX_GRID_X:
-        return (f"{f32_plan(B, S, H, d).grid} blocks: the f32 kernel's grid "
-                f"takes {MAX_GRID_X}")
+    why = head_dim_refusal(d)
+    if why is not None:
+        return why
+    blocks = (f32_plan(B, S, H, d).grid if dtype == torch.float32
+              else -(-S // BF16_Q_ROWS) * B * H)
+    if blocks > MAX_GRID_X:
+        return (f"{blocks} blocks (q tiles x B * H): the {dtype} kernel's "
+                f"one-dimensional grid takes {MAX_GRID_X}")
     return None
 
 
@@ -99,16 +122,16 @@ def tma_misalignment(x: torch.Tensor) -> str | None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """q: (B, S, H, d), k and v: (B, S, K, d) CUDA tensors of one dtype (f32
-    or bf16) on one device, head dim contiguous, H a multiple of K, d in
-    ``HEAD_DIMS``.  Causal.  Returns a new contiguous (B, S, H, d) tensor in
+    or bf16) on one device, head dim contiguous, H a multiple of K, d a
+    multiple of 8 up to 256.  Causal.  Returns a new contiguous (B, S, H, d) tensor in
     q's dtype.
 
     The route is chosen by dtype, here and nowhere else: bf16 goes to the
     tensor-core kernel (TMA loads, wgmma products, P split into bf16 hi and
     lo), f32 to the SIMT kernel laid out by :func:`f32_plan`.  Neither
     falls back to the other.  What :func:`refusal` names raises
-    ``ValueError``: bf16 takes B * H <= ``MAX_GRID_Y``, f32 any B * H.
-    bf16 inputs must also suit TMA: a base address or stride that is not a
+    ``ValueError``: a head dim past 256 or not a multiple of 8, or a grid
+    of more than ``MAX_GRID_X`` blocks.  bf16 inputs must also suit TMA: a base address or stride that is not a
     multiple of 16 bytes raises ``ValueError`` (the f32 kernel copies
     4 bytes at a time there)."""
     from repro_torch.kernels._build import extension

@@ -13,8 +13,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal attention.  q: (B, S, H, d); k, v: (B, S, K, d) with H % K ==
     0; returns (B, S, H, d) in q's dtype, f32 inside.  No ``impl=``: CPU
     tensors take :func:`.ref.mha_causal_ref`, CUDA tensors the kernels of
-    :func:`.kernel.flash_attention` (any S; d of 32, 64 or 128; bf16 on the
-    tensor cores, f32 SIMT), which raise on what they do not take.
+    :func:`.kernel.flash_attention` (any S and B * H; d a multiple of 8 up
+    to 256; bf16 on the tensor cores, f32 SIMT), which raise on what they
+    do not take.
     ``flash_attention.launches`` counts kernel launches of either route,
     ``flash_attention.f32_launches`` those of the f32 kernel alone."""
     if all(x.device.type == "cpu" for x in (q, k, v)):

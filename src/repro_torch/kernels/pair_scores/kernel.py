@@ -41,17 +41,30 @@ def pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
     return scores, counts
 
 
+def compact_items(T: int, bn: int, bm: int) -> int:
+    """Look-back items of one ``pair_scores_compact`` launch, as
+    ``pair_scores_compact.cu`` lays it out: T tiles for the one-pass kernel
+    (bn, bm <= ``TILE_ROWS``), else T * ceil(bn / ``TILE_ROWS``) bands of up
+    to ``TILE_ROWS`` rows across all bm columns for the band kernel.  A
+    block an item."""
+    if bn <= TILE_ROWS and bm <= TILE_ROWS:
+        return T
+    return T * -(-bn // TILE_ROWS)
+
+
 def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
                         ida: torch.Tensor, idb: torch.Tensor,
                         threshold: float, capacity: int, bn: int, bm: int):
     """a_g: (T*bn, D) / b_g: (T*bm, D) contiguous f32 CUDA tensors with D a
     multiple of ``TILE_DEPTH``; ida: (T*bn, 1) / idb: (T*bm, 1) int32 ids,
-    -1 on padding; 1 <= bn, bm <= ``TILE_ROWS``.  Returns (rows (capacity +
-    bn*bm, 1) int32, cols ditto, scores ditto f32, n_total (1, 1) int32), as
+    -1 on padding; any bn, bm >= 1.  Returns (rows (capacity + bn*bm, 1)
+    int32, cols ditto, scores ditto f32, n_total (1, 1) int32), as
     :func:`..ref.pair_scores_compact_ref` does.  One launch, after one
-    zero-fill of its (T + 1) look-back words: each block takes a tile from a
-    ticket, computes its product once and finds its base position by a
-    decoupled look-back over the tiles before it."""
+    zero-fill of its look-back words (:func:`compact_items` of them, and
+    the ticket): each block takes an item (a tile, or past ``TILE_ROWS``
+    rows a side a band of one) from a ticket, computes its products and
+    finds its base position by a decoupled look-back over the items before
+    it."""
     from repro_torch.kernels._build import extension
 
     for name, x, dt in (("a_g", a_g, torch.float32),
@@ -63,11 +76,9 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
                 f"pair_scores_compact kernel needs {name} as a contiguous 2-D "
                 f"{dt} tensor on one CUDA device, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
-    if not (1 <= bn <= TILE_ROWS and 1 <= bm <= TILE_ROWS):
-        raise ValueError(
-            f"pair_scores_compact kernel takes tiles of at most {TILE_ROWS} x "
-            f"{TILE_ROWS}, got bn={bn} bm={bm}: larger tiles are ROADMAP B2's "
-            "known gap")
+    if bn < 1 or bm < 1:
+        raise ValueError(f"pair_scores_compact kernel takes tiles of at "
+                         f"least one row a side, got bn={bn} bm={bm}")
     T, D = a_g.shape[0] // bn, a_g.shape[1]
     W = bn * bm
     if T < 1 or a_g.shape[0] != T * bn or b_g.shape != (T * bm, D) \
@@ -86,8 +97,9 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
     cols = torch.full(size, -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(size, dtype=torch.float32, device=dev)
     n_total = torch.empty((1, 1), dtype=torch.int32, device=dev)
-    # the tiles' look-back status words, then the ticket: zero every call
-    status = torch.zeros(T + 1, dtype=torch.int64, device=dev)
+    # the items' look-back status words, then the ticket: zero every call
+    status = torch.zeros(compact_items(T, bn, bm) + 1, dtype=torch.int64,
+                         device=dev)
     extension().pair_scores_compact(a_g, b_g, ida, idb, status, rows, cols,
                                     scores, n_total, int(bn), int(bm),
                                     float(threshold), int(capacity))

@@ -40,12 +40,17 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-# the reference's sweep, tests/test_kernels.py:172-176
+# the reference's sweep, tests/test_kernels.py:172-176, then head dims
+# between the card kernels' compiled widths and a multi-query group
 @pytest.mark.parametrize("B,S,H,K,d", [
     (2, 256, 4, 4, 64),     # MHA
     (1, 512, 8, 2, 128),    # GQA 4:1, d=128
     (2, 384, 6, 3, 64),     # GQA 2:1, non-pow2 S
     (1, 128, 2, 1, 128),    # MQA
+    (1, 256, 4, 4, 80),     # phi-2's head dim
+    (1, 256, 4, 2, 96),     # Phi-3-mini's
+    (1, 256, 2, 1, 256),    # Gemma's
+    (1, 128, 48, 1, 32),    # StarCoder's group: 48 query heads a kv head
 ])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_attention_matches_pallas_interpret(B, S, H, K, d, dtype):
@@ -108,12 +113,18 @@ def test_flash_kernel_tma_alignment_rule(make, why):
     assert got == why if why is None else why in got
 
 
-# the reference's sweep, tests/test_kernels.py:202-207
+# the reference's sweep, tests/test_kernels.py:202-207, then head dims
+# between the card kernel's compiled widths and multi-query groups
 @pytest.mark.parametrize("B,S,H,K,d,length", [
     (2, 1024, 8, 2, 64, 700),
     (1, 2048, 4, 4, 128, 2048),
     (3, 512, 6, 2, 64, 1),
     (2, 512, 8, 8, 64, 311),
+    (2, 512, 4, 4, 80, 300),
+    (1, 512, 8, 2, 96, 512),
+    (2, 512, 2, 1, 256, 200),
+    (2, 512, 48, 1, 64, 311),     # StarCoder's group
+    (1, 512, 71, 1, 40, 123),     # falcon-7b's group
 ])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_decode_attention_matches_pallas_interpret(B, S, H, K, d, length,
@@ -129,6 +140,33 @@ def test_decode_attention_matches_pallas_interpret(B, S, H, K, d, length,
     assert got.dtype == tq.dtype and got.shape == (B, H, d)
     np.testing.assert_allclose(_np(got), _np(ref), atol=DTYPES[dtype][3],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    # (width, elements a lane, lanes a row, active lanes, last lane's share)
+    (torch.bfloat16, 96, (128, 8, 16, 12, 8)),   # 4 of 16 lanes off
+    (torch.float32, 96, (128, 4, 32, 24, 4)),
+    (torch.int8, 96, (128, 16, 8, 6, 16)),
+    (torch.float32, 256, (256, 8, 32, 32, 8)),   # two 16-byte loads a lane
+    (torch.bfloat16, 256, (256, 8, 32, 32, 8)),
+    (torch.int8, 256, (256, 16, 16, 16, 16)),
+    (torch.int8, 40, (64, 16, 4, 3, 8)),         # a lane half below d
+    (torch.float32, 8, (32, 4, 8, 2, 4)),
+    (torch.bfloat16, 64, (64, 8, 8, 8, 8)),      # the served width as before
+])
+def test_decode_lane_layout(dtype, d, want):
+    """The decode kernel's row layout, mirrored on the CPU: a row group is
+    a power of two of at most 32 lanes (the xor butterfly's), its active
+    lanes cover d exactly, and a lane past d loads nothing."""
+    from repro_torch.kernels.decode_attention.kernel import lane_layout
+
+    got = lane_layout(dtype, d)
+    assert tuple(got[k] for k in ("width", "elements", "lanes", "active",
+                                  "last")) == want
+    lanes = got["lanes"]
+    assert lanes <= 32 and lanes & (lanes - 1) == 0
+    assert (got["active"] - 1) * got["elements"] + got["last"] == d
+    assert got["width"] == got["lanes"] * got["elements"]
 
 
 def test_decode_attention_ignores_tail_garbage():

@@ -145,6 +145,76 @@ def test_compact_ref_matches_interpret_on_an_lsh_tile_list():
         cap) > 0
 
 
+# tiles past the card kernel's 128 rows a side (its band kernel): T = 2
+# tiles of a dense tiling each, ragged on the wide side
+@pytest.mark.parametrize("n_a,n_b,bn,bm", [
+    (200, 400, 256, 256),
+    (150, 250, 200, 136),
+    (600, 50, 512, 64),
+])
+def test_compact_ref_matches_interpret_on_wide_tiles(n_a, n_b, bn, bm):
+    _, a, _, b = _corpus(bn + bm, n_a=n_a, n_b=n_b, dim=16)
+    a, b = _normalized(a), _normalized(b)
+    _check_margins(a, b, TAU)
+    ta, tb = blocking.dense_block_pairs(n_a, n_b, bn, bm)
+    assert len(ta) == 2
+    args = _gather(a, b, ta, tb)
+    cap = len(ta) * bn * bm
+    n_total = _assert_compact_equal(*_compact_both(*args, TAU, cap, bn, bm),
+                                    cap)
+    assert n_total == int((a @ b.T >= TAU).sum()) > 0
+    # an overflowing capacity keeps the same prefix and the true count
+    cap = n_total // 2
+    _assert_compact_equal(*_compact_both(*args, TAU, cap, bn, bm), cap)
+
+
+def band_positions(counts):
+    """The card's band kernel's output positions for one band, as its two
+    passes compute them (``pair_scores_compact.cu``): ``counts`` holds the
+    kept cells of each (row, 128-column block, 4-column group); each
+    group's first position is the row's offset in the band (pass 1's scan
+    over rows), plus the row's cells in earlier column blocks (pass 3's
+    running offset), plus the groups before it in its block (pass 3's scan
+    within the row)."""
+    per_block = counts.sum(axis=2)
+    per_row = per_block.sum(axis=1)
+    row_off = np.cumsum(per_row) - per_row
+    earlier = np.cumsum(per_block, axis=1) - per_block
+    within = np.cumsum(counts, axis=2) - counts
+    return row_off[:, None, None] + earlier[:, :, None] + within
+
+
+@pytest.mark.parametrize("bn,bm", [(256, 256), (200, 136), (512, 64),
+                                   (64, 512), (129, 1)])
+def test_band_positions_are_row_major_order(bn, bm):
+    """The band kernel's rank arithmetic, mirrored on the CPU, puts every
+    kept cell of a tile past 128 rows a side where row-major order over the
+    whole bn x bm tile (the reference's order) puts it, band after band;
+    and its launch has one item a band."""
+    from repro_torch.kernels.pair_scores.kernel import (TILE_ROWS,
+                                                        compact_items)
+
+    rng = np.random.default_rng(bn * 1000 + bm)
+    keep = rng.random((bn, bm)) < 0.3
+    want = np.cumsum(keep.reshape(-1)).reshape(bn, bm) - keep
+    n_cb = -(-bm // TILE_ROWS)
+    padded = np.zeros((bn, n_cb * TILE_ROWS), bool)
+    padded[:, :bm] = keep
+    base = 0
+    for r0 in range(0, bn, TILE_ROWS):
+        band = padded[r0:r0 + TILE_ROWS].reshape(-1, n_cb, TILE_ROWS // 4, 4)
+        first = band_positions(band.sum(axis=3)) + base
+        got = first[..., None] + np.cumsum(band, axis=3) - band
+        got = got.reshape(band.shape[0], -1)[:, :bm]
+        rows = keep[r0:r0 + TILE_ROWS]
+        np.testing.assert_array_equal(got[rows], want[r0:r0 + TILE_ROWS][rows])
+        base += int(rows.sum())
+    assert base == int(keep.sum())
+    assert compact_items(3, bn, bm) == (3 if bn <= TILE_ROWS
+                                        and bm <= TILE_ROWS
+                                        else 3 * -(-bn // TILE_ROWS))
+
+
 def test_compact_ref_all_padding_tiles_find_nothing():
     a = np.zeros((1, 16), np.float32)
     ta = np.full((3, 8), -1, np.int64)

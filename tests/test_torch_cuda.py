@@ -238,11 +238,16 @@ def _tiles(dev, T, bn, bm, D, dtype, seed):
 
 
 # T = 1: tile 0 alone, no look-back; T = 265: past the 264 blocks two a SM
-# hold on 132 SMs, so the last tiles start only when earlier ones finished
+# hold on 132 SMs, so the last tiles start only when earlier ones finished.
+# Past 128 rows a side the band kernel: bands of 128 rows across 2, 2 or 1
+# column blocks, a ragged last band and column block, one column
 @pytest.mark.parametrize("T,bn,bm,D", [(256, 128, 128, 384), (7, 128, 128, 96),
                                        (33, 16, 16, 16), (5, 24, 100, 40),
                                        (1, 1, 128, 3), (1, 128, 128, 384),
-                                       (2 * 132 + 1, 128, 128, 384)])
+                                       (2 * 132 + 1, 128, 128, 384),
+                                       (64, 256, 256, 384), (9, 200, 136, 96),
+                                       (32, 512, 64, 384), (3, 64, 512, 16),
+                                       (2, 129, 1, 16), (300, 256, 256, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_scores_compact_kernel_matches_plain(dev, T, bn, bm, D, dtype):
     """Ids here are the flat gather positions, so each candidate names its
@@ -308,11 +313,41 @@ def test_pair_scores_compact_kernel_overflow_keeps_the_prefix(dev):
         assert bool((x[cap:] == (0 if x.is_floating_point() else -1)).all())
 
 
-def test_pair_scores_compact_kernel_refuses_wide_tiles(dev):
-    a_g = torch.zeros(256, 16, device=dev)
-    ids = torch.zeros(256, 1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="B2"):
-        ps_kernel.pair_scores_compact(a_g, a_g, ids, ids, 0.5, 64, 256, 256)
+@pytest.mark.parametrize("bn,bm", [(256, 256), (200, 136), (512, 64)])
+def test_pair_scores_compact_kernel_takes_wide_tiles(dev, bn, bm):
+    """Tiles past 128 rows a side run the band kernel: a dense tiling gives
+    the dense kernel's candidates bit for bit (both score a cell with the
+    same fmaf chain), five calls agree bit for bit, and an overflowing
+    capacity keeps the prefix and the true count."""
+    gen = torch.Generator(device="cpu").manual_seed(bn + bm)
+    a = torch.randn(700, 384, generator=gen)
+    b = torch.randn(600, 384, generator=gen)
+    b[:300] = a[:300] + 0.5 * b[:300]
+    a = ps_ops.l2_normalize(a.to(dev))
+    b = ps_ops.l2_normalize(b.to(dev))
+    cfg = blocking.BlockingConfig(bn=bn, bm=bm, tiles_per_call=3)
+    ta, tb = blocking.dense_block_pairs(700, 600, bn, bm)
+    got = blocking.score_block_pairs(a, b, ta, tb, 0.5, cfg)
+    ref = sharded_candidates(a, b, 0.5, normalize=False)
+    assert len(ref.rows) > 0 and got.n_dropped == ref.n_dropped == 0
+    np.testing.assert_array_equal(got.rows, ref.rows)
+    np.testing.assert_array_equal(got.cols, ref.cols)
+    np.testing.assert_array_equal(got.scores.view(np.int32),
+                                  ref.scores.view(np.int32))
+    a_g, b_g, ida, idb = _tiles(dev, 40, bn, bm, 96, torch.float32, seed=bm)
+    outs = [ps_kernel.pair_scores_compact(a_g, b_g, ida, idb, 0.5,
+                                          40 * bn * bm, bn, bm)
+            for _ in range(5)]
+    n = int(outs[0][3])
+    assert n > 0
+    for out in outs[1:]:
+        for x, y in zip(out, outs[0]):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    part = ps_kernel.pair_scores_compact(a_g, b_g, ida, idb, 0.5, n // 2,
+                                         bn, bm)
+    assert int(part[3]) == n
+    for x, y in zip(part[:3], outs[0][:3]):
+        assert torch.equal(x[:n // 2], y[:n // 2])
 
 
 def test_pair_scores_compact_kernel_repeats_bitwise(dev):
@@ -976,6 +1011,18 @@ def _randn(dev, shape, dtype, seed):
     (32, 32, 12, 12, 64),      # score_pairs_with_lm's record batches
     (25, 32, 12, 12, 64),
     (4, 32, 12, 12, 64),
+    # head dims and groups of public models' attention layers
+    (1, 2048, 16, 16, 256),    # Gemma-7B
+    (1, 2048, 8, 1, 256),      # Gemma-2B
+    (1, 2048, 32, 32, 96),     # Phi-3-mini
+    (1, 2048, 32, 32, 80),     # phi-2
+    (1, 2048, 71, 1, 64),      # falcon-7b
+    (1, 2048, 48, 1, 128),     # StarCoder
+    # head dims between the compiled widths, ragged S
+    (2, 200, 4, 2, 8),
+    (2, 333, 4, 2, 40),
+    (2, 129, 4, 4, 136),
+    (2, 77, 6, 3, 200),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, d, dtype):
@@ -1052,9 +1099,9 @@ def _f32_case(dev, B, S, H, K, d, seed):
 
 def _f32_boundaries():
     """(d, S): one below, at and one past the f32 plan's kv tile and q
-    tile, for each head dim."""
+    tile, for each compiled width."""
     out = []
-    for d in fa_kernel.HEAD_DIMS:
+    for d in fa_kernel.WIDTHS:
         p = fa_kernel.f32_plan(1, 1, 1, d)
         for edge in sorted({p.kv_rows, p.q_rows}):
             out += [(d, edge - 1), (d, edge), (d, edge + 1)]
@@ -1070,7 +1117,7 @@ def test_flash_attention_f32_kernel_at_tile_boundaries(dev, d, S):
 
 
 @pytest.mark.parametrize("groups", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_flash_attention_f32_kernel_gqa_groups(dev, groups, d):
     q, k, v = _f32_case(dev, 2, 333, 8, 8 // groups, d, groups + d)
     got = fa_kernel.flash_attention(q, k, v)
@@ -1092,11 +1139,11 @@ def test_flash_attention_f32_kernel_reads_fused_projection_views(dev, width):
 
 
 def test_flash_attention_f32_kernel_takes_65536_heads(dev):
-    """B * H = 65536, past the bf16 kernel's grid: the f32 kernel's blocks
-    lie on one axis.  The plain version agrees on slices of heads at both
-    ends."""
+    """B * H = 65536, past a grid's y axis: the f32 kernel's blocks lie on
+    one axis (and so do the bf16 kernel's).  The plain version agrees on
+    slices of heads at both ends."""
     B, S, H, d = 1024, 64, 64, 32
-    assert fa_kernel.refusal(torch.bfloat16, B, S, H, H, d) is not None
+    assert fa_kernel.refusal(torch.bfloat16, B, S, H, H, d) is None
     q, k, v = _f32_case(dev, B, S, H, H, d, 11)
     got = fa_kernel.flash_attention(q, k, v)
     for b, h in ((slice(0, 4), slice(0, 3)), (slice(B - 4, B),
@@ -1105,6 +1152,24 @@ def test_flash_attention_f32_kernel_takes_65536_heads(dev):
         torch.testing.assert_close(got[b, :, h], exp, rtol=0,
                                    atol=ATTN_TOL_F32["flash"])
     assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_flash_attention_bf16_kernel_takes_65600_heads(dev, d):
+    """B * H = 65600 in bf16: the tensor-core kernel's grid is one axis of
+    q tiles x B * H blocks, so the heads past 65535 run and agree with the
+    plain version at both ends."""
+    B, S, H = 1025, 64, 64
+    q, k, v = (_randn(dev, (B, S, n, d), torch.bfloat16, 12 + i)
+               for i, n in enumerate((H, 8, 8)))
+    got = fa_kernel.flash_attention(q, k, v)
+    # query heads h0 .. h0 + 15 read kv heads h0 / 8 and h0 / 8 + 1
+    for b, h0 in ((slice(0, 2), 0), (slice(B - 2, B), H - 16)):
+        h, kv = slice(h0, h0 + 16), slice(h0 // 8, h0 // 8 + 2)
+        exp = mha_causal_ref(q[b, :, h], k[b, :, kv], v[b, :, kv])
+        torch.cuda.synchronize()
+        _assert_attn_close(got[b, :, h], exp, "flash")
+    assert bool(torch.isfinite(got.float()).all())
 
 
 def test_flash_attention_f32_kernel_repeats_bitwise(dev):
@@ -1144,6 +1209,18 @@ def test_flash_attention_op_counts_the_f32_route(dev):
     (3, 77, 8, 2, 32, 77),          # S not a multiple of the 64-row tile
     (8, 2048, 32, 8, 64, 1337),     # granite-3-2b's served layout
     (8, 2048, 40, 10, 128, 2048),   # phi3-medium-14b's served layout
+    # head dims and groups of public models' attention layers
+    (8, 2048, 16, 16, 256, 1337),   # Gemma-7B
+    (8, 2048, 8, 1, 256, 2048),     # Gemma-2B
+    (8, 2048, 32, 32, 96, 1337),    # Phi-3-mini
+    (8, 2048, 32, 32, 80, 2048),    # phi-2
+    (8, 2048, 71, 1, 64, 1337),     # falcon-7b: 71 query heads a kv head
+    (8, 2048, 48, 1, 128, 2048),    # StarCoder
+    # head dims between the compiled widths, G = 71 at each
+    (2, 300, 71, 1, 8, 299),
+    (2, 300, 71, 1, 40, 250),
+    (2, 300, 71, 1, 136, 300),
+    (2, 300, 71, 1, 200, 123),
 ])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.bfloat16),
@@ -1238,16 +1315,17 @@ def test_decode_attention_kernel_reads_strided_caches(dev, offset, dtype):
     _assert_attn_close(got, exp, "decode")
 
 
-def test_decode_attention_kernel_refuses_what_it_does_not_take(dev):
-    q = torch.zeros(1, 4, 48, device=dev)
-    kc = torch.zeros(1, 8, 2, 48, device=dev)
+@pytest.mark.parametrize("d", [44, 264])
+def test_decode_attention_kernel_refuses_what_it_does_not_take(dev, d):
+    """A head dim that is not a multiple of 8, or past 256, raises."""
+    q = torch.zeros(1, 4, d, device=dev)
+    kc = torch.zeros(1, 8, 2, d, device=dev)
     n = torch.tensor(3, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head"):
         da_kernel.decode_attention(q, kc, kc, n)
+    q, kc = q[..., :32], kc[..., :32]
     with pytest.raises(ValueError, match="dtypes"):
-        da_kernel.decode_attention(q[..., :32].bfloat16(),
-                                   kc[..., :32].float(), kc[..., :32].float(),
-                                   n)
+        da_kernel.decode_attention(q.bfloat16(), kc.float(), kc.float(), n)
 
 
 def _int8_cache(dev, B, S, K, d, length, seed, unit_scales=False):
@@ -1273,6 +1351,14 @@ def _int8_cache(dev, B, S, K, d, length, seed, unit_scales=False):
     (8, 2048, 16, 8, 128, 1500),       # internlm2-1.8b's heads
     (2, 300, 32, 2, 128, 299),         # 16 query heads a kv head
     (3, 77, 8, 2, 32, 77),
+    (8, 2048, 16, 16, 256, 1337),      # Gemma-7B
+    (8, 2048, 8, 1, 256, 2048),        # Gemma-2B
+    (8, 2048, 32, 32, 96, 1337),       # Phi-3-mini
+    (8, 2048, 32, 32, 80, 2048),       # phi-2
+    (8, 2048, 71, 1, 64, 1337),        # falcon-7b
+    (8, 2048, 48, 1, 128, 2048),       # StarCoder
+    (2, 300, 71, 1, 40, 250),          # a lane half past d (d % 16 == 8)
+    (2, 300, 71, 1, 200, 123),
 ])
 @pytest.mark.parametrize("q_dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -1297,7 +1383,7 @@ def test_decode_attention_int8_cache_matches_plain(dev, B, S, H, K, d,
     _assert_attn_close(got, exp, "decode")
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 256])
 def test_decode_attention_int8_unit_scales_within_f32(dev, d):
     """Under scales of 1 the dequantized cache is the int8 values
     themselves, which the f32 path reads exactly: the int8 path must agree
@@ -1357,8 +1443,9 @@ def test_decode_attention_int8_refuses_without_its_scales(dev):
         da_kernel.decode_attention(q, kc, kc, n, sc.float(), sc.float())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("H,K", [(8, 8), (8, 4)], ids=["G1", "G2"])
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 256])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 4), (71, 1)],
+                         ids=["G1", "G2", "G71"])
 def test_decode_attention_int8_at_length_1_is_the_dequantized_row(dev, H, K,
                                                                    d):
     """At length 1 the softmax weighs one row by exactly 1, so under an f32
@@ -1391,7 +1478,7 @@ def test_decode_attention_int8_at_length_1_is_the_dequantized_row(dev, H, K,
 def test_decode_attention_int8_refuses_rather_than_the_plain_version(dev):
     """An int8 cache the kernel does not take raises a ValueError through
     the public wrapper (scales on the CPU beside CUDA caches, a head dim of
-    48), counting no launch and never running the plain version."""
+    44), counting no launch and never running the plain version."""
     q = torch.zeros(1, 4, 64, device=dev)
     kc = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=dev)
     sc = torch.ones(1, 8, 2, dtype=torch.bfloat16, device=dev)
@@ -1401,7 +1488,7 @@ def test_decode_attention_int8_refuses_rather_than_the_plain_version(dev):
     with pytest.raises(ValueError, match="CUDA"):
         da_ops.decode_attention(q, kc, kc, n, sc.cpu(), sc.cpu())
     with pytest.raises(ValueError, match="head"):
-        da_ops.decode_attention(q[..., :48], kc[..., :48], kc[..., :48], n,
+        da_ops.decode_attention(q[..., :44], kc[..., :44], kc[..., :44], n,
                                 sc, sc)
     assert (da_ops.decode_attention.launches,
             da_ops.decode_attention.int8_launches) == before

@@ -5,9 +5,10 @@ package's oracle.
 
 The plan must fit a Hopper block's shared memory (227 KB), tile the block
 exactly (a thread's 8 q rows by 8 output columns, its keys in chunks of
-4), cover every (q tile, batch * head) pair once with every head's longest
-q tile first, past the bf16 kernel's B * H <= 65535 too; the wrapper's
-refusals follow the plan.  The plain version against the reference's
+4, or one key at width 256), cover every (q tile, batch * head) pair once
+with every head's longest q tile first, past B * H = 65535 too; a head dim
+runs at the least compiled width at or above it; the wrapper's refusals
+follow the plan.  The plain version against the reference's
 oracle (``impl="ref"``) within its f32 bar of 2e-5
 (``tests/test_kernels.py``): sums in another order.
 """
@@ -21,28 +22,32 @@ from repro.kernels.flash_attention.ops import \
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
-HEAD_DIMS = (32, 64, 128)
+WIDTHS = (32, 64, 128, 256)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", WIDTHS)
 def test_plan_fits_a_hopper_block(d):
     p = fa_kernel.f32_plan(8, 1491, 12, d)
     assert p.smem_bytes <= fa_kernel.SMEM_LIMIT
     assert p.blocks_per_sm >= 1
     assert p.blocks_per_sm == fa_kernel.SM_SMEM // (
         p.smem_bytes + fa_kernel.SMEM_RESERVED)
-    # d = 64, the served models' head dim: two blocks an SM
+    # d = 64, the served models' head dim: two blocks an SM; 256 (Gemma):
+    # one, with 64 q rows and 32-row kv tiles
     if d == 64:
         assert p.blocks_per_sm == 2
+    if d == 256:
+        assert (p.blocks_per_sm, p.q_rows, p.kv_rows) == (1, 64, 32)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", WIDTHS)
 def test_plan_tiles_the_block_exactly(d):
     p = fa_kernel.f32_plan(1, 1, 1, d)
-    assert p.col_groups * 8 == d
+    assert p.width == d and p.col_groups * 8 == d
     assert p.row_groups * p.col_groups == p.threads
     assert p.q_rows == 8 * p.row_groups
-    assert p.keys * p.col_groups == p.kv_rows and p.keys % 4 == 0
+    # keys in chunks of 4 at BK/2 apart (NS 4 or 8), or one key a thread
+    assert p.keys * p.col_groups == p.kv_rows and p.keys in (1, 4, 8)
     # P^T's swizzle runs over groups of 8 chunks of 4 rows
     assert p.q_rows % 32 == 0 and p.kv_rows % 8 == 0
     # the Q, K and V copies divide among the threads, 16 bytes each
@@ -76,25 +81,50 @@ def test_grid_covers_each_tile_once_longest_first(B, S, H, d):
     assert np.all(np.diff(qi) <= 0)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", WIDTHS)
 def test_refusals_follow_the_plan(d):
     f32, bf16 = torch.float32, torch.bfloat16
     assert fa_kernel.refusal(f32, 1024, 64, 64, 64, d) is None
-    why = fa_kernel.refusal(bf16, 1024, 64, 64, 64, d)
-    assert why is not None and "bf16" in why and "65535" in why
+    # B * H = 65536 and 65600: both routes lie on one grid axis
+    assert fa_kernel.refusal(bf16, 1024, 64, 64, 64, d) is None
+    assert fa_kernel.refusal(bf16, 1025, 64, 64, 8, d) is None
     assert fa_kernel.refusal(bf16, 1023, 64, 64, 64, d) is None
     assert fa_kernel.refusal(f32, 2, 64, 6, 4, d) is not None   # H % K
     assert fa_kernel.refusal(torch.float16, 2, 64, 4, 4, d) is not None
-    # the grid's x axis: q tiles x B * H blocks
+    # the grid's x axis: q tiles x B * H blocks, in either route
     p = fa_kernel.f32_plan(2 ** 8, 2 ** 20, 2 ** 11, d)
     assert p.grid > fa_kernel.MAX_GRID_X
-    assert fa_kernel.refusal(f32, 2 ** 8, 2 ** 20, 2 ** 11, 2 ** 11, d)
-    # head dims the plan has, and no other
-    assert set(fa_kernel.F32_PLANS) == set(fa_kernel.HEAD_DIMS)
-    for bad in (16, 96, 256):
-        assert fa_kernel.refusal(f32, 1, 8, 2, 2, bad) is not None
-        with pytest.raises(ValueError):
+    for dt in (f32, bf16):
+        why = fa_kernel.refusal(dt, 2 ** 8, 2 ** 20, 2 ** 11, 2 ** 11, d)
+        assert why is not None and "grid" in why
+    assert fa_kernel.refusal(bf16, 2 ** 8, 2 ** 12, 2 ** 11, 2 ** 11,
+                             d) is None
+    # a plan for each compiled width, and no other
+    assert set(fa_kernel.F32_PLANS) == set(fa_kernel.WIDTHS) == set(WIDTHS)
+    # every multiple of 8 up to 256 runs at the next width; the rest raise
+    for good in (8, 16, 80, 96, 136, 248, 256):
+        for dt in (f32, bf16):
+            assert fa_kernel.refusal(dt, 1, 8, 2, 2, good) is None
+        assert fa_kernel.f32_plan(1, 8, 2, good).width == min(
+            w for w in WIDTHS if w >= good)
+    for bad in (4, 12, 100, 257, 264):
+        for dt in (f32, bf16):
+            why = fa_kernel.refusal(dt, 1, 8, 2, 2, bad)
+            assert why is not None and "head dim" in why
+        with pytest.raises(ValueError, match="multiples of 8"):
             fa_kernel.f32_plan(1, 8, 2, bad)
+
+
+def test_every_multiple_of_8_up_to_256_is_taken():
+    """The wrapper's domain, by the plan alone: each multiple of 8 from 8
+    to 256 has a width, a plan within a Hopper block and no refusal, in
+    both routes."""
+    for d in range(8, 257, 8):
+        p = fa_kernel.f32_plan(2, 100, 4, d)
+        assert p.width >= d and p.width // 2 < d or p.width == 32
+        assert p.smem_bytes <= fa_kernel.SMEM_LIMIT
+        for dt in fa_kernel.DTYPES:
+            assert fa_kernel.refusal(dt, 2, 100, 4, 2, d) is None
 
 
 def test_wrapper_raises_for_cpu_tensors():
@@ -110,7 +140,7 @@ def _boundaries(d):
     return [(d, S) for S in (p.kv_rows + 1, p.q_rows + 1)]
 
 
-@pytest.mark.parametrize("d,S", [x for d in HEAD_DIMS
+@pytest.mark.parametrize("d,S", [x for d in WIDTHS + (80, 96)
                                  for x in _boundaries(d)])
 def test_plain_version_at_tile_boundaries_matches_oracle(d, S):
     """One row past a kv tile and past a q tile, GQA 2:1."""
