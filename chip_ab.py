@@ -17,7 +17,9 @@ kernels with CUDA events (``chip_smoke.cuda_ms``, 20 calls after a spin,
 three times) on seeded inputs: the wide ``union_deduce`` on a
 ``wide_lanes`` lane of 65536 objects and 524288 pairs (phase 4g's round-1
 screen size); ``pair_scores_compact`` on the first 256-tile chunk of 128 x
-128 tiles of blocked session 0 (the kernel table's shape); the int8 path
+128 tiles of blocked session 0 (the kernel table's shape), then its band
+kernel on chunks of that session's tiles at each ``chip_smoke.WIDE_TILES``
+shape with the same cells (phase 3's wide-tile chunks); the int8 path
 of ``decode_attention`` at the kernel table's shape (q (8, 12, 64) bf16
 over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's internlm2-1.8b
 shape (q (8, 16, 128) over (8, 2048, 8, 128)), its bf16 and f32 paths at
@@ -93,15 +95,14 @@ a = ps_ops.l2_normalize(embeddings_from_numpy(ea, dev))
 b = ps_ops.l2_normalize(embeddings_from_numpy(eb, dev))
 cfg = blocking.BlockingConfig(**cs.BLOCKING)
 every = np.arange(cs.BLOCK_ROWS)
-ta, tb = blocking.block_pairs(blocking.signatures(a, cfg), every,
-                              blocking.signatures(b, cfg), every, cfg.bn,
-                              cfg.bm)
-T = cfg.tiles_per_call
-chunk = cs.gather_chunk(a, b, ta[:T], tb[:T])
-line(f"pair_scores_compact {T} tiles of {cfg.bn} x {cfg.bm}, depth {cs.DIM}",
-     lambda: ps_kernel.pair_scores_compact(*chunk, cs.THRESHOLD,
-                                           T * cfg.bn * cfg.bm, cfg.bn,
-                                           cfg.bm))
+sigs = (blocking.signatures(a, cfg), blocking.signatures(b, cfg))
+for bn, bm in ((cfg.bn, cfg.bm),) + tuple(cs.WIDE_TILES):
+    ta, tb = blocking.block_pairs(sigs[0], every, sigs[1], every, bn, bm)
+    T = min(len(ta), cfg.tiles_per_call * cfg.bn * cfg.bm // (bn * bm))
+    chunk = cs.gather_chunk(a, b, ta[:T], tb[:T])
+    line(f"pair_scores_compact {T} tiles of {bn} x {bm}, depth {cs.DIM}",
+         lambda: ps_kernel.pair_scores_compact(*chunk, cs.THRESHOLD,
+                                               T * bn * bm, bn, bm))
 del a, b, chunk
 for B, S, H, K, d in ((8, 2048, 12, 12, 64), (8, 2048, 16, 8, 128)):
     q = cs._randn(dev, (B, H, d), torch.bfloat16, 0)
@@ -162,8 +163,8 @@ def main() -> int:
     mode.add_argument("--whole", action="store_true",
                       help="run each checkout's chip_smoke.py end to end")
     mode.add_argument("--kernels", action="store_true",
-                      help="time the wide union_deduce, the int8 decode "
-                      "and the f32 flash kernel")
+                      help="time the kernels at the kernel table's "
+                      "shapes and the band kernel at the wide tiles")
     args = ap.parse_args()
     roots = [args.root_a.resolve(), args.root_b.resolve()]
     print(subprocess.run(

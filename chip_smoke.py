@@ -33,7 +33,9 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    the same at tiles past 128 rows a side (its band kernel: 256 x 256, 200
    x 136 and 512 x 64, on chunks of session 0's tiles at that shape with
    one 256-tile chunk's cells), and a dense tiling at each equal to the
-   dense kernel's candidates bit for bit;
+   dense kernel's candidates bit for bit, each launch plan (band items, a
+   cluster of blocks an item) printed and no stack frame or spill in the
+   band kernel's resources;
    ``flash_attention`` at the first LM wave's prefill shape (8, S, 12, 64),
    at phase 4d's record batches (32, 25 and 4 records of 32 tokens) and at
    granite-3-2b's (2, 2048, 32 / 8, 64), deepseek-67b's (1, 2048, 64 /
@@ -2782,10 +2784,12 @@ def wide_tile_checks(dev, a16, b16, sigs, a, b, dense) -> list:
     ``check_compact`` against the plain version, five calls bit for bit,
     an overflowing capacity's prefix and count; then a dense tiling of
     phase 4's corpus 0 (``a``, ``b``) at that shape equal to the dense
-    kernel's candidates ``dense`` bit for bit.  Returns the kernels line's
-    ``at_wide_tiles`` figures."""
+    kernel's candidates ``dense`` bit for bit.  Prints each launch plan and
+    the band kernel's ``cuobjdump`` resources, and fails on a stack frame
+    or a spill.  Returns the kernels line's ``at_wide_tiles`` figures."""
     import torch
 
+    from repro_torch.kernels._build import resources
     from repro_torch.kernels.pair_scores import blocking
     from repro_torch.kernels.pair_scores import kernel as ps_kernel
     from repro_torch.kernels.pair_scores.ref import pair_scores_compact_ref
@@ -2818,8 +2822,10 @@ def wide_tile_checks(dev, a16, b16, sigs, a, b, dense) -> list:
             and np.array_equal(tiled.cols, dense.cols) \
             and np.array_equal(tiled.scores.view(np.int32),
                                dense.scores.view(np.int32))
+        plan = ps_kernel.compact_plan(T, bn, bm)
         print(f"[3 pair_scores_compact wide] tiles {bn} x {bm}: {T} tiles, "
-              f"{ps_kernel.compact_items(T, bn, bm)} band items, {n} "
+              f"launch plan {plan.items} band items x a cluster of "
+              f"{plan.cluster} = {plan.blocks} blocks, {n} "
               f"candidates; five calls equal bit for bit {repeat}; capacity "
               f"{half}: n_total {int(part[3])}, prefix equal {prefix}; dense "
               f"tiling of ({N_ROWS}, {DIM})^2 in {len(ta)} tiles: "
@@ -2832,7 +2838,8 @@ def wide_tile_checks(dev, a16, b16, sigs, a, b, dense) -> list:
                             torch.float32)
         out.append({
             "tile": [bn, bm], "tiles": T,
-            "items": ps_kernel.compact_items(T, bn, bm), "candidates": n,
+            "items": plan.items, "cluster": plan.cluster,
+            "blocks": plan.blocks, "candidates": n,
             "max_abs_err": err,
             "ms": cuda_ms(lambda: ps_kernel.pair_scores_compact(
                 *args, THRESHOLD, cap, bn, bm)),
@@ -2843,6 +2850,12 @@ def wide_tile_checks(dev, a16, b16, sigs, a, b, dense) -> list:
                 args[0].view(T, bn, -1),
                 args[1].view(T, bm, -1).transpose(1, 2)))})
         del args, outs, part, tiled
+    res = resources("pair_scores_compact_band_kernel")
+    print(f"[3 pair_scores_compact wide] band kernel resources (cuobjdump): "
+          f"{res['REG']} registers, {res['STACK']} B stack, {res['LOCAL']} B "
+          f"local, {res['SHARED']} B shared")
+    if res["STACK"] or res["LOCAL"]:
+        raise AssertionError("the band kernel keeps a stack frame or spills")
     return out
 
 

@@ -19,6 +19,9 @@ extern "C" cudaError_t pair_scores_compact_launch(
     int* n_total, int T, int bn, int bm, int d, float tau, int capacity,
     cudaStream_t stream);
 
+extern "C" cudaError_t pair_scores_compact_band_max_clusters(int cluster,
+                                                             int* count);
+
 extern "C" cudaError_t union_deduce_launch(
     const int* parent0, const int* u, const int* v, const uint8_t* pos,
     const int* neg_keys, int* roots, int* deduced, int* conflict, int* error,
@@ -94,6 +97,15 @@ void pair_scores_compact(const torch::Tensor& a_g, const torch::Tensor& b_g,
       static_cast<int>(bn), static_cast<int>(bm), static_cast<int>(a_g.size(1)),
       static_cast<float>(tau), static_cast<int>(capacity), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Clusters of `cluster` band-kernel blocks (pair_scores_compact past 128
+// rows a side) that the current device can hold at once.
+int64_t pair_scores_compact_band_clusters(int64_t cluster) {
+  int count = 0;
+  C10_CUDA_CHECK(pair_scores_compact_band_max_clusters(
+      static_cast<int>(cluster), &count));
+  return count;
 }
 
 // One launch of B clusters of 16 blocks; the plan's figures come from
@@ -286,6 +298,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("pair_scores", &pair_scores, "thresholded pair scores (CUDA)");
   m.def("pair_scores_compact", &pair_scores_compact,
         "thresholded pair scores compacted over gathered tiles (CUDA)");
+  m.def("pair_scores_compact_band_max_clusters",
+        &pair_scores_compact_band_clusters,
+        "band-kernel clusters of a given size the device can hold at once");
   m.def("union_deduce", &union_deduce,
         "fused union + deduce, a cluster of blocks a lane (CUDA)");
   m.def("union_deduce_wide", &union_deduce_wide,

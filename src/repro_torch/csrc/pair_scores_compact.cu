@@ -49,33 +49,59 @@
 // SM, so a 256-tile chunk runs in one wave on 132 SMs.
 //
 // Tiles wider than 128 rows on a side (any bn, bm >= 1) take a second
-// kernel, pair_scores_compact_wide_kernel below.  Row-major order over a
+// kernel, pair_scores_compact_band_kernel below.  Row-major order over a
 // tile more than 128 columns wide interleaves its 128-column blocks, so a
 // 128 x 128 sub-tile cannot be a look-back item of its own.  The item is a
 // band of up to 128 rows of one tile across all bm columns (items in tile
-// order, then band order, which is the output order), and the block walks
-// the band's column blocks twice:
-//   1. count: each column block's product, its kept cells counted per row
-//      (a half-warp owns a row's 8-column slices, so a shuffle sum and one
-//      shared-memory add a row); an exclusive scan over the 128 rows gives
-//      each row's offset in the band and the band's count;
-//   2. look-back over the items before it, exactly as above;
-//   3. write: each column block's product again (kept from pass 1 when the
-//      band has one column block), its (row, 4-column group) counts scanned
-//      within the row, and each kept cell written at base + its row's offset
-//      + its row's counts in earlier column blocks + its rank in the block.
-// Both passes run score_tile::tile_product, so a pair scores bit for bit as
-// in the one-pass kernel and the dense one.  The one-pass kernel stays the
-// path of every tile of at most 128 x 128.
+// order, then band order, which is the output order), served by a
+// thread-block cluster of cs = min(ceil(bm / 128), 8) blocks, block j
+// taking the band's column block j:
+//   1. ticket: block 0 takes the item as above; the others read it from
+//      its shared memory after a cluster barrier;
+//   2. product: each block computes its 128 x <= 128 product once, into
+//      registers, by score_tile::tile_product, without the FMAs of a half
+//      of the thread tile that holds no real row (the band's rows <= 64)
+//      or column (the block's columns <= 64): half_index makes that
+//      uniform across the block;
+//   3. count: its (row, 4-column group) counts, scanned within each row,
+//      and each row's kept cells, in its own shared memory;
+//   4. share: after a cluster barrier each block reads the others' row
+//      counts through distributed shared memory.  Their sum over the
+//      cluster, scanned over the rows, gives each row's offset in the band
+//      and the band's count; their sum over the blocks before it, the
+//      row's cells in earlier column blocks;
+//   5. look-back: block 0 runs it over the items before its own, exactly as
+//      above, and writes base into every block's shared memory before a
+//      cluster barrier;
+//   6. write: each block writes its kept cells straight from its
+//      accumulators, at base + the row's offset + the row's cells in
+//      earlier column blocks + the cell's rank in the row within the block.
+// Each cell's product is computed once, by the same tile_product, so a pair
+// scores bit for bit as in the one-pass kernel and the dense one.  It
+// cannot deadlock: a cluster's blocks are scheduled together, so a cluster
+// barrier waits only on running blocks, and block 0 waits in the look-back
+// only on smaller tickets, whose clusters have all started and wait only on
+// smaller tickets still.  Past 8 column blocks (bm > 1024; right, not
+// fast) block j takes column blocks j, j + 8, ..., one a round: step 1 runs
+// the rounds from the last to round 0, with a cluster barrier between
+// them, so that round 0's product is the one left in registers; step 6
+// writes it, then computes each later round's product again (with every
+// FMA of the thread tile) and adds the earlier rounds' cells of each row.
+// __launch_bounds__(256, 2), no stack frame and no spill.  The one-pass
+// kernel stays the path of every tile of at most 128 x 128.
 //
 // Contract (checked by the Python wrapper): T >= 1, bn, bm >= 1, d % 16 ==
 // 0, contiguous 16-byte-aligned rows, T*bn*bm and capacity + bn*bm below
 // 2^31, rows / cols prefilled with -1 and scores with 0, status (items + 1
 // words: the items' look-back words and the ticket, items = T when bn, bm
-// <= 128, else T * ceil(bn / 128)) zeroed.
+// <= 128, else T * ceil(bn / 128)) zeroed; past 128 a side, a cluster the
+// card can place (the wrapper asks pair_scores_compact_band_max_clusters).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "score_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,6 +115,7 @@ constexpr int kGroups = kBN / 4;                   // 32 column groups a row
 constexpr int kWarps = kThreads / 32;
 constexpr int kCells = kBM * kGroups;              // (row, group) counts
 constexpr int kCellsPerThread = kCells / kThreads; // 16
+constexpr int kMaxCluster = 8;  // the portable cluster: bm up to 1024 at once
 
 // status words: flag << 32 | value
 constexpr unsigned long long kAggregate = 1ull << 32;
@@ -280,24 +307,143 @@ pair_scores_compact_kernel(const float* __restrict__ a,
   if (t == T - 1 && tid == 0) *n_total = base + tile_total;
 }
 
-// The ids of column block cb of tile t into sm.cb and its product with the
-// band at a0 (rows_a rows) into acc.  Every thread of the block must call
-// it; it ends in a barrier.
-__device__ __forceinline__ void block_product(
+// The band kernel's shared memory: the one-pass kernel's, then for each
+// row of the band its kept cells in this block's column block (which the
+// cluster's other blocks read), its first position past base in this
+// block, and a running count (the row's cells in the band while counting,
+// then its offset plus its cells in the rounds written so far).  Thread
+// r < 128 keeps row r's counts here rather than in registers that would
+// stay live across the products.
+struct BandSmem {
+  Smem s;
+  int row_cnt[kBM];
+  int row_pos[kBM];
+  int row_next[kBM];
+};
+
+// The ids of column block c of tile t into sm.cb and its product with the
+// band at a0 (rows_a rows) into acc; with kHalves, without the FMAs of a
+// half that holds no real row or column (rows_a or cols_b <= 64; uniform
+// across the block).  A block past the tile's last column block (only past
+// 8 column blocks) gets ids of -1 and zeros.  Every thread of the block
+// must call it; it ends in a barrier.
+template <bool kHalves>
+__device__ __forceinline__ void band_product(
     Smem& sm, const float* __restrict__ a0, const float* __restrict__ b,
-    const int* __restrict__ idb, int t, int cb, int rows_a, int bm, int d,
+    const int* __restrict__ idb, int t, int c, int rows_a, int bm, int d,
     int tr, int tc, float (&acc)[kTM][kTN]) {
-  const int c0 = cb * kBN, cols_b = min(kBN, bm - c0);
+  using score_tile::kHalf;
+  using score_tile::tile_product;
+  const int c0 = c * kBN, cols_b = max(0, min(kBN, bm - c0));
   for (int i = threadIdx.x; i < kBN; i += kThreads)
     sm.cb[i] = i < cols_b ? idb[static_cast<size_t>(t) * bm + c0 + i] : -1;
-  score_tile::tile_product(a0, b + (static_cast<size_t>(t) * bm + c0) * d,
-                           rows_a, cols_b, d, sm.u.k, tr, tc, acc);
+  const float* b0 = b + (static_cast<size_t>(t) * bm + c0) * d;
+  if (cols_b == 0) {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    __syncthreads();
+  } else if (!kHalves || (rows_a > kHalf && cols_b > kHalf)) {
+    tile_product<2, 2>(a0, b0, rows_a, cols_b, d, sm.u.k, tr, tc, acc);
+  } else if (rows_a > kHalf) {
+    tile_product<2, 1>(a0, b0, rows_a, cols_b, d, sm.u.k, tr, tc, acc);
+  } else if (cols_b > kHalf) {
+    tile_product<1, 2>(a0, b0, rows_a, cols_b, d, sm.u.k, tr, tc, acc);
+  } else {
+    tile_product<1, 1>(a0, b0, rows_a, cols_b, d, sm.u.k, tr, tc, acc);
+  }
+}
+
+// The (row, 4-column group) counts of acc's candidates, scanned within
+// each row into cell[] (a row's 32 groups are the 16 entries of two
+// neighbouring threads), and each row's kept cells into row_cnt.  Every
+// thread of the block must call it; the caller's cluster barrier then
+// publishes both.
+__device__ __forceinline__ void count_cells(BandSmem& sm,
+                                            const float (&acc)[kTM][kTN],
+                                            int tr, int tc, float tau) {
+  const int tid = threadIdx.x;
+  const int g = tc / 4;
+  int* cell = sm.s.u.cell;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = half_index(i, tr);
+    const unsigned bits = keep_bits(sm.s, acc[i], row, tc, tau);
+    cell[row * kGroups + g] = __popc(bits & 0xfu);
+    cell[row * kGroups + g + kGroups / 2] = __popc(bits >> 4);
+  }
+  __syncthreads();
+  int local[kCellsPerThread];
+  int sum = 0;
+#pragma unroll
+  for (int e = 0; e < kCellsPerThread; ++e) {
+    local[e] = sum;
+    sum += cell[tid * kCellsPerThread + e];
+  }
+  const int other = __shfl_xor_sync(0xffffffffu, sum, 1);
+  const int start = (tid & 1) ? other : 0;
+#pragma unroll
+  for (int e = 0; e < kCellsPerThread; ++e)
+    cell[tid * kCellsPerThread + e] = start + local[e];
+  if ((tid & 1) == 0) sm.row_cnt[tid / 2] = sum + other;
+}
+
+// Thread r < 128, after a cluster barrier: row r's kept cells in the
+// column blocks of the cluster's blocks before this one (x) and of all of
+// them (y), read from their shared memory.
+__device__ __forceinline__ int2 cluster_row_cells(cg::cluster_group& cluster,
+                                                  const BandSmem& sm,
+                                                  int rank, int cs) {
+  int2 n = make_int2(0, 0);
+  // not unrolled: the unrolled loads spill the accumulators
+#pragma unroll 1
+  for (int k = 0; k < cs; ++k) {
+    const int c = cluster.map_shared_rank(sm.row_cnt, k)[threadIdx.x];
+    if (k < rank) n.x += c;
+    n.y += c;
+  }
+  return n;
+}
+
+// Each kept cell of acc at base + its row's first position + its rank in
+// the row (cell[], from count_cells).  The candidate bits are taken again
+// here rather than kept from count_cells, so that they hold no registers
+// across the cluster barriers.
+__device__ __forceinline__ void write_cells(
+    const BandSmem& sm, const float (&acc)[kTM][kTN], int tr, int tc,
+    float tau, int* __restrict__ rows, int* __restrict__ cols,
+    float* __restrict__ scores, int capacity) {
+  const int g = tc / 4;
+  const int base = sm.s.base;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int row = half_index(i, tr);
+    const unsigned bits = keep_bits(sm.s, acc[i], row, tc, tau);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int pos = base + sm.row_pos[row] +
+                sm.s.u.cell[row * kGroups + g + h * (kGroups / 2)];
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) {
+        if (!((bits >> j) & 1u)) continue;
+        if (pos < capacity) {
+          rows[pos] = sm.s.ra[row];
+          cols[pos] = sm.s.cb[half_index(j, tc)];
+          scores[pos] = acc[i][j];
+        }
+        ++pos;
+      }
+    }
+  }
 }
 
 // The band kernel of tiles past 128 rows on a side (see the note at the
-// top): item i is band i % n_bands of tile i / n_bands.
+// top): a cluster of cs blocks an item, item i being band i % n_bands of
+// tile i / n_bands; block `rank` of the cluster takes column blocks rank,
+// rank + cs, ... of the band, one a round.
 __global__ void __launch_bounds__(kThreads, 2)
-pair_scores_compact_wide_kernel(const float* __restrict__ a,
+pair_scores_compact_band_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
                                 const int* __restrict__ ida,
                                 const int* __restrict__ idb,
@@ -307,50 +453,50 @@ pair_scores_compact_wide_kernel(const float* __restrict__ a,
                                 int* __restrict__ n_total, int n_items,
                                 int n_bands, int bn, int bm, int d, float tau,
                                 int capacity) {
-  __shared__ Smem sm;
-  __shared__ int row_off[kBM];  // pass 1: kept cells a row; then its offset
+  __shared__ BandSmem sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x;
-  const int g = tid % (kBN / kTN);
-  const int tr = (tid / (kBN / kTN)) * 4;
-  const int tc = g * 4;
-  const int n_cb = (bm + kBN - 1) / kBN;
+  const int tr = score_tile::thread_row();
+  const int tc = score_tile::thread_col();
+  const int rounds = ((bm + kBN - 1) / kBN + cs - 1) / cs;
 
-  if (tid == 0)
-    sm.item = static_cast<int>(
+  if (rank == 0 && tid == 0)
+    sm.s.item = static_cast<int>(
         atomicAdd(reinterpret_cast<unsigned*>(status + n_items), 1u));
-  if (tid < kBM) row_off[tid] = 0;
-  __syncthreads();
-  const int item = sm.item;
+  cluster.sync();  // every block has started; block 0 holds the ticket
+  const int item = *cluster.map_shared_rank(&sm.s.item, 0);
   const int t = item / n_bands, r0 = (item % n_bands) * kBM;
   const int rows_a = min(kBM, bn - r0);
   const float* a0 = a + (static_cast<size_t>(t) * bn + r0) * d;
   for (int i = tid; i < kBM; i += kThreads)
-    sm.ra[i] = i < rows_a ? ida[static_cast<size_t>(t) * bn + r0 + i] : -1;
+    sm.s.ra[i] = i < rows_a ? ida[static_cast<size_t>(t) * bn + r0 + i] : -1;
 
-  // 1. kept cells a row, over the band's column blocks
+  // 1. kept cells a row over the band, rounds from the last to round 0,
+  // whose product then stays in registers for step 3
   float acc[kTM][kTN];
-  unsigned bits[kTM];
-  for (int cb = 0; cb < n_cb; ++cb) {
-    block_product(sm, a0, b, idb, t, cb, rows_a, bm, d, tr, tc, acc);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = half_index(i, tr);
-      bits[i] = keep_bits(sm, acc[i], row, tc, tau);
-      int n = __popc(bits[i]);
-#pragma unroll
-      for (int o = 1; o < kBN / kTN; o <<= 1)  // the row's 16 lanes
-        n += __shfl_xor_sync(0xffffffffu, n, o);
-      if (g == 0) row_off[row] += n;
-    }
-    __syncthreads();  // sm.cb and the slices are reused
+  if (tid < kBM) sm.row_next[tid] = 0;
+  for (int round = rounds - 1;; --round) {
+    band_product<true>(sm.s, a0, b, idb, t, round * cs + rank, rows_a, bm,
+                       d, tr, tc, acc);
+    count_cells(sm, acc, tr, tc, tau);
+    cluster.sync();  // the round's row counts are in every block
+    if (round == 0) break;
+    if (tid < kBM)
+      sm.row_next[tid] += cluster_row_cells(cluster, sm, rank, cs).y;
+    cluster.sync();  // read before the next round's counts
   }
+  // thread r < 128: row r's cells in round 0, before this block's and in all
+  const int2 first = tid < kBM ? cluster_row_cells(cluster, sm, rank, cs)
+                               : make_int2(0, 0);
   int band_total;
-  const int before = block_exclusive_scan(tid < kBM ? row_off[tid] : 0,
-                                          sm.warp_sums, &band_total);
-  if (tid < kBM) row_off[tid] = before;
+  const int row_off = block_exclusive_scan(
+      tid < kBM ? sm.row_next[tid] + first.y : 0, sm.s.warp_sums,
+      &band_total);
 
-  // 2. look-back
-  if (tid < 32) {
+  // 2. look-back, by block 0, which hands base to the cluster
+  if (rank == 0 && tid < 32) {
     int base = 0;
     if (item == 0) {
       if (tid == 0) publish(status, kPrefix | static_cast<unsigned>(band_total));
@@ -362,73 +508,83 @@ pair_scores_compact_wide_kernel(const float* __restrict__ a,
         publish(status + item,
                 kPrefix | static_cast<unsigned>(base + band_total));
     }
-    if (tid == 0) sm.base = base;
+    if (tid == 0) {
+      for (int k = 0; k < cs; ++k)
+        *cluster.map_shared_rank(&sm.s.base, k) = base;
+      if (item == n_items - 1) *n_total = base + band_total;
+    }
   }
-  __syncthreads();
-  const int base = sm.base;
+  if (tid < kBM) {
+    sm.row_pos[tid] = row_off + first.x;
+    sm.row_next[tid] = row_off + first.y;
+  }
+  // base is in every block, and every read of another block's row counts
+  // is done
+  cluster.sync();
 
-  // 3. write, column block by column block
-  int* cell = sm.u.cell;
-  const int crow = tid / (kGroups / kCellsPerThread);  // the row scanned
-  for (int cb = 0; cb < n_cb; ++cb) {
-    if (n_cb > 1) {
-      block_product(sm, a0, b, idb, t, cb, rows_a, bm, d, tr, tc, acc);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-        bits[i] = keep_bits(sm, acc[i], half_index(i, tr), tc, tau);
+  // 3. write: round 0 from registers; past 8 column blocks, each later
+  // round's product again (the full mainloop only: one instance less keeps
+  // the kernel in 128 registers without a spill), its rows' cells in
+  // earlier column blocks gathered as in step 1
+  write_cells(sm, acc, tr, tc, tau, rows, cols, scores, capacity);
+  for (int round = 1; round < rounds; ++round) {
+    __syncthreads();  // cell[], sm.cb and row_pos are reused
+    band_product<false>(sm.s, a0, b, idb, t, round * cs + rank, rows_a, bm,
+                        d, tr, tc, acc);
+    count_cells(sm, acc, tr, tc, tau);
+    cluster.sync();
+    if (tid < kBM) {
+      const int2 n = cluster_row_cells(cluster, sm, rank, cs);
+      sm.row_pos[tid] = sm.row_next[tid] + n.x;
+      sm.row_next[tid] += n.y;
     }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = half_index(i, tr);
-      cell[row * kGroups + g] = __popc(bits[i] & 0xfu);
-      cell[row * kGroups + g + kGroups / 2] = __popc(bits[i] >> 4);
-    }
-    __syncthreads();
-    // the prefix of cell[] within each row: a row's 32 groups are the 16
-    // entries of two neighbouring threads
-    int local[kCellsPerThread];
-    int sum = 0;
-#pragma unroll
-    for (int e = 0; e < kCellsPerThread; ++e) {
-      local[e] = sum;
-      sum += cell[tid * kCellsPerThread + e];
-    }
-    const int other = __shfl_xor_sync(0xffffffffu, sum, 1);
-    const int start = row_off[crow] + ((tid & 1) ? other : 0);
-#pragma unroll
-    for (int e = 0; e < kCellsPerThread; ++e)
-      cell[tid * kCellsPerThread + e] = start + local[e];
-    __syncthreads();
-    if ((tid & 1) == 0) row_off[crow] += sum + other;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = half_index(i, tr);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int pos = base + cell[row * kGroups + g + h * (kGroups / 2)];
-#pragma unroll
-        for (int j = 4 * h; j < 4 * h + 4; ++j) {
-          if (!((bits[i] >> j) & 1u)) continue;
-          if (pos < capacity) {
-            rows[pos] = sm.ra[row];
-            cols[pos] = sm.cb[half_index(j, tc)];
-            scores[pos] = acc[i][j];
-          }
-          ++pos;
-        }
-      }
-    }
-    __syncthreads();  // cell[], row_off and sm.cb are reused
+    // every block's counts read before they change or their block exits
+    cluster.sync();
+    write_cells(sm, acc, tr, tc, tau, rows, cols, scores, capacity);
   }
-  if (item == n_items - 1 && tid == 0) *n_total = base + band_total;
+}
+
+// Blocks a band's cluster: one a 128-column block, at most the portable 8.
+int band_cluster(int bm) {
+  const int n_cb = (bm + kBN - 1) / kBN;
+  return n_cb < kMaxCluster ? n_cb : kMaxCluster;
+}
+
+cudaLaunchConfig_t band_config(int n_items, int cluster,
+                               cudaLaunchAttribute* attr,
+                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_items * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
+// Clusters of `cluster` band-kernel blocks the current device can hold at
+// once (0: none can be placed).  The wrapper asks once per device and
+// cluster size, and raises rather than launch where it is 0.
+extern "C" cudaError_t pair_scores_compact_band_max_clusters(int cluster,
+                                                             int* count) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = band_config(1, cluster, &attr, 0);
+  return cudaOccupancyMaxActiveClusters(count, pair_scores_compact_band_kernel,
+                                        &cfg);
+}
+
 // Plain C entry point: one launch on `stream`; returns its status.  status
 // is (items + 1) zeroed 64-bit words: the items' look-back words, then the
-// ticket; items is T for tiles of at most 128 x 128 (the one-pass kernel),
-// else T * ceil(bn / 128) (the band kernel).
+// ticket.  Tiles of at most 128 x 128 run the one-pass kernel, T blocks of
+// an item each; larger ones the band kernel, T * ceil(bn / 128) items of a
+// cluster of min(ceil(bm / 128), 8) blocks each (kernel.py::compact_plan).
 extern "C" cudaError_t pair_scores_compact_launch(
     const float* a, const float* b, const int* ida, const int* idb,
     unsigned long long* status, int* rows, int* cols, float* scores,
@@ -438,12 +594,14 @@ extern "C" cudaError_t pair_scores_compact_launch(
     pair_scores_compact_kernel<<<T, kThreads, 0, stream>>>(
         a, b, ida, idb, status, rows, cols, scores, n_total, T, bn, bm, d,
         tau, capacity);
-  } else {
-    const int n_bands = (bn + kBM - 1) / kBM;
-    const int n_items = T * n_bands;
-    pair_scores_compact_wide_kernel<<<n_items, kThreads, 0, stream>>>(
-        a, b, ida, idb, status, rows, cols, scores, n_total, n_items, n_bands,
-        bn, bm, d, tau, capacity);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  const int n_bands = (bn + kBM - 1) / kBM;
+  const int n_items = T * n_bands;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      band_config(n_items, band_cluster(bm), &attr, stream);
+  return cudaLaunchKernelEx(&cfg, pair_scores_compact_band_kernel, a, b, ida,
+                            idb, status, rows, cols, scores, n_total, n_items,
+                            n_bands, bn, bm, d, tau, capacity);
 }

@@ -87,12 +87,18 @@ __device__ __forceinline__ void store_slice(float (&s)[kBK][kRows], int r,
 // acc[i][j] = <row half_index(i, tr) of a0, row half_index(j, tc) of b0>,
 // summed with fmaf in k order from 0.  a0 and b0 point at the tile's first
 // rows (row stride d, d % kBK == 0, 16-byte aligned); rows past bn (bm)
-// load as zeros.  Every thread of the block must call it; it ends in a
-// barrier, after which sm may be reused.
+// load as zeros.  kRowHalves (kColHalves) = 1 skips the FMAs of register
+// rows (columns) 4-7, which hold tile rows 64 and on: a caller passes it
+// only when bn (bm) <= 64, which makes the choice uniform across the block,
+// and those accumulators stay 0.  Every thread of the block must call it;
+// it ends in a barrier, after which sm may be reused.
+template <int kRowHalves = 2, int kColHalves = 2>
 __device__ inline void tile_product(const float* __restrict__ a0,
                              const float* __restrict__ b0, int bn, int bm,
                              int d, Slices& sm, int tr, int tc,
                              float (&acc)[kTM][kTN]) {
+  constexpr int kRowsUsed = kRowHalves * (kTM / 2);
+  constexpr int kColsUsed = kColHalves * (kTN / 2);
   const int tid = threadIdx.x;
   const int r = tid % kRows;                // the row this thread loads
   const int c = (tid / kRows) * (kBK / 2);  // and its columns of the slice
@@ -116,13 +122,16 @@ __device__ inline void tile_product(const float* __restrict__ a0,
     for (int k = 0; k < kBK; ++k) {
       float x[kTM], y[kTN];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) x[i] = sm.as[cur][k][half_index(i, tr)];
+      for (int i = 0; i < kRowsUsed; ++i)
+        x[i] = sm.as[cur][k][half_index(i, tr)];
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) y[j] = sm.bs[cur][k][half_index(j, tc)];
+      for (int j = 0; j < kColsUsed; ++j)
+        y[j] = sm.bs[cur][k][half_index(j, tc)];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+      for (int i = 0; i < kRowsUsed; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+        for (int j = 0; j < kColsUsed; ++j)
+          acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
     }
     if (more) {
       store_slice(sm.as[cur ^ 1], r, c, va);

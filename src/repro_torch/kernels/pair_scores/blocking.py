@@ -45,7 +45,8 @@ class BlockingConfig:
     ``n_bits`` hyperplanes per table (finer buckets = fewer cells scored,
     lower per-table recall); ``n_tables`` independent tables (each adds a
     capture chance); ``seed`` fixes the hyperplanes.  ``bn``/``bm`` are the
-    kernel tile shape (at most 128 each on the card); ``tiles_per_call``
+    kernel tile shape (any size from 1; past 128 a side the card runs the
+    band kernel, see :func:`.kernel.compact_plan`); ``tiles_per_call``
     bounds device buffers by splitting long tile lists into fixed-shape
     kernel calls.  ``recall_floor`` records what :meth:`for_recall` was
     asked for."""

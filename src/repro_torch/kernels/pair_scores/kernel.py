@@ -6,10 +6,14 @@
 multiples below."""
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 TILE_ROWS = 128   # rows of a (and of b) per block; N and M pad to this
 TILE_DEPTH = 16   # k slice staged in shared memory; D pads to this
+MAX_CLUSTER = 8   # the band kernel's largest cluster (the portable size)
 INT32_LIMIT = 2 ** 31
 
 
@@ -41,15 +45,37 @@ def pair_scores(a: torch.Tensor, b: torch.Tensor, threshold: float,
     return scores, counts
 
 
-def compact_items(T: int, bn: int, bm: int) -> int:
-    """Look-back items of one ``pair_scores_compact`` launch, as
-    ``pair_scores_compact.cu`` lays it out: T tiles for the one-pass kernel
-    (bn, bm <= ``TILE_ROWS``), else T * ceil(bn / ``TILE_ROWS``) bands of up
-    to ``TILE_ROWS`` rows across all bm columns for the band kernel.  A
-    block an item."""
+class CompactPlan(NamedTuple):
+    """One ``pair_scores_compact`` launch as ``pair_scores_compact.cu``
+    lays it out."""
+    kernel: str    # "one-pass" (bn, bm <= TILE_ROWS) or "band"
+    items: int     # look-back items: tiles, or bands of up to TILE_ROWS rows
+    cluster: int   # blocks an item: one, or a band's cluster
+    blocks: int    # items * cluster
+
+
+def compact_plan(T: int, bn: int, bm: int) -> CompactPlan:
+    """The launch of T tiles of bn x bm: T items of one block each on the
+    one-pass kernel (bn, bm <= ``TILE_ROWS``); else on the band kernel T *
+    ceil(bn / ``TILE_ROWS``) bands of up to ``TILE_ROWS`` rows across all
+    bm columns, each a cluster of ceil(bm / ``TILE_ROWS``) blocks, one a
+    column block, at most ``MAX_CLUSTER`` (past that each block takes
+    every ``MAX_CLUSTER``-th column block)."""
     if bn <= TILE_ROWS and bm <= TILE_ROWS:
-        return T
-    return T * -(-bn // TILE_ROWS)
+        return CompactPlan("one-pass", T, 1, T)
+    items = T * -(-bn // TILE_ROWS)
+    cluster = min(-(-bm // TILE_ROWS), MAX_CLUSTER)
+    return CompactPlan("band", items, cluster, items * cluster)
+
+
+@functools.cache
+def _band_clusters_placeable(device: int, cluster: int) -> int:
+    """Clusters of ``cluster`` band-kernel blocks the device can hold at
+    once (0: it cannot place one)."""
+    from repro_torch.kernels._build import extension
+
+    with torch.cuda.device(device):
+        return int(extension().pair_scores_compact_band_max_clusters(cluster))
 
 
 def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
@@ -59,12 +85,14 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
     multiple of ``TILE_DEPTH``; ida: (T*bn, 1) / idb: (T*bm, 1) int32 ids,
     -1 on padding; any bn, bm >= 1.  Returns (rows (capacity + bn*bm, 1)
     int32, cols ditto, scores ditto f32, n_total (1, 1) int32), as
-    :func:`..ref.pair_scores_compact_ref` does.  One launch, after one
-    zero-fill of its look-back words (:func:`compact_items` of them, and
-    the ticket): each block takes an item (a tile, or past ``TILE_ROWS``
-    rows a side a band of one) from a ticket, computes its products and
-    finds its base position by a decoupled look-back over the items before
-    it."""
+    :func:`..ref.pair_scores_compact_ref` does.  One launch
+    (:func:`compact_plan`), after one zero-fill of its look-back words (an
+    item's, and the ticket): each block, or past ``TILE_ROWS`` rows a side
+    each cluster of blocks, takes an item (a tile, or a band of one) from a
+    ticket, computes each of its products once and finds its base position
+    by a decoupled look-back over the items before it.  Raises
+    ``RuntimeError`` if the card cannot place the band kernel's
+    cluster."""
     from repro_torch.kernels._build import extension
 
     for name, x, dt in (("a_g", a_g, torch.float32),
@@ -92,14 +120,22 @@ def pair_scores_compact(a_g: torch.Tensor, b_g: torch.Tensor,
             f"least one tile, depth padded to {TILE_DEPTH}, 16-byte aligned, "
             "int32 positions")
     dev = a_g.device
+    plan = compact_plan(T, bn, bm)
+    if plan.kernel == "band":
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        if not _band_clusters_placeable(index, plan.cluster):
+            raise RuntimeError(
+                f"pair_scores_compact: the card cannot place the band "
+                f"kernel's cluster of {plan.cluster} blocks for tiles of "
+                f"{bn} x {bm}")
     size = (int(capacity) + W, 1)
     rows = torch.full(size, -1, dtype=torch.int32, device=dev)
     cols = torch.full(size, -1, dtype=torch.int32, device=dev)
     scores = torch.zeros(size, dtype=torch.float32, device=dev)
     n_total = torch.empty((1, 1), dtype=torch.int32, device=dev)
     # the items' look-back status words, then the ticket: zero every call
-    status = torch.zeros(compact_items(T, bn, bm) + 1, dtype=torch.int64,
-                         device=dev)
+    status = torch.zeros(plan.items + 1, dtype=torch.int64, device=dev)
     extension().pair_scores_compact(a_g, b_g, ida, idb, status, rows, cols,
                                     scores, n_total, int(bn), int(bm),
                                     float(threshold), int(capacity))

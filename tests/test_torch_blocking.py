@@ -168,51 +168,84 @@ def test_compact_ref_matches_interpret_on_wide_tiles(n_a, n_b, bn, bm):
     _assert_compact_equal(*_compact_both(*args, TAU, cap, bn, bm), cap)
 
 
-def band_positions(counts):
-    """The card's band kernel's output positions for one band, as its two
-    passes compute them (``pair_scores_compact.cu``): ``counts`` holds the
-    kept cells of each (row, 128-column block, 4-column group); each
-    group's first position is the row's offset in the band (pass 1's scan
-    over rows), plus the row's cells in earlier column blocks (pass 3's
-    running offset), plus the groups before it in its block (pass 3's scan
-    within the row)."""
-    per_block = counts.sum(axis=2)
-    per_row = per_block.sum(axis=1)
-    row_off = np.cumsum(per_row) - per_row
-    earlier = np.cumsum(per_block, axis=1) - per_block
-    within = np.cumsum(counts, axis=2) - counts
-    return row_off[:, None, None] + earlier[:, :, None] + within
+def cluster_positions(keep, cluster):
+    """The card's band kernel's output positions for one bn x bm tile whose
+    kept cells are ``keep``, as its clusters compute them
+    (``pair_scores_compact.cu``): a band of 128 rows a cluster, column
+    block ``round * cluster + rank`` a block and round.  Each block scans
+    its (row, 4-column group) counts within the row and keeps each row's
+    cells, which the cluster's blocks read from one another; a cell's
+    position is base (the look-back over earlier bands) + its row's offset
+    in the band (the scan over rows of every column block's cells) + its
+    row's cells in earlier rounds + in the round's blocks before its own +
+    its rank in the row within its block.  Returns the positions and the
+    tile's count."""
+    from repro_torch.kernels.pair_scores.kernel import TILE_ROWS
+
+    bn, bm = keep.shape
+    rounds = -(-(-(-bm // TILE_ROWS)) // cluster)
+    width = rounds * cluster * TILE_ROWS
+    padded = np.zeros((bn, width), bool)
+    padded[:, :bm] = keep
+    got = np.full((bn, width), -1)
+    base = 0
+    for r0 in range(0, bn, TILE_ROWS):
+        # (row, round, rank, 4-column group, column in the group)
+        band = padded[r0:r0 + TILE_ROWS].reshape(-1, rounds, cluster,
+                                                 TILE_ROWS // 4, 4)
+        groups = band.sum(axis=4)
+        within = np.cumsum(groups, axis=3) - groups
+        row_cnt = groups.sum(axis=3)
+        before = np.cumsum(row_cnt, axis=2) - row_cnt
+        per_round = row_cnt.sum(axis=2)
+        done = np.cumsum(per_round, axis=1) - per_round
+        row_cells = per_round.sum(axis=1)
+        row_off = np.cumsum(row_cells) - row_cells
+        first = base + row_off[:, None, None, None] \
+            + done[:, :, None, None] + before[..., None] + within
+        pos = first[..., None] + np.cumsum(band, axis=4) - band
+        got[r0:r0 + TILE_ROWS] = pos.reshape(band.shape[0], -1)
+        base += int(row_cells.sum())
+    return got[:, :bm], base
 
 
+# past 128 rows a side, with one to eight column blocks a cluster, and past
+# eight (bm > 1024: a block takes every eighth column block)
 @pytest.mark.parametrize("bn,bm", [(256, 256), (200, 136), (512, 64),
-                                   (64, 512), (129, 1)])
+                                   (64, 512), (129, 1), (130, 1029),
+                                   (1, 2049), (300, 1024)])
 def test_band_positions_are_row_major_order(bn, bm):
     """The band kernel's rank arithmetic, mirrored on the CPU, puts every
     kept cell of a tile past 128 rows a side where row-major order over the
-    whole bn x bm tile (the reference's order) puts it, band after band;
-    and its launch has one item a band."""
-    from repro_torch.kernels.pair_scores.kernel import (TILE_ROWS,
-                                                        compact_items)
+    whole bn x bm tile (the reference's order) puts it, band after band."""
+    from repro_torch.kernels.pair_scores.kernel import compact_plan
 
     rng = np.random.default_rng(bn * 1000 + bm)
     keep = rng.random((bn, bm)) < 0.3
     want = np.cumsum(keep.reshape(-1)).reshape(bn, bm) - keep
-    n_cb = -(-bm // TILE_ROWS)
-    padded = np.zeros((bn, n_cb * TILE_ROWS), bool)
-    padded[:, :bm] = keep
-    base = 0
-    for r0 in range(0, bn, TILE_ROWS):
-        band = padded[r0:r0 + TILE_ROWS].reshape(-1, n_cb, TILE_ROWS // 4, 4)
-        first = band_positions(band.sum(axis=3)) + base
-        got = first[..., None] + np.cumsum(band, axis=3) - band
-        got = got.reshape(band.shape[0], -1)[:, :bm]
-        rows = keep[r0:r0 + TILE_ROWS]
-        np.testing.assert_array_equal(got[rows], want[r0:r0 + TILE_ROWS][rows])
-        base += int(rows.sum())
-    assert base == int(keep.sum())
-    assert compact_items(3, bn, bm) == (3 if bn <= TILE_ROWS
-                                        and bm <= TILE_ROWS
-                                        else 3 * -(-bn // TILE_ROWS))
+    got, n = cluster_positions(keep, compact_plan(1, bn, bm).cluster)
+    np.testing.assert_array_equal(got[keep], want[keep])
+    assert n == int(keep.sum())
+
+
+@pytest.mark.parametrize("T,bn,bm,want", [
+    (3, 128, 128, ("one-pass", 3, 1, 3)),
+    (5, 1, 1, ("one-pass", 5, 1, 5)),
+    (64, 256, 256, ("band", 128, 2, 256)),
+    (154, 200, 136, ("band", 308, 2, 616)),
+    (128, 512, 64, ("band", 512, 1, 512)),
+    (3, 64, 512, ("band", 3, 4, 12)),
+    (2, 129, 1, ("band", 4, 1, 4)),
+    (1, 300, 1024, ("band", 3, 8, 24)),
+    (2, 130, 1029, ("band", 4, 8, 32)),
+    (1, 1, 2049, ("band", 1, 8, 8)),
+])
+def test_compact_plan(T, bn, bm, want):
+    """The launch: a block a tile up to 128 x 128, else a band of 128 rows
+    an item on a cluster of a block a 128-column block, at most 8."""
+    from repro_torch.kernels.pair_scores.kernel import compact_plan
+
+    assert tuple(compact_plan(T, bn, bm)) == want
 
 
 def test_compact_ref_all_padding_tiles_find_nothing():

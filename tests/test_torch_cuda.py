@@ -239,15 +239,19 @@ def _tiles(dev, T, bn, bm, D, dtype, seed):
 
 # T = 1: tile 0 alone, no look-back; T = 265: past the 264 blocks two a SM
 # hold on 132 SMs, so the last tiles start only when earlier ones finished.
-# Past 128 rows a side the band kernel: bands of 128 rows across 2, 2 or 1
-# column blocks, a ragged last band and column block, one column
+# Past 128 rows a side the band kernel: bands of 128 rows on clusters of 2,
+# 2 or 1 blocks, a ragged last band and column block, one column; a last
+# band and column block of at most 64 (half a thread tile's FMAs left out);
+# past 8 column blocks (a block takes every eighth, two and three rounds)
 @pytest.mark.parametrize("T,bn,bm,D", [(256, 128, 128, 384), (7, 128, 128, 96),
                                        (33, 16, 16, 16), (5, 24, 100, 40),
                                        (1, 1, 128, 3), (1, 128, 128, 384),
                                        (2 * 132 + 1, 128, 128, 384),
                                        (64, 256, 256, 384), (9, 200, 136, 96),
                                        (32, 512, 64, 384), (3, 64, 512, 16),
-                                       (2, 129, 1, 16), (300, 256, 256, 16)])
+                                       (2, 129, 1, 16), (300, 256, 256, 16),
+                                       (5, 190, 190, 64), (2, 130, 1029, 16),
+                                       (1, 1, 2049, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pair_scores_compact_kernel_matches_plain(dev, T, bn, bm, D, dtype):
     """Ids here are the flat gather positions, so each candidate names its
@@ -317,8 +321,11 @@ def test_pair_scores_compact_kernel_overflow_keeps_the_prefix(dev):
 def test_pair_scores_compact_kernel_takes_wide_tiles(dev, bn, bm):
     """Tiles past 128 rows a side run the band kernel: a dense tiling gives
     the dense kernel's candidates bit for bit (both score a cell with the
-    same fmaf chain), five calls agree bit for bit, and an overflowing
-    capacity keeps the prefix and the true count."""
+    same fmaf chain), five calls agree bit for bit, an overflowing
+    capacity keeps the prefix and the true count, and the kernel keeps no
+    stack frame and spills nothing."""
+    from repro_torch.kernels._build import resources
+
     gen = torch.Generator(device="cpu").manual_seed(bn + bm)
     a = torch.randn(700, 384, generator=gen)
     b = torch.randn(600, 384, generator=gen)
@@ -348,6 +355,24 @@ def test_pair_scores_compact_kernel_takes_wide_tiles(dev, bn, bm):
     assert int(part[3]) == n
     for x, y in zip(part[:3], outs[0][:3]):
         assert torch.equal(x[:n // 2], y[:n // 2])
+    res = resources("pair_scores_compact_band_kernel")
+    assert res["STACK"] == 0 and res["LOCAL"] == 0, res
+
+
+def test_pair_scores_compact_band_kernel_raises_where_no_cluster_fits(
+        dev, monkeypatch):
+    """A card that cannot place the band kernel's cluster gets a
+    RuntimeError naming the shape, not another kernel or the plain
+    version."""
+    a_g, b_g, ida, idb = _tiles(dev, 2, 256, 256, 16, torch.float32, seed=2)
+    monkeypatch.setattr(ps_kernel, "_band_clusters_placeable",
+                        lambda device, cluster: 0)
+    launches = ps_ops.pair_scores_compact.launches
+    with pytest.raises(RuntimeError, match="cluster of 2 blocks for tiles "
+                       "of 256 x 256"):
+        ps_ops.pair_scores_compact(a_g, b_g, ida, idb, 0.5, 2 * 256 * 256,
+                                   256, 256)
+    assert ps_ops.pair_scores_compact.launches == launches
 
 
 def test_pair_scores_compact_kernel_repeats_bitwise(dev):
