@@ -25,9 +25,12 @@ over an (8, 2048, 12, 64) int8 cache) and at phase 4n a's internlm2-1.8b
 shape (q (8, 16, 128) over (8, 2048, 8, 128)), its bf16 and f32 paths at
 the table's shape, length 2048; and both routes of ``flash_attention`` at
 the kernel table's shape (8, 1491, 12 / 12, 64) and at deepseek-67b's head
-layout (1, 2048, 64 / 8, 128).  Each line ends in a digest of the call's
-outputs, and after the passes each kernel's digests must agree across the
-checkouts (the outputs bit for bit), else it exits non-zero.  The card's
+layout (1, 2048, 64 / 8, 128); then, at head dims 12, 100, 320 and 512,
+both flash routes at (2, 1024, 8 / 2) and decode over bf16, f32 and int8
+caches of (8, 2048, 2) with 8 query heads (a checkout whose kernels refuse
+a call prints that and moves on).  Each line ends in a digest of the
+call's outputs, and after the passes each kernel's digests must agree
+across the checkouts (the outputs bit for bit), else it exits non-zero.  The card's
 name and power limit come first, each line is tagged with its checkout,
 and a failed pass exits non-zero.
 """
@@ -127,6 +130,42 @@ for dt in (torch.bfloat16, torch.float32):
                    for i, n in enumerate((H, K, K)))
         line(f"flash_attention {dt} q ({B}, {S}, {H}, {d}) kv heads {K}",
              lambda: fa_kernel.flash_attention(q, k, v))
+
+
+def taken(name, fn):
+    # line(), or a note where this checkout's kernels refuse the call
+    try:
+        fn()
+    except ValueError as e:
+        print(f"[kernels] {name}: refused here ({str(e)[:80]})", flush=True)
+        return
+    line(name, fn)
+
+
+# the head dims the Pallas kernels take that the kernels refused before
+# PR 37 (chip_smoke.HEAD_DIM_TIMED), at phase 3's timed shapes
+for d in (12, 100, 320, 512):
+    B, S, H, K = 2, 1024, 8, 2
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (cs._randn(dev, (B, S, n, d), dt, i)
+                   for i, n in enumerate((H, K, K)))
+        taken(f"flash_attention {dt} q ({B}, {S}, {H}, {d}) kv heads {K}",
+              lambda: fa_kernel.flash_attention(q, k, v))
+    B, S, H, K = 8, 2048, 8, 2
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    for dt in (torch.bfloat16, torch.float32):
+        q = cs._randn(dev, (B, H, d), dt, 0)
+        kc = cs._randn(dev, (B, S, K, d), dt, 1)
+        vc = cs._randn(dev, (B, S, K, d), dt, 2)
+        taken(f"decode_attention q ({B}, {H}, {d}) cache ({B}, {S}, {K}, "
+              f"{d}) {dt} length {S}",
+              lambda: da_kernel.decode_attention(q, kc, vc, n))
+    q = cs._randn(dev, (B, H, d), torch.bfloat16, 0)
+    kc, ks = cs.int8_cache(dev, B, S, K, d, S, 1)
+    vc, vs = cs.int8_cache(dev, B, S, K, d, S, 2)
+    taken(f"decode_attention_int8 q ({B}, {H}, {d}) bf16 cache ({B}, {S}, "
+          f"{K}, {d}) length {S}",
+          lambda: da_kernel.decode_attention(q, kc, vc, n, ks, vs))
 """
 
 # the summary lines of chip_smoke.py's paths, by their prefixes

@@ -68,8 +68,16 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    71 and StarCoder's 48 query heads on one kv head): flash over 2 prompts
    of 2048 tokens in bf16 and f32, decode over bf16, f32 and int8 caches of
    2048 at 8 lanes, lengths 1337 and 2048, each timed beside its bound, its
-   plain version and SDPA, and a bf16 flash call of B * H = 65600.  f32
-   outputs
+   plain version and SDPA, and a bf16 flash call of B * H = 65600; then
+   the head dims the card kernels refused before PR 37 (``HEAD_DIM_FLASH``,
+   ``HEAD_DIM_DECODE``: 1, 3-12, 100, 264, 320, 512, 1000, not a multiple
+   of 8, past 256, past two 256-column chunks): flash in bf16 and f32,
+   decode over bf16, f32 and int8 caches at two lengths, contiguous (a
+   last row ending in a partial vector) and NaN-padded (a load past a
+   row's head dim would carry NaN into the scores), the two bf16 views TMA
+   cannot read in place through the public op (``flash_attention.staged``
+   must count 2), each at ``HEAD_DIM_TIMED`` timed beside its bound, its
+   plain version and SDPA.  f32 outputs
    within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
    outputs within 2**-7 |expected| + 1e-4 element by element: both sides
    sum in f32 and round once to bf16, whose 8 significant bits put one ulp
@@ -299,7 +307,14 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    write's and the restore's bytes and seconds, the free disk; and the
    config cut to 2 layers at full width, one ``init_state`` drawn on the
    CPU and moved to the card, 2 steps of 2 x 64 on each, the losses within
-   2e-3;
+   2e-3; (d) ``deepseek-67b`` at full width served as (a), its 95 layers
+   cut to the most that fit the card's free memory beside its parameters
+   outside the layers, two caches a layer and ``FULL_DEEP_RESERVE``
+   (``deep_layers``; 50 on an 80 GB card; fewer than 40 fails the phase,
+   naming the free bytes), the same checks and figures; (e) ``LM_ARCH`` at
+   two layers of its reduced widths and head dims 100 and 320 served as
+   (a), the same checks, the bf16 flash calls at head dim 100 staged (two
+   a wave);
 4o. the SSM and hybrid families at full width, each drawn on the card from
    a seeded generator: (a) ``rwkv6-3b`` (attention-free) and (b)
    ``zamba2-1.2b`` (Mamba2 layers, the shared attention block after every
@@ -815,6 +830,18 @@ MODEL_ATTN = {"gemma-7b": (16, 16, 256), "gemma-2b": (8, 1, 256),
               "falcon-7b": (71, 1, 64), "starcoder": (48, 1, 128)}
 MODEL_MQA = ("falcon-7b", "starcoder")
 MODEL_LEN, MODEL_FLASH_BATCH = 2048, 2
+# head dims the Pallas kernels take and the card kernels refused before
+# PR 37: not a multiple of 8, past 256, past two chunks of 256.  Checked
+# against the plain versions at HEAD_DIM_CHECK (a ragged S past two kv
+# tiles) and, for decode, a cache of HEAD_DIM_DECODE_SHAPE whose last row
+# ends in a partial vector; timed at HEAD_DIM_TIMED
+HEAD_DIM_FLASH = (1, 12, 100, 264, 320, 512, 1000)
+HEAD_DIM_DECODE = (12, 100, 264, 320, 512)
+HEAD_DIM_TIMED = (12, 100, 320, 512)
+HEAD_DIM_CHECK = (2, 131, 4, 2)            # flash: B, S, H, K
+HEAD_DIM_FLASH_SHAPE = (2, 1024, 8, 2)     # flash timed: B, S, H, K
+HEAD_DIM_DECODE_SHAPE = (8, 2048, 8, 2)    # decode: lanes, cache, H, K
+HEAD_DIM_LENGTHS = (1337, 2048)
 # phase 3: a bf16 flash call past 65535 batch x heads, (B, S, H, K, d)
 FLASH_MANY_HEADS = (1025, 64, 64, 8, 64)
 # card clock cycles cuda_ms spins before its timed calls: about 12 ms at
@@ -893,6 +920,12 @@ FULL_TRAIN_STEPS, FULL_TRAIN_EVERY, FULL_TRAIN_FAIL = 3, 2, 2
 # 26.3 GB, and 4m's and 4r's checkpoints take about 17 GB; two of these
 # (4.4 GB each) stand at once
 FULL_RUNNER_LAYERS = 4
+# phase 4t (d): deepseek-67b at full width, cut to the layers one card
+# holds beside its reserve (deep_layers); (e): the LM at head dims the
+# card kernels refused before PR 37, two layers at the reduced widths
+FULL_DEEP_ARCH, FULL_DEEP_MIN_LAYERS = "deepseek-67b", 40
+FULL_DEEP_RESERVE = 4 * 2 ** 30
+HEAD_DIM_MODELS, HEAD_DIM_LAYERS = (100, 320), 2
 FULL_CPU_LAYERS, FULL_CPU_BATCH, FULL_CPU_SEQ, FULL_CPU_STEPS = 2, 2, 64, 2
 
 
@@ -3344,6 +3377,150 @@ def model_attention(dev) -> dict:
     return figs
 
 
+def _nan_padded(x):
+    """``x`` as a view of rows padded to a multiple of 16 bytes with NaN
+    past its last dim: a kernel that loaded past a row's d elements would
+    carry the NaN into its scores."""
+    import torch
+
+    d = x.shape[-1]
+    pad = -(-d * x.element_size() // 16) * 16 // x.element_size()
+    wide = torch.full(x.shape[:-1] + (pad,), float("nan"), dtype=x.dtype,
+                      device=x.device)
+    wide[..., :d] = x
+    return wide[..., :d]
+
+
+def head_dim_attention(dev) -> dict:
+    """Phase 3, the head dims of ``HEAD_DIM_FLASH`` / ``HEAD_DIM_DECODE``:
+    flash in bf16 and f32 and decode over bf16, f32 and int8 caches against
+    their plain versions (decode at two lengths, over contiguous caches,
+    whose last row ends in a partial vector where d is not a whole number
+    of 16-byte vectors, and over NaN-padded views, which catch a load past
+    a row's d elements); the two misaligned bf16 views through the public
+    op, staged and counted; the kernels timed at ``HEAD_DIM_TIMED`` beside
+    their bounds, the plain versions and SDPA where a backend takes the
+    shape.  Returns the kernels line's figures by entry."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import mha_causal_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    figs = {k: [] for k in ("flash", "flash_f32", "decode", "decode_f32",
+                            "decode_int8")}
+    for d in HEAD_DIM_FLASH:
+        for dt in (bf16, f32):
+            check_flash(dev, *HEAD_DIM_CHECK, d, dt, seed=d)
+    B, S, H, K = HEAD_DIM_FLASH_SHAPE
+    for d in HEAD_DIM_TIMED:
+        for dt, key in ((bf16, "flash"), (f32, "flash_f32")):
+            err, (q, k, v) = check_flash(dev, B, S, H, K, d, dt, seed=d + 7)
+            t_bound, by = bound(4 * B * H * d * S * (S + 1) // 2,
+                                q.element_size() * (2 * q.numel() + k.numel()
+                                                    + v.numel()), dt)
+            figs[key].append({
+                "shape": [B, S, H, K, d], "width": fa_kernel.width(d),
+                "chunks": fa_kernel.chunks(d),
+                "staged": dt == bf16 and fa_kernel.bf16_staging(
+                    q, k, v) is not None,
+                "max_abs_err": err,
+                "ms": cuda_ms(lambda: fa_kernel.flash_attention(q, k, v)),
+                "plain_ms": cuda_ms(lambda: mha_causal_ref(q, k, v), 3),
+                "bound_ms": t_bound, "bound_by": by,
+                "library_ms": _sdpa_ms(*(x.transpose(1, 2) for x in
+                                         (q, k, v)), is_causal=True)})
+            del q, k, v
+    # the two views TMA cannot read in place, through the public op
+    fa_ops.flash_attention.staged = 0
+    views = []
+    for view in ("base", "stride"):
+        wide = _randn(dev, (B, S, H, 68 if view == "stride" else 72), bf16,
+                      11)
+        x = wide[..., 1:65] if view == "base" else wide[..., :64]
+        got = fa_ops.flash_attention(x, x, x)
+        exp = mha_causal_ref(x, x, x)
+        err, ok, tol = attn_error("flash", got, exp)
+        xc = x.contiguous()
+        t_bound, by = bound(4 * B * H * 64 * S * (S + 1) // 2,
+                            2 * 4 * x.numel(), bf16)
+        views.append({
+            "view": view, "shape": [B, S, H, H, 64], "max_abs_err": err,
+            "why": fa_kernel.bf16_staging(x, x, x),
+            "ms": cuda_ms(lambda: fa_kernel.flash_attention(x, x, x)),
+            "ms_without_staging": cuda_ms(
+                lambda: fa_kernel.flash_attention(xc, xc, xc)),
+            "plain_ms": cuda_ms(lambda: mha_causal_ref(x, x, x), 3),
+            "bound_ms": t_bound, "bound_by": by,
+            "library_ms": _sdpa_ms(*(y.transpose(1, 2) for y in (x, x, x)),
+                                   is_causal=True)})
+        print(f"[3 flash_attention] bf16 view off TMA's rule ({view}: "
+              f"{views[-1]['why']}), staged: max|d| {err:.3e} (tolerance "
+              f"{tol}); {views[-1]['ms']:.4f} ms with the staging copy, "
+              f"{views[-1]['ms_without_staging']:.4f} ms on an aligned copy")
+        if not ok:
+            raise AssertionError("flash_attention disagrees with its plain "
+                                 "version on a staged bf16 view")
+        del wide, x, xc, got, exp
+    if fa_ops.flash_attention.staged != 2:
+        raise AssertionError(f"flash_attention staged "
+                             f"{fa_ops.flash_attention.staged} of the two "
+                             f"misaligned views")
+    L, S, H, K = HEAD_DIM_DECODE_SHAPE
+    for d in HEAD_DIM_DECODE:
+        for dt, key in ((bf16, "decode"), (f32, "decode_f32")):
+            for length in HEAD_DIM_LENGTHS:
+                err, args = check_decode(dev, L, S, H, K, d, length, dt, dt,
+                                         seed=d + length)
+            q, kc, vc, n = args
+            kp, vp = _nan_padded(kc), _nan_padded(vc)
+            got = da_kernel.decode_attention(q, kp, vp, n)
+            pad_err, ok, tol = attn_error(
+                "decode", got, decode_attention_ref(q, kc, vc, n))
+            print(f"[3 decode_attention] the same over NaN-padded rows "
+                  f"(stride {kp.stride(2)}): max|d| {pad_err:.3e} "
+                  f"(tolerance {tol})")
+            if not ok:
+                raise AssertionError("decode_attention read past a row's "
+                                     "head dim")
+            del kp, vp, got
+            if d in HEAD_DIM_TIMED:
+                t_bound, by = bound(4 * L * H * d * S,
+                                    kc.element_size() * 2 * L * S * K * d
+                                    + 2 * q.numel() * q.element_size(), dt)
+                figs[key].append({
+                    "shape": [L, S, H, K, d], "length": S,
+                    "chunks": da_kernel.lane_layout(dt, d)["chunks"],
+                    "max_abs_err": err,
+                    "ms": cuda_ms(lambda: da_kernel.decode_attention(*args)),
+                    "plain_ms": cuda_ms(
+                        lambda: decode_attention_ref(*args)),
+                    "bound_ms": t_bound, "bound_by": by,
+                    "library_ms": _sdpa_ms(q[:, :, None],
+                                           kc.transpose(1, 2),
+                                           vc.transpose(1, 2))})
+            del q, kc, vc, args
+        for length in HEAD_DIM_LENGTHS:
+            err, args = check_decode_int8(dev, L, S, H, K, d, length, bf16,
+                                          seed=d + length)
+        check_decode_int8(dev, L, S, H, K, d, 1337, f32, seed=d)
+        if d in HEAD_DIM_TIMED:
+            t_bound, by = bound(4 * L * H * d * S,
+                                2 * L * S * K * (d + 2)
+                                + 2 * args[0].numel() * 2, bf16)
+            figs["decode_int8"].append({
+                "shape": [L, S, H, K, d], "length": S, "max_abs_err": err,
+                "ms": cuda_ms(lambda: da_kernel.decode_attention(*args)),
+                "plain_ms": cuda_ms(lambda: decode_attention_ref(*args)),
+                "bound_ms": t_bound, "bound_by": by, "library_ms": None})
+        del args
+    figs["misaligned_views"] = views
+    return figs
+
+
 def lm_serving_path(dev, cfg, model) -> dict:
     """Phase 4c: ``ServeEngine.generate`` over ``lm_requests``, with the
     kernels' launches counted over exactly that call; then the card's
@@ -3925,8 +4102,8 @@ def lm_families_path(dev) -> dict:
     return out
 
 
-def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
-    """Phase 4t (a) or (b): ``arch`` at full width drawn on the card from a
+def _full_served(dev, cfg, tag: str, smi: str) -> dict:
+    """Phase 4t (a), (b), (d) or (e): ``cfg`` drawn on the card from a
     seeded generator, ``ServeEngine.generate`` of ``LM_LANES`` requests of
     ``LM_PROMPT`` tokens, ``FULL_NEW`` new, at ``LM_LANES`` x
     ``LM_MAX_LEN``: the flash kernel launched once a layer for the wave and
@@ -3937,11 +4114,11 @@ def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
     time (the weights and the cache read once at the HBM peak)."""
     import torch
 
-    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get(arch)
+    arch = cfg.name
     torch.cuda.empty_cache()
     room = M._device_bytes(dev)
     model = _draw_model(dev, cfg, f"4t {tag}")
@@ -3956,8 +4133,10 @@ def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
     _warm_engine(engine, cfg.vocab, np.random.default_rng(SEED + 41))
     torch.cuda.reset_peak_memory_stats()
     _zero_attn_counts()
+    fa_ops.flash_attention.staged = 0
     toks, pre_s, step_ms = _timed_generate(engine, reqs, FULL_NEW)
     got = _attn_counts()
+    staged = fa_ops.flash_attention.staged
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": cfg.n_layers,
             "decode_attention": cfg.n_layers * (FULL_NEW - 1),
@@ -3986,7 +4165,8 @@ def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
           f"ms: the parameters and the cache to the steps' mean length at "
           f"the HBM peak); cache "
           f"{cache_bytes} bytes at {LM_LANES} x {LM_MAX_LEN}; peak memory "
-          f"{peak} bytes ({peak / 2**30:.3f} GiB); launches {got} ({smi})")
+          f"{peak} bytes ({peak / 2**30:.3f} GiB); launches {got}, bf16 "
+          f"flash calls staged {staged} ({smi})")
     print(f"[4t {tag}] decode == prefill(n+1), n {n - 1}, by sequence: "
           f"max|d logits| of their scale "
           f"{[float(f'{g:.3e}') for g in gaps]} (tolerance {LM_BF16_TOL}); "
@@ -4001,7 +4181,48 @@ def _full_served(dev, arch: str, tag: str, smi: str) -> dict:
     torch.cuda.empty_cache()
     return {"prefill_s": pre_s, "step_ms": step_ms, "bound_ms": bound_ms,
             "cache_bytes": cache_bytes, "peak_bytes": peak,
-            "gap": max(gaps), "launches": got, "sliced": sliced}
+            "gap": max(gaps), "launches": got, "sliced": sliced,
+            "staged": staged, "layers": cfg.n_layers}
+
+
+def deep_layers(dev, cfg) -> tuple:
+    """(layers, text): the most layers of ``cfg`` at full width that fit
+    the card's free memory at this moment (``M._device_bytes``), beside
+    the parameters outside the layers and a reserve for two
+    ``LM_LANES`` x ``LM_MAX_LEN`` caches a layer (the engine's and the
+    ``decode == prefill`` check's) and ``FULL_DEEP_RESERVE`` bytes (the
+    wave's prefill activations, the last positions' logits, the
+    allocator's slack).  Raises when fewer than ``FULL_DEEP_MIN_LAYERS``
+    fit: an earlier phase left memory behind."""
+    from repro_torch.models import model as M
+
+    room = M._device_bytes(dev)
+    specs = M.model_specs(cfg)
+    layer = sum(math.prod(s.shape[1:]) * s.dtype.itemsize
+                for p, s in specs.items() if p.startswith("layers/"))
+    outside = sum(math.prod(s.shape) * s.dtype.itemsize
+                  for p, s in specs.items() if not p.startswith("layers/"))
+    cache = 2 * 2 * LM_LANES * LM_MAX_LEN * cfg.n_kv_heads * cfg.hd * 2
+    n = min(cfg.n_layers, (room - outside - FULL_DEEP_RESERVE)
+            // (layer + cache))
+    text = (f"{n} of {cfg.n_layers} layers fit {room} bytes free: "
+            f"{layer} parameter bytes a layer, {outside} outside the "
+            f"layers, a reserve of {cache} cache bytes a layer and "
+            f"{FULL_DEEP_RESERVE}")
+    if n < FULL_DEEP_MIN_LAYERS:
+        raise AssertionError(f"phase 4t d: {text}; fewer than "
+                             f"{FULL_DEEP_MIN_LAYERS} (an earlier phase left "
+                             f"memory behind)")
+    return n, text
+
+
+def head_dim_config(hd: int):
+    """``LM_ARCH`` at ``HEAD_DIM_LAYERS`` layers and its reduced widths
+    (d_model 128, 4 query heads over 2 kv heads), at head dim ``hd``."""
+    from repro_torch.configs import get
+
+    return get(LM_ARCH).reduced().replace(
+        head_dim=hd, n_layers=HEAD_DIM_LAYERS, name=f"{LM_ARCH}-hd{hd}")
 
 
 def _full_launcher(smi: str) -> dict:
@@ -4288,12 +4509,27 @@ def full_width_path(dev, root: Path) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    from repro_torch.configs import get
+
     out = {"smi": smi}
     t0 = time.perf_counter()
     for tag, arch in zip("ab", FULL_ARCHS):
-        out[arch] = _full_served(dev, arch, tag, smi)
+        out[arch] = _full_served(dev, get(arch), tag, smi)
     out["launcher"] = _full_launcher(smi)
+    t_deep = time.perf_counter()
+    cfg = get(FULL_DEEP_ARCH)
+    n, text = deep_layers(dev, cfg)
+    print(f"[4t d] {FULL_DEEP_ARCH} at full width: {text} ({smi})")
+    out[FULL_DEEP_ARCH] = _full_served(dev, cfg.replace(n_layers=n), "d",
+                                       smi)
+    t_deep = time.perf_counter() - t_deep
+    for hd in HEAD_DIM_MODELS:
+        out[f"hd{hd}"] = _full_served(dev, head_dim_config(hd), "e", smi)
+        if out[f"hd{hd}"]["staged"] != (HEAD_DIM_LAYERS if hd % 8 else 0):
+            raise AssertionError(f"phase 4t e: head dim {hd}'s bf16 flash "
+                                 f"calls staged {out[f'hd{hd}']['staged']}")
     t_serve = time.perf_counter() - t0
+    print(f"[4t d] phase 4t d {t_deep:.1f} s ({smi})")
     t0 = time.perf_counter()
     out["train"] = _full_train(dev, root, smi)
     print(f"[4t] serving {t_serve:.1f} s, training "
@@ -6925,6 +7161,7 @@ def run(dev) -> None:
                              "calls")
     del repeats
     attn_figs = model_attention(dev)
+    head_figs = head_dim_attention(dev)
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -7091,7 +7328,8 @@ def run(dev) -> None:
     # -- 4t. granite-3-2b and phi3-medium-14b at full width ------------------
     full, f32_paths["full_width"] = f32_flash_launches(run_full_width, dev)
     full_launch = [full[a]["launches"] for a in FULL_ARCHS] \
-        + [full["launcher"]["launches"]]
+        + [full["launcher"]["launches"], full[FULL_DEEP_ARCH]["launches"]] \
+        + [full[f"hd{hd}"]["launches"] for hd in HEAD_DIM_MODELS]
 
     # -- 4o. the SSM and hybrid families at full width -----------------------
     t0 = time.perf_counter()
@@ -7374,7 +7612,9 @@ def run(dev) -> None:
              is_causal=True, enable_gqa=True)),
          "at_prefill_32k": acct["flash_prefill_32k"],
          "at_head_dims": attn_figs["flash"],
-         "at_65600_heads": attn_figs["many_heads"]},
+         "at_65600_heads": attn_figs["many_heads"],
+         "at_new_head_dims": head_figs["flash"],
+         "at_misaligned_views": head_figs["misaligned_views"]},
         {"name": "flash_attention_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
@@ -7382,7 +7622,8 @@ def run(dev) -> None:
          "launches_by_path": f32_paths,
          **f32_flash["table"],
          "at_deepseek_67b": f32_flash["deepseek_67b"],
-         "at_head_dims": attn_figs["flash_f32"]},
+         "at_head_dims": attn_figs["flash_f32"],
+         "at_new_head_dims": head_figs["flash_f32"]},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -7403,7 +7644,9 @@ def run(dev) -> None:
          "at_long_500k": ssm["decode_long"],
          "at_decode_32k": acct["decode_decode_32k"],
          "at_head_dims": attn_figs["decode"],
-         "at_mqa": attn_figs["mqa"]},
+         "at_mqa": attn_figs["mqa"],
+         "at_new_head_dims": head_figs["decode"],
+         "at_new_head_dims_f32": head_figs["decode_f32"]},
         {"name": "decode_attention_int8", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
@@ -7416,7 +7659,8 @@ def run(dev) -> None:
          # cache at the same shape, for scale
          "library_ms": None, "sdpa_over_bf16_cache_ms": sdpa_bf16_ms,
          "at_head_dims": attn_figs["decode_int8"],
-         "at_mqa": attn_figs["mqa_int8"]},
+         "at_mqa": attn_figs["mqa_int8"],
+         "at_new_head_dims": head_figs["decode_int8"]},
     ]
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"

@@ -245,9 +245,11 @@ void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
             double scale) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   const int64_t splits = decode_attention_split(q, k_cache)[0];
-  // the splits' partials (m, l, acc[d]), written and read inside the launch
+  // the splits' partials (m, l, acc) of each 256-column chunk of d, written
+  // and read inside the launch
+  const int64_t chunks = (q.size(2) + 255) / 256;
   const torch::Tensor ws = torch::empty(
-      {q.size(0) * q.size(1) * splits * (q.size(2) + 2)},
+      {q.size(0) * q.size(1) * splits * (q.size(2) + 2 * chunks)},
       q.options().dtype(torch::kFloat32));
   const bool q8 = k_scale.defined();
   auto st = [q8](const torch::Tensor& t, int i) -> long long {

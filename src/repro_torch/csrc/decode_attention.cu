@@ -42,10 +42,12 @@
 // two loads, 8 elements, for f32 at width 256, so that LPR stays a power
 // of two of at most 32 for the butterfly), so every thread works whatever
 // G is.  D is the compiled width (32, 64, 128 or 256) at or above the head
-// dim d, a multiple of 8: a lane whose columns are all past d loads
-// nothing and counts zeros (at d = 96 in bf16, 4 of 16 lanes), an int8
-// lane half past d (d % 16 == 8) loads its 8 bytes below d, and only the d
-// real columns reach the partials and the output; an int8 row takes half the bf16
+// dim d, any d from 1: a lane whose columns are all past d loads nothing
+// and counts zeros (at d = 96 in bf16, 4 of 16 lanes), a lane whose vector
+// straddles d loads exactly its elements below d, element by element (an
+// int8 half as one 8-byte load), never a byte past the row's d elements,
+// and only the d real columns reach the partials and the output; past 256,
+// decode_attention_wide_kernel takes the columns in chunks of 256; an int8 row takes half the bf16
 // path's lanes, so a block has twice its row groups in flight, and each row
 // group also reads the row's k and v scales (one 2-byte load a row that
 // its lanes share).  An int8 block serves GC = 2 query heads (not 4) when
@@ -176,10 +178,32 @@ __device__ __forceinline__ uint4 load_half(const int8_t* p, bool vec) {
   return u;
 }
 
+// The first n (0 < n < 16 bytes' worth) elements of a cache row at p,
+// element by element, zeros after them: nothing past the n-th element is
+// read, so the cache's last row never reads past its allocation.
+template <typename TKV>
+__device__ __forceinline__ uint4 load_part(const TKV* p, int n) {
+  constexpr int E = 16 / static_cast<int>(sizeof(TKV));
+  using U = typename std::conditional<
+      sizeof(TKV) == 1, unsigned char,
+      typename std::conditional<sizeof(TKV) == 2, unsigned short,
+                                unsigned>::type>::type;
+  const U* e = reinterpret_cast<const U*>(p);
+  U x[E] = {};
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    if (i < n) x[i] = __ldg(e + i);
+  uint4 u;
+  memcpy(&u, x, 16);
+  return u;
+}
+
 // A lane's share of a cache row at p, of which its first nv elements lie
-// below the head dim: its vectors loaded there, zeros past it.  nv is the
-// lane's whole share, 0, or (int8 only) 8 of 16; without kPart it is the
-// whole share, and the vectors load with no test.
+// below the head dim: its vectors loaded there, zeros past it.  A vector
+// wholly below the head dim is one 16-byte load (when vec), one that
+// straddles it loads exactly its elements below it (an int8 half by one
+// 8-byte load); without kPart nv is the whole share, and the vectors load
+// with no test.
 template <int NV, bool kPart, typename TKV>
 __device__ __forceinline__ Lane<NV> load_lane(const TKV* p, bool vec,
                                               int nv) {
@@ -192,11 +216,10 @@ __device__ __forceinline__ Lane<NV> load_lane(const TKV* p, bool vec,
       r.v[i] = load_row(p + i * E, vec);
     } else if (n <= 0) {
       r.v[i] = make_uint4(0u, 0u, 0u, 0u);
+    } else if (sizeof(TKV) == 1 && n == 8) {
+      r.v[i] = load_half(reinterpret_cast<const int8_t*>(p + i * E), vec);
     } else {
-      if constexpr (sizeof(TKV) == 1)
-        r.v[i] = load_half(p + i * E, vec);
-      else
-        r.v[i] = make_uint4(0u, 0u, 0u, 0u);  // d % 8 == 0: never taken
+      r.v[i] = load_part(p + i * E, n);
     }
   }
   return r;
@@ -530,6 +553,224 @@ __global__ void __launch_bounds__(kThreads, Rows<TKV, D>::kMinBlocks)
   if (tid == 0) counters[x] = 0;
 }
 
+// A head dim past the widest compiled width (kWide = 256): the output
+// columns in chunks of kWide, a chunk a grid index beside the (lane, kv
+// head, head chunk), so nothing in a block grows with d.  A row group reads
+// its rows at width kWide, as decode_attention_kernel<..., 256, ...> does
+// (the same lanes, loads and dequantization), but one row at a time: its
+// score sums the lanes' dots over every chunk of the row's d columns in
+// order (ceil(d / 256) loads of k a row a block, so every column block
+// reads all of k: the chunks' count times the k bytes of one read), and
+// only chunk cc's columns of v reach its accumulators.  q is read from
+// memory (its cache lines stay in L1) where the narrow kernel keeps it in
+// registers.  The softmax's statistics are the same in every chunk's
+// blocks.  A split's partial of chunk cc is (m, l, acc[256 or the last
+// chunk's columns]) at cc * 258 in the split's d + 2 ceil(d / 256) floats;
+// the last block of a (lane, kv head, head chunk, column chunk) merges the
+// splits of its chunk as the narrow kernel does.
+constexpr int kWide = 256;
+
+template <typename TQ, typename TKV, int GC>
+__global__ void __launch_bounds__(kThreads, Rows<TKV, kWide>::kMinBlocks)
+    decode_attention_wide_kernel(const TQ* __restrict__ q,
+                                 const TKV* __restrict__ kc,
+                                 const TKV* __restrict__ vc,
+                                 const unsigned short* __restrict__ k_scale,
+                                 const unsigned short* __restrict__ v_scale,
+                                 const int* __restrict__ length_ptr,
+                                 TQ* __restrict__ o, float* __restrict__ ws,
+                                 int* __restrict__ counters, int S, int K,
+                                 int G, int d, int n_cc, int chunk,
+                                 int splits, bool vec, Strides st,
+                                 float scale) {
+  constexpr int D = kWide;
+  using R = Rows<TKV, D>;
+  using V = Lane<R::kVecs>;
+  constexpr bool kQ8 = std::is_same<TKV, int8_t>::value;
+  constexpr int EPL = R::kEPL, LPR = R::kLPR, NG = R::kGroups;
+  constexpr int NW = kMaxSplits > NG ? kMaxSplits : NG;
+  __shared__ float sm_acc[GC][NG][D];
+  __shared__ float sm_m[GC][NG], sm_l[GC][NG];
+  __shared__ float sm_w[GC][NW];
+  __shared__ float sm_L[GC];
+  __shared__ int sm_last;
+
+  const int W = d + 2 * n_cc;              // a split's partials
+  const int n_hc = (G + GC - 1) / GC;
+  const int x = blockIdx.x;  // ((lane, kv head, head chunk), column chunk)
+  const int cc = x % n_cc, y = x / n_cc;
+  const int b = y / (K * n_hc), kh = (y / n_hc) % K, g0 = (y % n_hc) * GC;
+  const int H = K * G;
+  const int split = blockIdx.y;
+  const int tid = threadIdx.x, grp = tid / LPR, j = tid % LPR;
+  const int col0 = cc * D;
+  const int DC = min(D, d - col0);         // chunk cc's columns
+  const int nv = min(max(DC - j * EPL, 0), EPL);
+  const int length_in = *length_ptr;
+  if (length_in < 1) __trap();
+  const int len = length_in < S ? length_in : S;
+  const int n_valid = (len + chunk - 1) / chunk;
+
+  if (split < n_valid) {
+    const int c0 = split * chunk;
+    const int c1 = c0 + chunk < len ? c0 + chunk : len;
+    float m[GC], l[GC], acc[GC][EPL];
+#pragma unroll
+    for (int gg = 0; gg < GC; ++gg) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[gg][e] = 0.f;
+      m[gg] = kNegInf;
+      l[gg] = 0.f;
+    }
+    const TQ* qb = q + b * st.qb + (kh * G + g0) * st.qh + j * EPL;
+    const TKV* kb = kc + b * st.kb + kh * st.kh + j * EPL;
+    const TKV* vb = vc + b * st.vb + kh * st.vh + col0 + j * EPL;
+    const unsigned short* ksb = k_scale + b * st.sb_k + kh * st.sh_k;
+    const unsigned short* vsb = v_scale + b * st.sb_v + kh * st.sh_v;
+
+    for (int base = c0; base < c1; base += NG) {  // block-uniform
+      const int pos = base + grp;
+      const bool in = pos < c1;
+      unsigned sk = 0u, sv = 0u;
+      if constexpr (kQ8) {
+        sk = in ? load_scale2(ksb + pos * st.ss_k) : 0u;
+        sv = in ? load_scale2(vsb + pos * st.ss_v) : 0u;
+      }
+      float dot[GC];
+#pragma unroll
+      for (int gg = 0; gg < GC; ++gg) dot[gg] = 0.f;
+      for (int p = 0; p < n_cc; ++p) {
+        const int np = min(max(d - p * D - j * EPL, 0), EPL);
+        const V rk = in ? load_lane<R::kVecs, true>(kb + pos * st.ks + p * D,
+                                                    vec, np)
+                        : V{};
+        float kf[EPL];
+        if constexpr (kQ8)
+          unpack(rk, kf, sk);
+        else
+          unpack(rk, kf, TKV{});
+#pragma unroll
+        for (int gg = 0; gg < GC; ++gg) {
+          if (g0 + gg >= G) continue;
+          const TQ* qr = qb + gg * st.qh + p * D;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            if (e < np) dot[gg] = fmaf(to_f32(qr[e]) * scale, kf[e], dot[gg]);
+        }
+      }
+      const V rv = in ? load_lane<R::kVecs, true>(vb + pos * st.vs, vec, nv)
+                      : V{};
+      float vf[EPL];
+      if constexpr (kQ8)
+        unpack(rv, vf, sv);
+      else
+        unpack(rv, vf, TKV{});
+#pragma unroll
+      for (int gg = 0; gg < GC; ++gg) {
+        float s = dot[gg];
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off /= 2)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        const float mx = in ? fmaxf(m[gg], s) : m[gg];
+        const float alpha = expf(m[gg] - mx);
+        const float pr = in ? expf(s - mx) : 0.f;
+        l[gg] = l[gg] * alpha + pr;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[gg][e] = fmaf(pr, vf[e], acc[gg][e] * alpha);
+        m[gg] = mx;
+      }
+    }
+
+    // merge the row groups in group order into this split's partial
+#pragma unroll
+    for (int gg = 0; gg < GC; ++gg) {
+      if (j == 0) {
+        sm_m[gg][grp] = m[gg];
+        sm_l[gg][grp] = l[gg];
+      }
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) sm_acc[gg][grp][j * EPL + e] = acc[gg][e];
+    }
+    __syncthreads();
+    for (int i = tid; i < GC * NG; i += kThreads) {
+      const int gg = i / NG, r = i % NG;
+      float M = kNegInf;
+      for (int r2 = 0; r2 < NG; ++r2) M = fmaxf(M, sm_m[gg][r2]);
+      sm_w[gg][r] = expf(sm_m[gg][r] - M);
+    }
+    __syncthreads();
+    for (int i = tid; i < GC * DC; i += kThreads) {
+      const int gg = i / DC, c = i % DC, g = g0 + gg;
+      if (g >= G) continue;
+      float a = 0.f;
+      for (int r = 0; r < NG; ++r) a = fmaf(sm_w[gg][r], sm_acc[gg][r][c], a);
+      float* part = ws +
+                    (static_cast<long long>(b * H + kh * G + g) * splits +
+                     split) * W + cc * (D + 2);
+      part[2 + c] = a;
+      if (c == 0) {
+        float M = kNegInf, L = 0.f;
+        for (int r = 0; r < NG; ++r) M = fmaxf(M, sm_m[gg][r]);
+        for (int r = 0; r < NG; ++r) L = fmaf(sm_w[gg][r], sm_l[gg][r], L);
+        part[0] = M;
+        part[1] = L;
+      }
+    }
+  }
+
+  // the last block of this (lane, kv head, head chunk, column chunk)
+  // merges the splits of its chunk
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) sm_last = atomicAdd(counters + x, 1) == splits - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp < GC && g0 + warp < G) {
+    const float* parts =
+        ws + static_cast<long long>(b * H + kh * G + g0 + warp) * splits * W +
+        cc * (D + 2);
+    float ms[2], ls[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sp = lane + 32 * h;
+      ms[h] = sp < n_valid ? __ldcg(parts + sp * W) : kNegInf;
+      ls[h] = sp < n_valid ? __ldcg(parts + sp * W + 1) : 0.f;
+    }
+    float M = fmaxf(ms[0], ms[1]);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int sp = lane + 32 * h;
+      const float w = sp < n_valid ? expf(ms[h] - M) : 0.f;
+      if (sp < NW) sm_w[warp][sp] = w;
+      L = fmaf(w, ls[h], L);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) sm_L[warp] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < GC * DC; i += kThreads) {
+    const int gg = i / DC, c = i % DC, g = g0 + gg;
+    if (g >= G) continue;
+    const float* parts =
+        ws + static_cast<long long>(b * H + kh * G + g) * splits * W +
+        cc * (D + 2);
+    float a = 0.f;
+    for (int sp = 0; sp < n_valid; ++sp)
+      a = fmaf(sm_w[gg][sp], __ldcg(parts + sp * W + 2 + c), a);
+    store(o + b * st.ob + (kh * G + g) * st.oh + col0 + c, a / sm_L[gg]);
+  }
+  if (tid == 0) counters[x] = 0;
+}
+
 // The SM count of the current device, asked once per device.
 int sm_count() {
   static std::atomic<int> known[64];
@@ -550,12 +791,13 @@ struct Plan {
 };
 
 // The grid and the chunk: about kBlocksPerSM blocks an SM, chunks a
-// multiple of a block iteration's rows, at most kMaxSplits splits.
+// multiple of a block iteration's rows, at most kMaxSplits splits.  n_cc
+// column chunks (past kWide) multiply the grid's x.
 template <typename TKV, int D>
-Plan plan(int B, int S, int K, int G, int sms) {
+Plan plan(int B, int S, int K, int G, int n_cc, int sms) {
   const int gc = G == 1 ? 1 : Rows<TKV, D>::kGC;
-  const int gx = B * K * ((G + gc - 1) / gc);
-  const int step = Rows<TKV, D>::kStep;
+  const int gx = B * K * ((G + gc - 1) / gc) * n_cc;
+  const int step = n_cc > 1 ? Rows<TKV, D>::kGroups : Rows<TKV, D>::kStep;
   auto cdiv = [](long long a, long long b) {
     return static_cast<int>((a + b - 1) / b);
   };
@@ -565,22 +807,25 @@ Plan plan(int B, int S, int K, int G, int sms) {
   return {gx, cdiv(S, chunk), chunk};
 }
 
-// The compiled width a head dim runs at: the next of 32, 64, 128, 256.
+// The compiled width a head dim runs at: the next of 32, 64, 128, 256;
+// past 256 a chunk of kWide columns (kernel.py's flash width() is the
+// same rule).
 int width(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+// Column chunks of kWide: 1 up to it.
+int column_chunks(int d) { return (d + kWide - 1) / kWide; }
 
 template <typename TKV>
 Plan plan_d(int d, int B, int S, int K, int G, int sms) {
   switch (width(d)) {
-    case 32: return plan<TKV, 32>(B, S, K, G, sms);
-    case 64: return plan<TKV, 64>(B, S, K, G, sms);
-    case 128: return plan<TKV, 128>(B, S, K, G, sms);
-    default: return plan<TKV, 256>(B, S, K, G, sms);
+    case 32: return plan<TKV, 32>(B, S, K, G, 1, sms);
+    case 64: return plan<TKV, 64>(B, S, K, G, 1, sms);
+    case 128: return plan<TKV, 128>(B, S, K, G, 1, sms);
+    default: return plan<TKV, 256>(B, S, K, G, column_chunks(d), sms);
   }
 }
 
 Plan plan_for(int kv_dtype, int d, int B, int S, int H, int K) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
-    return {0, 0, 0};
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 1) return {0, 0, 0};
   const int sms = sm_count();
   if (sms < 1) return {0, 0, 0};
   switch (kv_dtype) {
@@ -637,8 +882,30 @@ cudaError_t launch_g(const Call& c) {
   return launch_part<TQ, TKV, D, Rows<TKV, D>::kGC>(c);
 }
 
+template <typename TQ, typename TKV, int GC>
+cudaError_t launch_wide(const Call& c) {
+  constexpr int E = Rows<TKV, kWide>::kE;
+  const Strides& st = c.st;
+  const bool vec = reinterpret_cast<uintptr_t>(c.kc) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(c.vc) % 16 == 0 &&
+                   st.kb % E == 0 && st.ks % E == 0 && st.kh % E == 0 &&
+                   st.vb % E == 0 && st.vs % E == 0 && st.vh % E == 0;
+  const dim3 grid(c.p.gx, c.p.splits);
+  decode_attention_wide_kernel<TQ, TKV, GC><<<grid, kThreads, 0, c.stream>>>(
+      static_cast<const TQ*>(c.q), static_cast<const TKV*>(c.kc),
+      static_cast<const TKV*>(c.vc), static_cast<const unsigned short*>(c.ks),
+      static_cast<const unsigned short*>(c.vs), c.length,
+      static_cast<TQ*>(c.o), c.ws, c.counters, c.S, c.K, c.G, c.d,
+      column_chunks(c.d), c.p.chunk, c.p.splits, vec, st, c.scale);
+  return cudaGetLastError();
+}
+
 template <typename TQ, typename TKV>
 cudaError_t dispatch_d(const Call& c) {
+  if (c.d > kWide) {
+    if (c.G == 1) return launch_wide<TQ, TKV, 1>(c);
+    return launch_wide<TQ, TKV, Rows<TKV, kWide>::kGC>(c);
+  }
   switch (width(c.d)) {
     case 32: return launch_g<TQ, TKV, 32>(c);
     case 64: return launch_g<TQ, TKV, 64>(c);
@@ -649,10 +916,10 @@ cudaError_t dispatch_d(const Call& c) {
 
 }  // namespace
 
-// The launch plan of a call: splits (blocks a (lane, kv head, head chunk))
-// and chunk (cache positions a split), for the f32 workspace of B * H *
-// splits partials of d + 2 floats.  Returns 0 for shapes the kernel does
-// not take.
+// The launch plan of a call: splits (blocks a (lane, kv head, head chunk,
+// column chunk)) and chunk (cache positions a split), for the f32
+// workspace of B * H * splits partials of d + 2 ceil(d / 256) floats.
+// Returns 0 for shapes the kernel does not take.
 extern "C" int decode_attention_plan(int kv_dtype, int B, int S, int H,
                                      int K, int d, int* splits, int* chunk) {
   const Plan p = plan_for(kv_dtype, d, B, S, H, K);
@@ -665,9 +932,9 @@ extern "C" int decode_attention_plan(int kv_dtype, int B, int S, int H,
 // (f32, f32), (bf16, bf16), (f32, bf16), (f32, int8) and (bf16, int8) are
 // built.  An int8 cache needs ks and vs, its bf16 scales (B, S, K); the
 // other caches take none (null).  o has q's dtype.  length: one int32 in
-// device memory.  ws: B * H * splits * (d + 2) floats
-// (decode_attention_plan).  counters: at least B * H int32, zero between
-// calls (each call leaves them so).  strides: 16 element strides — q (b,
+// device memory.  ws: B * H * splits * (d + 2 ceil(d / 256)) floats
+// (decode_attention_plan).  counters: at least B * H * ceil(d / 256)
+// int32, zero between calls (each call leaves them so).  strides: 16 element strides — q (b,
 // h), k (b, s, k), v (b, s, k), o (b, h), the k scales (b, s, k), the v
 // scales (b, s, k); the head dim is contiguous.
 extern "C" cudaError_t decode_attention_launch(

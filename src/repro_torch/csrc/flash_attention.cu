@@ -9,10 +9,12 @@
 // (B,S,H,d) against k, v (B,S,K,d), head h reading kv head h / (H/K); q is
 // scaled by 1/sqrt(d) before the dot; running max, denominator and
 // accumulator in f32 (online softmax, masked scores at -1e30); kv tiles past
-// the diagonal are skipped; out = acc / l.  Any d that is a multiple of 8
-// up to 256 runs at the compiled width above it (32, 64, 128 or 256): the
-// copies zero-fill the columns past d, whose products add exact zeros, and
-// only the d real output columns are stored.
+// the diagonal are skipped; out = acc / l.  Any d from 1: up to 256 it
+// runs at the compiled width above it (32, 64, 128 or 256), the copies
+// zero-filling the columns past d (element by element where d is not a
+// multiple of 4), whose products add exact zeros, and only the d real
+// output columns are stored; past 256 flash_attention_wide_kernel runs it
+// in column chunks of 256 (ceil(d / 256) times Q.K^T's work).
 //
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the f32 rate
 // outside the tensor cores (67 TFLOP/s on an H100 SXM), far above the bytes
@@ -151,7 +153,8 @@ __device__ __forceinline__ float lane(const float4& x, int i) {
 }
 
 // Rows [r0, r0 + R) of one head of k or v into dst (row pitch ld floats),
-// zero past S and, with kPart, past column d.
+// zero past S and, with kPart, past column d: 16-byte copies (vec: d, the
+// bases and the strides on 4 floats), else 4-byte ones, each element masked.
 template <int D, int R, int NT, bool kPart>
 __device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       long long stride, int r0, int S, int d,
@@ -163,31 +166,115 @@ __device__ __forceinline__ void stage(float* dst, int ld, const float* src,
     const int r = i / C4, c = 4 * (i % C4), pos = r0 + r;
     const bool in = pos < S && (!kPart || c < d);
     const float* s = src + (in ? pos : S - 1) * stride + (in || !kPart ? c : 0);
-    float* d = dst + r * ld + c;
+    float* dp = dst + r * ld + c;
     if (vec) {
-      cp_async16(d, s, in ? 16 : 0);
+      cp_async16(dp, s, in ? 16 : 0);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) cp_async4(d + e, s + e, in ? 4 : 0);
+      for (int e = 0; e < 4; ++e) {
+        const bool ie = in && (!kPart || c + e < d);
+        cp_async4(dp + e, s + (ie ? e : 0), ie ? 4 : 0);
+      }
     }
   }
 }
 
-// S = Q.K^T for the thread's 8 q rows (row0 ..) and NS keys (4 tx + e +
-// g BK/2: NS/4 chunks of 4; key tx when NS = 1), each summed over d in
-// order from 0.  Both operands come from transposed tiles, so each dim is
+// Q^T of q rows [q0, q0 + BQ) of one head, scaled, zero past S and, with
+// kPart, past column d: consecutive threads take consecutive rows, so the
+// transposed stores are conflict-free.
+template <int D, bool kPart>
+__device__ __forceinline__ void load_qt(float* Qt, const float* qb,
+                                        long long qs, int q0, int S, int d,
+                                        float scale, bool vec, int tid) {
+  using T = Tile<D>;
+  constexpr int BQ = T::BQ, NT = T::NT;
+#pragma unroll
+  for (int n = 0; n < BQ * D / 4 / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i % BQ, c = 4 * (i / BQ), pos = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (pos < S && (!kPart || c < d)) {
+      const float* p = qb + pos * qs + c;
+      x = vec ? *reinterpret_cast<const float4*>(p)
+              : make_float4(p[0], !kPart || c + 1 < d ? p[1] : 0.f,
+                            !kPart || c + 2 < d ? p[2] : 0.f,
+                            !kPart || c + 3 < d ? p[3] : 0.f);
+    }
+    Qt[(c + 0) * BQ + r] = x.x * scale;
+    Qt[(c + 1) * BQ + r] = x.y * scale;
+    Qt[(c + 2) * BQ + r] = x.z * scale;
+    Qt[(c + 3) * BQ + r] = x.w * scale;
+  }
+}
+
+// K^T from the K copy: consecutive threads take consecutive keys, so the
+// transposed stores are conflict-free.
+template <int D>
+__device__ __forceinline__ void transpose_k(const float* Ks, float* Kt,
+                                            int tid) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK, NT = T::NT;
+#pragma unroll
+  for (int n = 0; n < BK * D / 4 / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i % BK, c = 4 * (i / BK);
+    const float4 x = *reinterpret_cast<const float4*>(Ks + r * T::LDK + c);
+    Kt[(c + 0) * BK + r] = x.x;
+    Kt[(c + 1) * BK + r] = x.y;
+    Kt[(c + 2) * BK + r] = x.z;
+    Kt[(c + 3) * BK + r] = x.w;
+  }
+}
+
+// The thread's output rows, divided by their denominators: columns 4 tx ..
+// and D/2 + 4 tx .. of orow's rows, those below d with kPart.
+template <int D, bool kPart>
+__device__ __forceinline__ void store_out(float* orow0, long long os,
+                                          int q0, int row0, int S, int d,
+                                          int tx, bool vec,
+                                          const float (&acc)[8][8],
+                                          const float (&l_run)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pos = q0 + row0 + i;
+    if (pos >= S) continue;
+    const float l = l_run[i];
+    float* orow = orow0 + pos * os + 4 * tx;
+    const float4 lo = make_float4(acc[i][0] / l, acc[i][1] / l,
+                                  acc[i][2] / l, acc[i][3] / l);
+    const float4 hi = make_float4(acc[i][4] / l, acc[i][5] / l,
+                                  acc[i][6] / l, acc[i][7] / l);
+    if (vec) {  // d % 4 == 0: each group of 4 all below d or all past it
+      if (!kPart || 4 * tx < d) *reinterpret_cast<float4*>(orow) = lo;
+      if (!kPart || D / 2 + 4 * tx < d)
+        *reinterpret_cast<float4*>(orow + D / 2) = hi;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!kPart || 4 * tx + c < d) orow[c] = lane(lo, c);
+        if (!kPart || D / 2 + 4 * tx + c < d) orow[D / 2 + c] = lane(hi, c);
+      }
+    }
+  }
+}
+
+// S = Q.K^T (S += with kAdd, the wide kernel's slabs) for the thread's 8
+// q rows (row0 ..) and NS keys (4 tx + e + g BK/2: NS/4 chunks of 4; key
+// tx when NS = 1), each summed over the tile's D dims in order from 0.  Both operands come from transposed tiles, so each dim is
 // two 16-byte loads of Q^T and NS/4 of K^T (one 4-byte load when NS = 1)
 // for 8 NS FMAs.
-template <int D>
+template <int D, bool kAdd = false>
 __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
                                        int row0, int tx,
                                        float (&s)[8][Tile<D>::NS]) {
   using T = Tile<D>;
   constexpr int BQ = T::BQ, BK = T::BK, NS = T::NS;
+  if constexpr (!kAdd) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
+  }
   const float* qp = Qt + row0;
   const float* kp = Kt + 4 * tx;
 #pragma unroll 8
@@ -351,24 +438,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
 
   stage<D, BK, NT, kPart>(Ks, T::LDK, kb, st.ks, 0, S, d, vec, tid);
   cp_async_commit();
-
-  // Q^T, scaled: consecutive threads take consecutive rows, so the
-  // transposed stores are conflict-free
-#pragma unroll
-  for (int n = 0; n < BQ * D / 4 / NT; ++n) {
-    const int i = tid + n * NT;
-    const int r = i % BQ, c = 4 * (i / BQ), pos = q0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos < S && (!kPart || c < d)) {
-      const float* p = qb + pos * st.qs + c;
-      x = vec ? *reinterpret_cast<const float4*>(p)
-              : make_float4(p[0], p[1], p[2], p[3]);
-    }
-    Qt[(c + 0) * BQ + r] = x.x * scale;
-    Qt[(c + 1) * BQ + r] = x.y * scale;
-    Qt[(c + 2) * BQ + r] = x.z * scale;
-    Qt[(c + 3) * BQ + r] = x.w * scale;
-  }
+  load_qt<D, kPart>(Qt, qb, st.qs, q0, S, d, scale, vec, tid);
 
   float acc[8][8], m_run[8], l_run[8];
 #pragma unroll
@@ -385,18 +455,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
     __syncthreads();  // K[kt] (and Q^T) in; P.V of kt - 1 done with Vs, Pt
     stage<D, BK, NT, kPart>(Vs, D, vb, st.vs, k0, S, d, vec, tid);
     cp_async_commit();
-    // K^T: consecutive threads take consecutive keys, so the transposed
-    // stores are conflict-free
-#pragma unroll
-    for (int n = 0; n < BK * D / 4 / NT; ++n) {
-      const int i = tid + n * NT;
-      const int r = i % BK, c = 4 * (i / BK);
-      const float4 x = *reinterpret_cast<const float4*>(Ks + r * T::LDK + c);
-      Kt[(c + 0) * BK + r] = x.x;
-      Kt[(c + 1) * BK + r] = x.y;
-      Kt[(c + 2) * BK + r] = x.z;
-      Kt[(c + 3) * BK + r] = x.w;
-    }
+    transpose_k<D>(Ks, Kt, tid);
     __syncthreads();  // K^T in; the copy buffer free
     if (kt < kt_last) {
       stage<D, BK, NT, kPart>(Ks, T::LDK, kb, st.ks, k0 + BK, S, d, vec,
@@ -417,31 +476,92 @@ __global__ void __launch_bounds__(Tile<D>::NT)
     accumulate<D>(Pt, Vs, ty, tx, acc);
   }
 
+  store_out<D, kPart>(o + b * st.ob + h * st.oh, st.os, q0, row0, S, d, tx,
+                      vec, acc, l_run);
+}
+
+// A head dim past the widest compiled width (kWide = 256): a block a (q
+// tile, batch * head, column chunk cc of 256 output columns), on the plan
+// of width 256.  For each kv tile the scores are summed over all of d, in
+// order from 0, slab by slab of 256 columns: Q^T's slab (scaled) and K's
+// slab go to the tiles the narrow kernel keeps (Q^T once a block there,
+// here once a slab a kv tile), then Q.K^T adds the slab's dims.  V's chunk
+// cc lands with the first slab's K.  So a block recomputes the whole S for
+// its chunk: ceil(d / 256) times Q.K^T's work of one pass over d, and the
+// copies take no overlap with the products (two barriers a slab).  The
+// softmax, P^T and P.V are the narrow kernel's.
+constexpr int kWide = 256;
+
+__global__ void __launch_bounds__(Tile<kWide>::NT)
+    flash_attention_wide_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o, int S, int H, int G,
+                                int BH, int d, int n_cc, Strides st,
+                                float scale, bool vec) {
+  constexpr int D = kWide;
+  using T = Tile<D>;
+  constexpr int NT = T::NT, BK = T::BK, TX = T::TX, BQ = T::BQ, NS = T::NS;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Ks = Qt + T::kQt;
+  float* Kt = Ks + T::kKs;
+  float* Vs = Kt + T::kKt;
+  float* Pt = Vs + T::kVs;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const long long per_tile = static_cast<long long>(BH) * n_cc;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x / per_tile);
+  const int rem = static_cast<int>(blockIdx.x % per_tile);
+  const int bh = rem / n_cc, cc = rem % n_cc;
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX, row0 = 8 * ty;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + kh * st.kh;
+  const float* vb = v + b * st.vb + kh * st.vh + cc * D;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
+  const int dv = min(D, d - cc * D);  // chunk cc's columns
+
+  float acc[8][8], m_run[8], l_run[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int pos = q0 + row0 + i;
-    if (pos >= S) continue;
-    const float l = l_run[i];
-    float* orow = o + b * st.ob + pos * st.os + h * st.oh + 4 * tx;
-    const float4 lo = make_float4(acc[i][0] / l, acc[i][1] / l,
-                                  acc[i][2] / l, acc[i][3] / l);
-    const float4 hi = make_float4(acc[i][4] / l, acc[i][5] / l,
-                                  acc[i][6] / l, acc[i][7] / l);
-    // columns 4 tx .. and D/2 + 4 tx .., each group of 4 all below d or
-    // all past it (d % 8 == 0)
-    const bool in_lo = !kPart || 4 * tx < d;
-    const bool in_hi = !kPart || D / 2 + 4 * tx < d;
-    if (vec) {
-      if (in_lo) *reinterpret_cast<float4*>(orow) = lo;
-      if (in_hi) *reinterpret_cast<float4*>(orow + D / 2) = hi;
-    } else {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (in_lo) orow[c] = lane(lo, c);
-        if (in_hi) orow[D / 2 + c] = lane(hi, c);
-      }
-    }
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
   }
+
+  for (int kt = 0; kt <= kt_last; ++kt) {
+    const int k0 = kt * BK;
+    float s[8][NS];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < n_cc; ++j) {
+      const int dj = min(D, d - j * D);  // slab j's columns
+      __syncthreads();  // Q.K^T of the last slab (and P.V) done with the tiles
+      stage<D, BK, NT, true>(Ks, T::LDK, kb + j * D, st.ks, k0, S, dj, vec,
+                             tid);
+      if (j == 0) stage<D, BK, NT, true>(Vs, D, vb, st.vs, k0, S, dv, vec, tid);
+      cp_async_commit();
+      load_qt<D, true>(Qt, qb + j * D, st.qs, q0, S, dj, scale, vec, tid);
+      cp_async_wait<0>();
+      __syncthreads();  // K's slab (and V) in, Q^T's slab written
+      transpose_k<D>(Ks, Kt, tid);
+      __syncthreads();  // K^T in
+      scores<D, true>(Qt, Kt, row0, tx, s);
+    }
+    softmax<D>(s, m_run, l_run, acc, k0 + BK - 1 > q0, q0 + row0, k0, tx);
+    store_p<D>(s, Pt, ty, tx);
+    __syncthreads();  // P^T visible
+    accumulate<D>(Pt, Vs, ty, tx, acc);
+  }
+
+  store_out<D, true>(o + b * st.ob + h * st.oh + cc * D, st.os, q0, row0, S,
+                     dv, tx, vec, acc, l_run);
 }
 
 template <int D, bool kPart>
@@ -488,28 +608,62 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, void* o,
                                   stream);
 }
 
+// A d past kWide: ceil(d / 256) column chunks on width 256's plan.
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int K, int d, const Strides& st,
+                        float scale, int q_rows, int kv_rows, int threads,
+                        int smem_bytes, bool vec, cudaStream_t stream) {
+  using T = Tile<kWide>;
+  if (q_rows != T::BQ || kv_rows != T::BK || threads != T::NT ||
+      smem_bytes != static_cast<int>(T::kSmem))
+    return cudaErrorInvalidValue;  // kernel.py's plan and this build differ
+  const int n_cc = (d + kWide - 1) / kWide;
+  const long long BH = static_cast<long long>(B) * H;
+  const long long blocks = BH * n_cc * ((S + T::BQ - 1) / T::BQ);
+  if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int smem = static_cast<int>(T::kSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_attention_wide_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  flash_attention_wide_kernel<<<static_cast<unsigned>(blocks), T::NT, smem,
+                                stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
+      static_cast<int>(BH), d, n_cc, st, scale, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v and o f32; strides: 12 element strides (batch, sequence, head) of
-// q, k, v, o; the head dim is contiguous.  d: a multiple of 8 from 8 to
-// 256, run at the next compiled width.  q_rows, kv_rows, threads and
-// smem_bytes: kernel.py's f32_plan for d, refused unless they are this
-// build's.
+// q, k, v, o; the head dim is contiguous.  d: any head dim from 1, run at
+// the next compiled width, past 256 in column chunks of 256.  q_rows,
+// kv_rows, threads and smem_bytes: kernel.py's f32_plan for d, refused
+// unless they are this build's.
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale, int q_rows,
     int kv_rows, int threads, int smem_bytes, cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 1)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
-  // 16-byte copies and stores need every base and row stride on 16 bytes
-  bool vec = true;
+  // 16-byte copies and stores need every base and row stride on 16 bytes,
+  // and a head dim of whole 16-byte groups
+  bool vec = d % 4 == 0;
   const void* bases[4] = {q, k, v, o};
   for (const void* p : bases)
     vec = vec && reinterpret_cast<unsigned long long>(p) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
+  if (d > kWide)
+    return launch_wide(q, k, v, o, B, S, H, K, d, st, scale, q_rows, kv_rows,
+                       threads, smem_bytes, vec, stream);
   const int w = d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
   switch (w) {
     case 32:

@@ -10,7 +10,11 @@
 // by 1/sqrt(d), running max, denominator and accumulator in f32 (online
 // softmax, masked scores at -1e30), kv tiles past the diagonal skipped,
 // out = acc / l in bf16.  Any S, any B * H; any d that is a multiple of 8
-// up to 256, run at the compiled width above it (32, 64, 128 or 256).
+// (the wrapper stages q, k and v into zero-padded copies of head dim
+// 8 ceil(d / 8) where d is not, or where a base or stride breaks TMA's
+// 16-byte rule), run at the compiled width above it (32, 64, 128 or 256)
+// up to 256 and, past 256, in column chunks of 256 by
+// flash_attention_bf16_wide_kernel (ceil(d / 256) times Q.K^T's work).
 //
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the bf16
 // tensor-core peak (989 TFLOP/s on an H100 SXM: 0.028 ms at
@@ -451,6 +455,222 @@ __global__ void __launch_bounds__(Tile<D>::kThreads)
   }
 }
 
+// A head dim past 256 (kWide): a CTA a (64-row q tile, batch * head,
+// column chunk cc of 256 output columns), on width 256's tiles and its two
+// warpgroups.  For each kv tile, S = Q.K^T runs over all of d in slabs of
+// 256 columns: the slab's q and k boxes (its 64-column pieces that hold a
+// column below d) land on one mbarrier, both warpgroups chain its wgmmas
+// into the same S, and the next slab (or the next kv tile's first) is
+// requested once every warp is done with this one.  V's chunk cc has an
+// mbarrier of its own and is requested as soon as P.V of the tile before
+// is done.  q is loaded again for every slab of every kv tile (from L2), and
+// every chunk recomputes S: ceil(d / 256) times the Q.K^T work of one pass
+// over d.  The softmax and P.V are the narrow kernel's; pieces of V's
+// chunk past d are zeroed once and never loaded.
+constexpr int kWide = 256;
+
+__global__ void __launch_bounds__(Tile<kWide>::kThreads)
+    flash_attention_bf16_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     __nv_bfloat16* __restrict__ o, int S,
+                                     int H, int G, int BH, int d, int n_cc,
+                                     long long ob, long long os, long long oh,
+                                     float scale_log2) {
+  using T = Tile<kWide>;
+  constexpr int kGS = T::kGroupSlabs;
+  constexpr int kN = T::kCols;
+  constexpr int kOR = kN / 2;
+  constexpr int kKSlab = T::kCols / 16;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + T::kBytes;
+  const uint32_t sv = sk + T::kBytes;
+  const uint32_t qk_bar = sv + T::kBytes;
+  const uint32_t v_bar = qk_bar + 8;
+
+  const int nq = (S + kBQ - 1) / kBQ;
+  const long long per_tile = static_cast<long long>(BH) * n_cc;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x / per_tile);
+  const int rem = static_cast<int>(blockIdx.x % per_tile);
+  const int bh = rem / n_cc, cc = rem % n_cc;
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int q0 = qi * kBQ;
+  const int n_kv = qi + 1;
+  const int tid = threadIdx.x;
+
+  // 64-column pieces of slab j holding a column below d
+  auto pieces = [&](int j) {
+    const int n = (d - j * kWide + T::kCols - 1) / T::kCols;
+    return n < T::kSlabs ? n : T::kSlabs;
+  };
+  const int n_v = pieces(cc);
+  auto load_qk = [&](int kt, int j) {
+    const int n = pieces(j);
+    mbar_expect_tx(qk_bar, 2 * n * T::kSlabBytes);
+    for (int s = 0; s < n; ++s) {
+      const int c = j * kWide + s * T::kCols;
+      tma_load(sq + s * T::kSlabBytes, &tq, c, h, q0, b, qk_bar);
+      tma_load(sk + s * T::kSlabBytes, &tk, c, kh, kt * kBK, b, qk_bar);
+    }
+  };
+  auto load_v = [&](int kt) {
+    mbar_expect_tx(v_bar, n_v * T::kSlabBytes);
+    for (int s = 0; s < n_v; ++s)
+      tma_load(sv + s * T::kSlabBytes, &tv, cc * kWide + s * T::kCols, kh,
+               kt * kBK, b, v_bar);
+  };
+  if (n_v < T::kSlabs) {
+    const int words = (T::kSlabs - n_v) * T::kSlabBytes / 16;
+    for (int i = tid; i < words; i += T::kThreads) {
+      const uint32_t addr = sv + n_v * T::kSlabBytes + i * 16;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+                   "r"(0u)
+                   : "memory");
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  if (tid == 0) {
+    mbar_init(qk_bar, 1);
+    mbar_init(v_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_v(0);
+    load_qk(0, 0);
+  }
+
+  const int warp = (tid % kWarpgroup) / 32;
+  const int lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+  const int s0 = (tid / kWarpgroup) * kGS;
+  float acc[kGS][kOR];
+#pragma unroll
+  for (int n = 0; n < kGS; ++n)
+#pragma unroll
+    for (int i = 0; i < kOR; ++i) acc[n][i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};
+  uint32_t qk_phase = 0, v_phase = 0;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    for (int j = 0; j < n_cc; ++j) {
+      mbar_wait(qk_bar, qk_phase);
+      qk_phase ^= 1u;
+      const int n = pieces(j);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWide / 16; ++kk) {
+        if (kk / kKSlab >= n) break;
+        const uint32_t off =
+            (kk / kKSlab) * T::kSlabBytes + (kk % kKSlab) * 32;
+        wgmma_ss_n64(s, smem_desc(sq + off, 16, T::kAtomBytes, T::kLayout),
+                     smem_desc(sk + off, 16, T::kAtomBytes, T::kLayout), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_reg(s[i]);
+      __syncthreads();  // every warp is done with this slab's q and k
+      if (tid == 0) {
+        if (j + 1 < n_cc)
+          load_qk(kt, j + 1);
+        else if (kt + 1 < n_kv)
+          load_qk(kt + 1, 0);
+      }
+    }
+
+    float mx[2] = {kNegInf, kNegInf};
+    const bool diagonal = kt == qi;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + c0 + (i & 1);
+      const float x = diagonal && col > row ? kNegInf : s[i] * scale_log2;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+    uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = i & 1;
+      const float p0 = exp2f(s[2 * i] - m_run[r]);
+      const float p1 = exp2f(s[2 * i + 1] - m_run[r]);
+      l_run[r] += p0 + p1;
+      p_hi[i] = bf16x2(p0, p1);
+      p_lo[i] = bf16x2(p0 - bf16_lo(p_hi[i]), p1 - bf16_hi(p_hi[i]));
+    }
+#pragma unroll
+    for (int n = 0; n < kGS; ++n)
+#pragma unroll
+      for (int i = 0; i < kOR; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
+
+    mbar_wait(v_bar, v_phase);
+    v_phase ^= 1u;
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < kGS; ++n)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = smem_desc(
+            sv + (s0 + n) * T::kSlabBytes + kk * 2 * T::kAtomBytes,
+            T::kAtomBytes, T::kAtomBytes, T::kLayout);
+        wgmma_rs_n64(acc[n], p_hi + 4 * kk, dv);
+        wgmma_rs_n64(acc[n], p_lo + 4 * kk, dv);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int n = 0; n < kGS; ++n)
+#pragma unroll
+      for (int i = 0; i < kOR; ++i) fence_reg(acc[n][i]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      fence_reg(p_hi[i]);
+      fence_reg(p_lo[i]);
+    }
+    __syncthreads();  // every warp is done with this tile's v
+    if (tid == 0 && kt + 1 < n_kv) load_v(kt + 1);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = q0 + r0 + 8 * r;
+    if (pos >= S) continue;
+    __nv_bfloat16* orow = o + b * ob + pos * os + h * oh + cc * kWide;
+#pragma unroll
+    for (int n = 0; n < kGS; ++n)
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int col = (s0 + n) * kN + 8 * j + c0;
+        if (cc * kWide + col < d)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              bf16x2(acc[n][4 * j + 2 * r] / l_run[r],
+                     acc[n][4 * j + 2 * r + 1] / l_run[r]);
+      }
+  }
+}
+
 using EncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -532,22 +752,60 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// A d past kWide: ceil(d / 256) column chunks on width 256's tiles.
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int B, int S, int H, int K, int d, const Strides& st,
+                        float scale_log2, cudaStream_t stream) {
+  const int n_cc = (d + kWide - 1) / kWide;
+  const long long BH = static_cast<long long>(B) * H;
+  const long long blocks = BH * n_cc * ((S + kBQ - 1) / kBQ);
+  if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode<kWide>(&tq, q, B, S, H, d, st.qb, st.qs, st.qh) ||
+      !encode<kWide>(&tk, k, B, S, K, d, st.kb, st.ks, st.kh) ||
+      !encode<kWide>(&tv, v, B, S, K, d, st.vb, st.vs, st.vh))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = 1024 + 3 * Tile<kWide>::kBytes + 16;
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if ((raised.load(std::memory_order_relaxed) & bit) == 0) {
+    err = cudaFuncSetAttribute(flash_attention_bf16_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit, std::memory_order_relaxed);
+  }
+  flash_attention_bf16_wide_kernel<<<static_cast<unsigned>(blocks),
+                                     Tile<kWide>::kThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, H / K,
+      static_cast<int>(BH), d, n_cc, st.ob, st.os, st.oh, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v and o bf16; strides: 12 element strides (batch, sequence, head)
 // of q, k, v, o, the head dim contiguous.  The caller has checked that the
-// bases and the q, k, v strides are multiples of 16 bytes (TMA's rule).
-// d: a multiple of 8 from 8 to 256, run at the next compiled width.
+// bases and the q, k, v strides are multiples of 16 bytes (TMA's rule), and
+// staged inputs that break it, or whose head dim is not a multiple of 8,
+// into copies of head dim a multiple of 8 (scale stays 1/sqrt of the true
+// head dim).  d: a multiple of 8 from 8, run at the next compiled width up
+// to 256 and in column chunks of 256 past it.
 extern "C" cudaError_t flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale,
     cudaStream_t stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d > 256 || d % 8)
+  if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 8 || d % 8)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
+  if (d > kWide)
+    return launch_wide(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
   if (d <= 32)
     return launch<32>(q, k, v, o, B, S, H, K, d, st, scale_log2, stream);
   if (d <= 64)

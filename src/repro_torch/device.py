@@ -15,6 +15,32 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+# ATen's elementwise functions that MKL's vector math library may compute
+# on the CPU.  The first call of one in a process, if it runs on several
+# intra-op threads at once, can compute a worker thread's share with
+# another implementation: ``torch.cos`` at two threads over a (16, 32, 16)
+# RoPE angle table gave the worker's half up to 2534 ulps off in one to
+# three fresh processes in a hundred (ROADMAP C11).  A first call on one
+# thread does not, nor does any call after it.
+_VML_OPS = (torch.cos, torch.sin, torch.tan, torch.acos, torch.asin,
+            torch.atan, torch.exp, torch.expm1, torch.log, torch.log1p,
+            torch.log2, torch.log10, torch.sqrt, torch.rsqrt, torch.tanh,
+            torch.erf, torch.erfc, torch.erfinv, torch.sigmoid,
+            torch.lgamma, torch.ceil, torch.floor, torch.round,
+            torch.trunc)
+
+
+def warm_cpu_math() -> None:
+    """Call each of ``_VML_OPS`` once, in f32 and f64, on a tensor small
+    enough to run on the calling thread alone, so that no later call that
+    runs on several intra-op threads is a first call (ROADMAP C11).  Run
+    when :mod:`repro_torch` is imported; cheap, and calling it again does
+    nothing new."""
+    for dtype in (torch.float32, torch.float64):
+        x = torch.full((64,), 0.5, dtype=dtype)
+        for op in _VML_OPS:
+            op(x)
+
 
 def set_precision() -> None:
     """Full-f32 matrix products and convolutions (TF32 off); bf16 products

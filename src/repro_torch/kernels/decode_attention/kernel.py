@@ -13,8 +13,9 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (WIDTHS,
-                                                        head_dim_refusal)
+from repro_torch.kernels.flash_attention.kernel import (CHUNK, chunks,
+                                                        head_dim_refusal,
+                                                        width)
 
 INT32_LIMIT = 2 ** 31
 # (q dtype, cache dtype) pairs the kernel is built for; an int8 cache comes
@@ -43,8 +44,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: torch.Tensor,
                      k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, H, d), caches: (B, S, K, d) CUDA tensors (head dim contiguous,
-    a multiple of 8 up to 256; any H a multiple of K; dtypes in
-    ``DTYPE_PAIRS``), ``length`` a 0-d or one-element int32 tensor
+    any d from 1; any H a multiple of K; dtypes in ``DTYPE_PAIRS``; any
+    batch, position and head strides: 16-byte loads where they allow,
+    element by element elsewhere, never a byte past a row's d elements),
+    ``length`` a 0-d or one-element int32 tensor
     on the same device.  An int8 cache needs its scales ``k_scale`` and
     ``v_scale``: bf16 (B, S, K) on the same device, any strides; the
     kernel dequantizes each value as ``ref.dequantize`` does (the int8
@@ -53,8 +56,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     below 1 stops the kernel with a trap, which surfaces as a RuntimeError
     at the next synchronization; above S it counts as S.
 
-    One launch.  The partials of the sequence's splits go to a workspace
-    from ``torch.empty``; the merge's counters are shared by every call on
+    One launch.  Up to d = 256 a row is read at the compiled width
+    :func:`~repro_torch.kernels.flash_attention.kernel.width` at or above
+    d; past it the output columns go in :func:`chunks` of 256, a grid
+    index a chunk, each block summing the scores over all of d.  The
+    partials of the sequence's splits go to a workspace from
+    ``torch.empty``; the merge's counters are shared by every call on
     the device, so calls must be ordered on one stream, as the port issues
     them (PyTorch's current stream)."""
     from repro_torch.kernels._build import extension
@@ -88,9 +95,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}: H a multiple "
             f"of K and the head dim contiguous")
     why = head_dim_refusal(d)
-    if why is None and B * H >= INT32_LIMIT:
-        why = (f"B * H = {B * H}: the kernel indexes its (lane, head) "
-               f"partials and counters with int32")
+    if why is None and B * H * chunks(d) >= INT32_LIMIT:
+        why = (f"B * H * column chunks = {B * H * chunks(d)}: the kernel "
+               f"indexes its (lane, head, chunk) partials and counters with "
+               f"int32")
     if why is not None:
         raise ValueError(f"decode_attention kernel: {why}")
     if (k_cache.dtype == torch.int8) != bool(scales) or any(
@@ -102,7 +110,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"got cache {k_cache.dtype} and scales "
             f"{[(s.dtype, tuple(s.shape)) for _, s in scales]}")
     o = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    counters = _counters(q.device, B * H)
+    counters = _counters(q.device, B * H * chunks(d))
     if scales:
         extension().decode_attention_int8(q, k_cache, v_cache, k_scale,
                                           v_scale, length, o, counters,
@@ -116,20 +124,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def lane_layout(kv_dtype: torch.dtype, d: int) -> dict:
     """How the kernel reads a cache row of head dim ``d`` (its
     ``Rows<TKV, D>`` and ``load_lane``): the compiled ``width`` D at or
-    above d, the ``elements`` a lane loads (16 bytes, or 32 for f32 at
-    width 256), the ``lanes`` of a row group (a power of two of at most 32,
-    for the xor butterfly), the ``active`` lanes that hold a column below
-    d, and how many elements of the last active lane lie below d
-    (``last``: all of them, or 8 of an int8 lane's 16)."""
-    why = head_dim_refusal(d)
-    if why is not None:
-        raise ValueError(why)
-    D = next(w for w in WIDTHS if w >= d)
+    above d (256 past it), the column ``chunks`` of D (1 up to 256), the
+    ``elements`` a lane loads (16 bytes, or 32 for f32 at width 256), the
+    ``lanes`` of a row group (a power of two of at most 32, for the xor
+    butterfly), the ``active`` lanes that hold a column below d in the last
+    chunk, and how many elements of the last active lane lie below d
+    (``last``: the lane's share or any part of it, loaded element by
+    element, an int8 half as one 8-byte load)."""
+    D = width(d)
     per_vec = 16 // torch.empty((), dtype=kv_dtype).element_size()
     elements = per_vec * (2 if D // per_vec > 32 else 1)
-    active = -(-d // elements)
-    return {"width": D, "elements": elements, "lanes": D // elements,
-            "active": active, "last": d - (active - 1) * elements}
+    rest = d - (chunks(d) - 1) * CHUNK
+    active = -(-rest // elements)
+    return {"width": D, "chunks": chunks(d), "elements": elements,
+            "lanes": D // elements, "active": active,
+            "last": rest - (active - 1) * elements}
 
 
 def split_plan(q: torch.Tensor, k_cache: torch.Tensor):

@@ -1098,12 +1098,20 @@ def test_flash_attention_bf16_kernel_reads_head_major_views(dev):
 @pytest.mark.parametrize("view", ["base", "stride"])
 def test_flash_attention_bf16_kernel_refuses_unaligned_views(dev, view):
     """TMA needs 16-byte bases and strides: a view off by one element, or
-    with rows of 68 bf16 (136 bytes), raises instead of loading garbage."""
-    wide = torch.zeros(1, 64, 2, 68 if view == "stride" else 72,
-                       dtype=torch.bfloat16, device=dev)
+    with rows of 68 bf16 (136 bytes), is staged into an aligned copy first
+    (counted in ``flash_attention.staged``) and matches the plain version,
+    where the kernel once refused it."""
+    wide = _randn(dev, (1, 200, 2, 68 if view == "stride" else 72),
+                  torch.bfloat16, 31)
     x = wide[..., 1:65] if view == "base" else wide[..., :64]
-    with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        fa_kernel.flash_attention(x, x, x)
+    assert fa_kernel.bf16_staging(x, x, x) is not None
+    staged = fa_ops.flash_attention.staged
+    got = fa_ops.flash_attention(x, x, x)
+    assert fa_ops.flash_attention.staged == staged + 1
+    exp = mha_causal_ref(x, x, x)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == x.shape
+    _assert_attn_close(got, exp, "flash")
 
 
 def test_flash_attention_bf16_kernel_runs_on_tensor_cores(dev):
@@ -1342,15 +1350,21 @@ def test_decode_attention_kernel_reads_strided_caches(dev, offset, dtype):
 
 @pytest.mark.parametrize("d", [44, 264])
 def test_decode_attention_kernel_refuses_what_it_does_not_take(dev, d):
-    """A head dim that is not a multiple of 8, or past 256, raises."""
-    q = torch.zeros(1, 4, d, device=dev)
-    kc = torch.zeros(1, 8, 2, d, device=dev)
+    """A head dim that is not a multiple of 8, or past 256, runs as the
+    Pallas kernel's does (it once raised here) and matches the plain
+    version; a dtype pair the kernel is not built for still raises."""
+    q = _randn(dev, (1, 4, d), torch.float32, d)
+    kc = _randn(dev, (1, 8, 2, d), torch.float32, d + 1)
+    vc = _randn(dev, (1, 8, 2, d), torch.float32, d + 2)
     n = torch.tensor(3, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head"):
-        da_kernel.decode_attention(q, kc, kc, n)
-    q, kc = q[..., :32], kc[..., :32]
+    got = da_kernel.decode_attention(q, kc, vc, n)
+    exp = decode_attention_ref(q, kc, vc, 3)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "decode")
     with pytest.raises(ValueError, match="dtypes"):
-        da_kernel.decode_attention(q.bfloat16(), kc.float(), kc.float(), n)
+        da_kernel.decode_attention(q.bfloat16(), kc, kc, n)
+    with pytest.raises(ValueError, match="head dim 0"):
+        da_kernel.decode_attention(q[..., :0], kc[..., :0], kc[..., :0], n)
 
 
 def _int8_cache(dev, B, S, K, d, length, seed, unit_scales=False):
@@ -1405,6 +1419,79 @@ def test_decode_attention_int8_cache_matches_plain(dev, B, S, H, K, d,
     exp = decode_attention_ref(q, kc, vc, length, ks, vs)
     torch.cuda.synchronize()
     assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+# head dims the Pallas kernels take and the card kernels once refused: not
+# a multiple of 8, past 256, past two chunks of 256
+NEW_HEAD_DIMS = (1, 3, 12, 100, 264, 320, 512, 1000)
+
+
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_takes_every_head_dim(dev, d, dtype):
+    """GQA 2:1 at a ragged S past two kv tiles; bf16 at a d that is not a
+    multiple of 8 is staged (counted), at one that is it is not."""
+    B, S, H, K = 2, 131, 4, 2
+    q = _randn(dev, (B, S, H, d), dtype, d)
+    k = _randn(dev, (B, S, K, d), dtype, d + 1)
+    v = _randn(dev, (B, S, K, d), dtype, d + 2)
+    launches, staged = (fa_ops.flash_attention.launches,
+                        fa_ops.flash_attention.staged)
+    got = fa_ops.flash_attention(q, k, v)
+    assert fa_ops.flash_attention.launches == launches + 1
+    assert fa_ops.flash_attention.staged == staged + (
+        dtype == torch.bfloat16 and d % 8 != 0)
+    exp = mha_causal_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, d)
+    assert got.is_contiguous()
+    _assert_attn_close(got, exp, "flash")
+
+
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_decode_attention_kernel_takes_every_head_dim(dev, d, kv):
+    """Cache rows of any head dim, their last at the allocation's end: the
+    cache is a view whose last row ends the storage, so a load past the
+    row's d elements would leave it (a fault under the caching allocator's
+    block end only by luck; the values past length are 1e4 garbage)."""
+    B, S, H, K, length = 2, 300, 8, 2, 300
+    q_dt = torch.bfloat16 if kv == "bf16" else torch.float32
+    q = _randn(dev, (B, H, d), q_dt, d)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    if kv == "int8":
+        kc, ks = _int8_cache(dev, B, S, K, d, length, d + 1)
+        vc, vs = _int8_cache(dev, B, S, K, d, length, d + 2)
+        got = da_ops.decode_attention(q, kc, vc, n, ks, vs)
+        exp = decode_attention_ref(q, kc, vc, length, ks, vs)
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        kc = _randn(dev, (B, S, K, d), dt, d + 1)
+        vc = _randn(dev, (B, S, K, d), dt, d + 2)
+        got = da_ops.decode_attention(q, kc, vc, n)
+        exp = decode_attention_ref(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+@pytest.mark.parametrize("d", [12, 100, 264])
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_last_row_at_a_partial_vector(dev, d, kv):
+    """A cache cut from the front of its storage so that its last row's
+    partial vector ends exactly where the allocation does: the kernel
+    reads that row's d elements and nothing past them."""
+    B, S, K, H = 1, 64, 1, 4
+    n_el = B * S * K * d
+    store = _randn(dev, (n_el + 1,), kv, d)
+    kc = store[1:].view(B, S, K, d)       # ends at the storage's end
+    vc = _randn(dev, (B, S, K, d), kv, d + 1)
+    q = _randn(dev, (B, H, d), torch.float32, d + 2)
+    n = torch.tensor(S, dtype=torch.int32, device=dev)
+    got = da_ops.decode_attention(q, kc, vc, n)
+    exp = decode_attention_ref(q, kc, vc, S)
+    torch.cuda.synchronize()
     _assert_attn_close(got, exp, "decode")
 
 
@@ -1502,21 +1589,27 @@ def test_decode_attention_int8_at_length_1_is_the_dequantized_row(dev, H, K,
 
 def test_decode_attention_int8_refuses_rather_than_the_plain_version(dev):
     """An int8 cache the kernel does not take raises a ValueError through
-    the public wrapper (scales on the CPU beside CUDA caches, a head dim of
-    44), counting no launch and never running the plain version."""
-    q = torch.zeros(1, 4, 64, device=dev)
-    kc = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=dev)
-    sc = torch.ones(1, 8, 2, dtype=torch.bfloat16, device=dev)
+    the public wrapper (scales on the CPU beside CUDA caches), counting no
+    launch and never running the plain version.  A head dim of 44, which
+    it once refused too, now launches the kernel (counted once) and
+    matches the plain version."""
+    q = _randn(dev, (1, 4, 64), torch.float32, 44)
+    kc, sc = _int8_cache(dev, 1, 8, 2, 64, 3, 45)
     n = torch.tensor(3, dtype=torch.int32, device=dev)
     before = (da_ops.decode_attention.launches,
               da_ops.decode_attention.int8_launches)
     with pytest.raises(ValueError, match="CUDA"):
         da_ops.decode_attention(q, kc, kc, n, sc.cpu(), sc.cpu())
-    with pytest.raises(ValueError, match="head"):
-        da_ops.decode_attention(q[..., :44], kc[..., :44], kc[..., :44], n,
-                                sc, sc)
     assert (da_ops.decode_attention.launches,
             da_ops.decode_attention.int8_launches) == before
+    q, kc = q[..., :44], kc[..., :44]
+    got = da_ops.decode_attention(q, kc, kc, n, sc, sc)
+    assert (da_ops.decode_attention.launches,
+            da_ops.decode_attention.int8_launches) == (before[0],
+                                                        before[1] + 1)
+    exp = decode_attention_ref(q, kc, kc, 3, sc, sc)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "decode")
 
 
 def test_kv_quant_decode_runs_the_int8_kernel(dev):

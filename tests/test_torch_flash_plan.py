@@ -101,17 +101,25 @@ def test_refusals_follow_the_plan(d):
                              d) is None
     # a plan for each compiled width, and no other
     assert set(fa_kernel.F32_PLANS) == set(fa_kernel.WIDTHS) == set(WIDTHS)
-    # every multiple of 8 up to 256 runs at the next width; the rest raise
+    # every head dim up to 256 runs at the next width, past it in chunks
+    # of 256; only a head dim below 1 raises, as in the Pallas kernel
     for good in (8, 16, 80, 96, 136, 248, 256):
         for dt in (f32, bf16):
             assert fa_kernel.refusal(dt, 1, 8, 2, 2, good) is None
         assert fa_kernel.f32_plan(1, 8, 2, good).width == min(
             w for w in WIDTHS if w >= good)
-    for bad in (4, 12, 100, 257, 264):
+    for once_bad in (4, 12, 100, 257, 264):
+        for dt in (f32, bf16):
+            assert fa_kernel.refusal(dt, 1, 8, 2, 2, once_bad) is None
+        p = fa_kernel.f32_plan(1, 8, 2, once_bad)
+        assert p.width == (min(w for w in WIDTHS if w >= once_bad)
+                           if once_bad <= 256 else 256)
+        assert p.chunks == -(-once_bad // 256)
+    for bad in (0, -3):
         for dt in (f32, bf16):
             why = fa_kernel.refusal(dt, 1, 8, 2, 2, bad)
             assert why is not None and "head dim" in why
-        with pytest.raises(ValueError, match="multiples of 8"):
+        with pytest.raises(ValueError, match="from 1"):
             fa_kernel.f32_plan(1, 8, 2, bad)
 
 

@@ -10,6 +10,7 @@ file (its name does not start with ``test_``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import pickle
@@ -504,10 +505,15 @@ def train_mesh_cases(mesh, ins: dict) -> dict:
     on 2 x 2 one bf16 step of ``ins["count_arch"]`` at its batch, its
     collective counters.
 
-    Every rank computes on one thread: with two, about one run in ten has
-    a rank whose step differs from the others' in its last bits (seen in
-    a layer's forward input), and the expert routing and AdamW's near-zero
-    gradients carry that to 2.5e-4 of the parameters (ROADMAP C11)."""
+    Every rank computes on ``ins["threads"]`` threads, one unless
+    :func:`c11_cases` asks for more: one thread is kept only for the time
+    it saves the spawned ranks.  At two, about one run in twenty once had
+    a rank whose step differed in its last bits (MKL's first two-thread
+    cos of the process, in RoPE), which the expert routing and AdamW's
+    near-zero gradients carried to 2.5e-4 of the parameters; importing
+    ``repro_torch`` now warms those functions on one thread
+    (``device.warm_cpu_math``), and 21 two-thread runs after it matched
+    the first bit for bit (ROADMAP C11)."""
     from repro_torch.launch.mesh import (collective_bytes,
                                          reset_collective_bytes)
     from repro_torch.sharding import batch_sharding, local_block, \
@@ -518,7 +524,7 @@ def train_mesh_cases(mesh, ins: dict) -> dict:
                                               jit_train_step, rank_rows,
                                               shard_state)
 
-    torch.set_num_threads(1)
+    torch.set_num_threads(ins.get("threads", 1))
     shape = (mesh.extent("data"), mesh.extent("model"))
 
     def cut(batch, b_shard):
@@ -547,10 +553,16 @@ def train_mesh_cases(mesh, ins: dict) -> dict:
                 full["err"] = _zeros(full["params"])
             state = shard_state(full, s_shard)
             rec = {"loss": [], "grad_norm": []}
-            for batch in batches:
-                state, m = step(state, cut(batch, b_shard))
-                rec["loss"].append(float(m["loss"]))
-                rec["grad_norm"].append(float(m["grad_norm"]))
+            # the C11 hunt's op trace of one case (c11_cases), else nothing
+            trace = None if ins.get("trace") != case["id"] else \
+                _LightTrace() if ins.get("light") else _op_trace_mode()
+            with trace or contextlib.nullcontext():
+                for batch in batches:
+                    state, m = step(state, cut(batch, b_shard))
+                    rec["loss"].append(float(m["loss"]))
+                    rec["grad_norm"].append(float(m["grad_norm"]))
+            if trace is not None:
+                out["trace"] = trace.ops
             got = _flat_numpy(gather_state(state["params"],
                                            s_shard["params"]))
         finally:
@@ -585,3 +597,144 @@ def train_mesh_cases(mesh, ins: dict) -> dict:
         step(state, cut(batch, b_shard))
         out["counters"] = collective_bytes()
     return everyone(out)
+
+
+# ---------------------------------------------------------------------------
+# the two-thread hunt (ROADMAP C11); opt in, no test calls it
+# ---------------------------------------------------------------------------
+def _op_trace_mode():
+    """A dispatch mode that records, for every ATen op the step runs, its
+    name and digests of its tensor inputs and outputs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    def dig(x):
+        if not isinstance(x, torch.Tensor) or x.device.type == "meta":
+            return None
+        b = x.detach().contiguous().reshape(-1).view(torch.uint8)
+        return hashlib.blake2b(b.numpy().tobytes(), digest_size=8).hexdigest()
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            ins = tuple(dig(x) for x in tree_flatten((args, kwargs))[0]
+                        if isinstance(x, torch.Tensor))
+            out = func(*args, **kwargs)
+            if str(func).startswith("c10d."):   # its result once it lands
+                for w in tree_flatten(out)[0]:
+                    if isinstance(w, torch.ScriptObject):
+                        w.wait()
+            # an empty tensor's bits are whatever the allocator held
+            outs = () if "empty" in str(func) else tuple(
+                dig(x) for x in tree_flatten(out)[0]
+                if isinstance(x, torch.Tensor))
+            self.ops.append((str(func), ins, outs))
+            return out
+
+    return Trace()
+
+
+class _LightTrace:
+    """Digests of the inputs and outputs of the model's layer functions
+    (``layer_step``, ``rmsnorm``, ``attention_block``, ``moe_block``,
+    looked up by name in ``models/model.py`` at each call) and of each
+    ``all_reduce``'s input and result that the step binds after it is
+    entered, in call order: the step's own timing, with no dispatch mode
+    in its way."""
+
+    NAMES = ("layer_step", "rmsnorm", "attention_block", "moe_block")
+
+    def __init__(self):
+        self.ops = []
+
+    @staticmethod
+    def _dig(value):
+        from torch.utils._pytree import tree_flatten
+
+        out = []
+        for x in tree_flatten(value)[0]:
+            if isinstance(x, torch.Tensor):
+                b = x.detach().contiguous().reshape(-1).view(torch.uint8)
+                out.append(hashlib.blake2b(b.numpy().tobytes(),
+                                           digest_size=8).hexdigest())
+        return tuple(out)
+
+    def __enter__(self):
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import model as model_mod
+
+        self._saved = {n: getattr(model_mod, n) for n in self.NAMES}
+        self._reduce = mesh_mod.all_reduce
+
+        def wrap(name, fn):
+            def traced(*a, **k):
+                before = self._dig((a, k))
+                out = fn(*a, **k)
+                self.ops.append((name, before, self._dig(out)))
+                return out
+            return traced
+
+        for n, fn in self._saved.items():
+            setattr(model_mod, n, wrap(n, fn))
+        mesh_mod.all_reduce = wrap("all_reduce", self._reduce)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.models import model as model_mod
+
+        for n, fn in self._saved.items():
+            setattr(model_mod, n, fn)
+        mesh_mod.all_reduce = self._reduce
+        return False
+
+
+def c11_cases(runs: int = 20, threads: int = 2, shape=(2, 2),
+              trace: str | None = None, light: bool = False) -> list:
+    """``runs`` spawns of :func:`train_mesh_cases` on ``shape`` with every
+    case of ``tests/test_torch_mesh_train_moe.py`` at ``threads`` threads a
+    rank; prints, for each run, the (rank, mesh step or one-device step,
+    case, field) whose value differs bit for bit from the first run's;
+    with ``trace`` a case id, every rank's first op of that case whose
+    outputs differ from the first run's (every ATen op, or with ``light``
+    the model's layer functions, :class:`_LightTrace`).  Run from
+    ``tests/`` with ``src`` on ``PYTHONPATH``: ``python -c "import
+    torch_mesh_ranks as r; r.c11_cases(trace='olmoe-2x2-mb1',
+    light=True)"`` (about 15 s a run).  Before ``device.warm_cpu_math``
+    three of 55 runs differed, the light trace naming rank 3's first
+    ``attention_block`` (its RoPE's ``torch.cos``) on equal inputs."""
+    import test_torch_mesh_train_moe as T
+
+    ins = dict(T.make_inputs(), threads=threads, trace=trace, light=light)
+    first, first_trace, differ = None, None, []
+    for run in range(runs):
+        t0 = time.time()
+        got = M.spawn(train_mesh_cases, *shape, device="cpu", timeout=900,
+                      args=(ins,))
+        digests = {(rank, part, case, field): digest(value)
+                   for rank, r in enumerate(got)
+                   for part in ("cases", "one_device")
+                   for case, rec in r[part].items()
+                   for field, value in rec.items()}
+        if first is None:
+            first = digests
+        bad = sorted(k for k, v in digests.items() if first.get(k) != v)
+        differ.append(bad)
+        print(f"run {run}: differ {bad} ({time.time() - t0:.1f} s)",
+              flush=True)
+        if trace:
+            ops = [r.get("trace", []) for r in got]
+            first_trace = first_trace or ops
+            for rank, (a_ops, b_ops) in enumerate(zip(ops, first_trace)):
+                hit = next(((i, a[0], a[1] == b[1]) for i, (a, b)
+                            in enumerate(zip(a_ops, b_ops))
+                            if a[2] != b[2]), None)
+                if hit is not None:
+                    print(f"  rank {rank}: first op whose output differs "
+                          f"(index, op, inputs equal) {hit}", flush=True)
+    return differ
+
