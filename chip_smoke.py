@@ -77,7 +77,11 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    row's head dim would carry NaN into the scores), the two bf16 views TMA
    cannot read in place through the public op (``flash_attention.staged``
    must count 2), each at ``HEAD_DIM_TIMED`` timed beside its bound, its
-   plain version and SDPA.  f32 outputs
+   plain version and SDPA; past 256 each route (f32 flash's cluster of
+   128- and 256-column slabs, its slab loop at 2049; decode's vectors up
+   to 1000, its chunked kernel at 1032), and both kernels' instances'
+   registers and stack (``cuobjdump -res-usage``), failing on a stack
+   frame or a spill.  f32 outputs
    within 2e-5 (flash) and 1e-5 (decode): sums in another order.  bf16
    outputs within 2**-7 |expected| + 1e-4 element by element: both sides
    sum in f32 and round once to bf16, whose 8 significant bits put one ulp
@@ -314,7 +318,11 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    naming the free bytes), the same checks and figures; (e) ``LM_ARCH`` at
    two layers of its reduced widths and head dims 100 and 320 served as
    (a), the same checks, the bf16 flash calls at head dim 100 staged (two
-   a wave);
+   a wave), at 320 the launches past head dim 256 exact (bf16 flash's wide
+   route once a layer, decode's wide kernel once a layer a step); then
+   each under f32-cast weights, a prefill of 2 x ``F32_PARITY_LEN`` tokens
+   on the card against the CPU within ``F32_PARITY_TOL`` of the logits'
+   scale, f32 flash once a layer (at 320 its cluster kernel);
 4o. the SSM and hybrid families at full width, each drawn on the card from
    a seeded generator: (a) ``rwkv6-3b`` (attention-free) and (b)
    ``zamba2-1.2b`` (Mamba2 layers, the shared attention block after every
@@ -438,7 +446,13 @@ kernels and runs that phase alone.  Phases, one output line or block each:
    ``launches_at_wide_sessions``, the model layers under ``at_head_dims``
    (both flash entries, decode and its int8 path) and ``at_mqa`` (decode
    and its int8 path), the bf16 flash call past 65535 heads under
-   ``at_65600_heads``; then the parent
+   ``at_65600_heads``; the three kernels past head dim 256 as entries of
+   their own (``flash_attention_f32_wide``, the cluster kernel, with its
+   instances' registers and stack; ``decode_attention_wide`` over a bf16
+   cache, its f32 and int8 figures beside, and its resources;
+   ``flash_attention_bf16_wide``), at the first timed head dim past 256
+   and the others under ``at_new_head_dims``, their launches from 4t (e)
+   (the f32 one's in its f32 prefills); then the parent
    kernels' recorded times on a line of their own, never as measurements);
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -834,9 +848,12 @@ MODEL_LEN, MODEL_FLASH_BATCH = 2048, 2
 # PR 37: not a multiple of 8, past 256, past two chunks of 256.  Checked
 # against the plain versions at HEAD_DIM_CHECK (a ragged S past two kv
 # tiles) and, for decode, a cache of HEAD_DIM_DECODE_SHAPE whose last row
-# ends in a partial vector; timed at HEAD_DIM_TIMED
-HEAD_DIM_FLASH = (1, 12, 100, 264, 320, 512, 1000)
-HEAD_DIM_DECODE = (12, 100, 264, 320, 512)
+# ends in a partial vector; timed at HEAD_DIM_TIMED.  Past 256 each route:
+# f32 flash's cluster of 128- and of 256-column slabs up to 2048, its slab
+# loop past it (2049); decode's vectors up to 1024, its chunked kernel past
+# it (1032)
+HEAD_DIM_FLASH = (1, 12, 100, 264, 320, 512, 1000, 2048, 2049)
+HEAD_DIM_DECODE = (12, 100, 264, 320, 512, 1000, 1032)
 HEAD_DIM_TIMED = (12, 100, 320, 512)
 HEAD_DIM_CHECK = (2, 131, 4, 2)            # flash: B, S, H, K
 HEAD_DIM_FLASH_SHAPE = (2, 1024, 8, 2)     # flash timed: B, S, H, K
@@ -926,6 +943,9 @@ FULL_RUNNER_LAYERS = 4
 FULL_DEEP_ARCH, FULL_DEEP_MIN_LAYERS = "deepseek-67b", 40
 FULL_DEEP_RESERVE = 4 * 2 ** 30
 HEAD_DIM_MODELS, HEAD_DIM_LAYERS = (100, 320), 2
+# then each under f32-cast weights: prefill of 2 prompts of this many
+# tokens on the card against the CPU, logits within this of their scale
+F32_PARITY_LEN, F32_PARITY_TOL = 64, 1e-4
 FULL_CPU_LAYERS, FULL_CPU_BATCH, FULL_CPU_SEQ, FULL_CPU_STEPS = 2, 2, 64, 2
 
 
@@ -3521,6 +3541,89 @@ def head_dim_attention(dev) -> dict:
     return figs
 
 
+def wide_entries(head_figs: dict, wide_res: dict, full: dict) -> list:
+    """The kernels line's entries of the kernels past head dim 256: f32
+    flash's cluster kernel, decode's wide kernel (one template for the
+    bf16, f32 and int8 caches; its bf16 figures first, the f32 and int8
+    ones beside them) and the bf16 flash kernel's wide route, each at the
+    first of phase 3's timed head dims past 256 (the others under
+    ``at_new_head_dims``), its launches from phase 4t (e) (the f32 kernel's
+    in its f32 prefill), which must have launched each."""
+    def pick(figs):
+        rows = [f for f in figs if f["shape"][-1] > 256]
+        return {**{k: rows[0][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}, "at_new_head_dims": rows}
+
+    runs = [full[f"hd{hd}"] for hd in HEAD_DIM_MODELS]
+    paths = {f"hd{hd}": r["wide_launches"] for hd, r in
+             zip(HEAD_DIM_MODELS, runs)}
+    launches = {k: sum(p[k] for p in paths.values())
+                for k in ("flash_attention_bf16_wide",
+                          "decode_attention_wide")}
+    launches["flash_attention_f32_wide"] = sum(
+        r["f32_parity"]["wide_launches"] for r in runs)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel past head dim 256 never launched on "
+                             f"4t (e)'s path: {launches}")
+    decode = pick(head_figs["decode"])
+    decode["f32"] = pick(head_figs["decode_f32"])
+    decode["int8"] = pick(head_figs["decode_int8"])
+    return [
+        {"name": "flash_attention_f32_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "launches": launches["flash_attention_f32_wide"],
+         "launches_by_path": {
+             f"hd{hd}_f32_prefill": r["f32_parity"]["wide_launches"]
+             for hd, r in zip(HEAD_DIM_MODELS, runs)},
+         "resources": wide_res["flash_attention_wide_kernel"],
+         **pick(head_figs["flash_f32"])},
+        {"name": "decode_attention_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+         "launches": launches["decode_attention_wide"],
+         "launches_by_path": {k: v["decode_attention_wide"]
+                              for k, v in paths.items()},
+         "resources": wide_res["decode_attention_wide_kernel"], **decode},
+        {"name": "flash_attention_bf16_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+         "launches": launches["flash_attention_bf16_wide"],
+         "launches_by_path": {k: v["flash_attention_bf16_wide"]
+                              for k, v in paths.items()},
+         **pick(head_figs["flash"])},
+    ]
+
+
+def wide_kernel_resources() -> dict:
+    """Phase 3: the registers, stack and local bytes of every instance of
+    the two kernels past head dim 256, ``flash_attention_wide_kernel``
+    (f32, a cluster) and ``decode_attention_wide_kernel`` (every cache
+    type), as ``cuobjdump -res-usage`` gives them; fails on a stack frame
+    or a spill, as the band kernel's check does.  Returns them by kernel:
+    a list of (template arguments, registers, stack bytes)."""
+    from repro_torch.kernels._build import resources_all
+
+    out = {}
+    for name in ("flash_attention_wide_kernel",
+                 "decode_attention_wide_kernel"):
+        found = resources_all(name)
+        if not found:
+            raise AssertionError(f"no built kernel named {name}")
+        out[name] = [(fn.split(name, 1)[1][:40], r["REG"], r["STACK"])
+                     for fn, r in found.items()]
+        print(f"[3 wide kernels] {name} resources (cuobjdump), "
+              f"{len(found)} instances: registers "
+              f"{min(r['REG'] for r in found.values())}-"
+              f"{max(r['REG'] for r in found.values())}, stack "
+              f"{sorted({r['STACK'] for r in found.values()})} B, local "
+              f"{sorted({r['LOCAL'] for r in found.values()})} B")
+        if any(r["STACK"] or r["LOCAL"] for r in found.values()):
+            raise AssertionError(f"{name} keeps a stack frame or spills")
+    return out
+
+
 def lm_serving_path(dev, cfg, model) -> dict:
     """Phase 4c: ``ServeEngine.generate`` over ``lm_requests``, with the
     kernels' launches counted over exactly that call; then the card's
@@ -3848,6 +3951,22 @@ def _zero_attn_counts() -> None:
     fa_ops.flash_attention.launches = 0
     da_ops.decode_attention.launches = 0
     da_ops.decode_attention.int8_launches = 0
+    fa_ops.flash_attention.wide_launches = 0
+    fa_ops.flash_attention.bf16_wide_launches = 0
+    da_ops.decode_attention.wide_launches = 0
+
+
+def _wide_counts() -> dict:
+    """The launch counts of the attention kernels past head dim 256: f32
+    flash's cluster kernel, the bf16 flash kernel's wide route and the
+    decode kernel's wide kernel (every cache type)."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {"flash_attention_f32_wide": fa_ops.flash_attention.wide_launches,
+            "flash_attention_bf16_wide":
+                fa_ops.flash_attention.bf16_wide_launches,
+            "decode_attention_wide": da_ops.decode_attention.wide_launches}
 
 
 def _draw_model(dev, cfg, tag: str):
@@ -4136,6 +4255,7 @@ def _full_served(dev, cfg, tag: str, smi: str) -> dict:
     fa_ops.flash_attention.staged = 0
     toks, pre_s, step_ms = _timed_generate(engine, reqs, FULL_NEW)
     got = _attn_counts()
+    wide = _wide_counts()
     staged = fa_ops.flash_attention.staged
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": cfg.n_layers,
@@ -4171,18 +4291,70 @@ def _full_served(dev, cfg, tag: str, smi: str) -> dict:
           f"max|d logits| of their scale "
           f"{[float(f'{g:.3e}') for g in gaps]} (tolerance {LM_BF16_TOL}); "
           f"finite {finite} ({smi})")
-    if got != want or any(len(t) != FULL_NEW for t in toks.values()):
-        raise AssertionError(f"phase 4t {tag}: launches {got}, expected "
-                             f"{want}")
+    past = cfg.hd > 256
+    want_wide = {"flash_attention_f32_wide": 0,
+                 "flash_attention_bf16_wide": cfg.n_layers * past,
+                 "decode_attention_wide":
+                     cfg.n_layers * (FULL_NEW - 1) * past}
+    print(f"[4t {tag}] launches past head dim 256: {wide}")
+    if got != want or wide != want_wide \
+            or any(len(t) != FULL_NEW for t in toks.values()):
+        raise AssertionError(f"phase 4t {tag}: launches {got}, {wide}, "
+                             f"expected {want}, {want_wide}")
     if not finite or not max(gaps) <= LM_BF16_TOL:
         raise AssertionError(f"phase 4t {tag}: decode_step disagrees with "
                              f"prefill")
+    f32 = _f32_prefill_parity(dev, model, cfg, reqs, tag, smi) \
+        if tag == "e" else None
     del model, engine, l2, l3
     torch.cuda.empty_cache()
     return {"prefill_s": pre_s, "step_ms": step_ms, "bound_ms": bound_ms,
             "cache_bytes": cache_bytes, "peak_bytes": peak,
-            "gap": max(gaps), "launches": got, "sliced": sliced,
-            "staged": staged, "layers": cfg.n_layers}
+            "gap": max(gaps), "launches": got, "wide_launches": wide,
+            "f32_parity": f32, "sliced": sliced, "staged": staged,
+            "layers": cfg.n_layers}
+
+
+def _f32_prefill_parity(dev, model, cfg, reqs, tag: str, smi: str) -> dict:
+    """Phase 4t (e), then: the model under f32-cast weights, prefill of 2
+    prompts of ``F32_PARITY_LEN`` tokens on the card (the f32 flash kernel
+    once a layer; past head dim 256 its cluster kernel, counted in its own
+    launches) against the same on the CPU, the last logits within
+    ``F32_PARITY_TOL`` of their scale (``tests/test_torch_model.py``'s
+    bar: the libraries sum in other orders)."""
+    import copy
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+
+    toks = torch.from_numpy(np.stack([r.prompt[:F32_PARITY_LEN]
+                                      for r in reqs[:2]]))
+    logits, count = {}, {}
+    for where in (dev, torch.device("cpu")):
+        m32 = copy.deepcopy(model).to(device=where, dtype=torch.float32)
+        before = (fa_ops.flash_attention.f32_launches,
+                  fa_ops.flash_attention.wide_launches)
+        _, out = M.prefill(m32, {"tokens": toks.to(where)}, F32_PARITY_LEN)
+        logits[where.type] = out.float().cpu()
+        count[where.type] = (fa_ops.flash_attention.f32_launches - before[0],
+                             fa_ops.flash_attention.wide_launches - before[1])
+        del m32, out
+    ref = logits["cpu"]
+    gap = float((logits[dev.type] - ref).abs().max()) \
+        / max(float(ref.abs().max()), 1.0)
+    f32_n, wide_n = count[dev.type]
+    print(f"[4t {tag}] {cfg.name}: f32 weights, prefill of 2 x "
+          f"{F32_PARITY_LEN} tokens, card against CPU: max|d logits| "
+          f"{gap:.3e} of their scale (tolerance {F32_PARITY_TOL}); f32 flash "
+          f"launches {f32_n}, of them its wide kernel {wide_n} ({smi})")
+    if (f32_n, wide_n) != (cfg.n_layers, cfg.n_layers * (cfg.hd > 256)) \
+            or not gap <= F32_PARITY_TOL:
+        raise AssertionError(f"phase 4t {tag}: the f32 prefill on the card "
+                             f"({f32_n} launches, {wide_n} wide) or its "
+                             f"logits ({gap:.3e})")
+    return {"gap": gap, "f32_launches": f32_n, "wide_launches": wide_n}
 
 
 def deep_layers(dev, cfg) -> tuple:
@@ -7162,6 +7334,7 @@ def run(dev) -> None:
     del repeats
     attn_figs = model_attention(dev)
     head_figs = head_dim_attention(dev)
+    wide_res = wide_kernel_resources()
 
     # -- 4. the main path ----------------------------------------------------
     ps_ops.pair_scores.launches = 0
@@ -7661,7 +7834,7 @@ def run(dev) -> None:
          "at_head_dims": attn_figs["decode_int8"],
          "at_mqa": attn_figs["mqa_int8"],
          "at_new_head_dims": head_figs["decode_int8"]},
-    ]
+    ] + wide_entries(head_figs, wide_res, full)
     print(f"recorded, not measured here: flash_attention (8, 1491, 12, 64)"
           f" bf16 took {FLASH_MS_BEFORE} ms with the SIMT kernel"
           f" (PERF.md section 6, row 4; H100 80GB HBM3, 700 W); in f32, "

@@ -43,7 +43,8 @@ extern "C" cudaError_t union_deduce_wide_max_blocks(int* count);
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale, int q_rows,
-    int kv_rows, int threads, int smem_bytes, cudaStream_t stream);
+    int kv_rows, int threads, int smem_bytes, int width, int cluster,
+    cudaStream_t stream);
 
 extern "C" cudaError_t flash_attention_bf16_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
@@ -51,6 +52,8 @@ extern "C" cudaError_t flash_attention_bf16_launch(
 
 extern "C" int decode_attention_plan(int kv_dtype, int B, int S, int H,
                                      int K, int d, int* splits, int* chunk);
+
+extern "C" long long decode_attention_partial(int d);
 
 extern "C" cudaError_t decode_attention_launch(
     const void* q, const void* kc, const void* vc, const void* ks,
@@ -189,11 +192,12 @@ void flash_strides(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // f32: the SIMT kernel of flash_attention.cu, laid out by kernel.py's
-// f32_plan (q rows, kv rows, threads, shared memory).
+// f32_plan (q rows, kv rows, threads, shared memory, width, cluster).
 void flash_attention_f32(const torch::Tensor& q, const torch::Tensor& k,
                          const torch::Tensor& v, const torch::Tensor& o,
                          double scale, int64_t q_rows, int64_t kv_rows,
-                         int64_t threads, int64_t smem_bytes) {
+                         int64_t threads, int64_t smem_bytes, int64_t width,
+                         int64_t cluster) {
   long long strides[12];
   flash_strides(q, k, v, o, strides);
   C10_CUDA_CHECK(flash_attention_launch(
@@ -203,6 +207,7 @@ void flash_attention_f32(const torch::Tensor& q, const torch::Tensor& k,
       static_cast<int>(q.size(3)), strides, static_cast<float>(scale),
       static_cast<int>(q_rows), static_cast<int>(kv_rows),
       static_cast<int>(threads), static_cast<int>(smem_bytes),
+      static_cast<int>(width), static_cast<int>(cluster),
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -245,11 +250,10 @@ void decode(const torch::Tensor& q, const torch::Tensor& k_cache,
             double scale) {
   const cudaStream_t stream = c10::cuda::getCurrentCUDAStream();
   const int64_t splits = decode_attention_split(q, k_cache)[0];
-  // the splits' partials (m, l, acc) of each 256-column chunk of d, written
-  // and read inside the launch
-  const int64_t chunks = (q.size(2) + 255) / 256;
+  // the splits' partials (m, l, acc), written and read inside the launch
   const torch::Tensor ws = torch::empty(
-      {q.size(0) * q.size(1) * splits * (q.size(2) + 2 * chunks)},
+      {q.size(0) * q.size(1) * splits *
+       decode_attention_partial(static_cast<int>(q.size(2)))},
       q.options().dtype(torch::kFloat32));
   const bool q8 = k_scale.defined();
   auto st = [q8](const torch::Tensor& t, int i) -> long long {

@@ -13,8 +13,12 @@
 // runs at the compiled width above it (32, 64, 128 or 256), the copies
 // zero-filling the columns past d (element by element where d is not a
 // multiple of 4), whose products add exact zeros, and only the d real
-// output columns are stored; past 256 flash_attention_wide_kernel runs it
-// in column chunks of 256 (ceil(d / 256) times Q.K^T's work).
+// output columns are stored.  Past 256 flash_attention_wide_kernel runs
+// it on a thread-block cluster, a block a slab of 128 or 256 columns, the
+// slabs' partial scores summed over distributed shared memory, so Q.K^T
+// runs once over d (see its note); past 8 slabs of 256, beyond the portable
+// cluster, flash_attention_slab_loop_kernel runs it in column chunks of
+// 256 (ceil(d / 256) times Q.K^T's work).
 //
 // Bound on this card: the causal FLOPs 4*B*H*d*S(S+1)/2 at the f32 rate
 // outside the tensor cores (67 TFLOP/s on an H100 SXM), far above the bytes
@@ -258,15 +262,18 @@ __device__ __forceinline__ void store_out(float* orow0, long long os,
   }
 }
 
-// S = Q.K^T (S += with kAdd, the wide kernel's slabs) for the thread's 8
+// S = Q.K^T (S += with kAdd, the slab loop's slabs) for the thread's 8
 // q rows (row0 ..) and NS keys (4 tx + e + g BK/2: NS/4 chunks of 4; key
-// tx when NS = 1), each summed over the tile's D dims in order from 0.  Both operands come from transposed tiles, so each dim is
+// tx when NS = 1), each summed over the tile's D dims in order from 0
+// (with kCols over its first n, a multiple of 8: a cluster block's
+// slab).  Both operands come from transposed tiles, so each dim is
 // two 16-byte loads of Q^T and NS/4 of K^T (one 4-byte load when NS = 1)
 // for 8 NS FMAs.
-template <int D, bool kAdd = false>
+template <int D, bool kAdd = false, bool kCols = false>
 __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
                                        int row0, int tx,
-                                       float (&s)[8][Tile<D>::NS]) {
+                                       float (&s)[8][Tile<D>::NS],
+                                       int n = D) {
   using T = Tile<D>;
   constexpr int BQ = T::BQ, BK = T::BK, NS = T::NS;
   if constexpr (!kAdd) {
@@ -278,7 +285,7 @@ __device__ __forceinline__ void scores(const float* Qt, const float* Kt,
   const float* qp = Qt + row0;
   const float* kp = Kt + 4 * tx;
 #pragma unroll 8
-  for (int c = 0; c < D; ++c) {
+  for (int c = 0; c < (kCols ? n : D); ++c) {
     const float4 qa = *reinterpret_cast<const float4*>(qp + c * BQ);
     const float4 qz = *reinterpret_cast<const float4*>(qp + c * BQ + 4);
     const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qz.x, qz.y, qz.z, qz.w};
@@ -480,9 +487,10 @@ __global__ void __launch_bounds__(Tile<D>::NT)
                       vec, acc, l_run);
 }
 
-// A head dim past the widest compiled width (kWide = 256): a block a (q
-// tile, batch * head, column chunk cc of 256 output columns), on the plan
-// of width 256.  For each kv tile the scores are summed over all of d, in
+// A head dim past the portable cluster's 8 slabs of kWide = 256 (the route
+// past d = 2048, whose clusters would need more than 8 blocks): a block a
+// (q tile, batch * head, column chunk cc of 256 output columns), on the
+// plan of width 256.  For each kv tile the scores are summed over all of d, in
 // order from 0, slab by slab of 256 columns: Q^T's slab (scaled) and K's
 // slab go to the tiles the narrow kernel keeps (Q^T once a block there,
 // here once a slab a kv tile), then Q.K^T adds the slab's dims.  V's chunk
@@ -493,7 +501,7 @@ __global__ void __launch_bounds__(Tile<D>::NT)
 constexpr int kWide = 256;
 
 __global__ void __launch_bounds__(Tile<kWide>::NT)
-    flash_attention_wide_kernel(const float* __restrict__ q,
+    flash_attention_slab_loop_kernel(const float* __restrict__ q,
                                 const float* __restrict__ k,
                                 const float* __restrict__ v,
                                 float* __restrict__ o, int S, int H, int G,
@@ -564,6 +572,218 @@ __global__ void __launch_bounds__(Tile<kWide>::NT)
                      dv, tx, vec, acc, l_run);
 }
 
+// A head dim past 256 on a thread-block cluster (flash_attention_wide
+// _kernel): C = ceil(d / D) blocks a (q tile, batch * head), block r the
+// slab of columns [r D, r D + D) of q, k, v and o at width D (128 or 256,
+// the plan's choice), on Tile<D>'s plan.  Per kv tile each block sums its
+// slab's partial S (over the slab's real columns, rounded up to 8), writes
+// it to X in its shared memory, and after a cluster barrier reads the C
+// partials over distributed shared memory and adds them in slab order 0,
+// 1, .., C - 1, so every block holds the same S bits; the softmax, P^T and
+// P.V (of V's slab r into output columns r D ..) are the narrow kernel's.
+// A second barrier phase (arrived after the reads, waited on before the
+// next tile's write) keeps X single-buffered.  Q.K^T runs once over d in
+// all, and each block copies 1/C of K and V, double-buffered as in the
+// narrow kernel.  The plan's width is 128 where its slabs pad d less than
+// 256's do (d = 264-384: 3 blocks of 128 against 2 of 256), so a block's
+// work is a narrow kernel's of that width, plus C reads of a BQ x BK tile
+// over distributed shared memory a kv tile; at width 128 Tile<128> and X
+// take 225 KB, one block an SM, and neither instance keeps a stack frame
+// (cuobjdump -res-usage of the sm_90a build: 235 and 222 registers).
+template <int D>
+struct Cluster {
+  using T = Tile<D>;
+  static constexpr int kX = T::BQ * T::BK;  // X: a block's partial S
+  static constexpr size_t kSmem = T::kSmem + sizeof(float) * kX;
+};
+constexpr int kMaxCluster = 8;  // the portable cluster: d up to 8 D
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of shared-memory address a (this block's) in block r of the
+// cluster.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, unsigned r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(a), "r"(r));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(unsigned a) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(a)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(unsigned a) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(a)
+               : "memory");
+  return x;
+}
+
+// The offset in X (row-major, BQ x BK) of the thread's score chunk g of
+// row i: 4 keys a chunk (one when NS = 1), as key_of numbers them.
+template <int D>
+__device__ __forceinline__ int x_offset(int row0, int tx, int i, int g) {
+  using T = Tile<D>;
+  return (row0 + i) * T::BK +
+         (T::NS == 1 ? tx : 4 * tx + g * (T::BK / 2));
+}
+
+// s = the sum of the cluster's C partials of the thread's scores, in rank
+// order, read from each block's X (this block's own too).
+template <int D>
+__device__ __forceinline__ void gather_scores(float (&s)[8][Tile<D>::NS],
+                                              const float* X, int row0,
+                                              int tx, int C) {
+  using T = Tile<D>;
+  constexpr int NS = T::NS;
+  const unsigned x0 = smem_addr(X);
+#pragma unroll 1
+  for (int r = 0; r < C; ++r) {
+    const unsigned xr = cluster_addr(x0, static_cast<unsigned>(r));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (NS == 1) {
+        const float p = ld_cluster(xr + 4 * x_offset<D>(row0, tx, i, 0));
+        s[i][0] = r == 0 ? p : s[i][0] + p;
+      } else {
+#pragma unroll
+        for (int g = 0; g < NS / 4; ++g) {
+          const float4 p =
+              ld_cluster4(xr + 4 * x_offset<D>(row0, tx, i, g));
+          s[i][4 * g] = r == 0 ? p.x : s[i][4 * g] + p.x;
+          s[i][4 * g + 1] = r == 0 ? p.y : s[i][4 * g + 1] + p.y;
+          s[i][4 * g + 2] = r == 0 ? p.z : s[i][4 * g + 2] + p.z;
+          s[i][4 * g + 3] = r == 0 ? p.w : s[i][4 * g + 3] + p.w;
+        }
+      }
+    }
+  }
+}
+
+// The thread's partial scores into X, at the offsets gather_scores reads.
+template <int D>
+__device__ __forceinline__ void put_scores(const float (&s)[8][Tile<D>::NS],
+                                           float* X, int row0, int tx) {
+  using T = Tile<D>;
+  constexpr int NS = T::NS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if constexpr (NS == 1) {
+      X[x_offset<D>(row0, tx, i, 0)] = s[i][0];
+    } else {
+#pragma unroll
+      for (int g = 0; g < NS / 4; ++g)
+        *reinterpret_cast<float4*>(X + x_offset<D>(row0, tx, i, g)) =
+            make_float4(s[i][4 * g], s[i][4 * g + 1], s[i][4 * g + 2],
+                        s[i][4 * g + 3]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::NT)
+    flash_attention_wide_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ o, int S, int H,
+                                   int G, int BH, int d, int C, Strides st,
+                                   float scale, bool vec) {
+  using T = Tile<D>;
+  constexpr int NT = T::NT, BK = T::BK, TX = T::TX, BQ = T::BQ, NS = T::NS;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Ks = Qt + T::kQt;
+  float* Kt = Ks + T::kKs;
+  float* Vs = Kt + T::kKt;
+  float* Pt = Vs + T::kVs;
+  float* X = Pt + T::kPt;
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int item = static_cast<int>(blockIdx.x / C);  // the cluster's
+  const int qi = nq - 1 - item / BH;
+  const int bh = item % BH;
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int col0 = static_cast<int>(cluster_rank()) * D;
+  const int dr = min(D, d - col0);     // the slab's columns
+  const int n8 = (dr + 7) & ~7;        // summed in Q.K^T (zeros past dr)
+  const int q0 = qi * BQ;
+  const int tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX, row0 = 8 * ty;
+  const float* qb = q + b * st.qb + h * st.qh + col0;
+  const float* kb = k + b * st.kb + kh * st.kh + col0;
+  const float* vb = v + b * st.vb + kh * st.vh + col0;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
+
+  stage<D, BK, NT, true>(Ks, T::LDK, kb, st.ks, 0, S, dr, vec, tid);
+  cp_async_commit();
+  load_qt<D, true>(Qt, qb, st.qs, q0, S, dr, scale, vec, tid);
+
+  float acc[8][8], m_run[8], l_run[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt <= kt_last; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // K[kt] (and Q^T) in; P.V of kt - 1 done with Vs, Pt
+    stage<D, BK, NT, true>(Vs, D, vb, st.vs, k0, S, dr, vec, tid);
+    cp_async_commit();
+    transpose_k<D>(Ks, Kt, tid);
+    __syncthreads();  // K^T in; the copy buffer free
+    if (kt < kt_last) {
+      stage<D, BK, NT, true>(Ks, T::LDK, kb, st.ks, k0 + BK, S, dr, vec,
+                             tid);
+      cp_async_commit();
+    }
+
+    float s[8][NS];
+    scores<D, false, true>(Qt, Kt, row0, tx, s, n8);
+    if (kt > 0) cluster_wait();  // every block has read X's last partials
+    put_scores<D>(s, X, row0, tx);
+    cluster_arrive();
+    cluster_wait();  // the cluster's partials in
+    gather_scores<D>(s, X, row0, tx, C);
+    cluster_arrive();  // done reading the cluster's X
+    // only a tile reaching past the block's first row has keys to mask
+    softmax<D>(s, m_run, l_run, acc, k0 + BK - 1 > q0, q0 + row0, k0, tx);
+    store_p<D>(s, Pt, ty, tx);
+    if (kt < kt_last)
+      cp_async_wait<1>();  // V[kt] in; K[kt + 1] may still be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // P^T and V[kt] visible
+    accumulate<D>(Pt, Vs, ty, tx, acc);
+  }
+  cluster_wait();  // no block of the cluster reads this one's X any more
+
+  store_out<D, true>(o + b * st.ob + h * st.oh + col0, st.os, q0, row0, S,
+                     dr, tx, vec, acc, l_run);
+}
+
 template <int D, bool kPart>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int H, int K, int d, const Strides& st,
@@ -608,7 +828,8 @@ cudaError_t launch_width(const void* q, const void* k, const void* v, void* o,
                                   stream);
 }
 
-// A d past kWide: ceil(d / 256) column chunks on width 256's plan.
+// A d past 8 slabs of kWide: ceil(d / 256) column chunks on width 256's
+// plan.
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int K, int d, const Strides& st,
                         float scale, int q_rows, int kv_rows, int threads,
@@ -623,32 +844,77 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
   if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
   constexpr int smem = static_cast<int>(T::kSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wide_kernel,
+      flash_attention_slab_loop_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_wide_kernel,
+  err = cudaFuncSetAttribute(flash_attention_slab_loop_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  flash_attention_wide_kernel<<<static_cast<unsigned>(blocks), T::NT, smem,
-                                stream>>>(
+  flash_attention_slab_loop_kernel<<<static_cast<unsigned>(blocks), T::NT,
+                                     smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, H / K,
       static_cast<int>(BH), d, n_cc, st, scale, vec);
   return cudaGetLastError();
 }
 
+// A d past kWide on a cluster of C = ceil(d / D) blocks of width D.
+template <int D>
+cudaError_t launch_cluster(const void* q, const void* k, const void* v,
+                           void* o, int B, int S, int H, int K, int d,
+                           const Strides& st, float scale, int q_rows,
+                           int kv_rows, int threads, int smem_bytes, int C,
+                           bool vec, cudaStream_t stream) {
+  using T = Tile<D>;
+  constexpr int smem = static_cast<int>(Cluster<D>::kSmem);
+  if (q_rows != T::BQ || kv_rows != T::BK || threads != T::NT ||
+      smem_bytes != smem || C != (d + D - 1) / D || C < 2 || C > kMaxCluster)
+    return cudaErrorInvalidValue;  // kernel.py's plan and this build differ
+  const long long BH = static_cast<long long>(B) * H;
+  const long long blocks = BH * C * ((S + T::BQ - 1) / T::BQ);
+  if (BH > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wide_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_attention_wide_kernel<D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(T::NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, flash_attention_wide_kernel<D>, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, H, H / K, static_cast<int>(BH), d, C, st,
+      scale, vec);
+}
+
 }  // namespace
 
 // q, k, v and o f32; strides: 12 element strides (batch, sequence, head) of
 // q, k, v, o; the head dim is contiguous.  d: any head dim from 1, run at
-// the next compiled width, past 256 in column chunks of 256.  q_rows,
-// kv_rows, threads and smem_bytes: kernel.py's f32_plan for d, refused
-// unless they are this build's.
+// the next compiled width; past 256 on a cluster of `cluster` blocks of
+// `width` (128 or 256) columns each, or, where cluster is 1 (past 8 slabs
+// of 256), in column chunks of 256 by the slab loop.  q_rows, kv_rows,
+// threads, smem_bytes, width and cluster: kernel.py's f32_plan for d,
+// refused unless they are this build's.
 extern "C" cudaError_t flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int K, int d, const long long* strides, float scale, int q_rows,
-    int kv_rows, int threads, int smem_bytes, cudaStream_t stream) {
+    int kv_rows, int threads, int smem_bytes, int width, int cluster,
+    cudaStream_t stream) {
   if (B < 1 || S < 1 || K < 1 || H % K != 0 || d < 1)
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
@@ -661,10 +927,22 @@ extern "C" cudaError_t flash_attention_launch(
   for (const void* p : bases)
     vec = vec && reinterpret_cast<unsigned long long>(p) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
-  if (d > kWide)
-    return launch_wide(q, k, v, o, B, S, H, K, d, st, scale, q_rows, kv_rows,
-                       threads, smem_bytes, vec, stream);
+  if (d > kWide) {
+    if (cluster == 1 && width == kWide)
+      return launch_wide(q, k, v, o, B, S, H, K, d, st, scale, q_rows,
+                         kv_rows, threads, smem_bytes, vec, stream);
+    if (width == 128)
+      return launch_cluster<128>(q, k, v, o, B, S, H, K, d, st, scale,
+                                 q_rows, kv_rows, threads, smem_bytes,
+                                 cluster, vec, stream);
+    if (width == kWide)
+      return launch_cluster<kWide>(q, k, v, o, B, S, H, K, d, st, scale,
+                                   q_rows, kv_rows, threads, smem_bytes,
+                                   cluster, vec, stream);
+    return cudaErrorInvalidValue;
+  }
   const int w = d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  if (width != w || cluster != 1) return cudaErrorInvalidValue;
   switch (w) {
     case 32:
       return launch_width<32>(q, k, v, o, B, S, H, K, d, st, scale, q_rows,

@@ -51,12 +51,22 @@ def resources(name: str) -> dict:
     """Registers, stack bytes and the like (``{"REG": 127, "STACK": 0,
     ...}``) of the first built kernel whose mangled name contains ``name``,
     as ``cuobjdump -res-usage`` prints them."""
+    found = resources_all(name)
+    if not found:
+        raise KeyError(f"no built kernel named like {name!r}")
+    return next(iter(found.values()))
+
+
+def resources_all(name: str) -> dict:
+    """:func:`resources` of every built kernel whose mangled name contains
+    ``name`` (each instance of a template), by mangled name, in the order
+    ``cuobjdump`` lists them."""
     lines = _cuobjdump("-res-usage").splitlines()
-    for head, usage in zip(lines, lines[1:]):
-        if head.strip().startswith("Function ") and name in head:
-            return {k: int(v) for k, v in
-                    re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", usage)}
-    raise KeyError(f"no built kernel named like {name!r}")
+    return {head.strip().split(None, 1)[1].rstrip(":"):
+            {k: int(v) for k, v in
+             re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", usage)}
+            for head, usage in zip(lines, lines[1:])
+            if head.strip().startswith("Function ") and name in head}
 
 
 def sass(name: str) -> str:

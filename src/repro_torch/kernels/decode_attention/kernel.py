@@ -18,6 +18,15 @@ from repro_torch.kernels.flash_attention.kernel import (CHUNK, chunks,
                                                         width)
 
 INT32_LIMIT = 2 ** 31
+# decode_attention.cu's wide kernel: up to this many vectors of CHUNK
+# columns a lane (d up to 1024), then the chunked kernel
+MAX_VECTORS = 4
+# its registers a thread for q and the accumulators (Wide<TKV, NV>::kBudget),
+# the narrow kernel's query heads a block when G > 1 (Rows<TKV, D>::kGC) by
+# cache element size, and its ring of row stages in shared memory
+REG_BUDGET = 128
+NARROW_HEADS = {4: 4, 2: 4, 1: 2}
+STAGES, STAGE_BYTES = 2, 16384
 # (q dtype, cache dtype) pairs the kernel is built for; an int8 cache comes
 # with bf16 scales
 DTYPE_PAIRS = ((torch.float32, torch.float32),
@@ -58,7 +67,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     One launch.  Up to d = 256 a row is read at the compiled width
     :func:`~repro_torch.kernels.flash_attention.kernel.width` at or above
-    d; past it the output columns go in :func:`chunks` of 256, a grid
+    d; past it, up to ``MAX_VECTORS`` vectors of 256, a lane holds each
+    row's vectors (:func:`lane_layout`), so each cache byte is read once;
+    past those the output columns go in :func:`chunks` of 256, a grid
     index a chunk, each block summing the scores over all of d.  The
     partials of the sequence's splits go to a workspace from
     ``torch.empty``; the merge's counters are shared by every call on
@@ -95,8 +106,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}: H a multiple "
             f"of K and the head dim contiguous")
     why = head_dim_refusal(d)
-    if why is None and B * H * chunks(d) >= INT32_LIMIT:
-        why = (f"B * H * column chunks = {B * H * chunks(d)}: the kernel "
+    n_cc = column_chunks(d) if why is None else 1
+    if why is None and B * H * n_cc >= INT32_LIMIT:
+        why = (f"B * H * column chunks = {B * H * n_cc}: the kernel "
                f"indexes its (lane, head, chunk) partials and counters with "
                f"int32")
     if why is not None:
@@ -110,7 +122,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             f"got cache {k_cache.dtype} and scales "
             f"{[(s.dtype, tuple(s.shape)) for _, s in scales]}")
     o = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    counters = _counters(q.device, B * H * chunks(d))
+    counters = _counters(q.device, B * H * n_cc)
     if scales:
         extension().decode_attention_int8(q, k_cache, v_cache, k_scale,
                                           v_scale, length, o, counters,
@@ -121,24 +133,59 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o
 
 
+def column_chunks(d: int) -> int:
+    """The column chunks of 256 on the kernel's grid for head dim ``d``:
+    past ``MAX_VECTORS`` vectors (the chunked kernel), else 1."""
+    n = chunks(d)
+    return n if n > MAX_VECTORS else 1
+
+
+def wide(d: int) -> bool:
+    """Whether head dim ``d`` runs the wide kernel: past 256, up to
+    ``MAX_VECTORS`` vectors of 256 a lane."""
+    return 1 < chunks(d) <= MAX_VECTORS
+
+
 def lane_layout(kv_dtype: torch.dtype, d: int) -> dict:
     """How the kernel reads a cache row of head dim ``d`` (its
-    ``Rows<TKV, D>`` and ``load_lane``): the compiled ``width`` D at or
-    above d (256 past it), the column ``chunks`` of D (1 up to 256), the
-    ``elements`` a lane loads (16 bytes, or 32 for f32 at width 256), the
-    ``lanes`` of a row group (a power of two of at most 32, for the xor
-    butterfly), the ``active`` lanes that hold a column below d in the last
-    chunk, and how many elements of the last active lane lie below d
+    ``Rows<TKV, D>``, ``Wide<TKV, NV>`` and ``load_lane``): the compiled
+    ``width`` D at or above d (256 past it), the ``vectors`` NV of D
+    columns a lane holds (1 up to 256, ceil(d / 256) up to
+    ``MAX_VECTORS``, past them 1), the column ``chunks`` of D on the grid
+    (past ``MAX_VECTORS`` vectors, else 1), the ``elements`` a lane loads
+    a vector (16 bytes, or 32 for f32 at width 256), the ``lanes`` of a
+    row group (a power of two of at most 32, for the xor butterfly), the
+    ``active`` lanes that hold a column below d in the last vector (or
+    chunk), how many elements of the last active lane lie below d
     (``last``: the lane's share or any part of it, loaded element by
-    element, an int8 half as one 8-byte load)."""
+    element, an int8 half as one 8-byte load), and for the wide kernel its
+    query ``heads`` a block when G > 1 (the narrow kernel's, halved while
+    q and the accumulators pass ``REG_BUDGET`` registers a thread), the
+    ``stages`` of its ring in shared memory and the rows a row group copies
+    a stage (``unroll``: about ``STAGE_BYTES`` a stage, twice that over
+    an int8 cache)."""
     D = width(d)
-    per_vec = 16 // torch.empty((), dtype=kv_dtype).element_size()
-    elements = per_vec * (2 if D // per_vec > 32 else 1)
-    rest = d - (chunks(d) - 1) * CHUNK
+    size = kv_dtype.itemsize
+    per_vec = 16 // size
+    vecs = 2 if D // per_vec > 32 else 1
+    elements = per_vec * vecs
+    n, n_cc = chunks(d), column_chunks(d)
+    nv = n if n_cc == 1 else 1
+    rest = d - (n - 1) * CHUNK
     active = -(-rest // elements)
-    return {"width": D, "chunks": chunks(d), "elements": elements,
-            "lanes": D // elements, "active": active,
-            "last": rest - (active - 1) * elements}
+    out = {"width": D, "vectors": nv, "chunks": n_cc, "elements": elements,
+           "lanes": D // elements, "active": active,
+           "last": rest - (active - 1) * elements}
+    if nv > 1:
+        gc = NARROW_HEADS[size]
+        while gc > 1 and gc * 2 * nv * elements > REG_BUDGET:
+            gc //= 2
+        pieces = 2 * nv * vecs * (D // elements)   # 16 bytes, a row
+        groups = 128 // (D // elements)            # row groups a block
+        stage = STAGE_BYTES * (2 if size == 1 else 1)   # int8: twice
+        out.update(heads=gc, stages=STAGES,
+                   unroll=max(1, stage // (16 * groups * pieces)))
+    return out
 
 
 def split_plan(q: torch.Tensor, k_cache: torch.Tensor):

@@ -27,7 +27,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     kernel with a trap, raised as a RuntimeError at the next
     synchronization.  ``decode_attention.launches`` counts kernel launches
     over a bf16 or f32 cache, ``decode_attention.int8_launches`` over an
-    int8 one."""
+    int8 one, and ``decode_attention.wide_launches`` those of either that
+    ran the wide kernel (a head dim past 256 whose row a lane holds in
+    vectors, :func:`.kernel.wide`)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("decode_attention takes both scales or neither")
     tensors = (q, k_cache, v_cache) + (() if k_scale is None
@@ -46,8 +48,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         decode_attention.launches += 1
     else:
         decode_attention.int8_launches += 1
+    decode_attention.wide_launches += kernel.wide(q.shape[-1])
     return o
 
 
 decode_attention.launches = 0
 decode_attention.int8_launches = 0
+decode_attention.wide_launches = 0

@@ -4,13 +4,16 @@ Pallas kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``):
 and ``repro_torch/csrc/flash_attention.cu`` (SIMT f32 FMAs, register tiles,
 cp.async) for f32.  Both take any S, any B * H and, as the Pallas kernel
 does, any head dim from 1: up to 256 it runs at the compiled width at or
-above it (:func:`width`), past 256 in :func:`chunks` column chunks of 256,
-one grid index a chunk, each summing Q.K^T over all of d in slabs of 256.
-The f32 kernel reads q, k and v in place at any strides; the bf16 kernel
-reads them in place by TMA where their head dim is a multiple of 8 and
-their bases and strides are multiples of 16 bytes, and from a staged copy
-otherwise (:func:`bf16_staging`).  :func:`f32_plan` lays out the f32
-kernel's launch; it runs on the CPU."""
+above it (:func:`width`).  Past 256 the bf16 kernel runs :func:`chunks`
+column chunks of 256, one grid index a chunk, each summing Q.K^T over all
+of d in slabs of 256; the f32 kernel runs a thread-block cluster of
+:func:`f32_slabs` blocks, one a slab of columns, which sum S once between
+them (past ``MAX_CLUSTER`` slabs of 256, the bf16 kernel's chunked
+layout).  The f32 kernel reads q, k and v in place at any strides; the
+bf16 kernel reads them in place by TMA where their head dim is a multiple
+of 8 and their bases and strides are multiples of 16 bytes, and from a
+staged copy otherwise (:func:`bf16_staging`).  :func:`f32_plan` lays out
+the f32 kernel's launch; it runs on the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,8 +34,9 @@ SMEM_RESERVED = 1024  # of it kept by CUDA for each resident block
 # the f32 kernel's plan by compiled width, flash_attention.cu's Plan<D>:
 # threads a block and kv rows a tile.  A thread holds 8 q rows by 8 output
 # columns, so D / 8 column groups and 8 * threads / (D / 8) q rows a block.
-# A head dim past 256 runs every chunk and slab at width 256, on its plan
+# A head dim past 256 runs its slabs at width 128 or 256, on their plans
 F32_PLANS = {32: (64, 32), 64: (128, 64), 128: (256, 64), 256: (256, 32)}
+MAX_CLUSTER = 8      # blocks of a portable cluster: f32 d up to 8 * 256
 
 
 def width(d: int) -> int:
@@ -60,54 +64,78 @@ def head_dim_refusal(d: int) -> str | None:
     return None
 
 
+def f32_slabs(d: int) -> tuple:
+    """(width, slabs) of the f32 kernel past 256: the slab width, 128 or
+    256, and the ``ceil(d / width)`` blocks of a cluster: 128 where it pads
+    d less than 256 does within ``MAX_CLUSTER`` slabs (Q.K^T and P.V sum
+    fewer zero columns), else 256; past ``MAX_CLUSTER`` slabs of 256 the
+    slab loop's ceil(d / 256) chunks, one block a cluster."""
+    n128, n256 = -(-d // 128), -(-d // 256)
+    if n128 <= MAX_CLUSTER and 128 * n128 < 256 * n256:
+        return 128, n128
+    return 256, n256
+
+
 @dataclasses.dataclass(frozen=True)
 class F32Plan:
     """One launch of the f32 kernel (see the design note in
     ``flash_attention.cu``)."""
     threads: int         # a block
-    width: int           # D: the compiled width d runs at
+    width: int           # D: the compiled width a block runs at
     col_groups: int      # TX: D / 8, a thread's 8 output columns
     row_groups: int      # TY: threads / TX, a thread's 8 q rows
     q_rows: int          # BQ: 8 * TY, q rows a block
     kv_rows: int         # BK: k and v rows a tile
     keys: int            # NS: BK / TX, a thread's keys in Q.K^T (1, 4, 8)
-    smem_bytes: int      # Q^T, K (rows padded by 4), K^T, V and P^T, f32
+    smem_bytes: int      # Q^T, K (rows padded by 4), K^T, V, P^T (and a
+    #                      cluster block's partial S, BQ x BK), f32
     q_tiles: int         # ceil(S / BQ)
-    chunks: int          # output column chunks of 256 (1 up to d = 256)
+    chunks: int          # blocks a (q tile, head): slabs of D columns
+    cluster: int         # blocks a thread-block cluster: chunks past 256
+    #                      (up to MAX_CLUSTER), else 1
+    slabs: tuple         # each chunk's real columns (the last may be short)
     grid: int            # q_tiles * B * H * chunks, longest q tiles first
     blocks_per_sm: int   # as shared memory allows
 
 
 def f32_plan(B: int, S: int, H: int, d: int) -> F32Plan:
     """Lay out the f32 kernel's launch for (B, S, H, d) queries: a block a
-    (q tile, batch * head, column chunk) on a one-dimensional grid, at the
-    compiled width :func:`width` of ``d``."""
+    (q tile, batch * head, slab) on a one-dimensional grid, at the
+    compiled width :func:`width` of ``d`` up to 256, past it at
+    :func:`f32_slabs`'s width, a cluster a (q tile, batch * head)."""
     D = width(d)
+    n_cc, cluster = 1, 1
+    if d > CHUNK:
+        D, n_cc = f32_slabs(d)
+        cluster = n_cc if n_cc <= MAX_CLUSTER else 1
     threads, bk = F32_PLANS[D]
     tx = D // 8
     ty = threads // tx
     bq = 8 * ty
-    smem = 4 * (D * bq + bk * (D + 4) + D * bk + bk * D + bk * bq)
+    smem = 4 * (D * bq + bk * (D + 4) + D * bk + bk * D + bk * bq
+                + (bk * bq if cluster > 1 else 0))
     q_tiles = -(-S // bq)
-    n_cc = chunks(d)
     return F32Plan(width=D, threads=threads, col_groups=tx, row_groups=ty,
-                   q_rows=bq,
-                   kv_rows=bk, keys=bk // tx, smem_bytes=smem,
-                   q_tiles=q_tiles, chunks=n_cc, grid=q_tiles * B * H * n_cc,
+                   q_rows=bq, kv_rows=bk, keys=bk // tx, smem_bytes=smem,
+                   q_tiles=q_tiles, chunks=n_cc, cluster=cluster,
+                   slabs=tuple(min(D, d - D * r) for r in range(n_cc)),
+                   grid=q_tiles * B * H * n_cc,
                    blocks_per_sm=SM_SMEM // (smem + SMEM_RESERVED))
 
 
 def f32_block_tile(plan: F32Plan, block: int, bh: int) -> tuple:
     """(q tile, batch * head) of the f32 kernel's block ``block`` among
     ``bh`` = B * H heads: the kernel's own order, every head's last q tile
-    first, a head's column chunks (:func:`f32_block_chunk`) side by side."""
+    first, a head's slabs (:func:`f32_block_chunk`, a cluster's blocks)
+    side by side."""
     per_tile = bh * plan.chunks
     return (plan.q_tiles - 1 - block // per_tile,
             block % per_tile // plan.chunks)
 
 
 def f32_block_chunk(plan: F32Plan, block: int) -> int:
-    """The output column chunk of the f32 kernel's block ``block``."""
+    """The slab (output column chunk) of the f32 kernel's block ``block``:
+    its rank in its cluster."""
     return block % plan.chunks
 
 
@@ -211,5 +239,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     o = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device)
     p = f32_plan(B, S, H, d)
     extension().flash_attention_f32(q, k, v, o, scale, p.q_rows, p.kv_rows,
-                                    p.threads, p.smem_bytes)
+                                    p.threads, p.smem_bytes, p.width,
+                                    p.cluster)
     return o

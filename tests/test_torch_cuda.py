@@ -33,7 +33,14 @@ and round once to bf16, one ulp being at most 2**-7 of the value): bf16
 runs on the tensor-core kernel, f32 on the SIMT one, which is also held at
 its plan's tile boundaries, GQA groups 1-8, views of a fused projection
 (16-byte aligned or not) and B * H = 65536, and bit for bit across five
-calls; its SASS has FMAs and cp.async copies and no tensor-core product.  The LM engine on the
+calls; its SASS has FMAs and cp.async copies and no tensor-core product.
+Past head dim 256 (``-k head_dim``) f32 flash's cluster kernel (its slab
+loop past 8 slabs of 256) and decode's wide kernel (its chunked kernel
+past 4 vectors of 256, over bf16, f32 and int8 caches) are held to the
+same rules at ragged S and lengths below S, GQA groups 1, 4 and 8 and
+views no 16-byte copy reads, bit for bit across two calls, and through
+the ops with their plain versions made to raise, their launch counters
+moving.  The LM engine on the
 card gives the same greedy tokens as on the CPU under f32 weights, RWKV's
 and zamba2's too; zamba2's prefill and decode logits and states under f32
 caches within 1e-4 of the CPU's, its shared block through each attention
@@ -1509,6 +1516,172 @@ def test_decode_attention_int8_unit_scales_within_f32(dev, d):
     exp = decode_attention_ref(q, kc.float(), vc.float(), length)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, exp, rtol=0, atol=ATTN_TOL_F32["decode"])
+
+
+# the kernels past head dim 256: f32 flash's cluster kernel (its slab loop
+# past 8 slabs of 256, d = 2049) and decode's wide kernel (its chunked
+# kernel past 4 vectors of 256, d = 1025)
+WIDE_FLASH_DIMS = tuple(d for d in NEW_HEAD_DIMS if d > 256) + (2048, 2049)
+WIDE_DECODE_DIMS = tuple(d for d in NEW_HEAD_DIMS if d > 256) + (1024, 1025,
+                                                                  2048)
+
+
+def _no_plain(monkeypatch):
+    """Make the ops' plain versions raise, so a call that fell back to one
+    on a CUDA tensor fails."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(fa_ops, "mha_causal_ref", refuse)
+    monkeypatch.setattr(da_ops, "decode_attention_ref", refuse)
+
+
+@pytest.mark.parametrize("d", WIDE_FLASH_DIMS)
+@pytest.mark.parametrize("groups", [1, 4, 8])
+def test_f32_flash_wide_head_dim_matches_plain(dev, d, groups, monkeypatch):
+    """f32 flash past 256 at S = 131 (past two q tiles of 64 or one of
+    128, a multiple of neither), 8 query heads over 8 / groups kv heads,
+    through the op: the cluster kernel (``wide_launches``) up to 8 slabs
+    of 256, the slab loop past them; no plain version on the card."""
+    B, S, H = 2, 131, 8
+    K = H // groups
+    q = _randn(dev, (B, S, H, d), torch.float32, d)
+    k = _randn(dev, (B, S, K, d), torch.float32, d + 1)
+    v = _randn(dev, (B, S, K, d), torch.float32, d + 2)
+    plan = fa_kernel.f32_plan(B, S, H, d)
+    assert plan.cluster == (plan.chunks if d <= 2048 else 1)
+    _no_plain(monkeypatch)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.wide_launches)
+    got = fa_ops.flash_attention(q, k, v)
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.wide_launches) == (
+        before[0] + 1, before[1] + (plan.cluster > 1))
+    exp = mha_causal_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, d) and got.dtype == torch.float32
+    _assert_attn_close(got, exp, "flash")
+
+
+@pytest.mark.parametrize("d", [264, 320, 512])
+def test_f32_flash_wide_head_dim_reads_misaligned_views(dev, d):
+    """q, k and v as views one float into rows of d + 4: no 16-byte copy
+    fits, every slab's copies take 4 bytes each."""
+    B, S, H, K = 2, 131, 4, 2
+    q = _randn(dev, (B, S, H, d + 4), torch.float32, d)[..., 1:1 + d]
+    k = _randn(dev, (B, S, K, d + 4), torch.float32, d + 1)[..., 1:1 + d]
+    v = _randn(dev, (B, S, K, d + 4), torch.float32, d + 2)[..., 1:1 + d]
+    got = fa_kernel.flash_attention(q, k, v)
+    exp = mha_causal_ref(q, k, v)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "flash")
+
+
+@pytest.mark.parametrize("d", [320, 512, 1000])
+def test_f32_flash_wide_head_dim_repeats_bitwise(dev, d):
+    """Every block of a cluster adds the slabs' partial scores in slab
+    order, so two calls give the same bits."""
+    B, S, H, K = 2, 200, 4, 2
+    q = _randn(dev, (B, S, H, d), torch.float32, 7)
+    k = _randn(dev, (B, S, K, d), torch.float32, 8)
+    v = _randn(dev, (B, S, K, d), torch.float32, 9)
+    a = fa_kernel.flash_attention(q, k, v)
+    b = fa_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", WIDE_DECODE_DIMS)
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+def test_decode_wide_head_dim_matches_plain(dev, d, kv, groups,
+                                            monkeypatch):
+    """Decode past 256 at length 217 of 300 cached positions (garbage past
+    it), 8 query heads over 8 / groups kv heads, through the op: the wide
+    kernel (``wide_launches``) up to 4 vectors of 256 a lane, the chunked
+    kernel past them; no plain version on the card."""
+    B, S, H, length = 2, 300, 8, 217
+    K = H // groups
+    q_dt = torch.bfloat16 if kv == "bf16" else torch.float32
+    q = _randn(dev, (B, H, d), q_dt, d)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    if kv == "int8":
+        kc, ks = _int8_cache(dev, B, S, K, d, length, d + 1)
+        vc, vs = _int8_cache(dev, B, S, K, d, length, d + 2)
+        scales = (ks, vs)
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        kc = _randn(dev, (B, S, K, d), dt, d + 1)
+        vc = _randn(dev, (B, S, K, d), dt, d + 2)
+        kc[:, length:] = 1e4
+        vc[:, length:] = -1e4
+        scales = ()
+    wide = da_kernel.lane_layout(kc.dtype, d)["vectors"] > 1
+    _no_plain(monkeypatch)
+    before = (da_ops.decode_attention.launches,
+              da_ops.decode_attention.int8_launches,
+              da_ops.decode_attention.wide_launches)
+    got = da_ops.decode_attention(q, kc, vc, n, *scales)
+    assert (da_ops.decode_attention.launches,
+            da_ops.decode_attention.int8_launches,
+            da_ops.decode_attention.wide_launches) == (
+        before[0] + (kv != "int8"), before[1] + (kv == "int8"),
+        before[2] + wide)
+    exp = decode_attention_ref(q, kc, vc, length, *scales)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dt and got.shape == (B, H, d)
+    _assert_attn_close(got, exp, "decode")
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("d", [264, 320])
+def test_decode_wide_head_dim_reads_misaligned_views(dev, kv, d):
+    """Caches (and int8 scales) as views 3 elements into wider rows: no
+    16-byte copy fits, a thread loads its vectors element by element into
+    its ring slots."""
+    B, S, K, H, length = 2, 300, 2, 8, 217
+    if kv == "int8":
+        vals, sc = _int8_cache(dev, B, S, 2 * K, d + 8, length, 31)
+        kc = vals.view(B, S, K, 2, d + 8)[:, :, :, 0, 3:3 + d]
+        vc = vals.view(B, S, K, 2, d + 8)[:, :, :, 1, 3:3 + d]
+        scales = (sc.view(B, S, K, 2)[..., 0], sc.view(B, S, K, 2)[..., 1])
+        exp_args = (kc.contiguous(), vc.contiguous(), length,
+                    *(x.contiguous() for x in scales))
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        rows = _randn(dev, (B, S, K, 2, d + 8), dt, 31)
+        kc, vc = rows[:, :, :, 0, 3:3 + d], rows[:, :, :, 1, 3:3 + d]
+        scales = ()
+        exp_args = (kc, vc, length)
+    q = _randn(dev, (B, H, d), torch.float32, 32)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    got = da_kernel.decode_attention(q, kc, vc, n, *scales)
+    exp = decode_attention_ref(q, *exp_args)
+    torch.cuda.synchronize()
+    _assert_attn_close(got, exp, "decode")
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_decode_wide_head_dim_repeats_bitwise(dev, kv):
+    """The splits merge in split order, so two calls at a shape of many
+    splits (8 lanes over 2048 of 2 kv heads, d = 320) give the same bits."""
+    B, S, H, K, d, length = 8, 2048, 8, 2, 320, 1999
+    q = _randn(dev, (B, H, d), torch.bfloat16, 3)
+    n = torch.tensor(length, dtype=torch.int32, device=dev)
+    if kv == "int8":
+        kc, ks = _int8_cache(dev, B, S, K, d, length, 4)
+        vc, vs = _int8_cache(dev, B, S, K, d, length, 5)
+        args = (q, kc, vc, n, ks, vs)
+    else:
+        dt = torch.bfloat16 if kv == "bf16" else torch.float32
+        args = (q.to(dt), _randn(dev, (B, S, K, d), dt, 4),
+                _randn(dev, (B, S, K, d), dt, 5), n)
+    splits, _ = da_kernel.split_plan(args[0], args[1])
+    assert splits > 1
+    a = da_kernel.decode_attention(*args)
+    b = da_kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a.float(), b.float())
 
 
 @pytest.mark.parametrize("offset", [0, 3], ids=["aligned", "unaligned"])

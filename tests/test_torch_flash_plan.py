@@ -112,9 +112,11 @@ def test_refusals_follow_the_plan(d):
         for dt in (f32, bf16):
             assert fa_kernel.refusal(dt, 1, 8, 2, 2, once_bad) is None
         p = fa_kernel.f32_plan(1, 8, 2, once_bad)
+        # past 256 the f32 kernel's cluster of 128-column slabs (three
+        # pad less than two of 256)
         assert p.width == (min(w for w in WIDTHS if w >= once_bad)
-                           if once_bad <= 256 else 256)
-        assert p.chunks == -(-once_bad // 256)
+                           if once_bad <= 256 else 128)
+        assert p.chunks == p.cluster == (1 if once_bad <= 256 else 3)
     for bad in (0, -3):
         for dt in (f32, bf16):
             why = fa_kernel.refusal(dt, 1, 8, 2, 2, bad)
